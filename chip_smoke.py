@@ -7,23 +7,30 @@
 2. Builds the CUDA kernels from lifelong_clip_tpu_torch/csrc.
 3. Kernel phase: the fused LN-attention block, forward and backward, at the
    ViT-B/16 vision shape (64 x 197 x 768, 12 heads, LoRA r=4, bf16, no mask)
-   and the text shape (20 and 64 x 77 x 512, 8 heads, causal), run through
-   the op's autograd Function as the train step runs it, against the plain
-   PyTorch versions on the same inputs on the card: y on y - x, qkv on the
-   LoRA-in term, dx on dx - g and every grad (LoRA grads in the LoRA
-   primal's dtype; once with weight_grads=True), each beyond one bf16 ulp
-   within a stated fraction of the term it checks
-   (``lifelong_clip_tpu_torch/ops/kernel_check.py``); timed beside the plain
-   version and an SDPA-based composition (a yardstick only; the port never
-   calls it).
-4. Main path: ``lifelong_clip_tpu_torch.main.main`` runs lora-clip on
-   ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment); the kernels'
-   launch counters must grow in the train, eval and text passes, every loss
-   must be finite and result.txt must exist.
-5. Learning gate (bench.py:98-104): 22 steps of the ViT-B/16 train step on
-   one batch lower the loss by more than 0.02; prints step ms and samples/s,
-   then a torch.profiler window over 3 more steps (device ms a step by
-   kernel, the device's idle share).
+   and the text shape (20 and 64 x 77 x 512, 8 heads, causal), and the
+   KV-prefix block at the mvp-clip shape (64 x 197 x 768, P = 20 prompt
+   slots, 12 heads, bf16; 5 live slots, none live, and 20 live with
+   weight_grads=True), run through the ops' autograd Functions as the train
+   step runs them, against the plain PyTorch versions on the same inputs on
+   the card: y on y - x, qkv on the LoRA-in term, dx on dx - g, dpk, dpv and
+   every grad (LoRA grads in the LoRA primal's dtype; dead prefix slots'
+   grads exactly zero), each beyond one bf16 ulp within a stated fraction of
+   the term it checks (``lifelong_clip_tpu_torch/ops/kernel_check.py``);
+   timed beside the plain version and an SDPA-based composition (a
+   yardstick only; the port never calls it).
+4. Main paths, each with the launch counters set to 0 just before it and
+   read just after: ``lifelong_clip_tpu_torch.main.main`` runs lora-clip on
+   ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment), then mvp-clip
+   on ViT-B/16 at bs=64 (synthetic-20, 2 tasks, online_iter 3, --use_mask
+   --use_contrastiv, no AutoAugment); the kernels' launch counters must grow
+   in every pass (mvp-clip train: prefix forward and backward and the block
+   forward of the query pass; eval: prefix and block forward; text: block
+   forward), every loss must be finite, mvp-clip's prompt counts must move
+   and result.txt must exist.
+5. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip and
+   mvp-clip train steps on one batch lower the loss by more than 0.02;
+   each prints step ms and samples/s, then a torch.profiler window over 3
+   more steps (device ms a step by kernel, the device's idle share).
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object; the last line is
@@ -46,7 +53,12 @@ REPLACES = {
         "lifelong_clip_tpu/ops/fused_block_attn.py:56",
     "fused_ln_attention_bwd":
         "lifelong_clip_tpu/ops/fused_block_attn.py:258",
+    "fused_prefix_attention_fwd":
+        "lifelong_clip_tpu/ops/fused_block_attn.py:524",
+    "fused_prefix_attention_bwd":
+        "lifelong_clip_tpu/ops/fused_block_attn.py:699",
 }
+MVP_SHAPE = (64, 197, 768, 12, 20)   # B, T, D, heads, prompt slots P
 
 
 def log(msg):
@@ -102,6 +114,33 @@ def block_cost(b, t, d, heads, r, weight_grads, backward, es=2):
     return flops, 3 * m * d * es + w_bytes + out_bytes
 
 
+def prefix_cost(b, t, d, heads, p, live, weight_grads, backward, es=2):
+    """(flops, bytes) of the KV-prefix block for this run's data: only the
+    ``live`` prefix slots need their K/V projections, scores and grads
+    (dead slots contribute exact zeros); dpk and dpv are written whole.
+    The backward recomputes qkv, the prefix K/V and the scores (and ctx
+    only for the out-projection's weight grad)."""
+    m, dh, s = b * t, d // heads, live + t
+    bp = b * live
+    attn = 2 * b * heads * t * s * dh              # one T x S x dh product
+    proj = 2 * m * d * 3 * d + 2 * bp * d * 2 * d  # token qkv, prefix K/V
+    w_bytes = 4 * d * d * 2 + 5 * d * 4
+    in_bytes = m * d * es + 2 * bp * d * es + w_bytes
+    if not backward:
+        flops = proj + 2 * attn + 2 * m * d * d
+        return flops, in_bytes + m * d * es
+    flops = (proj + attn                        # recompute qkv, K/V, scores
+             + 2 * m * d * d                     # dctx
+             + 4 * attn                          # dp, dv, dq, dk
+             + 2 * m * 3 * d * d                 # dh
+             + 2 * bp * 2 * d * d)               # dpk, dpv
+    out_bytes = m * d * es + 2 * b * p * d * es
+    if weight_grads:
+        flops += attn + 2 * m * d * d + 2 * m * d * 3 * d + 2 * bp * d * 2 * d
+        out_bytes += w_bytes
+    return flops, in_bytes + m * d * es + out_bytes
+
+
 def bound_ms(flops, nbytes):
     tc, tb = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(tc, tb) * 1e3, ("operations" if tc >= tb else "bytes")
@@ -128,13 +167,31 @@ def library_block(x, blk, lora, s, mask, heads):
     return x + out
 
 
-def launch_breakdown(x, args, bargs, gy, reps=3):
+def library_prefix_block(x, pk, pv, blk, mask, heads):
+    """LN + linear (tokens and prompts) + scaled_dot_product_attention over
+    the concatenated keys and values + linear: the prefix yardstick."""
+    import torch
+    import torch.nn.functional as F
+    b, t, d = x.shape
+    h = F.layer_norm(x, (d,), blk["ln_scale"], blk["ln_bias"], 1e-5)
+    w, bq = blk["w_qkv_t"], blk["b_qkv"]
+    q, k, v = F.linear(h, w, bq).split(d, dim=-1)
+    k = torch.cat([F.linear(pk, w[d:2 * d], bq[d:2 * d]), k], 1)
+    v = torch.cat([F.linear(pv, w[2 * d:], bq[2 * d:]), v], 1)
+    q, k, v = (a.reshape(b, -1, heads, d // heads).transpose(1, 2)
+               for a in (q, k, v))
+    am = None if mask is None else mask.to(x.dtype).reshape(1, -1)
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    ctx = ctx.transpose(1, 2).reshape(b, t, d)
+    return x + F.linear(ctx, blk["w_out_t"], blk["b_out"])
+
+
+def launch_breakdown(run_fwd, run_bwd, reps=3):
     """Device ms of each launch in one forward and one backward chain, from
     CUDA events around every call into the kernel library (GEMMs labelled
     by M, N, K), averaged over ``reps`` runs."""
     import torch
     from lifelong_clip_tpu_torch.ops import _kernels
-    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
     orig = _kernels.call
     rec = []
 
@@ -153,9 +210,9 @@ def launch_breakdown(x, args, bargs, gy, reps=3):
         with torch.no_grad():
             for _ in range(reps):
                 phase = "fwd"
-                fba._cuda_forward(x, *args)
+                run_fwd()
                 phase = "bwd"
-                fba._cuda_backward(x, gy, *bargs)
+                run_bwd()
     finally:
         _kernels.call = orig
     torch.cuda.synchronize()
@@ -196,36 +253,47 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     if not time_it:
         return res
 
-    # yardstick operands in F.linear's (out, in) layout, made once
-    lb = dict(blk, w_qkv_t=blk["w_qkv"].T.contiguous(),
-              w_out_t=blk["w_out"].T.contiguous())
     ll = None if lora is None else {
         "a_in_t": lora["a_in"].T.contiguous(),
         "b_in_t": lora["b_in"].T.contiguous(),
         "a_out_t": lora["a_out"].T.contiguous(),
         "b_out_t": lora["b_out"].T.contiguous()}
-    with torch.no_grad():
-        res["fwd_ms"] = timed(lambda: fba._cuda_forward(x, *args))
-        res["fwd_plain_ms"] = timed(
-            lambda: fba.fused_ln_attention_block_reference(x, *args), iters=3)
-        res["fwd_library_ms"] = timed(
-            lambda: library_block(x, lb, ll, s, mask, heads))
-    res["bwd_ms"] = timed(lambda: fba._cuda_backward(x, gy, *bargs))
-    res["bwd_plain_ms"] = timed(
+    lb = library_weights(blk)
+    wrt = [x.detach().clone().requires_grad_(True)] + (
+        [] if ll is None else [a.requires_grad_(True) for a in ll.values()])
+    return time_case(
+        label, res, lambda: fba._cuda_forward(x, *args),
+        lambda: fba.fused_ln_attention_block_reference(x, *args),
+        lambda: fba._cuda_backward(x, gy, *bargs),
         lambda: fba.fused_ln_attention_block_reference_bwd(x, gy, *bargs),
-        iters=3)
-    xg = x.detach().clone().requires_grad_(True)
-    wrt = [xg] + ([] if ll is None else [a.requires_grad_(True)
-                                         for a in ll.values()])
+        lambda xg, *_: library_block(xg, lb, ll, s, mask, heads), wrt, gy)
+
+
+def library_weights(blk):
+    """The yardstick's block weights in F.linear's (out, in) layout."""
+    return dict(blk, w_qkv_t=blk["w_qkv"].T.contiguous(),
+                w_out_t=blk["w_out"].T.contiguous())
+
+
+def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
+    """Time a case's kernel chains, their plain versions and the library
+    yardstick (``library(*wrt)``; its backward is autograd of it w.r.t.
+    ``wrt`` minus its forward), break the chains down by launch, log and
+    return ``res`` with the times."""
+    import torch
+    with torch.no_grad():
+        res["fwd_ms"] = timed(fwd)
+        res["fwd_plain_ms"] = timed(plain_fwd, iters=3)
+        res["fwd_library_ms"] = timed(lambda: library(*wrt))
+    res["bwd_ms"] = timed(bwd)
+    res["bwd_plain_ms"] = timed(plain_bwd, iters=3)
 
     def lib_fwd_bwd():
-        y_ = library_block(xg, lb, ll, s, mask, heads)
-        torch.autograd.grad(y_, wrt, gy)
+        torch.autograd.grad(library(*wrt), wrt, gy)
 
-    with torch.no_grad():
-        lib_fwd = timed(lambda: library_block(xg, lb, ll, s, mask, heads))
-    res["bwd_library_ms"] = max(timed(lib_fwd_bwd) - lib_fwd, 0.0)
-    res["breakdown"] = launch_breakdown(x, args, bargs, gy)
+    res["bwd_library_ms"] = max(timed(lib_fwd_bwd) - res["fwd_library_ms"],
+                                0.0)
+    res["breakdown"] = launch_breakdown(fwd, bwd)
     log(f"{label}: per-launch device ms {json.dumps(res['breakdown'])}")
     log(f"{label}: fwd {res['fwd_ms']:.3f} ms (plain {res['fwd_plain_ms']:.3f},"
         f" library {res['fwd_library_ms']:.3f}, bound "
@@ -235,74 +303,172 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     return res
 
 
+def prefix_kernel_case(label, live, weight_grads, seed, time_it=True):
+    """The KV-prefix block at the mvp-clip shape with ``live`` of P prompt
+    slots live: checked through the op's autograd Function and, with
+    ``time_it``, timed beside its plain version and the yardstick."""
+    import torch
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    from lifelong_clip_tpu_torch.ops import kernel_check as kc
+    b, t, d, heads, p = MVP_SHAPE
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(b, t, d, heads, p, live,
+                                                     seed)
+    args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], heads, mask)
+    bargs = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], heads, mask,
+             weight_grads)
+    checks = kc.check_prefix_case(x, pk, pv, blk, gy, mask, heads,
+                                  weight_grads)
+    torch.cuda.synchronize()
+    errs = {k: v["max_abs_err"] for k, v in checks.items()
+            if "max_abs_err" in v}
+    log(f"{label}: checks {json.dumps(checks)}")
+    res = {"label": label, "shape": [b, t, d], "heads": heads, "prompts": p,
+           "live": live, "weight_grads": weight_grads,
+           "fwd_max_abs_err": errs["y"],
+           "bwd_max_abs_err": max(v for k, v in errs.items() if k != "y")}
+    for pre, bwd in (("fwd", False), ("bwd", True)):
+        fl, by = prefix_cost(b, t, d, heads, p, live, weight_grads, bwd)
+        res[f"{pre}_bound_ms"], res[f"{pre}_bound_by"] = bound_ms(fl, by)
+    if not time_it:
+        return res
+
+    lb = library_weights(blk)
+    return time_case(
+        label, res, lambda: fba._cuda_prefix_forward(x, *args),
+        lambda: fba.fused_prefix_attention_block_reference(x, *args),
+        lambda: fba._cuda_prefix_backward(x, gy, *bargs),
+        lambda: fba.fused_prefix_attention_block_reference_bwd(x, gy, *bargs),
+        lambda *a: library_prefix_block(*a, lb, mask, heads),
+        [a.detach().clone().requires_grad_(True) for a in (x, pk, pv)], gy)
+
+
 # ---------------------------------------------------------------------------
 # main path and learning gate
 # ---------------------------------------------------------------------------
 
-def main_path_phase():
+def run_main_path(label, module, factories, argv, loss_of):
+    """Drive ``main(argv)`` with the launch counters set to 0 just before
+    and read just after, counting each pass's launches by wrapping the
+    method module's step factories (``factories``: pass -> factory name).
+    Returns (launches, per-pass launches, train-step outputs, wall s)."""
     import numpy as np
     import torch
     from lifelong_clip_tpu_torch import main as cli
-    from lifelong_clip_tpu_torch.methods import adapter_clip
     from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
 
-    per_pass = {p: {k: 0 for k in fba.LAUNCHES} for p in
-                ("train", "eval", "text")}
-    losses = []
+    per_pass = {p: {k: 0 for k in fba.LAUNCHES} for p in factories}
+    outs = []
 
-    def counting(pass_name, fn, on_out=None):
+    def counting(pass_name, fn):
         def wrapped(*a, **kw):
             before = dict(fba.LAUNCHES)
             out = fn(*a, **kw)
             for k in fba.LAUNCHES:
                 per_pass[pass_name][k] += fba.LAUNCHES[k] - before[k]
-            if on_out is not None:
-                on_out(out)
+            if pass_name == "train":
+                outs.append(out)
             return out
         return wrapped
 
-    orig = (adapter_clip.make_train_step, adapter_clip.make_eval_step,
-            adapter_clip.make_text_feature_fn)
-    adapter_clip.make_train_step = lambda *a, **kw: counting(
-        "train", orig[0](*a, **kw),
-        lambda st: losses.append(float(st["loss"])))
-    adapter_clip.make_eval_step = lambda *a, **kw: counting(
-        "eval", orig[1](*a, **kw))
-    adapter_clip.make_text_feature_fn = lambda *a, **kw: counting(
-        "text", orig[2](*a, **kw))
+    orig = {p: getattr(module, f) for p, f in factories.items()}
+    for p, f in factories.items():
+        setattr(module, f, lambda *a, _p=p, **kw: counting(
+            _p, orig[_p](*a, **kw)))
     try:
         with tempfile.TemporaryDirectory() as tmp:
             fba.reset_launches()
             t0 = time.perf_counter()
-            out = cli.main(["--method", "lora-clip", "--model_name",
-                            "ViT-B/16", "--dataset", "synthetic-20",
-                            "--n_tasks", "2", "--batchsize", "64",
-                            "--online_iter", "1", "--eval_period", "640",
-                            "--transforms", "--log_path", tmp,
-                            "--device", "cuda"])
+            result = cli.main(argv + ["--log_path", tmp, "--device", "cuda"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(fba.LAUNCHES)
             found = [os.path.join(r, "result.txt")
                      for r, _, fs in os.walk(tmp) if "result.txt" in fs]
-            assert found, "main path wrote no result.txt"
+            assert found, f"{label} main path wrote no result.txt"
     finally:
-        (adapter_clip.make_train_step, adapter_clip.make_eval_step,
-         adapter_clip.make_text_feature_fn) = orig
-    assert losses and np.isfinite(losses).all(), f"losses {losses}"
+        for p, f in factories.items():
+            setattr(module, f, orig[p])
+    losses = [loss_of(o) for o in outs]
+    assert losses and np.isfinite(losses).all(), f"{label} losses {losses}"
+    log(f"{label} main path: {len(losses)} train steps in {wall:.1f} s, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, result {result}, "
+        f"launches {launches}, per pass {per_pass}")
+    return launches, per_pass, outs, wall
+
+
+def main_path_phase():
+    """lora-clip on ViT-B/16 through ``main``: kernels #1 and #2."""
+    from lifelong_clip_tpu_torch.methods import adapter_clip
+    launches, per_pass, _, _ = run_main_path(
+        "lora-clip", adapter_clip,
+        {"train": "make_train_step", "eval": "make_eval_step",
+         "text": "make_text_feature_fn"},
+        ["--method", "lora-clip", "--model_name", "ViT-B/16", "--dataset",
+         "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
+         "--online_iter", "1", "--eval_period", "640", "--transforms"],
+        lambda st: float(st["loss"]))
     tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
     assert tr["fused_ln_attention_fwd"] > 0 and \
         tr["fused_ln_attention_bwd"] > 0, f"train pass launches {tr}"
     assert ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
     assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
-    log(f"main path: {len(losses)} train steps in {wall:.1f} s, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, result {out}, launches "
-        f"{launches}, per pass {per_pass}")
     return launches
 
 
-def learning_gate(card):
+def mvp_main_path_phase():
+    """mvp-clip on ViT-B/16 through ``main`` (``scripts/mvp_clip.sh``'s
+    method flags): the prompted pass runs kernels #3 and #4, the query and
+    text passes kernel #1."""
+    import torch
+    from lifelong_clip_tpu_torch.methods import mvp_clip
+    launches, per_pass, outs, wall = run_main_path(
+        "mvp-clip", mvp_clip,
+        {"train": "make_mvp_train_step", "eval": "make_mvp_eval_step",
+         "text": "make_mvp_text_fn"},
+        ["--method", "mvp-clip", "--model_name", "ViT-B/16", "--dataset",
+         "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
+         "--online_iter", "3", "--use_mask", "--use_contrastiv",
+         "--eval_period", "640", "--transforms"],
+        lambda out: float(out[1]["loss"]))
+    tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
+    assert tr["fused_prefix_attention_fwd"] > 0 and \
+        tr["fused_prefix_attention_bwd"] > 0 and \
+        tr["fused_ln_attention_fwd"] > 0, f"train pass launches {tr}"
+    assert ev["fused_prefix_attention_fwd"] > 0 and \
+        ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
+    assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
+    counts = [o[0] for o in outs]
+    assert float(counts[-1].sum()) > float(counts[0].sum()) > 0, \
+        f"prompt counts did not move: {counts[0]} -> {counts[-1]}"
+    log(f"mvp-clip prompt counts after the run: {counts[-1].tolist()}")
+    steps = len(outs)
+    return launches, {"train_steps": steps, "wall_s": wall,
+                      "per_pass": per_pass,
+                      "count": torch.stack(counts)[-1].tolist()}
+
+
+MEAN = (0.48145466, 0.4578275, 0.40821073)
+STD = (0.26862954, 0.26130258, 0.27577711)
+MVP_GATE_LR = 1e-2   # AdamW moves keys and prompts ~lr a step
+
+
+def gate_batch(cfg, n_cls, bs):
+    """One uint8 CIFAR-size batch, its labels and a class-token table, from
+    a numpy seed (on the CPU)."""
     import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    tokens = np.zeros((n_cls, cfg.context_length), np.int64)
+    tokens[:, 0] = 49406
+    tokens[:, 1:8] = rng.integers(1000, 40000, (n_cls, 7))
+    tokens[:, 8] = 49407
+    images = rng.integers(0, 255, (bs, 32, 32, 3), dtype=np.uint8)
+    labels = rng.integers(0, n_cls, (bs,))
+    return (torch.from_numpy(images), torch.from_numpy(labels),
+            torch.from_numpy(tokens))
+
+
+def learning_gate(card):
     import torch
     from lifelong_clip_tpu_torch.config import CLIP_PRESETS, PEFTConfig
     from lifelong_clip_tpu_torch.methods.engine import (
@@ -322,23 +488,13 @@ def learning_gate(card):
     state = TrainState(trainable=peft, frozen=frozen,
                        make_opt=lambda lv: make_optimizer("adamw", lv, 5e-4),
                        gen=torch.Generator().manual_seed(2))
-    mean = (0.48145466, 0.4578275, 0.40821073)
-    std = (0.26862954, 0.26130258, 0.27577711)
     step = make_train_step(cfg, peft_cfg, image_size=cfg.image_size,
-                           mean=mean, std=std, augment=True)
+                           mean=MEAN, std=STD, augment=True)
     n_cls, bs = 64, 64
-    rng = np.random.default_rng(0)
-    tokens = np.zeros((n_cls, cfg.context_length), np.int64)
-    tokens[:, 0] = 49406
-    tokens[:, 1:8] = rng.integers(1000, 40000, (n_cls, 7))
-    tokens[:, 8] = 49407
-    txt = make_text_feature_fn(cfg, peft_cfg)(frozen, peft,
-                                              torch.from_numpy(tokens).to(dev))
-    batch = {"images": torch.from_numpy(rng.integers(
-                 0, 255, (bs, 32, 32, 3), dtype=np.uint8)).to(dev),
-             "labels": torch.from_numpy(rng.integers(0, n_cls, (bs,))).to(dev),
-             "tokens": txt,
-             "mask": torch.zeros(n_cls, device=dev)}
+    images, labels, tokens = gate_batch(cfg, n_cls, bs)
+    txt = make_text_feature_fn(cfg, peft_cfg)(frozen, peft, tokens.to(dev))
+    batch = {"images": images.to(dev), "labels": labels.to(dev),
+             "tokens": txt, "mask": torch.zeros(n_cls, device=dev)}
     loss_first = float(step(state, batch)["loss"])
     float(step(state, batch)["loss"])
     iters = 20
@@ -356,6 +512,70 @@ def learning_gate(card):
             "samples_per_s": bs * iters / dt, "batchsize": bs,
             "model": "ViT-B/16 LoRA r=4, no AutoAugment", "card": card,
             "profile": step_profile(lambda: step(state, batch), step_ms)}
+
+
+def mvp_learning_gate(card, lr=MVP_GATE_LR):
+    """mvp-clip's train step (with the class mask) on one batch: 22 steps
+    must lower the loss by more than 0.02. The contrastive similarity loss
+    is off here: it rescales by the prompt usage counts, which grow by the
+    batch size every step whatever the step learns, so on one batch it is
+    no learning signal; the mean selected-key distance that replaces it is
+    (and costs the same to compute)."""
+    import numpy as np
+    import torch
+    from lifelong_clip_tpu_torch.config import CLIP_PRESETS
+    from lifelong_clip_tpu_torch.methods.engine import TrainState
+    from lifelong_clip_tpu_torch.methods.mvp_clip import (
+        make_mvp_text_fn, make_mvp_train_step)
+    from lifelong_clip_tpu_torch.models import build_clip
+    from lifelong_clip_tpu_torch.models.clip import cast_towers
+    from lifelong_clip_tpu_torch.models.mvp_clip import init_mvp_params
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+
+    dev = torch.device("cuda")
+    cfg = CLIP_PRESETS["ViT-B/16"]
+    n_cls, bs = 64, 64
+    params, _ = build_clip("ViT-B/16", gen=torch.Generator().manual_seed(0),
+                           device=dev)
+    frozen = cast_towers(params, torch.bfloat16)
+    mvp = init_mvp_params(torch.Generator().manual_seed(1), cfg, e_pool=10,
+                          num_classes=n_cls, device=dev)
+    state = TrainState(trainable=mvp, frozen=frozen,
+                       make_opt=lambda lv: make_optimizer("adamw", lv, lr),
+                       gen=torch.Generator().manual_seed(2))
+    step = make_mvp_train_step(cfg, image_size=cfg.image_size, mean=MEAN,
+                               std=STD, use_mask=True)
+    images, labels, tokens = gate_batch(cfg, n_cls, bs)
+    batch = {"images": images.to(dev), "labels": labels.to(dev),
+             "txt": make_mvp_text_fn(cfg)(frozen, tokens.to(dev)),
+             "mask": torch.zeros(n_cls, device=dev),
+             "slot_globals": torch.arange(n_cls, device=dev)}
+    count = torch.zeros(10, device=dev)
+    count, m = step(state, batch, count)
+    loss_first = float(m["loss"])
+    count, m = step(state, batch, count)
+    float(m["loss"])
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        count, m = step(state, batch, count)
+    loss_last = float(m["loss"])
+    dt = time.perf_counter() - t0
+    assert loss_last < loss_first - 0.02, (
+        f"mvp-clip train steps did not learn: loss {loss_first:.4f} -> "
+        f"{loss_last:.4f} after {iters + 2} updates on one batch")
+    step_ms = dt / iters * 1e3
+    holder = [count]
+
+    def one_step():
+        holder[0], _ = step(state, batch, holder[0])
+
+    return {"learning_gate": "ok", "loss_first": loss_first,
+            "loss_last": loss_last, "step_ms": step_ms,
+            "samples_per_s": bs * iters / dt, "batchsize": bs, "lr": lr,
+            "model": "ViT-B/16 mvp-clip (mask, P = 20), no AutoAugment",
+            "card": card,
+            "profile": step_profile(one_step, step_ms)}
 
 
 PORT_KERNELS = ("gemm_kernel", "attn_fwd_kernel", "attn_bwd_dq_kernel",
@@ -437,31 +657,51 @@ def main():
     cases.append(kernel_case("vision weight_grads", 64, 197, 768, 12, 4,
                              False, True, 3, time_it=False))
     torch.cuda.synchronize()
+    pcases = [prefix_kernel_case("mvp prefix, 5 of 20 live", 5, False, 4)]
+    pcases.append(prefix_kernel_case("mvp prefix, none live", 0, False, 5))
+    pcases.append(prefix_kernel_case("mvp prefix weight_grads, 20 live", 20,
+                                     True, 6, time_it=False))
+    torch.cuda.synchronize()
 
     launches = main_path_phase()
     torch.cuda.synchronize()
+    mvp_launches, mvp_run = mvp_main_path_phase()
+    torch.cuda.synchronize()
     gate = learning_gate(card)
     torch.cuda.synchronize()
+    mvp_gate = mvp_learning_gate(card)
+    torch.cuda.synchronize()
 
-    v = cases[0]
     src = "lifelong_clip_tpu_torch/csrc/fused_block_attn.cu"
     kernels = []
-    for name, pre in (("fused_ln_attention_fwd", "fwd"),
-                      ("fused_ln_attention_bwd", "bwd")):
+    for name, pre, runs, case_list, shape in (
+            ("fused_ln_attention_fwd", "fwd", launches, cases,
+             "vision 64x197x768, 12 heads, LoRA r=4, bf16"),
+            ("fused_ln_attention_bwd", "bwd", launches, cases,
+             "vision 64x197x768, 12 heads, LoRA r=4, bf16"),
+            ("fused_prefix_attention_fwd", "fwd", mvp_launches, pcases,
+             "mvp 64x197x768, P=20 (5 live), 12 heads, bf16"),
+            ("fused_prefix_attention_bwd", "bwd", mvp_launches, pcases,
+             "mvp 64x197x768, P=20 (5 live), 12 heads, bf16")):
+        v = case_list[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(c[f"{pre}_max_abs_err"] for c in cases),
+            "replaces": REPLACES[name], "launches": runs[name],
+            "max_abs_err": max(c[f"{pre}_max_abs_err"] for c in case_list),
             "ms": v[f"{pre}_ms"],
             "plain_ms": v[f"{pre}_plain_ms"],
             "bound_ms": v[f"{pre}_bound_ms"],
             "bound_us": v[f"{pre}_bound_ms"] * 1e3,
             "bound_by": v[f"{pre}_bound_by"],
             "library_ms": v[f"{pre}_library_ms"],
-            "shape": "vision 64x197x768, 12 heads, LoRA r=4, bf16",
+            "shape": shape,
             "cases": [{k: c[k] for k in c if k.startswith(pre) or k in
-                       ("label", "shape")} for c in cases]})
+                       ("label", "shape")} for c in case_list]})
+    assert all(k["launches"] > 0 for k in kernels), \
+        [(k["name"], k["launches"]) for k in kernels]
+    log(json.dumps({"mvp_main_path": mvp_run, "mvp_launches": mvp_launches}))
     log(json.dumps(gate))
+    log(json.dumps(mvp_gate))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

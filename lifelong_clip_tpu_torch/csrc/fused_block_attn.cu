@@ -1,14 +1,22 @@
 // Hand-written Hopper (sm_90a) kernels for the fused LN-attention half block
-// y = x + out_proj(MHA(LN(x))), forward and backward.
+// y = x + out_proj(MHA(LN(x))), forward and backward, and its KV-prefix
+// variant, whose keys and values also come from prompt tokens pk / pv.
 //
 // Replaces the Pallas TPU kernels of lifelong_clip_tpu/ops/fused_block_attn.py:
-//   * _kernel      (:56, pallas_call at :161) -> the forward chain below
-//   * _bwd_kernel  (:258, pallas_call at :478) -> the backward chain below
+//   * _kernel            (:56, pallas_call at :161) -> the forward chain below
+//   * _bwd_kernel        (:258, pallas_call at :478) -> the backward chain below
+//   * _prefix_kernel     (:524, pallas_call at :631) -> the same chain with a
+//     prefix GEMM and the PRE attention kernels (llc_attn_prefix_fwd)
+//   * _prefix_bwd_kernel (:699, pallas_call at :897) -> the same backward with
+//     the PRE attention backward (llc_attn_prefix_bwd)
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), ViT-B/16 vision
 // block at bs=64 (M = 64*197 rows, D = 768, 12 heads, LoRA r = 4):
 //   forward   ~67.1 GFLOP, ~43 MB moved -> compute-bound, ~68 us
 //   backward  ~127 GFLOP (weight_grads=False) -> compute-bound, ~128 us
+// The prefix block at the mvp-clip shape (P = 20 prompt slots, S = 217 keys)
+// adds the prefix rows' K/V projections and 20 more keys a score row: both
+// directions stay compute-bound (chip_smoke.py computes the bound).
 //
 // Design of this first port (simple and right before fast):
 //   * The TPU kernel kept h, qkv, scores and ctx in VMEM for one group of
@@ -22,24 +30,35 @@
 //     TN layouts) and an epilogue for bias, the rank-r LoRA term
 //     s * (z16 @ B) and the residual. The LoRA factor z = h @ A runs through
 //     the same GEMM at N = r (a 64x16 tile) and is rounded to bf16, as
-//     _kernel:76-84 and :117-126 round it.
+//     _kernel:76-84 and :117-126 round it. The prefix rows' keys and values
+//     (pk @ W_k + b_k, pv @ W_v + b_v, bias added before the one bf16
+//     rounding as _prefix_kernel:553-562) are two more launches of it into a
+//     (B*P, 2D) buffer; the token qkv GEMM is unchanged.
 //   * Attention forward: one block per (64-query tile, head, batch row) with
-//     the head's K and V (T <= 256 rows) in shared memory; each warp keeps 16
+//     the head's K and V (S <= 256 rows) in shared memory; each warp keeps 16
 //     whole score rows in registers (mma.sync m16n8k16), so the softmax is
 //     the exact full-row one. Scores are bf16 q.k with fp32 accumulation,
 //     times dh**-0.5, plus the additive mask; softmax in fp32; p rounded to
-//     bf16 before p @ V.
+//     bf16 before p @ V. The prefix variant reads keys 0..P-1 from the prefix
+//     buffer and keys P..P+T-1 from the token qkv, under a (T, P+T) mask.
 //   * Attention backward: a dq kernel per query tile (recomputes p as the
 //     forward, saves row max, row sum and rowsum(dp * p)) and a dk/dv kernel
 //     per key tile that rebuilds p^T from those statistics and accumulates
-//     over every query in registers. No atomics.
+//     over every query in registers. No atomics. The prefix variant writes
+//     the prefix keys' dk/dv to a (B*P, 2D) buffer, from which two GEMMs
+//     give dpk = dk16 @ W_k^T and dpv = dv16 @ W_v^T (_prefix_bwd_kernel:
+//     843-852); the token rows fill dqkv16, so dh is the one dqkv16 @ W_qkv^T
+//     GEMM (:854-857 up to summation order).
 //   * Contractions over all B*T rows (LoRA grads, and the weight grads when
 //     asked for) are TN GEMMs over the rows, split over K into fp32 partials
 //     that a second pass sums in a fixed order. No atomics anywhere: results
 //     do not depend on launch order, as the TPU kernel's sequential grid did
 //     not.
-//   * The ragged edge (T = 197 or 77, not multiples of 16) is masked in the
-//     kernels: padded keys get probability 0, padded queries are not stored.
+//   * The ragged edge (T = 197 or 77, P = 20, not multiples of 16) is masked
+//     in the kernels: padded keys get probability 0, padded queries are not
+//     stored. A key the mask kills (-inf) gets p = 0 and dk = dv = 0 exactly:
+//     the row max is taken after the mask is added, and the mask is only
+//     ever added, never multiplied.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -564,37 +583,96 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
   }
 }
 
+// Key and value rows j0 .. j0 + rows - 1 of one head (columns col ..
+// col + dh - 1) of batch row b into shared memory. Without a prefix (PRE
+// false, P = 0) key j is token j of qkv (B*T, 3D). With one, keys 0..P-1
+// come from the prefix buffer kvp (B*P, 2D: K | V) and key j >= P is token
+// j - P. Rows past S = P + T are zero.
+template <bool PRE>
+__device__ __forceinline__ void load_kv(bf16* Ks, bf16* Vs, int ld,
+                                        const bf16* qkv, const bf16* kvp,
+                                        int b, int T, int P, int D, int col,
+                                        int j0, int rows, int dh, int tid,
+                                        int nthreads) {
+  const size_t rs = 3 * (size_t)D;
+  if (!PRE) {
+    const bf16* base = qkv + ((size_t)b * T + j0) * rs + col;
+    load_tile(Ks, ld, base + D, rs, rows, T - j0, dh, tid, nthreads);
+    load_tile(Vs, ld, base + 2 * D, rs, rows, T - j0, dh, tid, nthreads);
+    return;
+  }
+  const int per_row = dh / 8, S = P + T;
+  for (int c = tid; c < rows * per_row; c += nthreads) {
+    const int r = c / per_row, cc = (c % per_row) * 8, j = j0 + r;
+    const bool ok = j < S;
+    const bf16* ks = qkv;
+    if (j < P)
+      ks = kvp + ((size_t)b * P + j) * 2 * D + col + cc;
+    else if (ok)
+      ks = qkv + ((size_t)b * T + j - P) * rs + D + col + cc;
+    cp_async16(Ks + r * ld + cc, ks, ok);
+    cp_async16(Vs + r * ld + cc, ok ? ks + D : qkv, ok);
+  }
+}
+
+constexpr int FQT = 64;        // query rows per forward block
+constexpr int FTHREADS = 128;
+
+// The additive mask is null, a (T, S) matrix, or (ROW) one key-mask row of
+// S values for every query (the KV-prefix slots' validity). A key-mask row
+// is staged in shared memory once a block; the matrix is read from device
+// memory as the scores need it. ROW is a template flag, so the kernels
+// without it keep their registers for the score rows.
+template <bool ROW>
+__device__ __forceinline__ void stage_mask_row(float* Ms, const float* mask,
+                                               int S, int Sp, int tid) {
+  if constexpr (ROW)
+    for (int j = tid; j < Sp; j += FTHREADS) Ms[j] = j < S ? mask[j] : 0.f;
+}
+
+template <bool ROW>
+__device__ __forceinline__ float mask_at(const float* mask, const float* Ms,
+                                         int i, int j, int S, int T) {
+  if constexpr (ROW) return Ms[j];
+  return mask && i < T ? mask[(size_t)i * S + j] : 0.f;
+}
+
 // ---------------------------------------------------------------------------
 // Attention forward: ctx = softmax(q k^T * scale + mask) v per head.
 // qkv (B*T, 3D) bf16, ctx (B*T, D) bf16. Grid (ceil(T/64), H, B), 4 warps;
 // warp w owns query rows q0 + 16w .. +15 and keeps their whole score rows
-// (T <= 256 keys) in registers, so the softmax is the exact full-row one:
+// (S <= 256 keys) in registers, so the softmax is the exact full-row one:
 // fp32 scores of bf16 q.k, times scale, plus the mask; p = exp(s - max) /
 // sum; p rounded to bf16 as the A operand of p @ v. K, V and the query tile
 // sit in shared memory (rows padded by 8 elements against bank conflicts).
+// With PRE the keys and values are the P prefix rows of kvp followed by the
+// T tokens (S = P + T) and the mask is (T, S); without, S = T. The row max
+// is taken after the mask is added, so a dead key (-inf) gets p = 0 exactly.
 // ---------------------------------------------------------------------------
-constexpr int FQT = 64;        // query rows per forward block
-constexpr int FTHREADS = 128;
-
-template <int DH, int MAXNT>   // MAXNT: 8-key tiles a row can hold (Tp / 8)
+template <int DH, int MAXNT, bool PRE, bool ROW>   // MAXNT: 8-key tiles a row holds
 __global__ void __launch_bounds__(FTHREADS)
-attn_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                bf16* __restrict__ ctx, int T, int D, int Tp, float scale) {
+attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
+                const float* __restrict__ mask, bf16* __restrict__ ctx,
+                int T, int P, int D, int Sp,
+                float scale) {
   constexpr int LD = DH + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + Tp * LD;
-  bf16* Qs = Vs + Tp * LD;
+  bf16* Vs = Ks + Sp * LD;
+  bf16* Qs = Vs + Sp * LD;
+  float* Ms = reinterpret_cast<float*>(Qs + FQT * LD);   // a key-mask row
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, hd = blockIdx.y, q0 = blockIdx.x * FQT;
+  const int S = P + T;
   const size_t rs = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * T * rs;
-  load_tile(Ks, LD, base + D + hd * DH, rs, Tp, T, DH, tid, FTHREADS);
-  load_tile(Vs, LD, base + 2 * D + hd * DH, rs, Tp, T, DH, tid, FTHREADS);
+  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, Sp, DH, tid,
+               FTHREADS);
   load_tile(Qs, LD, base + (size_t)q0 * rs + hd * DH, rs, FQT, T - q0, DH,
             tid, FTHREADS);
+  stage_mask_row<ROW>(Ms, mask, S, Sp, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -606,7 +684,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
   for (int kc = 0; kc < DH / 16; ++kc)
     ldsm_x4(qa[kc], Qs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
 
-  const int nt_used = Tp / 8;
+  const int nt_used = Sp / 8;
   float s[MAXNT][4];
 #pragma unroll
   for (int nt = 0; nt < MAXNT; nt += 2) {
@@ -633,9 +711,9 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
     for (int e = 0; e < 2; ++e) {
       const int j = nt * 8 + 2 * t4 + e;
       float va = -INFINITY, vb = -INFINITY;
-      if (nt < nt_used && j < T) {
-        va = s[nt][e] * scale + (mask && ia < T ? mask[(size_t)ia * T + j] : 0.f);
-        vb = s[nt][2 + e] * scale + (mask && ib < T ? mask[(size_t)ib * T + j] : 0.f);
+      if (nt < nt_used && j < S) {
+        va = s[nt][e] * scale + mask_at<ROW>(mask, Ms, ia, j, S, T);
+        vb = s[nt][2 + e] * scale + mask_at<ROW>(mask, Ms, ib, j, S, T);
       }
       s[nt][e] = va;
       s[nt][2 + e] = vb;
@@ -709,32 +787,41 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
 //     and dp^T for its keys against every query from those statistics;
 //     dv = p16^T dctx, dk = ds16^T q * scale.
 // Writes dqkv16 (B*T, 3D) bf16 and, when dqkv32 != nullptr, the fp32 values.
+// With PRE, dk and dv of the P prefix keys go to dkvp16 (B*P, 2D: dK | dV)
+// and, when dkvp32 != nullptr, its fp32 twin; a key tile may hold prefix and
+// token keys both. A dead key (mask -inf) has p = 0, so ds = 0 and its dk
+// and dv are exactly 0.
 // ---------------------------------------------------------------------------
-template <int DH, int MAXNT>
+template <int DH, int MAXNT, bool PRE, bool ROW>
 __global__ void __launch_bounds__(FTHREADS)
-attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
-                   const float* __restrict__ mask, bf16* __restrict__ dqkv16,
-                   float* __restrict__ dqkv32, float* __restrict__ stats,
-                   int T, int D, int Tp, float scale) {
+attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
+                   const bf16* __restrict__ dctx,
+                   const float* __restrict__ mask,
+                   bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
+                   float* __restrict__ stats, int T, int P, int D, int Sp,
+                   float scale) {
   constexpr int LD = DH + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + Tp * LD;
-  bf16* Qs = Vs + Tp * LD;
+  bf16* Vs = Ks + Sp * LD;
+  bf16* Qs = Vs + Sp * LD;
   bf16* dOs = Qs + FQT * LD;
+  float* Ms = reinterpret_cast<float*>(dOs + FQT * LD);   // a key-mask row
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, hd = blockIdx.y, H = gridDim.y;
   const int q0 = blockIdx.x * FQT;
+  const int S = P + T;
   const size_t rs = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * T * rs;
-  load_tile(Ks, LD, base + D + hd * DH, rs, Tp, T, DH, tid, FTHREADS);
-  load_tile(Vs, LD, base + 2 * D + hd * DH, rs, Tp, T, DH, tid, FTHREADS);
+  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, Sp, DH, tid,
+               FTHREADS);
   load_tile(Qs, LD, base + (size_t)q0 * rs + hd * DH, rs, FQT, T - q0, DH,
             tid, FTHREADS);
   load_tile(dOs, LD, dctx + ((size_t)b * T + q0) * D + hd * DH, D, FQT,
             T - q0, DH, tid, FTHREADS);
+  stage_mask_row<ROW>(Ms, mask, S, Sp, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -747,7 +834,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
     ldsm_x4(qa[kc], Qs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
     ldsm_x4(da[kc], dOs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
   }
-  const int nt_used = Tp / 8;
+  const int nt_used = Sp / 8;
   float s[MAXNT][4];
 #pragma unroll
   for (int nt = 0; nt < MAXNT; nt += 2) {
@@ -772,9 +859,9 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
     for (int e = 0; e < 2; ++e) {
       const int j = nt * 8 + 2 * t4 + e;
       float va = -INFINITY, vb = -INFINITY;
-      if (nt < nt_used && j < T) {
-        va = s[nt][e] * scale + (mask && ia < T ? mask[(size_t)ia * T + j] : 0.f);
-        vb = s[nt][2 + e] * scale + (mask && ib < T ? mask[(size_t)ib * T + j] : 0.f);
+      if (nt < nt_used && j < S) {
+        va = s[nt][e] * scale + mask_at<ROW>(mask, Ms, ia, j, S, T);
+        vb = s[nt][2 + e] * scale + mask_at<ROW>(mask, Ms, ib, j, S, T);
       }
       s[nt][e] = va;
       s[nt][2 + e] = vb;
@@ -891,12 +978,15 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
 
 constexpr int KVT = 64;   // keys per dk/dv block
 
-template <int DH>
+template <int DH, bool PRE, bool ROW>
 __global__ void __launch_bounds__(FTHREADS)
-attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
-                    const float* __restrict__ mask, bf16* __restrict__ dqkv16,
-                    float* __restrict__ dqkv32, const float* __restrict__ stats,
-                    int T, int D, int Tp, float scale) {
+attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
+                    const bf16* __restrict__ dctx,
+                    const float* __restrict__ mask,
+                    bf16* __restrict__ dqkv16,
+                    float* __restrict__ dqkv32, bf16* __restrict__ dkvp16,
+                    float* __restrict__ dkvp32, const float* __restrict__ stats,
+                    int T, int P, int D, int Tp, float scale) {
   constexpr int LD = DH + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);     // this block's keys
@@ -909,12 +999,11 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
   const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, hd = blockIdx.y, H = gridDim.y;
   const int k0 = blockIdx.x * KVT;
+  const int S = P + T;
   const size_t rs = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * T * rs;
-  load_tile(Ks, LD, base + (size_t)k0 * rs + D + hd * DH, rs, KVT, T - k0, DH,
-            tid, FTHREADS);
-  load_tile(Vs, LD, base + (size_t)k0 * rs + 2 * D + hd * DH, rs, KVT, T - k0,
-            DH, tid, FTHREADS);
+  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, k0, KVT, DH, tid,
+               FTHREADS);
   load_tile(Qs, LD, base + hd * DH, rs, Tp, T, DH, tid, FTHREADS);
   load_tile(dOs, LD, dctx + (size_t)b * T * D + hd * DH, D, Tp, T, DH, tid,
             FTHREADS);
@@ -925,7 +1014,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
   cp_async_wait<0>();
   __syncthreads();
   const int j0 = warp * 16;
-  if (k0 + j0 >= T) return;   // no barrier follows
+  if (k0 + j0 >= S) return;   // no barrier follows
 
   unsigned ka[DH / 16][4], va[DH / 16][4];
 #pragma unroll
@@ -940,6 +1029,9 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
     for (int e = 0; e < 4; ++e) dk[ct][e] = dv[ct][e] = 0.f;
 
   const int ja = k0 + j0 + g, jb = ja + 8;     // this lane's two keys
+  // a key-mask row is the same for every query: read it once
+  const float mka = ROW && ja < S ? mask[ja] : 0.f;
+  const float mkb = ROW && jb < S ? mask[jb] : 0.f;
   for (int qb = 0; qb < Tp; qb += 16) {        // 16 queries at a time
     float sT[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     float dpT[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -967,9 +1059,10 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
         for (int w = 0; w < 2; ++w) {          // w = 0: key ja, 1: key jb
           const int j = w ? jb : ja;
           float pv = 0.f;
-          if (i < T && j < T) {
-            const float sv = sT[h][2 * w + e] * scale +
-                             (mask ? mask[(size_t)i * T + j] : 0.f);
+          if (i < T && j < S) {
+            const float mv = ROW ? (w ? mkb : mka)
+                                 : (mask ? mask[(size_t)i * S + j] : 0.f);
+            const float sv = sT[h][2 * w + e] * scale + mv;
             pv = expf(sv - m) / l;
           }
           p[h][2 * w + e] = pv;
@@ -1005,15 +1098,26 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = h ? jb : ja;
-      if (j >= T) continue;
+      if (j >= S) continue;
       const float k0v = dk[ct][2 * h] * scale, k1v = dk[ct][2 * h + 1] * scale;
       const float v0 = dv[ct][2 * h], v1 = dv[ct][2 * h + 1];
-      const size_t o = ((size_t)b * T + j) * rs + c;
-      *reinterpret_cast<unsigned*>(dqkv16 + o + D) = pack_bf16(k0v, k1v);
-      *reinterpret_cast<unsigned*>(dqkv16 + o + 2 * D) = pack_bf16(v0, v1);
-      if (dqkv32) {
-        dqkv32[o + D] = k0v; dqkv32[o + D + 1] = k1v;
-        dqkv32[o + 2 * D] = v0; dqkv32[o + 2 * D + 1] = v1;
+      bf16* o16;
+      float* o32;
+      size_t o;
+      if (PRE && j < P) {   // a prefix key: (B*P, 2D), dK at 0, dV at D
+        o = ((size_t)b * P + j) * 2 * D + c;
+        o16 = dkvp16;
+        o32 = dkvp32;
+      } else {              // a token key: (B*T, 3D), dK at D, dV at 2D
+        o = ((size_t)b * T + j - P) * rs + D + c;
+        o16 = dqkv16;
+        o32 = dqkv32;
+      }
+      *reinterpret_cast<unsigned*>(o16 + o) = pack_bf16(k0v, k1v);
+      *reinterpret_cast<unsigned*>(o16 + o + D) = pack_bf16(v0, v1);
+      if (o32) {
+        o32[o] = k0v; o32[o + 1] = k1v;
+        o32[o + D] = v0; o32[o + D + 1] = v1;
       }
     }
   }
@@ -1027,12 +1131,15 @@ static int grid_for(size_t n) {
   return (int)(b < 4096 ? b : 4096);
 }
 
-static size_t attn_fwd_smem(int Tp, int dh) {
-  return (size_t)(2 * Tp + FQT) * (dh + 8) * sizeof(bf16);
+// K, V and the query tile (and dO), plus the key-mask row with ROW
+static size_t attn_fwd_smem(int Sp, int dh, bool row) {
+  return (size_t)(2 * Sp + FQT) * (dh + 8) * sizeof(bf16) +
+         (row ? (size_t)Sp * sizeof(float) : 0);
 }
 
-static size_t attn_bwd_dq_smem(int Tp, int dh) {
-  return (size_t)(2 * Tp + 2 * FQT) * (dh + 8) * sizeof(bf16);
+static size_t attn_bwd_dq_smem(int Sp, int dh, bool row) {
+  return (size_t)(2 * Sp + 2 * FQT) * (dh + 8) * sizeof(bf16) +
+         (row ? (size_t)Sp * sizeof(float) : 0);
 }
 
 static size_t attn_bwd_dkv_smem(int Tp, int dh) {
@@ -1040,60 +1147,77 @@ static size_t attn_bwd_dkv_smem(int Tp, int dh) {
          (size_t)Tp * 3 * sizeof(float);
 }
 
-template <int DH, int MAXNT>
-static int launch_attn_fwd_nt(const bf16* qkv, const float* mask, bf16* ctx,
-                              int B, int T, int D, int H, float scale,
-                              cudaStream_t s) {
-  const int Tp = (T + 15) / 16 * 16;
-  const size_t smem = attn_fwd_smem(Tp, DH);
-  cudaFuncSetAttribute(attn_fwd_kernel<DH, MAXNT>,
+// Shared arguments of the attention launches. Without a prefix P = 0 and
+// kvp, dkvp16 and dkvp32 are null.
+struct AttnArgs {
+  const bf16* qkv;
+  const bf16* kvp;
+  const bf16* dctx;
+  const float* mask;
+  bf16* ctx;
+  bf16* dqkv16;
+  float* dqkv32;
+  bf16* dkvp16;
+  float* dkvp32;
+  float* stats;
+  int B, T, P, D, H;
+  float scale;
+};
+
+template <int DH, int MAXNT, bool PRE, bool ROW>
+static int launch_attn_fwd_nt(const AttnArgs& a, cudaStream_t s) {
+  const int Sp = (a.P + a.T + 15) / 16 * 16;
+  const size_t smem = attn_fwd_smem(Sp, DH, ROW);
+  cudaFuncSetAttribute(attn_fwd_kernel<DH, MAXNT, PRE, ROW>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((T + FQT - 1) / FQT, H, B);
-  attn_fwd_kernel<DH, MAXNT><<<grid, FTHREADS, smem, s>>>(qkv, mask, ctx, T, D,
-                                                         Tp, scale);
+  dim3 grid((a.T + FQT - 1) / FQT, a.H, a.B);
+  attn_fwd_kernel<DH, MAXNT, PRE, ROW><<<grid, FTHREADS, smem, s>>>(
+      a.qkv, a.kvp, a.mask, a.ctx, a.T, a.P, a.D, Sp, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
-static int launch_attn_fwd(const bf16* qkv, const float* mask, bf16* ctx, int B,
-                           int T, int D, int H, float scale, cudaStream_t s) {
-  return (T + 15) / 16 * 16 <= 128
-      ? launch_attn_fwd_nt<DH, 16>(qkv, mask, ctx, B, T, D, H, scale, s)
-      : launch_attn_fwd_nt<DH, 32>(qkv, mask, ctx, B, T, D, H, scale, s);
-}
-
-template <int DH, int MAXNT>
-static int launch_attn_bwd_nt(const bf16* qkv, const bf16* dctx,
-                              const float* mask, bf16* dqkv16, float* dqkv32,
-                              float* stats, int B, int T, int D, int H,
-                              float scale, cudaStream_t s) {
-  const int Tp = (T + 15) / 16 * 16;
-  size_t smem = attn_bwd_dq_smem(Tp, DH);
-  cudaFuncSetAttribute(attn_bwd_dq_kernel<DH, MAXNT>,
+template <int DH, int MAXNT, bool PRE, bool ROW>
+static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
+  const int Sp = (a.P + a.T + 15) / 16 * 16, Tp = (a.T + 15) / 16 * 16;
+  size_t smem = attn_bwd_dq_smem(Sp, DH, ROW);
+  cudaFuncSetAttribute(attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  attn_bwd_dq_kernel<DH, MAXNT><<<dim3((T + FQT - 1) / FQT, H, B), FTHREADS,
-                                  smem, s>>>(qkv, dctx, mask, dqkv16, dqkv32,
-                                             stats, T, D, Tp, scale);
+  attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>
+      <<<dim3((a.T + FQT - 1) / FQT, a.H, a.B), FTHREADS, smem, s>>>(
+          a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.stats, a.T,
+          a.P, a.D, Sp, a.scale);
   int e = (int)cudaGetLastError();
   if (e) return e;
   smem = attn_bwd_dkv_smem(Tp, DH);
-  cudaFuncSetAttribute(attn_bwd_dkv_kernel<DH>,
+  cudaFuncSetAttribute(attn_bwd_dkv_kernel<DH, PRE, ROW>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  attn_bwd_dkv_kernel<DH><<<dim3((T + KVT - 1) / KVT, H, B), FTHREADS, smem,
-                            s>>>(qkv, dctx, mask, dqkv16, dqkv32, stats, T, D,
-                                 Tp, scale);
+  attn_bwd_dkv_kernel<DH, PRE, ROW>
+      <<<dim3((a.P + a.T + KVT - 1) / KVT, a.H, a.B), FTHREADS, smem, s>>>(
+          a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.dkvp16,
+          a.dkvp32, a.stats, a.T, a.P, a.D, Tp, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
-static int launch_attn_bwd(const bf16* qkv, const bf16* dctx, const float* mask,
-                           bf16* dqkv16, float* dqkv32, float* stats, int B,
-                           int T, int D, int H, float scale, cudaStream_t s) {
-  return (T + 15) / 16 * 16 <= 128
-      ? launch_attn_bwd_nt<DH, 16>(qkv, dctx, mask, dqkv16, dqkv32, stats, B,
-                                   T, D, H, scale, s)
-      : launch_attn_bwd_nt<DH, 32>(qkv, dctx, mask, dqkv16, dqkv32, stats, B,
-                                   T, D, H, scale, s);
+// Dispatch on head dim and on the padded key count (<= 128 or <= 256 keys a
+// score row); S = P + T > 256 is refused. ROW: a key-mask row (mask_rs 0).
+template <bool BWD, bool PRE, bool ROW>
+static int launch_attn(const AttnArgs& a, cudaStream_t s) {
+  const int Sp = (a.P + a.T + 15) / 16 * 16;
+  if (Sp > 256 || a.H <= 0 || a.D % a.H) return (int)cudaErrorInvalidValue;
+  const bool wide = Sp > 128;
+#define LLC_ATTN(DHV)                                                        \
+  if constexpr (BWD)                                                         \
+    return wide ? launch_attn_bwd_nt<DHV, 32, PRE, ROW>(a, s)                \
+                : launch_attn_bwd_nt<DHV, 16, PRE, ROW>(a, s);               \
+  return wide ? launch_attn_fwd_nt<DHV, 32, PRE, ROW>(a, s)                  \
+              : launch_attn_fwd_nt<DHV, 16, PRE, ROW>(a, s);
+  switch (a.D / a.H) {
+    case 16: { LLC_ATTN(16) }
+    case 32: { LLC_ATTN(32) }
+    case 64: { LLC_ATTN(64) }
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LLC_ATTN
 }
 
 template <typename OutT, int WM, int WN, int MI, int NI, bool AT, bool BT>
@@ -1230,30 +1354,56 @@ int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
 
 int llc_attn_fwd(const void* qkv, const float* mask, void* ctx, int B, int T,
                  int D, int H, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int dh = D / H;
-  if ((T + 15) / 16 * 16 > 256) return (int)cudaErrorInvalidValue;
-  switch (dh) {
-    case 16: return launch_attn_fwd<16>((const bf16*)qkv, mask, (bf16*)ctx, B, T, D, H, scale, s);
-    case 32: return launch_attn_fwd<32>((const bf16*)qkv, mask, (bf16*)ctx, B, T, D, H, scale, s);
-    case 64: return launch_attn_fwd<64>((const bf16*)qkv, mask, (bf16*)ctx, B, T, D, H, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  AttnArgs a = {};
+  a.qkv = (const bf16*)qkv; a.mask = mask; a.ctx = (bf16*)ctx;
+  a.B = B; a.T = T; a.P = 0; a.D = D; a.H = H; a.scale = scale;
+  return launch_attn<false, false, false>(a, (cudaStream_t)stream);
 }
 
 // stats: B * H * T * 3 floats of workspace (row max, row sum, delta).
 int llc_attn_bwd(const void* qkv, const void* dctx, const float* mask,
                  void* dqkv16, float* dqkv32, float* stats, int B, int T,
                  int D, int H, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int dh = D / H;
-  if ((T + 15) / 16 * 16 > 256) return (int)cudaErrorInvalidValue;
-  switch (dh) {
-    case 16: return launch_attn_bwd<16>((const bf16*)qkv, (const bf16*)dctx, mask, (bf16*)dqkv16, dqkv32, stats, B, T, D, H, scale, s);
-    case 32: return launch_attn_bwd<32>((const bf16*)qkv, (const bf16*)dctx, mask, (bf16*)dqkv16, dqkv32, stats, B, T, D, H, scale, s);
-    case 64: return launch_attn_bwd<64>((const bf16*)qkv, (const bf16*)dctx, mask, (bf16*)dqkv16, dqkv32, stats, B, T, D, H, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  AttnArgs a = {};
+  a.qkv = (const bf16*)qkv; a.dctx = (const bf16*)dctx; a.mask = mask;
+  a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32; a.stats = stats;
+  a.B = B; a.T = T; a.P = 0; a.D = D; a.H = H; a.scale = scale;
+  return launch_attn<true, false, false>(a, (cudaStream_t)stream);
+}
+
+// KV-prefix attention: kvp (B*P, 2D) holds the projected prefix keys and
+// values (K | V); mask is null, (T, P + T) fp32 with mask_rs = P + T, or one
+// (P + T,) key-mask row for every query with mask_rs = 0.
+int llc_attn_prefix_fwd(const void* qkv, const void* kvp, const float* mask,
+                        int mask_rs, void* ctx, int B, int T, int P, int D,
+                        int H, float scale, void* stream) {
+  if (P < 1 || (mask_rs && mask_rs != P + T)) return (int)cudaErrorInvalidValue;
+  AttnArgs a = {};
+  a.qkv = (const bf16*)qkv; a.kvp = (const bf16*)kvp; a.mask = mask;
+  a.ctx = (bf16*)ctx;
+  a.B = B; a.T = T; a.P = P; a.D = D; a.H = H; a.scale = scale;
+  return mask && !mask_rs
+      ? launch_attn<false, true, true>(a, (cudaStream_t)stream)
+      : launch_attn<false, true, false>(a, (cudaStream_t)stream);
+}
+
+// dkvp16 (B*P, 2D) receives dK | dV of the prefix keys (dkvp32: the fp32
+// values, or null), dqkv16 those of the tokens as llc_attn_bwd.
+int llc_attn_prefix_bwd(const void* qkv, const void* kvp, const void* dctx,
+                        const float* mask, int mask_rs, void* dqkv16,
+                        float* dqkv32, void* dkvp16, float* dkvp32,
+                        float* stats, int B, int T, int P, int D, int H,
+                        float scale, void* stream) {
+  if (P < 1 || (mask_rs && mask_rs != P + T)) return (int)cudaErrorInvalidValue;
+  AttnArgs a = {};
+  a.qkv = (const bf16*)qkv; a.kvp = (const bf16*)kvp;
+  a.dctx = (const bf16*)dctx; a.mask = mask;
+  a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32;
+  a.dkvp16 = (bf16*)dkvp16; a.dkvp32 = dkvp32; a.stats = stats;
+  a.B = B; a.T = T; a.P = P; a.D = D; a.H = H; a.scale = scale;
+  return mask && !mask_rs
+      ? launch_attn<true, true, true>(a, (cudaStream_t)stream)
+      : launch_attn<true, true, false>(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

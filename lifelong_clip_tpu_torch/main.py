@@ -180,17 +180,46 @@ def args_to_config(args) -> TrainConfig:
         ce_on_probs=bool(args.ce_on_probs), device=args.device)
 
 
+# method-behavior flags map onto trainer class attributes (the reference
+# wires them through kwargs; here the trainer classes carry the defaults),
+# as ``lifelong_clip_tpu/main.py:_ATTR_FLAGS``. flag name -> attribute name
+_ATTR_FLAGS = {
+    "use_mask": "use_mask", "use_contrastiv": "use_contrastiv",
+    "use_afs": "use_afs", "use_gsf": "use_gsf",
+    "use_last_layer": "use_last_layer", "alpha": "alpha",
+    "gamma": "gamma", "margin": "margin",
+    "num_prompt": "num_prompt", "n_ctx": "n_ctx", "topK": "top_k",
+    "num_sampled_pcls": "num_sampled_pcls", "ca": "ca", "ssca": "ssca",
+    "ca_epochs": "ca_epochs", "selection_size": "selection_size",
+}
+
+
+def trainer_class(method: str, args, parser):
+    """The method's trainer class, subclassed with the flags the command
+    line set away from their defaults (a flag left at its default keeps
+    the class's own value)."""
+    from .methods import get_method
+    cls = get_method(method)
+    overrides = {attr: getattr(args, flag)
+                 for flag, attr in _ATTR_FLAGS.items()
+                 if hasattr(cls, attr)
+                 and getattr(args, flag) != parser.get_default(flag)}
+    if overrides:
+        cls = type(cls.__name__, (cls,), overrides)
+    return cls
+
+
 def main(argv=None):
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    args = base_parser().parse_args(argv)
+    parser = base_parser()
+    args = parser.parse_args(argv)
     cfg = args_to_config(args)
     if args.zero_shot_evaluation:
         raise NotImplementedError("zero-shot evaluation is not ported yet "
                                   "(ROADMAP.md, queue A)")
-    from .methods import get_method
-    trainer = get_method(cfg.method)(
+    trainer = trainer_class(cfg.method, args, parser)(
         cfg, synthetic_fallback=args.synthetic_fallback)
     return trainer.run()
 

@@ -5,8 +5,9 @@ from __future__ import annotations
 
 def get_method(name: str):
     from .adapter_clip import AdapterCLIP
+    from .mvp_clip import CLIP_MVP
 
-    registry = {"lora-clip": AdapterCLIP}
+    registry = {"lora-clip": AdapterCLIP, "mvp-clip": CLIP_MVP}
     if name not in registry:
         raise NotImplementedError(
             f"method {name!r} is not ported to the PyTorch package yet; have: "

@@ -9,9 +9,12 @@ softmax and accumulation (``_cast_tree``).
 The attention half of every block goes through
 ``ops/fused_block_attn.py:fused_ln_attention_block`` (``attn_impl="fused"``,
 the default; the JAX package's ``"pallas"``), whose CUDA kernels run on the
-card and whose plain version runs on the CPU; ``attn_impl="unfused"`` (the
-JAX ``"xla"`` road) composes LN and ``ops/attention.multi_head_attention``.
-Adapter and MoE PEFT and KV-prefix prompts are not ported yet.
+card and whose plain version runs on the CPU, or, for a block with KV-prefix
+prompts, through ``fused_prefix_attention_block``; ``attn_impl="unfused"``
+(the JAX ``"xla"`` road) composes LN and ``ops/attention.
+multi_head_attention``. Adapter and MoE PEFT, text-side prompts, and the
+prompted blocks JAX sends to its flash-attention kernels (a KV prefix with
+LoRA, or a mask the prefix kernel cannot take) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch.nn.functional as F
 
 from ..config import CLIPConfig, PEFTConfig
 from ..ops.attention import causal_mask, linear, mm32, multi_head_attention
-from ..ops.fused_block_attn import fused_ln_attention_block
+from ..ops.fused_block_attn import (fused_ln_attention_block,
+                                    fused_prefix_attention_block)
 
 ATTN_IMPLS = ("fused", "unfused")
 
@@ -52,11 +56,21 @@ def _layer(tree, i: int):
 
 
 def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
-           attn_impl: str, act: str = "quick_gelu", base_grads: bool = True):
-    """One residual attention block (vanilla or LoRA).
+           attn_impl: str, act: str = "quick_gelu", base_grads: bool = True,
+           kv_prefix=None, prompt_ln: bool = False):
+    """One residual attention block (vanilla, LoRA or KV-prefixed).
 
-    ``base_grads=False`` asserts the block's own weights are frozen: the
-    fused kernel's backward then skips their grads."""
+    ``kv_prefix``: (B, P, D) prompt tokens joining the keys' and values'
+    source, or a dict ``{'k', 'v'}`` of two. ``prompt_ln`` passes them
+    through the block's ln_1 first (MVP's append-then-truncate prompts,
+    JAX ``models/clip.py:111-113``). ``base_grads=False`` asserts the
+    block's own weights are frozen: the fused kernels' backward then skips
+    their grads."""
+    if kv_prefix is not None and prompt_ln:
+        kv_prefix = ({k: layer_norm(v, blk["ln_1"])
+                      for k, v in kv_prefix.items()}
+                     if isinstance(kv_prefix, dict)
+                     else layer_norm(kv_prefix, blk["ln_1"]))
     lora = None
     if peft is not None and peft_cfg is not None:
         if peft_cfg.method != "lora":
@@ -64,7 +78,9 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
                 f"{peft_cfg.method} PEFT blocks are not ported yet "
                 "(ROADMAP.md, queue A)")
         lora = dict(peft["lora"], scaling=peft_cfg.lora_alpha / peft_cfg.lora_r)
-    if attn_impl == "fused":
+    if attn_impl == "fused" and kv_prefix is not None:
+        y = _prefix_block(x, blk, n_heads, mask, kv_prefix, lora, base_grads)
+    elif attn_impl == "fused":
         arrays = None if lora is None else {
             k: lora[k] for k in ("a_in", "b_in", "a_out", "b_out")}
         y = fused_ln_attention_block(
@@ -75,12 +91,42 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
             base_grads)
     elif attn_impl == "unfused":
         h = layer_norm(x, blk["ln_1"])
-        y = x + multi_head_attention(h, blk["attn"], n_heads, mask=mask,
-                                     lora=lora)
+        x_kv = None
+        if isinstance(kv_prefix, dict):
+            x_kv = (torch.cat([kv_prefix["k"].to(h.dtype), h], 1),
+                    torch.cat([kv_prefix["v"].to(h.dtype), h], 1))
+        elif kv_prefix is not None:
+            x_kv = torch.cat([kv_prefix.to(h.dtype), h], 1)
+        y = x + multi_head_attention(h, blk["attn"], n_heads, x_kv=x_kv,
+                                     mask=mask, lora=lora)
     else:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                          f"got {attn_impl!r}")
     return _mlp_half(y, blk, act)
+
+
+def _prefix_block(x, blk, n_heads, mask, kv_prefix, lora, base_grads):
+    """The prompted attention half on the fused road: the prefix kernel op,
+    for the masks it takes (JAX ``models/clip.py:153-173``). JAX sends the
+    other prompted blocks to its flash-attention kernels, not ported yet."""
+    pk, pv = ((kv_prefix["k"], kv_prefix["v"]) if isinstance(kv_prefix, dict)
+              else (kv_prefix, kv_prefix))
+    m2 = mask
+    if m2 is not None and m2.dim() > 2 and all(
+            s == 1 for s in m2.shape[:-2]):
+        m2 = m2.reshape(m2.shape[-2:]) if m2.shape[-2] != 1 \
+            else m2.reshape(m2.shape[-1:])
+    prefix_ok = m2 is None or (m2.dim() <= 2 and
+                               m2.shape[-1] == x.shape[1] + pk.shape[1])
+    if lora is not None or not prefix_ok:
+        raise NotImplementedError(
+            "a KV-prefix block with LoRA, or with a mask the prefix kernel "
+            "cannot take, runs on the flash-attention kernels, which are not "
+            "ported yet (ROADMAP.md, B5); use attn_impl='unfused'")
+    return fused_prefix_attention_block(
+        x, pk, pv, blk["ln_1"]["scale"], blk["ln_1"]["bias"],
+        blk["attn"]["w_qkv"], blk["attn"]["b_qkv"], blk["attn"]["w_out"],
+        blk["attn"]["b_out"], n_heads, m2, base_grads)
 
 
 def _mlp_half(x, blk, act):
@@ -92,13 +138,38 @@ def _mlp_half(x, blk, act):
 
 def transformer(x, blocks, n_heads: int, *, mask=None,
                 peft_cfg: Optional[PEFTConfig] = None, peft=None,
+                layer_prompts=None, layer_prompt_valid=None,
                 attn_impl: str = "fused", act: str = "quick_gelu",
-                base_grads: bool = True):
-    """Run the layer-stacked residual blocks in order."""
+                prompt_ln: bool = False, base_grads: bool = True):
+    """Run the layer-stacked residual blocks in order.
+
+    ``layer_prompts`` (L, B, P, D), or (L, P, D) broadcast over the batch,
+    or a dict ``{'k', 'v'}`` of such: per-layer KV-side prefix tokens.
+    ``layer_prompt_valid`` (L, P) bool marks each layer's live slots; dead
+    slots get -inf in a (1, 1, P + T) mask added to ``mask``
+    (JAX ``models/clip.py:280-311``). ``prompt_ln``: see ``_block``."""
     n_layers = blocks["attn"]["w_qkv"].shape[0]
+    pmask = None
+    if layer_prompts is not None:
+        def bcast(lp):
+            return lp[:, None].expand(lp.shape[0], x.shape[0],
+                                      *lp.shape[1:]) if lp.dim() == 3 else lp
+        layer_prompts = ({k: bcast(v) for k, v in layer_prompts.items()}
+                         if isinstance(layer_prompts, dict)
+                         else bcast(layer_prompts))
+        if layer_prompt_valid is not None:
+            valid = torch.as_tensor(layer_prompt_valid, device=x.device)
+            prefix = torch.where(valid, 0.0, float("-inf"))
+            pmask = torch.cat([prefix, torch.zeros(
+                prefix.shape[0], x.shape[1], device=x.device)], 1)
+            pmask = pmask[:, None, None, :]   # (L, 1, 1, P + T)
     for i in range(n_layers):
-        x = _block(x, _layer(blocks, i), n_heads, mask, peft_cfg,
-                   _layer(peft, i), attn_impl, act, base_grads)
+        m = mask
+        if pmask is not None:
+            m = pmask[i] if m is None else m + pmask[i]
+        x = _block(x, _layer(blocks, i), n_heads, m, peft_cfg,
+                   _layer(peft, i), attn_impl, act, base_grads,
+                   kv_prefix=_layer(layer_prompts, i), prompt_ln=prompt_ln)
     return x
 
 
@@ -127,25 +198,12 @@ def extract_patches(images, patch_size: int):
     return x.reshape(b, gh * gw, patch_size * patch_size * c)
 
 
-def _no_prompts(layer_prompts):
-    if layer_prompts is not None:
-        raise NotImplementedError("KV-prefix prompts are not ported yet "
-                                  "(ROADMAP.md, queues A and B)")
-
-
-def encode_image(params, images, cfg: CLIPConfig, *,
-                 peft_cfg: Optional[PEFTConfig] = None, peft=None,
-                 layer_prompts=None, compute_dtype=torch.bfloat16,
-                 attn_impl: str = "fused", base_grads: bool = True):
-    """Vision tower. ``images``: (B, H, W, 3) normalized floats. Returns the
-    projected CLS embedding (B, embed_dim) in ``compute_dtype``."""
-    _no_prompts(layer_prompts)
+def vit_embed(v, images, cfg: CLIPConfig, cd):
+    """Patch embedding, class token, positions and ln_pre of the vision
+    tower ``v`` (already in ``cd``): the token sequence (B, 1 + N, D)."""
     if cfg.tower != "vit":
         raise NotImplementedError("the ModifiedResNet tower is not ported "
                                   "yet (ROADMAP.md, queue A)")
-    cd = compute_dtype
-    v = cast_tree(params["vision"], cd)
-    pv = cast_tree(peft, cd)
     x = extract_patches(images.to(cd), cfg.patch_size)
     x = mm32(x, v["patch_kernel"]).to(cd)
     if "patch_bias" in v:
@@ -155,11 +213,25 @@ def encode_image(params, images, cfg: CLIPConfig, *,
     x = x + v["pos_embed"].to(cd)
     if cfg.use_ln_pre:
         x = layer_norm(x, v["ln_pre"])
+    return x
+
+
+def encode_image(params, images, cfg: CLIPConfig, *,
+                 peft_cfg: Optional[PEFTConfig] = None, peft=None,
+                 layer_prompts=None, compute_dtype=torch.bfloat16,
+                 attn_impl: str = "fused", base_grads: bool = True):
+    """Vision tower. ``images``: (B, H, W, 3) normalized floats;
+    ``layer_prompts``: raw KV-prefix tokens per layer (``transformer``).
+    Returns the projected CLS embedding (B, embed_dim) in
+    ``compute_dtype``."""
+    cd = compute_dtype
+    v = cast_tree(params["vision"], cd)
+    x = vit_embed(v, images, cfg, cd)
     x = transformer(x, v["blocks"], cfg.vision_heads,
                     peft_cfg=peft_cfg if (peft_cfg and peft_cfg.on_vision())
                     else None,
-                    peft=pv, attn_impl=attn_impl, act=cfg.act,
-                    base_grads=base_grads)
+                    peft=cast_tree(peft, cd), layer_prompts=layer_prompts,
+                    attn_impl=attn_impl, act=cfg.act, base_grads=base_grads)
     pooled = layer_norm(x[:, :1], v["ln_post"])[:, 0]
     return mm32(pooled, v["proj"]).to(cd)
 
@@ -170,7 +242,9 @@ def encode_text(params, tokens, cfg: CLIPConfig, *,
                 attn_impl: str = "fused", base_grads: bool = True):
     """Text tower. ``tokens``: (B, context_length) integer ids. Pools at the
     EOT position (argmax of the ids, reference model.py:941-956)."""
-    _no_prompts(layer_prompts)
+    if layer_prompts is not None:
+        raise NotImplementedError("text-side KV-prefix prompts are not "
+                                  "ported yet (ROADMAP.md, queue A)")
     cd = compute_dtype
     t = cast_tree(params["text"], cd)
     pt = cast_tree(peft, cd)

@@ -1,6 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The source under ``lifelong_clip_tpu_torch/csrc/`` has a plain C interface.
+The source under ``lifelong_clip_tpu_torch/csrc/`` (the fused LN-attention
+block and its KV-prefix variant, forward and backward) has a plain C
+interface.
 At first use one ``nvcc`` call compiles it for ``sm_90a`` into a shared
 library under ``csrc/build/`` (listed in ``.gitignore``), which ``ctypes``
 loads. The library name carries a hash of the source and flags, so an edited
@@ -39,6 +41,10 @@ _SIGNATURES = {
                  _VP],
     "llc_attn_fwd": [_VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
     "llc_attn_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
+    "llc_attn_prefix_fwd": [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _F,
+                            _VP],
+    "llc_attn_prefix_bwd": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                            _I, _I, _I, _I, _I, _F, _VP],
 }
 
 _lock = threading.Lock()

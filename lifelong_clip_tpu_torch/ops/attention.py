@@ -2,29 +2,46 @@
 
 Counterpart of ``lifelong_clip_tpu/ops/attention.py`` (its ``impl="xla"``
 road): fused qkv projection with an optional LoRA delta, scaled dot-product
-attention with an fp32 softmax, output projection with its own LoRA delta.
-Shapes are batch-first ``(B, T, D)``; weights keep the ``x @ W`` orientation
-(``w_qkv`` (D, 3D), ``w_out`` (D, D)). Matmuls accumulate in fp32 whatever
-the operand dtype, as the JAX code's ``preferred_element_type=f32``.
+attention with an fp32 softmax, output projection with its own LoRA delta,
+keys and values optionally from their own sources (a KV prefix). Shapes are
+batch-first ``(B, T, D)``; weights keep the ``x @ W`` orientation (``w_qkv``
+(D, 3D), ``w_out`` (D, D)). Matmuls accumulate in fp32 whatever the operand
+dtype, as the JAX code's ``preferred_element_type=f32``, and their results
+stay fp32 until the one rounding JAX takes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 
-def mm32(a, b):
-    """``a @ b`` with fp32 accumulation and an fp32 result.
+@contextlib.contextmanager
+def _no_tf32():
+    """Full-fp32 products on the card for the block, whatever the global
+    TF32 setting; the setting is restored on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
-    On the CPU the operands are upcast (bf16 products are exact in fp32). On
-    the card a bf16 pair goes through the bf16 tensor-core product, whose
-    accumulation is fp32 but whose result is rounded to bf16 before the
-    upcast: one rounding the JAX path takes later, after the bias add."""
-    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
-        return torch.matmul(a, b).float()
-    return torch.matmul(a.float(), b.float())
+
+def mm32(a, b):
+    """``a @ b`` with fp32 accumulation and an unrounded fp32 result.
+
+    The operands are upcast: products of bf16 values are exact in fp32, so
+    an fp32 product with TF32 off equals JAX's bf16 product with
+    ``preferred_element_type=f32`` up to summation order, on the CPU and on
+    the card alike."""
+    a, b = a.float(), b.float()
+    if a.is_cuda:
+        with _no_tf32():
+            return torch.matmul(a, b)
+    return torch.matmul(a, b)
 
 
 def linear(x, w, b):
@@ -71,14 +88,19 @@ def sdpa(q, k, v, n_heads: int, mask: Optional[torch.Tensor] = None):
     return out.transpose(1, 2).reshape(b, t, d).to(v.dtype)
 
 
-def multi_head_attention(x_q, params, n_heads: int, *, mask=None, lora=None):
+def multi_head_attention(x_q, params, n_heads: int, *, x_kv=None, mask=None,
+                         lora=None):
     """Full MHA: fused qkv (+LoRA), SDPA, output projection (+LoRA).
 
     params: {'w_qkv': (D,3D), 'b_qkv': (3D,), 'w_out': (D,D), 'b_out': (D,)}
+    x_kv:   keys' and values' source (B, S, D), or a ``(k_src, v_src)``
+            tuple (prefixes that differ for K and V); ``None``: ``x_q``.
     lora:   optional {'a_in','b_in','a_out','b_out','scaling'}.
-    mask:   additive, broadcastable to (B, H, T, T).
+    mask:   additive, broadcastable to (B, H, T, S).
     """
-    q, k, v = qkv_projection(x_q, x_q, x_q, params["w_qkv"], params["b_qkv"],
+    x_kv = x_q if x_kv is None else x_kv
+    x_k, x_v = x_kv if isinstance(x_kv, tuple) else (x_kv, x_kv)
+    q, k, v = qkv_projection(x_q, x_k, x_v, params["w_qkv"], params["b_qkv"],
                              lora=lora)
     ctx = sdpa(q, k, v, n_heads, mask=mask)
     out = mm32(ctx, params["w_out"]) + params["b_out"].float()
@@ -88,9 +110,11 @@ def multi_head_attention(x_q, params, n_heads: int, *, mask=None, lora=None):
     return out.to(x_q.dtype)
 
 
-def causal_mask(t: int, device=None, dtype=torch.float32):
-    """Additive causal mask (t, t): query i sees keys 0..i (reference
-    ``build_attention_mask``, models/clip/model.py:926-932)."""
+def causal_mask(t: int, prefix: int = 0, device=None, dtype=torch.float32):
+    """Additive causal mask (t, prefix + t): query i sees every ``prefix``
+    KV token and keys 0..i (reference ``build_attention_mask``,
+    models/clip/model.py:926-932, extended for KV-side prefixes)."""
     i = torch.arange(t, device=device)[:, None]
-    j = torch.arange(t, device=device)[None, :]
-    return torch.where(j <= i, 0.0, float("-inf")).to(dtype)
+    j = torch.arange(prefix + t, device=device)[None, :]
+    allowed = (j < prefix) | ((j - prefix) <= i)
+    return torch.where(allowed, 0.0, float("-inf")).to(dtype)

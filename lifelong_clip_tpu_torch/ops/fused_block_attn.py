@@ -1,4 +1,5 @@
-"""Fused attention half block: y = x + out_proj(MHA(LN(x))), forward and backward.
+"""Fused attention half block: y = x + out_proj(MHA(LN(x))), forward and
+backward, and its KV-prefix variant.
 
 Counterpart of ``lifelong_clip_tpu/ops/fused_block_attn.py:
 fused_ln_attention_block`` (``:202-218``): fp32 LayerNorm, bf16 qkv with an
@@ -15,6 +16,14 @@ Kernels and the TPU kernels they replace:
 * backward: the same source (LN backward, GEMMs, attention backward, column
   sums), replacing ``_bwd_kernel`` (``:258``, Pallas call at ``:478``).
 
+``fused_prefix_attention_block`` is the counterpart of the JAX op of that
+name (``:652-696``): the same half block without LoRA, whose keys come from
+[pk; LN(x)] and values from [pv; LN(x)] under an additive (T, P + T) mask.
+Its forward replaces ``_prefix_kernel`` (``:524``, Pallas call at ``:631``)
+and its backward ``_prefix_bwd_kernel`` (``:699``, Pallas call at ``:897``),
+with the same kernel chain: a prefix K/V GEMM beside the token qkv GEMM, and
+attention kernels that read their keys from both.
+
 Bound on one H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at the ViT-B/16 vision
 block, bs=64: forward ~67.1 GFLOP (~68 us, compute-bound); backward with
 ``weight_grads=False`` ~127 GFLOP (~128 us, compute-bound). The first port
@@ -27,8 +36,9 @@ sequential grid had none.
 
 Beside the kernels sit their plain PyTorch versions,
 ``fused_ln_attention_block_reference`` and
-``fused_ln_attention_block_reference_bwd``, which repeat the TPU kernels'
-arithmetic and bf16 rounding points. The op takes them only for tensors on
+``fused_ln_attention_block_reference_bwd`` (and the prefix twins
+``fused_prefix_attention_block_reference`` and ``..._reference_bwd``),
+which repeat the TPU kernels' arithmetic and bf16 rounding points. The op takes them only for tensors on
 the CPU; a CUDA tensor launches the kernels or raises.
 """
 
@@ -43,7 +53,8 @@ _BF = torch.bfloat16
 _DT = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each kernel chain: one per op call on a CUDA tensor
-LAUNCHES = {"fused_ln_attention_fwd": 0, "fused_ln_attention_bwd": 0}
+LAUNCHES = {"fused_ln_attention_fwd": 0, "fused_ln_attention_bwd": 0,
+            "fused_prefix_attention_fwd": 0, "fused_prefix_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -66,11 +77,12 @@ def _lora16(lora, lora_scaling):
     return tuple(lora[k].to(_BF) for k in ("a_in", "b_in", "a_out", "b_out"))
 
 
-def _mask32(mask, t, device):
+def _mask32(mask, t, s, device):
+    """The additive mask as a contiguous fp32 (T, S) matrix, or None."""
     if mask is None:
         return None
     return torch.broadcast_to(mask.to(device=device, dtype=torch.float32),
-                              (t, t)).contiguous()
+                              (t, s)).contiguous()
 
 
 def _split_heads(a, b, t, n_heads):
@@ -116,7 +128,7 @@ def _forward_parts(x, ln_scale, ln_bias, w_qkv, b_qkv, n_heads, mask, lt,
     q, k, v = (_split_heads(qkv16[:, i * d:(i + 1) * d], b, t, n_heads)
                for i in range(3))
     scale = (d // n_heads) ** -0.5
-    p = _probs(q, k, _mask32(mask, t, x.device), scale)
+    p = _probs(q, k, _mask32(mask, t, t, x.device), scale)
     ctx16 = _merge_heads(_mm(p.to(_BF), v)).to(_BF)
     return x32, xhat, rstd, h, z, (q, k, v), p, ctx16, scale
 
@@ -257,17 +269,19 @@ def _colsum(x2d):
     return out
 
 
-def _check_cuda(x, n_heads):
+def _check_cuda(x, n_heads, prefix=0, op="fused_ln_attention_block"):
+    """Raise on what the kernels do not take: a score row of S = prefix + T
+    keys lives in one warp's registers, so S <= 256."""
     if x.dtype not in _DT:
-        raise TypeError(f"fused_ln_attention_block: x must be bf16 or f32, "
-                        f"got {x.dtype}")
+        raise TypeError(f"{op}: x must be bf16 or f32, got {x.dtype}")
     b, t, d = x.shape
     dh = d // n_heads
-    if d % n_heads or dh not in (16, 32, 64) or -(-t // 16) * 16 > 256 \
+    s = prefix + t
+    if d % n_heads or dh not in (16, 32, 64) or -(-s // 16) * 16 > 256 \
             or d > 1024:
-        raise ValueError(f"fused_ln_attention_block kernels take head dim "
-                         f"16/32/64, D <= 1024 and T <= 256; got D={d}, "
-                         f"heads={n_heads}, T={t}")
+        raise ValueError(f"{op} kernels take head dim 16/32/64, D <= 1024 "
+                         f"and S = P + T <= 256 keys; got D={d}, "
+                         f"heads={n_heads}, T={t}, P={prefix}")
 
 
 class _Prepared:
@@ -289,13 +303,34 @@ class _Prepared:
         self.w_qkv, self.w_out = b16(w_qkv), b16(w_out)
         self.b_qkv = f32(b_qkv)
         self.b_out = f32(b_out) if b_out is not None else None
-        self.mask = _mask32(mask, t, x.device)
+        self.mask = _mask32(mask, t, t, x.device)
         lt = _lora16(lora, lora_scaling)
         self.lora = None if lt is None else tuple(
             a.detach().contiguous() for a in lt)
         self.s = float(lora_scaling)
         self.r = self.lora[0].shape[1] if self.lora is not None else 0
         self.stream = _stream(x)
+
+
+def _grad_rows(pp: _Prepared, g):
+    """The output grad as (B*T, D) rows in x's dtype, and their bf16 copy
+    (cast on the card where x is fp32)."""
+    g2 = g.detach().to(pp.x.dtype).contiguous().view(pp.m, pp.d)
+    if g2.dtype == _BF:
+        return g2, g2
+    g16 = torch.empty(pp.m, pp.d, dtype=_BF, device=g2.device)
+    _kernels.call("llc_cast_bf16", _DT[g2.dtype], g2.data_ptr(),
+                  g16.data_ptr(), pp.m * pp.d, pp.stream)
+    return g2, g16
+
+
+def _zero_block_grads(d, device):
+    """fp32 zeros for (dls, dlb, dwqkv, dbqkv, dwout, dbout): the block
+    grads without ``weight_grads``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(d, **f32), torch.zeros(d, **f32),
+            torch.zeros(d, 3 * d, **f32), torch.zeros(3 * d, **f32),
+            torch.zeros(d, d, **f32), torch.zeros(d, **f32))
 
 
 def _cuda_recompute(pp: _Prepared, n_heads, need_ctx=True):
@@ -354,18 +389,9 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     f32 = dict(dtype=torch.float32, device=dev)
     h16, z16, qkv16, ctx16 = _cuda_recompute(
         pp, n_heads, need_ctx=weight_grads or pp.lora is not None)
-    g2 = g.detach().to(x.dtype).contiguous().view(m, d)
-    if g2.dtype == _BF:
-        g16 = g2
-    else:
-        g16 = torch.empty(m, d, dtype=_BF, device=dev)
-        _kernels.call("llc_cast_bf16", _DT[g2.dtype], g2.data_ptr(),
-                      g16.data_ptr(), m * d, pp.stream)
+    g2, g16 = _grad_rows(pp, g)
 
-    zeros = (torch.zeros(d, **f32), torch.zeros(d, **f32),
-             torch.zeros(d, 3 * d, **f32), torch.zeros(3 * d, **f32),
-             torch.zeros(d, d, **f32), torch.zeros(d, **f32))
-    dls, dlb, dwqkv, dbqkv, dwout, dbout = zeros
+    dls, dlb, dwqkv, dbqkv, dwout, dbout = _zero_block_grads(d, dev)
     if weight_grads:
         dwout = _gemm(torch.empty(d, d, **f32), ctx16, (1, d), g16, (d, 1),
                       d, d, m, splits=-1)
@@ -504,3 +530,304 @@ def fused_ln_attention_block(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
                                    b_out, *la, int(n_heads),
                                    float(lora_scaling), mask,
                                    bool(weight_grads))
+
+
+# ---------------------------------------------------------------------------
+# KV-prefix variant: plain versions
+# ---------------------------------------------------------------------------
+
+def _prefix_forward_parts(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
+                          n_heads, mask):
+    """The forward of ``_prefix_kernel`` (``:527-581``) up to ctx16."""
+    b, t, d = x.shape
+    s_len = pk.shape[1] + t
+    x32 = x.reshape(b * t, d).float()
+    xhat, rstd, h32 = _ln_parts(x32, ln_scale, ln_bias)
+    h16 = h32.to(_BF)
+    # the wrapper casts the prompts to x's dtype, the kernel to bf16
+    pk16, pv16 = (a.to(x.dtype).to(_BF) for a in (pk, pv))
+    h3 = h16.reshape(b, t, d)
+    k_src = torch.cat([pk16, h3], 1).reshape(b * s_len, d)
+    v_src = torch.cat([pv16, h3], 1).reshape(b * s_len, d)
+    w16, bq = w_qkv.to(_BF), b_qkv.float()
+    q = (_mm(h16, w16[:, :d]) + bq[:d]).to(_BF)
+    k = (_mm(k_src, w16[:, d:2 * d]) + bq[d:2 * d]).to(_BF)
+    v = (_mm(v_src, w16[:, 2 * d:]) + bq[2 * d:]).to(_BF)
+    qkv = (_split_heads(q, b, t, n_heads), _split_heads(k, b, s_len, n_heads),
+           _split_heads(v, b, s_len, n_heads))
+    scale = (d // n_heads) ** -0.5
+    p = _probs(qkv[0], qkv[1], _mask32(mask, t, s_len, x.device),
+               scale)
+    ctx16 = _merge_heads(_mm(p.to(_BF), qkv[2])).to(_BF)
+    return x32, xhat, rstd, h16, k_src, v_src, qkv, p, ctx16, scale
+
+
+def fused_prefix_attention_block_reference(x, pk, pv, ln_scale, ln_bias,
+                                           w_qkv, b_qkv, w_out, b_out,
+                                           n_heads: int, mask=None):
+    """Plain version of the prefix forward kernel (``_prefix_kernel``,
+    ``:524-588``)."""
+    b, t, d = x.shape
+    parts = _prefix_forward_parts(x, pk, pv, ln_scale, ln_bias, w_qkv,
+                                  b_qkv, n_heads, mask)
+    out = _mm(parts[8], w_out.to(_BF)) + b_out.float()
+    return (parts[0] + out).reshape(b, t, d).to(x.dtype)
+
+
+def fused_prefix_attention_block_reference_bwd(x, g, pk, pv, ln_scale,
+                                               ln_bias, w_qkv, b_qkv, w_out,
+                                               n_heads: int, mask=None,
+                                               weight_grads: bool = True):
+    """Plain version of the prefix backward kernel (``_prefix_bwd_kernel``,
+    ``:699-866``), step by step with its bf16 rounding points. Returns
+    ``(dx, dpk, dpv, dls, dlb, dwqkv, dbqkv, dwout, dbout)``: dx in x's
+    dtype, dpk and dpv in pk's and pv's, the rest fp32 (zeros without
+    ``weight_grads``)."""
+    b, t, d = x.shape
+    n_p = pk.shape[1]
+    s_len = n_p + t
+    (x32, xhat, rstd, h16, k_src, v_src, (q, k, v), p, ctx16,
+     scale) = _prefix_forward_parts(x, pk, pv, ln_scale, ln_bias, w_qkv,
+                                    b_qkv, n_heads, mask)
+    g32 = g.reshape(b * t, d).float()
+    g16 = g32.to(_BF)
+    w16 = w_qkv.to(_BF)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dls, dlb = torch.zeros(d, **f32), torch.zeros(d, **f32)
+    dwqkv, dbqkv = torch.zeros(d, 3 * d, **f32), torch.zeros(3 * d, **f32)
+    dwout, dbout = torch.zeros(d, d, **f32), torch.zeros(d, **f32)
+    if weight_grads:
+        dwout = _mm(ctx16.T, g16)
+        dbout = g32.sum(0)
+    dctx_h = _split_heads(_mm(g16, w_out.to(_BF).T).to(_BF), b, t, n_heads)
+    dv = _mm(p.to(_BF).transpose(-1, -2), dctx_h)
+    dp = _mm(dctx_h, v.transpose(-1, -2))
+    ds16 = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(_BF)
+    dq = _merge_heads(_mm(ds16, k) * scale)
+    dk = _merge_heads(_mm(ds16.transpose(-1, -2), q) * scale)
+    dv = _merge_heads(dv)
+    dq16, dk16, dv16 = dq.to(_BF), dk.to(_BF), dv.to(_BF)
+    if weight_grads:
+        dwqkv = torch.cat([_mm(h16.T, dq16), _mm(k_src.T, dk16),
+                           _mm(v_src.T, dv16)], -1)
+        dbqkv = torch.cat([dq.sum(0), dk.sum(0), dv.sum(0)])
+    dk_src = _mm(dk16, w16[:, d:2 * d].T).reshape(b, s_len, d)
+    dv_src = _mm(dv16, w16[:, 2 * d:].T).reshape(b, s_len, d)
+    dpk = dk_src[:, :n_p].to(pk.dtype)
+    dpv = dv_src[:, :n_p].to(pv.dtype)
+    dh = _mm(dq16, w16[:, :d].T) + (dk_src[:, n_p:]
+                                     + dv_src[:, n_p:]).reshape(b * t, d)
+    if weight_grads:
+        dls = (dh * xhat).sum(0)
+        dlb = dh.sum(0)
+    dxhat = dh * ln_scale.float()
+    dx_ln = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                    - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dx = (g32 + dx_ln).reshape(b, t, d).to(x.dtype)
+    return dx, dpk, dpv, dls, dlb, dwqkv, dbqkv, dwout, dbout
+
+
+# ---------------------------------------------------------------------------
+# KV-prefix variant: CUDA kernel chains
+# ---------------------------------------------------------------------------
+
+def _prefix_mask_arg(mask, t, s, device):
+    """The mask as the prefix kernels take it, with its row stride: one
+    (S,) key-mask row for every query (stride 0) where the mask broadcasts
+    from one, else the (T, S) matrix (stride S)."""
+    if mask is None:
+        return None, 0
+    m = mask.to(device=device, dtype=torch.float32)
+    if m.dim() >= 1 and m.shape[-1] == s and all(n == 1
+                                                 for n in m.shape[:-1]):
+        return m.reshape(s).contiguous(), 0
+    return torch.broadcast_to(m, (t, s)).contiguous(), s
+
+
+def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
+                    b_out, n_heads, mask):
+    """Operands of the prefix chain: the block's as ``_Prepared``, the
+    prompts cast to x's dtype then bf16 (as the TPU wrapper and kernel
+    cast them), the mask as ``_prefix_mask_arg`` gives it."""
+    op = "fused_prefix_attention_block"
+    b, t, d = x.shape
+    if pk.dim() != 3 or pk.shape != pv.shape or pk.shape[0] != b \
+            or pk.shape[2] != d or pk.shape[1] < 1:
+        raise ValueError(f"{op}: pk and pv must be (B, P, D) with P >= 1 "
+                         f"and x's B and D; got {tuple(pk.shape)}, "
+                         f"{tuple(pv.shape)} for x {tuple(x.shape)}")
+    _check_cuda(x, n_heads, prefix=pk.shape[1], op=op)
+    pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, None,
+                   None, 0.0)
+    pp.p = pk.shape[1]
+    pp.mask, pp.mask_rs = _prefix_mask_arg(mask, t, pp.p + t, x.device)
+    pk16, pv16 = (a.detach().to(x.dtype).to(_BF).contiguous().view(
+        b * pp.p, d) for a in (pk, pv))
+    return pp, pk16, pv16
+
+
+def _cuda_prefix_recompute(pp, pk16, pv16, n_heads, need_ctx=True):
+    """h16, qkv16 (B*T, 3D), kvp16 (B*P, 2D: K | V of the prefix rows) and
+    ctx16 of the forward, on the card."""
+    d, bp = pp.d, pp.b * pp.p
+    h16, _, qkv16, _ = _cuda_recompute(pp, n_heads, need_ctx=False)
+    kvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=pp.x.device)
+    for i, src in enumerate((pk16, pv16)):
+        lo = (i + 1) * d
+        _gemm(kvp16[:, i * d:(i + 1) * d], src, (d, 1),
+              pp.w_qkv[:, lo:lo + d], (3 * d, 1), bp, d, d,
+              bias=pp.b_qkv[lo:lo + d])
+    ctx16 = None
+    if need_ctx:
+        ctx16 = torch.empty(pp.m, d, dtype=_BF, device=pp.x.device)
+        _kernels.call("llc_attn_prefix_fwd", qkv16.data_ptr(),
+                      kvp16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
+                      ctx16.data_ptr(),
+                      pp.b, pp.t, pp.p, d, n_heads, (d // n_heads) ** -0.5,
+                      pp.stream)
+    return h16, qkv16, kvp16, ctx16
+
+
+def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
+                         b_out, n_heads, mask):
+    pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
+                                     b_qkv, w_out, b_out, n_heads, mask)
+    m, d = pp.m, pp.d
+    ctx16 = _cuda_prefix_recompute(pp, pk16, pv16, n_heads)[3]
+    x2 = pp.x.view(m, d)
+    y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m, d, d,
+              bias=pp.b_out, resid=x2)
+    LAUNCHES["fused_prefix_attention_fwd"] += 1
+    return y.view(pp.b, pp.t, d)
+
+
+def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
+                          w_out, n_heads, mask, weight_grads):
+    pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
+                                     b_qkv, w_out, None, n_heads, mask)
+    m, d, bp = pp.m, pp.d, pp.b * pp.p
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    h16, qkv16, kvp16, ctx16 = _cuda_prefix_recompute(
+        pp, pk16, pv16, n_heads, need_ctx=weight_grads)
+    g2, g16 = _grad_rows(pp, g)
+
+    dls, dlb, dwqkv, dbqkv, dwout, dbout = _zero_block_grads(d, dev)
+    if weight_grads:
+        dwout = _gemm(torch.empty(d, d, **f32), ctx16, (1, d), g16, (d, 1),
+                      d, d, m, splits=-1)
+        dbout = _colsum(g2)
+    dctx16 = _gemm(torch.empty(m, d, dtype=_BF, device=dev), g16, (d, 1),
+                   pp.w_out, (1, d), m, d, d)
+
+    dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
+    dkvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=dev)
+    dqkv32 = torch.empty(m, 3 * d, **f32) if weight_grads else None
+    dkvp32 = torch.empty(bp, 2 * d, **f32) if weight_grads else None
+    stats = torch.empty(pp.b * n_heads * pp.t * 3, **f32)
+    _kernels.call("llc_attn_prefix_bwd", qkv16.data_ptr(), kvp16.data_ptr(),
+                  dctx16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
+                  dqkv16.data_ptr(),
+                  _ptr(dqkv32), dkvp16.data_ptr(), _ptr(dkvp32),
+                  stats.data_ptr(), pp.b, pp.t, pp.p, d, n_heads,
+                  (d // n_heads) ** -0.5, pp.stream)
+
+    # dpk = dK16_pre @ W_k^T, dpv = dV16_pre @ W_v^T (:843-852)
+    dpkv = [_gemm(torch.empty(bp, d, **f32), dkvp16[:, i * d:(i + 1) * d],
+                  (2 * d, 1), pp.w_qkv[:, (i + 1) * d:(i + 2) * d],
+                  (1, 3 * d), bp, d, d) for i in range(2)]
+    dh = _gemm(torch.empty(m, d, **f32), dqkv16, (3 * d, 1), pp.w_qkv,
+               (1, 3 * d), m, d, 3 * d)
+    if weight_grads:
+        dwqkv = _gemm(torch.empty(d, 3 * d, **f32), h16, (1, d), dqkv16,
+                      (3 * d, 1), d, 3 * d, m, splits=-1)
+        # the prefix rows join the K and V contractions: dW_k += pk16^T dK,
+        # dW_v += pv16^T dV, through the residual epilogue in place
+        for i, src in enumerate((pk16, pv16)):
+            blk = dwqkv[:, (i + 1) * d:(i + 2) * d]
+            _gemm(blk, src, (1, d), dkvp16[:, i * d:(i + 1) * d], (2 * d, 1),
+                  d, d, bp, resid=blk)
+        dbqkv = _colsum(dqkv32)
+        dbqkv[d:] += _colsum(dkvp32)
+
+    dx = torch.empty_like(pp.x)
+    dhx = torch.empty(m, d, **f32) if weight_grads else None
+    _kernels.call("llc_ln_bwd", _DT[x.dtype], pp.x.data_ptr(),
+                  pp.gamma.data_ptr(), dh.data_ptr(), g2.data_ptr(),
+                  dx.data_ptr(), _ptr(dhx), m, d, EPS, pp.stream)
+    if weight_grads:
+        dls = _colsum(dhx)
+        dlb = _colsum(dh)
+    LAUNCHES["fused_prefix_attention_bwd"] += 1
+    dpk, dpv = (a.view(pp.b, pp.p, d).to(src.dtype)
+                for a, src in zip(dpkv, (pk, pv)))
+    return dx, dpk, dpv, dls, dlb, dwqkv, dbqkv, dwout, dbout
+
+
+# ---------------------------------------------------------------------------
+# the prefix op
+# ---------------------------------------------------------------------------
+
+def _prefix_forward(x, *args):
+    if x.device.type == "cpu":
+        return fused_prefix_attention_block_reference(x, *args)
+    if x.device.type == "cuda":
+        return _cuda_prefix_forward(x, *args)
+    raise RuntimeError(
+        f"fused_prefix_attention_block: no kernel for {x.device}")
+
+
+def _prefix_backward(x, g, *args):
+    if x.device.type == "cpu":
+        return fused_prefix_attention_block_reference_bwd(x, g, *args)
+    if x.device.type == "cuda":
+        return _cuda_prefix_backward(x, g, *args)
+    raise RuntimeError(
+        f"fused_prefix_attention_block: no kernel for {x.device}")
+
+
+class _FusedPrefixAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                n_heads, mask, weight_grads):
+        ctx.save_for_backward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
+                              w_out, b_out)
+        ctx.n_heads, ctx.mask, ctx.weight_grads = n_heads, mask, weight_grads
+        return _prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
+                               w_out, b_out, n_heads, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        primals = ctx.saved_tensors
+        x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out, _ = primals
+        grads = _prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv,
+                                 b_qkv, w_out, ctx.n_heads, ctx.mask,
+                                 ctx.weight_grads)
+        # each grad in its primal's dtype (``_prefix_bwd:687-693``); frozen
+        # primals get none
+        out = tuple(gr.to(p.dtype).reshape(p.shape) if need else None
+                    for gr, p, need in zip(grads, primals,
+                                           ctx.needs_input_grad))
+        return out + (None, None, None)
+
+
+def fused_prefix_attention_block(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
+                                 w_out, b_out, n_heads: int, mask=None,
+                                 weight_grads: bool = True, rows_fwd=None,
+                                 rows_bwd=None):
+    """Prompted block half: x + out_proj(MHA(q = LN(x); K from [pk; LN(x)],
+    V from [pv; LN(x)])), with the JAX op's signature.
+
+    ``pk``/``pv`` (B, P, D): prompt tokens, raw (the caller applies ln_1 if
+    it wants it); the same tensor or two. dx, dpk and dpv always flow.
+    ``mask``: additive, broadcastable to (T, P + T), e.g. (P + T,) with -inf
+    on dead prefix slots. ``weight_grads=False`` asserts the block weights
+    are frozen: their grads come back as exact zeros. ``rows_fwd`` and
+    ``rows_bwd`` are the TPU kernels' rows-per-program knobs; the CUDA
+    kernels tile by their own shapes and ignore them.
+    """
+    del rows_fwd, rows_bwd
+    return _FusedPrefixAttention.apply(x, pk, pv, ln_scale, ln_bias, w_qkv,
+                                       b_qkv, w_out, b_out, int(n_heads),
+                                       mask, bool(weight_grads))

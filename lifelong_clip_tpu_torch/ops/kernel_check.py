@@ -1,4 +1,5 @@
-"""Hold the fused block's kernels against their plain versions.
+"""Hold the fused block's kernels, and their KV-prefix variant, against
+their plain versions.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py`` run this on the
 card. Each output is compared on the part of it that the kernels compute,
@@ -17,6 +18,12 @@ output (a flipped rounding moves a value by one ulp, at most 2**-7 of it):
 ``make_inputs`` draws the out-projection weights at std D**-0.5 and the
 LoRA B factors at std 1, so that each term a check is meant to see is at
 least ``MARGIN`` times that check's tolerance; ``check_case`` asserts it.
+
+The prefix case (``make_prefix_inputs``, ``check_prefix_case``) holds y on
+y - x, dx on dx - g, dpk, dpv and, with ``weight_grads``, every block grad
+in the same way; asserts that the prefix's share of y (y against y with
+every slot dead) is visible to the y check; and asserts that the grads of
+the dead prefix slots are exactly zero.
 """
 
 from __future__ import annotations
@@ -143,4 +150,71 @@ def check_case(x, blk, lora, gy, mask, heads, s, weight_grads):
                 assert got.dtype == lora[key].dtype, f"lora d{key} dtype"
                 want = dlora[key].to(got.dtype)
                 _held(rep, f"lora_d{key}", got, want, want, REL_BWD)
+    return rep
+
+
+def make_prefix_inputs(b, t, d, heads, p, live, seed, device="cuda"):
+    """bf16 prefix-block inputs from a seed: x, distinct pk and pv (B, P, D)
+    at std 2, so that live slots carry a visible share of the attention,
+    the block weights, the output grad, and a (P + T,) fp32 mask with 0 on
+    the first ``live`` prefix slots and on the tokens, -inf on the rest."""
+    x, blk, _, gy, _ = make_inputs(b, t, d, heads, 0, False, seed, device)
+    g = torch.Generator(device=device).manual_seed(seed + 1000)
+    pk, pv = ((2.0 * torch.randn(b, p, d, generator=g, device=device)).to(
+        torch.bfloat16) for _ in range(2))
+    mask = torch.zeros(p + t, device=device)
+    mask[live:p] = float("-inf")
+    return x, pk, pv, blk, gy, mask
+
+
+def check_prefix_case(x, pk, pv, blk, gy, mask, heads, weight_grads):
+    """Run the prefix op forward and backward through autograd on ``x``'s
+    device and hold y, dx, dpk, dpv and the block grads against the plain
+    versions; ``mask`` is None, (P + T,) or (T, P + T). Raises
+    AssertionError on disagreement; returns the errors and term sizes."""
+    rep = {}
+    n_p = pk.shape[1]
+    ref_args = [blk[k] for k in BLOCK_KEYS]
+    xl, pkl, pvl = (a.detach().clone().requires_grad_(True)
+                    for a in (x, pk, pv))
+    bl = {k: v.detach().clone().requires_grad_(True) for k, v in blk.items()}
+    y = fba.fused_prefix_attention_block(xl, pkl, pvl,
+                                         *[bl[k] for k in BLOCK_KEYS], heads,
+                                         mask, weight_grads)
+    y.backward(gy)
+    s_len = n_p + x.shape[1]
+    full = torch.zeros(x.shape[1], s_len, device=x.device)
+    if mask is not None:
+        full = torch.broadcast_to(mask.float(), full.shape).clone()
+    dead = torch.isneginf(full[:, :n_p]).all(0)   # no query sees the slot
+    with torch.no_grad():
+        y_ref = fba.fused_prefix_attention_block_reference(
+            x, pk, pv, *ref_args, heads, mask)
+        grads = fba.fused_prefix_attention_block_reference_bwd(
+            x, gy, pk, pv, *ref_args[:5], heads, mask, weight_grads)
+        tol_y = _held(rep, "y", y, y_ref, y_ref.float() - x.float(), REL_FWD)
+        if not bool(dead.all()):
+            none = full.clone()
+            none[:, :n_p] = float("-inf")
+            y_none = fba.fused_prefix_attention_block_reference(
+                x, pk, pv, *ref_args, heads, none)
+            _visible(rep, "prefix_term", y_ref.float() - y_none.float(),
+                     tol_y, y_ref)
+        dx_ln = grads[0].float() - gy.float()
+        tol_dx = _held(rep, "dx", xl.grad, grads[0], dx_ln, REL_BWD)
+        _visible(rep, "dx_ln_term", dx_ln, tol_dx, grads[0])
+        for key, leaf, want in (("dpk", pkl, grads[1]),
+                                ("dpv", pvl, grads[2])):
+            got = leaf.grad
+            assert got.dtype == leaf.dtype, f"{key} dtype"
+            _held(rep, key, got, want.to(got.dtype), want, REL_BWD)
+            assert not bool(got[:, dead].any()), \
+                f"{key}: a dead prefix slot has a nonzero grad"
+        for key, want in zip(BLOCK_KEYS, grads[3:]):
+            got = bl[key].grad
+            if weight_grads:
+                want = want.to(got.dtype).reshape(got.shape)
+                _held(rep, f"d{key}", got, want, want, REL_BWD)
+            else:
+                assert float(got.abs().max()) == 0.0, f"d{key} is not zero"
     return rep

@@ -165,3 +165,48 @@ def test_lora_grads_match_jax(weights, impl, jimpl):
         assert float(np.abs(ref).max()) > 0, k
         np.testing.assert_allclose(got, ref, rtol=tol,
                                    atol=tol * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("impl,jimpl", ROUTES)
+def test_transformer_with_distinct_kv_prompts_matches_jax(weights, impl,
+                                                          jimpl):
+    """KV-prefix prompts as a {'k', 'v'} pair of (L, P, D) tensors
+    (broadcast over the batch), with ln_1 applied to them, a dead slot in
+    layer 0 and every slot dead in the last layer: the output and the grads
+    of both prompt tensors."""
+    frozen, _, _, tfrozen, *_ = weights
+    n_l, d, n_p = JTINY.vision_layers, JTINY.vision_width, 3
+    rng = np.random.default_rng(5)
+    x, pk, pv = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((2, 5, d), (n_l, n_p, d), (n_l, n_p, d)))
+    valid = np.ones((n_l, n_p), bool)
+    valid[0, 1] = False
+    valid[-1] = False
+
+    def jloss(pk, pv):
+        y = jclip.transformer(jnp.asarray(x), frozen["vision"]["blocks"],
+                              JTINY.vision_heads,
+                              layer_prompts={"k": pk, "v": pv},
+                              layer_prompt_valid=jnp.asarray(valid),
+                              prompt_ln=True, attn_impl=jimpl)
+        return jnp.sum(y ** 2), y
+
+    (_, want), (jdpk, jdpv) = _jax(lambda: jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(pk),
+                                              jnp.asarray(pv)), jimpl)
+    tpk, tpv = (torch.tensor(a, requires_grad=True) for a in (pk, pv))
+    got = tclip.transformer(torch.tensor(x), tfrozen["vision"]["blocks"],
+                            TINY.vision_heads,
+                            layer_prompts={"k": tpk, "v": tpv},
+                            layer_prompt_valid=valid, prompt_ln=True,
+                            attn_impl=impl)
+    (got ** 2).sum().backward()
+    # as the towers above: "fused" rounds at the prefix kernel's bf16 points
+    tol_y, tol_g = (2e-3, 1e-2) if impl == "fused" else (1e-4, 1e-4)
+    for g, w, tol in ((got.detach(), want, tol_y), (tpk.grad, jdpk, tol_g),
+                      (tpv.grad, jdpv, tol_g)):
+        w = np.asarray(w)
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g.numpy(), w, rtol=tol, atol=tol * scale)
+    assert float(tpk.grad[0, 1].abs().max()) == 0.0
+    assert float(tpv.grad[-1].abs().max()) == 0.0

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+unfused attention road's fp32 products, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``) and skips
 without one. On the card, without JAX (this file imports torch only):
@@ -67,7 +68,9 @@ def test_op_launches_kernels_and_counts_them(cuda):
     y = fba.fused_ln_attention_block(x, *blk, 2, 0.25, None, lora, False)
     y.backward(gy)
     assert fba.LAUNCHES == {"fused_ln_attention_fwd": 1,
-                            "fused_ln_attention_bwd": 1}
+                            "fused_ln_attention_bwd": 1,
+                            "fused_prefix_attention_fwd": 0,
+                            "fused_prefix_attention_bwd": 0}
     for k in LORA_KEYS:   # bf16 primals get bf16 grads
         assert lora[k].grad.dtype == torch.bfloat16, k
 
@@ -77,3 +80,109 @@ def test_unsupported_shape_raises_on_the_card(cuda):
     x, blk, _, _ = _inputs(cuda, 1, 9, 96, 0)
     with pytest.raises(ValueError):
         fba.fused_ln_attention_block(x, *blk, 2)   # head dim 48
+
+
+# KV-prefix block: (b, t, d, heads, P, live slots, weight_grads). Head dims
+# 64, 32 and 16; T and P on and off a multiple of 16; the mvp-clip block's
+# T = 197 with P = 20 (5 live, as its g-prompt layers); no live slot; and
+# S = P + T = 256, the kernels' limit
+PREFIX_CASES = [(2, 13, 128, 2, 5, 2, False), (2, 197, 192, 3, 20, 5, True),
+                (3, 77, 256, 4, 20, 0, False), (2, 9, 64, 4, 3, 3, True),
+                (2, 200, 128, 2, 56, 56, False)]
+
+
+@pytest.mark.parametrize("b,t,d,heads,p,live,wg", PREFIX_CASES)
+def test_prefix_kernels_match_plain_versions(cuda, b, t, d, heads, p, live,
+                                             wg):
+    """y on y - x, dx on dx - g, dpk, dpv and the block grads, with the
+    tolerances stated in ``ops/kernel_check.py``; dead slots' grads are
+    exactly zero."""
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(b, t, d, heads, p, live,
+                                                     0, device=cuda)
+    kc.check_prefix_case(x, pk, pv, blk, gy, mask, heads, wg)
+
+
+def test_prefix_kernels_take_a_full_mask(cuda):
+    """A (T, P + T) mask (the text tower's causal mask with a prefix, plus
+    dead slots) goes to the kernels as a matrix, not as one key-mask row."""
+    from lifelong_clip_tpu_torch.ops.attention import causal_mask
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(3, 77, 256, 4, 8, 5, 3,
+                                                     device=cuda)
+    full = causal_mask(77, prefix=8, device=cuda) + mask[None, :]
+    assert fba._prefix_mask_arg(full, 77, 85, cuda)[1] == 85
+    assert fba._prefix_mask_arg(mask, 77, 85, cuda)[1] == 0
+    kc.check_prefix_case(x, pk, pv, blk, gy, full, 4, True)
+
+
+def test_prefix_backward_is_deterministic(cuda):
+    x, pk, pv, blk, _, mask = kc.make_prefix_inputs(4, 197, 192, 3, 20, 5,
+                                                    1, device=cuda)
+    gy = torch.randn_like(x)
+    args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], 3, mask, True)
+    first = fba._cuda_prefix_backward(x, gy, *args)
+    second = fba._cuda_prefix_backward(x, gy, *args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_prefix_op_launches_kernels_and_counts_them(cuda):
+    """One tensor as pk and pv (mvp-clip): both grads reach it."""
+    x, pk, _, blk, gy, mask = kc.make_prefix_inputs(2, 13, 128, 2, 5, 2, 2,
+                                                    device=cuda)
+    pk = pk.requires_grad_()
+    fba.reset_launches()
+    y = fba.fused_prefix_attention_block(
+        x, pk, pk, *[blk[k] for k in kc.BLOCK_KEYS], 2, mask, False)
+    y.backward(gy)
+    assert fba.LAUNCHES["fused_prefix_attention_fwd"] == 1
+    assert fba.LAUNCHES["fused_prefix_attention_bwd"] == 1
+    assert pk.grad.dtype == torch.bfloat16
+    assert float(pk.grad[:, :2].abs().max()) > 0
+    assert float(pk.grad[:, 2:].abs().max()) == 0.0
+
+
+def test_prefix_key_limit_raises_on_the_card(cuda):
+    x, pk, pv, blk, _, _ = kc.make_prefix_inputs(1, 197, 192, 3, 60, 60, 0,
+                                                 device=cuda)
+    with pytest.raises(ValueError, match="S = P \\+ T <= 256"):
+        fba.fused_prefix_attention_block(
+            x, pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], 3)
+
+
+def test_unfused_road_keeps_fp32_on_the_card(cuda):
+    """The unfused road's products stay fp32 on the card, as on the CPU and
+    in JAX, even with TF32 turned on globally: bf16 operands are upcast,
+    whose products are exact in fp32, and TF32 is off for the product."""
+    from lifelong_clip_tpu_torch.ops import attention as att
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    q = torch.randn(2, 4, 77, 64, generator=g).to(bf)
+    k = torch.randn(2, 4, 97, 64, generator=g).to(bf)
+    x = torch.randn(2, 77, 256, generator=g).to(bf)
+    params = {"w_qkv": (0.06 * torch.randn(256, 768, generator=g)).to(bf),
+              "b_qkv": (0.1 * torch.randn(768, generator=g)).to(bf),
+              "w_out": (0.06 * torch.randn(256, 256, generator=g)).to(bf),
+              "b_out": (0.1 * torch.randn(256, generator=g)).to(bf)}
+    x_kv = torch.cat([torch.randn(2, 20, 256, generator=g).to(bf), x], 1)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        s_card = att.mm32(q.to(cuda), k.to(cuda).transpose(-1, -2)).cpu()
+        y_card = att.multi_head_attention(
+            x.to(cuda), {n: a.to(cuda) for n, a in params.items()}, 4,
+            x_kv=x_kv.to(cuda)).cpu()
+        assert torch.backends.cuda.matmul.allow_tf32   # restored
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    s_cpu = att.mm32(q, k.transpose(-1, -2))
+    y_cpu = att.multi_head_attention(x, params, 4, x_kv=x_kv)
+    assert s_card.dtype == torch.float32
+    # fp32 scores: summation order only (64-term sums of exact products)
+    torch.testing.assert_close(s_card, s_cpu, rtol=1e-5,
+                               atol=1e-5 * float(s_cpu.abs().max()))
+    # bf16 output rounded once from fp32: what differs is a flipped rounding
+    # of the bf16 q/k/v, p or ctx, whose size follows the terms summed, not
+    # the output element; one bf16 ulp at the output's scale
+    scale = float(y_cpu.float().abs().max())
+    torch.testing.assert_close(y_card.float(), y_cpu.float(), rtol=0,
+                               atol=2.0 ** -7 * scale)
