@@ -7,33 +7,41 @@
 2. Builds the CUDA kernels from lifelong_clip_tpu_torch/csrc.
 3. Kernel phase: the fused LN-attention block, forward and backward, at the
    ViT-B/16 vision shape (64 x 197 x 768, 12 heads, LoRA r=4, bf16, no mask)
-   and the text shape (20 and 64 x 77 x 512, 8 heads, causal), and the
+   and the text shape (20 and 64 x 77 x 512, 8 heads, causal), the
    KV-prefix block at the mvp-clip shape (64 x 197 x 768, P = 20 prompt
    slots, 12 heads, bf16; 5 live slots, none live, and 20 live with
-   weight_grads=True), run through the ops' autograd Functions as the train
-   step runs them, against the plain PyTorch versions on the same inputs on
-   the card: y on y - x, qkv on the LoRA-in term, dx on dx - g, dpk, dpv and
-   every grad (LoRA grads in the LoRA primal's dtype; dead prefix slots'
-   grads exactly zero), each beyond one bf16 ulp within a stated fraction of
-   the term it checks (``lifelong_clip_tpu_torch/ops/kernel_check.py``);
-   timed beside the plain version and an SDPA-based composition (a
-   yardstick only; the port never calls it).
+   weight_grads=True), and the flash-attention op at four shapes (the
+   prompted-LoRA block, B*H = 768, T = 197, S = 217, dh 64, with no mask and
+   with a (S,) key row of 5 live prompt slots; the text tower, 64 rows x 8
+   heads, T = S = 77, causal; ViT-L/14 with no prefix, 64 x 257 x 1024, 16
+   heads, S = 257), each run through its op's autograd Function as the
+   train step runs it, against the plain PyTorch versions on the same
+   inputs on the card, with the tolerances stated in
+   ``lifelong_clip_tpu_torch/ops/kernel_check.py``; timed beside the plain
+   version and a library yardstick the port never calls (an SDPA-based
+   composition of the block; for flash, ``scaled_dot_product_attention`` on
+   the fp32-upcast inputs), with each case's bound and, for flash, the
+   fp32 CUDA-core ceiling.
 4. Main paths, each with the launch counters set to 0 just before it and
    read just after: ``lifelong_clip_tpu_torch.main.main`` runs lora-clip on
-   ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment), then mvp-clip
-   on ViT-B/16 at bs=64 (synthetic-20, 2 tasks, online_iter 3, --use_mask
-   --use_contrastiv, no AutoAugment); the kernels' launch counters must grow
-   in every pass (mvp-clip train: prefix forward and backward and the block
-   forward of the query pass; eval: prefix and block forward; text: block
-   forward), every loss must be finite, mvp-clip's prompt counts must move
-   and result.txt must exist.
-5. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip and
-   mvp-clip train steps on one batch lower the loss by more than 0.02;
-   each prints step ms and samples/s, then a torch.profiler window over 3
-   more steps (device ms a step by kernel, the device's idle share).
+   ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment), mvp-clip
+   (online_iter 3, --use_mask --use_contrastiv) and MaPLe (online_iter 3,
+   AdamW, lr 5e-4, ``scripts/maple.sh``); the kernels' launch counters must
+   grow in every pass (MaPLe train: 12 vision and 12 text block forwards
+   and backwards a step), every loss must be finite, mvp-clip's prompt
+   counts must move and result.txt must exist. Then the prompted-LoRA
+   path, which no registered method builds (``encode_image`` with LoRA r=4
+   and (12, 64, 20, 768) raw KV prompts, bs 64, ``ce_on_probs_loss``, AdamW
+   over LoRA and prompts): 3 train steps and one eval forward, 12 flash
+   launches forward and 12 backward a step.
+5. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip,
+   mvp-clip, MaPLe and prompted-LoRA train steps on one batch lower the
+   loss by more than 0.02; each prints step ms and samples/s, then a
+   torch.profiler window over 3 more steps (device ms a step by kernel, the
+   device's idle share).
 
 Any failure raises and exits non-zero. The line before the last is the
-``kernels`` JSON object; the last line is
+``kernels`` JSON object (six kernels); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -48,6 +56,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 REPLACES = {
     "fused_ln_attention_fwd":
         "lifelong_clip_tpu/ops/fused_block_attn.py:56",
@@ -57,6 +66,8 @@ REPLACES = {
         "lifelong_clip_tpu/ops/fused_block_attn.py:524",
     "fused_prefix_attention_bwd":
         "lifelong_clip_tpu/ops/fused_block_attn.py:699",
+    "flash_attention_fwd": "lifelong_clip_tpu/ops/flash_attention.py:32",
+    "flash_attention_bwd": "lifelong_clip_tpu/ops/flash_attention.py:128",
 }
 MVP_SHAPE = (64, 197, 768, 12, 20)   # B, T, D, heads, prompt slots P
 
@@ -342,9 +353,99 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True):
         [a.detach().clone().requires_grad_(True) for a in (x, pk, pv)], gy)
 
 
+# (label, B, T, S, D, heads, mask): the prompted-LoRA block of ViT-B/16
+# (20 raw KV prompt slots, S = 217) with no mask and with mvp-clip's (S,)
+# key row of 5 live slots; the text tower's causal shape; ViT-L/14 with no
+# prefix, S = 257 > 256 (no key limit)
+FLASH_CASES = (("prompted-LoRA", 64, 197, 217, 768, 12, None),
+               ("prompted-LoRA, 5 of 20 slots live", 64, 197, 217, 768, 12,
+                5),
+               ("text causal", 64, 77, 77, 512, 8, "causal"),
+               ("ViT-L/14, S = 257", 64, 257, 257, 1024, 16, None))
+
+
+def flash_cost(b, t, s, d, heads, mask, backward, es=2):
+    """(flops, bytes) of attention on projected q, k, v for this run's
+    data: the products over the (query, key) pairs the mask leaves live (2
+    forward: q k^T and p v; 5 backward: the recomputed scores, dv, dp, dq,
+    dk); each input read once and each output written once (q, k, v and o;
+    q, k, v, g and dq, dk, dv), the mask included."""
+    import torch
+    dh = d // heads
+    if mask is None:
+        pairs, mbytes = t * s, 0
+    else:
+        full = torch.broadcast_to(mask.float(), (t, s))
+        pairs, mbytes = int(torch.isfinite(full).sum()), mask.numel() * 4
+    flops = (5 if backward else 2) * 2 * b * heads * pairs * dh
+    rows = 3 * t + 4 * s if backward else 2 * t + 2 * s
+    return flops, rows * b * d * es + mbytes
+
+
+def library_flash(q, k, v, heads, mask):
+    """F.scaled_dot_product_attention on (B, L, D) fp32 inputs under the
+    same additive mask: the yardstick."""
+    import torch.nn.functional as F
+    b, t, d = q.shape
+    q, k, v = (a.reshape(b, -1, heads, d // heads).transpose(1, 2)
+               for a in (q, k, v))
+    am = None if mask is None else \
+        mask.float().broadcast_to(t, k.shape[2]).contiguous()
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    return out.transpose(1, 2).reshape(b, t, d)
+
+
+def flash_kernel_case(label, b, t, s, d, heads, mask, seed):
+    """The flash op at one shape: checked through its autograd Function
+    against the plain versions, timed beside them and beside SDPA on the
+    fp32-upcast inputs (its backward by autograd)."""
+    import torch
+    from lifelong_clip_tpu_torch.ops import flash_attention as fa
+    from lifelong_clip_tpu_torch.ops import kernel_check as kc
+    q, k, v, gy, m = kc.make_flash_inputs(b, t, s, d, heads, seed, mask)
+    checks = kc.check_flash_case(q, k, v, gy, m, heads)
+    torch.cuda.synchronize()
+    log(f"flash {label}: checks {json.dumps(checks)}")
+    res = {"label": label, "shape": [b, t, s, d], "heads": heads,
+           "mask": None if mask is None else str(mask),
+           "fwd_max_abs_err": checks["o"]["max_abs_err"],
+           "bwd_max_abs_err": max(checks[n]["max_abs_err"]
+                                  for n in ("dq", "dk", "dv"))}
+    for pre, bwd in (("fwd", False), ("bwd", True)):
+        fl, by = flash_cost(b, t, s, d, heads, m, bwd)
+        res[f"{pre}_bound_ms"], res[f"{pre}_bound_by"] = bound_ms(fl, by)
+        res[f"{pre}_gflop"], res[f"{pre}_mbytes"] = fl / 1e9, by / 1e6
+        res[f"{pre}_fp32_ceiling_ms"] = fl / PEAK_FP32_FLOPS * 1e3
+    wrt = [a.detach().float().requires_grad_(True) for a in (q, k, v)]
+    res = time_case(
+        f"flash {label}", res, lambda: fa._cuda_forward(q, k, v, heads, m),
+        lambda: fa.flash_attention_reference(q, k, v, heads, m),
+        lambda: fa._cuda_backward(q, k, v, gy, heads, m),
+        lambda: fa.flash_attention_reference_bwd(q, k, v, gy, heads, m),
+        lambda *a: library_flash(*a, heads, m), wrt, gy.float())
+    log(f"flash {label}: fp32 CUDA-core ceiling fwd "
+        f"{res['fwd_fp32_ceiling_ms']:.4f} ms, bwd "
+        f"{res['bwd_fp32_ceiling_ms']:.4f} ms")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # main path and learning gate
 # ---------------------------------------------------------------------------
+
+def launch_counts():
+    """Every kernel op's launch count, in one dict."""
+    from lifelong_clip_tpu_torch.ops import flash_attention as fa
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    return {**fba.LAUNCHES, **fa.LAUNCHES}
+
+
+def reset_launches():
+    from lifelong_clip_tpu_torch.ops import flash_attention as fa
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    fba.reset_launches()
+    fa.reset_launches()
+
 
 def run_main_path(label, module, factories, argv, loss_of):
     """Drive ``main(argv)`` with the launch counters set to 0 just before
@@ -354,17 +455,16 @@ def run_main_path(label, module, factories, argv, loss_of):
     import numpy as np
     import torch
     from lifelong_clip_tpu_torch import main as cli
-    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
 
-    per_pass = {p: {k: 0 for k in fba.LAUNCHES} for p in factories}
+    per_pass = {p: {k: 0 for k in launch_counts()} for p in factories}
     outs = []
 
     def counting(pass_name, fn):
         def wrapped(*a, **kw):
-            before = dict(fba.LAUNCHES)
+            before = launch_counts()
             out = fn(*a, **kw)
-            for k in fba.LAUNCHES:
-                per_pass[pass_name][k] += fba.LAUNCHES[k] - before[k]
+            for k, n in launch_counts().items():
+                per_pass[pass_name][k] += n - before[k]
             if pass_name == "train":
                 outs.append(out)
             return out
@@ -376,12 +476,12 @@ def run_main_path(label, module, factories, argv, loss_of):
             _p, orig[_p](*a, **kw)))
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            fba.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             result = cli.main(argv + ["--log_path", tmp, "--device", "cuda"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(fba.LAUNCHES)
+            launches = launch_counts()
             found = [os.path.join(r, "result.txt")
                      for r, _, fs in os.walk(tmp) if "result.txt" in fs]
             assert found, f"{label} main path wrote no result.txt"
@@ -447,6 +547,32 @@ def mvp_main_path_phase():
                       "count": torch.stack(counts)[-1].tolist()}
 
 
+def maple_main_path_phase():
+    """MaPLe on ViT-B/16 through ``main`` (``scripts/maple.sh``): kernels
+    #1 and #2 in the vision tower (T = 197 + 3 = 200) and in the trained
+    text tower (causal, one row a class of the step) in every train step,
+    #1 in the eval and text passes."""
+    from lifelong_clip_tpu_torch.methods import maple
+    launches, per_pass, outs, wall = run_main_path(
+        "maple", maple,
+        {"train": "make_train_step", "eval": "make_maple_eval_step",
+         "text": "make_maple_text_fn"},
+        ["--method", "maple", "--model_name", "ViT-B/16", "--dataset",
+         "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
+         "--online_iter", "3", "--lr", "5e-4", "--opt_name", "adamw",
+         "--transforms"],
+        lambda st: float(st["loss"]))
+    tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
+    steps = len(outs)
+    # 12 vision and 12 text blocks a step, forward and backward
+    assert tr["fused_ln_attention_fwd"] == tr["fused_ln_attention_bwd"] \
+        == 24 * steps, f"train pass launches {tr} over {steps} steps"
+    assert ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
+    assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
+    return launches, {"train_steps": steps, "wall_s": wall,
+                      "per_pass": per_pass}
+
+
 MEAN = (0.48145466, 0.4578275, 0.40821073)
 STD = (0.26862954, 0.26130258, 0.27577711)
 MVP_GATE_LR = 1e-2   # AdamW moves keys and prompts ~lr a step
@@ -468,23 +594,52 @@ def gate_batch(cfg, n_cls, bs):
             torch.from_numpy(tokens))
 
 
+def gate_loop(label, run_step, bs, card, **info):
+    """The learning gate (bench.py:98-104): 22 steps of ``run_step`` (one
+    train step on one batch, returning its loss) must lower the loss by more
+    than 0.02. Returns the losses, step ms and samples/s of the last 20
+    steps, and a torch.profiler window over 3 more."""
+    loss_first = float(run_step())
+    float(run_step())
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = run_step()
+    loss_last = float(loss)
+    dt = time.perf_counter() - t0
+    assert loss_last < loss_first - 0.02, (
+        f"{label} train steps did not learn: loss {loss_first:.4f} -> "
+        f"{loss_last:.4f} after {iters + 2} updates on one batch")
+    step_ms = dt / iters * 1e3
+    return {"learning_gate": "ok", "label": label, "loss_first": loss_first,
+            "loss_last": loss_last, "step_ms": step_ms,
+            "samples_per_s": bs * iters / dt, "batchsize": bs, **info,
+            "card": card, "profile": step_profile(run_step, step_ms)}
+
+
+def frozen_vit_b16(dev):
+    """ViT-B/16 from seed 0, its towers cast to bf16 once."""
+    import torch
+    from lifelong_clip_tpu_torch.models import build_clip
+    from lifelong_clip_tpu_torch.models.clip import cast_towers
+    params, cfg = build_clip("ViT-B/16", gen=torch.Generator().manual_seed(0),
+                             device=dev)
+    return params, cast_towers(params, torch.bfloat16), cfg
+
+
 def learning_gate(card):
     import torch
-    from lifelong_clip_tpu_torch.config import CLIP_PRESETS, PEFTConfig
+    from lifelong_clip_tpu_torch.config import PEFTConfig
     from lifelong_clip_tpu_torch.methods.engine import (
         TrainState, make_text_feature_fn, make_train_step)
-    from lifelong_clip_tpu_torch.models import build_clip, build_peft
-    from lifelong_clip_tpu_torch.models.clip import cast_towers
+    from lifelong_clip_tpu_torch.models import build_peft
     from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
 
     dev = torch.device("cuda")
-    cfg = CLIP_PRESETS["ViT-B/16"]
+    _, frozen, cfg = frozen_vit_b16(dev)
     peft_cfg = PEFTConfig(method="lora", encoder="image", lora_r=4)
-    params, _ = build_clip("ViT-B/16", gen=torch.Generator().manual_seed(0),
-                           device=dev)
     peft = build_peft(torch.Generator().manual_seed(1), cfg, peft_cfg,
                       device=dev)
-    frozen = cast_towers(params, torch.bfloat16)
     state = TrainState(trainable=peft, frozen=frozen,
                        make_opt=lambda lv: make_optimizer("adamw", lv, 5e-4),
                        gen=torch.Generator().manual_seed(2))
@@ -495,23 +650,8 @@ def learning_gate(card):
     txt = make_text_feature_fn(cfg, peft_cfg)(frozen, peft, tokens.to(dev))
     batch = {"images": images.to(dev), "labels": labels.to(dev),
              "tokens": txt, "mask": torch.zeros(n_cls, device=dev)}
-    loss_first = float(step(state, batch)["loss"])
-    float(step(state, batch)["loss"])
-    iters = 20
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        m = step(state, batch)
-    loss_last = float(m["loss"])
-    dt = time.perf_counter() - t0
-    assert loss_last < loss_first - 0.02, (
-        f"train steps did not learn: loss {loss_first:.4f} -> "
-        f"{loss_last:.4f} after {iters + 2} updates on one batch")
-    step_ms = dt / iters * 1e3
-    return {"learning_gate": "ok", "loss_first": loss_first,
-            "loss_last": loss_last, "step_ms": step_ms,
-            "samples_per_s": bs * iters / dt, "batchsize": bs,
-            "model": "ViT-B/16 LoRA r=4, no AutoAugment", "card": card,
-            "profile": step_profile(lambda: step(state, batch), step_ms)}
+    return gate_loop("lora-clip", lambda: step(state, batch)["loss"], bs,
+                     card, model="ViT-B/16 LoRA r=4, no AutoAugment")
 
 
 def mvp_learning_gate(card, lr=MVP_GATE_LR):
@@ -521,23 +661,16 @@ def mvp_learning_gate(card, lr=MVP_GATE_LR):
     batch size every step whatever the step learns, so on one batch it is
     no learning signal; the mean selected-key distance that replaces it is
     (and costs the same to compute)."""
-    import numpy as np
     import torch
-    from lifelong_clip_tpu_torch.config import CLIP_PRESETS
     from lifelong_clip_tpu_torch.methods.engine import TrainState
     from lifelong_clip_tpu_torch.methods.mvp_clip import (
         make_mvp_text_fn, make_mvp_train_step)
-    from lifelong_clip_tpu_torch.models import build_clip
-    from lifelong_clip_tpu_torch.models.clip import cast_towers
     from lifelong_clip_tpu_torch.models.mvp_clip import init_mvp_params
     from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
 
     dev = torch.device("cuda")
-    cfg = CLIP_PRESETS["ViT-B/16"]
+    _, frozen, cfg = frozen_vit_b16(dev)
     n_cls, bs = 64, 64
-    params, _ = build_clip("ViT-B/16", gen=torch.Generator().manual_seed(0),
-                           device=dev)
-    frozen = cast_towers(params, torch.bfloat16)
     mvp = init_mvp_params(torch.Generator().manual_seed(1), cfg, e_pool=10,
                           num_classes=n_cls, device=dev)
     state = TrainState(trainable=mvp, frozen=frozen,
@@ -550,37 +683,170 @@ def mvp_learning_gate(card, lr=MVP_GATE_LR):
              "txt": make_mvp_text_fn(cfg)(frozen, tokens.to(dev)),
              "mask": torch.zeros(n_cls, device=dev),
              "slot_globals": torch.arange(n_cls, device=dev)}
-    count = torch.zeros(10, device=dev)
-    count, m = step(state, batch, count)
-    loss_first = float(m["loss"])
-    count, m = step(state, batch, count)
-    float(m["loss"])
-    iters = 20
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        count, m = step(state, batch, count)
-    loss_last = float(m["loss"])
-    dt = time.perf_counter() - t0
-    assert loss_last < loss_first - 0.02, (
-        f"mvp-clip train steps did not learn: loss {loss_first:.4f} -> "
-        f"{loss_last:.4f} after {iters + 2} updates on one batch")
-    step_ms = dt / iters * 1e3
-    holder = [count]
+    holder = [torch.zeros(10, device=dev)]
 
     def one_step():
-        holder[0], _ = step(state, batch, holder[0])
+        holder[0], m = step(state, batch, holder[0])
+        return m["loss"]
 
-    return {"learning_gate": "ok", "loss_first": loss_first,
-            "loss_last": loss_last, "step_ms": step_ms,
-            "samples_per_s": bs * iters / dt, "batchsize": bs, "lr": lr,
-            "model": "ViT-B/16 mvp-clip (mask, P = 20), no AutoAugment",
-            "card": card,
-            "profile": step_profile(one_step, step_ms)}
+    return gate_loop("mvp-clip", one_step, bs, card, lr=lr,
+                     model="ViT-B/16 mvp-clip (mask, P = 20), no AutoAugment")
+
+
+def maple_setup(lr=5e-4):
+    """MaPLe's train step (``scripts/maple.sh``: ViT-B/16, AdamW, lr 5e-4)
+    through the engine's ``forward_fn`` on one batch of 64 images and a
+    64-class token table."""
+    import torch
+    from lifelong_clip_tpu_torch.config import PEFTConfig
+    from lifelong_clip_tpu_torch.methods.engine import (TrainState,
+                                                        make_train_step)
+    from lifelong_clip_tpu_torch.methods.maple import CTX_INIT
+    from lifelong_clip_tpu_torch.models.maple import (init_maple_params,
+                                                      maple_forward)
+    from lifelong_clip_tpu_torch.utils.tokenizer import default_tokenizer
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+
+    dev = torch.device("cuda")
+    params, frozen, cfg = frozen_vit_b16(dev)
+    learner = init_maple_params(
+        torch.Generator().manual_seed(1), params, cfg, n_ctx=3, depth=3,
+        ctx_init_tokens=default_tokenizer().encode(CTX_INIT), device=dev)
+    state = TrainState(trainable=learner, frozen=frozen,
+                       make_opt=lambda lv: make_optimizer("adamw", lv, lr),
+                       gen=torch.Generator().manual_seed(2))
+    step = make_train_step(
+        cfg, PEFTConfig(method="maple"), image_size=cfg.image_size,
+        mean=MEAN, std=STD, augment=True,
+        forward_fn=lambda f, tr, im, tok: maple_forward(f, tr, im, tok, cfg,
+                                                        3))
+    n_cls, bs = 64, 64
+    images, labels, tokens = gate_batch(cfg, n_cls, bs)
+    batch = {"images": images.to(dev), "labels": labels.to(dev),
+             "tokens": tokens.to(dev), "mask": torch.zeros(n_cls, device=dev)}
+    return state, step, batch
+
+
+def maple_learning_gate(card, lr=5e-4):
+    state, step, batch = maple_setup(lr)
+    return gate_loop("maple", lambda: step(state, batch)["loss"], 64, card,
+                     lr=lr, model="ViT-B/16 MaPLe (n_ctx 3, depth 3, 64 "
+                     "classes), no AutoAugment")
+
+
+PL_PROMPTS = 20
+
+
+def prompted_lora_setup(lr=5e-4, loss="ce_on_probs"):
+    """The prompted-LoRA tower step: ``encode_image`` on ViT-B/16 with LoRA
+    r=4, alpha 1 on the image tower and (12, 64, 20, 768) raw KV prompts,
+    ``attn_impl="fused"``, ``base_grads=False``; logits against cached
+    class-text features, ``ce_on_probs_loss``, AdamW over the LoRA tree and
+    the prompts. Every block takes the flash-attention op (a KV prefix with
+    LoRA). No registered method builds this block: it is the JAX package's
+    only road to its flash kernels. ``loss="ce"``: plain cross entropy on
+    the logits instead. Returns (cfg, state, step, batch, forward)."""
+    import torch
+    from lifelong_clip_tpu_torch.config import PEFTConfig
+    from lifelong_clip_tpu_torch.methods.engine import (
+        TrainState, ce_on_probs_loss, make_text_feature_fn, make_train_step)
+    from lifelong_clip_tpu_torch.models import build_peft
+    from lifelong_clip_tpu_torch.models import clip as clip_fns
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+
+    dev = torch.device("cuda")
+    _, frozen, cfg = frozen_vit_b16(dev)
+    peft_cfg = PEFTConfig(method="lora", encoder="image", lora_r=4)
+    peft = build_peft(torch.Generator().manual_seed(1), cfg, peft_cfg,
+                      device=dev)
+    n_cls, bs = 64, 64
+    prompts = torch.randn(cfg.vision_layers, bs, PL_PROMPTS,
+                          cfg.vision_width,
+                          generator=torch.Generator().manual_seed(3)).to(dev)
+    state = TrainState(trainable={"vision": peft["vision"],
+                                  "prompts": prompts},
+                       frozen=frozen,
+                       make_opt=lambda lv: make_optimizer("adamw", lv, lr),
+                       gen=torch.Generator().manual_seed(2))
+
+    def forward(frozen, trainable, images, txt):
+        img = clip_fns.normalize(clip_fns.encode_image(
+            frozen, images, cfg, peft_cfg=peft_cfg,
+            peft=trainable["vision"], layer_prompts=trainable["prompts"],
+            attn_impl="fused", base_grads=False))
+        scale = torch.exp(frozen["logit_scale"]).float()
+        return scale * (img.float() @ txt.float().T), img, txt
+
+    step = make_train_step(cfg, peft_cfg, image_size=cfg.image_size,
+                           mean=MEAN, std=STD, augment=True,
+                           forward_fn=forward,
+                           loss_fn=ce_on_probs_loss if loss == "ce_on_probs"
+                           else None)
+    images, labels, tokens = gate_batch(cfg, n_cls, bs)
+    txt = make_text_feature_fn(cfg, peft_cfg)(frozen, peft, tokens.to(dev))
+    batch = {"images": images.to(dev), "labels": labels.to(dev),
+             "tokens": txt, "mask": torch.zeros(n_cls, device=dev)}
+    return cfg, state, step, batch, forward
+
+
+def prompted_lora_phase(steps=3):
+    """The flash kernels' path: ``steps`` prompted-LoRA train steps and one
+    eval forward, with the launch counters set to 0 just before and read
+    just after. Each step must launch flash 12 times forward and 12 times
+    backward, the eval forward 12 times, and nothing else."""
+    import numpy as np
+    import torch
+    from lifelong_clip_tpu_torch.ops import preprocess
+    cfg, state, step, batch, forward = prompted_lora_setup()
+    eval_pipe = preprocess.make_eval_pipeline(cfg.image_size, MEAN, STD)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    per_step, losses = [], []
+    for _ in range(steps):
+        before = launch_counts()
+        losses.append(float(step(state, batch)["loss"]))
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    with torch.no_grad():
+        logits, img, _ = forward(state.frozen, state.trainable,
+                                 eval_pipe(batch["images"]), batch["tokens"])
+    ok = bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    assert np.isfinite(losses).all() and ok, (losses, ok)
+    assert tuple(img.shape) == (64, cfg.embed_dim), img.shape
+    for d in per_step:
+        assert d["flash_attention_fwd"] == d["flash_attention_bwd"] == \
+            cfg.vision_layers, d
+    assert launches["flash_attention_fwd"] == cfg.vision_layers * (steps + 1) \
+        and launches["flash_attention_bwd"] == cfg.vision_layers * steps \
+        and sum(launches.values()) == cfg.vision_layers * (2 * steps + 1), \
+        launches
+    log(f"prompted-LoRA path: {steps} train steps and one eval forward in "
+        f"{wall:.1f} s, losses {losses}, launches {launches}, per step "
+        f"{per_step}")
+    return launches, {"train_steps": steps, "wall_s": wall, "losses": losses,
+                      "per_step": per_step}
+
+
+def prompted_lora_gate(card):
+    """22 prompted-LoRA steps on one batch, with plain cross entropy as the
+    lora-clip gate has it: CE on softmaxed probabilities keeps the loss
+    within ~1/C of ln C, where 22 steps on one batch move it by less than
+    the gate's 0.02."""
+    _, state, step, batch, _ = prompted_lora_setup(loss="ce")
+    return gate_loop("prompted-LoRA", lambda: step(state, batch)["loss"], 64,
+                     card, model="ViT-B/16 LoRA r=4 + 20 raw KV prompts a "
+                     "layer (flash attention), no AutoAugment")
 
 
 PORT_KERNELS = ("gemm_kernel", "attn_fwd_kernel", "attn_bwd_dq_kernel",
                 "attn_bwd_dkv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
-                "cast_bf16_kernel", "colsum_kernel", "splitk_reduce_kernel")
+                "cast_bf16_kernel", "colsum_kernel", "splitk_reduce_kernel",
+                "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel")
 
 
 def step_profile(run_step, step_ms, steps=3, top=12):
@@ -614,6 +880,7 @@ def step_profile(run_step, step_ms, steps=3, top=12):
     total = sum(by_name.values()) or 1.0
     port = sum(v for k, v in by_name.items()
                if any(k.startswith(f"void {p}") or k.startswith(p)
+                      or k.startswith(f"void (anonymous namespace)::{p}")
                       for p in PORT_KERNELS))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
@@ -663,29 +930,46 @@ def main():
                                      True, 6, time_it=False))
     torch.cuda.synchronize()
 
+    log(f"flash checks: o, dq, dk, dv against the plain versions within "
+        f"{kc.FLASH_REL} of each output's max (bf16: beyond one bf16 ulp)")
+    fcases = [flash_kernel_case(*c, seed=7 + i)
+              for i, c in enumerate(FLASH_CASES)]
+    torch.cuda.synchronize()
+
     launches = main_path_phase()
     torch.cuda.synchronize()
     mvp_launches, mvp_run = mvp_main_path_phase()
     torch.cuda.synchronize()
-    gate = learning_gate(card)
+    maple_launches, maple_run = maple_main_path_phase()
     torch.cuda.synchronize()
-    mvp_gate = mvp_learning_gate(card)
+    pl_launches, pl_run = prompted_lora_phase()
     torch.cuda.synchronize()
+    gates = []
+    for gate in (learning_gate, mvp_learning_gate, maple_learning_gate,
+                 prompted_lora_gate):
+        gates.append(gate(card))
+        torch.cuda.synchronize()
 
     src = "lifelong_clip_tpu_torch/csrc/fused_block_attn.cu"
+    flash_src = "lifelong_clip_tpu_torch/csrc/flash_attention.cu"
+    pl_shape = "prompted-LoRA 768 x 197 x 217 (B*H x T x S), dh 64, bf16"
     kernels = []
-    for name, pre, runs, case_list, shape in (
-            ("fused_ln_attention_fwd", "fwd", launches, cases,
+    for name, pre, runs, case_list, source, shape in (
+            ("fused_ln_attention_fwd", "fwd", launches, cases, src,
              "vision 64x197x768, 12 heads, LoRA r=4, bf16"),
-            ("fused_ln_attention_bwd", "bwd", launches, cases,
+            ("fused_ln_attention_bwd", "bwd", launches, cases, src,
              "vision 64x197x768, 12 heads, LoRA r=4, bf16"),
-            ("fused_prefix_attention_fwd", "fwd", mvp_launches, pcases,
+            ("fused_prefix_attention_fwd", "fwd", mvp_launches, pcases, src,
              "mvp 64x197x768, P=20 (5 live), 12 heads, bf16"),
-            ("fused_prefix_attention_bwd", "bwd", mvp_launches, pcases,
-             "mvp 64x197x768, P=20 (5 live), 12 heads, bf16")):
+            ("fused_prefix_attention_bwd", "bwd", mvp_launches, pcases, src,
+             "mvp 64x197x768, P=20 (5 live), 12 heads, bf16"),
+            ("flash_attention_fwd", "fwd", pl_launches, fcases, flash_src,
+             pl_shape),
+            ("flash_attention_bwd", "bwd", pl_launches, fcases, flash_src,
+             pl_shape)):
         v = case_list[0]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": runs[name],
             "max_abs_err": max(c[f"{pre}_max_abs_err"] for c in case_list),
             "ms": v[f"{pre}_ms"],
@@ -700,8 +984,13 @@ def main():
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     log(json.dumps({"mvp_main_path": mvp_run, "mvp_launches": mvp_launches}))
-    log(json.dumps(gate))
-    log(json.dumps(mvp_gate))
+    log(json.dumps({"maple_main_path": maple_run,
+                    "maple_launches": maple_launches}))
+    log(json.dumps({"prompted_lora_path": pl_run,
+                    "prompted_lora_launches": pl_launches,
+                    "note": "no registered method builds this block"}))
+    for g in gates:
+        log(json.dumps(g))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,11 @@ from __future__ import annotations
 
 def get_method(name: str):
     from .adapter_clip import AdapterCLIP
+    from .maple import MaPLe
     from .mvp_clip import CLIP_MVP
 
-    registry = {"lora-clip": AdapterCLIP, "mvp-clip": CLIP_MVP}
+    registry = {"lora-clip": AdapterCLIP, "mvp-clip": CLIP_MVP,
+                "maple": MaPLe}
     if name not in registry:
         raise NotImplementedError(
             f"method {name!r} is not ported to the PyTorch package yet; have: "

@@ -84,23 +84,28 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
                     image_size: int, mean, std, augment: bool = True,
                     use_autoaug: bool = False,
                     compute_dtype=torch.bfloat16, attn_impl: str = "fused",
+                    forward_fn: Optional[Callable] = None,
                     loss_fn: Optional[Callable] = None):
     """Build the online train step ``step(state, batch) -> metrics``.
 
     batch dict (tensors on the device):
       images  (B, H, W, C) uint8 raw samples
       labels  (B,) int64, already remapped to class-table slots
-      tokens  (K, E) cached normalized text features
+      tokens  (K, E) cached normalized text features, or, with
+              ``forward_fn``, whatever it takes: MaPLe's (K, ctx) class
+              token table
       mask    (K,) f32, 0 on valid class slots, -inf on padding
+    ``forward_fn(frozen, trainable, images, tokens) -> (logits, img, txt)``
+    replaces the image-PEFT forward (JAX ``engine.py:233-236``).
     ``augment=False`` casts the raw uint8 straight to the compute dtype
     (``engine.py:277-278``). The step updates ``state`` in place.
     """
     pipeline = preprocess.make_train_pipeline(
         image_size, mean, std, use_autoaug=use_autoaug,
         out_dtype=compute_dtype) if augment else None
-    fwd = functools.partial(peft_forward_cached_text, clip_cfg=clip_cfg,
-                            peft_cfg=peft_cfg, compute_dtype=compute_dtype,
-                            attn_impl=attn_impl)
+    fwd = forward_fn or functools.partial(
+        peft_forward_cached_text, clip_cfg=clip_cfg, peft_cfg=peft_cfg,
+        compute_dtype=compute_dtype, attn_impl=attn_impl)
     compute_loss = loss_fn or _default_loss
 
     def step(state: TrainState, batch):

@@ -6,15 +6,17 @@ subtree; depth is a Python loop over the stacked layers (the JAX package
 scans). Compute dtype policy as there: bf16 operands with fp32 LayerNorm,
 softmax and accumulation (``_cast_tree``).
 
-The attention half of every block goes through
-``ops/fused_block_attn.py:fused_ln_attention_block`` (``attn_impl="fused"``,
-the default; the JAX package's ``"pallas"``), whose CUDA kernels run on the
-card and whose plain version runs on the CPU, or, for a block with KV-prefix
-prompts, through ``fused_prefix_attention_block``; ``attn_impl="unfused"``
-(the JAX ``"xla"`` road) composes LN and ``ops/attention.
-multi_head_attention``. Adapter and MoE PEFT, text-side prompts, and the
-prompted blocks JAX sends to its flash-attention kernels (a KV prefix with
-LoRA, or a mask the prefix kernel cannot take) are not ported yet.
+On ``attn_impl="fused"`` (the default; the JAX package's ``"pallas"``) the
+attention half of a block goes, as in JAX ``_block``, through
+``ops/fused_block_attn.py:fused_ln_attention_block`` when it has no prompts
+and no mask or a square one, through ``fused_prefix_attention_block`` when
+it has KV-prefix prompts, no LoRA and a mask that op takes, and otherwise
+(a KV prefix with LoRA, any other mask) through LN and
+``ops/attention.multi_head_attention`` on the flash-attention op. Each op's
+CUDA kernels run on the card and its plain version on the CPU.
+``attn_impl="unfused"`` (the JAX ``"xla"`` road) composes LN and
+``multi_head_attention`` on plain PyTorch. Adapter and MoE PEFT and
+text-side prompts are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,9 +80,12 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
                 f"{peft_cfg.method} PEFT blocks are not ported yet "
                 "(ROADMAP.md, queue A)")
         lora = dict(peft["lora"], scaling=peft_cfg.lora_alpha / peft_cfg.lora_r)
-    if attn_impl == "fused" and kv_prefix is not None:
-        y = _prefix_block(x, blk, n_heads, mask, kv_prefix, lora, base_grads)
-    elif attn_impl == "fused":
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
+                         f"got {attn_impl!r}")
+    t = x.shape[1]
+    square_mask = mask is None or (mask.dim() <= 2 and mask.shape[-1] == t)
+    if attn_impl == "fused" and kv_prefix is None and square_mask:
         arrays = None if lora is None else {
             k: lora[k] for k in ("a_in", "b_in", "a_out", "b_out")}
         y = fused_ln_attention_block(
@@ -89,44 +94,45 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
             blk["attn"]["w_out"], blk["attn"]["b_out"], n_heads,
             float(lora["scaling"]) if lora is not None else 0.0, mask, arrays,
             base_grads)
-    elif attn_impl == "unfused":
-        h = layer_norm(x, blk["ln_1"])
-        x_kv = None
-        if isinstance(kv_prefix, dict):
-            x_kv = (torch.cat([kv_prefix["k"].to(h.dtype), h], 1),
-                    torch.cat([kv_prefix["v"].to(h.dtype), h], 1))
-        elif kv_prefix is not None:
-            x_kv = torch.cat([kv_prefix.to(h.dtype), h], 1)
-        y = x + multi_head_attention(h, blk["attn"], n_heads, x_kv=x_kv,
-                                     mask=mask, lora=lora)
-    else:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
-                         f"got {attn_impl!r}")
+        return _mlp_half(y, blk, act)
+    if attn_impl == "fused" and kv_prefix is not None and lora is None:
+        pk, pv = ((kv_prefix["k"], kv_prefix["v"])
+                  if isinstance(kv_prefix, dict) else (kv_prefix, kv_prefix))
+        m2 = _prefix_kernel_mask(mask, t + pk.shape[1])
+        if m2 is not False:
+            y = fused_prefix_attention_block(
+                x, pk, pv, blk["ln_1"]["scale"], blk["ln_1"]["bias"],
+                blk["attn"]["w_qkv"], blk["attn"]["b_qkv"],
+                blk["attn"]["w_out"], blk["attn"]["b_out"], n_heads, m2,
+                base_grads)
+            return _mlp_half(y, blk, act)
+    # the general road (JAX ``_block:175-190``): LN, then MHA with keys and
+    # values from [prefix; h], on the flash op ("fused") or sdpa ("unfused")
+    h = layer_norm(x, blk["ln_1"])
+    x_kv = None
+    if isinstance(kv_prefix, dict):
+        x_kv = (torch.cat([kv_prefix["k"].to(h.dtype), h], 1),
+                torch.cat([kv_prefix["v"].to(h.dtype), h], 1))
+    elif kv_prefix is not None:
+        x_kv = torch.cat([kv_prefix.to(h.dtype), h], 1)
+    y = x + multi_head_attention(
+        h, blk["attn"], n_heads, x_kv=x_kv, mask=mask, lora=lora,
+        impl="flash" if attn_impl == "fused" else "plain")
     return _mlp_half(y, blk, act)
 
 
-def _prefix_block(x, blk, n_heads, mask, kv_prefix, lora, base_grads):
-    """The prompted attention half on the fused road: the prefix kernel op,
-    for the masks it takes (JAX ``models/clip.py:153-173``). JAX sends the
-    other prompted blocks to its flash-attention kernels, not ported yet."""
-    pk, pv = ((kv_prefix["k"], kv_prefix["v"]) if isinstance(kv_prefix, dict)
-              else (kv_prefix, kv_prefix))
+def _prefix_kernel_mask(mask, s_len):
+    """The mask as the prefix kernel op takes it (leading singleton
+    dimensions squeezed, JAX ``models/clip.py:156-162``), or False where it
+    cannot take it: a mask that is not <= 2-D over S = P + T keys."""
     m2 = mask
     if m2 is not None and m2.dim() > 2 and all(
             s == 1 for s in m2.shape[:-2]):
         m2 = m2.reshape(m2.shape[-2:]) if m2.shape[-2] != 1 \
             else m2.reshape(m2.shape[-1:])
-    prefix_ok = m2 is None or (m2.dim() <= 2 and
-                               m2.shape[-1] == x.shape[1] + pk.shape[1])
-    if lora is not None or not prefix_ok:
-        raise NotImplementedError(
-            "a KV-prefix block with LoRA, or with a mask the prefix kernel "
-            "cannot take, runs on the flash-attention kernels, which are not "
-            "ported yet (ROADMAP.md, B5); use attn_impl='unfused'")
-    return fused_prefix_attention_block(
-        x, pk, pv, blk["ln_1"]["scale"], blk["ln_1"]["bias"],
-        blk["attn"]["w_qkv"], blk["attn"]["b_qkv"], blk["attn"]["w_out"],
-        blk["attn"]["b_out"], n_heads, m2, base_grads)
+    if m2 is None or (m2.dim() <= 2 and m2.shape[-1] == s_len):
+        return m2
+    return False
 
 
 def _mlp_half(x, blk, act):

@@ -1,12 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The source under ``lifelong_clip_tpu_torch/csrc/`` (the fused LN-attention
-block and its KV-prefix variant, forward and backward) has a plain C
-interface.
-At first use one ``nvcc`` call compiles it for ``sm_90a`` into a shared
-library under ``csrc/build/`` (listed in ``.gitignore``), which ``ctypes``
-loads. The library name carries a hash of the source and flags, so an edited
-source rebuilds.
+The sources under ``lifelong_clip_tpu_torch/csrc/`` (the fused LN-attention
+block and its KV-prefix variant, and attention on projected q, k, v, each
+forward and backward) have a plain C interface. At first use one ``nvcc``
+per source, all started together, compiles them for ``sm_90a``, and one more
+links them into a shared library under ``csrc/build/`` (listed in
+``.gitignore``), which ``ctypes`` loads. The library name carries a hash of
+the sources and flags, so an edited source rebuilds.
 
 Nothing here runs at import time: a machine without ``nvcc`` or a GPU can
 import every module of the port.
@@ -25,7 +25,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("fused_block_attn.cu",)
+SOURCES = ("fused_block_attn.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +45,10 @@ _SIGNATURES = {
                             _VP],
     "llc_attn_prefix_bwd": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
                             _I, _I, _I, _I, _I, _F, _VP],
+    "llc_flash_fwd": [_I, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _I, _I, _I, _I,
+                      _I, _F, _VP],
+    "llc_flash_bwd": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _VP, _VP,
+                      _VP, _I, _I, _I, _I, _I, _F, _VP],
 }
 
 _lock = threading.Lock()
@@ -72,24 +76,34 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile and link the source; returns the library path. A no-op when
-    the library for this source already exists. The compiler's register /
-    shared-memory / spill report lands beside the library as
-    ``<library>.ptxas.txt``."""
+    """Compile each source (in parallel) and link them; returns the library
+    path. A no-op when the library for these sources already exists. The
+    compiler's register / shared-memory / spill report lands beside the
+    library as ``<library>.ptxas.txt``."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    nvcc = _nvcc()
     try:
+        objs = [os.path.join(tmp, f"{i}.o") for i in range(len(SOURCES))]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c",
+                                   os.path.join(CSRC, src), "-o", obj],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        report = "".join(f"== {src}\n{log}" for src, log in zip(SOURCES, logs))
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{report}")
         part = os.path.join(tmp, "lib.so")
-        run = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared",
-                              *[os.path.join(CSRC, s) for s in SOURCES],
-                              "-o", part], capture_output=True, text=True)
+        run = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
+                              part], capture_output=True, text=True)
         if run.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}{run.stderr}")
+            raise RuntimeError(f"nvcc link failed:\n{run.stdout}{run.stderr}")
         with open(out + ".ptxas.txt", "w") as f:
-            f.write(run.stdout + run.stderr)
+            f.write(report)
         os.replace(part, out)   # atomic: concurrent builders race safely
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -1,9 +1,12 @@
-"""Unfused multi-head attention for the CLIP towers, in plain PyTorch.
+"""Unfused multi-head attention for the CLIP towers.
 
-Counterpart of ``lifelong_clip_tpu/ops/attention.py`` (its ``impl="xla"``
-road): fused qkv projection with an optional LoRA delta, scaled dot-product
-attention with an fp32 softmax, output projection with its own LoRA delta,
-keys and values optionally from their own sources (a KV prefix). Shapes are
+Counterpart of ``lifelong_clip_tpu/ops/attention.py``: fused qkv projection
+with an optional LoRA delta, scaled dot-product attention with an fp32
+softmax, output projection with its own LoRA delta, keys and values
+optionally from their own sources (a KV prefix). The attention in the middle
+is ``sdpa`` in plain PyTorch (``impl="plain"``, JAX's ``"xla"``) or the
+flash-attention op over hand-written kernels (``impl="flash"``, JAX's
+``"pallas"``). Shapes are
 batch-first ``(B, T, D)``; weights keep the ``x @ W`` orientation (``w_qkv``
 (D, 3D), ``w_out`` (D, D)). Matmuls accumulate in fp32 whatever the operand
 dtype, as the JAX code's ``preferred_element_type=f32``, and their results
@@ -88,8 +91,11 @@ def sdpa(q, k, v, n_heads: int, mask: Optional[torch.Tensor] = None):
     return out.transpose(1, 2).reshape(b, t, d).to(v.dtype)
 
 
+IMPLS = ("plain", "flash")
+
+
 def multi_head_attention(x_q, params, n_heads: int, *, x_kv=None, mask=None,
-                         lora=None):
+                         lora=None, impl: str = "plain"):
     """Full MHA: fused qkv (+LoRA), SDPA, output projection (+LoRA).
 
     params: {'w_qkv': (D,3D), 'b_qkv': (3D,), 'w_out': (D,D), 'b_out': (D,)}
@@ -97,12 +103,24 @@ def multi_head_attention(x_q, params, n_heads: int, *, x_kv=None, mask=None,
             tuple (prefixes that differ for K and V); ``None``: ``x_q``.
     lora:   optional {'a_in','b_in','a_out','b_out','scaling'}.
     mask:   additive, broadcastable to (B, H, T, S).
+    impl:   "plain" (``sdpa``) or "flash" (``ops/flash_attention.py``); a
+            mask that depends on batch or head takes "plain", as in JAX
+            (``ops/attention.py:111-113``).
     """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "flash" and mask is not None and any(
+            n != 1 for n in mask.shape[:-2]):
+        impl = "plain"
     x_kv = x_q if x_kv is None else x_kv
     x_k, x_v = x_kv if isinstance(x_kv, tuple) else (x_kv, x_kv)
     q, k, v = qkv_projection(x_q, x_k, x_v, params["w_qkv"], params["b_qkv"],
                              lora=lora)
-    ctx = sdpa(q, k, v, n_heads, mask=mask)
+    if impl == "flash":
+        from .flash_attention import flash_attention
+        ctx = flash_attention(q, k, v, n_heads, mask=mask)
+    else:
+        ctx = sdpa(q, k, v, n_heads, mask=mask)
     out = mm32(ctx, params["w_out"]) + params["b_out"].float()
     if lora is not None and lora.get("a_out") is not None:
         z = mm32(ctx, lora["a_out"])

@@ -1,5 +1,5 @@
-"""Hold the fused block's kernels, and their KV-prefix variant, against
-their plain versions.
+"""Hold the fused block's kernels, their KV-prefix variant and the
+flash-attention kernels against their plain versions.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py`` run this on the
 card. Each output is compared on the part of it that the kernels compute,
@@ -24,12 +24,19 @@ y - x, dx on dx - g, dpk, dpv and, with ``weight_grads``, every block grad
 in the same way; asserts that the prefix's share of y (y against y with
 every slot dead) is visible to the y check; and asserts that the grads of
 the dead prefix slots are exactly zero.
+
+The flash case (``make_flash_inputs``, ``check_flash_case``) holds o, dq, dk
+and dv whole. Kernels and plain versions both compute in fp32 and round
+once, so they differ by the order of fp32 sums: an fp32 output within
+``FLASH_REL`` of its largest value, a bf16 output within that beyond one
+bf16 ulp. Keys a key-mask row kills get dk = dv = 0 exactly.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as fa
 from . import fused_block_attn as fba
 from .attention import causal_mask
 
@@ -37,6 +44,7 @@ ULP = 2.0 ** -7        # one bf16 ulp is at most 2**-7 of the value
 MARGIN = 10.0          # a term a check must see is >= MARGIN x its tolerance
 REL_FWD = 1e-2         # of the term: fp32 summation order, p16 / ctx16 flips
 REL_BWD = 2e-2         # of the term: also flips of ds16 / dqkv16 roundings
+FLASH_REL = 1e-4       # of the output's max: fp32 sums in another order
 LORA_KEYS = ("a_in", "b_in", "a_out", "b_out")
 BLOCK_KEYS = ("ln_scale", "ln_bias", "w_qkv", "b_qkv", "w_out", "b_out")
 
@@ -217,4 +225,57 @@ def check_prefix_case(x, pk, pv, blk, gy, mask, heads, weight_grads):
                 _held(rep, f"d{key}", got, want, want, REL_BWD)
             else:
                 assert float(got.abs().max()) == 0.0, f"d{key} is not zero"
+    return rep
+
+
+def make_flash_inputs(b, t, s, d, heads, seed, mask=None,
+                      dtype=torch.bfloat16, device="cuda"):
+    """q (B, T, D), k and v (B, S, D) and the output grad, standard normal
+    (scores of std ~1 at head dim 64), from a seed, and ``mask``: None,
+    ``"causal"`` ((T, S), the first S - T keys always visible) or an int n,
+    an (S,) key-mask row with keys n .. S - T - 1 dead (the prompt slots
+    past the n live ones)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, gy = (torch.randn(b, n, d, generator=g, device=device).to(dtype)
+                   for n in (t, s, s, t))
+    if mask == "causal":
+        mask = causal_mask(t, prefix=s - t, device=device)
+    elif mask is not None:
+        row = torch.zeros(s, device=device)
+        row[mask:s - t] = float("-inf")
+        mask = row
+    return q, k, v, gy, mask
+
+
+def check_flash_case(q, k, v, gy, mask, heads):
+    """Run the flash op forward and backward through autograd on q's device
+    and hold o, dq, dk and dv against the plain versions. Raises
+    AssertionError on disagreement; returns the errors."""
+    rep = {}
+    leaves = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
+    out = fa.flash_attention(*leaves, heads, mask)
+    out.backward(gy)
+    with torch.no_grad():
+        want = (fa.flash_attention_reference(q, k, v, heads, mask),
+                *fa.flash_attention_reference_bwd(q, k, v, gy, heads, mask))
+        got = (out, *[a.grad for a in leaves])
+        for name, g_, w in zip(("o", "dq", "dk", "dv"), got, want):
+            assert g_.dtype == w.dtype == q.dtype, f"{name} dtype"
+            g32, w32 = g_.float(), w.float()
+            diff = (g32 - w32).abs()
+            if q.dtype == torch.bfloat16:   # beyond one bf16 ulp
+                diff = (diff - ULP * torch.maximum(g32.abs(), w32.abs())
+                        ).clamp(min=0)
+            scale = float(w32.abs().max())
+            tol = FLASH_REL * scale
+            rep[name] = {"max_abs_err": float((g32 - w32).abs().max()),
+                         "excess": float(diff.max()), "tol": tol}
+            assert scale > 0 and float(diff.max()) <= tol, (
+                f"flash {name}: {float(diff.max()):.3e} > {FLASH_REL} x "
+                f"{scale:.3e}")
+        if mask is not None and mask.dim() == 1:
+            dead = torch.isneginf(mask)
+            for name, leaf in (("dk", leaves[1]), ("dv", leaves[2])):
+                assert not bool(leaf.grad[:, dead].any()), \
+                    f"flash {name}: a dead key has a nonzero grad"
     return rep

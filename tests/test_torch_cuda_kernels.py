@@ -186,3 +186,51 @@ def test_unfused_road_keeps_fp32_on_the_card(cuda):
     scale = float(y_cpu.float().abs().max())
     torch.testing.assert_close(y_card.float(), y_cpu.float(), rtol=0,
                                atol=2.0 ** -7 * scale)
+
+
+# flash attention: (b, t, s, d, heads, mask, dtype). T and S on and off a
+# multiple of 64, T != S, S > 256 (no key limit), causal with a prefix, a
+# key-mask row, fp32 and bf16
+FLASH_CASES = [(2, 13, 20, 128, 2, None, "bf16"),
+               (2, 197, 217, 128, 2, 5, "bf16"),
+               (3, 77, 77, 256, 4, "causal", "bf16"),
+               (2, 257, 257, 128, 2, None, "bf16"),
+               (2, 70, 300, 64, 1, 9, "f32"),
+               (1, 64, 64, 128, 2, "causal", "f32")]
+
+
+@pytest.mark.parametrize("b,t,s,d,heads,mask,dtype", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(cuda, b, t, s, d, heads, mask,
+                                            dtype):
+    """o, dq, dk, dv through the op's autograd Function, with the tolerance
+    stated in ``ops/kernel_check.py``; dead keys' dk and dv exactly 0."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    kc.check_flash_case(*kc.make_flash_inputs(b, t, s, d, heads, 0, mask,
+                                              dt, device=cuda), heads)
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """No atomics: two backward passes agree bit for bit."""
+    from lifelong_clip_tpu_torch.ops import flash_attention as fa
+    q, k, v, gy, mask = kc.make_flash_inputs(4, 197, 217, 768, 12, 1, 5,
+                                             device=cuda)
+    first = fa._cuda_backward(q, k, v, gy, 12, mask)
+    second = fa._cuda_backward(q, k, v, gy, 12, mask)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_op_launches_kernels_and_raises(cuda):
+    """Each op call on the card launches its kernel once; a head dim other
+    than 64 and mixed dtypes raise, with no plain fallback."""
+    from lifelong_clip_tpu_torch.ops import flash_attention as fa
+    q, k, v, gy, _ = kc.make_flash_inputs(2, 13, 20, 128, 2, 2, device=cuda)
+    q = q.requires_grad_()
+    fa.reset_launches()
+    fa.flash_attention(q, k, v, 2).backward(gy)
+    assert fa.LAUNCHES == {"flash_attention_fwd": 1,
+                           "flash_attention_bwd": 1}
+    with pytest.raises(ValueError, match="head dim 64"):
+        fa.flash_attention(q, k, v, 4)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.float(), v, 2)
