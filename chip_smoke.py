@@ -21,7 +21,11 @@
    version and a library yardstick the port never calls (an SDPA-based
    composition of the block; for flash, ``scaled_dot_product_attention`` on
    the fp32-upcast inputs), with each case's bound and, for flash, the
-   fp32 CUDA-core ceiling.
+   fp32 CUDA-core ceiling (the forward's road; the bf16 backward runs on
+   tensor cores). Each case's device-busy ms (torch.profiler, host gaps
+   left out) stands beside its library call's. Then the port's GEMM at the
+   qkv, out and dh shapes with the chain's epilogue terms, beside
+   ``torch.matmul``.
 4. Main paths, each with the launch counters set to 0 just before it and
    read just after: ``lifelong_clip_tpu_torch.main.main`` runs lora-clip on
    ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment), mvp-clip
@@ -97,6 +101,62 @@ def timed(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=10, warmup=2):
+    """Mean host ms to enqueue one call (host clock, no synchronisation
+    inside the loop): where it reaches the device time, the host sets the
+    pace."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
+def busy_us(prof):
+    """The union of the device kernels' intervals in a torch.profiler
+    window, in us, and each kernel name's summed time; (None, {}) where the
+    profiler saw no device time."""
+    import torch
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None, {}
+    busy, end, by_name = 0.0, -math.inf, {}
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+    return busy, by_name
+
+
+def device_ms(fn, iters=5, warmup=1):
+    """Device-busy ms per call from torch.profiler: the time the device ran
+    kernels, the gaps where it waited for the host left out; None where the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = busy_us(prof)[0]
+    return None if busy is None else busy / 1e3 / iters
+
+
+def fmt(v, digits=3):
+    return "not measured" if v is None else f"{v:.{digits}f}"
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +260,9 @@ def library_prefix_block(x, pk, pv, blk, mask, heads):
 def launch_breakdown(run_fwd, run_bwd, reps=3):
     """Device ms of each launch in one forward and one backward chain, from
     CUDA events around every call into the kernel library (GEMMs labelled
-    by M, N, K), averaged over ``reps`` runs."""
+    by M, N, K; where the device waits for the host, the gap counts), and
+    the host ms of each call (``host_fwd``, ``host_bwd``), averaged over
+    ``reps`` runs."""
     import torch
     from lifelong_clip_tpu_torch.ops import _kernels
     orig = _kernels.call
@@ -210,11 +272,13 @@ def launch_breakdown(run_fwd, run_bwd, reps=3):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
+        t0 = time.perf_counter()
         orig(name, *a)
+        host = time.perf_counter() - t0
         e.record()
         tag = name[4:] if name != "llc_gemm" else \
             f"gemm M={a[1]} N={a[2]} K={a[3]}"
-        rec.append((phase, tag, s, e))
+        rec.append((phase, tag, s, e, host))
 
     _kernels.call = evented
     try:
@@ -227,9 +291,11 @@ def launch_breakdown(run_fwd, run_bwd, reps=3):
     finally:
         _kernels.call = orig
     torch.cuda.synchronize()
-    out = {"fwd": {}, "bwd": {}}
-    for ph, tag, s, e in rec:
+    out = {"fwd": {}, "bwd": {}, "host_fwd": {}, "host_bwd": {}}
+    for ph, tag, s, e, host in rec:
         out[ph][tag] = out[ph].get(tag, 0.0) + s.elapsed_time(e) / reps
+        h = out[f"host_{ph}"]
+        h[tag] = h.get(tag, 0.0) + host * 1e3 / reps
     return out
 
 
@@ -289,28 +355,41 @@ def library_weights(blk):
 def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
     """Time a case's kernel chains, their plain versions and the library
     yardstick (``library(*wrt)``; its backward is autograd of it w.r.t.
-    ``wrt`` minus its forward), break the chains down by launch, log and
-    return ``res`` with the times."""
+    ``wrt`` minus its forward) by CUDA events and, for the chains and the
+    yardstick, by device-busy time; break the chains down by launch, log
+    and return ``res`` with the times."""
     import torch
     with torch.no_grad():
+        res["fwd_host_ms"] = host_ms(fwd)
         res["fwd_ms"] = timed(fwd)
         res["fwd_plain_ms"] = timed(plain_fwd, iters=3)
         res["fwd_library_ms"] = timed(lambda: library(*wrt))
+        res["fwd_device_ms"] = device_ms(fwd)
+        res["fwd_library_device_ms"] = device_ms(lambda: library(*wrt))
     res["bwd_ms"] = timed(bwd)
     res["bwd_plain_ms"] = timed(plain_bwd, iters=3)
+    res["bwd_device_ms"] = device_ms(bwd)
 
     def lib_fwd_bwd():
         torch.autograd.grad(library(*wrt), wrt, gy)
 
     res["bwd_library_ms"] = max(timed(lib_fwd_bwd) - res["fwd_library_ms"],
                                 0.0)
+    both, lib_fwd = device_ms(lib_fwd_bwd), res["fwd_library_device_ms"]
+    res["bwd_library_device_ms"] = None if both is None or lib_fwd is None \
+        else max(both - lib_fwd, 0.0)
     res["breakdown"] = launch_breakdown(fwd, bwd)
     log(f"{label}: per-launch device ms {json.dumps(res['breakdown'])}")
-    log(f"{label}: fwd {res['fwd_ms']:.3f} ms (plain {res['fwd_plain_ms']:.3f},"
+    log(f"{label}: fwd {res['fwd_ms']:.3f} ms (host {res['fwd_host_ms']:.3f}, "
+        f"plain {res['fwd_plain_ms']:.3f},"
         f" library {res['fwd_library_ms']:.3f}, bound "
         f"{res['fwd_bound_ms']:.4f}); bwd {res['bwd_ms']:.3f} ms (plain "
         f"{res['bwd_plain_ms']:.3f}, library {res['bwd_library_ms']:.3f}, "
-        f"bound {res['bwd_bound_ms']:.4f})")
+        f"bound {res['bwd_bound_ms']:.4f}); device busy fwd "
+        f"{fmt(res['fwd_device_ms'])} (library "
+        f"{fmt(res['fwd_library_device_ms'])}), bwd "
+        f"{fmt(res['bwd_device_ms'])} (library "
+        f"{fmt(res['bwd_library_device_ms'])})")
     return res
 
 
@@ -427,6 +506,70 @@ def flash_kernel_case(label, b, t, s, d, heads, mask, seed):
         f"{res['fwd_fp32_ceiling_ms']:.4f} ms, bwd "
         f"{res['bwd_fp32_ceiling_ms']:.4f} ms")
     return res
+
+
+# (label, M, N, K, layout, out dtype, epilogue terms): the vision block's
+# qkv projection (NN, bf16 out) with its bias, and with its bias and rank-4
+# LoRA term as the forward chain runs it; the out projection with bias,
+# LoRA and residual as the chain runs it, and with each term alone (what
+# each costs); the backward's dh product (NT, fp32 out). ViT-B/16 at bs 64
+_OUT = ("NN", "bf16")
+GEMM_SHAPES = (("qkv NN bf16 + bias", 12608, 2304, 768, *_OUT, "bias"),
+               ("qkv NN bf16 + bias + LoRA", 12608, 2304, 768, *_OUT,
+                "bias,lora"),
+               ("out NN bf16 + bias + LoRA + resid", 12608, 768, 768, *_OUT,
+                "bias,lora,resid"),
+               ("out NN bf16", 12608, 768, 768, *_OUT, ""),
+               ("out NN bf16 + bias", 12608, 768, 768, *_OUT, "bias"),
+               ("out NN bf16 + LoRA", 12608, 768, 768, *_OUT, "lora"),
+               ("out NN bf16 + resid", 12608, 768, 768, *_OUT, "resid"),
+               ("dh NT fp32", 12608, 768, 2304, "NT", "f32", ""))
+
+
+def gemm_phase():
+    """The port's GEMM (``llc_gemm``: wgmma fed by TMA, the tile the
+    launcher picks by shape) at ``GEMM_SHAPES`` with their epilogue terms,
+    beside ``torch.matmul`` of the same bf16 operands (cuBLAS, bf16 out, no
+    epilogue) as the yardstick the port never calls; ms per call from CUDA
+    events, TFLOP/s of the product, and the host ms to enqueue one call."""
+    import torch
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for label, m, n, k, layout, odt, terms in GEMM_SHAPES:
+        a = torch.randn(m, k, generator=g, device="cuda").to(bf)
+        if layout == "NN":
+            b = torch.randn(k, n, generator=g, device="cuda").to(bf)
+            b_arg, lib = (b, (n, 1)), (lambda a=a, b=b: torch.matmul(a, b))
+        else:
+            bt = torch.randn(n, k, generator=g, device="cuda").to(bf)
+            b_arg = (bt, (1, k))
+            lib = (lambda a=a, bt=bt: torch.matmul(a, bt.t()))
+        kw = {}
+        if "bias" in terms:
+            kw["bias"] = torch.randn(n, generator=g, device="cuda")
+        if "lora" in terms:
+            z = torch.randn(m, 4, generator=g, device="cuda").to(bf)
+            lb = torch.randn(4, n, generator=g, device="cuda").to(bf)
+            kw.update(lz=(z, 4, 1), lb=(lb, n, 1), lscale=0.25)
+        if "resid" in terms:
+            kw["resid"] = torch.randn(m, n, generator=g, device="cuda").to(bf)
+        out = torch.empty(m, n, device="cuda",
+                          dtype=bf if odt == "bf16" else torch.float32)
+        tflop = 2 * m * n * k / 1e12
+        row = {"gemm": label, "M": m, "N": n, "K": k}
+        def port():
+            fba._gemm(out, a, (k, 1), *b_arg, m, n, k, **kw)
+
+        ms = timed(port, iters=20)
+        row["port_ms"], row["port_tflops"] = ms, tflop / ms * 1e3
+        row["port_host_ms"] = host_ms(port, iters=50)
+        ms = timed(lib, iters=20)
+        row["torch_matmul_ms"], row["torch_matmul_tflops"] = ms, tflop / ms * 1e3
+        log(f"gemm {json.dumps(row)}")
+        rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -842,11 +985,12 @@ def prompted_lora_gate(card):
                      "layer (flash attention), no AutoAugment")
 
 
-PORT_KERNELS = ("gemm_kernel", "attn_fwd_kernel", "attn_bwd_dq_kernel",
-                "attn_bwd_dkv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
-                "cast_bf16_kernel", "colsum_kernel", "splitk_reduce_kernel",
-                "flash_fwd_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel")
+PORT_KERNELS = ("gemm_kernel", "gemm_wgmma_kernel", "attn_fwd_kernel",
+                "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel", "ln_fwd_kernel",
+                "ln_bwd_kernel", "cast_bf16_kernel", "colsum_kernel",
+                "splitk_reduce_kernel", "flash_fwd_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 
 
 def step_profile(run_step, step_ms, steps=3, top=12):
@@ -865,18 +1009,11 @@ def step_profile(run_step, step_ms, steps=3, top=12):
             run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
+    busy, by_name = busy_us(prof)
+    if busy is None:
         log("train step profile: the profiler saw no device time")
         return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
                 "device_busy_ms_per_step": "not measured"}
-    busy_us, end, by_name = 0.0, -math.inf, {}
-    for e in sorted(kern, key=lambda e: e.time_range.start):
-        s, t = e.time_range.start, e.time_range.end
-        busy_us += max(0.0, t - max(s, end))
-        end = max(end, t)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
     total = sum(by_name.values()) or 1.0
     port = sum(v for k, v in by_name.items()
                if any(k.startswith(f"void {p}") or k.startswith(p)
@@ -884,9 +1021,9 @@ def step_profile(run_step, step_ms, steps=3, top=12):
                       for p in PORT_KERNELS))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-           "device_busy_ms_per_step": busy_us / 1e3 / steps,
-           "idle_share_profiled": 1.0 - busy_us / 1e3 / wall_ms,
-           "idle_share_of_step": 1.0 - busy_us / 1e3 / steps / step_ms,
+           "device_busy_ms_per_step": busy / 1e3 / steps,
+           "idle_share_profiled": 1.0 - busy / 1e3 / wall_ms,
+           "idle_share_of_step": 1.0 - busy / 1e3 / steps / step_ms,
            "port_kernel_share": port / total,
            "top": [{"kernel": k[:120], "ms_per_step": v / 1e3 / steps}
                    for k, v in ranked]}
@@ -935,6 +1072,8 @@ def main():
     fcases = [flash_kernel_case(*c, seed=7 + i)
               for i, c in enumerate(FLASH_CASES)]
     torch.cuda.synchronize()
+    gemms = gemm_phase()
+    torch.cuda.synchronize()
 
     launches = main_path_phase()
     torch.cuda.synchronize()
@@ -978,6 +1117,8 @@ def main():
             "bound_us": v[f"{pre}_bound_ms"] * 1e3,
             "bound_by": v[f"{pre}_bound_by"],
             "library_ms": v[f"{pre}_library_ms"],
+            "device_ms": v[f"{pre}_device_ms"],
+            "library_device_ms": v[f"{pre}_library_device_ms"],
             "shape": shape,
             "cases": [{k: c[k] for k in c if k.startswith(pre) or k in
                        ("label", "shape")} for c in case_list]})
@@ -991,6 +1132,7 @@ def main():
                     "note": "no registered method builds this block"}))
     for g in gates:
         log(json.dumps(g))
+    log(json.dumps({"gemm": gemms, "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

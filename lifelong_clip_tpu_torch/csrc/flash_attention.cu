@@ -1,11 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels for attention on projected q, k, v:
-// o = softmax(q k^T * scale + mask) v per head, forward and backward, all in
-// fp32 arithmetic whatever the input type.
+// o = softmax(q k^T * scale + mask) v per head, forward and backward, with
+// p kept in fp32 whatever the input type.
 //
 // Replaces the Pallas TPU kernels of lifelong_clip_tpu/ops/flash_attention.py:
 //   * _attn_kernel     (:32, pallas_call at :96)  -> flash_fwd_kernel
-//   * _attn_bwd_kernel (:128, pallas_call at :191) -> flash_bwd_dq_kernel and
-//     flash_bwd_dkv_kernel
+//   * _attn_bwd_kernel (:128, pallas_call at :191) -> flash_bwd_dq_tc_kernel
+//     and flash_bwd_dkv_tc_kernel for bf16 inputs (tensor cores);
+//     flash_bwd_dq_kernel and flash_bwd_dkv_kernel for fp32 inputs (CUDA
+//     cores). The launcher dispatches on the dtype.
 //
 // What the TPU kernels compute, and so what these compute:
 //   forward   s = (q . k) * scale + mask (q, k, v upcast to fp32); m = max_j s;
@@ -16,51 +18,64 @@
 //             dk = ds^T q * scale; each cast once to its input's type.
 //
 // Bound on an H100 SXM at the prompted-LoRA block of ViT-B/16 (B*H = 768,
-// T = 197, S = 217, dh = 64, bf16): forward ~8.4 GFLOP and ~81 MB (memory,
-// ~0.024 ms against 3.35 TB/s), backward ~21 GFLOP and ~143 MB (~0.043 ms);
-// chip_smoke.py computes both. These kernels run their products on the fp32
-// CUDA cores (67 TFLOP/s), whose ceiling for the forward's 8.4 GFLOP is
-// ~0.13 ms; the two-pass softmax below adds one more q k^T product.
+// T = 197, S = 217, dh = 64, bf16): forward ~8.4 GFLOP and ~81 MB, backward
+// ~21 GFLOP and ~143 MB; both bound by memory (~0.024 and ~0.043 ms against
+// 3.35 TB/s), not by the tensor cores (989 TFLOP/s bf16). chip_smoke.py
+// computes both.
 //
-// Design of this first port (simple and right before fast):
-//   * Every product is an fp32 FMA on the upcast operands. q k^T of bf16
-//     inputs is exact product by product and accumulates in fp32, as the TPU
-//     kernel's; e @ v keeps e in fp32 (no bf16 rounding of p anywhere). What
-//     differs from the TPU kernel is the order of the fp32 sums only. fp32
-//     inputs take the same road.
-//   * No key limit. Keys are tiled 64 at a time through shared memory, and
-//     the softmax takes two passes over them: the first finds the row max,
-//     the second computes e = exp(s - m) with that final max, its row sum
-//     and e @ v, and divides once at the end, as the TPU kernel does. No
-//     online rescaling, so e is the TPU kernel's e.
-//   * One block per (64-query tile, head, batch row), 256 threads; thread
-//     (ty, tx) of a 16 x 16 grid owns rows 4ty .. 4ty + 3 and columns
-//     4tx .. 4tx + 3 of every 64 x 64 tile. Every tile product reads its
-//     operands from shared memory 16 bytes at a time, one load for eight
-//     FMAs: the left operand row-major (a half warp shares its rows, so its
-//     loads broadcast), the right one with its output columns contiguous.
-//     So K, and V where the product contracts over the head dim, sit
-//     transposed in shared memory, as do p and ds where the product
-//     contracts over queries. Row pitch 68 floats keeps rows 16-byte
-//     aligned.
-//   * The backward splits as the fused block's attention backward does
-//     (fused_block_attn.cu), with no atomics: a dq kernel per
-//     query tile takes three passes over the keys (row max; row sum and
-//     sum(dp * e); then ds and dq) and saves the row max, row sum and
-//     delta = rowsum(dp * p); a dk/dv kernel per key tile walks every query
-//     tile and rebuilds p from those statistics. Every output element is
-//     written once by one thread, so the backward is bitwise repeatable.
-//   * The additive mask is read through a pointer and two element strides:
-//     a (T, S) matrix, one (S,) key row for every query (row stride 0), or
-//     anything the wrapper broadcasts to (T, S) without copying. Null: no
-//     mask. A key the mask kills (-inf) gets e = 0, so dk = dv = 0 exactly.
-//   * Ragged edges: keys past S get e = 0, queries past T are not stored.
-//   * Head dim 64 only (every tower the repository has); the launcher
-//     refuses any other.
+// The bf16 backward (tensor cores):
+//   * Every product is an mma.sync m16n8k16 with fp32 accumulation; each of
+//     4 warps owns 16 rows of its block's 64 (queries in the dq kernel, keys
+//     in the dk/dv kernel). q k^T and g v^T multiply the bf16 inputs, whose
+//     products are exact in fp32. The products that contract over the fp32
+//     p or ds take it as hi = bf16(x) and lo = bf16(x - hi) in two MMAs into
+//     one fp32 accumulator (pack_split): ~2**-16 of each element is dropped,
+//     far inside the check's 1e-4 of the output's max, and p is never
+//     rounded to bf16 (tests/test_torch_flash_split.py emulates this against
+//     the TPU kernel). fp32 CUDA-core FMAs ran these products at ~44% of
+//     67 TFLOP/s; the tensor cores leave the kernels to their loads,
+//     exponentials and softmax arithmetic.
+//   * No shared-memory round trips between products: the dk/dv kernel takes
+//     s^T = k q^T and dp^T = v g^T with keys as rows, so p^T and ds^T come
+//     out in the accumulator layout that the next MMA takes as its A
+//     operand; so does ds in the dq kernel. K and V (dq kernel) and Q, G and
+//     the saved statistics (dk/dv kernel) stream through double-buffered
+//     cp.async tiles of 64 rows.
+//   * The dq kernel takes three passes over the key tiles: the row max; the
+//     row sum of e and t = sum(dp * e), so delta = rowsum(dp * p) = t / l in
+//     fp32 (not rowsum(g * o), which would read the bf16-rounded o); then ds
+//     and dq. It saves m, l and delta; the dk/dv kernel rebuilds p^T from
+//     them. No atomics: every output element is written once by one thread,
+//     so the backward is bitwise repeatable.
+//   * Ragged edges at 16-row granularity: score and product tiles past S
+//     keys or T queries are skipped (T = 197 computes 208 query rows, S = 217
+//     224 keys).
+//
+// The forward and the fp32 backward (CUDA cores), the first port's:
+//   * Every product is an fp32 FMA on the upcast operands, keys tiled 64 at
+//     a time through shared memory with a two-pass softmax (the row max
+//     first, then e = exp(s - m) with that final max, its row sum and e @ v,
+//     one division at the end, as the TPU kernel): no online rescaling, so e
+//     is the TPU kernel's e. One block per (64-query tile, head, batch row),
+//     256 threads, each owning a 4 x 4 block of every 64 x 64 tile and
+//     reading its operands 16 bytes at a time (K, and V where the product
+//     contracts over the head dim, transposed in shared memory). The fp32
+//     backward's dq kernel takes three passes as above and its dk/dv kernel
+//     rebuilds p from the saved statistics.
+//
+// Both roads: no key limit (keys are tiled); the additive mask is read
+// through a pointer and two element strides (a (T, S) matrix, one (S,) key
+// row for every query with row stride 0, or anything the wrapper broadcasts
+// to (T, S) without copying; null: no mask); a key the mask kills (-inf)
+// gets e = 0, so dk = dv = 0 exactly; keys past S get e = 0 and queries past
+// T are not stored. Head dim 64 only (every tower the repository has); the
+// launcher refuses any other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -466,9 +481,338 @@ flash_bwd_dkv_kernel(FlashArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward of bf16 inputs on tensor cores: the same two kernels, each warp
+// owning 16 rows of its block's 64, every product an m16n8k16 bf16 MMA with
+// fp32 accumulation. q k^T and g v^T (k q^T and v g^T in the dk/dv kernel)
+// multiply the bf16 inputs, whose products are exact in fp32. The products
+// that contract over p or ds (dq = ds k, dv = p^T g, dk = ds^T q) take the
+// fp32 operand as bf16 hi + lo (pack_split) in two MMAs into one fp32
+// accumulator: ~2**-16 of each element is dropped, so p and ds are never
+// rounded to bf16. Keys past S and queries past T are skipped 16 at a time.
+// ---------------------------------------------------------------------------
+constexpr int TC_LD = DH + 8;                 // bf16 pitch: 144-byte rows
+constexpr int TC_THREADS = 128;               // 4 warps x 16 rows
+constexpr int TC_TILE_ELEMS = TILE * TC_LD;
+
+// Rows row0 .. row0 + 63 of one head of a (B*L, D) bf16 tensor into a
+// [row][dim] tile by 16-byte cp.async copies; rows at or past L are zero.
+// The caller commits and waits.
+__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src, int b,
+                                             int L, int D, int col, int row0) {
+  const bf16* base = src + (size_t)b * L * D + col;
+  for (int c = threadIdx.x; c < TILE * DH / 8; c += TC_THREADS) {
+    const int r = c >> 3, cc = (c & 7) * 8, row = row0 + r;
+    const bool ok = row < L;
+    cp_async16(dst + r * TC_LD + cc, ok ? base + (size_t)row * D + cc : src, ok);
+  }
+}
+
+// The warp's 16 x 64 A fragments (4 k16 steps) from rows r0 .. r0 + 15 of a
+// [row][dim] tile.
+__device__ __forceinline__ void tc_frag_a(unsigned a[4][4], const bf16* s,
+                                          int r0, int lane) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+    ldsm_x4(a[kc], s + (r0 + (lane & 15)) * TC_LD + kc * 16 + (lane >> 4) * 8);
+}
+
+// acc (16 x 64) += A . B^T: A the warp's fragments over the head dim, B the
+// 64 rows of a [row][dim] tile (n16 chunks at or past nlive skipped).
+__device__ __forceinline__ void tc_dot_rows(float acc[8][4],
+                                            unsigned a[4][4],
+                                            const bf16* Bs, int nlive,
+                                            int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (16 * j >= nlive) continue;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      unsigned kb[4];
+      ldsm_x4(kb, Bs + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * TC_LD +
+                      kc * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(acc[2 * j], a[kc], kb[0], kb[1]);
+      mma16816(acc[2 * j + 1], a[kc], kb[2], kb[3]);
+    }
+  }
+}
+
+// acc (16 x 64 dims) += x . B: x fp32 (16 x 64, C fragments, split hi + lo),
+// B the [row][dim] tile whose 64 rows x contracts over (k16 chunks at or
+// past nlive skipped).
+__device__ __forceinline__ void tc_split_mm(float acc[8][4],
+                                            float x[8][4],
+                                            const bf16* Bs, int nlive,
+                                            int lane) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (16 * c >= nlive) continue;
+    unsigned hi[4], lo[4];
+    pack_split(x[2 * c][0], x[2 * c][1], hi[0], lo[0]);
+    pack_split(x[2 * c][2], x[2 * c][3], hi[1], lo[1]);
+    pack_split(x[2 * c + 1][0], x[2 * c + 1][1], hi[2], lo[2]);
+    pack_split(x[2 * c + 1][2], x[2 * c + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int cp = 0; cp < 4; ++cp) {
+      unsigned vb[4];
+      ldsm_x4_t(vb, Bs + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) * TC_LD +
+                        cp * 16 + (lane >> 4) * 8);
+      mma16816(acc[2 * cp], hi, vb[0], vb[1]);
+      mma16816(acc[2 * cp], lo, vb[0], vb[1]);
+      mma16816(acc[2 * cp + 1], hi, vb[2], vb[3]);
+      mma16816(acc[2 * cp + 1], lo, vb[2], vb[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero8(float x[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// dq: grid (ceil(T/64), H, B). Three passes over 64-key tiles, each tile's
+// K (and V after the first pass) double-buffered through cp.async: the row
+// max m; the row sum l of e = exp(s - m) and t = sum(dp * e), so delta =
+// rowsum(dp * p) = t / l in fp32; then p = e / l, ds = p * (dp - delta) and
+// dq += ds k. Saves m, l and delta of every query row.
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dq_tc_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char tsm[];
+  bf16* Qs = reinterpret_cast<bf16*>(tsm);   // [query][dim]
+  bf16* Gs = Qs + TC_TILE_ELEMS;             // [query][dim]
+  bf16* Ks = Gs + TC_TILE_ELEMS;             // 2 x [key][dim]
+  bf16* Vs = Ks + 2 * TC_TILE_ELEMS;         // 2 x [key][dim]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, hd = blockIdx.y, col = hd * DH;
+  const int q0 = blockIdx.x * TILE, r0 = warp * 16;
+  const bf16* k = (const bf16*)a.k;
+  const bf16* v = (const bf16*)a.v;
+  const int nk = (a.S + TILE - 1) / TILE, total = 3 * nk;
+  tc_load_tile(Qs, (const bf16*)a.q, b, a.T, a.D, col, q0);
+  tc_load_tile(Gs, (const bf16*)a.g, b, a.T, a.D, col, q0);
+  tc_load_tile(Ks, k, b, a.S, a.D, col, 0);
+  cp_async_commit();
+
+  const bool live = q0 + r0 < a.T;   // warp-uniform
+  const int ia = q0 + r0 + g, ib = ia + 8;
+  unsigned qa[4][4], ga[4][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+  float il[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  float dq[8][4], s[8][4], dp[8][4];
+  zero8(dq);
+  for (int it = 0; it < total; ++it) {
+    const int pass = it / nk, k0 = (it % nk) * TILE, buf = it & 1;
+    if (it + 1 < total) {
+      const int kn = ((it + 1) % nk) * TILE, nb = (it + 1) & 1;
+      tc_load_tile(Ks + nb * TC_TILE_ELEMS, k, b, a.S, a.D, col, kn);
+      if (it + 1 >= nk)
+        tc_load_tile(Vs + nb * TC_TILE_ELEMS, v, b, a.S, a.D, col, kn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (it == 0) {
+        tc_frag_a(qa, Qs, r0, lane);
+        tc_frag_a(ga, Gs, r0, lane);
+      }
+      const bf16* Kb = Ks + buf * TC_TILE_ELEMS;
+      const int nlive = a.S - k0;
+      zero8(s);
+      tc_dot_rows(s, qa, Kb, nlive, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
+          // rows past T (never stored) keep finite scores
+          s[nt][e] = j < a.S ? s[nt][e] * a.scale + (i < a.T ? mask_at(a, i, j) : 0.f)
+                             : -INFINITY;
+        }
+      if (pass == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
+          m[1] = fmaxf(m[1], fmaxf(s[nt][2], s[nt][3]));
+        }
+      } else {
+        zero8(dp);
+        tc_dot_rows(dp, ga, Vs + buf * TC_TILE_ELEMS, nlive, lane);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const float ev = expf(s[nt][e] - m[h]);
+            if (pass == 1) {
+              l[h] += ev;
+              t[h] = fmaf(dp[nt][e], ev, t[h]);
+            } else {
+              s[nt][e] = ev * il[h] * (dp[nt][e] - dl[h]);   // ds
+            }
+          }
+        if (pass == 2) tc_split_mm(dq, s, Kb, nlive, lane);
+      }
+      if (it == nk - 1) {
+        m[0] = quad_max(m[0]);
+        m[1] = quad_max(m[1]);
+      } else if (it == 2 * nk - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] = quad_sum(l[h]);
+          dl[h] = quad_sum(t[h]) / l[h];
+          il[h] = 1.f / l[h];
+        }
+      }
+    }
+    __syncthreads();   // the buffer read here is refilled next iteration
+  }
+  if (!live) return;
+  bf16* dqo = (bf16*)a.dq;
+  float* st = a.stats + ((size_t)b * a.H + hd) * a.T * 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = h ? ib : ia;
+    if (i >= a.T) continue;
+    bf16* row = dqo + ((size_t)b * a.T + i) * a.D + col;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<unsigned*>(row + nt * 8 + 2 * t4) =
+          pack_bf16(dq[nt][2 * h] * a.scale, dq[nt][2 * h + 1] * a.scale);
+    if (t4 == 0) {
+      st[i * 3] = m[h];
+      st[i * 3 + 1] = l[h];
+      st[i * 3 + 2] = dl[h];
+    }
+  }
+}
+
+// dk and dv: grid (ceil(S/64), H, B); warp w owns keys k0 + 16w .. +15. For
+// every 64-query tile (Q, G and the saved statistics double-buffered):
+// s^T = k q^T and dp^T = v g^T with keys as rows, so p^T = exp(s^T - m) / l
+// and ds^T = p^T (dp^T - delta) come out in the accumulator layout that the
+// next products take as their A operand: dv += p^T g, dk += ds^T q.
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dkv_tc_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char tsm[];
+  bf16* Ks = reinterpret_cast<bf16*>(tsm);   // [key][dim]
+  bf16* Vs = Ks + TC_TILE_ELEMS;             // [key][dim]
+  bf16* Qs = Vs + TC_TILE_ELEMS;             // 2 x [query][dim]
+  bf16* Gs = Qs + 2 * TC_TILE_ELEMS;         // 2 x [query][dim]
+  float* St = reinterpret_cast<float*>(Gs + 2 * TC_TILE_ELEMS);   // 2 x 64 x (m, 1/l, delta)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, hd = blockIdx.y, col = hd * DH;
+  const int k0 = blockIdx.x * TILE, j0 = warp * 16;
+  const bf16* q = (const bf16*)a.q;
+  const bf16* gg = (const bf16*)a.g;
+  const float* gst = a.stats + ((size_t)b * a.H + hd) * a.T * 3;
+  const int nq = (a.T + TILE - 1) / TILE;
+  auto load_stats = [&](float* dst, int q0) {
+    for (int i = threadIdx.x; i < TILE * 3; i += TC_THREADS) {
+      const float x = q0 * 3 + i < a.T * 3 ? gst[(size_t)q0 * 3 + i] : 1.f;
+      dst[i] = i % 3 == 1 ? 1.f / x : x;
+    }
+  };
+  tc_load_tile(Ks, (const bf16*)a.k, b, a.S, a.D, col, k0);
+  tc_load_tile(Vs, (const bf16*)a.v, b, a.S, a.D, col, k0);
+  tc_load_tile(Qs, q, b, a.T, a.D, col, 0);
+  tc_load_tile(Gs, gg, b, a.T, a.D, col, 0);
+  cp_async_commit();
+  load_stats(St, 0);
+
+  const bool live = k0 + j0 < a.S;   // warp-uniform
+  const int ja = k0 + j0 + g, jb = ja + 8;
+  // a key-mask row (row stride 0) is the same for every query: read it once
+  const bool krow = a.mask && a.mrs == 0;
+  const float mka = krow && ja < a.S ? mask_at(a, 0, ja) : 0.f;
+  const float mkb = krow && jb < a.S ? mask_at(a, 0, jb) : 0.f;
+  unsigned ka[4][4], va[4][4];
+  float dk[8][4], dv[8][4], sT[8][4], dT[8][4];
+  zero8(dk);
+  zero8(dv);
+  for (int qt = 0; qt < nq; ++qt) {
+    const int q0 = qt * TILE, buf = qt & 1;
+    if (qt + 1 < nq) {
+      const int nb = buf ^ 1;
+      tc_load_tile(Qs + nb * TC_TILE_ELEMS, q, b, a.T, a.D, col, q0 + TILE);
+      tc_load_tile(Gs + nb * TC_TILE_ELEMS, gg, b, a.T, a.D, col, q0 + TILE);
+      cp_async_commit();
+      load_stats(St + nb * TILE * 3, q0 + TILE);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (qt == 0) {
+        tc_frag_a(ka, Ks, j0, lane);
+        tc_frag_a(va, Vs, j0, lane);
+      }
+      const bf16* Qb = Qs + buf * TC_TILE_ELEMS;
+      const bf16* Gb = Gs + buf * TC_TILE_ELEMS;
+      const float* Sb = St + buf * TILE * 3;
+      const int nlive = a.T - q0;
+      zero8(sT);
+      zero8(dT);
+      tc_dot_rows(sT, ka, Qb, nlive, lane);
+      tc_dot_rows(dT, va, Gb, nlive, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = nt * 8 + 2 * t4 + (e & 1), i = q0 + r;
+          const int j = e < 2 ? ja : jb;
+          float p = 0.f;
+          if (i < a.T && j < a.S) {
+            const float mv = krow ? (e < 2 ? mka : mkb) : mask_at(a, i, j);
+            p = expf(sT[nt][e] * a.scale + mv - Sb[r * 3]) * Sb[r * 3 + 1];
+          }
+          sT[nt][e] = p;
+          dT[nt][e] = p * (dT[nt][e] - Sb[r * 3 + 2]);   // ds^T
+        }
+      tc_split_mm(dv, sT, Gb, nlive, lane);
+      tc_split_mm(dk, dT, Qb, nlive, lane);
+    }
+    __syncthreads();   // the buffers read here are refilled next iteration
+  }
+  if (!live) return;
+  bf16* dko = (bf16*)a.dk;
+  bf16* dvo = (bf16*)a.dv;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = h ? jb : ja;
+    if (j >= a.S) continue;
+    const size_t o = ((size_t)b * a.S + j) * a.D + col + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      *reinterpret_cast<unsigned*>(dko + o + nt * 8) =
+          pack_bf16(dk[nt][2 * h] * a.scale, dk[nt][2 * h + 1] * a.scale);
+      *reinterpret_cast<unsigned*>(dvo + o + nt * 8) =
+          pack_bf16(dv[nt][2 * h], dv[nt][2 * h + 1]);
+    }
+  }
+}
+
 constexpr size_t FWD_SMEM = 4 * TILE_FLOATS * sizeof(float);
 constexpr size_t DQ_SMEM = 6 * TILE_FLOATS * sizeof(float);
 constexpr size_t DKV_SMEM = (6 * TILE_FLOATS + TILE * 3) * sizeof(float);
+constexpr size_t TC_DQ_SMEM = 6 * TC_TILE_ELEMS * sizeof(bf16);
+constexpr size_t TC_DKV_SMEM = 6 * TC_TILE_ELEMS * sizeof(bf16) + 2 * TILE * 3 * sizeof(float);
 
 bool bad_shape(const FlashArgs& a) {
   return a.B < 1 || a.T < 1 || a.S < 1 || a.H < 1 || a.D != a.H * DH ||
@@ -477,22 +821,33 @@ bool bad_shape(const FlashArgs& a) {
 
 template <typename T>
 int launch_fwd(const FlashArgs& a, cudaStream_t s) {
-  cudaFuncSetAttribute(flash_fwd_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+  raise_smem(flash_fwd_kernel<T>, FWD_SMEM);
   flash_fwd_kernel<T><<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), NT, FWD_SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const FlashArgs& a, cudaStream_t s) {
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
-  flash_bwd_dq_kernel<T><<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), NT, DQ_SMEM, s>>>(a);
+// fp32 inputs: the CUDA-core kernels (exact fp32 semantics would need a
+// three-way bf16 split on tensor cores; no path on the card feeds fp32).
+int launch_bwd_f32(const FlashArgs& a, cudaStream_t s) {
+  raise_smem(flash_bwd_dq_kernel<float>, DQ_SMEM);
+  flash_bwd_dq_kernel<float><<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), NT, DQ_SMEM, s>>>(a);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
-  flash_bwd_dkv_kernel<T><<<dim3((a.S + TILE - 1) / TILE, a.H, a.B), NT, DKV_SMEM, s>>>(a);
+  raise_smem(flash_bwd_dkv_kernel<float>, DKV_SMEM);
+  flash_bwd_dkv_kernel<float><<<dim3((a.S + TILE - 1) / TILE, a.H, a.B), NT, DKV_SMEM, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// bf16 inputs: the tensor-core kernels.
+int launch_bwd_bf16(const FlashArgs& a, cudaStream_t s) {
+  raise_smem(flash_bwd_dq_tc_kernel, TC_DQ_SMEM);
+  flash_bwd_dq_tc_kernel<<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), TC_THREADS,
+                           TC_DQ_SMEM, s>>>(a);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  raise_smem(flash_bwd_dkv_tc_kernel, TC_DKV_SMEM);
+  flash_bwd_dkv_tc_kernel<<<dim3((a.S + TILE - 1) / TILE, a.H, a.B), TC_THREADS,
+                            TC_DKV_SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -530,7 +885,7 @@ int llc_flash_bwd(int dt, const void* q, const void* k, const void* v,
   a.B = B; a.T = T; a.S = S; a.D = D; a.H = H; a.scale = scale;
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return dt == FL_BF16 ? launch_bwd<bf16>(a, s) : launch_bwd<float>(a, s);
+  return dt == FL_BF16 ? launch_bwd_bf16(a, s) : launch_bwd_f32(a, s);
 }
 
 }  // extern "C"

@@ -18,53 +18,71 @@
 // adds the prefix rows' K/V projections and 20 more keys a score row: both
 // directions stay compute-bound (chip_smoke.py computes the bound).
 //
-// Design of this first port (simple and right before fast):
+// Design:
 //   * The TPU kernel kept h, qkv, scores and ctx in VMEM for one group of
-//     batch rows. Here the op is a chain of kernels and those intermediates
-//     (h16, qkv16, ctx16, dctx16, dqkv16, dh) go through device memory: about
-//     (2 + 6 + 2) * M * D bytes extra per forward. Fusing them back into
-//     one persistent kernel (TMA + wgmma, as the half block's FLOPs warrant)
-//     is the first target of a later redesign.
-//   * One bf16 tiled GEMM (mma.sync m16n8k16, fp32 accumulation, 3-stage
-//     cp.async pipeline) serves every projection, with arbitrary strides (NN, NT and
-//     TN layouts) and an epilogue for bias, the rank-r LoRA term
-//     s * (z16 @ B) and the residual. The LoRA factor z = h @ A runs through
-//     the same GEMM at N = r (a 64x16 tile) and is rounded to bf16, as
-//     _kernel:76-84 and :117-126 round it. The prefix rows' keys and values
-//     (pk @ W_k + b_k, pv @ W_v + b_v, bias added before the one bf16
-//     rounding as _prefix_kernel:553-562) are two more launches of it into a
-//     (B*P, 2D) buffer; the token qkv GEMM is unchanged.
-//   * Attention forward: one block per (64-query tile, head, batch row) with
-//     the head's K and V (S <= 256 rows) in shared memory; each warp keeps 16
-//     whole score rows in registers (mma.sync m16n8k16), so the softmax is
-//     the exact full-row one. Scores are bf16 q.k with fp32 accumulation,
-//     times dh**-0.5, plus the additive mask; softmax in fp32; p rounded to
-//     bf16 before p @ V. The prefix variant reads keys 0..P-1 from the prefix
+//     batch rows. Here the op is a chain of kernels (forward: LN, the LoRA
+//     factor z = h @ A, the qkv GEMM, attention, z2, the out GEMM) and those
+//     intermediates (h16, qkv16, ctx16, dctx16, dqkv16, dh) go through
+//     device memory: about (2 + 6 + 2) * M * D bytes extra per forward.
+//   * The projections, ~60% of the forward chain, are what bounds it by
+//     operations, so they run on the tensor cores' full-rate path: a Hopper
+//     GEMM (gemm_wgmma_kernel) whose consumer warpgroups run wgmma m64n128k16
+//     with both operands in shared memory, fed by TMA through a ring of
+//     128B-swizzled tiles that a producer warp keeps in flight (mbarriers),
+//     persistent over the output tiles so one tile's loads overlap the last
+//     one's epilogue. bf16 wgmma reads K-major and MN-major tiles alike, so
+//     NN, NT and TN (the operands' strides) need no transposing copy. With
+//     128 x 256 tiles each A tile is read once a 256-column stripe, so
+//     L2-to-SM traffic, not the tensor cores, bounds it at ~0.0117 bytes a
+//     FLOP. The epilogue keeps the TPU kernel's order (alpha * acc + bias +
+//     lscale * z16 @ L, then + residual, one rounding), the tile's LoRA
+//     factors staged in shared memory. Split-K (contractions over all B*T
+//     rows) writes fp32 partials that a second pass sums in a fixed order:
+//     no atomics, results independent of launch order, as the TPU kernel's
+//     sequential grid. The mma.sync tiles (m16n8k16, 3-stage cp.async)
+//     stay for the rank-r LoRA shapes (N <= 16: 64x16, M <= 16: 16x128);
+//     any other shape needs operands TMA can read, which every caller's
+//     are. TMA maps and shared-memory limits are set once and reused, so a
+//     launch costs the host little beyond the launch itself.
+//   * Attention forward (attn_fwd_kernel): one block per (head, batch row)
+//     loads the head's K and V once, in 64-row cp.async chunks whose arrival
+//     the first q k^T products follow, and 4 warp pairs take the query rows
+//     16 at a time, so a ragged last group costs 16 rows. Each warp of a
+//     pair keeps half of 16 whole score rows (S <= 256) in registers, the
+//     row max and sum exchanged through shared memory: the softmax is the
+//     exact full-row one (no online rescaling), p = exp(s - max) / sum
+//     normalised in fp32 and rounded to bf16 before p @ V, as _kernel:102-108.
+//     Scores are bf16 q.k with fp32 accumulation, times dh**-0.5, plus the
+//     additive mask. The prefix variant reads keys 0..P-1 from the prefix
 //     buffer and keys P..P+T-1 from the token qkv, under a (T, P+T) mask.
-//   * Attention backward: a dq kernel per query tile (recomputes p as the
-//     forward, saves row max, row sum and rowsum(dp * p)) and a dk/dv kernel
-//     per key tile that rebuilds p^T from those statistics and accumulates
-//     over every query in registers. No atomics. The prefix variant writes
-//     the prefix keys' dk/dv to a (B*P, 2D) buffer, from which two GEMMs
-//     give dpk = dk16 @ W_k^T and dpv = dv16 @ W_v^T (_prefix_bwd_kernel:
-//     843-852); the token rows fill dqkv16, so dh is the one dqkv16 @ W_qkv^T
-//     GEMM (:854-857 up to summation order).
-//   * Contractions over all B*T rows (LoRA grads, and the weight grads when
-//     asked for) are TN GEMMs over the rows, split over K into fp32 partials
-//     that a second pass sums in a fixed order. No atomics anywhere: results
-//     do not depend on launch order, as the TPU kernel's sequential grid did
-//     not.
+//   * Attention backward (the first port's): a dq kernel per query tile
+//     (recomputes p as the forward, saves row max, row sum and
+//     rowsum(dp * p)) and a dk/dv kernel per key tile that rebuilds p^T from
+//     those statistics and accumulates over every query in registers, both
+//     on mma.sync with one warp per 16 rows. No atomics. The prefix variant
+//     writes the prefix keys' dk/dv to a (B*P, 2D) buffer, from which two
+//     GEMMs give dpk = dk16 @ W_k^T and dpv = dv16 @ W_v^T
+//     (_prefix_bwd_kernel:843-852); the token rows fill dqkv16, so dh is the
+//     one dqkv16 @ W_qkv^T GEMM (:854-857 up to summation order).
+//   * LN (warp per row) and the LoRA factor z = h @ A (the
+//     64x16 tile, rounded to bf16 as _kernel:76-84 and :117-126 round it).
+//     The prefix rows' keys and values (pk @ W_k + b_k, pv @ W_v + b_v, bias
+//     added before the one bf16 rounding as _prefix_kernel:553-562) are two
+//     more launches of the GEMM into a (B*P, 2D) buffer.
 //   * The ragged edge (T = 197 or 77, P = 20, not multiples of 16) is masked
 //     in the kernels: padded keys get probability 0, padded queries are not
 //     stored. A key the mask kills (-inf) gets p = 0 and dk = dv = 0 exactly:
 //     the row max is taken after the mask is added, and the mask is only
 //     ever added, never multiplied.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <mutex>
+
+#include "mma.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -210,37 +228,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, int splits,
   }
 }
 
-// Tensor-core primitives: ldmatrix from shared memory and the m16n8k16 bf16
-// MMA with fp32 accumulation. Fragment layout (g = lane / 4, t = lane % 4):
-// A a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..);
-// B b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); C c0,c1 (g, 2t..2t+1),
-// c2,c3 (g+8, 2t..2t+1).
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (lower column)
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 // A m16 x k16 fragment from a tile stored [m][k] (row) or [k][m] (AT).
 template <bool AT>
 __device__ __forceinline__ void ldsm_a(unsigned* r, const bf16* s, int ld,
@@ -271,7 +258,7 @@ __device__ __forceinline__ void ldsm_b(unsigned* r, const bf16* s, int ld,
 // the NN, NT and TN layouts. Epilogue, in the order the TPU kernel adds:
 //   v = alpha * acc (+ bias[n]) (+ lscale * sum_r z[m, r] * L[r, n]);
 //   out = resid[m, n] + v  (resid given) or v.
-// With gridDim.z > 1 each z-slice covers k_per_split of K and writes raw fp32
+// With splits > 1 each split z covers k_per_split of K and writes raw fp32
 // partials to out + z*M*N; splitk_reduce_kernel sums them in order.
 //
 // Tiles are BM x BN x 64 over 4 warps of mma.sync m16n8k16, fed by a 3-stage
@@ -279,9 +266,9 @@ __device__ __forceinline__ void ldsm_b(unsigned* r, const bf16* s, int ld,
 // dimension; element loads when shapes or strides do not allow them). An
 // operand whose contiguous dimension is M (A) or K (B) stays in that
 // orientation in shared memory and is read with ldmatrix's transpose, so NT
-// and TN load as fast as NN. Tile shapes: 128x128 (warp tile 64x64) in
-// general, 64x16 when N <= 16 (the rank-r LoRA factors), 16x128 when
-// M <= 16 (the LoRA-B grads).
+// and TN load as fast as NN. Tile shapes: 64x16 when N <= 16 (the rank-r
+// LoRA factors), 16x128 when M <= 16 (the LoRA-B grads); every other shape
+// takes the wgmma GEMM below.
 // ---------------------------------------------------------------------------
 constexpr int GBK = 64, GSTAGES = 3, GTHREADS = 128;
 
@@ -303,7 +290,8 @@ struct GemmArgs {
   long long ldr;
   void* out;
   long long ldo;
-  int a_vec, b_vec, o_vec;
+  int a_vec, b_vec, o_vec, r_vec;
+  int splits;
 };
 
 template <int BM, int BN, bool AT, bool BT>
@@ -315,23 +303,6 @@ struct GemmTile {
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static constexpr size_t SMEM = (size_t)GSTAGES * STAGE * sizeof(bf16);
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;   // 0: no read, the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <int BM, int BN, bool AT, bool BT>
 __device__ __forceinline__ void gemm_load_stage(const GemmArgs& p, bf16* As,
@@ -401,12 +372,12 @@ __device__ __forceinline__ void gemm_load_stage(const GemmArgs& p, bf16* As,
 // with split-K, else the finished values.
 template <typename OutT>
 __device__ __forceinline__ void gemm_store2(const GemmArgs& p, float v0,
-                                            float v1, int m, int n) {
+                                            float v1, int m, int n, int zi) {
   if (m >= p.M || n >= p.N) return;
   const bool two = n + 1 < p.N;
-  if (gridDim.z > 1) {
+  if (p.splits > 1) {
     float* ws = reinterpret_cast<float*>(p.out) +
-                (size_t)blockIdx.z * p.M * p.N + (size_t)m * p.N + n;
+                (size_t)zi * p.M * p.N + (size_t)m * p.N + n;
     ws[0] = v0;
     if (two) ws[1] = v1;
     return;
@@ -421,6 +392,97 @@ __device__ __forceinline__ void gemm_store2(const GemmArgs& p, float v0,
   }
   o[0] = from_f<OutT>(v0);
   if (two) o[1] = from_f<OutT>(v1);
+}
+
+// Epilogue of one warp's 16-row slab of accumulators in the MMA C layout
+// (mma.sync and wgmma alike): c[j][0..1] are row m, columns n + 8j and
+// n + 8j + 1; c[j][2..3] the same columns of row m + 8; zi is the split of
+// K they cover (split-K writes raw partials). In passes: every
+// load (bias, LoRA factors, residual) goes into the accumulators first, then
+// every store. Interleaved, each load would wait behind the store before it,
+// which may alias it.
+// With zs (not null) the LoRA factors come from shared memory, staged by the
+// caller: zs[r] and zs[8 * LORA_RMAX + r] are lscale * z16 of rows m and
+// m + 8, ls[r * ldl + 8j (+1)] L16 of columns n + 8j (+1).
+constexpr int LORA_RMAX = 16;
+
+template <typename OutT, int NI>
+__device__ __forceinline__ void gemm_epilogue(const GemmArgs& p, float (*c)[4],
+                                              int m, int n, int zi,
+                                              const float* zs = nullptr,
+                                              const float* ls = nullptr,
+                                              int ldl = 0) {
+  if (p.splits == 1) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] *= p.alpha;
+    if (p.bias) {
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int nj = n + 8 * j;
+        const float b0 = nj < p.N ? p.bias[nj] : 0.f;
+        const float b1 = nj + 1 < p.N ? p.bias[nj + 1] : 0.f;
+        c[j][0] += b0; c[j][1] += b1;
+        c[j][2] += b0; c[j][3] += b1;
+      }
+    }
+    // + lscale * z16 @ L, one rank at a time
+    for (int r = 0; zs && r < p.R; ++r) {
+      const float za = zs[r], zb = zs[8 * LORA_RMAX + r];
+      const float* lr = ls + r * ldl;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const float2 lv = *reinterpret_cast<const float2*>(lr + 8 * j);
+        c[j][0] += za * lv.x; c[j][1] += za * lv.y;
+        c[j][2] += zb * lv.x; c[j][3] += zb * lv.y;
+      }
+    }
+    for (int r = 0; !zs && p.lz && r < p.R; ++r) {
+      const float za = m < p.M ? p.lscale * __bfloat162float(
+          p.lz[(size_t)m * p.szm + (size_t)r * p.szr]) : 0.f;
+      const float zb = m + 8 < p.M ? p.lscale * __bfloat162float(
+          p.lz[(size_t)(m + 8) * p.szm + (size_t)r * p.szr]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int nj = n + 8 * j;
+        const float l0 = nj < p.N ? __bfloat162float(
+            p.lb[(size_t)r * p.slr + (size_t)nj * p.sln]) : 0.f;
+        const float l1 = nj + 1 < p.N ? __bfloat162float(
+            p.lb[(size_t)r * p.slr + (size_t)(nj + 1) * p.sln]) : 0.f;
+        c[j][0] += za * l0; c[j][1] += za * l1;
+        c[j][2] += zb * l0; c[j][3] += zb * l1;
+      }
+    }
+    if (p.resid) {
+      const OutT* rr = reinterpret_cast<const OutT*>(p.resid);
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // rows m and m + 8
+          const int mi = m + 8 * h, ni = n + 8 * j;
+          if (mi >= p.M || ni >= p.N) continue;
+          const OutT* r2 = rr + (size_t)mi * p.ldr + ni;
+          if (ni + 1 < p.N && p.r_vec) {   // ni is even: one 4- or 8-byte load
+            float2 v;
+            if constexpr (sizeof(OutT) == 2)
+              v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r2));
+            else
+              v = *reinterpret_cast<const float2*>(r2);
+            c[j][2 * h] = v.x + c[j][2 * h];
+            c[j][2 * h + 1] = v.y + c[j][2 * h + 1];
+          } else {
+            c[j][2 * h] = to_f(r2[0]) + c[j][2 * h];
+            if (ni + 1 < p.N) c[j][2 * h + 1] = to_f(r2[1]) + c[j][2 * h + 1];
+          }
+        }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NI; ++j) {
+    gemm_store2<OutT>(p, c[j][0], c[j][1], m, n + 8 * j, zi);
+    gemm_store2<OutT>(p, c[j][2], c[j][3], m + 8, n + 8 * j, zi);
+  }
 }
 
 // A 64x64 warp tile holds 128 fp32 accumulators a thread: two blocks an SM
@@ -489,83 +551,271 @@ gemm_kernel(GemmArgs p) {
     }
   }
   cp_async_wait<0>();
-
-  // Epilogue in passes: every load (bias, LoRA factors, residual) goes into
-  // the accumulators first, then every store. Interleaved, each load would
-  // wait behind the store before it, which may alias it.
   const int g = lane >> 2, t4 = lane & 3;
-  if (gridDim.z == 1) {
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < MI; ++i)
+    gemm_epilogue<OutT, NI>(p, acc[i], m0 + wm + i * 16 + g, n0 + wn + 2 * t4,
+                            blockIdx.z);
+}
+
+// ---------------------------------------------------------------------------
+// Hopper GEMM, the same contract (layouts by strides, epilogue, split-K
+// partials) for operands TMA can read: a unit stride in one dimension, the
+// other a multiple of 16 bytes, a 16-byte aligned base. Tile 128 x BN x 64
+// (BN 128 or 256), one block of 3 warpgroups:
+//   * warpgroup 0 is the producer: one thread keeps a ring of STAGES tiles
+//     in flight, each A and B tile one or a few cp.async.bulk.tensor loads
+//     into 128B-swizzled shared memory, completion counted by the stage's
+//     "full" mbarrier (expect_tx);
+//   * warpgroups 1 and 2 each own 64 rows of the tile and run
+//     wgmma.mma_async m64n128k16 (fp32 accumulators in registers, both
+//     operands read from shared memory through matrix descriptors; bf16
+//     wgmma reads K-major or MN-major tiles, so NN, NT and TN need no
+//     transposing copy), keep one group of products in flight, and release
+//     a stage to the producer through its "empty" mbarrier when its
+//     products have retired;
+//   * the epilogue (gemm_epilogue) runs from the accumulators.
+// Persistent: one block an SM walks the output tiles (n fastest, so the
+// tiles in flight share their A rows); the producer's ring runs on across
+// tiles, so a tile's first loads overlap the previous tile's epilogue.
+// setmaxnreg moves registers from the producer to the consumers. TMA fills
+// out-of-bounds rows and columns with zeros, so ragged M, N and K need no
+// masking in the main loop.
+// ---------------------------------------------------------------------------
+constexpr int WG_BM = 128, WG_BK = 64, WG_THREADS = 384;
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;   // 16 KB
+constexpr int WG_BOX = 8192;                    // one 64 x 64 bf16 box, 128B rows
+
+template <int BN>
+struct WgTile {
+  static constexpr int STAGES = BN == 256 ? 4 : 6;
+  static constexpr int STAGE = WG_A_BYTES + BN * WG_BK * 2;
+  // the ring, the LoRA factors of the tile (fp32), the barriers, alignment
+  static constexpr int LORA = (WG_BM + BN) * LORA_RMAX * 4;
+  static constexpr size_t SMEM =
+      (size_t)STAGES * STAGE + LORA + 2 * STAGES * 8 + 1024;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA tile load (c0 the inner coordinate), counted by ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Matrix descriptor of a 128B-swizzled tile: start address, leading and
+// stride byte offsets (K-major: LBO unused, SBO = 1024, the 8-row group;
+// MN-major: LBO = the next 64-wide MN block, SBO = 1024, the next 8 K rows).
+__device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo,
+                                            unsigned sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// Keeps the compiler from moving accumulator accesses across the
+// asynchronous products.
+__device__ __forceinline__ void wg_reg_fence(float (&d)[64]) {
 #pragma unroll
-      for (int j = 0; j < NI; ++j)
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, fp32) += A (64 x 16) . B (16 x 128); TA / TB: A M-major / B
+// N-major (the transposes wgmma takes for bf16).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <typename OutT, int BN, bool AT, bool BT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                  const __grid_constant__ CUtensorMap tma_b, GemmArgs p) {
+  using TL = WgTile<BN>;
+  constexpr int STAGES = TL::STAGES;
+  extern __shared__ __align__(1024) unsigned char wsm[];
+  // the swizzle pattern repeats every 1024 bytes: tiles start on it
+  unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
+  float* zs = reinterpret_cast<float*>(base + STAGES * TL::STAGE);
+  float* ls = zs + WG_BM * LORA_RMAX;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ls + LORA_RMAX * BN);
+  uint64_t* empty = full + STAGES;
+  // persistent: block b takes tiles b, b + gridDim.x, ...; n fastest, then
+  // m, then the split of K, so the tiles in flight share their A rows
+  const int tiles_n = (p.N + BN - 1) / BN, tiles_m = (p.M + WG_BM - 1) / WG_BM;
+  const int ntiles = tiles_n * tiles_m * p.splits;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * 128);   // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer: the ring runs on across tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::);
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * WG_BM;
+        const int kbeg = t / (tiles_n * tiles_m) * p.k_per_split;
+        const int kend = min(p.K, kbeg + p.k_per_split);
+        for (int k = kbeg; k < kend; k += WG_BK, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty + s, (it / STAGES - 1) & 1);
+          unsigned char* As = base + s * TL::STAGE;
+          unsigned char* Bs = As + WG_A_BYTES;
+          mbar_expect_tx(full + s, TL::STAGE);
+          if (AT) {   // M contiguous: two 64 (M) x 64 (K) boxes
+            tma_load(As, &tma_a, full + s, m0, k);
+            tma_load(As + WG_BOX, &tma_a, full + s, m0 + 64, k);
+          } else {    // K contiguous: one 64 (K) x 128 (M) box
+            tma_load(As, &tma_a, full + s, k, m0);
+          }
+          if (BT) {   // K contiguous: one 64 (K) x BN (N) box
+            tma_load(Bs, &tma_b, full + s, k, n0);
+          } else {    // N contiguous: BN / 64 boxes of 64 (N) x 64 (K)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= p.alpha;
-    if (p.bias) {
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * t4;
-        const float b0 = n < p.N ? p.bias[n] : 0.f;
-        const float b1 = n + 1 < p.N ? p.bias[n + 1] : 0.f;
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          acc[i][j][0] += b0; acc[i][j][1] += b1;
-          acc[i][j][2] += b0; acc[i][j][3] += b1;
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load(Bs + j * WG_BOX, &tma_b, full + s, n0 + 64 * j, k);
+          }
         }
       }
     }
-    // + lscale * z16 @ L, one rank at a time
-    for (int r = 0; p.lz && r < p.R; ++r) {
-      float zr[MI][2], lr[NI][2];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm + i * 16 + g + 8 * h;
-          zr[i][h] = m < p.M ? p.lscale * __bfloat162float(
+  } else {         // consumers: warpgroup c owns rows 64c .. 64c + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::);
+    const int c = wg - 1;
+    const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
+    const int mm = 64 * c + 16 * w4 + (lane >> 2);
+    const bool lora_smem = p.lz && p.R <= LORA_RMAX;
+    int it = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * WG_BM;
+      const int zi = t / (tiles_n * tiles_m);
+      const int kbeg = zi * p.k_per_split;
+      const int kend = min(p.K, kbeg + p.k_per_split);
+      // the LoRA factors of this tile into shared memory while the ring
+      // fills (the epilogue reads each many times); rows and columns past M
+      // and N stage as zeros
+      if (lora_smem) {
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the last epilogue is done
+        const int tc = threadIdx.x - 128;
+        for (int i = tc; i < WG_BM * p.R; i += 256) {
+          const int row = i / p.R, r = i % p.R, m = m0 + row;
+          zs[row * LORA_RMAX + r] = m < p.M ? p.lscale * __bfloat162float(
               p.lz[(size_t)m * p.szm + (size_t)r * p.szr]) : 0.f;
         }
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + j * 8 + 2 * t4 + e;
-          lr[j][e] = n < p.N ? __bfloat162float(
+        for (int i = tc; i < p.R * BN; i += 256) {
+          const int r = i / BN, nn = i % BN, n = n0 + nn;
+          ls[r * BN + nn] = n < p.N ? __bfloat162float(
               p.lb[(size_t)r * p.slr + (size_t)n * p.sln]) : 0.f;
         }
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the consumers only
+      }
+      float acc[BN / 128][64];
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+      for (int h = 0; h < BN / 128; ++h)
 #pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          acc[i][j][0] += zr[i][0] * lr[j][0];
-          acc[i][j][1] += zr[i][0] * lr[j][1];
-          acc[i][j][2] += zr[i][1] * lr[j][0];
-          acc[i][j][3] += zr[i][1] * lr[j][1];
-        }
-    }
-    if (p.resid) {
-      const OutT* rr = reinterpret_cast<const OutT*>(p.resid);
+        for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+      for (int k = kbeg; k < kend; k += WG_BK, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full + s, (it / STAGES) & 1);
+        const unsigned char* As = base + s * TL::STAGE + c * WG_BOX;
+        const unsigned char* Bs = base + s * TL::STAGE + WG_A_BYTES;
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+        for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int j = 0; j < NI; ++j)
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          // k16 step: 32 bytes along a K-major row, 16 rows of an MN-major tile
+          const uint64_t da = AT ? wg_desc(As + kk * 2048, WG_BOX, 1024)
+                                 : wg_desc(As + kk * 32, 16, 1024);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = m0 + wm + i * 16 + g + 8 * (e >> 1);
-            const int n = n0 + wn + j * 8 + 2 * t4 + (e & 1);
-            if (m < p.M && n < p.N)
-              acc[i][j][e] = to_f(rr[(size_t)m * p.ldr + n]) + acc[i][j][e];
+          for (int h = 0; h < BN / 128; ++h) {
+            const uint64_t db = BT ? wg_desc(Bs + h * 16384 + kk * 32, 16, 1024)
+                                   : wg_desc(Bs + h * 16384 + kk * 2048, WG_BOX, 1024);
+            wgmma_m64n128k16<AT ? 1 : 0, BT ? 0 : 1>(acc[h], da, db);
           }
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
+        // the previous k-tile's products have retired: hand its stage back
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (k > kbeg) mbar_arrive(empty + (it - 1) % STAGES);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
+      if (kend > kbeg) mbar_arrive(empty + (it - 1) % STAGES);   // the last one
+#pragma unroll
+      for (int h = 0; h < BN / 128; ++h) {
+        const int nn = 128 * h + 2 * (lane & 3);
+        gemm_epilogue<OutT, 16>(p, reinterpret_cast<float(*)[4]>(acc[h]),
+                                m0 + mm, n0 + nn, zi,
+                                lora_smem ? zs + mm * LORA_RMAX : nullptr,
+                                ls + nn, BN);
+      }
     }
   }
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const int m = m0 + wm + i * 16 + g, n = n0 + wn + j * 8 + 2 * t4;
-      gemm_store2<OutT>(p, acc[i][j][0], acc[i][j][1], m, n);
-      gemm_store2<OutT>(p, acc[i][j][2], acc[i][j][3], m + 8, n);
-    }
 }
 
 // Rows [0, rows) of a (rows x dh) bf16 tile into shared memory with leading
@@ -615,7 +865,7 @@ __device__ __forceinline__ void load_kv(bf16* Ks, bf16* Vs, int ld,
   }
 }
 
-constexpr int FQT = 64;        // query rows per forward block
+constexpr int FQT = 64;        // query rows per dq block
 constexpr int FTHREADS = 128;
 
 // The additive mask is null, a (T, S) matrix, or (ROW) one key-mask row of
@@ -625,9 +875,10 @@ constexpr int FTHREADS = 128;
 // without it keep their registers for the score rows.
 template <bool ROW>
 __device__ __forceinline__ void stage_mask_row(float* Ms, const float* mask,
-                                               int S, int Sp, int tid) {
+                                               int S, int Sp, int tid,
+                                               int nthreads) {
   if constexpr (ROW)
-    for (int j = tid; j < Sp; j += FTHREADS) Ms[j] = j < S ? mask[j] : 0.f;
+    for (int j = tid; j < Sp; j += nthreads) Ms[j] = j < S ? mask[j] : 0.f;
 }
 
 template <bool ROW>
@@ -639,141 +890,256 @@ __device__ __forceinline__ float mask_at(const float* mask, const float* Ms,
 
 // ---------------------------------------------------------------------------
 // Attention forward: ctx = softmax(q k^T * scale + mask) v per head.
-// qkv (B*T, 3D) bf16, ctx (B*T, D) bf16. Grid (ceil(T/64), H, B), 4 warps;
-// warp w owns query rows q0 + 16w .. +15 and keeps their whole score rows
-// (S <= 256 keys) in registers, so the softmax is the exact full-row one:
-// fp32 scores of bf16 q.k, times scale, plus the mask; p = exp(s - max) /
-// sum; p rounded to bf16 as the A operand of p @ v. K, V and the query tile
-// sit in shared memory (rows padded by 8 elements against bank conflicts).
-// With PRE the keys and values are the P prefix rows of kvp followed by the
-// T tokens (S = P + T) and the mask is (T, S); without, S = T. The row max
-// is taken after the mask is added, so a dead key (-inf) gets p = 0 exactly.
+// qkv (B*T, 3D) bf16, ctx (B*T, D) bf16. One block per (head, batch row),
+// grid (H, B): K and V are loaded into shared memory once, in 64-row chunks
+// of cp.async copies, one commit group a chunk, and the first q k^T
+// products start as soon as the chunk they read has landed. The block's 8
+// warps work in 4 pairs; pair p takes the query rows 16 at a time (groups
+// p, p + 4, ...; each group's q through the pair's 16-row slab, loaded while
+// the pair's previous group computes), so a ragged last group (T = 197: 5
+// live rows) costs 16 rows, not a 64-row tile. The two warps of a pair split
+// the keys of the group's score rows in halves of whole 16-key tiles and
+// keep them in registers, so the softmax is the exact full-row one, its row
+// max and row sum exchanged through shared memory: fp32 scores of bf16 q.k,
+// times scale, plus the mask; p = exp(s - max) / sum (as exp2 of
+// log2(e)-scaled scores) normalised in fp32, then rounded to bf16 as the A
+// operand of p @ v (mma.sync m16n8k16, fp32 accumulation); the second warp's
+// part of p @ v is added to the first's, in that order, before the one
+// rounding of ctx. With PRE the keys and values are the P prefix rows of kvp
+// followed by the T tokens (S = P + T) and the mask is (T, S); without,
+// S = T. The row max is taken after the mask is added, so a dead key (-inf)
+// gets p = 0 exactly.
 // ---------------------------------------------------------------------------
+constexpr int KV_CHUNK = 64;   // key rows per commit group
+constexpr int AF_PAIRS = 4, AF_THREADS = 64 * AF_PAIRS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// cp.async.wait_group n for a count only known once a loop is unrolled
+__device__ __forceinline__ void cp_async_wait_upto3(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else if (n == 2) cp_async_wait<2>();
+  else cp_async_wait<3>();
+}
+
+// The 64 threads of a warp pair (named barrier 1 + pair).
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+// s[i] (16 x 8 scores of the query fragments qa) += q k^T for this warp's
+// 8-key tiles tbase + i, i < tcnt, that lie in [lo, hi).
+template <int DH, int HT>
+__device__ __forceinline__ void attn_half_scores(float (*s)[4],
+                                                 unsigned (*qa)[4],
+                                                 const bf16* Ks, int tbase,
+                                                 int tcnt, int lo, int hi,
+                                                 int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int i = 0; i < HT; i += 2) {
+    const int t = tbase + i;
+    if (i >= tcnt || t < lo || t >= hi) continue;
+#pragma unroll
+    for (int kc = 0; kc < DH / 16; ++kc) {
+      unsigned kb[4];
+      ldsm_x4(kb, Ks + (t * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                      kc * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(s[i], qa[kc], kb[0], kb[1]);
+      mma16816(s[i + 1], qa[kc], kb[2], kb[3]);
+    }
+  }
+}
+
 template <int DH, int MAXNT, bool PRE, bool ROW>   // MAXNT: 8-key tiles a row holds
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(AF_THREADS, 2)
 attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                 const float* __restrict__ mask, bf16* __restrict__ ctx,
                 int T, int P, int D, int Sp,
                 float scale) {
   constexpr int LD = DH + 8;
+  constexpr int NCH = (MAXNT * 8 + KV_CHUNK - 1) / KV_CHUNK;
+  constexpr int HT = 2 * ((MAXNT / 2 + 1) / 2);   // 8-key tiles a warp holds
+  static_assert(NCH <= 4, "cp_async_wait_upto3");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + Sp * LD;
-  bf16* Qs = Vs + Sp * LD;
-  float* Ms = reinterpret_cast<float*>(Qs + FQT * LD);   // a key-mask row
-
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pair = warp >> 1, half = warp & 1;
+  bf16* Qp = Vs + Sp * LD + pair * 16 * LD;                  // the pair's slab
+  float* xs = reinterpret_cast<float*>(Vs + Sp * LD + AF_PAIRS * 16 * LD);
+  float* red = xs + pair * 64;        // [max | sum][half][16 rows]
+  float* op = xs + AF_PAIRS * 64 + pair * 1024;   // the second warp's p @ v
+  float* Ms = xs + AF_PAIRS * (64 + 1024);        // a key-mask row
   const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, hd = blockIdx.y, q0 = blockIdx.x * FQT;
-  const int S = P + T;
+  const int hd = blockIdx.x, b = blockIdx.y;
+  const int S = P + T, ngroups = (T + 15) / 16;
+  // the key tiles in pairs (16 keys), the first ceil(n/2) to the first warp
+  const int npair = Sp / 16, h0 = (npair + 1) / 2;
+  const int tbase = half ? 2 * h0 : 0, tcnt = half ? 2 * (npair - h0) : 2 * h0;
   const size_t rs = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * T * rs;
-  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, Sp, DH, tid,
-               FTHREADS);
-  load_tile(Qs, LD, base + (size_t)q0 * rs + hd * DH, rs, FQT, T - q0, DH,
-            tid, FTHREADS);
-  stage_mask_row<ROW>(Ms, mask, S, Sp, tid);
+  const bf16* qbase = qkv + (size_t)b * T * rs + hd * DH;
+  // commit groups, oldest first: the pair's first query slab, then one per
+  // K/V chunk (empty past Sp, so the count is the same for every shape)
+  if (pair < ngroups)
+    load_tile(Qp, LD, qbase + (size_t)pair * 16 * rs, rs, 16, T - pair * 16, DH,
+              tid & 63, 64);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int r0 = warp * 16;
-  if (q0 + r0 >= T) return;   // no barrier follows
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const int j0 = c * KV_CHUNK;
+    if (j0 < Sp)
+      load_kv<PRE>(Ks + j0 * LD, Vs + j0 * LD, LD, qkv, kvp, b, T, P, D,
+                   hd * DH, j0, min(KV_CHUNK, Sp - j0), DH, tid, AF_THREADS);
+    cp_async_commit();
+  }
+  stage_mask_row<ROW>(Ms, mask, S, Sp, tid, AF_THREADS);
 
   unsigned qa[DH / 16][4];
+  float s[HT][4];
 #pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc)
-    ldsm_x4(qa[kc], Qs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+  for (int i = 0; i < HT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+  // the first group's scores, chunk by chunk as K lands (every warp takes
+  // part in the barriers)
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    cp_async_wait_upto3(NCH - 1 - c);
+    __syncthreads();
+    if (pair < ngroups) {
+      if (c == 0) {
+#pragma unroll
+        for (int kc = 0; kc < DH / 16; ++kc)
+          ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
+      }
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lane);
+    }
+  }
 
-  const int nt_used = Sp / 8;
-  float s[MAXNT][4];
+  const float sl2 = scale * LOG2E;
+  for (int grp = pair; grp < ngroups; grp += AF_PAIRS) {
+    if (grp != pair) {   // a later group: K and V are all in shared memory
 #pragma unroll
-  for (int nt = 0; nt < MAXNT; nt += 2) {
+      for (int kc = 0; kc < DH / 16; ++kc)
+        ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = s[nt + 1][e] = 0.f;
-    if (nt < nt_used) {
+      for (int i = 0; i < HT; ++i)
 #pragma unroll
-      for (int kc = 0; kc < DH / 16; ++kc) {
-        unsigned kb[4];
-        ldsm_x4(kb, Ks + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                        kc * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[nt], qa[kc], kb[0], kb[1]);
-        mma16816(s[nt + 1], qa[kc], kb[2], kb[3]);
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lane);
+    }
+
+    // scale and mask in base 2 (s log2(e), so exp2 gives exp(s - max) at
+    // one MUFU.EX2), this warp's half of the row max (a row lives in the 4
+    // lanes of a quad), then the pair's
+    const int ia = grp * 16 + g, ib = ia + 8;
+    float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < HT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = (tbase + i) * 8 + 2 * t4 + e;
+        float va = -INFINITY, vb = -INFINITY;
+        if (i < tcnt && j < S) {
+          va = fmaf(s[i][e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ia, j, S, T));
+          vb = fmaf(s[i][2 + e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ib, j, S, T));
+        }
+        s[i][e] = va;
+        s[i][2 + e] = vb;
+        ma = fmaxf(ma, va);
+        mb = fmaxf(mb, vb);
       }
     }
-  }
+    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 1));
+    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 2));
+    mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
+    mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
+    if (t4 == 0) {
+      red[half * 16 + g] = ma;
+      red[half * 16 + g + 8] = mb;
+    }
+    pair_sync(pair);   // both halves' maxima, and both warps have read the slab
+    ma = fmaxf(ma, red[(half ^ 1) * 16 + g]);
+    mb = fmaxf(mb, red[(half ^ 1) * 16 + g + 8]);
+    // the next group's queries into the slab while this group's products run
+    if (grp + AF_PAIRS < ngroups)
+      load_tile(Qp, LD, qbase + (size_t)(grp + AF_PAIRS) * 16 * rs, rs, 16,
+                T - (grp + AF_PAIRS) * 16, DH, tid & 63, 64);
+    cp_async_commit();
 
-  // scale, mask, full-row softmax (a row lives in the 4 lanes of a quad)
-  const int ia = q0 + r0 + g, ib = ia + 8;
-  float ma = -INFINITY, mb = -INFINITY;
+    float la = 0.f, lb = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < MAXNT; ++nt) {
+    for (int i = 0; i < HT; ++i) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = nt * 8 + 2 * t4 + e;
-      float va = -INFINITY, vb = -INFINITY;
-      if (nt < nt_used && j < S) {
-        va = s[nt][e] * scale + mask_at<ROW>(mask, Ms, ia, j, S, T);
-        vb = s[nt][2 + e] * scale + mask_at<ROW>(mask, Ms, ib, j, S, T);
+      for (int e = 0; e < 2; ++e) {
+        s[i][e] = exp2f(s[i][e] - ma);
+        s[i][2 + e] = exp2f(s[i][2 + e] - mb);
+        la += s[i][e];
+        lb += s[i][2 + e];
       }
-      s[nt][e] = va;
-      s[nt][2 + e] = vb;
-      ma = fmaxf(ma, va);
-      mb = fmaxf(mb, vb);
     }
-  }
-  ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 1));
-  ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 2));
-  mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
-  mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
-  float la = 0.f, lb = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < MAXNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[nt][e] = expf(s[nt][e] - ma);
-      s[nt][2 + e] = expf(s[nt][2 + e] - mb);
-      la += s[nt][e];
-      lb += s[nt][2 + e];
+    la += __shfl_xor_sync(0xffffffffu, la, 1);
+    la += __shfl_xor_sync(0xffffffffu, la, 2);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 1);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 2);
+    if (t4 == 0) {
+      red[32 + half * 16 + g] = la;
+      red[32 + half * 16 + g + 8] = lb;
     }
-  }
-  la += __shfl_xor_sync(0xffffffffu, la, 1);
-  la += __shfl_xor_sync(0xffffffffu, la, 2);
-  lb += __shfl_xor_sync(0xffffffffu, lb, 1);
-  lb += __shfl_xor_sync(0xffffffffu, lb, 2);
+    pair_sync(pair);
+    // a + b == b + a in fp32: both warps get the same row sums
+    la += red[32 + (half ^ 1) * 16 + g];
+    lb += red[32 + (half ^ 1) * 16 + g + 8];
+    const float ila = 1.f / la, ilb = 1.f / lb;
 
-  // o = p16 @ v
-  float o[DH / 8][4];
+    // this warp's part of o = p16 @ v, p normalised in fp32 before the bf16
+    // rounding
+    float o[DH / 8][4];
 #pragma unroll
-  for (int ct = 0; ct < DH / 8; ++ct)
+    for (int ct = 0; ct < DH / 8; ++ct)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[ct][e] = 0.f;
+      for (int e = 0; e < 4; ++e) o[ct][e] = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < MAXNT / 2; ++kc) {
-    if (2 * kc < nt_used) {
+    for (int i = 0; i < HT; i += 2) {
+      if (i >= tcnt) continue;
       unsigned pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0] / la, s[2 * kc][1] / la);
-      pa[1] = pack_bf16(s[2 * kc][2] / lb, s[2 * kc][3] / lb);
-      pa[2] = pack_bf16(s[2 * kc + 1][0] / la, s[2 * kc + 1][1] / la);
-      pa[3] = pack_bf16(s[2 * kc + 1][2] / lb, s[2 * kc + 1][3] / lb);
+      pa[0] = pack_bf16(s[i][0] * ila, s[i][1] * ila);
+      pa[1] = pack_bf16(s[i][2] * ilb, s[i][3] * ilb);
+      pa[2] = pack_bf16(s[i + 1][0] * ila, s[i + 1][1] * ila);
+      pa[3] = pack_bf16(s[i + 1][2] * ilb, s[i + 1][3] * ilb);
+      const int k0 = (tbase + i) * 8;
 #pragma unroll
       for (int cp = 0; cp < DH / 16; ++cp) {
         unsigned vb[4];
-        ldsm_x4_t(vb, Vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+        ldsm_x4_t(vb, Vs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                           cp * 16 + (lane >> 4) * 8);
         mma16816(o[2 * cp], pa, vb[0], vb[1]);
         mma16816(o[2 * cp + 1], pa, vb[2], vb[3]);
       }
     }
-  }
+    if (half) {
 #pragma unroll
-  for (int ct = 0; ct < DH / 8; ++ct) {
-    const int c = hd * DH + ct * 8 + 2 * t4;
-    if (ia < T)
-      *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ia) * D + c) =
-          pack_bf16(o[ct][0], o[ct][1]);
-    if (ib < T)
-      *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ib) * D + c) =
-          pack_bf16(o[ct][2], o[ct][3]);
+      for (int ct = 0; ct < DH / 8; ++ct)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) op[(ct * 4 + e) * 32 + lane] = o[ct][e];
+    }
+    cp_async_wait<0>();   // the next slab has landed (this thread's copies)
+    pair_sync(pair);      // ... and every copy of the pair, and the partial o
+    if (!half) {
+#pragma unroll
+      for (int ct = 0; ct < DH / 8; ++ct) {
+        const int c = hd * DH + ct * 8 + 2 * t4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[ct][e] += op[(ct * 4 + e) * 32 + lane];
+        if (ia < T)
+          *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ia) * D + c) =
+              pack_bf16(o[ct][0], o[ct][1]);
+        if (ib < T)
+          *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ib) * D + c) =
+              pack_bf16(o[ct][2], o[ct][3]);
+      }
+    }
   }
 }
 
@@ -821,7 +1187,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
             tid, FTHREADS);
   load_tile(dOs, LD, dctx + ((size_t)b * T + q0) * D + hd * DH, D, FQT,
             T - q0, DH, tid, FTHREADS);
-  stage_mask_row<ROW>(Ms, mask, S, Sp, tid);
+  stage_mask_row<ROW>(Ms, mask, S, Sp, tid, FTHREADS);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -1131,9 +1497,11 @@ static int grid_for(size_t n) {
   return (int)(b < 4096 ? b : 4096);
 }
 
-// K, V and the query tile (and dO), plus the key-mask row with ROW
+// K, V, the 4 pairs' query slabs, their row-max and row-sum exchange and
+// partial p @ v, plus the key-mask row with ROW
 static size_t attn_fwd_smem(int Sp, int dh, bool row) {
-  return (size_t)(2 * Sp + FQT) * (dh + 8) * sizeof(bf16) +
+  return (size_t)(2 * Sp + 16 * AF_PAIRS) * (dh + 8) * sizeof(bf16) +
+         (size_t)AF_PAIRS * (64 + 1024) * sizeof(float) +
          (row ? (size_t)Sp * sizeof(float) : 0);
 }
 
@@ -1168,10 +1536,8 @@ template <int DH, int MAXNT, bool PRE, bool ROW>
 static int launch_attn_fwd_nt(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
   const size_t smem = attn_fwd_smem(Sp, DH, ROW);
-  cudaFuncSetAttribute(attn_fwd_kernel<DH, MAXNT, PRE, ROW>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((a.T + FQT - 1) / FQT, a.H, a.B);
-  attn_fwd_kernel<DH, MAXNT, PRE, ROW><<<grid, FTHREADS, smem, s>>>(
+  raise_smem(attn_fwd_kernel<DH, MAXNT, PRE, ROW>, smem);
+  attn_fwd_kernel<DH, MAXNT, PRE, ROW><<<dim3(a.H, a.B), AF_THREADS, smem, s>>>(
       a.qkv, a.kvp, a.mask, a.ctx, a.T, a.P, a.D, Sp, a.scale);
   return (int)cudaGetLastError();
 }
@@ -1180,8 +1546,7 @@ template <int DH, int MAXNT, bool PRE, bool ROW>
 static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16, Tp = (a.T + 15) / 16 * 16;
   size_t smem = attn_bwd_dq_smem(Sp, DH, ROW);
-  cudaFuncSetAttribute(attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  raise_smem(attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>, smem);
   attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>
       <<<dim3((a.T + FQT - 1) / FQT, a.H, a.B), FTHREADS, smem, s>>>(
           a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.stats, a.T,
@@ -1189,8 +1554,7 @@ static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
   int e = (int)cudaGetLastError();
   if (e) return e;
   smem = attn_bwd_dkv_smem(Tp, DH);
-  cudaFuncSetAttribute(attn_bwd_dkv_kernel<DH, PRE, ROW>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  raise_smem(attn_bwd_dkv_kernel<DH, PRE, ROW>, smem);
   attn_bwd_dkv_kernel<DH, PRE, ROW>
       <<<dim3((a.P + a.T + KVT - 1) / KVT, a.H, a.B), FTHREADS, smem, s>>>(
           a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.dkvp16,
@@ -1198,8 +1562,10 @@ static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// Dispatch on head dim and on the padded key count (<= 128 or <= 256 keys a
-// score row); S = P + T > 256 is refused. ROW: a key-mask row (mask_rs 0).
+// Dispatch on head dim and on the padded key count a score row holds (the
+// backward <= 128 or <= 256; the forward also <= 208, ViT-B/16's 197 or 200
+// tokens, whose half rows take 56 registers a thread where 256 keys take
+// 64); S = P + T > 256 is refused. ROW: a key-mask row (mask_rs 0).
 template <bool BWD, bool PRE, bool ROW>
 static int launch_attn(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
@@ -1209,8 +1575,9 @@ static int launch_attn(const AttnArgs& a, cudaStream_t s) {
   if constexpr (BWD)                                                         \
     return wide ? launch_attn_bwd_nt<DHV, 32, PRE, ROW>(a, s)                \
                 : launch_attn_bwd_nt<DHV, 16, PRE, ROW>(a, s);               \
-  return wide ? launch_attn_fwd_nt<DHV, 32, PRE, ROW>(a, s)                  \
-              : launch_attn_fwd_nt<DHV, 16, PRE, ROW>(a, s);
+  if (!wide) return launch_attn_fwd_nt<DHV, 16, PRE, ROW>(a, s);             \
+  return Sp <= 208 ? launch_attn_fwd_nt<DHV, 26, PRE, ROW>(a, s)             \
+                   : launch_attn_fwd_nt<DHV, 32, PRE, ROW>(a, s);
   switch (a.D / a.H) {
     case 16: { LLC_ATTN(16) }
     case 32: { LLC_ATTN(32) }
@@ -1225,8 +1592,7 @@ static int launch_gemm_tile(const GemmArgs& p, int splits, cudaStream_t s) {
   constexpr int BM = WM * MI * 16, BN = WN * NI * 8;
   using TL = GemmTile<BM, BN, AT, BT>;
   auto kern = gemm_kernel<OutT, WM, WN, MI, NI, AT, BT>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)TL::SMEM);
+  raise_smem(kern, TL::SMEM);
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
   kern<<<grid, GTHREADS, TL::SMEM, s>>>(p);
   return (int)cudaGetLastError();
@@ -1242,14 +1608,103 @@ static int launch_gemm_layout(const GemmArgs& p, bool at, bool bt, int splits,
             : launch_gemm_tile<OutT, WM, WN, MI, NI, false, false>(p, splits, s);
 }
 
-// Tile shape by problem shape: 64x16 for N <= 16, 16x128 for M <= 16,
-// 128x128 otherwise.
+// A map is a function of (base, dims, row stride, box) alone, and encoding
+// one is a call into libcuda, so the launcher keeps them in a direct-mapped
+// table: a chain's operands recur every step (the weights, and activations
+// the caching allocator hands back at the same address).
+constexpr int TMA_SLOTS = 1024;
+struct TmaSlot {
+  CUtensorMap map;
+  const void* ptr;
+  long long inner, outer, ld;
+  int box_inner, box_outer;
+};
+static TmaSlot tma_slots[TMA_SLOTS];
+static std::mutex tma_mutex;
+
+// A 2-D bf16 TMA map over ``outer`` rows of ``inner`` elements, ``ld``
+// elements apart, read in inner x outer boxes into 128B-swizzled tiles;
+// out-of-bounds elements read as zero.
+static int make_tma(CUtensorMap* map, const void* ptr, long long inner,
+                    long long outer, long long ld, int box_inner,
+                    int box_outer) {
+  const uint64_t key[6] = {(uint64_t)(uintptr_t)ptr, (uint64_t)inner,
+                           (uint64_t)outer, (uint64_t)ld,
+                           (uint64_t)box_inner, (uint64_t)box_outer};
+  uint64_t h = 0xcbf29ce484222325ull;   // FNV-1a over the key's words
+  for (int i = 0; i < 6; ++i) h = (h ^ key[i]) * 0x100000001b3ull;
+  TmaSlot& slot = tma_slots[(h ^ (h >> 29)) % TMA_SLOTS];
+  std::lock_guard<std::mutex> lock(tma_mutex);
+  if (slot.ptr == ptr && slot.inner == inner && slot.outer == outer &&
+      slot.ld == ld && slot.box_inner == box_inner &&
+      slot.box_outer == box_outer) {
+    *map = slot.map;
+    return 0;
+  }
+  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  cuuint32_t estr[2] = {1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  slot.map = *map;
+  slot.ptr = ptr; slot.inner = inner; slot.outer = outer; slot.ld = ld;
+  slot.box_inner = box_inner; slot.box_outer = box_outer;
+  return 0;
+}
+
+template <typename OutT, int BN, bool AT, bool BT>
+static int launch_wgmma_tile(const GemmArgs& p, int splits, cudaStream_t s) {
+  using TL = WgTile<BN>;
+  CUtensorMap ta, tb;
+  int e = AT ? make_tma(&ta, p.A, p.M, p.K, p.sak, 64, 64)
+             : make_tma(&ta, p.A, p.K, p.M, p.sam, 64, WG_BM);
+  if (e) return e;
+  e = BT ? make_tma(&tb, p.B, p.K, p.N, p.sbn, 64, BN)
+         : make_tma(&tb, p.B, p.N, p.K, p.sbk, 64, 64);
+  if (e) return e;
+  auto kern = gemm_wgmma_kernel<OutT, BN, AT, BT>;
+  raise_smem(kern, TL::SMEM);
+  // persistent: one block an SM, or one a tile where there are fewer
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long ntiles = (long long)((p.N + BN - 1) / BN) *
+                           ((p.M + WG_BM - 1) / WG_BM) * splits;
+  kern<<<(int)(ntiles < sms ? ntiles : sms), WG_THREADS, TL::SMEM, s>>>(ta, tb, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT, int BN>
+static int launch_wgmma(const GemmArgs& p, bool at, bool bt, int splits,
+                        cudaStream_t s) {
+  if (at)
+    return bt ? launch_wgmma_tile<OutT, BN, true, true>(p, splits, s)
+              : launch_wgmma_tile<OutT, BN, true, false>(p, splits, s);
+  return bt ? launch_wgmma_tile<OutT, BN, false, true>(p, splits, s)
+            : launch_wgmma_tile<OutT, BN, false, false>(p, splits, s);
+}
+
+// Tile by problem shape: the mma.sync 64x16 tile for N <= 16 and 16x128 for
+// M <= 16 (the rank-r LoRA shapes); else the wgmma tile, 128 x 256 for
+// N >= 2048 and 128 x 128 below (the faster of the two at the qkv and dh
+// shapes, PERF.md), which needs operands TMA can read (``tma``): other
+// strides are refused, as no caller has them.
 template <typename OutT>
-static int launch_gemm(const GemmArgs& p, bool at, bool bt, int splits,
-                       cudaStream_t s) {
+static int launch_gemm(const GemmArgs& p, bool at, bool bt, bool tma,
+                       int splits, cudaStream_t s) {
   if (p.N <= 16) return launch_gemm_layout<OutT, 4, 1, 1, 2>(p, at, bt, splits, s);
   if (p.M <= 16) return launch_gemm_layout<OutT, 1, 4, 1, 4>(p, at, bt, splits, s);
-  return launch_gemm_layout<OutT, 2, 2, 4, 8>(p, at, bt, splits, s);
+  if (!tma) return (int)cudaErrorInvalidValue;
+  if (p.N >= 2048) return launch_wgmma<OutT, 256>(p, at, bt, splits, s);
+  return launch_wgmma<OutT, 128>(p, at, bt, splits, s);
 }
 
 extern "C" {
@@ -1311,6 +1766,9 @@ int llc_colsum(int dt, const void* X, int M, int N, float* ws, float* out,
 
 // out_dt selects the output type (and the residual's). splits > 1 needs
 // out_dt == DT_F32, no bias/LoRA/residual, and ws of splits * M * N floats.
+// Unless M or N is at most 16, A and B need a 16-byte aligned base, a unit
+// stride along one dimension and the other a multiple of 8 elements (TMA);
+// cudaErrorInvalidValue otherwise.
 int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
              long long sak, const void* B, long long sbk, long long sbn,
              float alpha, const float* bias, const void* lz, long long szm,
@@ -1334,22 +1792,30 @@ int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
   p.b_vec = ((uintptr_t)B % 16) == 0 &&
       (bt ? (sbn % 8 == 0 && K % 8 == 0) : (sbn == 1 && sbk % 8 == 0 && N % 8 == 0));
   p.o_vec = ((uintptr_t)out % 8) == 0 && ldo % 2 == 0;
+  p.r_vec = ((uintptr_t)resid % 8) == 0 && ldr % 2 == 0;
+  // TMA reads an operand with a unit stride along one dimension, the other
+  // stride a multiple of 16 bytes, from a 16-byte aligned base
+  const bool tma =
+      ((uintptr_t)A % 16) == 0 && ((uintptr_t)B % 16) == 0 &&
+      (at ? sak % 8 == 0 : (sak == 1 && sam % 8 == 0)) &&
+      (bt ? sbn % 8 == 0 : (sbn == 1 && sbk % 8 == 0));
   if (splits < 1) splits = 1;
   int kps = (K + splits - 1) / splits;
   kps = (kps + GBK - 1) / GBK * GBK;
   splits = (K + kps - 1) / kps;
   p.k_per_split = kps;
+  p.splits = splits;
   if (splits > 1) {
     if (out_dt != DT_F32 || bias || lz || resid || !ws) return (int)cudaErrorInvalidValue;
     p.out = ws;
-    int e = launch_gemm<float>(p, at, bt, splits, s);
+    int e = launch_gemm<float>(p, at, bt, tma, splits, s);
     if (e) return e;
     const size_t mn = (size_t)M * N;
     splitk_reduce_kernel<<<grid_for(mn), 256, 0, s>>>(ws, splits, mn, alpha, (float*)out);
     return (int)cudaGetLastError();
   }
-  if (out_dt == DT_BF16) return launch_gemm<bf16>(p, at, bt, 1, s);
-  return launch_gemm<float>(p, at, bt, 1, s);
+  if (out_dt == DT_BF16) return launch_gemm<bf16>(p, at, bt, tma, 1, s);
+  return launch_gemm<float>(p, at, bt, tma, 1, s);
 }
 
 int llc_attn_fwd(const void* qkv, const float* mask, void* ctx, int B, int T,

@@ -2,7 +2,8 @@
 
 The sources under ``lifelong_clip_tpu_torch/csrc/`` (the fused LN-attention
 block and its KV-prefix variant, and attention on projected q, k, v, each
-forward and backward) have a plain C interface. At first use one ``nvcc``
+forward and backward; ``mma.cuh`` holds the primitives both include) have a
+plain C interface. At first use one ``nvcc``
 per source, all started together, compiles them for ``sm_90a``, and one more
 links them into a shared library under ``csrc/build/`` (listed in
 ``.gitignore``), which ``ctypes`` loads. The library name carries a hash of
@@ -26,6 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("fused_block_attn.cu", "flash_attention.cu")
+HEADERS = ("mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,7 +71,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libllc_kernels_{h.hexdigest()[:12]}.so")
@@ -98,8 +100,9 @@ def build() -> str:
         if any(p.returncode != 0 for p in procs):
             raise RuntimeError(f"nvcc failed:\n{report}")
         part = os.path.join(tmp, "lib.so")
-        run = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
-                              part], capture_output=True, text=True)
+        # -lcuda: libcuda holds cuTensorMapEncodeTiled (the GEMM's TMA maps)
+        run = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-lcuda",
+                              "-o", part], capture_output=True, text=True)
         if run.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{run.stdout}{run.stderr}")
         with open(out + ".ptxas.txt", "w") as f:

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-unfused attention road's fp32 products, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, its GEMM
+against ``torch.matmul``, and the unfused attention road's fp32 products, on
+the card.
 
 Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``) and skips
 without one. On the card, without JAX (this file imports torch only):
@@ -234,3 +235,112 @@ def test_flash_op_launches_kernels_and_raises(cuda):
         fa.flash_attention(q, k, v, 4)
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.float(), v, 2)
+
+
+def test_flash_prompted_lora_width_dead_keys(cuda):
+    """The prompted-LoRA block's widths (12 heads of 64, T = 197, S = 217)
+    with a key row of 5 live prompt slots: o, dq, dk, dv within the flash
+    tolerance, and the 15 dead keys' dk and dv exactly 0."""
+    kc.check_flash_case(*kc.make_flash_inputs(3, 197, 217, 768, 12, 2, 5,
+                                              device=cuda), 12)
+
+
+# the port's GEMM (``llc_gemm`` through ``ops/fused_block_attn.py:_gemm``):
+# (layout, out dtype, M, N, K, epilogue terms, splits). NN with
+# N-contiguous B (the qkv and out projections), NT with K-contiguous B
+# (dctx, dh), TN with M-contiguous A (the weight grads, split over K);
+# M = 12608 (ViT-B/16 at bs 64) and ragged M, N and K; N = 2304 takes the
+# 128 x 256 wgmma tile, the others 128 x 128.
+GEMM_CASES = [
+    ("NN", "bf16", 12608, 2304, 768, "bias,lora", 1),
+    ("NN", "bf16", 12608, 2304, 768, "bias", 1),
+    ("NN", "bf16", 12608, 768, 768, "bias,lora,resid", 1),
+    ("NT", "f32", 12608, 768, 2304, "lora", 1),
+    ("NT", "bf16", 1000, 768, 768, "lora,resid", 1),
+    ("TN", "f32", 768, 768, 12608, "", -1),
+    ("TN", "f32", 760, 2304, 1000, "resid", 1),
+    ("NN", "f32", 1000, 328, 520, "alpha", 1),
+]
+
+
+@pytest.mark.parametrize("layout,out_dt,m,n,k,terms,splits", GEMM_CASES)
+def test_gemm_matches_fp32_matmul(cuda, layout, out_dt, m, n, k, terms,
+                                  splits):
+    """out = alpha * A @ B + bias + s * z @ L, then + residual, rounded once,
+    against an fp32 ``torch.matmul`` of the same bf16 operands: within 1e-2
+    of the output's max beyond one bf16 ulp (fp32 sums in another order).
+    Each epilogue term is drawn at the product's scale (sqrt(K)) and
+    asserted to be >= ``kc.MARGIN`` x (tolerance + one typical ulp), so a
+    wrong or missing term fails the check."""
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    scale = k ** 0.5   # the std of an element of A @ B
+
+    def rnd(*shape, std=1.0):
+        return (std * torch.randn(*shape, generator=g, device=cuda)).to(bf)
+
+    a, b = rnd(m, k), rnd(k, n)
+    # the layouts as the callers store them: (storage, (stride m|k, stride k|n))
+    a_arg = (a.t().contiguous(), (1, m)) if layout == "TN" else (a, (k, 1))
+    b_arg = (b.t().contiguous(), (1, k)) if layout == "NT" else (b, (n, 1))
+    odt = bf if out_dt == "bf16" else torch.float32
+    kw = {"splits": splits}
+    want = a.float() @ b.float()
+    parts = {}
+    if "alpha" in terms:
+        kw["alpha"] = 0.5
+        want = 0.5 * want
+    if "bias" in terms:
+        kw["bias"] = scale * torch.randn(n, generator=g, device=cuda)
+        parts["bias"] = kw["bias"]
+    if "lora" in terms:
+        z, lb = rnd(m, 4), rnd(4, n)
+        # rank 4: z @ L has std 2, so lscale = scale / 2 gives it std scale
+        kw.update(lz=(z, 4, 1), lb=(lb, n, 1), lscale=scale / 2)
+        parts["lora"] = scale / 2 * (z.float() @ lb.float())
+    if "resid" in terms:
+        kw["resid"] = rnd(m, n, std=scale).to(odt)
+        parts["resid"] = kw["resid"].float()
+    for term in parts.values():
+        want = want + term
+    out = torch.empty(m, n, dtype=odt, device=cuda)
+    fba._gemm(out, *a_arg, *b_arg, m, n, k, **kw)
+    torch.cuda.synchronize()
+    got = out.float()
+    tol = 1e-2 * float(want.abs().max())
+    floor = kc.MARGIN * (tol + kc.ULP * float(want.square().mean().sqrt()))
+    for name, term in parts.items():
+        assert float(term.abs().max()) >= floor, (name, floor)
+    excess = ((got - want).abs()
+              - kc.ULP * torch.maximum(got.abs(), want.abs())).clamp(min=0)
+    assert float(excess.max()) <= tol, (float(excess.max()), tol)
+
+
+def test_gemm_refuses_strides_tma_cannot_read(cuda):
+    """K = 100 puts the rows of A 200 bytes apart, which TMA cannot read:
+    the launcher raises (no caller has such strides) rather than falling
+    back to another tile; the rank-r shapes (N <= 16) still take them."""
+    bf = torch.bfloat16
+    a = torch.randn(1000, 100, device=cuda).to(bf)
+    b = torch.randn(100, 256, device=cuda).to(bf)
+    out = torch.empty(1000, 256, dtype=bf, device=cuda)
+    with pytest.raises(RuntimeError, match="llc_gemm failed"):
+        fba._gemm(out, a, (100, 1), b, (256, 1), 1000, 256, 100)
+    small = torch.empty(1000, 4, dtype=torch.float32, device=cuda)
+    fba._gemm(small, a, (100, 1), b, (256, 1), 1000, 4, 100)
+    torch.cuda.synchronize()
+    want = a.float() @ b[:, :4].float()
+    torch.testing.assert_close(small, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_gemm_split_k_is_deterministic(cuda):
+    """A contraction over all rows split over K: fp32 partials summed in a
+    fixed order, so two runs agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(12608, 768, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(12608, 2304, generator=g, device=cuda).to(torch.bfloat16)
+    outs = [fba._gemm(torch.empty(768, 2304, device=cuda), a, (1, 768), b,
+                      (2304, 1), 768, 2304, 12608, splits=-1)
+            for _ in range(2)]
+    assert torch.equal(*outs)
