@@ -6,11 +6,13 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from lifelong_clip_tpu_torch/csrc.
 3. Kernel phase: the fused LN-attention block, forward and backward, at the
-   ViT-B/16 vision shape (64 x 197 x 768, 12 heads, LoRA r=4, bf16, no mask)
-   and the text shape (20 and 64 x 77 x 512, 8 heads, causal), the
-   KV-prefix block at the mvp-clip shape (64 x 197 x 768, P = 20 prompt
-   slots, 12 heads, bf16; 5 live slots, none live, and 20 live with
-   weight_grads=True), and the flash-attention op at four shapes (the
+   ViT-B/16 vision shape (64 x 197 x 768, 12 heads, LoRA r=4, bf16, no mask),
+   the text shape (20 and 64 x 77 x 512, 8 heads, causal), ViT-L/14's
+   vision shape (64 x 257 x 1024, 16 heads, LoRA r=4) and T = 512 (8 x 512 x
+   768, weight_grads), the KV-prefix block at the mvp-clip shape (64 x 197 x
+   768, P = 20 prompt slots, 12 heads, bf16; 5 live slots, none live, and 20
+   live with weight_grads=True) and at S = P + T = 512 (8 x 197 x 768, P =
+   315, 40 live, weight_grads), and the flash-attention op at four shapes (the
    prompted-LoRA block, B*H = 768, T = 197, S = 217, dh 64, with no mask and
    with a (S,) key row of 5 live prompt slots; the text tower, 64 rows x 8
    heads, T = S = 77, causal; ViT-L/14 with no prefix, 64 x 257 x 1024, 16
@@ -23,12 +25,17 @@
    the fp32-upcast inputs), with each case's bound and, for flash, the
    fp32 CUDA-core ceiling (the forward's road; the bf16 backward runs on
    tensor cores). Each case's device-busy ms (torch.profiler, host gaps
-   left out) stands beside its library call's. Then the port's GEMM at the
-   qkv, out and dh shapes with the chain's epilogue terms, beside
+   left out) stands beside its library call's, and each timed backward's
+   attention kernels (dq, dk/dv) are split out by device ms beside the
+   attention backward's bound. The timed backwards read the forward's kept
+   intermediates, as a train step does. Then the port's GEMM at the qkv,
+   out and dh shapes with the chain's epilogue terms, beside
    ``torch.matmul``.
 4. Main paths, each with the launch counters set to 0 just before it and
    read just after: ``lifelong_clip_tpu_torch.main.main`` runs lora-clip on
-   ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment), mvp-clip
+   ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment), lora-clip on
+   ViT-L/14 the same way (random weights; kernels #1/#2 past 256 keys),
+   mvp-clip
    (online_iter 3, --use_mask --use_contrastiv) and MaPLe (online_iter 3,
    AdamW, lr 5e-4, ``scripts/maple.sh``); the kernels' launch counters must
    grow in every pass (MaPLe train: 12 vision and 12 text block forwards
@@ -39,10 +46,12 @@
    over LoRA and prompts): 3 train steps and one eval forward, 12 flash
    launches forward and 12 backward a step.
 5. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip,
-   mvp-clip, MaPLe and prompted-LoRA train steps on one batch lower the
-   loss by more than 0.02; each prints step ms and samples/s, then a
-   torch.profiler window over 3 more steps (device ms a step by kernel, the
-   device's idle share).
+   mvp-clip, MaPLe and prompted-LoRA train steps and of the ViT-L/14
+   lora-clip step on one batch lower the loss by more than 0.02; each
+   prints step ms, samples/s and the peak device memory of its steps, then
+   a torch.profiler window over 3 more steps (device ms a step by kernel,
+   the device's idle share). The lora-clip gates also count their launches
+   (one fused forward and backward a vision layer a step).
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels); the last line is
@@ -137,10 +146,11 @@ def busy_us(prof):
     return busy, by_name
 
 
-def device_ms(fn, iters=5, warmup=1):
-    """Device-busy ms per call from torch.profiler: the time the device ran
-    kernels, the gaps where it waited for the host left out; None where the
-    profiler saw no device time."""
+def device_split(fn, iters=5, warmup=1):
+    """Device-busy ms per call from torch.profiler (the time the device ran
+    kernels, the gaps where it waited for the host left out) and each
+    kernel name's ms per call; (None, {}) where the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -151,8 +161,67 @@ def device_ms(fn, iters=5, warmup=1):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy = busy_us(prof)[0]
-    return None if busy is None else busy / 1e3 / iters
+    busy, by_name = busy_us(prof)
+    if busy is None:
+        return None, {}
+    return busy / 1e3 / iters, {k: v / 1e3 / iters for k, v in by_name.items()}
+
+
+def device_ms(fn, iters=5, warmup=1):
+    """Device-busy ms per call (``device_split``); None where the profiler
+    saw no device time."""
+    return device_split(fn, iters, warmup)[0]
+
+
+def device_sequence(fn, iters=5, warmup=1):
+    """Every kernel one call of ``fn`` launches, in launch order, as [label,
+    device ms] (torch.profiler, mean over ``iters`` calls); the port's
+    GEMMs labelled by M, N, K in the order ``fn`` calls them. None where the
+    profiler saw no device time or the calls launched different kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lifelong_clip_tpu_torch.ops import _kernels
+    orig, gemms = _kernels.call, []
+
+    def tagged(name, *a):
+        if name == "llc_gemm":
+            gemms.append(f"gemm M={a[1]} N={a[2]} K={a[3]}")
+        return orig(name, *a)
+
+    _kernels.call = tagged
+    try:
+        fn()
+    finally:
+        _kernels.call = orig
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not kern or len(kern) % iters:
+        return None
+    n = len(kern) // iters
+    names = [kernel_short(e.name) for e in kern[:n]]
+    if any(kernel_short(e.name) != names[i % n] for i, e in enumerate(kern)):
+        return None
+    tags = iter(gemms)
+    return [[next(tags, nm) if nm.startswith("gemm") else nm,
+             sum(kern[c * n + i].time_range.elapsed_us()
+                 for c in range(iters)) / iters / 1e3]
+            for i, nm in enumerate(names)]
+
+
+def kernel_short(name):
+    """A profiler kernel name without ``void``, its namespace, template
+    arguments and parameters: ``attn_bwd_dq_kernel``."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0]
 
 
 def fmt(v, digits=3):
@@ -165,51 +234,58 @@ def fmt(v, digits=3):
 
 def block_cost(b, t, d, heads, r, weight_grads, backward, es=2):
     """(flops, bytes) the function needs: each input read once, each output
-    written once; the backward recomputes qkv and p (it is given x only)."""
+    written once. The backward is the chain as a train step runs it: given
+    x, the output grad and the forward's kept qkv16 (with LoRA or
+    weight_grads also h16 and ctx16, with LoRA z16 and z2), it recomputes
+    none of the forward."""
     m, dh = b * t, d // heads
     attn = 2 * b * heads * t * t * dh            # one T x T x dh product
-    lora_fwd = 2 * m * r * (d + 3 * d + d + d) if r else 0
     w_bytes = 4 * d * d * 2 + 5 * d * 4 + (2 * d * r + 4 * d * r) * 2
     if not backward:
+        lora_fwd = 2 * m * r * (d + 3 * d + d + d)
         flops = 2 * m * d * 3 * d + 2 * attn + 2 * m * d * d + lora_fwd
         return flops, 2 * m * d * es + w_bytes
-    flops = (2 * m * d * 3 * d + 2 * attn          # recompute qkv, p, ctx
-             + 2 * m * d * d                       # dctx
-             + 4 * attn                            # dv, dp, dq, dk
+    flops = (2 * m * d * d                         # dctx
+             + 5 * attn                            # s, dp, dv, dq, dk
              + 2 * m * 3 * d * d)                  # dh
-    if r:
-        flops += lora_fwd + 2 * m * r * (d + d + d + d + 3 * d + d + 3 * d + d)
+    kept = 3 * m * d * 2                           # qkv16
+    if r:   # dz2, dB_out, dA_out, dctx += , dz, dA_in, dB_in, dh +=
+        flops += 2 * m * r * (d + d + d + d + 3 * d + d + 3 * d + d)
+        kept += 2 * m * r * 2
+    if r or weight_grads:
+        kept += 2 * m * d * 2                      # h16, ctx16
     if weight_grads:
         flops += 2 * m * d * d + 2 * m * d * 3 * d
     out_bytes = m * d * es + (w_bytes if weight_grads else 6 * d * r * 4)
-    return flops, 3 * m * d * es + w_bytes + out_bytes
+    return flops, 2 * m * d * es + kept + w_bytes + out_bytes
 
 
 def prefix_cost(b, t, d, heads, p, live, weight_grads, backward, es=2):
     """(flops, bytes) of the KV-prefix block for this run's data: only the
     ``live`` prefix slots need their K/V projections, scores and grads
     (dead slots contribute exact zeros); dpk and dpv are written whole.
-    The backward recomputes qkv, the prefix K/V and the scores (and ctx
-    only for the out-projection's weight grad)."""
+    The backward is the chain as a train step runs it: given x, the output
+    grad and the forward's kept qkv16 and prefix K/V (with weight_grads
+    also h16, ctx16 and the prompts), it recomputes none of the forward."""
     m, dh, s = b * t, d // heads, live + t
     bp = b * live
     attn = 2 * b * heads * t * s * dh              # one T x S x dh product
-    proj = 2 * m * d * 3 * d + 2 * bp * d * 2 * d  # token qkv, prefix K/V
     w_bytes = 4 * d * d * 2 + 5 * d * 4
-    in_bytes = m * d * es + 2 * bp * d * es + w_bytes
     if not backward:
+        proj = 2 * m * d * 3 * d + 2 * bp * d * 2 * d  # token qkv, prefix K/V
         flops = proj + 2 * attn + 2 * m * d * d
-        return flops, in_bytes + m * d * es
-    flops = (proj + attn                        # recompute qkv, K/V, scores
-             + 2 * m * d * d                     # dctx
-             + 4 * attn                          # dp, dv, dq, dk
+        return flops, m * d * es + 2 * bp * d * es + w_bytes + m * d * es
+    flops = (2 * m * d * d                       # dctx
+             + 5 * attn                          # s, dp, dv, dq, dk
              + 2 * m * 3 * d * d                 # dh
              + 2 * bp * 2 * d * d)               # dpk, dpv
+    kept = 3 * m * d * 2 + 2 * bp * d * 2        # qkv16, live rows of kvp16
     out_bytes = m * d * es + 2 * b * p * d * es
     if weight_grads:
-        flops += attn + 2 * m * d * d + 2 * m * d * 3 * d + 2 * bp * d * 2 * d
+        flops += 2 * m * d * d + 2 * m * d * 3 * d + 2 * bp * d * 2 * d
+        kept += 2 * m * d * 2 + 2 * bp * d * es  # h16, ctx16, live pk, pv
         out_bytes += w_bytes
-    return flops, in_bytes + m * d * es + out_bytes
+    return flops, 2 * m * d * es + kept + w_bytes + out_bytes
 
 
 def bound_ms(flops, nbytes):
@@ -299,6 +375,16 @@ def launch_breakdown(run_fwd, run_bwd, reps=3):
     return out
 
 
+def attention_cost(b, t, s, d, heads):
+    """(flops, bytes) of the chains' attention backward alone (dq and dk/dv
+    kernels): the 5 T x S x dh products (scores, dp, dv, dq, dk) of every
+    (batch row, head), qkv16, dctx16 and dqkv16 read or written once, and
+    (with weight_grads off) nothing else."""
+    dh = d // heads
+    flops = 5 * 2 * b * heads * t * s * dh
+    return flops, (2 * (t + 2 * s) + t) * b * d * 2
+
+
 def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
                 time_it=True):
     import torch
@@ -338,10 +424,16 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     lb = library_weights(blk)
     wrt = [x.detach().clone().requires_grad_(True)] + (
         [] if ll is None else [a.requires_grad_(True) for a in ll.values()])
+    fl, by = attention_cost(b, t, t, d, heads)
+    res["attn_bwd_bound_ms"] = bound_ms(fl, by)[0]
+    # the backward as a train step runs it: reading the forward's kept
+    # intermediates
+    kept = fba._keep_for_backward(fba._cuda_forward(x, *args, keep=True)[1],
+                                  weight_grads)
     return time_case(
         label, res, lambda: fba._cuda_forward(x, *args),
         lambda: fba.fused_ln_attention_block_reference(x, *args),
-        lambda: fba._cuda_backward(x, gy, *bargs),
+        lambda: fba._cuda_backward(x, gy, *bargs, saved=kept),
         lambda: fba.fused_ln_attention_block_reference_bwd(x, gy, *bargs),
         lambda xg, *_: library_block(xg, lb, ll, s, mask, heads), wrt, gy)
 
@@ -368,7 +460,15 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
         res["fwd_library_device_ms"] = device_ms(lambda: library(*wrt))
     res["bwd_ms"] = timed(bwd)
     res["bwd_plain_ms"] = timed(plain_bwd, iters=3)
-    res["bwd_device_ms"] = device_ms(bwd)
+    res["bwd_device_ms"], names = device_split(bwd)
+    # the attention backward's kernels (dq, dk/dv) by device ms a call
+    res["bwd_attention_device_ms"] = {
+        kernel_short(k): v for k, v in names.items()
+        if "attn_bwd" in k or "flash_bwd" in k}
+    # every launch of the backward chain, in order, by device ms a call
+    res["chain_split"] = device_sequence(bwd)
+    log(f"{label}: backward chain by launch, device ms "
+        f"{json.dumps(res['chain_split'])}")
 
     def lib_fwd_bwd():
         torch.autograd.grad(library(*wrt), wrt, gy)
@@ -389,18 +489,23 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
         f"{fmt(res['fwd_device_ms'])} (library "
         f"{fmt(res['fwd_library_device_ms'])}), bwd "
         f"{fmt(res['bwd_device_ms'])} (library "
-        f"{fmt(res['bwd_library_device_ms'])})")
+        f"{fmt(res['bwd_library_device_ms'])}); attention backward device ms "
+        f"{json.dumps(res['bwd_attention_device_ms'])}"
+        + (f" (bound {res['attn_bwd_bound_ms']:.4f})"
+           if "attn_bwd_bound_ms" in res else ""))
     return res
 
 
-def prefix_kernel_case(label, live, weight_grads, seed, time_it=True):
-    """The KV-prefix block at the mvp-clip shape with ``live`` of P prompt
-    slots live: checked through the op's autograd Function and, with
-    ``time_it``, timed beside its plain version and the yardstick."""
+def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
+                       shape=MVP_SHAPE):
+    """The KV-prefix block at ``shape`` (B, T, D, heads, P; the mvp-clip
+    shape by default) with ``live`` of P prompt slots live: checked through
+    the op's autograd Function and, with ``time_it``, timed beside its plain
+    version and the yardstick."""
     import torch
     from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
     from lifelong_clip_tpu_torch.ops import kernel_check as kc
-    b, t, d, heads, p = MVP_SHAPE
+    b, t, d, heads, p = shape
     x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(b, t, d, heads, p, live,
                                                      seed)
     args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], heads, mask)
@@ -423,10 +528,14 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True):
         return res
 
     lb = library_weights(blk)
+    fl, by = attention_cost(b, t, live + t, d, heads)
+    res["attn_bwd_bound_ms"] = bound_ms(fl, by)[0]
+    kept = fba._keep_for_prefix_backward(
+        fba._cuda_prefix_forward(x, *args, keep=True)[1], weight_grads)
     return time_case(
         label, res, lambda: fba._cuda_prefix_forward(x, *args),
         lambda: fba.fused_prefix_attention_block_reference(x, *args),
-        lambda: fba._cuda_prefix_backward(x, gy, *bargs),
+        lambda: fba._cuda_prefix_backward(x, gy, *bargs, saved=kept),
         lambda: fba.fused_prefix_attention_block_reference_bwd(x, gy, *bargs),
         lambda *a: library_prefix_block(*a, lb, mask, heads),
         [a.detach().clone().requires_grad_(True) for a in (x, pk, pv)], gy)
@@ -658,6 +767,28 @@ def main_path_phase():
     return launches
 
 
+def vit_l14_main_path_phase():
+    """lora-clip on ViT-L/14 (T = 257 tokens, width 1024, 16 heads; random
+    weights from the seed) through ``main``: kernels #1 and #2 past 256
+    keys, on their tiled roads."""
+    from lifelong_clip_tpu_torch.methods import adapter_clip
+    launches, per_pass, _, wall = run_main_path(
+        "lora-clip ViT-L/14", adapter_clip,
+        {"train": "make_train_step", "eval": "make_eval_step",
+         "text": "make_text_feature_fn"},
+        ["--method", "lora-clip", "--model_name", "ViT-L/14", "--dataset",
+         "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
+         "--online_iter", "1", "--eval_period", "640", "--transforms"],
+        lambda st: float(st["loss"]))
+    tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
+    assert tr["fused_ln_attention_fwd"] > 0 and \
+        tr["fused_ln_attention_bwd"] > 0 and tr["flash_attention_fwd"] == 0, \
+        f"train pass launches {tr}"
+    assert ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
+    assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
+    return launches, {"wall_s": wall, "per_pass": per_pass}
+
+
 def mvp_main_path_phase():
     """mvp-clip on ViT-B/16 through ``main`` (``scripts/mvp_clip.sh``'s
     method flags): the prompted pass runs kernels #3 and #4, the query and
@@ -741,7 +872,13 @@ def gate_loop(label, run_step, bs, card, **info):
     """The learning gate (bench.py:98-104): 22 steps of ``run_step`` (one
     train step on one batch, returning its loss) must lower the loss by more
     than 0.02. Returns the losses, step ms and samples/s of the last 20
-    steps, and a torch.profiler window over 3 more."""
+    steps, the peak device memory the steps allocated (beside what was
+    allocated before them and the card's memory), and a torch.profiler
+    window over 3 more steps."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     loss_first = float(run_step())
     float(run_step())
     iters = 20
@@ -754,23 +891,35 @@ def gate_loop(label, run_step, bs, card, **info):
         f"{label} train steps did not learn: loss {loss_first:.4f} -> "
         f"{loss_last:.4f} after {iters + 2} updates on one batch")
     step_ms = dt / iters * 1e3
+    memory = {"peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "allocated_before_steps_gb": before / 1e9,
+              "card_gb": torch.cuda.get_device_properties(0).total_memory
+              / 1e9}
+    log(f"{label} train step memory: {json.dumps(memory)}")
     return {"learning_gate": "ok", "label": label, "loss_first": loss_first,
             "loss_last": loss_last, "step_ms": step_ms,
             "samples_per_s": bs * iters / dt, "batchsize": bs, **info,
-            "card": card, "profile": step_profile(run_step, step_ms)}
+            "memory": memory, "card": card,
+            "profile": step_profile(run_step, step_ms)}
 
 
-def frozen_vit_b16(dev):
-    """ViT-B/16 from seed 0, its towers cast to bf16 once."""
+def frozen_clip(dev, model="ViT-B/16"):
+    """A CLIP preset from seed 0, its towers cast to bf16 once."""
     import torch
     from lifelong_clip_tpu_torch.models import build_clip
     from lifelong_clip_tpu_torch.models.clip import cast_towers
-    params, cfg = build_clip("ViT-B/16", gen=torch.Generator().manual_seed(0),
+    params, cfg = build_clip(model, gen=torch.Generator().manual_seed(0),
                              device=dev)
     return params, cast_towers(params, torch.bfloat16), cfg
 
 
-def learning_gate(card):
+def learning_gate(card, model="ViT-B/16"):
+    """lora-clip's train step (LoRA r=4 on the image tower, AdamW 5e-4) on
+    one batch of 64 against 64 cached class-text features. The launch
+    counters are set to 0 just before the text pass and the gate and read
+    just after each: the text pass must run the fused block forward in
+    every text layer, every step the fused block forward and backward once
+    a vision layer, and nothing runs the flash op."""
     import torch
     from lifelong_clip_tpu_torch.config import PEFTConfig
     from lifelong_clip_tpu_torch.methods.engine import (
@@ -779,7 +928,7 @@ def learning_gate(card):
     from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
 
     dev = torch.device("cuda")
-    _, frozen, cfg = frozen_vit_b16(dev)
+    _, frozen, cfg = frozen_clip(dev, model)
     peft_cfg = PEFTConfig(method="lora", encoder="image", lora_r=4)
     peft = build_peft(torch.Generator().manual_seed(1), cfg, peft_cfg,
                       device=dev)
@@ -790,11 +939,33 @@ def learning_gate(card):
                            mean=MEAN, std=STD, augment=True)
     n_cls, bs = 64, 64
     images, labels, tokens = gate_batch(cfg, n_cls, bs)
+    reset_launches()
     txt = make_text_feature_fn(cfg, peft_cfg)(frozen, peft, tokens.to(dev))
+    text = launch_counts()
     batch = {"images": images.to(dev), "labels": labels.to(dev),
              "tokens": txt, "mask": torch.zeros(n_cls, device=dev)}
-    return gate_loop("lora-clip", lambda: step(state, batch)["loss"], bs,
-                     card, model="ViT-B/16 LoRA r=4, no AutoAugment")
+    steps = []
+
+    def one_step():
+        steps.append(1)
+        return step(state, batch)["loss"]
+
+    label = "lora-clip" if model == "ViT-B/16" else f"lora-clip {model}"
+    reset_launches()
+    out = gate_loop(label, one_step, bs, card,
+                    model=f"{model} LoRA r=4, no AutoAugment")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n = len(steps) * cfg.vision_layers
+    assert launches["fused_ln_attention_fwd"] == n and \
+        launches["fused_ln_attention_bwd"] == n and \
+        launches["flash_attention_fwd"] == 0, (launches, len(steps))
+    assert text["fused_ln_attention_fwd"] > 0 and \
+        text["fused_ln_attention_fwd"] % cfg.text_layers == 0, text
+    out["launches"], out["text_pass_launches"] = launches, text
+    log(f"{label} gate: {len(steps)} steps, launches {launches}, text pass "
+        f"{text}")
+    return out
 
 
 def mvp_learning_gate(card, lr=MVP_GATE_LR):
@@ -812,7 +983,7 @@ def mvp_learning_gate(card, lr=MVP_GATE_LR):
     from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
 
     dev = torch.device("cuda")
-    _, frozen, cfg = frozen_vit_b16(dev)
+    _, frozen, cfg = frozen_clip(dev)
     n_cls, bs = 64, 64
     mvp = init_mvp_params(torch.Generator().manual_seed(1), cfg, e_pool=10,
                           num_classes=n_cls, device=dev)
@@ -851,7 +1022,7 @@ def maple_setup(lr=5e-4):
     from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
 
     dev = torch.device("cuda")
-    params, frozen, cfg = frozen_vit_b16(dev)
+    params, frozen, cfg = frozen_clip(dev)
     learner = init_maple_params(
         torch.Generator().manual_seed(1), params, cfg, n_ctx=3, depth=3,
         ctx_init_tokens=default_tokenizer().encode(CTX_INIT), device=dev)
@@ -898,7 +1069,7 @@ def prompted_lora_setup(lr=5e-4, loss="ce_on_probs"):
     from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
 
     dev = torch.device("cuda")
-    _, frozen, cfg = frozen_vit_b16(dev)
+    _, frozen, cfg = frozen_clip(dev)
     peft_cfg = PEFTConfig(method="lora", encoder="image", lora_r=4)
     peft = build_peft(torch.Generator().manual_seed(1), cfg, peft_cfg,
                       device=dev)
@@ -1060,11 +1231,19 @@ def main():
     cases.append(kernel_case("text K=64", 64, 77, 512, 8, 0, True, False, 2))
     cases.append(kernel_case("vision weight_grads", 64, 197, 768, 12, 4,
                              False, True, 3, time_it=False))
+    # past 256 keys (the tiled roads): ViT-L/14's vision block, T = 512
+    cases.append(kernel_case("ViT-L/14 vision", 64, 257, 1024, 16, 4, False,
+                             False, 12))
+    cases.append(kernel_case("T = 512 weight_grads", 8, 512, 768, 12, 4,
+                             False, True, 13, time_it=False))
     torch.cuda.synchronize()
     pcases = [prefix_kernel_case("mvp prefix, 5 of 20 live", 5, False, 4)]
     pcases.append(prefix_kernel_case("mvp prefix, none live", 0, False, 5))
     pcases.append(prefix_kernel_case("mvp prefix weight_grads, 20 live", 20,
                                      True, 6, time_it=False))
+    pcases.append(prefix_kernel_case(
+        "prefix S = 512 (P = 315, 40 live) weight_grads", 40, True, 14,
+        time_it=False, shape=(8, 197, 768, 12, 315)))
     torch.cuda.synchronize()
 
     log(f"flash checks: o, dq, dk, dv against the plain versions within "
@@ -1077,6 +1256,8 @@ def main():
 
     launches = main_path_phase()
     torch.cuda.synchronize()
+    l14_launches, l14_run = vit_l14_main_path_phase()
+    torch.cuda.synchronize()
     mvp_launches, mvp_run = mvp_main_path_phase()
     torch.cuda.synchronize()
     maple_launches, maple_run = maple_main_path_phase()
@@ -1085,7 +1266,8 @@ def main():
     torch.cuda.synchronize()
     gates = []
     for gate in (learning_gate, mvp_learning_gate, maple_learning_gate,
-                 prompted_lora_gate):
+                 prompted_lora_gate,
+                 lambda c: learning_gate(c, model="ViT-L/14")):
         gates.append(gate(card))
         torch.cuda.synchronize()
 
@@ -1121,9 +1303,12 @@ def main():
             "library_device_ms": v[f"{pre}_library_device_ms"],
             "shape": shape,
             "cases": [{k: c[k] for k in c if k.startswith(pre) or k in
-                       ("label", "shape")} for c in case_list]})
+                       ("label", "shape", "attn_bwd_bound_ms")}
+                      for c in case_list]})
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
+    log(json.dumps({"vit_l14_main_path": l14_run,
+                    "vit_l14_launches": l14_launches}))
     log(json.dumps({"mvp_main_path": mvp_run, "mvp_launches": mvp_launches}))
     log(json.dumps({"maple_main_path": maple_run,
                     "maple_launches": maple_launches}))

@@ -44,26 +44,36 @@
 //     any other shape needs operands TMA can read, which every caller's
 //     are. TMA maps and shared-memory limits are set once and reused, so a
 //     launch costs the host little beyond the launch itself.
-//   * Attention forward (attn_fwd_kernel): one block per (head, batch row)
-//     loads the head's K and V once, in 64-row cp.async chunks whose arrival
-//     the first q k^T products follow, and 4 warp pairs take the query rows
-//     16 at a time, so a ragged last group costs 16 rows. Each warp of a
-//     pair keeps half of 16 whole score rows (S <= 256) in registers, the
-//     row max and sum exchanged through shared memory: the softmax is the
-//     exact full-row one (no online rescaling), p = exp(s - max) / sum
-//     normalised in fp32 and rounded to bf16 before p @ V, as _kernel:102-108.
-//     Scores are bf16 q.k with fp32 accumulation, times dh**-0.5, plus the
-//     additive mask. The prefix variant reads keys 0..P-1 from the prefix
-//     buffer and keys P..P+T-1 from the token qkv, under a (T, P+T) mask.
-//   * Attention backward (the first port's): a dq kernel per query tile
-//     (recomputes p as the forward, saves row max, row sum and
-//     rowsum(dp * p)) and a dk/dv kernel per key tile that rebuilds p^T from
-//     those statistics and accumulates over every query in registers, both
-//     on mma.sync with one warp per 16 rows. No atomics. The prefix variant
-//     writes the prefix keys' dk/dv to a (B*P, 2D) buffer, from which two
-//     GEMMs give dpk = dk16 @ W_k^T and dpv = dv16 @ W_v^T
-//     (_prefix_bwd_kernel:843-852); the token rows fill dqkv16, so dh is the
-//     one dqkv16 @ W_qkv^T GEMM (:854-857 up to summation order).
+//   * Attention forward (attn_fwd_kernel, S = P + T <= 256 keys): one block
+//     per (head, batch row) loads the head's K and V once, in 64-row
+//     cp.async chunks whose arrival the first q k^T products follow, and 4
+//     warp pairs take the query rows 16 at a time, so a ragged last group
+//     costs 16 rows, not a 64-row tile. Each warp of a pair keeps half of 16
+//     whole score rows in registers, the row max and sum exchanged through
+//     shared memory: the softmax is the exact full-row one (no online
+//     rescaling), p = exp(s - max) / sum normalised in fp32 and rounded to
+//     bf16 before p @ V, as _kernel:102-108. Above 256 keys a tiled road
+//     (attn_fwd_tiled_kernel) streams K and V in 64-key tiles over two
+//     passes (row max and sum, then p @ V with the same p), so no key count
+//     is refused. Scores are bf16 q.k with fp32 accumulation, times
+//     dh**-0.5, plus the additive mask. The prefix variant reads keys
+//     0..P-1 from the prefix buffer and keys P..P+T-1 from the token qkv,
+//     under a (T, P+T) mask.
+//   * Attention backward: a dq kernel (the forward's shape up to 256 keys,
+//     p and dp of a query group kept in a warp pair's registers; tiled
+//     above) that saves each query's row max, 1 / row sum and
+//     rowsum(dp * p), and a dk/dv kernel, one block per (head, batch row),
+//     that holds the head's queries, dctx and those statistics in shared
+//     memory and rebuilds p^T for 16-key groups without a division; all on
+//     mma.sync, single bf16 roundings of p and ds as the TPU kernel. No
+//     atomics. The prefix variant writes the prefix keys' dk/dv to a
+//     (B*P, 2D) buffer, from which two GEMMs give dpk = dk16 @ W_k^T and
+//     dpv = dv16 @ W_v^T (_prefix_bwd_kernel:843-852); the token rows fill
+//     dqkv16, so dh is the one dqkv16 @ W_qkv^T GEMM (:854-857 up to
+//     summation order).
+//   * The backward chains read the forward's h16, z16, qkv16, ctx16, z2
+//     (prefix: h16, qkv16, kvp16, ctx16) where the caller kept them, and
+//     recompute them only where it did not.
 //   * LN (warp per row) and the LoRA factor z = h @ A (the
 //     64x16 tile, rounded to bf16 as _kernel:76-84 and :117-126 round it).
 //     The prefix rows' keys and values (pk @ W_k + b_k, pv @ W_v + b_v, bias
@@ -865,9 +875,6 @@ __device__ __forceinline__ void load_kv(bf16* Ks, bf16* Vs, int ld,
   }
 }
 
-constexpr int FQT = 64;        // query rows per dq block
-constexpr int FTHREADS = 128;
-
 // The additive mask is null, a (T, S) matrix, or (ROW) one key-mask row of
 // S values for every query (the KV-prefix slots' validity). A key-mask row
 // is staged in shared memory once a block; the matrix is read from device
@@ -1144,346 +1151,808 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
 }
 
 // ---------------------------------------------------------------------------
-// Attention backward in two kernels, no atomics:
-//   attn_bwd_dq_kernel   per (64-query tile, head, batch row): recompute the
-//     full score rows and p exactly as the forward; dp = dctx v^T;
-//     delta = rowsum(dp * p); ds = p * (dp - delta); dq = ds16 k * scale.
-//     Saves the row max, row sum and delta of every query.
-//   attn_bwd_dkv_kernel  per (64-key tile, head, batch row): recompute p^T
-//     and dp^T for its keys against every query from those statistics;
-//     dv = p16^T dctx, dk = ds16^T q * scale.
+// Shared pieces of the tiled roads (S > 256 keys) and the backward.
+// ---------------------------------------------------------------------------
+constexpr int TQ = 64;            // query (or key) rows a tile of the tiled roads
+constexpr int TT_THREADS = 128;   // tiled roads: 4 warps x 16 rows
+
+// cp.async.wait_group n for a count known only at run time: waiting for
+// fewer pending groups than asked is also correct
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n < 0 ? 0 : n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc (16 x 64 keys) += a . B^T: a the warp's 16-row fragments over the head
+// dim, B the 64 rows of a [key][dim] tile (16-key chunks at or past nlive
+// skipped).
+template <int DH>
+__device__ __forceinline__ void dot_rows64(float (*acc)[4],
+                                           const unsigned (*a)[4],
+                                           const bf16* Bs, int nlive,
+                                           int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (16 * j >= nlive) continue;
+#pragma unroll
+    for (int kc = 0; kc < DH / 16; ++kc) {
+      unsigned kb[4];
+      ldsm_x4(kb, Bs + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                      kc * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(acc[2 * j], a[kc], kb[0], kb[1]);
+      mma16816(acc[2 * j + 1], a[kc], kb[2], kb[3]);
+    }
+  }
+}
+
+// acc (16 x DH) += bf16(x) . B: x fp32 (16 x 64 keys, C fragments), rounded
+// once to bf16 as the A operand; B the [key][dim] tile x contracts over
+// (16-key chunks at or past nlive skipped).
+template <int DH>
+__device__ __forceinline__ void mm_rows64(float (*acc)[4], const float (*x)[4],
+                                          const bf16* Bs, int nlive,
+                                          int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (16 * c >= nlive) continue;
+    unsigned a[4];
+    a[0] = pack_bf16(x[2 * c][0], x[2 * c][1]);
+    a[1] = pack_bf16(x[2 * c][2], x[2 * c][3]);
+    a[2] = pack_bf16(x[2 * c + 1][0], x[2 * c + 1][1]);
+    a[3] = pack_bf16(x[2 * c + 1][2], x[2 * c + 1][3]);
+#pragma unroll
+    for (int cp = 0; cp < DH / 16; ++cp) {
+      unsigned vb[4];
+      ldsm_x4_t(vb, Bs + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                        cp * 16 + (lane >> 4) * 8);
+      mma16816(acc[2 * cp], a, vb[0], vb[1]);
+      mma16816(acc[2 * cp + 1], a, vb[2], vb[3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (*x)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// Attention forward, tiled road (S = P + T > 256, no key limit): grid
+// (ceil(T/64), H, B), 4 warps of 16 query rows. K and V stream through
+// double-buffered 64-key cp.async tiles in two passes: the first takes the
+// row max and the row sum (the sum brought to each new max, so the second
+// pass normalises with the row's true max and sum), the second p = exp(s -
+// max) / sum normalised in fp32 and rounded once to bf16 before p @ v, as
+// _kernel:102-108. No online rescaling of p or of o.
+// ---------------------------------------------------------------------------
+template <int DH, bool PRE, bool ROW>
+__global__ void __launch_bounds__(TT_THREADS)
+attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
+                      const float* __restrict__ mask, bf16* __restrict__ ctx,
+                      int T, int P, int D, int Sp, float scale) {
+  constexpr int LD = DH + 8, TE = TQ * LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + TE;        // 2 x [key][dim]
+  bf16* Vs = Ks + 2 * TE;    // 2 x [key][dim]
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * TE);   // a key-mask row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int hd = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
+  const int r0 = warp * 16, S = P + T, nk = (S + TQ - 1) / TQ, total = 2 * nk;
+  const size_t rs = 3 * (size_t)D;
+  load_tile(Qs, LD, qkv + ((size_t)b * T + q0) * rs + hd * DH, rs, TQ, T - q0,
+            DH, tid, TT_THREADS);
+  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, TQ, DH, tid,
+               TT_THREADS);
+  cp_async_commit();
+  stage_mask_row<ROW>(Ms, mask, S, Sp, tid, TT_THREADS);
+
+  const bool live = q0 + r0 < T;   // warp-uniform
+  const int ia = q0 + r0 + g, ib = ia + 8;
+  const float sl2 = scale * LOG2E;
+  unsigned qa[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, il[2] = {0.f, 0.f};
+  float o[DH / 8][4], s[8][4];
+  zero_acc<DH / 8>(o);
+  for (int it = 0; it < total; ++it) {
+    const int pass = it >= nk, k0 = (it % nk) * TQ, buf = it & 1;
+    if (it + 1 < total) {
+      const int kn = ((it + 1) % nk) * TQ, nb = buf ^ 1;
+      load_kv<PRE>(Ks + nb * TE, Vs + nb * TE, LD, qkv, kvp, b, T, P, D,
+                   hd * DH, kn, TQ, DH, tid, TT_THREADS);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (it == 0) {
+#pragma unroll
+        for (int kc = 0; kc < DH / 16; ++kc)
+          ldsm_x4(qa[kc], Qs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+      }
+      zero_acc<8>(s);
+      dot_rows64<DH>(s, qa, Ks + buf * TE, S - k0, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
+          s[nt][e] = j < S ? fmaf(s[nt][e], sl2,
+                                  LOG2E * mask_at<ROW>(mask, Ms, i, j, S, T))
+                           : -INFINITY;
+        }
+      if (pass == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float cm = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            cm = fmaxf(cm, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+          const float mn = fmaxf(m[h], quad_max(cm));
+          if (mn != -INFINITY) {
+            l[h] *= exp2f(m[h] - mn);   // 0 while m was -inf
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+              l[h] += exp2f(s[nt][2 * h] - mn) + exp2f(s[nt][2 * h + 1] - mn);
+          }
+          m[h] = mn;
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[nt][e] = exp2f(s[nt][e] - m[e >> 1]) * il[e >> 1];   // p, fp32
+        mm_rows64<DH>(o, s, Vs + buf * TE, S - k0, lane);
+      }
+      if (it == nk - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) il[h] = 1.f / quad_sum(l[h]);
+      }
+    }
+    __syncthreads();   // the buffer read here is refilled next iteration
+  }
+  if (!live) return;
+#pragma unroll
+  for (int ct = 0; ct < DH / 8; ++ct) {
+    const int c = hd * DH + ct * 8 + 2 * t4;
+    if (ia < T)
+      *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ia) * D + c) =
+          pack_bf16(o[ct][0], o[ct][1]);
+    if (ib < T)
+      *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ib) * D + c) =
+          pack_bf16(o[ct][2], o[ct][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention backward in two kernels, no atomics. What they compute is the
+// TPU kernel's (_bwd_kernel:316-399): p = exp(s - max) / sum in fp32; dv =
+// p16^T dctx; dp = dctx v^T; delta = rowsum(dp * p) in fp32; ds16 = bf16(p *
+// (dp - delta)); dq = ds16 k * scale; dk = ds16^T q * scale.
+//
+//   dq kernel: saves, for each query row i < ceil16(T), the float4 (m2, 1/l,
+//     delta, 0), m2 the row max of the log2(e)-scaled scores; rows past T
+//     get (+inf, 0, 0), which gives them p = 0 in the dk/dv kernel.
+//     * register road (S <= 256), attn_bwd_dq_kernel: the forward's shape.
+//       One block per (head, batch row) loads K and V once in 64-row
+//       cp.async chunks, the first group's q k^T following each chunk's
+//       arrival; 2 warp pairs take the query rows 16 at a time, each warp
+//       holding half of the group's score rows, so p and dp stay in
+//       registers from the delta sum to ds (dp computed once); the halves'
+//       row sums l and t = sum(dp * e) cross at one barrier, delta = t / l.
+//       The second warp's part of dq is added to the first's, in that
+//       order. At ~240 registers a thread, two 4-warp blocks share an SM,
+//       one's loads and barriers covered by the other's products (on an
+//       H100 at ViT-B/16's shape, 4 pairs a block took 0.19 ms, 2 take
+//       0.155, 1 takes 0.18; PERF.md).
+//     * tiled road (S > 256), attn_bwd_dq_tiled_kernel: grid (ceil(T/64), H,
+//       B), K and V streamed in double-buffered 64-key tiles over two
+//       passes: the row max, sum l and t = sum(dp * e), both brought to each
+//       new max (delta = t / l); then ds and dq.
+//   dk/dv kernel (any S), attn_bwd_dkv_kernel: one block per (head, batch
+//     row), 4 warps over 16-key groups, two blocks an SM (8 warps, one
+//     block an SM, took 0.151 ms where 4 take 0.130, as above). Q, dctx
+//     and the row statistics come in 64-query cp.async chunks, held for
+//     the whole block where shared memory allows (else streamed again for
+//     each round of key groups).
+//     With keys as rows, s^T = k q^T and dp^T = v dctx^T come out in the
+//     layout the next products take as their A operand: p^T = exp2(s^T *
+//     scale * log2(e) + mask * log2(e) - m2) * (1/l), no division, and dv +=
+//     p16^T dctx, dk += ds16^T q. A key-mask row is read once a key group; a
+//     (T, S) mask is staged 32 x 16 a step in the warp's shared memory.
 // Writes dqkv16 (B*T, 3D) bf16 and, when dqkv32 != nullptr, the fp32 values.
 // With PRE, dk and dv of the P prefix keys go to dkvp16 (B*P, 2D: dK | dV)
-// and, when dkvp32 != nullptr, its fp32 twin; a key tile may hold prefix and
-// token keys both. A dead key (mask -inf) has p = 0, so ds = 0 and its dk
-// and dv are exactly 0.
+// and, when dkvp32 != nullptr, its fp32 twin. A dead key (mask -inf) has p =
+// 0, so ds = 0 and its dk and dv are exactly 0.
 // ---------------------------------------------------------------------------
-template <int DH, int MAXNT, bool PRE, bool ROW>
-__global__ void __launch_bounds__(FTHREADS)
+constexpr int DQ_PAIRS = 2, DQ_THREADS = 64 * DQ_PAIRS;
+
+template <int DH, int MAXNT, bool PRE, bool ROW>   // MAXNT: 8-key tiles a row holds
+__global__ void __launch_bounds__(DQ_THREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                    const bf16* __restrict__ dctx,
                    const float* __restrict__ mask,
                    bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
-                   float* __restrict__ stats, int T, int P, int D, int Sp,
+                   float4* __restrict__ stats, int T, int P, int D, int Sp,
                    float scale) {
   constexpr int LD = DH + 8;
+  constexpr int NCH = (MAXNT * 8 + KV_CHUNK - 1) / KV_CHUNK;
+  constexpr int HT = 2 * ((MAXNT / 2 + 1) / 2);   // 8-key tiles a warp holds
+  static_assert(NCH <= 4, "cp_async_wait_upto3");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + Sp * LD;
-  bf16* Qs = Vs + Sp * LD;
-  bf16* dOs = Qs + FQT * LD;
-  float* Ms = reinterpret_cast<float*>(dOs + FQT * LD);   // a key-mask row
-
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pair = warp >> 1, half = warp & 1;
+  bf16* Qp = Vs + Sp * LD + pair * 32 * LD;   // the pair's q slab
+  bf16* Gp = Qp + 16 * LD;                    // ... and its dctx slab
+  float* xs = reinterpret_cast<float*>(Vs + Sp * LD + DQ_PAIRS * 32 * LD);
+  float* red = xs + pair * 96;        // [max | sum | delta][half][16 rows]
+  float* op = xs + DQ_PAIRS * 96 + pair * DH * 16;   // the second warp's dq
+  float* Ms = xs + DQ_PAIRS * (96 + DH * 16);        // a key-mask row
   const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, hd = blockIdx.y, H = gridDim.y;
-  const int q0 = blockIdx.x * FQT;
-  const int S = P + T;
+  const int hd = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int S = P + T, ngroups = (T + 15) / 16;
+  const int npair = Sp / 16, h0 = (npair + 1) / 2;
+  const int tbase = half ? 2 * h0 : 0, tcnt = half ? 2 * (npair - h0) : 2 * h0;
   const size_t rs = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * T * rs;
-  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, Sp, DH, tid,
-               FTHREADS);
-  load_tile(Qs, LD, base + (size_t)q0 * rs + hd * DH, rs, FQT, T - q0, DH,
-            tid, FTHREADS);
-  load_tile(dOs, LD, dctx + ((size_t)b * T + q0) * D + hd * DH, D, FQT,
-            T - q0, DH, tid, FTHREADS);
-  stage_mask_row<ROW>(Ms, mask, S, Sp, tid, FTHREADS);
+  const bf16* qbase = qkv + (size_t)b * T * rs + hd * DH;
+  const bf16* gbase = dctx + (size_t)b * T * D + hd * DH;
+  auto load_slabs = [&](int grp) {
+    load_tile(Qp, LD, qbase + (size_t)grp * 16 * rs, rs, 16, T - grp * 16, DH,
+              tid & 63, 64);
+    load_tile(Gp, LD, gbase + (size_t)grp * 16 * D, D, 16, T - grp * 16, DH,
+              tid & 63, 64);
+  };
+  // commit groups, oldest first: the pair's first slabs, then one per K/V
+  // chunk (empty past Sp, so the count is the same for every shape)
+  if (pair < ngroups) load_slabs(pair);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int r0 = warp * 16;
-  if (q0 + r0 >= T) return;   // no barrier follows
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const int j0 = c * KV_CHUNK;
+    if (j0 < Sp)
+      load_kv<PRE>(Ks + j0 * LD, Vs + j0 * LD, LD, qkv, kvp, b, T, P, D,
+                   hd * DH, j0, min(KV_CHUNK, Sp - j0), DH, tid, DQ_THREADS);
+    cp_async_commit();
+  }
+  stage_mask_row<ROW>(Ms, mask, S, Sp, tid, DQ_THREADS);
 
   unsigned qa[DH / 16][4], da[DH / 16][4];
+  float s[HT][4];
+  zero_acc<HT>(s);
+  // the first group's scores, chunk by chunk as K lands
 #pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    ldsm_x4(qa[kc], Qs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
-    ldsm_x4(da[kc], dOs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
-  }
-  const int nt_used = Sp / 8;
-  float s[MAXNT][4];
+  for (int c = 0; c < NCH; ++c) {
+    cp_async_wait_upto3(NCH - 1 - c);
+    __syncthreads();
+    if (pair < ngroups) {
+      if (c == 0) {
 #pragma unroll
-  for (int nt = 0; nt < MAXNT; nt += 2) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = s[nt + 1][e] = 0.f;
-    if (nt < nt_used) {
-#pragma unroll
-      for (int kc = 0; kc < DH / 16; ++kc) {
-        unsigned kb[4];
-        ldsm_x4(kb, Ks + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                        kc * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[nt], qa[kc], kb[0], kb[1]);
-        mma16816(s[nt + 1], qa[kc], kb[2], kb[3]);
+        for (int kc = 0; kc < DH / 16; ++kc) {
+          ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
+          ldsm_x4(da[kc], Gp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
+        }
       }
-    }
-  }
-  const int ia = q0 + r0 + g, ib = ia + 8;
-  float ma = -INFINITY, mb = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < MAXNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = nt * 8 + 2 * t4 + e;
-      float va = -INFINITY, vb = -INFINITY;
-      if (nt < nt_used && j < S) {
-        va = s[nt][e] * scale + mask_at<ROW>(mask, Ms, ia, j, S, T);
-        vb = s[nt][2 + e] * scale + mask_at<ROW>(mask, Ms, ib, j, S, T);
-      }
-      s[nt][e] = va;
-      s[nt][2 + e] = vb;
-      ma = fmaxf(ma, va);
-      mb = fmaxf(mb, vb);
-    }
-  }
-  ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 1));
-  ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 2));
-  mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
-  mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
-  float la = 0.f, lb = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < MAXNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[nt][e] = expf(s[nt][e] - ma);
-      s[nt][2 + e] = expf(s[nt][2 + e] - mb);
-      la += s[nt][e];
-      lb += s[nt][2 + e];
-    }
-  }
-  la += __shfl_xor_sync(0xffffffffu, la, 1);
-  la += __shfl_xor_sync(0xffffffffu, la, 2);
-  lb += __shfl_xor_sync(0xffffffffu, lb, 1);
-  lb += __shfl_xor_sync(0xffffffffu, lb, 2);
-#pragma unroll
-  for (int nt = 0; nt < MAXNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[nt][e] = s[nt][e] / la;          // p, fp32
-      s[nt][2 + e] = s[nt][2 + e] / lb;
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lane);
     }
   }
 
-  // pass 1: delta = rowsum(dp * p)
-  float dla = 0.f, dlb = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < MAXNT; nt += 2) {
-    if (nt < nt_used) {
-      float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  const float sl2 = scale * LOG2E;
+  float4* st = stats + ((size_t)b * H + hd) * (size_t)(ngroups * 16);
+  for (int grp = pair; grp < ngroups; grp += DQ_PAIRS) {
+    if (grp != pair) {   // a later group: K and V are all in shared memory
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc) {
-        unsigned vb[4];
-        ldsm_x4(vb, Vs + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                        kc * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(dp[0], da[kc], vb[0], vb[1]);
-        mma16816(dp[1], da[kc], vb[2], vb[3]);
+        ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
+        ldsm_x4(da[kc], Gp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
       }
+      zero_acc<HT>(s);
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lane);
+    }
+    // scale and mask in base 2, this warp's half of the row max, the pair's
+    const int ia = grp * 16 + g, ib = ia + 8;
+    float ma = -INFINITY, mb = -INFINITY;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        dla += dp[h][0] * s[nt + h][0] + dp[h][1] * s[nt + h][1];
-        dlb += dp[h][2] * s[nt + h][2] + dp[h][3] * s[nt + h][3];
+    for (int i = 0; i < HT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = (tbase + i) * 8 + 2 * t4 + e;
+        float va = -INFINITY, vb = -INFINITY;
+        if (i < tcnt && j < S) {
+          va = fmaf(s[i][e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ia, j, S, T));
+          vb = fmaf(s[i][2 + e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ib, j, S, T));
+        }
+        s[i][e] = va;
+        s[i][2 + e] = vb;
+        ma = fmaxf(ma, va);
+        mb = fmaxf(mb, vb);
       }
     }
-  }
-  dla += __shfl_xor_sync(0xffffffffu, dla, 1);
-  dla += __shfl_xor_sync(0xffffffffu, dla, 2);
-  dlb += __shfl_xor_sync(0xffffffffu, dlb, 1);
-  dlb += __shfl_xor_sync(0xffffffffu, dlb, 2);
-  if (t4 == 0) {
-    float* st = stats + ((size_t)b * H + hd) * T * 3;
-    if (ia < T) { st[ia * 3] = ma; st[ia * 3 + 1] = la; st[ia * 3 + 2] = dla; }
-    if (ib < T) { st[ib * 3] = mb; st[ib * 3 + 1] = lb; st[ib * 3 + 2] = dlb; }
-  }
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+    if (t4 == 0) {
+      red[half * 16 + g] = ma;
+      red[half * 16 + g + 8] = mb;
+    }
+    // dp = dctx v^T for this warp's keys while the maxima cross
+    float dp[HT][4];
+    zero_acc<HT>(dp);
+    attn_half_scores<DH, HT>(dp, da, Vs, tbase, tcnt, 0, MAXNT, lane);
+    pair_sync(pair);   // both halves' maxima, and both warps have read the slabs
+    ma = fmaxf(ma, red[(half ^ 1) * 16 + g]);
+    mb = fmaxf(mb, red[(half ^ 1) * 16 + g + 8]);
+    // the next group's q and dctx into the slabs while this group computes
+    if (grp + DQ_PAIRS < ngroups) load_slabs(grp + DQ_PAIRS);
+    cp_async_commit();
 
-  // pass 2: ds = p * (dp - delta) in bf16; dq = ds16 @ k
-  float dq[DH / 8][4];
+    // e = exp(s - max), this warp's half of the row sum l and of t =
+    // sum(dp * e), exchanged at one barrier: delta = rowsum(dp * p) = t / l
+    float la = 0.f, lb = 0.f, ta = 0.f, tb = 0.f;
 #pragma unroll
-  for (int ct = 0; ct < DH / 8; ++ct)
+    for (int i = 0; i < HT; ++i) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[ct][e] = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < MAXNT; nt += 2) {
-    if (nt < nt_used) {
-      float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kc = 0; kc < DH / 16; ++kc) {
-        unsigned vb[4];
-        ldsm_x4(vb, Vs + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                        kc * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(dp[0], da[kc], vb[0], vb[1]);
-        mma16816(dp[1], da[kc], vb[2], vb[3]);
+      for (int e = 0; e < 2; ++e) {
+        s[i][e] = exp2f(s[i][e] - ma);
+        s[i][2 + e] = exp2f(s[i][2 + e] - mb);
+        la += s[i][e];
+        lb += s[i][2 + e];
+        ta = fmaf(dp[i][e], s[i][e], ta);
+        tb = fmaf(dp[i][2 + e], s[i][2 + e], tb);
       }
-      unsigned pa[4];
-      pa[0] = pack_bf16(s[nt][0] * (dp[0][0] - dla), s[nt][1] * (dp[0][1] - dla));
-      pa[1] = pack_bf16(s[nt][2] * (dp[0][2] - dlb), s[nt][3] * (dp[0][3] - dlb));
-      pa[2] = pack_bf16(s[nt + 1][0] * (dp[1][0] - dla), s[nt + 1][1] * (dp[1][1] - dla));
-      pa[3] = pack_bf16(s[nt + 1][2] * (dp[1][2] - dlb), s[nt + 1][3] * (dp[1][3] - dlb));
+    }
+    la = quad_sum(la);
+    lb = quad_sum(lb);
+    ta = quad_sum(ta);
+    tb = quad_sum(tb);
+    if (t4 == 0) {
+      red[32 + half * 16 + g] = la;
+      red[32 + half * 16 + g + 8] = lb;
+      red[64 + half * 16 + g] = ta;
+      red[64 + half * 16 + g + 8] = tb;
+    }
+    pair_sync(pair);
+    // a + b == b + a in fp32: both warps get the same sums
+    la += red[32 + (half ^ 1) * 16 + g];
+    lb += red[32 + (half ^ 1) * 16 + g + 8];
+    ta += red[64 + (half ^ 1) * 16 + g];
+    tb += red[64 + (half ^ 1) * 16 + g + 8];
+    const float ila = 1.f / la, ilb = 1.f / lb;
+    const float dla = ta * ila, dlb = tb * ilb;
+#pragma unroll
+    for (int i = 0; i < HT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {   // p, fp32
+        s[i][e] *= ila;
+        s[i][2 + e] *= ilb;
+      }
+    }
+
+    // ds16 = bf16(p * (dp - delta)); this warp's part of dq = ds16 k
+    float dq[DH / 8][4];
+    zero_acc<DH / 8>(dq);
+#pragma unroll
+    for (int i = 0; i < HT; i += 2) {
+      if (i >= tcnt) continue;
+      unsigned sa[4];
+      sa[0] = pack_bf16(s[i][0] * (dp[i][0] - dla), s[i][1] * (dp[i][1] - dla));
+      sa[1] = pack_bf16(s[i][2] * (dp[i][2] - dlb), s[i][3] * (dp[i][3] - dlb));
+      sa[2] = pack_bf16(s[i + 1][0] * (dp[i + 1][0] - dla),
+                        s[i + 1][1] * (dp[i + 1][1] - dla));
+      sa[3] = pack_bf16(s[i + 1][2] * (dp[i + 1][2] - dlb),
+                        s[i + 1][3] * (dp[i + 1][3] - dlb));
+      const int k0 = (tbase + i) * 8;
 #pragma unroll
       for (int cp = 0; cp < DH / 16; ++cp) {
         unsigned kb[4];
-        ldsm_x4_t(kb, Ks + (nt * 8 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+        ldsm_x4_t(kb, Ks + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                           cp * 16 + (lane >> 4) * 8);
-        mma16816(dq[2 * cp], pa, kb[0], kb[1]);
-        mma16816(dq[2 * cp + 1], pa, kb[2], kb[3]);
+        mma16816(dq[2 * cp], sa, kb[0], kb[1]);
+        mma16816(dq[2 * cp + 1], sa, kb[2], kb[3]);
+      }
+    }
+    if (half) {
+#pragma unroll
+      for (int ct = 0; ct < DH / 8; ++ct)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) op[(ct * 4 + e) * 32 + lane] = dq[ct][e];
+    }
+    cp_async_wait<0>();   // the next slabs have landed (this thread's copies)
+    pair_sync(pair);      // ... and every copy of the pair, and the partial dq
+    if (!half) {
+#pragma unroll
+      for (int ct = 0; ct < DH / 8; ++ct) {
+        const int c = hd * DH + ct * 8 + 2 * t4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[ct][e] += op[(ct * 4 + e) * 32 + lane];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = h ? ib : ia;
+          if (i >= T) continue;
+          const float v0 = dq[ct][2 * h] * scale, v1 = dq[ct][2 * h + 1] * scale;
+          const size_t o = ((size_t)b * T + i) * rs + c;
+          *reinterpret_cast<unsigned*>(dqkv16 + o) = pack_bf16(v0, v1);
+          if (dqkv32) { dqkv32[o] = v0; dqkv32[o + 1] = v1; }
+        }
+      }
+      if (t4 == 0) {
+        st[ia] = ia < T ? make_float4(ma, ila, dla, 0.f)
+                        : make_float4(INFINITY, 0.f, 0.f, 0.f);
+        st[ib] = ib < T ? make_float4(mb, ilb, dlb, 0.f)
+                        : make_float4(INFINITY, 0.f, 0.f, 0.f);
       }
     }
   }
+}
+
+template <int DH, bool PRE, bool ROW>
+__global__ void __launch_bounds__(TT_THREADS)
+attn_bwd_dq_tiled_kernel(const bf16* __restrict__ qkv,
+                         const bf16* __restrict__ kvp,
+                         const bf16* __restrict__ dctx,
+                         const float* __restrict__ mask,
+                         bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
+                         float4* __restrict__ stats, int T, int P, int D,
+                         int Sp, float scale) {
+  constexpr int LD = DH + 8, TE = TQ * LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + TE;
+  bf16* Ks = Gs + TE;        // 2 x [key][dim]
+  bf16* Vs = Ks + 2 * TE;    // 2 x [key][dim]
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * TE);   // a key-mask row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int hd = blockIdx.y, b = blockIdx.z, H = gridDim.y, q0 = blockIdx.x * TQ;
+  const int r0 = warp * 16, S = P + T, nk = (S + TQ - 1) / TQ, total = 2 * nk;
+  const size_t rs = 3 * (size_t)D;
+  load_tile(Qs, LD, qkv + ((size_t)b * T + q0) * rs + hd * DH, rs, TQ, T - q0,
+            DH, tid, TT_THREADS);
+  load_tile(Gs, LD, dctx + ((size_t)b * T + q0) * D + hd * DH, D, TQ, T - q0,
+            DH, tid, TT_THREADS);
+  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, TQ, DH, tid,
+               TT_THREADS);
+  cp_async_commit();
+  stage_mask_row<ROW>(Ms, mask, S, Sp, tid, TT_THREADS);
+
+  const bool live = q0 + r0 < T;   // warp-uniform
+  const int ia = q0 + r0 + g, ib = ia + 8;
+  const float sl2 = scale * LOG2E;
+  unsigned qa[DH / 16][4], ga[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+  float il[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  float dq[DH / 8][4], s[8][4], dp[8][4];
+  zero_acc<DH / 8>(dq);
+  for (int it = 0; it < total; ++it) {
+    const int pass = it >= nk, k0 = (it % nk) * TQ, buf = it & 1;
+    if (it + 1 < total) {
+      const int kn = ((it + 1) % nk) * TQ, nb = buf ^ 1;
+      load_kv<PRE>(Ks + nb * TE, Vs + nb * TE, LD, qkv, kvp, b, T, P, D,
+                   hd * DH, kn, TQ, DH, tid, TT_THREADS);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (it == 0) {
 #pragma unroll
-  for (int ct = 0; ct < DH / 8; ++ct) {
-    const int c = hd * DH + ct * 8 + 2 * t4;
+        for (int kc = 0; kc < DH / 16; ++kc) {
+          ldsm_x4(qa[kc], Qs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+          ldsm_x4(ga[kc], Gs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+        }
+      }
+      const bf16* Kb = Ks + buf * TE;
+      zero_acc<8>(s);
+      zero_acc<8>(dp);
+      dot_rows64<DH>(s, qa, Kb, S - k0, lane);
+      dot_rows64<DH>(dp, ga, Vs + buf * TE, S - k0, lane);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = h ? ib : ia;
-      if (i >= T) continue;
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
+          s[nt][e] = j < S ? fmaf(s[nt][e], sl2,
+                                  LOG2E * mask_at<ROW>(mask, Ms, i, j, S, T))
+                           : -INFINITY;
+        }
+      if (pass == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float cm = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            cm = fmaxf(cm, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+          const float mn = fmaxf(m[h], quad_max(cm));
+          if (mn != -INFINITY) {
+            const float f = exp2f(m[h] - mn);   // 0 while m was -inf
+            l[h] *= f;
+            t[h] *= f;
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float ev = exp2f(s[nt][2 * h + e] - mn);
+                l[h] += ev;
+                t[h] = fmaf(dp[nt][2 * h + e], ev, t[h]);
+              }
+          }
+          m[h] = mn;
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            s[nt][e] = exp2f(s[nt][e] - m[h]) * il[h] * (dp[nt][e] - dl[h]);
+          }
+        mm_rows64<DH>(dq, s, Kb, S - k0, lane);   // ds16 k
+      }
+      if (it == nk - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          il[h] = 1.f / quad_sum(l[h]);
+          dl[h] = quad_sum(t[h]) * il[h];
+        }
+      }
+    }
+    __syncthreads();   // the buffer read here is refilled next iteration
+  }
+  if (!live) return;
+  const int t16 = (T + 15) / 16 * 16;
+  float4* st = stats + ((size_t)b * H + hd) * (size_t)t16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = h ? ib : ia;
+    if (t4 == 0 && i < t16)
+      st[i] = i < T ? make_float4(m[h], il[h], dl[h], 0.f)
+                    : make_float4(INFINITY, 0.f, 0.f, 0.f);
+    if (i >= T) continue;
+#pragma unroll
+    for (int ct = 0; ct < DH / 8; ++ct) {
       const float v0 = dq[ct][2 * h] * scale, v1 = dq[ct][2 * h + 1] * scale;
-      const size_t o = ((size_t)b * T + i) * rs + c;
+      const size_t o = ((size_t)b * T + i) * rs + hd * DH + ct * 8 + 2 * t4;
       *reinterpret_cast<unsigned*>(dqkv16 + o) = pack_bf16(v0, v1);
       if (dqkv32) { dqkv32[o] = v0; dqkv32[o + 1] = v1; }
     }
   }
 }
 
-constexpr int KVT = 64;   // keys per dk/dv block
+constexpr int DKV_WARPS = 4, DKV_THREADS = 32 * DKV_WARPS;
+
+// Bytes of one 64-query chunk of the dk/dv kernel: q and dctx [query][dim]
+// bf16, and the float4 statistics.
+__host__ __device__ constexpr size_t dkv_chunk_bytes(int dh) {
+  return (size_t)TQ * (dh + 8) * 2 * sizeof(bf16) + (size_t)TQ * sizeof(float4);
+}
 
 template <int DH, bool PRE, bool ROW>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(DKV_THREADS, 1)
 attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                     const bf16* __restrict__ dctx,
                     const float* __restrict__ mask,
                     bf16* __restrict__ dqkv16,
                     float* __restrict__ dqkv32, bf16* __restrict__ dkvp16,
-                    float* __restrict__ dkvp32, const float* __restrict__ stats,
-                    int T, int P, int D, int Tp, float scale) {
-  constexpr int LD = DH + 8;
+                    float* __restrict__ dkvp32, const float4* __restrict__ stats,
+                    int T, int P, int D, int Sp, int NB, float scale) {
+  constexpr int LD = DH + 8, TE = TQ * LD;
+  constexpr size_t CHUNK = dkv_chunk_bytes(DH);
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);     // this block's keys
-  bf16* Vs = Ks + KVT * LD;
-  bf16* Qs = Vs + KVT * LD;                      // every query
-  bf16* dOs = Qs + Tp * LD;
-  float* st = reinterpret_cast<float*>(dOs + Tp * LD);   // Tp x (m, l, delta)
-
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, hd = blockIdx.y, H = gridDim.y;
-  const int k0 = blockIdx.x * KVT;
-  const int S = P + T;
+  const int hd = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int S = P + T, t16 = (T + 15) / 16 * 16;
+  const int nq = (T + TQ - 1) / TQ, ngroups = Sp / 16;
+  const int rounds = (ngroups + DKV_WARPS - 1) / DKV_WARPS;
+  const bool resident = NB >= nq;   // every chunk held for the whole block
+  const int nload = resident ? nq : rounds * nq;
   const size_t rs = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * T * rs;
-  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, k0, KVT, DH, tid,
-               FTHREADS);
-  load_tile(Qs, LD, base + hd * DH, rs, Tp, T, DH, tid, FTHREADS);
-  load_tile(dOs, LD, dctx + (size_t)b * T * D + hd * DH, D, Tp, T, DH, tid,
-            FTHREADS);
-  const float* gst = stats + ((size_t)b * H + hd) * T * 3;
-  for (int i = tid; i < Tp * 3; i += FTHREADS)
-    st[i] = i < T * 3 ? gst[i] : (i % 3 == 1 ? 1.f : 0.f);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int j0 = warp * 16;
-  if (k0 + j0 >= S) return;   // no barrier follows
-
-  unsigned ka[DH / 16][4], va[DH / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    ldsm_x4(ka[kc], Ks + (j0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
-    ldsm_x4(va[kc], Vs + (j0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
-  }
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int ct = 0; ct < DH / 8; ++ct)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[ct][e] = dv[ct][e] = 0.f;
-
-  const int ja = k0 + j0 + g, jb = ja + 8;     // this lane's two keys
-  // a key-mask row is the same for every query: read it once
-  const float mka = ROW && ja < S ? mask[ja] : 0.f;
-  const float mkb = ROW && jb < S ? mask[jb] : 0.f;
-  for (int qb = 0; qb < Tp; qb += 16) {        // 16 queries at a time
-    float sT[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    float dpT[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc) {
-      unsigned qb4[4], db4[4];
-      ldsm_x4(qb4, Qs + (qb + (lane & 7) + ((lane >> 4) << 3)) * LD + kc * 16 +
-                       ((lane >> 3) & 1) * 8);
-      ldsm_x4(db4, dOs + (qb + (lane & 7) + ((lane >> 4) << 3)) * LD + kc * 16 +
-                        ((lane >> 3) & 1) * 8);
-      mma16816(sT[0], ka[kc], qb4[0], qb4[1]);
-      mma16816(sT[1], ka[kc], qb4[2], qb4[3]);
-      mma16816(dpT[0], va[kc], db4[0], db4[1]);
-      mma16816(dpT[1], va[kc], db4[2], db4[3]);
+  const bool mat = mask && !ROW;    // a (T, S) matrix
+  float* Mt = reinterpret_cast<float*>(smem + NB * CHUNK) + warp * 32 * 17;
+  const float4* gst = stats + ((size_t)b * H + hd) * (size_t)t16;
+  auto qs = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * CHUNK); };
+  auto issue = [&](int li) {   // chunk load li (in consumption order)
+    const int c = li % nq, buf = li % NB, q0 = c * TQ;
+    bf16* Qb = qs(buf);
+    load_tile(Qb, LD, qkv + ((size_t)b * T + q0) * rs + hd * DH, rs, TQ,
+              T - q0, DH, tid, DKV_THREADS);
+    load_tile(Qb + TE, LD, dctx + ((size_t)b * T + q0) * D + hd * DH, D, TQ,
+              T - q0, DH, tid, DKV_THREADS);
+    float4* Sb = reinterpret_cast<float4*>(Qb + 2 * TE);
+    for (int r = tid; r < TQ; r += DKV_THREADS) {
+      const bool ok = q0 + r < t16;
+      cp_async16(Sb + r, ok ? gst + q0 + r : gst, ok);
     }
-    // p^T and ds^T for keys (ja, jb) x queries qb + 8h + 2t4 + e
-    float p[2][4], ds[2][4];
+    cp_async_commit();
+  };
+  int issued = 0;
+  for (; issued < min(NB, nload); ++issued) issue(issued);
+
+  const float sl2 = scale * LOG2E;
+  for (int r = 0; r < rounds; ++r) {
+    const int grp = r * DKV_WARPS + warp, j0 = grp * 16;
+    const bool live = grp < ngroups;   // warp-uniform
+    const int ja = j0 + g, jb = ja + 8;
+    const bool oka = ja < S, okb = jb < S;
+    unsigned ka[DH / 16][4], va[DH / 16][4];
+    float dk[DH / 8][4], dv[DH / 8][4];
+    float mka = 0.f, mkb = 0.f;   // a key-mask row, log2(e)-scaled
+    if (live) {
+      // the group's K and V rows straight into A fragments (rows past S zero)
+      const bf16* kr[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+      for (int w = 0; w < 2; ++w) {
+        const int j = w ? jb : ja;
+        kr[w] = nullptr;
+        if (j < S)
+          kr[w] = PRE && j < P ? kvp + ((size_t)b * P + j) * 2 * D + hd * DH
+                               : qkv + ((size_t)b * T + j - P) * rs + D + hd * DH;
+      }
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = qb + 8 * h + 2 * t4 + e;
-        const float m = st[i * 3], l = st[i * 3 + 1], dl = st[i * 3 + 2];
+      for (int kc = 0; kc < DH / 16; ++kc)
 #pragma unroll
-        for (int w = 0; w < 2; ++w) {          // w = 0: key ja, 1: key jb
-          const int j = w ? jb : ja;
-          float pv = 0.f;
-          if (i < T && j < S) {
-            const float mv = ROW ? (w ? mkb : mka)
-                                 : (mask ? mask[(size_t)i * S + j] : 0.f);
-            const float sv = sT[h][2 * w + e] * scale + mv;
-            pv = expf(sv - m) / l;
+        for (int x = 0; x < 4; ++x) {
+          const bf16* row = kr[x & 1];
+          const int col = kc * 16 + (x >> 1) * 8 + 2 * t4;
+          ka[kc][x] = row ? *reinterpret_cast<const unsigned*>(row + col) : 0u;
+          va[kc][x] = row ? *reinterpret_cast<const unsigned*>(row + D + col) : 0u;
+        }
+      if (ROW) {
+        mka = oka ? LOG2E * mask[ja] : 0.f;
+        mkb = okb ? LOG2E * mask[jb] : 0.f;
+      }
+      zero_acc<DH / 8>(dk);
+      zero_acc<DH / 8>(dv);
+    }
+    for (int c = 0; c < nq; ++c) {
+      const int li = resident ? c : r * nq + c;
+      if (!resident || r == 0) {
+        cp_async_wait_dyn(issued - li - 1);
+        __syncthreads();
+      }
+      const bf16* Qb = qs(li % NB);
+      const bf16* Gb = Qb + TE;
+      const float4* Sb = reinterpret_cast<const float4*>(Qb + 2 * TE);
+      if (live) {
+        // 32 queries a step: two k16 halves whose products interleave
+        for (int lq = 0; lq < TQ && c * TQ + lq < T; lq += 32) {
+          const int qb = c * TQ + lq;
+          if (mat) {   // the (32 queries x 16 keys) mask tile, log2(e)-scaled
+            __syncwarp();
+            for (int x = lane; x < 512; x += 32) {
+              const int i = qb + (x >> 4), j = j0 + (x & 15);
+              Mt[(x >> 4) * 17 + (x & 15)] =
+                  i < T && j < S ? LOG2E * mask[(size_t)i * S + j] : 0.f;
+            }
+            __syncwarp();
           }
-          p[h][2 * w + e] = pv;
-          ds[h][2 * w + e] = pv * (dpT[h][2 * w + e] - dl);
+          // s^T and dp^T, keys (ja, jb) x queries qb + 8n + 2t4 + e: n8
+          // tile n of 4; queries past T are zero rows whose statistics
+          // give p = 0
+          float sT[4][4], dT[4][4];
+          zero_acc<4>(sT);
+          zero_acc<4>(dT);
+#pragma unroll
+          for (int kc = 0; kc < DH / 16; ++kc) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = lq + 16 * hh + (lane & 7) + ((lane >> 4) << 3);
+              unsigned qb4[4], gb4[4];
+              ldsm_x4(qb4, Qb + r * LD + kc * 16 + ((lane >> 3) & 1) * 8);
+              ldsm_x4(gb4, Gb + r * LD + kc * 16 + ((lane >> 3) & 1) * 8);
+              mma16816(sT[2 * hh], ka[kc], qb4[0], qb4[1]);
+              mma16816(sT[2 * hh + 1], ka[kc], qb4[2], qb4[3]);
+              mma16816(dT[2 * hh], va[kc], gb4[0], gb4[1]);
+              mma16816(dT[2 * hh + 1], va[kc], gb4[2], gb4[3]);
+            }
+          }
+          // p^T = exp2(s^T sl2 + mask - m2) / l and ds^T = p^T (dp^T - delta)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int rq = 8 * n + 2 * t4 + e;
+              const float4 q = Sb[lq + rq];   // (m2, 1/l, delta)
+#pragma unroll
+              for (int w = 0; w < 2; ++w) {   // w = 0: key ja, 1: key jb
+                float pv = 0.f;
+                if (w ? okb : oka) {
+                  const float mv = ROW ? (w ? mkb : mka)
+                                       : (mat ? Mt[rq * 17 + g + 8 * w] : 0.f);
+                  pv = exp2f(fmaf(sT[n][2 * w + e], sl2, mv) - q.x) * q.y;
+                }
+                sT[n][2 * w + e] = pv;
+                dT[n][2 * w + e] = pv * (dT[n][2 * w + e] - q.z);
+              }
+            }
+          }
+          // dv += p16^T dctx, dk += ds16^T q, one k16 half of the queries
+          // after the other
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            unsigned pa[4], sa[4];
+            pa[0] = pack_bf16(sT[2 * hh][0], sT[2 * hh][1]);
+            pa[1] = pack_bf16(sT[2 * hh][2], sT[2 * hh][3]);
+            pa[2] = pack_bf16(sT[2 * hh + 1][0], sT[2 * hh + 1][1]);
+            pa[3] = pack_bf16(sT[2 * hh + 1][2], sT[2 * hh + 1][3]);
+            sa[0] = pack_bf16(dT[2 * hh][0], dT[2 * hh][1]);
+            sa[1] = pack_bf16(dT[2 * hh][2], dT[2 * hh][3]);
+            sa[2] = pack_bf16(dT[2 * hh + 1][0], dT[2 * hh + 1][1]);
+            sa[3] = pack_bf16(dT[2 * hh + 1][2], dT[2 * hh + 1][3]);
+            const int r = lq + 16 * hh + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+            for (int cp = 0; cp < DH / 16; ++cp) {
+              unsigned ob[4], qt[4];
+              ldsm_x4_t(ob, Gb + r * LD + cp * 16 + (lane >> 4) * 8);
+              ldsm_x4_t(qt, Qb + r * LD + cp * 16 + (lane >> 4) * 8);
+              mma16816(dv[2 * cp], pa, ob[0], ob[1]);
+              mma16816(dv[2 * cp + 1], pa, ob[2], ob[3]);
+              mma16816(dk[2 * cp], sa, qt[0], qt[1]);
+              mma16816(dk[2 * cp + 1], sa, qt[2], qt[3]);
+            }
+          }
         }
       }
-    }
-    unsigned pa[4], sa[4];
-    pa[0] = pack_bf16(p[0][0], p[0][1]);
-    pa[1] = pack_bf16(p[0][2], p[0][3]);
-    pa[2] = pack_bf16(p[1][0], p[1][1]);
-    pa[3] = pack_bf16(p[1][2], p[1][3]);
-    sa[0] = pack_bf16(ds[0][0], ds[0][1]);
-    sa[1] = pack_bf16(ds[0][2], ds[0][3]);
-    sa[2] = pack_bf16(ds[1][0], ds[1][1]);
-    sa[3] = pack_bf16(ds[1][2], ds[1][3]);
-#pragma unroll
-    for (int cp = 0; cp < DH / 16; ++cp) {
-      unsigned ob[4], qt[4];
-      ldsm_x4_t(ob, dOs + (qb + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                        cp * 16 + (lane >> 4) * 8);
-      ldsm_x4_t(qt, Qs + (qb + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                        cp * 16 + (lane >> 4) * 8);
-      mma16816(dv[2 * cp], pa, ob[0], ob[1]);
-      mma16816(dv[2 * cp + 1], pa, ob[2], ob[3]);
-      mma16816(dk[2 * cp], sa, qt[0], qt[1]);
-      mma16816(dk[2 * cp + 1], sa, qt[2], qt[3]);
-    }
-  }
-#pragma unroll
-  for (int ct = 0; ct < DH / 8; ++ct) {
-    const int c = hd * DH + ct * 8 + 2 * t4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = h ? jb : ja;
-      if (j >= S) continue;
-      const float k0v = dk[ct][2 * h] * scale, k1v = dk[ct][2 * h + 1] * scale;
-      const float v0 = dv[ct][2 * h], v1 = dv[ct][2 * h + 1];
-      bf16* o16;
-      float* o32;
-      size_t o;
-      if (PRE && j < P) {   // a prefix key: (B*P, 2D), dK at 0, dV at D
-        o = ((size_t)b * P + j) * 2 * D + c;
-        o16 = dkvp16;
-        o32 = dkvp32;
-      } else {              // a token key: (B*T, 3D), dK at D, dV at 2D
-        o = ((size_t)b * T + j - P) * rs + D + c;
-        o16 = dqkv16;
-        o32 = dqkv32;
+      if (!resident) {   // refill the buffer just read with a later chunk
+        __syncthreads();
+        if (issued < nload) issue(issued++);
       }
-      *reinterpret_cast<unsigned*>(o16 + o) = pack_bf16(k0v, k1v);
-      *reinterpret_cast<unsigned*>(o16 + o + D) = pack_bf16(v0, v1);
-      if (o32) {
-        o32[o] = k0v; o32[o + 1] = k1v;
-        o32[o + D] = v0; o32[o + D + 1] = v1;
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int ct = 0; ct < DH / 8; ++ct) {
+      const int c = hd * DH + ct * 8 + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = h ? jb : ja;
+        if (j >= S) continue;
+        const float k0v = dk[ct][2 * h] * scale, k1v = dk[ct][2 * h + 1] * scale;
+        const float v0 = dv[ct][2 * h], v1 = dv[ct][2 * h + 1];
+        bf16* o16;
+        float* o32;
+        size_t o;
+        if (PRE && j < P) {   // a prefix key: (B*P, 2D), dK at 0, dV at D
+          o = ((size_t)b * P + j) * 2 * D + c;
+          o16 = dkvp16;
+          o32 = dkvp32;
+        } else {              // a token key: (B*T, 3D), dK at D, dV at 2D
+          o = ((size_t)b * T + j - P) * rs + D + c;
+          o16 = dqkv16;
+          o32 = dqkv32;
+        }
+        *reinterpret_cast<unsigned*>(o16 + o) = pack_bf16(k0v, k1v);
+        *reinterpret_cast<unsigned*>(o16 + o + D) = pack_bf16(v0, v1);
+        if (o32) {
+          o32[o] = k0v; o32[o + 1] = k1v;
+          o32[o + D] = v0; o32[o + D + 1] = v1;
+        }
       }
     }
   }
@@ -1497,6 +1966,16 @@ static int grid_for(size_t n) {
   return (int)(b < 4096 ? b : 4096);
 }
 
+static int max_smem_optin() {
+  static int v = 0;
+  if (!v) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return v;
+}
+
 // K, V, the 4 pairs' query slabs, their row-max and row-sum exchange and
 // partial p @ v, plus the key-mask row with ROW
 static size_t attn_fwd_smem(int Sp, int dh, bool row) {
@@ -1505,14 +1984,18 @@ static size_t attn_fwd_smem(int Sp, int dh, bool row) {
          (row ? (size_t)Sp * sizeof(float) : 0);
 }
 
+// K, V, the 4 pairs' q and dctx slabs, their max / sum / delta exchange and
+// partial dq, plus the key-mask row with ROW
 static size_t attn_bwd_dq_smem(int Sp, int dh, bool row) {
-  return (size_t)(2 * Sp + 2 * FQT) * (dh + 8) * sizeof(bf16) +
+  return (size_t)(2 * Sp + 32 * DQ_PAIRS) * (dh + 8) * sizeof(bf16) +
+         (size_t)DQ_PAIRS * (96 + dh * 16) * sizeof(float) +
          (row ? (size_t)Sp * sizeof(float) : 0);
 }
 
-static size_t attn_bwd_dkv_smem(int Tp, int dh) {
-  return (size_t)(2 * KVT + 2 * Tp) * (dh + 8) * sizeof(bf16) +
-         (size_t)Tp * 3 * sizeof(float);
+// the tiled roads: ``tiles`` 64-row bf16 tiles plus the key-mask row
+static size_t attn_tiled_smem(int tiles, int Sp, int dh, bool row) {
+  return (size_t)tiles * TQ * (dh + 8) * sizeof(bf16) +
+         (row ? (size_t)Sp * sizeof(float) : 0);
 }
 
 // Shared arguments of the attention launches. Without a prefix P = 0 and
@@ -1527,7 +2010,7 @@ struct AttnArgs {
   float* dqkv32;
   bf16* dkvp16;
   float* dkvp32;
-  float* stats;
+  float4* stats;
   int B, T, P, D, H;
   float scale;
 };
@@ -1542,39 +2025,71 @@ static int launch_attn_fwd_nt(const AttnArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int DH, int MAXNT, bool PRE, bool ROW>
-static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
-  const int Sp = (a.P + a.T + 15) / 16 * 16, Tp = (a.T + 15) / 16 * 16;
-  size_t smem = attn_bwd_dq_smem(Sp, DH, ROW);
-  raise_smem(attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>, smem);
-  attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>
-      <<<dim3((a.T + FQT - 1) / FQT, a.H, a.B), FTHREADS, smem, s>>>(
-          a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.stats, a.T,
-          a.P, a.D, Sp, a.scale);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  smem = attn_bwd_dkv_smem(Tp, DH);
-  raise_smem(attn_bwd_dkv_kernel<DH, PRE, ROW>, smem);
-  attn_bwd_dkv_kernel<DH, PRE, ROW>
-      <<<dim3((a.P + a.T + KVT - 1) / KVT, a.H, a.B), FTHREADS, smem, s>>>(
-          a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.dkvp16,
-          a.dkvp32, a.stats, a.T, a.P, a.D, Tp, a.scale);
+template <int DH, bool PRE, bool ROW>
+static int launch_attn_fwd_tiled(const AttnArgs& a, cudaStream_t s) {
+  const int Sp = (a.P + a.T + 15) / 16 * 16;
+  const size_t smem = attn_tiled_smem(5, Sp, DH, ROW);
+  if (smem > (size_t)max_smem_optin()) return (int)cudaErrorInvalidValue;
+  raise_smem(attn_fwd_tiled_kernel<DH, PRE, ROW>, smem);
+  attn_fwd_tiled_kernel<DH, PRE, ROW>
+      <<<dim3((a.T + TQ - 1) / TQ, a.H, a.B), TT_THREADS, smem, s>>>(
+          a.qkv, a.kvp, a.mask, a.ctx, a.T, a.P, a.D, Sp, a.scale);
   return (int)cudaGetLastError();
 }
 
-// Dispatch on head dim and on the padded key count a score row holds (the
-// backward <= 128 or <= 256; the forward also <= 208, ViT-B/16's 197 or 200
-// tokens, whose half rows take 56 registers a thread where 256 keys take
-// 64); S = P + T > 256 is refused. ROW: a key-mask row (mask_rs 0).
+// The dq kernel of the road S takes (MAXNT 0: tiled), then the dk/dv kernel
+// with as many 64-query chunks resident as shared memory holds.
+template <int DH, int MAXNT, bool PRE, bool ROW>
+static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
+  const int Sp = (a.P + a.T + 15) / 16 * 16;
+  if constexpr (MAXNT == 0) {
+    const size_t smem = attn_tiled_smem(6, Sp, DH, ROW);
+    if (smem > (size_t)max_smem_optin()) return (int)cudaErrorInvalidValue;
+    raise_smem(attn_bwd_dq_tiled_kernel<DH, PRE, ROW>, smem);
+    attn_bwd_dq_tiled_kernel<DH, PRE, ROW>
+        <<<dim3((a.T + TQ - 1) / TQ, a.H, a.B), TT_THREADS, smem, s>>>(
+            a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.stats, a.T,
+            a.P, a.D, Sp, a.scale);
+  } else {
+    const size_t smem = attn_bwd_dq_smem(Sp, DH, ROW);
+    raise_smem(attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>, smem);
+    attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>
+        <<<dim3(a.H, a.B), DQ_THREADS, smem, s>>>(
+            a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.stats, a.T,
+            a.P, a.D, Sp, a.scale);
+  }
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t chunk = dkv_chunk_bytes(DH);
+  const size_t extra = (a.mask && !ROW) ? (size_t)DKV_WARPS * 32 * 17 * sizeof(float) : 0;
+  const int nq = (a.T + TQ - 1) / TQ;
+  const long long fit = ((long long)max_smem_optin() - (long long)extra) / (long long)chunk;
+  if (fit < 2) return (int)cudaErrorInvalidValue;
+  const int nb = (int)(fit < nq ? fit : nq);
+  const size_t smem = nb * chunk + extra;
+  raise_smem(attn_bwd_dkv_kernel<DH, PRE, ROW>, smem);
+  attn_bwd_dkv_kernel<DH, PRE, ROW><<<dim3(a.H, a.B), DKV_THREADS, smem, s>>>(
+      a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.dkvp16, a.dkvp32,
+      a.stats, a.T, a.P, a.D, Sp, nb, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// Dispatch on head dim and on the padded key count Sp a score row holds: up
+// to 256 the register roads (the backward's rows of <= 128 or <= 256 keys;
+// the forward's also <= 208, ViT-B/16's 197 or 200 tokens, whose half rows
+// take 56 registers a thread where 256 keys take 64), above it the tiled
+// roads, which have no key limit. ROW: a key-mask row (mask_rs 0).
 template <bool BWD, bool PRE, bool ROW>
 static int launch_attn(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
-  if (Sp > 256 || a.H <= 0 || a.D % a.H) return (int)cudaErrorInvalidValue;
-  const bool wide = Sp > 128;
+  if (a.T < 1 || a.H <= 0 || a.D % a.H) return (int)cudaErrorInvalidValue;
+  const bool tiled = Sp > 256, wide = Sp > 128;
 #define LLC_ATTN(DHV)                                                        \
   if constexpr (BWD)                                                         \
-    return wide ? launch_attn_bwd_nt<DHV, 32, PRE, ROW>(a, s)                \
-                : launch_attn_bwd_nt<DHV, 16, PRE, ROW>(a, s);               \
+    return tiled ? launch_attn_bwd_nt<DHV, 0, PRE, ROW>(a, s)                \
+         : wide  ? launch_attn_bwd_nt<DHV, 32, PRE, ROW>(a, s)               \
+                 : launch_attn_bwd_nt<DHV, 16, PRE, ROW>(a, s);              \
+  if (tiled) return launch_attn_fwd_tiled<DHV, PRE, ROW>(a, s);              \
   if (!wide) return launch_attn_fwd_nt<DHV, 16, PRE, ROW>(a, s);             \
   return Sp <= 208 ? launch_attn_fwd_nt<DHV, 26, PRE, ROW>(a, s)             \
                    : launch_attn_fwd_nt<DHV, 32, PRE, ROW>(a, s);
@@ -1826,13 +2341,14 @@ int llc_attn_fwd(const void* qkv, const float* mask, void* ctx, int B, int T,
   return launch_attn<false, false, false>(a, (cudaStream_t)stream);
 }
 
-// stats: B * H * T * 3 floats of workspace (row max, row sum, delta).
+// stats: B * H * ceil16(T) float4s of workspace (row max, 1 / row sum,
+// delta; 16-byte aligned).
 int llc_attn_bwd(const void* qkv, const void* dctx, const float* mask,
                  void* dqkv16, float* dqkv32, float* stats, int B, int T,
                  int D, int H, float scale, void* stream) {
   AttnArgs a = {};
   a.qkv = (const bf16*)qkv; a.dctx = (const bf16*)dctx; a.mask = mask;
-  a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32; a.stats = stats;
+  a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32; a.stats = (float4*)stats;
   a.B = B; a.T = T; a.P = 0; a.D = D; a.H = H; a.scale = scale;
   return launch_attn<true, false, false>(a, (cudaStream_t)stream);
 }
@@ -1865,7 +2381,7 @@ int llc_attn_prefix_bwd(const void* qkv, const void* kvp, const void* dctx,
   a.qkv = (const bf16*)qkv; a.kvp = (const bf16*)kvp;
   a.dctx = (const bf16*)dctx; a.mask = mask;
   a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32;
-  a.dkvp16 = (bf16*)dkvp16; a.dkvp32 = dkvp32; a.stats = stats;
+  a.dkvp16 = (bf16*)dkvp16; a.dkvp32 = dkvp32; a.stats = (float4*)stats;
   a.B = B; a.T = T; a.P = P; a.D = D; a.H = H; a.scale = scale;
   return mask && !mask_rs
       ? launch_attn<true, true, true>(a, (cudaStream_t)stream)

@@ -5,8 +5,11 @@ Counterpart of ``lifelong_clip_tpu/ops/fused_block_attn.py:
 fused_ln_attention_block`` (``:202-218``): fp32 LayerNorm, bf16 qkv with an
 optional in-kernel LoRA term ``s * (h @ A_in) @ B_in``, per-head fp32 softmax
 with an additive (T, T) mask, out projection with its own LoRA term, and the
-residual. The backward recomputes LN, qkv and the probabilities and emits dx
-and the LoRA grads; the LN and base-weight grads only when ``weight_grads``.
+residual. The backward emits dx and the LoRA grads, the LN and base-weight
+grads only when ``weight_grads``. On the card it reads the forward's h, qkv
+and ctx where the forward kept them (a train step: grad enabled and an input
+that needs it), and recomputes them, as the TPU kernel does, where it did
+not.
 
 Kernels and the TPU kernels they replace:
 
@@ -269,19 +272,17 @@ def _colsum(x2d):
     return out
 
 
-def _check_cuda(x, n_heads, prefix=0, op="fused_ln_attention_block"):
-    """Raise on what the kernels do not take: a score row of S = prefix + T
-    keys lives in one warp's registers, so S <= 256."""
+def _check_cuda(x, n_heads, op="fused_ln_attention_block"):
+    """Raise on what the kernels do not take: head dims other than 16, 32 or
+    64, and D > 1024 (the LN kernels hold a row in one warp's registers).
+    Any number of keys S = P + T is taken."""
     if x.dtype not in _DT:
         raise TypeError(f"{op}: x must be bf16 or f32, got {x.dtype}")
     b, t, d = x.shape
     dh = d // n_heads
-    s = prefix + t
-    if d % n_heads or dh not in (16, 32, 64) or -(-s // 16) * 16 > 256 \
-            or d > 1024:
-        raise ValueError(f"{op} kernels take head dim 16/32/64, D <= 1024 "
-                         f"and S = P + T <= 256 keys; got D={d}, "
-                         f"heads={n_heads}, T={t}, P={prefix}")
+    if d % n_heads or dh not in (16, 32, 64) or d > 1024:
+        raise ValueError(f"{op} kernels take head dim 16/32/64 and "
+                         f"D <= 1024; got D={d}, heads={n_heads}, T={t}")
 
 
 class _Prepared:
@@ -324,6 +325,14 @@ def _grad_rows(pp: _Prepared, g):
     return g2, g16
 
 
+def _stats(pp: _Prepared, n_heads):
+    """Workspace of the attention backward: a float4 (row max, 1 / row sum,
+    delta, 0) for each query row of each (batch row, head), T rounded up to
+    16."""
+    return torch.empty(pp.b * n_heads * -(-pp.t // 16) * 16 * 4,
+                       dtype=torch.float32, device=pp.x.device)
+
+
 def _zero_block_grads(d, device):
     """fp32 zeros for (dls, dlb, dwqkv, dbqkv, dwout, dbout): the block
     grads without ``weight_grads``."""
@@ -333,8 +342,8 @@ def _zero_block_grads(d, device):
             torch.zeros(d, d, **f32), torch.zeros(d, **f32))
 
 
-def _cuda_recompute(pp: _Prepared, n_heads, need_ctx=True):
-    """h16, z16, qkv16, ctx16 of the forward, on the card."""
+def _cuda_ln_qkv(pp: _Prepared):
+    """h16, z16 (None without LoRA) and qkv16 of the forward, on the card."""
     m, d, r = pp.m, pp.d, pp.r
     dev = pp.x.device
     h16 = torch.empty(m, d, dtype=_BF, device=dev)
@@ -350,45 +359,60 @@ def _cuda_recompute(pp: _Prepared, n_heads, need_ctx=True):
                   lz=(z16, r, 1) if z16 is not None else None,
                   lb=(pp.lora[1], 3 * d, 1) if z16 is not None else None,
                   lscale=pp.s)
-    ctx16 = None
-    if need_ctx:
-        ctx16 = torch.empty(m, d, dtype=_BF, device=dev)
-        _kernels.call("llc_attn_fwd", qkv16.data_ptr(), _ptr(pp.mask),
-                      ctx16.data_ptr(), pp.b, pp.t, d, n_heads,
-                      (d // n_heads) ** -0.5, pp.stream)
-    return h16, z16, qkv16, ctx16
+    return h16, z16, qkv16
+
+
+def _cuda_kept(pp: _Prepared, n_heads):
+    """The forward's intermediates up to the out projection, on the card:
+    (h16, z16, qkv16, ctx16, z2_16), z16 and z2_16 None without LoRA."""
+    m, d, r = pp.m, pp.d, pp.r
+    h16, z16, qkv16 = _cuda_ln_qkv(pp)
+    ctx16 = torch.empty(m, d, dtype=_BF, device=pp.x.device)
+    _kernels.call("llc_attn_fwd", qkv16.data_ptr(), _ptr(pp.mask),
+                  ctx16.data_ptr(), pp.b, pp.t, d, n_heads,
+                  (d // n_heads) ** -0.5, pp.stream)
+    z2 = None
+    if pp.lora is not None:
+        z2 = _gemm(torch.empty(m, r, dtype=_BF, device=pp.x.device), ctx16,
+                   (d, 1), pp.lora[2], (r, 1), m, r, d)
+    return h16, z16, qkv16, ctx16, z2
 
 
 def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
-                  lora_scaling, mask, lora):
+                  lora_scaling, mask, lora, keep=False):
+    """y on the card; with ``keep``, (y, (h16, z16, qkv16, ctx16, z2_16))
+    for the backward chain to read (z16 and z2_16 None without LoRA)."""
     _check_cuda(x, n_heads)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, mask,
                    lora, lora_scaling)
     m, d, r = pp.m, pp.d, pp.r
-    _, _, _, ctx16 = _cuda_recompute(pp, n_heads)
-    z2 = None
-    if pp.lora is not None:
-        z2 = _gemm(torch.empty(m, r, dtype=_BF, device=x.device), ctx16,
-                   (d, 1), pp.lora[2], (r, 1), m, r, d)
+    saved = _cuda_kept(pp, n_heads)
+    _, _, _, ctx16, z2 = saved
     x2 = pp.x.view(m, d)
     y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m, d, d,
               bias=pp.b_out, lz=(z2, r, 1) if z2 is not None else None,
               lb=(pp.lora[3], d, 1) if z2 is not None else None,
               lscale=pp.s, resid=x2)
     LAUNCHES["fused_ln_attention_fwd"] += 1
-    return y.view(pp.b, pp.t, d)
+    y = y.view(pp.b, pp.t, d)
+    return (y, saved) if keep else y
 
 
 def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
-                   lora_scaling, mask, lora, weight_grads):
+                   lora_scaling, mask, lora, weight_grads, saved=None):
+    """The backward chain on the card. ``saved``: the forward's (h16, z16,
+    qkv16, ctx16, z2_16) (those the backward reads; see
+    ``_keep_for_backward``), or None to recompute them as the forward
+    makes them."""
     _check_cuda(x, n_heads)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, None, mask,
                    lora, lora_scaling)
     m, d, r, s = pp.m, pp.d, pp.r, pp.s
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    h16, z16, qkv16, ctx16 = _cuda_recompute(
-        pp, n_heads, need_ctx=weight_grads or pp.lora is not None)
+    if saved is None:
+        saved = _cuda_kept(pp, n_heads)
+    h16, z16, qkv16, ctx16, z2 = saved
     g2, g16 = _grad_rows(pp, g)
 
     dls, dlb, dwqkv, dbqkv, dwout, dbout = _zero_block_grads(d, dev)
@@ -399,9 +423,7 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     dlora = None
     dz2 = None
     if pp.lora is not None:
-        a_in, b_in, a_out, b_out_l = pp.lora
-        z2 = _gemm(torch.empty(m, r, dtype=_BF, device=dev), ctx16, (d, 1),
-                   a_out, (r, 1), m, r, d)
+        _, b_in, _, b_out_l = pp.lora
         dz2 = _gemm(torch.empty(m, r, dtype=_BF, device=dev), g16, (d, 1),
                     b_out_l, (1, d), m, r, d, alpha=s)
         dbout_l = _gemm(torch.empty(r, d, **f32), z2, (1, r), g16, (d, 1),
@@ -416,7 +438,7 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
 
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
     dqkv32 = torch.empty(m, 3 * d, **f32) if weight_grads else None
-    stats = torch.empty(pp.b * n_heads * pp.t * 3, **f32)
+    stats = _stats(pp, n_heads)
     _kernels.call("llc_attn_bwd", qkv16.data_ptr(), dctx16.data_ptr(),
                   _ptr(pp.mask), dqkv16.data_ptr(), _ptr(dqkv32),
                   stats.data_ptr(), pp.b, pp.t, d, n_heads,
@@ -456,20 +478,35 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
 # the op
 # ---------------------------------------------------------------------------
 
-def _forward(x, *args):
+def _forward(x, *args, keep=None):
+    """y, and the intermediates the backward reads (``_keep_for_backward``
+    with ``keep`` = weight_grads) on the card where ``keep`` is not None;
+    None for them elsewhere."""
     if x.device.type == "cpu":
-        return fused_ln_attention_block_reference(x, *args)
+        return fused_ln_attention_block_reference(x, *args), None
     if x.device.type == "cuda":
-        return _cuda_forward(x, *args)
+        if keep is None:
+            return _cuda_forward(x, *args), None
+        y, saved = _cuda_forward(x, *args, keep=True)
+        return y, _keep_for_backward(saved, keep)
     raise RuntimeError(f"fused_ln_attention_block: no kernel for {x.device}")
 
 
-def _backward(x, g, *args):
+def _backward(x, g, *args, saved=None):
     if x.device.type == "cpu":
         return fused_ln_attention_block_reference_bwd(x, g, *args)
     if x.device.type == "cuda":
-        return _cuda_backward(x, g, *args)
+        return _cuda_backward(x, g, *args, saved=saved)
     raise RuntimeError(f"fused_ln_attention_block: no kernel for {x.device}")
+
+
+def _keep_for_backward(saved, weight_grads):
+    """What of the forward's (h16, z16, qkv16, ctx16, z2_16) the backward
+    chain reads: qkv16 always, z16 and z2_16 with LoRA, h16 and ctx16 with
+    LoRA or ``weight_grads``; None for the rest."""
+    h16, z16, qkv16, ctx16, z2 = saved
+    wide = weight_grads or z16 is not None
+    return (h16 if wide else None, z16, qkv16, ctx16 if wide else None, z2)
 
 
 class _FusedLNAttention(torch.autograd.Function):
@@ -477,25 +514,32 @@ class _FusedLNAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, a_in,
                 b_in, a_out, b_out_l, n_heads, lora_scaling, mask,
-                weight_grads):
+                weight_grads, keep):
         lora = None if a_in is None else {
             "a_in": a_in, "b_in": b_in, "a_out": a_out, "b_out": b_out_l}
+        args = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
+                lora_scaling, mask, lora)
+        # on the card a train step keeps what its backward reads; under
+        # no_grad nothing is kept
+        y, saved = _forward(*args, keep=weight_grads if keep else None)
+        ctx.kept = saved is not None
         ctx.save_for_backward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
-                              b_out, a_in, b_in, a_out, b_out_l)
+                              b_out, a_in, b_in, a_out, b_out_l,
+                              *(saved or ()))
         ctx.n_heads, ctx.lora_scaling = n_heads, lora_scaling
         ctx.mask, ctx.weight_grads = mask, weight_grads
-        return _forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
-                        n_heads, lora_scaling, mask, lora)
+        return y
 
     @staticmethod
     def backward(ctx, g):
         (x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, a_in, b_in, a_out,
-         b_out_l) = ctx.saved_tensors
+         b_out_l, *saved) = ctx.saved_tensors
         lora = None if a_in is None else {
             "a_in": a_in, "b_in": b_in, "a_out": a_out, "b_out": b_out_l}
-        grads, dlora = _backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
-                                 ctx.n_heads, ctx.lora_scaling, ctx.mask,
-                                 lora, ctx.weight_grads)
+        grads, dlora = _backward(
+            x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, ctx.n_heads,
+            ctx.lora_scaling, ctx.mask, lora, ctx.weight_grads,
+            saved=tuple(saved) if ctx.kept else None)
         primals = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out)
         # grads come back in each primal's dtype (``_fused_bwd:236-245``):
         # bf16 LoRA primals get bf16-rounded grads, as on the TPU. Frozen
@@ -511,7 +555,7 @@ class _FusedLNAttention(torch.autograd.Function):
         else:
             dl = tuple(dlora[k].to(lora[k].dtype)
                        for k in ("a_in", "b_in", "a_out", "b_out"))
-        return out + dl + (None, None, None, None)
+        return out + dl + (None,) * 5
 
 
 def fused_ln_attention_block(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
@@ -523,13 +567,22 @@ def fused_ln_attention_block(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     (D, r), ``b_in`` (r, 3D), ``a_out`` (D, r), ``b_out`` (r, D).
     ``weight_grads=False`` asserts the base block weights are not trained:
     their grads come back as exact zeros and the backward skips that work.
+    On the card, with grad enabled and an input that needs it, the forward
+    keeps the intermediates its backward reads (about 5 * B * T * D bf16
+    values with LoRA: h, qkv and ctx); otherwise it keeps nothing beyond the
+    inputs.
     """
     la = (None,) * 4 if lora is None else tuple(
         lora[k] for k in ("a_in", "b_in", "a_out", "b_out"))
-    return _FusedLNAttention.apply(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
-                                   b_out, *la, int(n_heads),
-                                   float(lora_scaling), mask,
-                                   bool(weight_grads))
+    args = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, *la)
+    return _FusedLNAttention.apply(*args, int(n_heads), float(lora_scaling),
+                                   mask, bool(weight_grads), _keeps(args))
+
+
+def _keeps(tensors) -> bool:
+    """Whether autograd will call the op's backward."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +709,7 @@ def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
         raise ValueError(f"{op}: pk and pv must be (B, P, D) with P >= 1 "
                          f"and x's B and D; got {tuple(pk.shape)}, "
                          f"{tuple(pv.shape)} for x {tuple(x.shape)}")
-    _check_cuda(x, n_heads, prefix=pk.shape[1], op=op)
+    _check_cuda(x, n_heads, op=op)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, None,
                    None, 0.0)
     pp.p = pk.shape[1]
@@ -666,50 +719,58 @@ def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
     return pp, pk16, pv16
 
 
-def _cuda_prefix_recompute(pp, pk16, pv16, n_heads, need_ctx=True):
-    """h16, qkv16 (B*T, 3D), kvp16 (B*P, 2D: K | V of the prefix rows) and
-    ctx16 of the forward, on the card."""
+def _cuda_prefix_kept(pp, pk16, pv16, n_heads):
+    """The forward's intermediates up to the out projection, on the card:
+    (h16, qkv16 (B*T, 3D), kvp16 (B*P, 2D: K | V of the prefix rows),
+    ctx16)."""
     d, bp = pp.d, pp.b * pp.p
-    h16, _, qkv16, _ = _cuda_recompute(pp, n_heads, need_ctx=False)
+    h16, _, qkv16 = _cuda_ln_qkv(pp)
     kvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=pp.x.device)
     for i, src in enumerate((pk16, pv16)):
         lo = (i + 1) * d
         _gemm(kvp16[:, i * d:(i + 1) * d], src, (d, 1),
               pp.w_qkv[:, lo:lo + d], (3 * d, 1), bp, d, d,
               bias=pp.b_qkv[lo:lo + d])
-    ctx16 = None
-    if need_ctx:
-        ctx16 = torch.empty(pp.m, d, dtype=_BF, device=pp.x.device)
-        _kernels.call("llc_attn_prefix_fwd", qkv16.data_ptr(),
-                      kvp16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
-                      ctx16.data_ptr(),
-                      pp.b, pp.t, pp.p, d, n_heads, (d // n_heads) ** -0.5,
-                      pp.stream)
+    ctx16 = torch.empty(pp.m, d, dtype=_BF, device=pp.x.device)
+    _kernels.call("llc_attn_prefix_fwd", qkv16.data_ptr(),
+                  kvp16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
+                  ctx16.data_ptr(),
+                  pp.b, pp.t, pp.p, d, n_heads, (d // n_heads) ** -0.5,
+                  pp.stream)
     return h16, qkv16, kvp16, ctx16
 
 
 def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
-                         b_out, n_heads, mask):
+                         b_out, n_heads, mask, keep=False):
+    """y on the card; with ``keep``, (y, (h16, qkv16, kvp16, ctx16)) for
+    the backward chain to read."""
     pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
                                      b_qkv, w_out, b_out, n_heads, mask)
     m, d = pp.m, pp.d
-    ctx16 = _cuda_prefix_recompute(pp, pk16, pv16, n_heads)[3]
+    saved = _cuda_prefix_kept(pp, pk16, pv16, n_heads)
+    ctx16 = saved[3]
     x2 = pp.x.view(m, d)
     y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m, d, d,
               bias=pp.b_out, resid=x2)
     LAUNCHES["fused_prefix_attention_fwd"] += 1
-    return y.view(pp.b, pp.t, d)
+    y = y.view(pp.b, pp.t, d)
+    return (y, saved) if keep else y
 
 
 def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
-                          w_out, n_heads, mask, weight_grads):
+                          w_out, n_heads, mask, weight_grads, saved=None):
+    """The prefix backward chain on the card. ``saved``: the forward's
+    (h16, qkv16, kvp16, ctx16) (those the backward reads; see
+    ``_keep_for_prefix_backward``), or None to recompute them as the
+    forward makes them."""
     pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
                                      b_qkv, w_out, None, n_heads, mask)
     m, d, bp = pp.m, pp.d, pp.b * pp.p
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    h16, qkv16, kvp16, ctx16 = _cuda_prefix_recompute(
-        pp, pk16, pv16, n_heads, need_ctx=weight_grads)
+    if saved is None:
+        saved = _cuda_prefix_kept(pp, pk16, pv16, n_heads)
+    h16, qkv16, kvp16, ctx16 = saved
     g2, g16 = _grad_rows(pp, g)
 
     dls, dlb, dwqkv, dbqkv, dwout, dbout = _zero_block_grads(d, dev)
@@ -724,7 +785,7 @@ def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
     dkvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=dev)
     dqkv32 = torch.empty(m, 3 * d, **f32) if weight_grads else None
     dkvp32 = torch.empty(bp, 2 * d, **f32) if weight_grads else None
-    stats = torch.empty(pp.b * n_heads * pp.t * 3, **f32)
+    stats = _stats(pp, n_heads)
     _kernels.call("llc_attn_prefix_bwd", qkv16.data_ptr(), kvp16.data_ptr(),
                   dctx16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
                   dqkv16.data_ptr(),
@@ -768,48 +829,66 @@ def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
 # the prefix op
 # ---------------------------------------------------------------------------
 
-def _prefix_forward(x, *args):
+def _prefix_forward(x, *args, keep=None):
+    """As ``_forward``, with ``_keep_for_prefix_backward``."""
     if x.device.type == "cpu":
-        return fused_prefix_attention_block_reference(x, *args)
+        return fused_prefix_attention_block_reference(x, *args), None
     if x.device.type == "cuda":
-        return _cuda_prefix_forward(x, *args)
+        if keep is None:
+            return _cuda_prefix_forward(x, *args), None
+        y, saved = _cuda_prefix_forward(x, *args, keep=True)
+        return y, _keep_for_prefix_backward(saved, keep)
     raise RuntimeError(
         f"fused_prefix_attention_block: no kernel for {x.device}")
 
 
-def _prefix_backward(x, g, *args):
+def _prefix_backward(x, g, *args, saved=None):
     if x.device.type == "cpu":
         return fused_prefix_attention_block_reference_bwd(x, g, *args)
     if x.device.type == "cuda":
-        return _cuda_prefix_backward(x, g, *args)
+        return _cuda_prefix_backward(x, g, *args, saved=saved)
     raise RuntimeError(
         f"fused_prefix_attention_block: no kernel for {x.device}")
+
+
+def _keep_for_prefix_backward(saved, weight_grads):
+    """What of the forward's (h16, qkv16, kvp16, ctx16) the backward chain
+    reads: qkv16 and kvp16 always, h16 and ctx16 with ``weight_grads``;
+    None for the rest."""
+    h16, qkv16, kvp16, ctx16 = saved
+    return (h16 if weight_grads else None, qkv16, kvp16,
+            ctx16 if weight_grads else None)
 
 
 class _FusedPrefixAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
-                n_heads, mask, weight_grads):
+                n_heads, mask, weight_grads, keep):
+        args = (x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                n_heads, mask)
+        # as _FusedLNAttention
+        y, saved = _prefix_forward(*args, keep=weight_grads if keep else None)
+        ctx.kept = saved is not None
         ctx.save_for_backward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
-                              w_out, b_out)
+                              w_out, b_out, *(saved or ()))
         ctx.n_heads, ctx.mask, ctx.weight_grads = n_heads, mask, weight_grads
-        return _prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
-                               w_out, b_out, n_heads, mask)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        primals = ctx.saved_tensors
+        primals = ctx.saved_tensors[:9]
+        saved = ctx.saved_tensors[9:] if ctx.kept else None
         x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out, _ = primals
         grads = _prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv,
                                  b_qkv, w_out, ctx.n_heads, ctx.mask,
-                                 ctx.weight_grads)
+                                 ctx.weight_grads, saved=saved)
         # each grad in its primal's dtype (``_prefix_bwd:687-693``); frozen
         # primals get none
         out = tuple(gr.to(p.dtype).reshape(p.shape) if need else None
                     for gr, p, need in zip(grads, primals,
                                            ctx.needs_input_grad))
-        return out + (None, None, None)
+        return out + (None,) * 4
 
 
 def fused_prefix_attention_block(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
@@ -825,9 +904,11 @@ def fused_prefix_attention_block(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
     on dead prefix slots. ``weight_grads=False`` asserts the block weights
     are frozen: their grads come back as exact zeros. ``rows_fwd`` and
     ``rows_bwd`` are the TPU kernels' rows-per-program knobs; the CUDA
-    kernels tile by their own shapes and ignore them.
+    kernels tile by their own shapes and ignore them. On the card, with grad
+    enabled and an input that needs it, the forward keeps the
+    intermediates its backward reads (as ``fused_ln_attention_block``).
     """
     del rows_fwd, rows_bwd
-    return _FusedPrefixAttention.apply(x, pk, pv, ln_scale, ln_bias, w_qkv,
-                                       b_qkv, w_out, b_out, int(n_heads),
-                                       mask, bool(weight_grads))
+    args = (x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out)
+    return _FusedPrefixAttention.apply(*args, int(n_heads), mask,
+                                       bool(weight_grads), _keeps(args))

@@ -86,7 +86,7 @@ def kernel_qkv(x, blk, lora, s, heads):
     if x.device.type == "cpu":
         return plain_parts(x, blk, lora, s, heads, None)[0]
     pp = fba._Prepared(x, *[blk[k] for k in BLOCK_KEYS], None, lora, s)
-    return fba._cuda_recompute(pp, heads, need_ctx=False)[2]
+    return fba._cuda_ln_qkv(pp)[2]
 
 
 def _held(report, name, got, want, term, rel):

@@ -33,10 +33,17 @@ def _inputs(dev, b, t, d, r, seed=0):
 
 
 # (b, t, d, heads, lora r, causal, weight_grads): head dims 64, 32 and 16;
-# T on and off a multiple of 16; the vision block's T = 197
+# T on and off a multiple of 16; the vision block's T = 197; past 256 keys
+# (the tiled roads): ViT-L/14's block (T = 257, D = 1024, 16 heads) with and
+# without weight_grads, T = 512, causal T = 300, and T = 800, whose queries
+# the dk/dv kernel cannot hold at once and streams
 CASES = [(2, 13, 128, 2, 4, False, False), (3, 77, 256, 4, 0, True, True),
          (2, 197, 192, 3, 4, False, True), (2, 9, 128, 4, 4, True, False),
-         (2, 32, 64, 4, 2, False, True)]
+         (2, 32, 64, 4, 2, False, True),
+         (2, 257, 1024, 16, 4, False, False),
+         (2, 257, 1024, 16, 4, False, True),
+         (2, 512, 256, 4, 4, False, False), (1, 300, 128, 2, 0, True, True),
+         (1, 800, 64, 1, 0, False, False)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,r,causal,wg", CASES)
@@ -56,6 +63,24 @@ def test_backward_is_deterministic(cuda):
     bargs = (*blk[:5], 3, 0.25, None, lora, True)
     first = fba._cuda_backward(x, gy, *bargs)
     second = fba._cuda_backward(x, gy, *bargs)
+    for a, b in zip(first[0], second[0]):
+        assert torch.equal(a, b)
+    for k in LORA_KEYS:
+        assert torch.equal(first[1][k], second[1][k]), k
+
+
+@pytest.mark.parametrize("weight_grads", [False, True])
+def test_backward_from_saved_intermediates_is_the_recompute(cuda,
+                                                            weight_grads):
+    """The backward chain reading the forward's kept h16, z16, qkv16,
+    ctx16 and z2 gives bit for bit what it gives recomputing them (LoRA
+    on)."""
+    x, blk, lora, gy = _inputs(cuda, 4, 197, 192, 4, seed=1)
+    _, saved = fba._cuda_forward(x, *blk, 3, 0.25, None, lora, keep=True)
+    bargs = (*blk[:5], 3, 0.25, None, lora, weight_grads)
+    first = fba._cuda_backward(x, gy, *bargs)
+    second = fba._cuda_backward(
+        x, gy, *bargs, saved=fba._keep_for_backward(saved, weight_grads))
     for a, b in zip(first[0], second[0]):
         assert torch.equal(a, b)
     for k in LORA_KEYS:
@@ -85,11 +110,14 @@ def test_unsupported_shape_raises_on_the_card(cuda):
 
 # KV-prefix block: (b, t, d, heads, P, live slots, weight_grads). Head dims
 # 64, 32 and 16; T and P on and off a multiple of 16; the mvp-clip block's
-# T = 197 with P = 20 (5 live, as its g-prompt layers); no live slot; and
-# S = P + T = 256, the kernels' limit
+# T = 197 with P = 20 (5 live, as its g-prompt layers); no live slot;
+# S = P + T = 256, the register roads' widest; S = 257 (20 of 60 slots live)
+# and S = 512 on the tiled roads
 PREFIX_CASES = [(2, 13, 128, 2, 5, 2, False), (2, 197, 192, 3, 20, 5, True),
                 (3, 77, 256, 4, 20, 0, False), (2, 9, 64, 4, 3, 3, True),
-                (2, 200, 128, 2, 56, 56, False)]
+                (2, 200, 128, 2, 56, 56, False),
+                (2, 197, 192, 3, 60, 20, False),
+                (2, 197, 192, 3, 315, 40, True)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,p,live,wg", PREFIX_CASES)
@@ -126,6 +154,25 @@ def test_prefix_backward_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("weight_grads", [False, True])
+def test_prefix_backward_from_saved_intermediates_is_the_recompute(
+        cuda, weight_grads):
+    """The prefix backward chain reading the forward's kept h16, qkv16,
+    kvp16 and ctx16 gives bit for bit what it gives recomputing them."""
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(4, 197, 192, 3, 20, 5,
+                                                     1, device=cuda)
+    _, saved = fba._cuda_prefix_forward(
+        x, pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], 3, mask, keep=True)
+    args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], 3, mask,
+            weight_grads)
+    first = fba._cuda_prefix_backward(x, gy, *args)
+    second = fba._cuda_prefix_backward(
+        x, gy, *args,
+        saved=fba._keep_for_prefix_backward(saved, weight_grads))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_prefix_op_launches_kernels_and_counts_them(cuda):
     """One tensor as pk and pv (mvp-clip): both grads reach it."""
     x, pk, _, blk, gy, mask = kc.make_prefix_inputs(2, 13, 128, 2, 5, 2, 2,
@@ -140,14 +187,6 @@ def test_prefix_op_launches_kernels_and_counts_them(cuda):
     assert pk.grad.dtype == torch.bfloat16
     assert float(pk.grad[:, :2].abs().max()) > 0
     assert float(pk.grad[:, 2:].abs().max()) == 0.0
-
-
-def test_prefix_key_limit_raises_on_the_card(cuda):
-    x, pk, pv, blk, _, _ = kc.make_prefix_inputs(1, 197, 192, 3, 60, 60, 0,
-                                                 device=cuda)
-    with pytest.raises(ValueError, match="S = P \\+ T <= 256"):
-        fba.fused_prefix_attention_block(
-            x, pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], 3)
 
 
 def test_unfused_road_keeps_fp32_on_the_card(cuda):

@@ -122,6 +122,66 @@ def test_backward_matches_jax_kernel(t, masked, weight_grads):
         assert float(tl[k].grad.abs().max()) > 0, k
 
 
+T_LONG = 257   # ViT-L/14's token count: past the 256 keys a register row holds
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ref_long():
+    """The JAX op in interpret mode at T = 257 (one batch row, LoRA, no
+    mask), jitted once: its output and the vjp of g with weight_grads=True."""
+    x, blk, lora, g = _inputs(T_LONG, seed=3, b=1)
+    fn, args = _jax_call(x, blk, lora, False)
+
+    def fwd_bwd(g, *args):
+        y, vjp = jax.vjp(fn, *args)
+        return y, vjp(g)
+
+    with pltpu.force_tpu_interpret_mode():
+        y, grads = jax.jit(fwd_bwd)(jnp.asarray(g), *args)
+    return np.asarray(y), jax.tree.map(np.asarray, grads)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_past_256_keys_matches_jax_kernel(direction):
+    """T = 257 keys (ViT-L/14), which the card takes on its tiled roads:
+    the op's output, and every grad with weight_grads, against the JAX
+    kernels, at the tolerances of the tests above."""
+    x, blk, lora, g = _inputs(T_LONG, seed=3, b=1)
+    y_ref, (jdx, jargs, jlora) = _jax_ref_long()
+    tx, ta, tl, _ = _torch_args(x, blk, lora, False,
+                                grad=direction == "backward")
+    y = fused_ln_attention_block(tx, *ta, H, S, None, tl, True)
+    if direction == "forward":
+        np.testing.assert_allclose(y.detach().numpy(), y_ref, atol=2e-3,
+                                   rtol=2e-3)
+        return
+    y.backward(torch.tensor(g))
+    pairs = [(tx.grad, jdx)] + [(tl[k].grad, jlora[k]) for k in LORA_KEYS]
+    pairs += list(zip([a.grad for a in ta], jargs))
+    for got, want in pairs:
+        scale = max(float(np.abs(want).max()), 1e-6)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-2,
+                                   atol=1e-2 * scale)
+
+
+def test_card_shape_check_takes_any_key_count():
+    """The kernels' shape check (it raises before any launch, so it runs
+    here on the CPU): ViT-L/14's vision block (T = 257, D = 1024, 16 heads)
+    and S = 512 keys pass; head dim 48 and D > 1024 (the LN kernels' row)
+    still raise."""
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    fba._check_cuda(torch.zeros(1, 257, 1024, dtype=torch.bfloat16), 16)
+    fba._check_cuda(torch.zeros(1, 512, 768), 12)
+    fba._check_cuda(torch.zeros(1, 197, 768), 12,
+                    op="fused_prefix_attention_block")   # with P = 315
+    with pytest.raises(ValueError, match="head dim"):
+        fba._check_cuda(torch.zeros(1, 9, 96), 2)        # head dim 48
+    with pytest.raises(ValueError, match="D <= 1024"):
+        fba._check_cuda(torch.zeros(1, 9, 1280), 20)     # D = 1280
+    with pytest.raises(TypeError):
+        fba._check_cuda(torch.zeros(1, 9, 64, dtype=torch.float16), 1)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_plain_backward_matches_autograd(masked):
     """The hand-written plain backward equals autograd of the plain forward
@@ -161,22 +221,22 @@ def _fault(name, monkeypatch):
     from lifelong_clip_tpu_torch.ops import kernel_check as kc
     fwd, bwd, qkv = fba._forward, fba._backward, kc.kernel_qkv
     if name == "lora_out_doubled":        # LoRA-out epilogue scale
-        monkeypatch.setattr(fba, "_forward", lambda x, *a: fwd(
-            x, *a[:-1], dict(a[-1], b_out=2 * a[-1]["b_out"])))
+        monkeypatch.setattr(fba, "_forward", lambda x, *a, **kw: fwd(
+            x, *a[:-1], dict(a[-1], b_out=2 * a[-1]["b_out"]), **kw))
     elif name == "b_in_strided":          # LoRA-in B read transposed
         def bad_qkv(x, blk, lora, s, heads):
             b_in = lora["b_in"].reshape(-1, lora["b_in"].shape[0]).T
             return qkv(x, blk, dict(lora, b_in=b_in), s, heads)
         monkeypatch.setattr(kc, "kernel_qkv", bad_qkv)
     elif name == "ln_bwd_5pct":           # LN backward 5% off
-        def bad_bwd(x, g, *a):
-            grads, dlora = bwd(x, g, *a)
+        def bad_bwd(x, g, *a, **kw):
+            grads, dlora = bwd(x, g, *a, **kw)
             dx = (g + 1.05 * (grads[0].float() - g.float())).to(x.dtype)
             return (dx,) + grads[1:], dlora
         monkeypatch.setattr(fba, "_backward", bad_bwd)
     elif name == "lora_grads_swapped":    # dA_in and dA_out (same shape)
-        def bad_bwd(x, g, *a):
-            grads, dlora = bwd(x, g, *a)
+        def bad_bwd(x, g, *a, **kw):
+            grads, dlora = bwd(x, g, *a, **kw)
             return grads, dict(dlora, a_in=dlora["a_out"],
                                a_out=dlora["a_in"])
         monkeypatch.setattr(fba, "_backward", bad_bwd)

@@ -119,6 +119,63 @@ def test_backward_matches_jax_kernel(kind, weight_grads):
             assert (live == 0.0) if j in dead else (live > 0), (kind, j)
 
 
+P_LONG = 244   # S = P + T = 257: past the 256 keys a register row holds
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ref_long():
+    """Inputs at S = 257 (one batch row; slots 100-149 dead) and the JAX op
+    in interpret mode on them, jitted once: its output and the vjp of g
+    with weight_grads=True."""
+    rng = np.random.default_rng(5)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)
+    blk = {"ln_scale": 1 + 0.1 * n(D), "ln_bias": 0.1 * n(D),
+           "w_qkv": 0.1 * n(D, 3 * D), "b_qkv": 0.1 * n(3 * D),
+           "w_out": 0.1 * n(D, D), "b_out": 0.1 * n(D)}
+    x, pk, pv, g = n(1, T, D), n(1, P_LONG, D), n(1, P_LONG, D), n(1, T, D)
+    m = np.zeros(P_LONG + T, np.float32)
+    m[100:150] = -np.inf
+    ins = (x, pk, pv, blk, g, m)
+
+    def fn(x, pk, pv, a):
+        return jax_prefix(x, pk, pv, *a, H, jnp.asarray(m), True)
+
+    def fwd_bwd(g, *args):
+        y, vjp = jax.vjp(fn, *args)
+        return y, vjp(g)
+
+    with pltpu.force_tpu_interpret_mode():
+        y, grads = jax.jit(fwd_bwd)(
+            jnp.asarray(g), jnp.asarray(x), jnp.asarray(pk), jnp.asarray(pv),
+            [jnp.asarray(blk[k]) for k in BLOCK_KEYS])
+    return ins, np.asarray(y), jax.tree.map(np.asarray, grads)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_past_256_keys_matches_jax_kernel(direction):
+    """S = P + T = 257 keys, which the card takes on its tiled roads: the
+    op's output, and dx, dpk, dpv and the block grads with weight_grads,
+    against the JAX kernels, at the tolerances of the tests above; dead
+    slots' grads exactly zero."""
+    (x, pk, pv, blk, g, m), y_ref, grads = _jax_ref_long()
+    t = lambda a: torch.tensor(a, requires_grad=direction == "backward")
+    tx, tpk, tpv = t(x), t(pk), t(pv)
+    ta = [t(blk[k]) for k in BLOCK_KEYS]
+    y = fused_prefix_attention_block(tx, tpk, tpv, *ta, H, torch.tensor(m),
+                                     True)
+    if direction == "forward":
+        np.testing.assert_allclose(y.detach().numpy(), y_ref, atol=2e-3,
+                                   rtol=2e-3)
+        return
+    y.backward(torch.tensor(g))
+    jdx, jdpk, jdpv, jargs = grads
+    for got, want in [(tx.grad, jdx), (tpk.grad, jdpk), (tpv.grad, jdpv),
+                      *zip([a.grad for a in ta], jargs)]:
+        _close(got.numpy(), want, 1e-2)
+    for leaf in (tpk, tpv):
+        assert float(leaf.grad[:, 100:150].abs().max()) == 0.0
+
+
 def test_shared_prompt_tensor_gets_both_grads():
     """mvp-clip passes one tensor as pk and pv: autograd sums dpk + dpv."""
     _, (_, jdpk, jdpv, _) = _jax_ref("kill2")
@@ -155,8 +212,8 @@ def _fault(name, monkeypatch):
     a kernel bug would show on the card."""
     fwd, bwd = fba._prefix_forward, fba._prefix_backward
     if name == "dpk_dpv_swapped":
-        def bad_bwd(*a):
-            dx, dpk, dpv, *rest = bwd(*a)
+        def bad_bwd(*a, **kw):
+            dx, dpk, dpv, *rest = bwd(*a, **kw)
             return (dx, dpv, dpk, *rest)
         monkeypatch.setattr(fba, "_prefix_backward", bad_bwd)
     elif name == "dead_slot_live":       # slot 3 dead in the mask
@@ -164,10 +221,10 @@ def _fault(name, monkeypatch):
             mask = mask.clone()
             mask[3] = 0.0
             return mask
-        monkeypatch.setattr(fba, "_prefix_forward", lambda x, *a: fwd(
-            x, *a[:-1], live(a[-1])))
-        monkeypatch.setattr(fba, "_prefix_backward", lambda x, g, *a: bwd(
-            x, g, *a[:-2], live(a[-2]), a[-1]))
+        monkeypatch.setattr(fba, "_prefix_forward", lambda x, *a, **kw: fwd(
+            x, *a[:-1], live(a[-1]), **kw))
+        monkeypatch.setattr(fba, "_prefix_backward", lambda x, g, *a, **kw:
+                            bwd(x, g, *a[:-2], live(a[-2]), a[-1], **kw))
 
 
 SEEN_IN = {"dpk_dpv_swapped": "dpk", "dead_slot_live": "y"}
@@ -192,12 +249,15 @@ def test_prefix_kernel_check_sees_planted_faults(fault, monkeypatch):
 
 def test_cuda_tensor_without_card_raises_not_falls_back():
     """The op never falls back to its plain version for a non-CPU tensor,
-    and the kernels' key limit S = P + T <= 256 raises."""
+    and the prefix op's shape check, which no longer depends on the key
+    count S = P + T, still refuses a head dim the kernels lack."""
     tx, tpk, tpv, ta, _, _ = _torch_args("none")
     meta = lambda a: a.to("meta")
     with pytest.raises(RuntimeError):
         fused_prefix_attention_block(meta(tx), meta(tpk), meta(tpv),
                                      *[meta(a) for a in ta], H)
-    with pytest.raises(ValueError, match="S = P \\+ T <= 256"):
-        fba._check_cuda(torch.zeros(1, 197, 768), 12, prefix=60)
-    fba._check_cuda(torch.zeros(1, 197, 768), 12, prefix=20)   # mvp: S=217
+    # the check looks at the tokens' shape only: P adds no limit
+    fba._check_cuda(torch.zeros(1, 197, 768), 12,
+                    op="fused_prefix_attention_block")
+    with pytest.raises(ValueError, match="head dim"):
+        fba._check_cuda(torch.zeros(1, 197, 576), 12)   # head dim 48
