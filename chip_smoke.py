@@ -10,24 +10,27 @@
    the text shape (20 and 64 x 77 x 512, 8 heads, causal), ViT-L/14's
    vision shape (64 x 257 x 1024, 16 heads, LoRA r=4) and T = 512 (8 x 512 x
    768, weight_grads), the KV-prefix block at the mvp-clip shape (64 x 197 x
-   768, P = 20 prompt slots, 12 heads, bf16; 5 live slots, none live, and 20
+   768, P = 20 prompt slots, 12 heads, bf16; 5 live slots, none live, 5
+   live with one prompt tensor as pk and pv as mvp-clip passes them, and 20
    live with weight_grads=True) and at S = P + T = 512 (8 x 197 x 768, P =
-   315, 40 live, weight_grads), and the flash-attention op at four shapes (the
+   315, 40 live, weight_grads), and the flash-attention op at five shapes (the
    prompted-LoRA block, B*H = 768, T = 197, S = 217, dh 64, with no mask and
    with a (S,) key row of 5 live prompt slots; the text tower, 64 rows x 8
    heads, T = S = 77, causal; ViT-L/14 with no prefix, 64 x 257 x 1024, 16
-   heads, S = 257), each run through its op's autograd Function as the
+   heads, S = 257; T = 77, S = 700, causal, the bf16 forward's tiled road),
+   each run through its op's autograd Function as the
    train step runs it, against the plain PyTorch versions on the same
    inputs on the card, with the tolerances stated in
    ``lifelong_clip_tpu_torch/ops/kernel_check.py``; timed beside the plain
    version and a library yardstick the port never calls (an SDPA-based
    composition of the block; for flash, ``scaled_dot_product_attention`` on
    the fp32-upcast inputs), with each case's bound and, for flash, the
-   fp32 CUDA-core ceiling (the forward's road; the bf16 backward runs on
-   tensor cores). Each case's device-busy ms (torch.profiler, host gaps
-   left out) stands beside its library call's, and each timed backward's
-   attention kernels (dq, dk/dv) are split out by device ms beside the
-   attention backward's bound. The timed backwards read the forward's kept
+   fp32 CUDA-core ceiling (the fp32 road's; the bf16 kernels run on tensor
+   cores). Each case's device-busy ms (torch.profiler, host gaps left out)
+   stands beside its library call's, every launch of its forward and
+   backward chains is logged by device ms, and each timed backward's
+   attention kernels (dq, dk/dv) are split out beside the attention
+   backward's bound. The timed backwards read the forward's kept
    intermediates, as a train step does. Then the port's GEMM at the qkv,
    out and dh shapes with the chain's epilogue terms, beside
    ``torch.matmul``.
@@ -52,6 +55,11 @@
    a torch.profiler window over 3 more steps (device ms a step by kernel,
    the device's idle share). The lora-clip gates also count their launches
    (one fused forward and backward a vision layer a step).
+6. Remat: the lora-clip and mvp-clip gate steps without remat and with it
+   (each vision block, or mvp-clip's prompted tower, checkpointed), from
+   the same seeds: bitwise equal loss and grads, a lower peak memory with
+   remat for lora-clip, and each one's peak memory, device-busy ms and
+   step ms.
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels); the last line is
@@ -458,6 +466,10 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
         res["fwd_library_ms"] = timed(lambda: library(*wrt))
         res["fwd_device_ms"] = device_ms(fwd)
         res["fwd_library_device_ms"] = device_ms(lambda: library(*wrt))
+        # every launch of the forward chain, in order, by device ms a call
+        res["forward_chain_split"] = device_sequence(fwd)
+    log(f"{label}: forward chain by launch, device ms "
+        f"{json.dumps(res['forward_chain_split'])}")
     res["bwd_ms"] = timed(bwd)
     res["bwd_plain_ms"] = timed(plain_bwd, iters=3)
     res["bwd_device_ms"], names = device_split(bwd)
@@ -497,9 +509,10 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
 
 
 def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
-                       shape=MVP_SHAPE):
+                       shape=MVP_SHAPE, shared=False):
     """The KV-prefix block at ``shape`` (B, T, D, heads, P; the mvp-clip
-    shape by default) with ``live`` of P prompt slots live: checked through
+    shape by default) with ``live`` of P prompt slots live (``shared``: one
+    prompt tensor as pk and pv, as mvp-clip passes them): checked through
     the op's autograd Function and, with ``time_it``, timed beside its plain
     version and the yardstick."""
     import torch
@@ -507,7 +520,7 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
     from lifelong_clip_tpu_torch.ops import kernel_check as kc
     b, t, d, heads, p = shape
     x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(b, t, d, heads, p, live,
-                                                     seed)
+                                                     seed, shared=shared)
     args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], heads, mask)
     bargs = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], heads, mask,
              weight_grads)
@@ -518,7 +531,7 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
             if "max_abs_err" in v}
     log(f"{label}: checks {json.dumps(checks)}")
     res = {"label": label, "shape": [b, t, d], "heads": heads, "prompts": p,
-           "live": live, "weight_grads": weight_grads,
+           "live": live, "weight_grads": weight_grads, "shared": shared,
            "fwd_max_abs_err": errs["y"],
            "bwd_max_abs_err": max(v for k, v in errs.items() if k != "y")}
     for pre, bwd in (("fwd", False), ("bwd", True)):
@@ -544,12 +557,15 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
 # (label, B, T, S, D, heads, mask): the prompted-LoRA block of ViT-B/16
 # (20 raw KV prompt slots, S = 217) with no mask and with mvp-clip's (S,)
 # key row of 5 live slots; the text tower's causal shape; ViT-L/14 with no
-# prefix, S = 257 > 256 (no key limit)
+# prefix, S = 257 > 256 (no key limit), and S = 700 (a long prefix, as
+# ProtoCLIP's grows with its classes): the bf16 forward's tiled road
 FLASH_CASES = (("prompted-LoRA", 64, 197, 217, 768, 12, None),
                ("prompted-LoRA, 5 of 20 slots live", 64, 197, 217, 768, 12,
                 5),
                ("text causal", 64, 77, 77, 512, 8, "causal"),
-               ("ViT-L/14, S = 257", 64, 257, 257, 1024, 16, None))
+               ("ViT-L/14, S = 257", 64, 257, 257, 1024, 16, None),
+               ("tiled road, S = 700, causal", 64, 77, 700, 768, 12,
+                "causal"))
 
 
 def flash_cost(b, t, s, d, heads, mask, backward, es=2):
@@ -875,7 +891,9 @@ def gate_loop(label, run_step, bs, card, **info):
     steps, the peak device memory the steps allocated (beside what was
     allocated before them and the card's memory), and a torch.profiler
     window over 3 more steps."""
+    import gc
     import torch
+    gc.collect()   # what earlier phases left in reference cycles
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -913,13 +931,12 @@ def frozen_clip(dev, model="ViT-B/16"):
     return params, cast_towers(params, torch.bfloat16), cfg
 
 
-def learning_gate(card, model="ViT-B/16"):
+def lora_setup(model="ViT-B/16", remat=False):
     """lora-clip's train step (LoRA r=4 on the image tower, AdamW 5e-4) on
-    one batch of 64 against 64 cached class-text features. The launch
-    counters are set to 0 just before the text pass and the gate and read
-    just after each: the text pass must run the fused block forward in
-    every text layer, every step the fused block forward and backward once
-    a vision layer, and nothing runs the flash op."""
+    one batch of 64 against 64 cached class-text features; ``remat``
+    checkpoints each vision block. The launch counters are set to 0 just
+    before the text pass. Returns (cfg, state, one step returning its loss,
+    the text pass's launches)."""
     import torch
     from lifelong_clip_tpu_torch.config import PEFTConfig
     from lifelong_clip_tpu_torch.methods.engine import (
@@ -936,7 +953,7 @@ def learning_gate(card, model="ViT-B/16"):
                        make_opt=lambda lv: make_optimizer("adamw", lv, 5e-4),
                        gen=torch.Generator().manual_seed(2))
     step = make_train_step(cfg, peft_cfg, image_size=cfg.image_size,
-                           mean=MEAN, std=STD, augment=True)
+                           mean=MEAN, std=STD, augment=True, remat=remat)
     n_cls, bs = 64, 64
     images, labels, tokens = gate_batch(cfg, n_cls, bs)
     reset_launches()
@@ -944,15 +961,26 @@ def learning_gate(card, model="ViT-B/16"):
     text = launch_counts()
     batch = {"images": images.to(dev), "labels": labels.to(dev),
              "tokens": txt, "mask": torch.zeros(n_cls, device=dev)}
+    return cfg, state, lambda: step(state, batch)["loss"], text
+
+
+def learning_gate(card, model="ViT-B/16"):
+    """The lora-clip gate (``lora_setup``). The launch counters are set to
+    0 just before the text pass and the gate and read just after each: the
+    text pass must run the fused block forward in every text layer, every
+    step the fused block forward and backward once a vision layer, and
+    nothing runs the flash op."""
+    import torch
+    cfg, _, run_step, text = lora_setup(model)
     steps = []
 
     def one_step():
         steps.append(1)
-        return step(state, batch)["loss"]
+        return run_step()
 
     label = "lora-clip" if model == "ViT-B/16" else f"lora-clip {model}"
     reset_launches()
-    out = gate_loop(label, one_step, bs, card,
+    out = gate_loop(label, one_step, 64, card,
                     model=f"{model} LoRA r=4, no AutoAugment")
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -968,13 +996,14 @@ def learning_gate(card, model="ViT-B/16"):
     return out
 
 
-def mvp_learning_gate(card, lr=MVP_GATE_LR):
-    """mvp-clip's train step (with the class mask) on one batch: 22 steps
-    must lower the loss by more than 0.02. The contrastive similarity loss
-    is off here: it rescales by the prompt usage counts, which grow by the
-    batch size every step whatever the step learns, so on one batch it is
-    no learning signal; the mean selected-key distance that replaces it is
-    (and costs the same to compute)."""
+def mvp_setup(lr=MVP_GATE_LR, remat=False):
+    """mvp-clip's train step (with the class mask) on one batch of 64;
+    ``remat`` checkpoints its ``mvp_features`` call. The contrastive
+    similarity loss is off: it rescales by the prompt usage counts, which
+    grow by the batch size every step whatever the step learns, so on one
+    batch it is no learning signal; the mean selected-key distance that
+    replaces it is (and costs the same to compute). Returns (state, one
+    step returning its loss)."""
     import torch
     from lifelong_clip_tpu_torch.methods.engine import TrainState
     from lifelong_clip_tpu_torch.methods.mvp_clip import (
@@ -991,7 +1020,7 @@ def mvp_learning_gate(card, lr=MVP_GATE_LR):
                        make_opt=lambda lv: make_optimizer("adamw", lv, lr),
                        gen=torch.Generator().manual_seed(2))
     step = make_mvp_train_step(cfg, image_size=cfg.image_size, mean=MEAN,
-                               std=STD, use_mask=True)
+                               std=STD, use_mask=True, remat=remat)
     images, labels, tokens = gate_batch(cfg, n_cls, bs)
     batch = {"images": images.to(dev), "labels": labels.to(dev),
              "txt": make_mvp_text_fn(cfg)(frozen, tokens.to(dev)),
@@ -1003,8 +1032,77 @@ def mvp_learning_gate(card, lr=MVP_GATE_LR):
         holder[0], m = step(state, batch, holder[0])
         return m["loss"]
 
-    return gate_loop("mvp-clip", one_step, bs, card, lr=lr,
+    return state, one_step
+
+
+def mvp_learning_gate(card, lr=MVP_GATE_LR):
+    """mvp-clip's gate (``mvp_setup``): 22 steps must lower the loss by more
+    than 0.02."""
+    _, one_step = mvp_setup(lr)
+    return gate_loop("mvp-clip", one_step, 64, card, lr=lr,
                      model="ViT-B/16 mvp-clip (mask, P = 20), no AutoAugment")
+
+
+def host_step_ms(run_step, steps=5):
+    """Host ms a train step over ``steps`` steps, closed by a loss read."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = run_step()
+    float(loss)
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def remat_phase(card):
+    """The lora-clip and mvp-clip gate steps (``lora_setup``,
+    ``mvp_setup``) without remat and with it, each from the same seeds on
+    the same batch: one step's loss and trainable grads must agree bit for
+    bit (the kernels are deterministic, and remat only reschedules the
+    work: the backward recomputes the forward instead of keeping its
+    intermediates), and lora-clip's peak device memory over that step must
+    fall. Each prints the peak memory, the device-busy ms of a step
+    (torch.profiler over 3 more steps) and the step ms (``host_step_ms``)."""
+    import gc
+    import torch
+    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
+    out = {}
+    for label, setup in (("lora-clip", lambda r: lora_setup(remat=r)[1:3]),
+                         ("mvp-clip", lambda r: mvp_setup(remat=r))):
+        runs, kept = {}, {}
+        for remat in (False, True):
+            state, run_step = setup(remat)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            loss = run_step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            kept[remat] = (loss.detach().clone(),
+                           [p.grad.detach().clone()
+                            for p in tree_leaves(state.trainable)])
+            runs[remat] = {"loss": float(loss), "peak_allocated_gb": peak / 1e9,
+                           "allocated_before_step_gb": before / 1e9,
+                           "device_busy_ms_per_step": device_ms(
+                               run_step, iters=3, warmup=1),
+                           "step_ms": host_step_ms(run_step)}
+            del state, run_step
+        same = torch.equal(kept[False][0], kept[True][0]) and all(
+            torch.equal(a, b) for a, b in zip(kept[False][1], kept[True][1]))
+        log(f"remat {label}: {json.dumps(runs)}, bitwise equal loss and "
+            f"grads {same}")
+        assert same, f"{label}: remat changed the loss or the grads"
+        # per-block checkpoints lower lora-clip's peak; mvp-clip's one
+        # checkpoint of the whole prompted tower (as JAX places it) holds
+        # the tower's intermediates again while its recompute is
+        # differentiated, so its peak need not fall
+        assert label != "lora-clip" or runs[True]["peak_allocated_gb"] < \
+            runs[False]["peak_allocated_gb"], (label, runs)
+        out[label] = {"without_remat": runs[False], "with_remat": runs[True],
+                      "bitwise_equal": same}
+    return {"remat": out, "card": card}
 
 
 def maple_setup(lr=5e-4):
@@ -1157,9 +1255,11 @@ def prompted_lora_gate(card):
 
 
 PORT_KERNELS = ("gemm_kernel", "gemm_wgmma_kernel", "attn_fwd_kernel",
+                "attn_fwd_tiled_kernel", "attn_bwd_dq_tiled_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel", "ln_fwd_kernel",
                 "ln_bwd_kernel", "cast_bf16_kernel", "colsum_kernel",
                 "splitk_reduce_kernel", "flash_fwd_kernel",
+                "flash_fwd_tc_kernel", "flash_fwd_tc_tiled_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 
@@ -1239,6 +1339,9 @@ def main():
     torch.cuda.synchronize()
     pcases = [prefix_kernel_case("mvp prefix, 5 of 20 live", 5, False, 4)]
     pcases.append(prefix_kernel_case("mvp prefix, none live", 0, False, 5))
+    pcases.append(prefix_kernel_case(
+        "mvp prefix, one prompt tensor (mvp-clip's), 5 of 20 live", 5, False,
+        15, time_it=False, shared=True))
     pcases.append(prefix_kernel_case("mvp prefix weight_grads, 20 live", 20,
                                      True, 6, time_it=False))
     pcases.append(prefix_kernel_case(
@@ -1270,6 +1373,8 @@ def main():
                  lambda c: learning_gate(c, model="ViT-L/14")):
         gates.append(gate(card))
         torch.cuda.synchronize()
+    remat = remat_phase(card)
+    torch.cuda.synchronize()
 
     src = "lifelong_clip_tpu_torch/csrc/fused_block_attn.cu"
     flash_src = "lifelong_clip_tpu_torch/csrc/flash_attention.cu"
@@ -1317,6 +1422,7 @@ def main():
                     "note": "no registered method builds this block"}))
     for g in gates:
         log(json.dumps(g))
+    log(json.dumps(remat))
     log(json.dumps({"gemm": gemms, "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 // p kept in fp32 whatever the input type.
 //
 // Replaces the Pallas TPU kernels of lifelong_clip_tpu/ops/flash_attention.py:
-//   * _attn_kernel     (:32, pallas_call at :96)  -> flash_fwd_kernel
+//   * _attn_kernel     (:32, pallas_call at :96)  -> flash_fwd_tc_kernel (up
+//     to 256 keys) and flash_fwd_tc_tiled_kernel (above) for bf16 inputs
+//     (tensor cores); flash_fwd_kernel for fp32 inputs (CUDA cores)
 //   * _attn_bwd_kernel (:128, pallas_call at :191) -> flash_bwd_dq_tc_kernel
 //     and flash_bwd_dkv_tc_kernel for bf16 inputs (tensor cores);
 //     flash_bwd_dq_kernel and flash_bwd_dkv_kernel for fp32 inputs (CUDA
-//     cores). The launcher dispatches on the dtype.
+//     cores). The launchers dispatch on the dtype.
 //
 // What the TPU kernels compute, and so what these compute:
 //   forward   s = (q . k) * scale + mask (q, k, v upcast to fp32); m = max_j s;
@@ -22,6 +24,21 @@
 // ~21 GFLOP and ~143 MB; both bound by memory (~0.024 and ~0.043 ms against
 // 3.35 TB/s), not by the tensor cores (989 TFLOP/s bf16). chip_smoke.py
 // computes both.
+//
+// The bf16 forward (tensor cores):
+//   * q k^T on mma.sync m16n8k16 over the bf16 inputs (exact products, fp32
+//     sums); e @ v takes the fp32 e as bf16 hi + lo in two MMAs into one
+//     fp32 accumulator (pack_split, as the backward below); each warp owns
+//     16 query rows, and the score accumulators come out in the layout the
+//     next MMA takes as its A operand, so e never leaves registers.
+//   * Up to 256 keys (the register road) a warp keeps its rows' whole score
+//     rows in registers (S = 217: 28 tiles of 8 keys, 112 fp32 a thread):
+//     q k^T runs once and K and V are read once, in 64-key cp.async commit
+//     groups whose arrival the first products follow. One block per (16 x
+//     warps query rows, head, batch row), warps from a sweep (FWD_WARPS).
+//   * Above 256 keys (the tiled road) K and V stream through double-buffered
+//     64-key tiles in two passes, the row max first, then e and e @ v with
+//     that final max, so there is no key limit and no online rescaling.
 //
 // The bf16 backward (tensor cores):
 //   * Every product is an mma.sync m16n8k16 with fp32 accumulation; each of
@@ -51,8 +68,9 @@
 //     keys or T queries are skipped (T = 197 computes 208 query rows, S = 217
 //     224 keys).
 //
-// The forward and the fp32 backward (CUDA cores), the first port's:
-//   * Every product is an fp32 FMA on the upcast operands, keys tiled 64 at
+// The fp32 forward and backward (CUDA cores, --no_bf16 only), the first
+// port's:
+//   * Every product is an fp32 FMA on the fp32 operands, keys tiled 64 at
 //     a time through shared memory with a two-pass softmax (the row max
 //     first, then e = exp(s - m) with that final max, its row sum and e @ v,
 //     one division at the end, as the TPU kernel): no online rescaling, so e
@@ -105,41 +123,25 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-// Four consecutive elements from device memory, upcast; 16 (fp32) or 8
-// (bf16) bytes aligned.
+// Four consecutive fp32 elements from or to device memory, 16 bytes
+// aligned.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float a, float b, float c,
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-  } else {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);   // round to nearest even
-    __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-    uint2 u;
-    u.x = *reinterpret_cast<unsigned*>(&lo);
-    u.y = *reinterpret_cast<unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
 // Rows row0 .. row0 + 63 of one head (columns col .. col + 63) of a (B*L, D)
-// tensor of batch row b, upcast to fp32, into a 64 x LDS tile, row-major
+// fp32 tensor of batch row b into a 64 x LDS tile, row-major
 // ([row][dim]) or, with TRANS, transposed ([dim][row]); rows at or past L
 // are zero.
-template <bool TRANS, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
+template <bool TRANS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int b,
                                           int L, int D, int col, int row0) {
-  const T* base = src + ((size_t)b * L) * D + col;
+  const float* base = src + ((size_t)b * L) * D + col;
   for (int i = threadIdx.x; i < TILE * DH / 4; i += NT) {
     const int r = i >> 4, c = (i & 15) * 4, row = row0 + r;
     const float4 v = row < L ? load4(base + (size_t)row * D + c)
@@ -243,7 +245,6 @@ __device__ __forceinline__ void put_col_t(float* dst, const float v[4][4],
 // Forward: grid (ceil(T/64), H, B). Pass 1 takes the row max over every key
 // tile; pass 2 computes e = exp(s - m), its row sum and e @ v, and divides.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(FlashArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -253,9 +254,9 @@ flash_fwd_kernel(FlashArgs a) {
   float* Es = Vs + TILE_FLOATS;     // [query][key]
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int b = blockIdx.z, col = blockIdx.y * DH, q0 = blockIdx.x * TILE;
-  const T* k = (const T*)a.k;
-  const T* v = (const T*)a.v;
-  load_tile<false>(Qs, (const T*)a.q, b, a.T, a.D, col, q0);
+  const float* k = (const float*)a.k;
+  const float* v = (const float*)a.v;
+  load_tile<false>(Qs, (const float*)a.q, b, a.T, a.D, col, q0);
 
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   float s[4][4];
@@ -292,7 +293,7 @@ flash_fwd_kernel(FlashArgs a) {
     __syncthreads();
     tile_mm(acc, Es, Vs, ty, tx);
   }
-  T* o = (T*)a.o;
+  float* o = (float*)a.o;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float li = half_sum(l[i]);
@@ -309,7 +310,6 @@ flash_fwd_kernel(FlashArgs a) {
 // Pass 3: p = e / l, ds = p * (dp - delta), dq = ds k * scale. Saves m, l,
 // delta for every query row.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(FlashArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -322,10 +322,10 @@ flash_bwd_dq_kernel(FlashArgs a) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int b = blockIdx.z, hd = blockIdx.y, col = hd * DH;
   const int q0 = blockIdx.x * TILE;
-  const T* k = (const T*)a.k;
-  const T* v = (const T*)a.v;
-  load_tile<false>(Qs, (const T*)a.q, b, a.T, a.D, col, q0);
-  load_tile<false>(Gs, (const T*)a.g, b, a.T, a.D, col, q0);
+  const float* k = (const float*)a.k;
+  const float* v = (const float*)a.v;
+  load_tile<false>(Qs, (const float*)a.q, b, a.T, a.D, col, q0);
+  load_tile<false>(Gs, (const float*)a.g, b, a.T, a.D, col, q0);
 
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   float s[4][4], dp[4][4];
@@ -390,7 +390,7 @@ flash_bwd_dq_kernel(FlashArgs a) {
     __syncthreads();
     tile_mm(acc, Ds, Ks, ty, tx);
   }
-  T* dq = (T*)a.dq;
+  float* dq = (float*)a.dq;
   float* st = a.stats + ((size_t)b * a.H + hd) * a.T * 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -412,7 +412,6 @@ flash_bwd_dq_kernel(FlashArgs a) {
 // p = exp(s - m) / l from the saved statistics, dp = g v^T,
 // ds = p * (dp - delta); dv += p^T g, dk += ds^T q; dk is scaled at the end.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(FlashArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -426,11 +425,11 @@ flash_bwd_dkv_kernel(FlashArgs a) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int b = blockIdx.z, hd = blockIdx.y, col = hd * DH;
   const int k0 = blockIdx.x * TILE;
-  const T* q = (const T*)a.q;
-  const T* g = (const T*)a.g;
+  const float* q = (const float*)a.q;
+  const float* g = (const float*)a.g;
   const float* gst = a.stats + ((size_t)b * a.H + hd) * a.T * 3;
-  load_tile<true>(Kt, (const T*)a.k, b, a.S, a.D, col, k0);
-  load_tile<true>(Vt, (const T*)a.v, b, a.S, a.D, col, k0);
+  load_tile<true>(Kt, (const float*)a.k, b, a.S, a.D, col, k0);
+  load_tile<true>(Vt, (const float*)a.v, b, a.S, a.D, col, k0);
 
   float dk[4][4], dv[4][4], s[4][4], dp[4][4];
   zero(dk);
@@ -468,8 +467,8 @@ flash_bwd_dkv_kernel(FlashArgs a) {
     tile_mm(dv, Pt, Gs, ty, tx);   // rows: keys, columns: head dims
     tile_mm(dk, Dt, Qs, ty, tx);
   }
-  T* dko = (T*)a.dk;
-  T* dvo = (T*)a.dv;
+  float* dko = (float*)a.dk;
+  float* dvo = (float*)a.dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + 4 * ty + i;
@@ -495,17 +494,24 @@ constexpr int TC_LD = DH + 8;                 // bf16 pitch: 144-byte rows
 constexpr int TC_THREADS = 128;               // 4 warps x 16 rows
 constexpr int TC_TILE_ELEMS = TILE * TC_LD;
 
-// Rows row0 .. row0 + 63 of one head of a (B*L, D) bf16 tensor into a
-// [row][dim] tile by 16-byte cp.async copies; rows at or past L are zero.
-// The caller commits and waits.
-__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src, int b,
-                                             int L, int D, int col, int row0) {
+// Rows row0 .. row0 + rows - 1 of one head of a (B*L, D) bf16 tensor into
+// a [row][dim] tile by 16-byte cp.async copies of the block's nthr threads;
+// rows at or past L are zero. The caller commits and waits.
+__device__ __forceinline__ void tc_load_rows(bf16* dst, const bf16* src, int b,
+                                             int L, int D, int col, int row0,
+                                             int rows, int nthr) {
   const bf16* base = src + (size_t)b * L * D + col;
-  for (int c = threadIdx.x; c < TILE * DH / 8; c += TC_THREADS) {
+  for (int c = threadIdx.x; c < rows * DH / 8; c += nthr) {
     const int r = c >> 3, cc = (c & 7) * 8, row = row0 + r;
     const bool ok = row < L;
     cp_async16(dst + r * TC_LD + cc, ok ? base + (size_t)row * D + cc : src, ok);
   }
+}
+
+// A 64-row tile, by the TC_THREADS threads of a 4-warp block.
+__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src, int b,
+                                             int L, int D, int col, int row0) {
+  tc_load_rows(dst, src, b, L, D, col, row0, TILE, TC_THREADS);
 }
 
 // The warp's 16 x 64 A fragments (4 k16 steps) from rows r0 .. r0 + 15 of a
@@ -808,33 +814,300 @@ flash_bwd_dkv_tc_kernel(FlashArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward of bf16 inputs on tensor cores. q k^T multiplies the bf16 inputs
+// (exact products, fp32 sums); e = exp(s - m) stays in fp32, and e @ v
+// takes it as bf16 hi + lo (pack_split) in two MMAs into one fp32
+// accumulator, so e is never rounded to bf16 (one rounding alone would
+// leave the check's 1e-4 by 3x, tests/test_torch_flash_split.py). Each warp
+// owns 16 query rows; the score accumulators of two neighbouring 8-key
+// tiles are the A fragment of e @ v's next k16 step, so e never goes
+// through shared memory. Scores are taken in base 2 (s * scale * log2(e)
+// + mask * log2(e)), so exp2 gives exp(s - m) at one MUFU.EX2.
+// ---------------------------------------------------------------------------
+constexpr float FL_LOG2E = 1.4426950408889634f;
+// Warps a block of the register road takes at most: the launcher splits the
+// 16-row query groups of a (head, batch row) into the fewest blocks of at
+// most FWD_WARPS warps, with equal warp counts (T = 197: 13 groups, 2 blocks
+// of 7 warps). From a sweep at the prompted-LoRA shape (PERF.md): 4 warps
+// 0.141 ms, 5 0.200, 7 0.138.
+constexpr int FWD_WARPS = 7;
+constexpr int FWD_MAX_THREADS = 256;
+
+// cp.async.wait_group n for a count only known once a loop is unrolled
+__device__ __forceinline__ void cp_async_wait_upto4(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else if (n == 2) cp_async_wait<2>();
+  else if (n == 3) cp_async_wait<3>();
+  else cp_async_wait<4>();
+}
+
+// Register road, S <= 8 * MAXNT <= 256 keys: grid (blocks, H, B), one block
+// per q_tile = 16 * warps query rows of one (head, batch row). The block
+// loads its queries, all S keys (in 64-key commit groups, so the first
+// q k^T products start when their chunk lands) and all S values into
+// shared memory; each warp keeps its 16 rows' whole score rows in registers
+// (MAXNT 8-key tiles), so q k^T runs once, K is read once, and the row max
+// m over all S keys is final before any exponential: e = exp(s - m) is
+// never rescaled, o = (e @ v) / sum(e) rounded once. A (S,) key-mask row
+// (row stride 0) is staged in shared memory; a (T, S) matrix is read as the
+// scores need it.
+template <int MAXNT>
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
+flash_fwd_tc_kernel(FlashArgs a, int q_tile) {
+  constexpr int NCH = MAXNT / 8;   // 64-key chunks
+  extern __shared__ __align__(16) unsigned char tsm[];
+  const int sp = (a.S + 15) & ~15;                // keys held, zero past S
+  bf16* Ks = reinterpret_cast<bf16*>(tsm);        // [key][dim]
+  bf16* Vs = Ks + sp * TC_LD;                     // [key][dim]
+  bf16* Qs = Vs + sp * TC_LD;                     // [query][dim]
+  float* Ms = reinterpret_cast<float*>(Qs + q_tile * TC_LD);   // key-mask row
+  const int nthr = blockDim.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, hd = blockIdx.y, col = hd * DH;
+  const int q0 = blockIdx.x * q_tile, r0 = warp * 16;
+  // commit groups, oldest first: the queries; one per 64-key chunk of K
+  // (empty past S, so the count is fixed); all of V
+  tc_load_rows(Qs, (const bf16*)a.q, b, a.T, a.D, col, q0, q_tile, nthr);
+  cp_async_commit();
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (64 * c < sp)
+      tc_load_rows(Ks + 64 * c * TC_LD, (const bf16*)a.k, b, a.S, a.D, col,
+                   64 * c, min(64, sp - 64 * c), nthr);
+    cp_async_commit();
+  }
+  tc_load_rows(Vs, (const bf16*)a.v, b, a.S, a.D, col, 0, sp, nthr);
+  cp_async_commit();
+  const bool krow = a.mask && a.mrs == 0;
+  if (krow)
+    for (int j = threadIdx.x; j < sp; j += nthr)
+      Ms[j] = j < a.S ? a.mask[(long long)j * a.mcs] : 0.f;
+
+  const bool live = q0 + r0 < a.T;   // warp-uniform
+  const int ia = q0 + r0 + g, ib = ia + 8;
+  unsigned qa[4][4];
+  float s[MAXNT][4];
+#pragma unroll
+  for (int nt = 0; nt < MAXNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    cp_async_wait_upto4(NCH - c);   // the queries and chunks 0..c landed
+    __syncthreads();
+    if (live) {
+      if (c == 0) tc_frag_a(qa, Qs, r0, lane);
+      tc_dot_rows(s + 8 * c, qa, Ks + 64 * c * TC_LD, a.S - 64 * c, lane);
+    }
+  }
+
+  float la = 0.f, lb = 0.f;
+  if (live) {
+    const float sl2 = a.scale * FL_LOG2E;
+    float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < MAXNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? ia : ib, j = nt * 8 + 2 * t4 + (e & 1);
+        float x = -INFINITY;   // keys past S: e = 0
+        if (j < a.S) {
+          // rows past T (never stored) keep finite scores
+          const float mv = krow ? Ms[j] : (i < a.T ? mask_at(a, i, j) : 0.f);
+          x = fmaf(s[nt][e], sl2, FL_LOG2E * mv);
+        }
+        s[nt][e] = x;
+        if (e < 2) ma = fmaxf(ma, x);
+        else mb = fmaxf(mb, x);
+      }
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+#pragma unroll
+    for (int nt = 0; nt < MAXNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ev = exp2f(s[nt][e] - (e < 2 ? ma : mb));
+        s[nt][e] = ev;
+        if (e < 2) la += ev;
+        else lb += ev;
+      }
+    la = quad_sum(la);
+    lb = quad_sum(lb);
+  }
+  cp_async_wait<0>();   // V
+  __syncthreads();
+  if (!live) return;
+  float o[8][4];
+  zero8(o);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+    tc_split_mm(o, s + 8 * c, Vs + 64 * c * TC_LD, a.S - 64 * c, lane);
+  bf16* out = (bf16*)a.o;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = h ? ib : ia;
+    if (i >= a.T) continue;
+    const float l = h ? lb : la;
+    bf16* row = out + ((size_t)b * a.T + i) * a.D + col;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<unsigned*>(row + nt * 8 + 2 * t4) =
+          pack_bf16(o[nt][2 * h] / l, o[nt][2 * h + 1] / l);
+  }
+}
+
+// Tiled road, S > 256 keys: grid (ceil(T/64), H, B), 4 warps of 16 query
+// rows; K (and V in the second pass) stream through double-buffered 64-key
+// cp.async tiles in two passes: the row max m over all S keys, then e =
+// exp(s - m) with that final m, its row sum and e @ v. No key limit, and e
+// is the register road's e.
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_tc_tiled_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char tsm[];
+  bf16* Qs = reinterpret_cast<bf16*>(tsm);   // [query][dim]
+  bf16* Ks = Qs + TC_TILE_ELEMS;             // 2 x [key][dim]
+  bf16* Vs = Ks + 2 * TC_TILE_ELEMS;         // 2 x [key][dim]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, hd = blockIdx.y, col = hd * DH;
+  const int q0 = blockIdx.x * TILE, r0 = warp * 16;
+  const bf16* k = (const bf16*)a.k;
+  const bf16* v = (const bf16*)a.v;
+  const int nk = (a.S + TILE - 1) / TILE, total = 2 * nk;
+  tc_load_tile(Qs, (const bf16*)a.q, b, a.T, a.D, col, q0);
+  tc_load_tile(Ks, k, b, a.S, a.D, col, 0);
+  cp_async_commit();
+
+  const bool live = q0 + r0 < a.T;   // warp-uniform
+  const int ia = q0 + r0 + g, ib = ia + 8;
+  const float sl2 = a.scale * FL_LOG2E;
+  unsigned qa[4][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[8][4], s[8][4];
+  zero8(o);
+  for (int it = 0; it < total; ++it) {
+    const int pass = it / nk, k0 = (it % nk) * TILE, buf = it & 1;
+    if (it + 1 < total) {
+      const int kn = ((it + 1) % nk) * TILE, nb = (it + 1) & 1;
+      tc_load_tile(Ks + nb * TC_TILE_ELEMS, k, b, a.S, a.D, col, kn);
+      if (it + 1 >= nk)
+        tc_load_tile(Vs + nb * TC_TILE_ELEMS, v, b, a.S, a.D, col, kn);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (it == 0) tc_frag_a(qa, Qs, r0, lane);
+      const int nlive = a.S - k0;
+      zero8(s);
+      tc_dot_rows(s, qa, Ks + buf * TC_TILE_ELEMS, nlive, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
+          s[nt][e] = j < a.S ? fmaf(s[nt][e], sl2,
+                                    FL_LOG2E * (i < a.T ? mask_at(a, i, j) : 0.f))
+                             : -INFINITY;
+        }
+      if (pass == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
+          m[1] = fmaxf(m[1], fmaxf(s[nt][2], s[nt][3]));
+        }
+        if (it == nk - 1) {
+          m[0] = quad_max(m[0]);
+          m[1] = quad_max(m[1]);
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
+            l[e >> 1] += s[nt][e];
+          }
+        tc_split_mm(o, s, Vs + buf * TC_TILE_ELEMS, nlive, lane);
+      }
+    }
+    __syncthreads();   // the buffers read here are refilled next iteration
+  }
+  if (!live) return;
+  bf16* out = (bf16*)a.o;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = h ? ib : ia;
+    const float lh = quad_sum(l[h]);
+    if (i >= a.T) continue;
+    bf16* row = out + ((size_t)b * a.T + i) * a.D + col;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<unsigned*>(row + nt * 8 + 2 * t4) =
+          pack_bf16(o[nt][2 * h] / lh, o[nt][2 * h + 1] / lh);
+  }
+}
+
 constexpr size_t FWD_SMEM = 4 * TILE_FLOATS * sizeof(float);
 constexpr size_t DQ_SMEM = 6 * TILE_FLOATS * sizeof(float);
 constexpr size_t DKV_SMEM = (6 * TILE_FLOATS + TILE * 3) * sizeof(float);
 constexpr size_t TC_DQ_SMEM = 6 * TC_TILE_ELEMS * sizeof(bf16);
 constexpr size_t TC_DKV_SMEM = 6 * TC_TILE_ELEMS * sizeof(bf16) + 2 * TILE * 3 * sizeof(float);
+constexpr size_t TC_FWD_TILED_SMEM = 5 * TC_TILE_ELEMS * sizeof(bf16);
 
 bool bad_shape(const FlashArgs& a) {
   return a.B < 1 || a.T < 1 || a.S < 1 || a.H < 1 || a.D != a.H * DH ||
          a.B > 65535 || a.H > 65535;
 }
 
-template <typename T>
-int launch_fwd(const FlashArgs& a, cudaStream_t s) {
-  raise_smem(flash_fwd_kernel<T>, FWD_SMEM);
-  flash_fwd_kernel<T><<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), NT, FWD_SMEM, s>>>(a);
+// fp32 inputs: the CUDA-core kernel (exact fp32 semantics would need a
+// three-way bf16 split on tensor cores; only --no_bf16 feeds fp32).
+int launch_fwd_f32(const FlashArgs& a, cudaStream_t s) {
+  raise_smem(flash_fwd_kernel, FWD_SMEM);
+  flash_fwd_kernel<<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), NT, FWD_SMEM, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int MAXNT>
+int launch_fwd_tc(const FlashArgs& a, cudaStream_t s) {
+  const int groups = (a.T + 15) / 16;
+  const int blocks = (groups + FWD_WARPS - 1) / FWD_WARPS;
+  const int warps = (groups + blocks - 1) / blocks;
+  const int sp = (a.S + 15) & ~15;
+  const size_t smem = (size_t)(2 * sp + 16 * warps) * TC_LD * sizeof(bf16) +
+                      (size_t)sp * sizeof(float);
+  raise_smem(flash_fwd_tc_kernel<MAXNT>, smem);
+  flash_fwd_tc_kernel<MAXNT><<<dim3(blocks, a.H, a.B), 32 * warps, smem, s>>>(
+      a, 16 * warps);
+  return (int)cudaGetLastError();
+}
+
+// bf16 inputs: the tensor-core kernels, the register road up to 256 keys
+// (the smallest MAXNT that holds S), the tiled road above.
+int launch_fwd_bf16(const FlashArgs& a, cudaStream_t s) {
+  if (a.S <= 64) return launch_fwd_tc<8>(a, s);
+  if (a.S <= 128) return launch_fwd_tc<16>(a, s);
+  if (a.S <= 192) return launch_fwd_tc<24>(a, s);
+  if (a.S <= 256) return launch_fwd_tc<32>(a, s);
+  raise_smem(flash_fwd_tc_tiled_kernel, TC_FWD_TILED_SMEM);
+  flash_fwd_tc_tiled_kernel<<<dim3((a.T + TILE - 1) / TILE, a.H, a.B),
+                              TC_THREADS, TC_FWD_TILED_SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 // fp32 inputs: the CUDA-core kernels (exact fp32 semantics would need a
 // three-way bf16 split on tensor cores; no path on the card feeds fp32).
 int launch_bwd_f32(const FlashArgs& a, cudaStream_t s) {
-  raise_smem(flash_bwd_dq_kernel<float>, DQ_SMEM);
-  flash_bwd_dq_kernel<float><<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), NT, DQ_SMEM, s>>>(a);
+  raise_smem(flash_bwd_dq_kernel, DQ_SMEM);
+  flash_bwd_dq_kernel<<<dim3((a.T + TILE - 1) / TILE, a.H, a.B), NT, DQ_SMEM, s>>>(a);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  raise_smem(flash_bwd_dkv_kernel<float>, DKV_SMEM);
-  flash_bwd_dkv_kernel<float><<<dim3((a.S + TILE - 1) / TILE, a.H, a.B), NT, DKV_SMEM, s>>>(a);
+  raise_smem(flash_bwd_dkv_kernel, DKV_SMEM);
+  flash_bwd_dkv_kernel<<<dim3((a.S + TILE - 1) / TILE, a.H, a.B), NT, DKV_SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -870,7 +1143,7 @@ int llc_flash_fwd(int dt, const void* q, const void* k, const void* v,
   a.B = B; a.T = T; a.S = S; a.D = D; a.H = H; a.scale = scale;
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return dt == FL_BF16 ? launch_fwd<bf16>(a, s) : launch_fwd<float>(a, s);
+  return dt == FL_BF16 ? launch_fwd_bf16(a, s) : launch_fwd_f32(a, s);
 }
 
 // g: the output grad (B*T, D); dq like q, dk and dv like k; stats: B*H*T*3

@@ -31,15 +31,18 @@
 //     128B-swizzled tiles that a producer warp keeps in flight (mbarriers),
 //     persistent over the output tiles so one tile's loads overlap the last
 //     one's epilogue. bf16 wgmma reads K-major and MN-major tiles alike, so
-//     NN, NT and TN (the operands' strides) need no transposing copy. With
-//     128 x 256 tiles each A tile is read once a 256-column stripe, so
-//     L2-to-SM traffic, not the tensor cores, bounds it at ~0.0117 bytes a
-//     FLOP. The epilogue keeps the TPU kernel's order (alpha * acc + bias +
-//     lscale * z16 @ L, then + residual, one rounding), the tile's LoRA
-//     factors staged in shared memory. Split-K (contractions over all B*T
-//     rows) writes fp32 partials that a second pass sums in a fixed order:
-//     no atomics, results independent of launch order, as the TPU kernel's
-//     sequential grid. The mma.sync tiles (m16n8k16, 3-stage cp.async)
+//     NN, NT and TN (the operands' strides) need no transposing copy. The
+//     epilogue keeps the TPU kernel's order (alpha * acc + bias + lscale *
+//     z16 @ L, then + residual, one rounding), the tile's LoRA factors
+//     staged in shared memory. For bf16 output (every forward projection)
+//     it is staged too: the residual tile comes in by TMA while the tile's
+//     products run, the rounded tile goes out by TMA in whole rows, and
+//     the store overlaps the next tile's products; written from the
+//     accumulators, two bf16 at a time, the residual and the stores had
+//     cost the out projection more than its products. Split-K
+//     (contractions over all B*T rows) writes fp32 partials that a second
+//     pass sums in a fixed order: no atomics, results independent of launch
+//     order, as the TPU kernel's sequential grid. The mma.sync tiles (m16n8k16, 3-stage cp.async)
 //     stay for the rank-r LoRA shapes (N <= 16: 64x16, M <= 16: 16x128);
 //     any other shape needs operands TMA can read, which every caller's
 //     are. TMA maps and shared-memory limits are set once and reused, so a
@@ -72,13 +75,14 @@
 //     dqkv16, so dh is the one dqkv16 @ W_qkv^T GEMM (:854-857 up to
 //     summation order).
 //   * The backward chains read the forward's h16, z16, qkv16, ctx16, z2
-//     (prefix: h16, qkv16, kvp16, ctx16) where the caller kept them, and
-//     recompute them only where it did not.
+//     (prefix: h16, qkv16, kvp16, ctx16), which the forward keeps for them.
 //   * LN (warp per row) and the LoRA factor z = h @ A (the
 //     64x16 tile, rounded to bf16 as _kernel:76-84 and :117-126 round it).
 //     The prefix rows' keys and values (pk @ W_k + b_k, pv @ W_v + b_v, bias
-//     added before the one bf16 rounding as _prefix_kernel:553-562) are two
-//     more launches of the GEMM into a (B*P, 2D) buffer.
+//     added before the one bf16 rounding as _prefix_kernel:553-562) are one
+//     more launch of the GEMM into a (B*P, 2D) buffer: N = 2D over W_qkv's
+//     adjacent K and V columns where pk and pv are one tensor, else a
+//     grouped launch over the two.
 //   * The ragged edge (T = 197 or 77, P = 20, not multiples of 16) is masked
 //     in the kernels: padded keys get probability 0, padded queries are not
 //     stored. A key the mask kills (-inf) gets p = 0 and dk = dv = 0 exactly:
@@ -302,6 +306,11 @@ struct GemmArgs {
   long long ldo;
   int a_vec, b_vec, o_vec, r_vec;
   int splits;
+  // a grouped launch: group g < groups multiplies A rows g*gm + m with B
+  // columns g*gn + n into out columns g*gn + n (bias too); M and N are a
+  // group's
+  int groups;
+  long long gm, gn;
 };
 
 template <int BM, int BN, bool AT, bool BT>
@@ -382,7 +391,8 @@ __device__ __forceinline__ void gemm_load_stage(const GemmArgs& p, bf16* As,
 // with split-K, else the finished values.
 template <typename OutT>
 __device__ __forceinline__ void gemm_store2(const GemmArgs& p, float v0,
-                                            float v1, int m, int n, int zi) {
+                                            float v1, int m, int n, int zi,
+                                            long long col_off) {
   if (m >= p.M || n >= p.N) return;
   const bool two = n + 1 < p.N;
   if (p.splits > 1) {
@@ -392,7 +402,7 @@ __device__ __forceinline__ void gemm_store2(const GemmArgs& p, float v0,
     if (two) ws[1] = v1;
     return;
   }
-  OutT* o = reinterpret_cast<OutT*>(p.out) + (size_t)m * p.ldo + n;
+  OutT* o = reinterpret_cast<OutT*>(p.out) + (size_t)m * p.ldo + col_off + n;
   if (two && p.o_vec) {   // n is even: one 4- or 8-byte store
     if (sizeof(OutT) == 2)
       *reinterpret_cast<unsigned*>(o) = pack_bf16(v0, v1);
@@ -413,41 +423,54 @@ __device__ __forceinline__ void gemm_store2(const GemmArgs& p, float v0,
 // which may alias it.
 // With zs (not null) the LoRA factors come from shared memory, staged by the
 // caller: zs[r] and zs[8 * LORA_RMAX + r] are lscale * z16 of rows m and
-// m + 8, ls[r * ldl + 8j (+1)] L16 of columns n + 8j (+1).
+// m + 8, ls[r * ldl + 8j (+1)] L16 of columns n + 8j (+1). col_off: the
+// group's column offset into bias and out (gn * g).
 constexpr int LORA_RMAX = 16;
+
+// The terms before the residual, in the TPU kernel's order: alpha * acc
+// (+ bias) (+ lscale * z16 @ L from the staged factors).
+template <int NI>
+__device__ __forceinline__ void gemm_epilogue_terms(const GemmArgs& p,
+                                                    float (*c)[4], int n,
+                                                    long long col_off,
+                                                    const float* zs,
+                                                    const float* ls, int ldl) {
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] *= p.alpha;
+  if (p.bias) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int nj = n + 8 * j;
+      const float b0 = nj < p.N ? p.bias[col_off + nj] : 0.f;
+      const float b1 = nj + 1 < p.N ? p.bias[col_off + nj + 1] : 0.f;
+      c[j][0] += b0; c[j][1] += b1;
+      c[j][2] += b0; c[j][3] += b1;
+    }
+  }
+  // + lscale * z16 @ L, one rank at a time
+  for (int r = 0; zs && r < p.R; ++r) {
+    const float za = zs[r], zb = zs[8 * LORA_RMAX + r];
+    const float* lr = ls + r * ldl;
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(lr + 8 * j);
+      c[j][0] += za * lv.x; c[j][1] += za * lv.y;
+      c[j][2] += zb * lv.x; c[j][3] += zb * lv.y;
+    }
+  }
+}
 
 template <typename OutT, int NI>
 __device__ __forceinline__ void gemm_epilogue(const GemmArgs& p, float (*c)[4],
                                               int m, int n, int zi,
                                               const float* zs = nullptr,
                                               const float* ls = nullptr,
-                                              int ldl = 0) {
+                                              int ldl = 0,
+                                              long long col_off = 0) {
   if (p.splits == 1) {
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[j][e] *= p.alpha;
-    if (p.bias) {
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int nj = n + 8 * j;
-        const float b0 = nj < p.N ? p.bias[nj] : 0.f;
-        const float b1 = nj + 1 < p.N ? p.bias[nj + 1] : 0.f;
-        c[j][0] += b0; c[j][1] += b1;
-        c[j][2] += b0; c[j][3] += b1;
-      }
-    }
-    // + lscale * z16 @ L, one rank at a time
-    for (int r = 0; zs && r < p.R; ++r) {
-      const float za = zs[r], zb = zs[8 * LORA_RMAX + r];
-      const float* lr = ls + r * ldl;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const float2 lv = *reinterpret_cast<const float2*>(lr + 8 * j);
-        c[j][0] += za * lv.x; c[j][1] += za * lv.y;
-        c[j][2] += zb * lv.x; c[j][3] += zb * lv.y;
-      }
-    }
+    gemm_epilogue_terms<NI>(p, c, n, col_off, zs, ls, ldl);
     for (int r = 0; !zs && p.lz && r < p.R; ++r) {
       const float za = m < p.M ? p.lscale * __bfloat162float(
           p.lz[(size_t)m * p.szm + (size_t)r * p.szr]) : 0.f;
@@ -490,9 +513,46 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& p, float (*c)[4],
   }
 #pragma unroll
   for (int j = 0; j < NI; ++j) {
-    gemm_store2<OutT>(p, c[j][0], c[j][1], m, n + 8 * j, zi);
-    gemm_store2<OutT>(p, c[j][2], c[j][3], m + 8, n + 8 * j, zi);
+    gemm_store2<OutT>(p, c[j][0], c[j][1], m, n + 8 * j, zi, col_off);
+    gemm_store2<OutT>(p, c[j][2], c[j][3], m + 8, n + 8 * j, zi, col_off);
   }
+}
+
+// Byte offset of element (row, col) of a 128-row bf16 tile staged as boxes
+// of 64 columns (16 KB each, 128-byte rows), in TMA's 128B swizzle: the
+// 16-byte chunk of a row is XORed with row % 8, so the 8 rows a warp's
+// accumulator layout writes at once fall in 8 different banks' chunks.
+__device__ __forceinline__ int stage_offset(int row, int col) {
+  const int cc = col & 63;
+  return (col >> 6) * 16384 + row * 128 +
+         ((((cc >> 3) ^ row) & 7) << 4) + ((cc & 7) << 1);
+}
+
+// The wgmma GEMM's staged epilogue for bf16 output: the terms as
+// gemm_epilogue, then + the residual, read from the staging tile where TMA
+// loaded it, and one rounding to bf16 into the same place, from which TMA
+// stores the tile. mr / nc: row and column of c[0][0] in the tile; n its
+// column in the group.
+template <int NI>
+__device__ __forceinline__ void gemm_epilogue_staged(
+    const GemmArgs& p, float (*c)[4], int mr, int nc, int n, long long col_off,
+    const float* zs, const float* ls, int ldl, unsigned char* stage) {
+  gemm_epilogue_terms<NI>(p, c, n, col_off, zs, ls, ldl);
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // rows mr and mr + 8
+      unsigned* slot = reinterpret_cast<unsigned*>(
+          stage + stage_offset(mr + 8 * h, nc + 8 * j));
+      float v0 = c[j][2 * h], v1 = c[j][2 * h + 1];
+      if (p.resid) {
+        const float2 r = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(slot));
+        v0 = r.x + v0;
+        v1 = r.y + v1;
+      }
+      *slot = pack_bf16(v0, v1);
+    }
 }
 
 // A 64x64 warp tile holds 128 fp32 accumulators a thread: two blocks an SM
@@ -509,7 +569,15 @@ gemm_kernel(GemmArgs p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * p.k_per_split;
+  // grid z: the split of K, then the group, whose operands start further on
+  const int zi = blockIdx.z % p.splits, gi = blockIdx.z / p.splits;
+  if (gi) {
+    p.A += gi * p.gm * p.sam;
+    p.B += gi * p.gn * p.sbn;
+    if (p.bias) p.bias += gi * p.gn;
+    p.out = reinterpret_cast<OutT*>(p.out) + gi * p.gn;
+  }
+  const int kbeg = zi * p.k_per_split;
   const int kend = min(p.K, kbeg + p.k_per_split);
   const int nk = kend > kbeg ? (kend - kbeg + GBK - 1) / GBK : 0;
   const int wm = (warp / WN) * MI * 16, wn = (warp % WN) * NI * 8;
@@ -565,7 +633,7 @@ gemm_kernel(GemmArgs p) {
 #pragma unroll
   for (int i = 0; i < MI; ++i)
     gemm_epilogue<OutT, NI>(p, acc[i], m0 + wm + i * 16 + g, n0 + wn + 2 * t4,
-                            blockIdx.z);
+                            zi);
 }
 
 // ---------------------------------------------------------------------------
@@ -596,14 +664,17 @@ constexpr int WG_BM = 128, WG_BK = 64, WG_THREADS = 384;
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;   // 16 KB
 constexpr int WG_BOX = 8192;                    // one 64 x 64 bf16 box, 128B rows
 
-template <int BN>
+template <int BN, bool STAGE>
 struct WgTile {
-  static constexpr int STAGES = BN == 256 ? 4 : 6;
-  static constexpr int STAGE = WG_A_BYTES + BN * WG_BK * 2;
-  // the ring, the LoRA factors of the tile (fp32), the barriers, alignment
+  // the staging tile takes the room of one ring stage
+  static constexpr int STAGES = BN == 256 ? 4 : (STAGE ? 5 : 6);
+  static constexpr int STAGE_BYTES = WG_A_BYTES + BN * WG_BK * 2;
+  static constexpr int OUT = STAGE ? WG_BM * BN * 2 : 0;   // bf16 staging
+  // the ring, the staging tile, the LoRA factors of the tile (fp32), the
+  // barriers, alignment
   static constexpr int LORA = (WG_BM + BN) * LORA_RMAX * 4;
   static constexpr size_t SMEM =
-      (size_t)STAGES * STAGE + LORA + 2 * STAGES * 8 + 1024;
+      (size_t)STAGES * STAGE_BYTES + OUT + LORA + (2 * STAGES + 1) * 8 + 1024;
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -644,6 +715,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One 2-D TMA tile store from shared memory (c0 the inner coordinate);
+// elements past the map's bounds are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -693,29 +774,45 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <typename OutT, int BN, bool AT, bool BT>
+// STAGE (bf16 out, 128 x 128 tiles, no split-K): the epilogue goes through a
+// 32 KB staging tile in shared memory. The first consumer thread loads the
+// tile's residual into it by TMA (tma_r, counted by ``rbar``) as the tile's
+// main loop starts, so the load overlaps the products; the consumers add
+// the terms and the residual from there and write the bf16 result back in
+// place (conflict-free in the 128B swizzle); then that thread stores the
+// tile by TMA (tma_c) in whole 128-byte rows, which overlaps the next
+// tile's main loop, and waits only until TMA has read the staging tile
+// before it loads the next residual into it. Without STAGE the epilogue
+// writes from the accumulators (gemm_epilogue).
+template <typename OutT, int BN, bool AT, bool BT, bool STAGE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                  const __grid_constant__ CUtensorMap tma_b, GemmArgs p) {
-  using TL = WgTile<BN>;
+                  const __grid_constant__ CUtensorMap tma_b,
+                  const __grid_constant__ CUtensorMap tma_c,
+                  const __grid_constant__ CUtensorMap tma_r, GemmArgs p) {
+  using TL = WgTile<BN, STAGE>;
   constexpr int STAGES = TL::STAGES;
   extern __shared__ __align__(1024) unsigned char wsm[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on it
   unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
-  float* zs = reinterpret_cast<float*>(base + STAGES * TL::STAGE);
+  unsigned char* stage = base + STAGES * TL::STAGE_BYTES;
+  float* zs = reinterpret_cast<float*>(stage + TL::OUT);
   float* ls = zs + WG_BM * LORA_RMAX;
   uint64_t* full = reinterpret_cast<uint64_t*>(ls + LORA_RMAX * BN);
   uint64_t* empty = full + STAGES;
+  uint64_t* rbar = empty + STAGES;
   // persistent: block b takes tiles b, b + gridDim.x, ...; n fastest, then
-  // m, then the split of K, so the tiles in flight share their A rows
+  // m, then the group, then the split of K, so the tiles in flight share
+  // their A rows
   const int tiles_n = (p.N + BN - 1) / BN, tiles_m = (p.M + WG_BM - 1) / WG_BM;
-  const int ntiles = tiles_n * tiles_m * p.splits;
+  const int ntiles = tiles_n * tiles_m * p.groups * p.splits;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, 2 * 128);   // every consumer thread arrives
     }
+    mbar_init(rbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -726,26 +823,28 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       int it = 0;
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
         const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * WG_BM;
-        const int kbeg = t / (tiles_n * tiles_m) * p.k_per_split;
+        const int gi = t / (tiles_n * tiles_m) % p.groups;
+        const int am = m0 + (int)(gi * p.gm), bn = n0 + (int)(gi * p.gn);
+        const int kbeg = t / (tiles_n * tiles_m * p.groups) * p.k_per_split;
         const int kend = min(p.K, kbeg + p.k_per_split);
         for (int k = kbeg; k < kend; k += WG_BK, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(empty + s, (it / STAGES - 1) & 1);
-          unsigned char* As = base + s * TL::STAGE;
+          unsigned char* As = base + s * TL::STAGE_BYTES;
           unsigned char* Bs = As + WG_A_BYTES;
-          mbar_expect_tx(full + s, TL::STAGE);
+          mbar_expect_tx(full + s, TL::STAGE_BYTES);
           if (AT) {   // M contiguous: two 64 (M) x 64 (K) boxes
-            tma_load(As, &tma_a, full + s, m0, k);
-            tma_load(As + WG_BOX, &tma_a, full + s, m0 + 64, k);
+            tma_load(As, &tma_a, full + s, am, k);
+            tma_load(As + WG_BOX, &tma_a, full + s, am + 64, k);
           } else {    // K contiguous: one 64 (K) x 128 (M) box
-            tma_load(As, &tma_a, full + s, k, m0);
+            tma_load(As, &tma_a, full + s, k, am);
           }
           if (BT) {   // K contiguous: one 64 (K) x BN (N) box
-            tma_load(Bs, &tma_b, full + s, k, n0);
+            tma_load(Bs, &tma_b, full + s, k, bn);
           } else {    // N contiguous: BN / 64 boxes of 64 (N) x 64 (K)
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j)
-              tma_load(Bs + j * WG_BOX, &tma_b, full + s, n0 + 64 * j, k);
+              tma_load(Bs + j * WG_BOX, &tma_b, full + s, bn + 64 * j, k);
           }
         }
       }
@@ -756,12 +855,24 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
     const int mm = 64 * c + 16 * w4 + (lane >> 2);
     const bool lora_smem = p.lz && p.R <= LORA_RMAX;
-    int it = 0;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const bool leader = threadIdx.x == 128;   // issues the staging tile's TMA
+    int it = 0, tl = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x, ++tl) {
       const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * WG_BM;
-      const int zi = t / (tiles_n * tiles_m);
+      const int gi = t / (tiles_n * tiles_m) % p.groups;
+      const long long col_off = gi * p.gn;
+      const int zi = t / (tiles_n * tiles_m * p.groups);
       const int kbeg = zi * p.k_per_split;
       const int kend = min(p.K, kbeg + p.k_per_split);
+      // the residual tile into the staging tile, which the last tile's TMA
+      // store has finished reading (the leader waited for it)
+      if (STAGE && leader && p.resid) {
+        mbar_expect_tx(rbar, TL::OUT);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(stage + j * 16384, &tma_r, rbar, n0 + (int)col_off + 64 * j,
+                   m0);
+      }
       // the LoRA factors of this tile into shared memory while the ring
       // fills (the epilogue reads each many times); rows and columns past M
       // and N stage as zeros
@@ -788,8 +899,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       for (int k = kbeg; k < kend; k += WG_BK, ++it) {
         const int s = it % STAGES;
         mbar_wait(full + s, (it / STAGES) & 1);
-        const unsigned char* As = base + s * TL::STAGE + c * WG_BOX;
-        const unsigned char* Bs = base + s * TL::STAGE + WG_A_BYTES;
+        const unsigned char* As = base + s * TL::STAGE_BYTES + c * WG_BOX;
+        const unsigned char* Bs = base + s * TL::STAGE_BYTES + WG_A_BYTES;
 #pragma unroll
         for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -816,15 +927,40 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 #pragma unroll
       for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
       if (kend > kbeg) mbar_arrive(empty + (it - 1) % STAGES);   // the last one
+      if constexpr (STAGE) {
+        // every consumer is past the last tile's staging writes and the
+        // leader past its store's reads; the residual has landed
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        if (p.resid) mbar_wait(rbar, tl & 1);
+        const int nn = 2 * (lane & 3);
+        gemm_epilogue_staged<16>(p, reinterpret_cast<float(*)[4]>(acc[0]), mm,
+                                 nn, n0 + nn, col_off,
+                                 lora_smem ? zs + mm * LORA_RMAX : nullptr,
+                                 ls + nn, BN, stage);
+        // the generic-proxy writes become visible to TMA, then one store
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        if (leader) {
 #pragma unroll
-      for (int h = 0; h < BN / 128; ++h) {
-        const int nn = 128 * h + 2 * (lane & 3);
-        gemm_epilogue<OutT, 16>(p, reinterpret_cast<float(*)[4]>(acc[h]),
-                                m0 + mm, n0 + nn, zi,
-                                lora_smem ? zs + mm * LORA_RMAX : nullptr,
-                                ls + nn, BN);
+          for (int j = 0; j < BN / 64; ++j)
+            tma_store(&tma_c, stage + j * 16384, n0 + (int)col_off + 64 * j, m0);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < BN / 128; ++h) {
+          const int nn = 128 * h + 2 * (lane & 3);
+          gemm_epilogue<OutT, 16>(p, reinterpret_cast<float(*)[4]>(acc[h]),
+                                  m0 + mm, n0 + nn, zi,
+                                  lora_smem ? zs + mm * LORA_RMAX : nullptr,
+                                  ls + nn, BN, col_off);
+        }
       }
     }
+    // the last tile's store completes before the block exits
+    if (STAGE && leader)
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -2108,7 +2244,7 @@ static int launch_gemm_tile(const GemmArgs& p, int splits, cudaStream_t s) {
   using TL = GemmTile<BM, BN, AT, BT>;
   auto kern = gemm_kernel<OutT, WM, WN, MI, NI, AT, BT>;
   raise_smem(kern, TL::SMEM);
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits * p.groups);
   kern<<<grid, GTHREADS, TL::SMEM, s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -2172,17 +2308,23 @@ static int make_tma(CUtensorMap* map, const void* ptr, long long inner,
   return 0;
 }
 
-template <typename OutT, int BN, bool AT, bool BT>
-static int launch_wgmma_tile(const GemmArgs& p, int splits, cudaStream_t s) {
-  using TL = WgTile<BN>;
+template <typename OutT, int BN, bool AT, bool BT, bool STAGE>
+static int launch_wgmma_tile(const GemmArgs& p, int splits,
+                             const CUtensorMap& tc, const CUtensorMap& tr,
+                             cudaStream_t s) {
+  using TL = WgTile<BN, STAGE>;
+  // the maps span every group: A rows M + (groups - 1) gm, B columns
+  // N + (groups - 1) gn
+  const long long ma = p.M + (p.groups - 1) * p.gm;
+  const long long nb = p.N + (p.groups - 1) * p.gn;
   CUtensorMap ta, tb;
-  int e = AT ? make_tma(&ta, p.A, p.M, p.K, p.sak, 64, 64)
-             : make_tma(&ta, p.A, p.K, p.M, p.sam, 64, WG_BM);
+  int e = AT ? make_tma(&ta, p.A, ma, p.K, p.sak, 64, 64)
+             : make_tma(&ta, p.A, p.K, ma, p.sam, 64, WG_BM);
   if (e) return e;
-  e = BT ? make_tma(&tb, p.B, p.K, p.N, p.sbn, 64, BN)
-         : make_tma(&tb, p.B, p.N, p.K, p.sbk, 64, 64);
+  e = BT ? make_tma(&tb, p.B, p.K, nb, p.sbn, 64, BN)
+         : make_tma(&tb, p.B, nb, p.K, p.sbk, 64, 64);
   if (e) return e;
-  auto kern = gemm_wgmma_kernel<OutT, BN, AT, BT>;
+  auto kern = gemm_wgmma_kernel<OutT, BN, AT, BT, STAGE>;
   raise_smem(kern, TL::SMEM);
   // persistent: one block an SM, or one a tile where there are fewer
   static int sms = 0;
@@ -2192,33 +2334,55 @@ static int launch_wgmma_tile(const GemmArgs& p, int splits, cudaStream_t s) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   const long long ntiles = (long long)((p.N + BN - 1) / BN) *
-                           ((p.M + WG_BM - 1) / WG_BM) * splits;
-  kern<<<(int)(ntiles < sms ? ntiles : sms), WG_THREADS, TL::SMEM, s>>>(ta, tb, p);
+                           ((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
+  kern<<<(int)(ntiles < sms ? ntiles : sms), WG_THREADS, TL::SMEM, s>>>(
+      ta, tb, tc, tr, p);
   return (int)cudaGetLastError();
+}
+
+// The staged epilogue (bf16 out, 128-column tiles, no split-K, the LoRA
+// factors in shared memory, a group's columns whole tiles) where TMA can
+// write the output and read the residual; else the epilogue from the
+// accumulators.
+template <typename OutT, int BN, bool AT, bool BT>
+static int launch_wgmma_epi(const GemmArgs& p, int splits, cudaStream_t s) {
+  CUtensorMap tc = {}, tr = {};
+  const long long nc = p.N + (p.groups - 1) * p.gn;
+  const bool stage =
+      sizeof(OutT) == 2 && BN == 128 && splits == 1 &&
+      (!p.lz || p.R <= LORA_RMAX) && (p.groups == 1 || p.N % BN == 0) &&
+      make_tma(&tc, p.out, nc, p.M, p.ldo, 64, WG_BM) == 0 &&
+      (!p.resid || make_tma(&tr, p.resid, nc, p.M, p.ldr, 64, WG_BM) == 0);
+  if constexpr (sizeof(OutT) == 2 && BN == 128)
+    if (stage) return launch_wgmma_tile<OutT, BN, AT, BT, true>(p, splits, tc, tr, s);
+  return launch_wgmma_tile<OutT, BN, AT, BT, false>(p, splits, tc, tr, s);
 }
 
 template <typename OutT, int BN>
 static int launch_wgmma(const GemmArgs& p, bool at, bool bt, int splits,
                         cudaStream_t s) {
   if (at)
-    return bt ? launch_wgmma_tile<OutT, BN, true, true>(p, splits, s)
-              : launch_wgmma_tile<OutT, BN, true, false>(p, splits, s);
-  return bt ? launch_wgmma_tile<OutT, BN, false, true>(p, splits, s)
-            : launch_wgmma_tile<OutT, BN, false, false>(p, splits, s);
+    return bt ? launch_wgmma_epi<OutT, BN, true, true>(p, splits, s)
+              : launch_wgmma_epi<OutT, BN, true, false>(p, splits, s);
+  return bt ? launch_wgmma_epi<OutT, BN, false, true>(p, splits, s)
+            : launch_wgmma_epi<OutT, BN, false, false>(p, splits, s);
 }
 
 // Tile by problem shape: the mma.sync 64x16 tile for N <= 16 and 16x128 for
-// M <= 16 (the rank-r LoRA shapes); else the wgmma tile, 128 x 256 for
-// N >= 2048 and 128 x 128 below (the faster of the two at the qkv and dh
-// shapes, PERF.md), which needs operands TMA can read (``tma``): other
-// strides are refused, as no caller has them.
+// M <= 16 (the rank-r LoRA shapes); else the wgmma tile, which needs
+// operands TMA can read (``tma``: other strides are refused, as no caller
+// has them): 128 x 128 with the staged epilogue for bf16 output, and for
+// fp32 output 128 x 256 where N >= 2048, else 128 x 128 (the faster at the
+// qkv and dh shapes; PERF.md: the qkv GEMM 0.131 ms on 128 x 256 tiles,
+// 0.090 on staged 128 x 128 ones).
 template <typename OutT>
 static int launch_gemm(const GemmArgs& p, bool at, bool bt, bool tma,
                        int splits, cudaStream_t s) {
   if (p.N <= 16) return launch_gemm_layout<OutT, 4, 1, 1, 2>(p, at, bt, splits, s);
   if (p.M <= 16) return launch_gemm_layout<OutT, 1, 4, 1, 4>(p, at, bt, splits, s);
   if (!tma) return (int)cudaErrorInvalidValue;
-  if (p.N >= 2048) return launch_wgmma<OutT, 256>(p, at, bt, splits, s);
+  if constexpr (sizeof(OutT) == 4)
+    if (p.N >= 2048) return launch_wgmma<OutT, 256>(p, at, bt, splits, s);
   return launch_wgmma<OutT, 128>(p, at, bt, splits, s);
 }
 
@@ -2283,16 +2447,21 @@ int llc_colsum(int dt, const void* X, int M, int N, float* ws, float* out,
 // out_dt == DT_F32, no bias/LoRA/residual, and ws of splits * M * N floats.
 // Unless M or N is at most 16, A and B need a 16-byte aligned base, a unit
 // stride along one dimension and the other a multiple of 8 elements (TMA);
-// cudaErrorInvalidValue otherwise.
+// cudaErrorInvalidValue otherwise. groups > 1 (a grouped launch, GemmArgs)
+// takes neither split-K, LoRA nor a residual.
 int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
              long long sak, const void* B, long long sbk, long long sbn,
              float alpha, const float* bias, const void* lz, long long szm,
              long long szr, const void* lb, long long slr, long long sln, int R,
              float lscale, const void* resid, long long ldr, void* out,
-             long long ldo, int splits, float* ws, void* stream) {
+             long long ldo, int splits, float* ws, int groups, long long gm,
+             long long gn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   GemmArgs p;
   p.M = M; p.N = N; p.K = K;
+  p.groups = groups < 1 ? 1 : groups; p.gm = gm; p.gn = gn;
+  if (p.groups > 1 && (splits > 1 || lz || resid))
+    return (int)cudaErrorInvalidValue;
   p.A = (const bf16*)A; p.sam = sam; p.sak = sak;
   p.B = (const bf16*)B; p.sbk = sbk; p.sbn = sbn;
   p.alpha = alpha; p.bias = bias;
@@ -2302,11 +2471,11 @@ int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
   // operand orientation in shared memory follows its contiguous dimension
   const bool at = sam == 1 && sak != 1;
   const bool bt = sbk == 1 && sbn != 1;
-  p.a_vec = ((uintptr_t)A % 16) == 0 &&
+  p.a_vec = ((uintptr_t)A % 16) == 0 && (gm * sam) % 8 == 0 &&
       (at ? (sak % 8 == 0 && M % 8 == 0) : (sak == 1 && sam % 8 == 0 && K % 8 == 0));
-  p.b_vec = ((uintptr_t)B % 16) == 0 &&
+  p.b_vec = ((uintptr_t)B % 16) == 0 && (gn * sbn) % 8 == 0 &&
       (bt ? (sbn % 8 == 0 && K % 8 == 0) : (sbn == 1 && sbk % 8 == 0 && N % 8 == 0));
-  p.o_vec = ((uintptr_t)out % 8) == 0 && ldo % 2 == 0;
+  p.o_vec = ((uintptr_t)out % 8) == 0 && ldo % 2 == 0 && gn % 2 == 0;
   p.r_vec = ((uintptr_t)resid % 8) == 0 && ldr % 2 == 0;
   // TMA reads an operand with a unit stride along one dimension, the other
   // stride a multiple of 16 bytes, from a 16-byte aligned base

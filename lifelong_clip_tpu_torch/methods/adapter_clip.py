@@ -21,7 +21,7 @@ from ..models.init import param_count
 from ..utils.train_utils import make_optimizer
 from .base import OnlineTrainer, pad_batch
 from .engine import (TrainState, ce_on_probs_loss, make_eval_step,
-                     make_text_feature_fn, make_train_step)
+                     make_text_feature_fn, make_train_step, remat_fallback)
 
 log = logging.getLogger("lifelong_clip_tpu_torch")
 
@@ -63,11 +63,15 @@ class AdapterCLIP(OnlineTrainer):
                 "LoRA on the text tower (uncached text features) is not "
                 "ported yet (ROADMAP.md, queue A)")
         self._step_txt_cache = {}
-        self._train_step = make_train_step(
+        # remat (JAX adapter_clip.py:95-115): --remat, batches of 256 and
+        # up, or remat_fallback's retry (fb) after the card runs out of
+        # memory
+        self._train_step = remat_fallback(lambda fb: make_train_step(
             self.clip_cfg, self.peft_cfg, image_size=self.clip_cfg.image_size,
             mean=self.train_dataset.mean, std=self.train_dataset.std,
             use_autoaug=use_autoaug, compute_dtype=self.compute_dtype,
-            loss_fn=ce_on_probs_loss if cfg.ce_on_probs else None)
+            loss_fn=ce_on_probs_loss if cfg.ce_on_probs else None,
+            remat=cfg.remat or cfg.batchsize >= 256 or fb))
         self._text_fn = make_text_feature_fn(
             self.clip_cfg, self.peft_cfg, compute_dtype=self.compute_dtype)
         self._eval_fn = make_eval_step(

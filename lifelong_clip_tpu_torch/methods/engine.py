@@ -5,20 +5,26 @@ cached-text road: the vision tower with LoRA runs forward and backward
 through the fused attention kernels (``base_grads=False``), logits go
 against cached normalized class-text features, and a ``torch.optim``
 optimizer updates the LoRA tree. The step runs eagerly (the JAX package
-jits it); its state is an explicit ``TrainState`` object.
+jits it); its state is an explicit ``TrainState`` object. ``remat``
+checkpoints the tower forward and ``remat_fallback`` retries a step once
+with it after the card runs out of memory, as the JAX engine does.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..config import CLIPConfig, PEFTConfig
 from ..models import clip as clip_fns
 from ..ops import preprocess
+
+log = logging.getLogger("lifelong_clip_tpu_torch")
 
 
 def tree_leaves(tree):
@@ -51,16 +57,60 @@ class TrainState:
         self.opt, self.sched = self.make_opt(tree_leaves(self.trainable))
 
 
+def remat_fallback(build: Callable[[bool], Callable]) -> Callable:
+    """A train step that falls back to remat once the card runs out of
+    memory (JAX ``engine.py:33-79``).
+
+    ``build(remat) -> step`` makes the step ``step(state, *args)``. The
+    step built with ``remat=False`` runs; if its first call raises
+    ``torch.cuda.OutOfMemoryError`` the cache is freed, the step is rebuilt
+    with remat and the call retried once, with the augmentation generator
+    (``state.gen``) restored to where the failed call found it. The step
+    mutates nothing else before ``opt.step()``, which the OOM precedes.
+    Once a call has succeeded the step provably fits, so a later OOM
+    raises, as does one after the fallback."""
+    fn = build(False)
+    fell_back = False
+    ran_once = False
+
+    def step(state, *args):
+        nonlocal fn, fell_back, ran_once
+        first = not (ran_once or fell_back)
+        gen_state = state.gen.get_state() if first else None
+        try:
+            out = fn(state, *args)
+        except torch.cuda.OutOfMemoryError as e:
+            if not first:
+                raise
+            msg = str(e).splitlines()[0][:160] if str(e) else "OOM"
+        else:
+            ran_once = True
+            return out
+        # retried outside the handler: the exception's traceback holds the
+        # failed call's tensors
+        log.warning("train step exceeds device memory un-remat'd; "
+                    "rebuilding with remat (%s)", msg)
+        torch.cuda.empty_cache()
+        state.gen.set_state(gen_state)
+        fn = build(True)
+        fell_back = True
+        return fn(state, *args)
+
+    return step
+
+
 def peft_forward_cached_text(frozen, trainable, images, txt_features,
                              clip_cfg: CLIPConfig, peft_cfg: PEFTConfig,
-                             compute_dtype, attn_impl: str = "fused"):
+                             compute_dtype, attn_impl: str = "fused",
+                             remat: bool = False):
     """Image-only-PEFT forward against precomputed normalized text
-    features (``engine.py:145-167``)."""
+    features (``engine.py:145-167``); ``remat`` checkpoints each vision
+    block."""
     img = clip_fns.encode_image(
         frozen, images, clip_cfg,
         peft_cfg=peft_cfg if peft_cfg.on_vision() else None,
         peft=trainable.get("vision"), compute_dtype=compute_dtype,
-        attn_impl=attn_impl, base_grads=False)
+        attn_impl=attn_impl, base_grads=False, remat=remat)
     img = clip_fns.normalize(img)
     scale = torch.exp(frozen["logit_scale"]).float()
     logits = scale * (img.float() @ txt_features.float().T)
@@ -85,7 +135,8 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
                     use_autoaug: bool = False,
                     compute_dtype=torch.bfloat16, attn_impl: str = "fused",
                     forward_fn: Optional[Callable] = None,
-                    loss_fn: Optional[Callable] = None):
+                    loss_fn: Optional[Callable] = None,
+                    remat: bool = False):
     """Build the online train step ``step(state, batch) -> metrics``.
 
     batch dict (tensors on the device):
@@ -98,14 +149,20 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
     ``forward_fn(frozen, trainable, images, tokens) -> (logits, img, txt)``
     replaces the image-PEFT forward (JAX ``engine.py:233-236``).
     ``augment=False`` casts the raw uint8 straight to the compute dtype
-    (``engine.py:277-278``). The step updates ``state`` in place.
+    (``engine.py:277-278``). ``remat`` checkpoints each vision block of
+    the image-PEFT forward, or the whole ``forward_fn`` (JAX
+    ``engine.py:237-242``): the backward recomputes the forward instead of
+    keeping its intermediates. The step updates ``state`` in place.
     """
     pipeline = preprocess.make_train_pipeline(
         image_size, mean, std, use_autoaug=use_autoaug,
         out_dtype=compute_dtype) if augment else None
     fwd = forward_fn or functools.partial(
         peft_forward_cached_text, clip_cfg=clip_cfg, peft_cfg=peft_cfg,
-        compute_dtype=compute_dtype, attn_impl=attn_impl)
+        compute_dtype=compute_dtype, attn_impl=attn_impl, remat=remat)
+    if forward_fn is not None and remat:
+        fwd = functools.partial(torch.utils.checkpoint.checkpoint, forward_fn,
+                                use_reentrant=False, preserve_rng_state=False)
     compute_loss = loss_fn or _default_loss
 
     def step(state: TrainState, batch):

@@ -27,7 +27,7 @@ from ..utils import tokenizer as tok
 from ..utils.class_vocab import ClassVocabulary
 from ..utils.train_utils import make_optimizer
 from .base import OnlineTrainer, pad_batch
-from .engine import TrainState, make_train_step
+from .engine import TrainState, make_train_step, remat_fallback
 
 log = logging.getLogger("lifelong_clip_tpu_torch")
 
@@ -81,10 +81,12 @@ class MaPLe(OnlineTrainer):
                                  n_ctx, dt)
 
         mean, std = self.train_dataset.mean, self.train_dataset.std
-        self._train_step = make_train_step(
+        # remat as JAX maple.py:88-96: the whole forward checkpointed
+        self._train_step = remat_fallback(lambda fb: make_train_step(
             ccfg, self.peft_cfg, image_size=ccfg.image_size, mean=mean,
             std=std, use_autoaug="autoaug" in cfg.transforms,
-            compute_dtype=dt, forward_fn=fwd)
+            compute_dtype=dt, forward_fn=fwd,
+            remat=cfg.remat or cfg.batchsize >= 256 or fb))
         self._text_fn = make_maple_text_fn(ccfg, n_ctx, compute_dtype=dt)
         self._eval_fn = make_maple_eval_step(ccfg, n_ctx, mean=mean, std=std,
                                              compute_dtype=dt)

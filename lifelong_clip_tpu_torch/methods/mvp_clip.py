@@ -24,6 +24,7 @@ import logging
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..config import CLIPConfig
 from ..models import build_clip
@@ -74,9 +75,13 @@ def mvp_objective(frozen, mvp, count, images, batch, clip_cfg: CLIPConfig, *,
                   use_mask: bool = False, use_contrastiv: bool = False,
                   use_afs: bool = False, use_gsf: bool = False,
                   use_last_layer: bool = False, alpha: float = 0.5,
-                  gamma: float = 2.0, margin: float = 0.5):
+                  gamma: float = 2.0, margin: float = 0.5,
+                  remat: bool = False):
     """The train objective (JAX ``CLIP_MVP.setup_model.step.objective``,
     ``:160-198``) on normalized images: returns (loss, logits, new_count).
+    ``remat`` checkpoints the ``mvp_features`` call (JAX ``:146-150``): the
+    backward recomputes the prompted tower instead of keeping its
+    intermediates.
 
     batch dict (tensors on the device):
       labels        (B,) int64, remapped to class-table slots
@@ -86,7 +91,11 @@ def mvp_objective(frozen, mvp, count, images, batch, clip_cfg: CLIPConfig, *,
       slot_globals  (K,) int64 global class ids of the slots, -1 pad"""
     scale = torch.exp(frozen["logit_scale"]).float()
     txt, labels = batch["txt"], batch["labels"]
-    img, cls_mask_full, sim_loss, new_count, _ = mvp_features(
+    feats = (functools.partial(torch.utils.checkpoint.checkpoint,
+                               mvp_features, use_reentrant=False,
+                               preserve_rng_state=False)
+             if remat else mvp_features)
+    img, cls_mask_full, sim_loss, new_count, _ = feats(
         frozen, mvp, count, images, clip_cfg, use_contrastiv=use_contrastiv,
         use_last_layer=use_last_layer, train=True,
         compute_dtype=compute_dtype, attn_impl=attn_impl)
@@ -112,8 +121,8 @@ def make_mvp_train_step(clip_cfg: CLIPConfig, *, image_size: int, mean, std,
     """The online step ``step(state, batch, count) -> (new_count, metrics)``
     (JAX ``:152-217``): augmentation, ``mvp_objective`` on the batch (its
     dict plus ``images``, uint8 (B, H, W, C)), backward, optimizer update.
-    ``objective_kw``: the method flags of ``mvp_objective``. The step
-    updates ``state`` in place."""
+    ``objective_kw``: the method flags of ``mvp_objective`` and its
+    ``remat``. The step updates ``state`` in place."""
     pipeline = preprocess.make_train_pipeline(
         image_size, mean, std, use_autoaug=use_autoaug,
         out_dtype=compute_dtype)
@@ -229,7 +238,9 @@ class CLIP_MVP(OnlineTrainer):
             std=self.train_dataset.std,
             use_autoaug="autoaug" in cfg.transforms, compute_dtype=dt,
             use_afs=self.use_afs, use_gsf=self.use_gsf, alpha=self.alpha,
-            gamma=self.gamma, margin=self.margin, **flags)
+            gamma=self.gamma, margin=self.margin,
+            # JAX mvp_clip.py:146-150: no OOM fallback for this step
+            remat=cfg.remat or cfg.batchsize >= 256, **flags)
         self._eval_fn = make_mvp_eval_step(
             ccfg, image_size=ccfg.image_size, mean=self.train_dataset.mean,
             std=self.train_dataset.std, compute_dtype=dt, **flags)

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..config import CLIPConfig, PEFTConfig
 from ..ops.attention import causal_mask, linear, mm32, multi_head_attention
@@ -146,14 +147,18 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
                 peft_cfg: Optional[PEFTConfig] = None, peft=None,
                 layer_prompts=None, layer_prompt_valid=None,
                 attn_impl: str = "fused", act: str = "quick_gelu",
-                prompt_ln: bool = False, base_grads: bool = True):
+                prompt_ln: bool = False, base_grads: bool = True,
+                remat: bool = False):
     """Run the layer-stacked residual blocks in order.
 
     ``layer_prompts`` (L, B, P, D), or (L, P, D) broadcast over the batch,
     or a dict ``{'k', 'v'}`` of such: per-layer KV-side prefix tokens.
     ``layer_prompt_valid`` (L, P) bool marks each layer's live slots; dead
     slots get -inf in a (1, 1, P + T) mask added to ``mask``
-    (JAX ``models/clip.py:280-311``). ``prompt_ln``: see ``_block``."""
+    (JAX ``models/clip.py:280-311``). ``prompt_ln``: see ``_block``.
+    ``remat=True`` checkpoints each block, as JAX wraps the scan body in
+    ``jax.checkpoint`` (``:323-335``): the backward recomputes the block's
+    forward instead of keeping its intermediates."""
     n_layers = blocks["attn"]["w_qkv"].shape[0]
     pmask = None
     if layer_prompts is not None:
@@ -173,9 +178,13 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
         m = mask
         if pmask is not None:
             m = pmask[i] if m is None else m + pmask[i]
-        x = _block(x, _layer(blocks, i), n_heads, m, peft_cfg,
-                   _layer(peft, i), attn_impl, act, base_grads,
-                   kv_prefix=_layer(layer_prompts, i), prompt_ln=prompt_ln)
+        args = (x, _layer(blocks, i), n_heads, m, peft_cfg, _layer(peft, i),
+                attn_impl, act, base_grads, _layer(layer_prompts, i),
+                prompt_ln)
+        # the blocks draw no random numbers: no RNG state to replay
+        x = (torch.utils.checkpoint.checkpoint(
+            _block, *args, use_reentrant=False, preserve_rng_state=False)
+            if remat else _block(*args))
     return x
 
 
@@ -225,9 +234,11 @@ def vit_embed(v, images, cfg: CLIPConfig, cd):
 def encode_image(params, images, cfg: CLIPConfig, *,
                  peft_cfg: Optional[PEFTConfig] = None, peft=None,
                  layer_prompts=None, compute_dtype=torch.bfloat16,
-                 attn_impl: str = "fused", base_grads: bool = True):
+                 attn_impl: str = "fused", base_grads: bool = True,
+                 remat: bool = False):
     """Vision tower. ``images``: (B, H, W, 3) normalized floats;
-    ``layer_prompts``: raw KV-prefix tokens per layer (``transformer``).
+    ``layer_prompts``: raw KV-prefix tokens per layer; ``remat``: checkpoint
+    each block (``transformer``).
     Returns the projected CLS embedding (B, embed_dim) in
     ``compute_dtype``."""
     cd = compute_dtype
@@ -237,7 +248,8 @@ def encode_image(params, images, cfg: CLIPConfig, *,
                     peft_cfg=peft_cfg if (peft_cfg and peft_cfg.on_vision())
                     else None,
                     peft=cast_tree(peft, cd), layer_prompts=layer_prompts,
-                    attn_impl=attn_impl, act=cfg.act, base_grads=base_grads)
+                    attn_impl=attn_impl, act=cfg.act, base_grads=base_grads,
+                    remat=remat)
     pooled = layer_norm(x[:, :1], v["ln_post"])[:, 0]
     return mm32(pooled, v["proj"]).to(cd)
 

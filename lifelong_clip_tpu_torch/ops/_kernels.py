@@ -40,7 +40,7 @@ _SIGNATURES = {
     "llc_colsum": [_I, _VP, _I, _I, _VP, _VP, _VP],
     "llc_gemm": [_I, _I, _I, _I, _VP, _LL, _LL, _VP, _LL, _LL, _F, _VP, _VP,
                  _LL, _LL, _VP, _LL, _LL, _I, _F, _VP, _LL, _VP, _LL, _I, _VP,
-                 _VP],
+                 _I, _LL, _LL, _VP],
     "llc_attn_fwd": [_VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
     "llc_attn_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
     "llc_attn_prefix_fwd": [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _F,

@@ -4,8 +4,10 @@ per head, forward and backward.
 Counterpart of ``lifelong_clip_tpu/ops/flash_attention.py:flash_attention``
 (a ``jax.custom_vjp`` over two Pallas kernels): q (B, T, D), k and v
 (B, S, D), ``n_heads`` heads of D / n_heads, an optional additive mask, the
-result (B, T, D) in q's dtype. Both kernels upcast q, k and v to fp32 and
-never round the probabilities: the forward divides ``e @ v`` by the row sum
+result (B, T, D) in q's dtype. Both kernels take fp32 products of q, k and
+v (exact products of bf16 inputs on the tensor cores) and never round the
+probabilities to bf16 (the bf16 kernels feed them to the tensor cores as
+bf16 hi + lo halves): the forward divides ``e @ v`` by the row sum
 of ``e = exp(s - max)`` after the product (``_attn_kernel:32-46``); the
 backward recomputes ``p = e / sum(e)`` in fp32 and takes the row term as
 ``rowsum(dp * p)`` (``_attn_bwd_kernel:128-153``). That is not
@@ -14,8 +16,9 @@ as ``sdpa_xla`` does.
 
 Kernels and the TPU kernels they replace (``csrc/flash_attention.cu``):
 
-* forward: ``llc_flash_fwd``, replacing ``_attn_kernel`` (``:32``, Pallas
-  call at ``:96``);
+* forward: ``llc_flash_fwd`` (bf16: tensor cores, score rows in registers
+  up to 256 keys, two passes over key tiles above; fp32: CUDA cores),
+  replacing ``_attn_kernel`` (``:32``, Pallas call at ``:96``);
 * backward: ``llc_flash_bwd`` (a dq kernel per query tile and a dk/dv
   kernel per key tile, no atomics), replacing ``_attn_bwd_kernel``
   (``:128``, Pallas call at ``:191``).

@@ -7,9 +7,9 @@ optional in-kernel LoRA term ``s * (h @ A_in) @ B_in``, per-head fp32 softmax
 with an additive (T, T) mask, out projection with its own LoRA term, and the
 residual. The backward emits dx and the LoRA grads, the LN and base-weight
 grads only when ``weight_grads``. On the card it reads the forward's h, qkv
-and ctx where the forward kept them (a train step: grad enabled and an input
-that needs it), and recomputes them, as the TPU kernel does, where it did
-not.
+and ctx, which the forward keeps whenever autograd will call the backward
+(grad enabled and an input that needs it; under ``torch.utils.checkpoint``
+the recomputed forward keeps them), where the TPU kernel recomputes them.
 
 Kernels and the TPU kernels they replace:
 
@@ -241,9 +241,12 @@ def _row_splits(m_blocks_n_blocks: int, k: int) -> int:
 
 
 def _gemm(out, a, a_strides, b, b_strides, m, n, k, *, alpha=1.0, bias=None,
-          lz=None, lb=None, lscale=0.0, resid=None, splits=1):
+          lz=None, lb=None, lscale=0.0, resid=None, splits=1, groups=None):
     """out (m, n) = epilogue(alpha * A @ B) on the card; see ``llc_gemm``.
-    ``lz``/``lb`` are (tensor, stride, stride) for the LoRA epilogue term."""
+    ``lz``/``lb`` are (tensor, stride, stride) for the LoRA epilogue term.
+    ``groups`` (count, gm, gn): one launch of ``count`` such products, the
+    g-th reading A rows g * gm on and B columns g * gn on into out (and
+    bias) columns g * gn on."""
     assert out.dim() == 2 and out.stride(1) == 1
     ws = None
     if splits == -1:   # auto: a contraction over all B*T rows
@@ -259,7 +262,8 @@ def _gemm(out, a, a_strides, b, b_strides, m, n, k, *, alpha=1.0, bias=None,
         a_strides[1], b.data_ptr(), b_strides[0], b_strides[1], alpha,
         _ptr(bias), _ptr(lzt), szm, szr, _ptr(lbt), slr, sln, r, lscale,
         _ptr(resid), resid.stride(0) if resid is not None else 0,
-        out.data_ptr(), out.stride(0), splits, _ptr(ws), _stream(out))
+        out.data_ptr(), out.stride(0), splits, _ptr(ws),
+        *(groups or (1, 0, 0)), _stream(out))
     return out
 
 
@@ -362,22 +366,6 @@ def _cuda_ln_qkv(pp: _Prepared):
     return h16, z16, qkv16
 
 
-def _cuda_kept(pp: _Prepared, n_heads):
-    """The forward's intermediates up to the out projection, on the card:
-    (h16, z16, qkv16, ctx16, z2_16), z16 and z2_16 None without LoRA."""
-    m, d, r = pp.m, pp.d, pp.r
-    h16, z16, qkv16 = _cuda_ln_qkv(pp)
-    ctx16 = torch.empty(m, d, dtype=_BF, device=pp.x.device)
-    _kernels.call("llc_attn_fwd", qkv16.data_ptr(), _ptr(pp.mask),
-                  ctx16.data_ptr(), pp.b, pp.t, d, n_heads,
-                  (d // n_heads) ** -0.5, pp.stream)
-    z2 = None
-    if pp.lora is not None:
-        z2 = _gemm(torch.empty(m, r, dtype=_BF, device=pp.x.device), ctx16,
-                   (d, 1), pp.lora[2], (r, 1), m, r, d)
-    return h16, z16, qkv16, ctx16, z2
-
-
 def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
                   lora_scaling, mask, lora, keep=False):
     """y on the card; with ``keep``, (y, (h16, z16, qkv16, ctx16, z2_16))
@@ -386,8 +374,16 @@ def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, mask,
                    lora, lora_scaling)
     m, d, r = pp.m, pp.d, pp.r
-    saved = _cuda_kept(pp, n_heads)
-    _, _, _, ctx16, z2 = saved
+    h16, z16, qkv16 = _cuda_ln_qkv(pp)
+    ctx16 = torch.empty(m, d, dtype=_BF, device=x.device)
+    _kernels.call("llc_attn_fwd", qkv16.data_ptr(), _ptr(pp.mask),
+                  ctx16.data_ptr(), pp.b, pp.t, d, n_heads,
+                  (d // n_heads) ** -0.5, pp.stream)
+    z2 = None
+    if pp.lora is not None:
+        z2 = _gemm(torch.empty(m, r, dtype=_BF, device=x.device), ctx16,
+                   (d, 1), pp.lora[2], (r, 1), m, r, d)
+    saved = (h16, z16, qkv16, ctx16, z2)
     x2 = pp.x.view(m, d)
     y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m, d, d,
               bias=pp.b_out, lz=(z2, r, 1) if z2 is not None else None,
@@ -399,19 +395,16 @@ def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
 
 
 def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
-                   lora_scaling, mask, lora, weight_grads, saved=None):
+                   lora_scaling, mask, lora, weight_grads, saved):
     """The backward chain on the card. ``saved``: the forward's (h16, z16,
-    qkv16, ctx16, z2_16) (those the backward reads; see
-    ``_keep_for_backward``), or None to recompute them as the forward
-    makes them."""
+    qkv16, ctx16, z2_16), those the backward reads (``_keep_for_backward``
+    of ``_cuda_forward(..., keep=True)``)."""
     _check_cuda(x, n_heads)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, None, mask,
                    lora, lora_scaling)
     m, d, r, s = pp.m, pp.d, pp.r, pp.s
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    if saved is None:
-        saved = _cuda_kept(pp, n_heads)
     h16, z16, qkv16, ctx16, z2 = saved
     g2, g16 = _grad_rows(pp, g)
 
@@ -492,7 +485,7 @@ def _forward(x, *args, keep=None):
     raise RuntimeError(f"fused_ln_attention_block: no kernel for {x.device}")
 
 
-def _backward(x, g, *args, saved=None):
+def _backward(x, g, *args, saved):
     if x.device.type == "cpu":
         return fused_ln_attention_block_reference_bwd(x, g, *args)
     if x.device.type == "cuda":
@@ -522,7 +515,6 @@ class _FusedLNAttention(torch.autograd.Function):
         # on the card a train step keeps what its backward reads; under
         # no_grad nothing is kept
         y, saved = _forward(*args, keep=weight_grads if keep else None)
-        ctx.kept = saved is not None
         ctx.save_for_backward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
                               b_out, a_in, b_in, a_out, b_out_l,
                               *(saved or ()))
@@ -539,7 +531,7 @@ class _FusedLNAttention(torch.autograd.Function):
         grads, dlora = _backward(
             x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, ctx.n_heads,
             ctx.lora_scaling, ctx.mask, lora, ctx.weight_grads,
-            saved=tuple(saved) if ctx.kept else None)
+            saved=tuple(saved))
         primals = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out)
         # grads come back in each primal's dtype (``_fused_bwd:236-245``):
         # bf16 LoRA primals get bf16-rounded grads, as on the TPU. Frozen
@@ -701,7 +693,10 @@ def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
                     b_out, n_heads, mask):
     """Operands of the prefix chain: the block's as ``_Prepared``, the
     prompts cast to x's dtype then bf16 (as the TPU wrapper and kernel
-    cast them), the mask as ``_prefix_mask_arg`` gives it."""
+    cast them; once where x is bf16) as (B*P, D) rows, the mask as
+    ``_prefix_mask_arg`` gives it. One tensor as pk and pv stays one; two
+    are stacked in one (2, B*P, D) buffer, so one grouped GEMM projects
+    both."""
     op = "fused_prefix_attention_block"
     b, t, d = x.shape
     if pk.dim() != 3 or pk.shape != pv.shape or pk.shape[0] != b \
@@ -714,41 +709,45 @@ def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
                    None, 0.0)
     pp.p = pk.shape[1]
     pp.mask, pp.mask_rs = _prefix_mask_arg(mask, t, pp.p + t, x.device)
-    pk16, pv16 = (a.detach().to(x.dtype).to(_BF).contiguous().view(
-        b * pp.p, d) for a in (pk, pv))
+
+    def b16(a):
+        a = a.detach()
+        return a.to(_BF) if x.dtype == _BF else a.to(x.dtype).to(_BF)
+
+    if pk is pv:
+        pk16 = pv16 = b16(pk).contiguous().view(b * pp.p, d)
+    else:
+        pkv16 = torch.stack([b16(pk), b16(pv)]).view(2, b * pp.p, d)
+        pk16, pv16 = pkv16[0], pkv16[1]
     return pp, pk16, pv16
 
 
-def _cuda_prefix_kept(pp, pk16, pv16, n_heads):
-    """The forward's intermediates up to the out projection, on the card:
-    (h16, qkv16 (B*T, 3D), kvp16 (B*P, 2D: K | V of the prefix rows),
-    ctx16)."""
-    d, bp = pp.d, pp.b * pp.p
+def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
+                         b_out, n_heads, mask, keep=False):
+    """y on the card; with ``keep``, (y, (h16, qkv16 (B*T, 3D), kvp16
+    (B*P, 2D: K | V of the prefix rows), ctx16)) for the backward chain to
+    read."""
+    pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
+                                     b_qkv, w_out, b_out, n_heads, mask)
+    m, d, bp = pp.m, pp.d, pp.b * pp.p
     h16, _, qkv16 = _cuda_ln_qkv(pp)
     kvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=pp.x.device)
-    for i, src in enumerate((pk16, pv16)):
-        lo = (i + 1) * d
-        _gemm(kvp16[:, i * d:(i + 1) * d], src, (d, 1),
-              pp.w_qkv[:, lo:lo + d], (3 * d, 1), bp, d, d,
-              bias=pp.b_qkv[lo:lo + d])
+    # K | V = [pk16 @ W_k + b_k | pv16 @ W_v + b_v] in one launch: W_qkv's
+    # K and V columns D..3D are adjacent, so one prompt tensor is one GEMM
+    # with N = 2D; two (stacked by _prefix_prepare) a grouped GEMM
+    if pk16 is pv16:
+        _gemm(kvp16, pk16, (d, 1), pp.w_qkv[:, d:], (3 * d, 1), bp, 2 * d, d,
+              bias=pp.b_qkv[d:])
+    else:
+        _gemm(kvp16, pk16, (d, 1), pp.w_qkv[:, d:], (3 * d, 1), bp, d, d,
+              bias=pp.b_qkv[d:], groups=(2, bp, d))
     ctx16 = torch.empty(pp.m, d, dtype=_BF, device=pp.x.device)
     _kernels.call("llc_attn_prefix_fwd", qkv16.data_ptr(),
                   kvp16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
                   ctx16.data_ptr(),
                   pp.b, pp.t, pp.p, d, n_heads, (d // n_heads) ** -0.5,
                   pp.stream)
-    return h16, qkv16, kvp16, ctx16
-
-
-def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
-                         b_out, n_heads, mask, keep=False):
-    """y on the card; with ``keep``, (y, (h16, qkv16, kvp16, ctx16)) for
-    the backward chain to read."""
-    pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
-                                     b_qkv, w_out, b_out, n_heads, mask)
-    m, d = pp.m, pp.d
-    saved = _cuda_prefix_kept(pp, pk16, pv16, n_heads)
-    ctx16 = saved[3]
+    saved = (h16, qkv16, kvp16, ctx16)
     x2 = pp.x.view(m, d)
     y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m, d, d,
               bias=pp.b_out, resid=x2)
@@ -758,18 +757,16 @@ def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
 
 
 def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
-                          w_out, n_heads, mask, weight_grads, saved=None):
+                          w_out, n_heads, mask, weight_grads, saved):
     """The prefix backward chain on the card. ``saved``: the forward's
-    (h16, qkv16, kvp16, ctx16) (those the backward reads; see
-    ``_keep_for_prefix_backward``), or None to recompute them as the
-    forward makes them."""
+    (h16, qkv16, kvp16, ctx16), those the backward reads
+    (``_keep_for_prefix_backward`` of ``_cuda_prefix_forward(...,
+    keep=True)``)."""
     pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
                                      b_qkv, w_out, None, n_heads, mask)
     m, d, bp = pp.m, pp.d, pp.b * pp.p
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    if saved is None:
-        saved = _cuda_prefix_kept(pp, pk16, pv16, n_heads)
     h16, qkv16, kvp16, ctx16 = saved
     g2, g16 = _grad_rows(pp, g)
 
@@ -842,7 +839,7 @@ def _prefix_forward(x, *args, keep=None):
         f"fused_prefix_attention_block: no kernel for {x.device}")
 
 
-def _prefix_backward(x, g, *args, saved=None):
+def _prefix_backward(x, g, *args, saved):
     if x.device.type == "cpu":
         return fused_prefix_attention_block_reference_bwd(x, g, *args)
     if x.device.type == "cuda":
@@ -869,7 +866,6 @@ class _FusedPrefixAttention(torch.autograd.Function):
                 n_heads, mask)
         # as _FusedLNAttention
         y, saved = _prefix_forward(*args, keep=weight_grads if keep else None)
-        ctx.kept = saved is not None
         ctx.save_for_backward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
                               w_out, b_out, *(saved or ()))
         ctx.n_heads, ctx.mask, ctx.weight_grads = n_heads, mask, weight_grads
@@ -877,8 +873,10 @@ class _FusedPrefixAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        primals = ctx.saved_tensors[:9]
-        saved = ctx.saved_tensors[9:] if ctx.kept else None
+        # saved_tensors read once: under torch.utils.checkpoint each read
+        # unpacks (recomputes) the saved tensors, and a second one raises
+        kept = ctx.saved_tensors
+        primals, saved = kept[:9], kept[9:]
         x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out, _ = primals
         grads = _prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv,
                                  b_qkv, w_out, ctx.n_heads, ctx.mask,

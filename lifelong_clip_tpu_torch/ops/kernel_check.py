@@ -161,15 +161,19 @@ def check_case(x, blk, lora, gy, mask, heads, s, weight_grads):
     return rep
 
 
-def make_prefix_inputs(b, t, d, heads, p, live, seed, device="cuda"):
+def make_prefix_inputs(b, t, d, heads, p, live, seed, device="cuda",
+                       shared=False):
     """bf16 prefix-block inputs from a seed: x, distinct pk and pv (B, P, D)
-    at std 2, so that live slots carry a visible share of the attention,
+    at std 2 (with ``shared``, one tensor as both, as mvp-clip passes its
+    prompts), so that live slots carry a visible share of the attention,
     the block weights, the output grad, and a (P + T,) fp32 mask with 0 on
     the first ``live`` prefix slots and on the tokens, -inf on the rest."""
     x, blk, _, gy, _ = make_inputs(b, t, d, heads, 0, False, seed, device)
     g = torch.Generator(device=device).manual_seed(seed + 1000)
     pk, pv = ((2.0 * torch.randn(b, p, d, generator=g, device=device)).to(
         torch.bfloat16) for _ in range(2))
+    if shared:
+        pv = pk
     mask = torch.zeros(p + t, device=device)
     mask[live:p] = float("-inf")
     return x, pk, pv, blk, gy, mask
@@ -178,13 +182,16 @@ def make_prefix_inputs(b, t, d, heads, p, live, seed, device="cuda"):
 def check_prefix_case(x, pk, pv, blk, gy, mask, heads, weight_grads):
     """Run the prefix op forward and backward through autograd on ``x``'s
     device and hold y, dx, dpk, dpv and the block grads against the plain
-    versions; ``mask`` is None, (P + T,) or (T, P + T). Raises
+    versions; ``mask`` is None, (P + T,) or (T, P + T). One tensor as pk
+    and pv stays one leaf, whose grad is held against dpk + dpv. Raises
     AssertionError on disagreement; returns the errors and term sizes."""
     rep = {}
     n_p = pk.shape[1]
     ref_args = [blk[k] for k in BLOCK_KEYS]
     xl, pkl, pvl = (a.detach().clone().requires_grad_(True)
                     for a in (x, pk, pv))
+    if pk is pv:
+        pvl = pkl
     bl = {k: v.detach().clone().requires_grad_(True) for k, v in blk.items()}
     y = fba.fused_prefix_attention_block(xl, pkl, pvl,
                                          *[bl[k] for k in BLOCK_KEYS], heads,
@@ -211,8 +218,10 @@ def check_prefix_case(x, pk, pv, blk, gy, mask, heads, weight_grads):
         dx_ln = grads[0].float() - gy.float()
         tol_dx = _held(rep, "dx", xl.grad, grads[0], dx_ln, REL_BWD)
         _visible(rep, "dx_ln_term", dx_ln, tol_dx, grads[0])
-        for key, leaf, want in (("dpk", pkl, grads[1]),
-                                ("dpv", pvl, grads[2])):
+        pgrads = ((("dpk", pkl, grads[1]), ("dpv", pvl, grads[2]))
+                  if pkl is not pvl else
+                  (("dpk + dpv", pkl, grads[1].float() + grads[2].float()),))
+        for key, leaf, want in pgrads:
             got = leaf.grad
             assert got.dtype == leaf.dtype, f"{key} dtype"
             _held(rep, key, got, want.to(got.dtype), want, REL_BWD)

@@ -57,30 +57,15 @@ def test_kernels_match_plain_versions(cuda, b, t, d, heads, r, causal, wg):
 
 
 def test_backward_is_deterministic(cuda):
-    """No atomics: two backward passes on the same inputs agree bit for bit,
+    """No atomics: two backward passes on the same inputs, reading the
+    forward's kept intermediates as a train step does, agree bit for bit,
     the row contractions included."""
     x, blk, lora, gy = _inputs(cuda, 4, 197, 192, 4, seed=1)
-    bargs = (*blk[:5], 3, 0.25, None, lora, True)
-    first = fba._cuda_backward(x, gy, *bargs)
-    second = fba._cuda_backward(x, gy, *bargs)
-    for a, b in zip(first[0], second[0]):
-        assert torch.equal(a, b)
-    for k in LORA_KEYS:
-        assert torch.equal(first[1][k], second[1][k]), k
-
-
-@pytest.mark.parametrize("weight_grads", [False, True])
-def test_backward_from_saved_intermediates_is_the_recompute(cuda,
-                                                            weight_grads):
-    """The backward chain reading the forward's kept h16, z16, qkv16,
-    ctx16 and z2 gives bit for bit what it gives recomputing them (LoRA
-    on)."""
-    x, blk, lora, gy = _inputs(cuda, 4, 197, 192, 4, seed=1)
     _, saved = fba._cuda_forward(x, *blk, 3, 0.25, None, lora, keep=True)
-    bargs = (*blk[:5], 3, 0.25, None, lora, weight_grads)
-    first = fba._cuda_backward(x, gy, *bargs)
-    second = fba._cuda_backward(
-        x, gy, *bargs, saved=fba._keep_for_backward(saved, weight_grads))
+    bargs = (*blk[:5], 3, 0.25, None, lora, True)
+    saved = fba._keep_for_backward(saved, True)
+    first = fba._cuda_backward(x, gy, *bargs, saved)
+    second = fba._cuda_backward(x, gy, *bargs, saved)
     for a, b in zip(first[0], second[0]):
         assert torch.equal(a, b)
     for k in LORA_KEYS:
@@ -143,32 +128,42 @@ def test_prefix_kernels_take_a_full_mask(cuda):
     kc.check_prefix_case(x, pk, pv, blk, gy, full, 4, True)
 
 
+@pytest.mark.parametrize("shared,d", [(True, 256), (True, 192),
+                                      (False, 256), (False, 192)])
+def test_prefix_projections_take_one_launch(cuda, monkeypatch, shared, d):
+    """The prefix rows' K and V projections are one GEMM launch: N = 2D for
+    one prompt tensor as pk and pv (mvp-clip), a grouped launch for two
+    (D = 192: a group's columns end inside a 128-column tile, so the grouped
+    launch stores from the accumulators); the forward chain launches three
+    GEMMs, and the op holds to its plain version."""
+    from lifelong_clip_tpu_torch.ops import _kernels
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(2, 77, d, d // 64, 20,
+                                                     7, 3, device=cuda,
+                                                     shared=shared)
+    calls = []
+    orig = _kernels.call
+
+    def counting(name, *a):
+        calls.append(name)
+        return orig(name, *a)
+
+    monkeypatch.setattr(_kernels, "call", counting)
+    fba._cuda_prefix_forward(x, pk, pv, *[blk[k] for k in kc.BLOCK_KEYS],
+                             d // 64, mask)
+    assert calls.count("llc_gemm") == 3, calls
+    kc.check_prefix_case(x, pk, pv, blk, gy, mask, d // 64, True)
+
+
 def test_prefix_backward_is_deterministic(cuda):
     x, pk, pv, blk, _, mask = kc.make_prefix_inputs(4, 197, 192, 3, 20, 5,
                                                     1, device=cuda)
     gy = torch.randn_like(x)
-    args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], 3, mask, True)
-    first = fba._cuda_prefix_backward(x, gy, *args)
-    second = fba._cuda_prefix_backward(x, gy, *args)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("weight_grads", [False, True])
-def test_prefix_backward_from_saved_intermediates_is_the_recompute(
-        cuda, weight_grads):
-    """The prefix backward chain reading the forward's kept h16, qkv16,
-    kvp16 and ctx16 gives bit for bit what it gives recomputing them."""
-    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(4, 197, 192, 3, 20, 5,
-                                                     1, device=cuda)
     _, saved = fba._cuda_prefix_forward(
         x, pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], 3, mask, keep=True)
-    args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], 3, mask,
-            weight_grads)
+    args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], 3, mask, True,
+            fba._keep_for_prefix_backward(saved, True))
     first = fba._cuda_prefix_backward(x, gy, *args)
-    second = fba._cuda_prefix_backward(
-        x, gy, *args,
-        saved=fba._keep_for_prefix_backward(saved, weight_grads))
+    second = fba._cuda_prefix_backward(x, gy, *args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -229,12 +224,14 @@ def test_unfused_road_keeps_fp32_on_the_card(cuda):
 
 
 # flash attention: (b, t, s, d, heads, mask, dtype). T and S on and off a
-# multiple of 64, T != S, S > 256 (no key limit), causal with a prefix, a
-# key-mask row, fp32 and bf16
+# multiple of 64, T != S, S > 256 (no key limit; the bf16 forward's tiled
+# road), causal with a prefix, a key-mask row, fp32 and bf16
 FLASH_CASES = [(2, 13, 20, 128, 2, None, "bf16"),
                (2, 197, 217, 128, 2, 5, "bf16"),
                (3, 77, 77, 256, 4, "causal", "bf16"),
                (2, 257, 257, 128, 2, None, "bf16"),
+               (2, 77, 700, 128, 2, "causal", "bf16"),
+               (2, 70, 300, 128, 2, 9, "bf16"),
                (2, 70, 300, 64, 1, 9, "f32"),
                (1, 64, 64, 128, 2, "causal", "f32")]
 
@@ -288,8 +285,9 @@ def test_flash_prompted_lora_width_dead_keys(cuda):
 # (layout, out dtype, M, N, K, epilogue terms, splits). NN with
 # N-contiguous B (the qkv and out projections), NT with K-contiguous B
 # (dctx, dh), TN with M-contiguous A (the weight grads, split over K);
-# M = 12608 (ViT-B/16 at bs 64) and ragged M, N and K; N = 2304 takes the
-# 128 x 256 wgmma tile, the others 128 x 128.
+# M = 12608 (ViT-B/16 at bs 64) and ragged M, N and K; bf16 output takes
+# the 128 x 128 wgmma tile with the epilogue staged in shared memory, fp32
+# output 128 x 256 at N = 2304 and 128 x 128 below.
 GEMM_CASES = [
     ("NN", "bf16", 12608, 2304, 768, "bias,lora", 1),
     ("NN", "bf16", 12608, 2304, 768, "bias", 1),

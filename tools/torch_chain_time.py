@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Time the port's fused LN-attention chains (kernel #1 forward, #2
 backward) of one checkout at the ViT-B/16 vision shape (64 x 197 x 768, 12
-heads, LoRA r=4, bf16, no mask), and its KV-prefix chains (#3, #4) at the
-mvp-clip shape (P = 20, 5 slots live), on one GPU, beside the library
-composition (LN + ``F.linear`` + SDPA + ``F.linear``):
+heads, LoRA r=4, bf16, no mask), its KV-prefix chains (#3, #4) at the
+mvp-clip shape (P = 20, 5 slots live), and its flash-attention forward (#5)
+at the prompted-LoRA shape (B*H = 768, T = 197, S = 217, bf16), on one GPU,
+beside the library calls (LN + ``F.linear`` + SDPA + ``F.linear``; SDPA on
+the fp32-upcast q, k, v):
 
     python3 tools/torch_chain_time.py [--root DIR] [--label NAME]
 
 For the forward: the host ms to enqueue one call, ms per call from CUDA
-events, device-busy ms from torch.profiler (host gaps left out) and the
-host ms inside each call into the kernel library; for the backward, events
-and device-busy ms, with the device ms of each attention-backward kernel.
-Where the checkout's forward can keep its intermediates for the backward
-(``keep``), the backward reads them, as a train step does. ``--root`` is
-the checkout whose
+events, device-busy ms from torch.profiler (host gaps left out), the host
+ms inside each call into the kernel library, and every launch of the #1
+and #3 chains in order by device ms; for the backward, events and
+device-busy ms, with the device ms of each attention-backward kernel. The
+backward reads the forward's kept intermediates, as a train step does.
+``--root`` is the checkout whose
 ``lifelong_clip_tpu_torch`` is imported (its kernels are built there at
 first use), so two trees are compared by running this once on each in one
 run on the card; the timing helpers come from this repo's
@@ -22,7 +24,6 @@ run on the card; the timing helpers come from this repo's
 
 import argparse
 import importlib.util
-import inspect
 import json
 import os
 import statistics
@@ -63,17 +64,14 @@ def main():
     ll = {f"{k}_t": lora[k].T.contiguous() for k in lora}
     lb = cs.library_weights(blk)
 
-    keep = "keep" in inspect.signature(fba._cuda_forward).parameters
-    saved = {}
-    if keep:
-        saved["saved"] = fba._keep_for_backward(
-            fba._cuda_forward(x, *fargs, keep=True)[1], False)
+    saved = fba._keep_for_backward(
+        fba._cuda_forward(x, *fargs, keep=True)[1], False)
 
     def fwd():
         return fba._cuda_forward(x, *fargs)
 
     def bwd():
-        return fba._cuda_backward(x, gy, *bargs, **saved)
+        return fba._cuda_backward(x, gy, *bargs, saved=saved)
 
     def lib():
         return cs.library_block(x, lb, ll, s, mask, heads)
@@ -84,16 +82,25 @@ def main():
     pfargs = (pk, pv, *[pblk[k] for k in kc.BLOCK_KEYS], heads, pmask)
     pbargs = (pk, pv, *[pblk[k] for k in kc.BLOCK_KEYS[:5]], heads, pmask,
               False)
-    psaved = {}
-    if keep:
-        psaved["saved"] = fba._keep_for_prefix_backward(
-            fba._cuda_prefix_forward(px, *pfargs, keep=True)[1], False)
+    psaved = fba._keep_for_prefix_backward(
+        fba._cuda_prefix_forward(px, *pfargs, keep=True)[1], False)
 
     def pfwd():
         return fba._cuda_prefix_forward(px, *pfargs)
 
     def pbwd():
-        return fba._cuda_prefix_backward(px, pgy, *pbargs, **psaved)
+        return fba._cuda_prefix_backward(px, pgy, *pbargs, saved=psaved)
+
+    # the flash forward at the prompted-LoRA shape
+    from lifelong_clip_tpu_torch.ops import flash_attention as fa
+    fq, fk, fv, _, _ = kc.make_flash_inputs(64, 197, 217, 768, heads, 7)
+    fwt = [a.float() for a in (fq, fk, fv)]
+
+    def flash():
+        return fa._cuda_forward(fq, fk, fv, heads, None)
+
+    def flash_lib():
+        return cs.library_flash(*fwt, heads, None)
 
     def attn_split(fn):
         names = cs.device_split(fn)[1]
@@ -112,17 +119,22 @@ def main():
                 "bwd_ms": cs.timed(bwd),
                 "bwd_device_ms": cs.device_ms(bwd),
                 "prefix_device_ms": cs.device_ms(pfwd, iters=10),
-                "prefix_bwd_device_ms": cs.device_ms(pbwd)})
+                "prefix_bwd_device_ms": cs.device_ms(pbwd),
+                "flash_device_ms": cs.device_ms(flash, iters=10),
+                "flash_library_device_ms": cs.device_ms(flash_lib, iters=10)})
         host_calls = cs.launch_breakdown(fwd, bwd)["host_fwd"]
         split = {"bwd": attn_split(bwd), "prefix_bwd": attn_split(pbwd)}
+        chains = {"fwd": cs.device_sequence(fwd),
+                  "prefix_fwd": cs.device_sequence(pfwd)}
     median = {}
     for k in runs[0]:
         vals = [r[k] for r in runs if r[k] is not None]
         median[k] = statistics.median(vals) if vals else None
     print(cs.card_line())
     print(json.dumps({"label": args.label, "root": os.path.relpath(root, HERE),
-                      "backward_reads_kept": keep, "median": median,
+                      "median": median,
                       "attention_bwd_device_ms": split,
+                      "forward_chain_by_launch": chains,
                       "host_ms_per_call": host_calls, "runs": runs}))
     return 0
 
