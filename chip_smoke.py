@@ -34,32 +34,48 @@
    intermediates, as a train step does. Then the port's GEMM at the qkv,
    out and dh shapes with the chain's epilogue terms, beside
    ``torch.matmul``.
-4. Main paths, each with the launch counters set to 0 just before it and
+4. Augmentation: the train pipeline alone (AutoAugment, resize + pad +
+   crop, flip, normalize) at bs 64 on 32 x 32 uint8 under each policy and
+   on 224 x 224, timed by CUDA events, host ms and device-busy ms, and
+   held against the CPU at the same draws (every op, each stage, the whole
+   pipeline within 1e-5; equalize and the other integer ops bit for bit).
+5. Main paths, each with the launch counters set to 0 just before it and
    read just after: ``lifelong_clip_tpu_torch.main.main`` runs lora-clip on
-   ViT-B/16 at bs=64 (synthetic-20, 2 tasks, no AutoAugment), lora-clip on
-   ViT-L/14 the same way (random weights; kernels #1/#2 past 256 keys),
-   mvp-clip
-   (online_iter 3, --use_mask --use_contrastiv) and MaPLe (online_iter 3,
-   AdamW, lr 5e-4, ``scripts/maple.sh``); the kernels' launch counters must
-   grow in every pass (MaPLe train: 12 vision and 12 text block forwards
-   and backwards a step), every loss must be finite, mvp-clip's prompt
-   counts must move and result.txt must exist. Then the prompted-LoRA
-   path, which no registered method builds (``encode_image`` with LoRA r=4
-   and (12, 64, 20, 768) raw KV prompts, bs 64, ``ce_on_probs_loss``, AdamW
-   over LoRA and prompts): 3 train steps and one eval forward, 12 flash
-   launches forward and 12 backward a step.
-5. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip,
-   mvp-clip, MaPLe and prompted-LoRA train steps and of the ViT-L/14
-   lora-clip step on one batch lower the loss by more than 0.02; each
-   prints step ms, samples/s and the peak device memory of its steps, then
-   a torch.profiler window over 3 more steps (device ms a step by kernel,
-   the device's idle share). The lora-clip gates also count their launches
-   (one fused forward and backward a vision layer a step).
-6. Remat: the lora-clip and mvp-clip gate steps without remat and with it
+   ViT-B/16 at bs=64 as ``scripts/lora_clip.sh`` sets it (synthetic-20, 2
+   tasks, LoRA on both towers, every class visible, the default
+   ``--transforms``, the batch prefetcher: 24 fused block forwards and
+   backwards a step), lora-clip on ViT-L/14 (random weights; kernels #1/#2
+   past 256 keys; no augmentation), mvp-clip (online_iter 3, --use_mask
+   --use_contrastiv) and MaPLe (online_iter 3, AdamW, lr 5e-4,
+   ``scripts/maple.sh``) with the default ``--transforms``; the kernels'
+   launch counters must grow in every pass (MaPLe train: 12 vision and 12
+   text block forwards and backwards a step), every loss must be finite,
+   mvp-clip's prompt counts must move and result.txt must exist. Then the
+   prompted-LoRA path, which no registered method builds (``encode_image``
+   with LoRA r=4 and (12, 64, 20, 768) raw KV prompts, bs 64,
+   ``ce_on_probs_loss``, AdamW over LoRA and prompts): 3 train steps and
+   one eval forward, 12 flash launches forward and 12 backward a step.
+6. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip
+   step (AutoAugment cifar10, as bench.py), the same with LoRA on both
+   towers at 100 uncached class rows, the mvp-clip, MaPLe and
+   prompted-LoRA steps and the ViT-L/14 lora-clip step on one batch lower
+   the loss by more than 0.02; each prints step ms, samples/s and the peak
+   device memory of its steps, then a torch.profiler window over 3 more
+   steps (device ms a step by kernel, the device's idle share, the
+   augmentation's device ms by its profiler range). The lora-clip gates
+   also count their launches (one fused forward and backward a layer of
+   each trained tower a step); the text tower's share of the both-tower
+   step is its device time less the image-only step's.
+7. Remat: the lora-clip and mvp-clip gate steps without remat and with it
    (each vision block, or mvp-clip's prompted tower, checkpointed), from
    the same seeds: bitwise equal loss and grads, a lower peak memory with
    remat for lora-clip, and each one's peak memory, device-busy ms and
    step ms.
+8. Checkpoint: ``main`` runs lora-clip as ``scripts/lora_clip.sh`` sets
+   it (as in 5) three times with ``--ckpt_dir``: uninterrupted, stopped
+   right after task 0's checkpoint, and ``--resume_from`` that checkpoint;
+   the resumed run's task-1 losses, result and final LoRA tensors must be
+   bitwise those of the uninterrupted run.
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels); the last line is
@@ -91,6 +107,7 @@ REPLACES = {
     "flash_attention_bwd": "lifelong_clip_tpu/ops/flash_attention.py:128",
 }
 MVP_SHAPE = (64, 197, 768, 12, 20)   # B, T, D, heads, prompt slots P
+AUG_RANGE = "augmentation"           # torch.profiler range of the pipeline
 
 
 def log(msg):
@@ -142,7 +159,8 @@ def busy_us(prof):
     profiler saw no device time."""
     import torch
     kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name != AUG_RANGE]
     if not kern:
         return None, {}
     busy, end, by_name = 0.0, -math.inf, {}
@@ -765,22 +783,32 @@ def run_main_path(label, module, factories, argv, loss_of):
 
 
 def main_path_phase():
-    """lora-clip on ViT-B/16 through ``main``: kernels #1 and #2."""
+    """lora-clip on ViT-B/16 through ``main`` with ``scripts/lora_clip.sh``'s
+    flags: LoRA on both towers (``--peft_encoder both``), every exposed
+    class visible (the (20, 77) token table), the default ``--transforms``
+    (AutoAugment), the batch prefetcher uploading through pinned memory.
+    Kernels #1 and #2 run in the vision and the text tower of every train
+    step (12 + 12 forward and backward), #1 in the eval and text
+    passes."""
     from lifelong_clip_tpu_torch.methods import adapter_clip
-    launches, per_pass, _, _ = run_main_path(
+    launches, per_pass, outs, wall = run_main_path(
         "lora-clip", adapter_clip,
         {"train": "make_train_step", "eval": "make_eval_step",
          "text": "make_text_feature_fn"},
         ["--method", "lora-clip", "--model_name", "ViT-B/16", "--dataset",
          "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
-         "--online_iter", "1", "--eval_period", "640", "--transforms"],
+         "--online_iter", "1", "--eval_period", "640", "--peft_encoder",
+         "both", "--visible_classes", "all"],
         lambda st: float(st["loss"]))
     tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
-    assert tr["fused_ln_attention_fwd"] > 0 and \
-        tr["fused_ln_attention_bwd"] > 0, f"train pass launches {tr}"
+    steps = len(outs)
+    assert tr["fused_ln_attention_fwd"] == tr["fused_ln_attention_bwd"] \
+        == 24 * steps and tr["flash_attention_fwd"] == 0, \
+        f"train pass launches {tr} over {steps} steps"
     assert ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
     assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
-    return launches
+    return launches, {"train_steps": steps, "wall_s": wall,
+                      "per_pass": per_pass}
 
 
 def vit_l14_main_path_phase():
@@ -807,8 +835,8 @@ def vit_l14_main_path_phase():
 
 def mvp_main_path_phase():
     """mvp-clip on ViT-B/16 through ``main`` (``scripts/mvp_clip.sh``'s
-    method flags): the prompted pass runs kernels #3 and #4, the query and
-    text passes kernel #1."""
+    method flags, the default ``--transforms``): the prompted pass runs
+    kernels #3 and #4, the query and text passes kernel #1."""
     import torch
     from lifelong_clip_tpu_torch.methods import mvp_clip
     launches, per_pass, outs, wall = run_main_path(
@@ -818,7 +846,7 @@ def mvp_main_path_phase():
         ["--method", "mvp-clip", "--model_name", "ViT-B/16", "--dataset",
          "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
          "--online_iter", "3", "--use_mask", "--use_contrastiv",
-         "--eval_period", "640", "--transforms"],
+         "--eval_period", "640"],
         lambda out: float(out[1]["loss"]))
     tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
     assert tr["fused_prefix_attention_fwd"] > 0 and \
@@ -838,10 +866,10 @@ def mvp_main_path_phase():
 
 
 def maple_main_path_phase():
-    """MaPLe on ViT-B/16 through ``main`` (``scripts/maple.sh``): kernels
-    #1 and #2 in the vision tower (T = 197 + 3 = 200) and in the trained
-    text tower (causal, one row a class of the step) in every train step,
-    #1 in the eval and text passes."""
+    """MaPLe on ViT-B/16 through ``main`` (``scripts/maple.sh``, the
+    default ``--transforms``): kernels #1 and #2 in the vision tower (T =
+    197 + 3 = 200) and in the trained text tower (causal, one row a class
+    of the step) in every train step, #1 in the eval and text passes."""
     from lifelong_clip_tpu_torch.methods import maple
     launches, per_pass, outs, wall = run_main_path(
         "maple", maple,
@@ -849,8 +877,7 @@ def maple_main_path_phase():
          "text": "make_maple_text_fn"},
         ["--method", "maple", "--model_name", "ViT-B/16", "--dataset",
          "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
-         "--online_iter", "3", "--lr", "5e-4", "--opt_name", "adamw",
-         "--transforms"],
+         "--online_iter", "3", "--lr", "5e-4", "--opt_name", "adamw"],
         lambda st: float(st["loss"]))
     tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
     steps = len(outs)
@@ -932,9 +959,10 @@ def frozen_clip(dev, model="ViT-B/16"):
 
 
 def lora_setup(model="ViT-B/16", remat=False):
-    """lora-clip's train step (LoRA r=4 on the image tower, AdamW 5e-4) on
-    one batch of 64 against 64 cached class-text features; ``remat``
-    checkpoints each vision block. The launch counters are set to 0 just
+    """lora-clip's train step as ``bench.py:41-60`` times it (LoRA r=4 on
+    the image tower, AutoAugment's cifar10 policy, AdamW 5e-4) on one batch
+    of 64 against 64 cached class-text features; ``remat`` checkpoints each
+    vision block. The launch counters are set to 0 just
     before the text pass. Returns (cfg, state, one step returning its loss,
     the text pass's launches)."""
     import torch
@@ -953,7 +981,9 @@ def lora_setup(model="ViT-B/16", remat=False):
                        make_opt=lambda lv: make_optimizer("adamw", lv, 5e-4),
                        gen=torch.Generator().manual_seed(2))
     step = make_train_step(cfg, peft_cfg, image_size=cfg.image_size,
-                           mean=MEAN, std=STD, augment=True, remat=remat)
+                           mean=MEAN, std=STD, augment=True, remat=remat,
+                           use_autoaug=True, autoaug_policy="cifar10",
+                           cached_text=True)
     n_cls, bs = 64, 64
     images, labels, tokens = gate_batch(cfg, n_cls, bs)
     reset_launches()
@@ -981,7 +1011,7 @@ def learning_gate(card, model="ViT-B/16"):
     label = "lora-clip" if model == "ViT-B/16" else f"lora-clip {model}"
     reset_launches()
     out = gate_loop(label, one_step, 64, card,
-                    model=f"{model} LoRA r=4, no AutoAugment")
+                    model=f"{model} LoRA r=4, AutoAugment cifar10")
     torch.cuda.synchronize()
     launches = launch_counts()
     n = len(steps) * cfg.vision_layers
@@ -993,6 +1023,66 @@ def learning_gate(card, model="ViT-B/16"):
     out["launches"], out["text_pass_launches"] = launches, text
     log(f"{label} gate: {len(steps)} steps, launches {launches}, text pass "
         f"{text}")
+    return out
+
+
+def lora_both_setup(n_cls=100, bs=64):
+    """lora-clip with LoRA r=4 on both towers (``scripts/lora_clip.sh``'s
+    ``--peft_encoder both``), AutoAugment cifar10, AdamW 5e-4, on one batch
+    of 64 against ``n_cls`` class-token rows (CIFAR-100's class count):
+    the text tower runs forward and backward every step, kernels #1/#2
+    under the causal mask at K x 77 x 512. Returns (cfg, state, one step
+    returning its loss)."""
+    import torch
+    from lifelong_clip_tpu_torch.config import PEFTConfig
+    from lifelong_clip_tpu_torch.methods.engine import (TrainState,
+                                                        make_train_step)
+    from lifelong_clip_tpu_torch.models import build_peft
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+
+    dev = torch.device("cuda")
+    _, frozen, cfg = frozen_clip(dev)
+    peft_cfg = PEFTConfig(method="lora", encoder="both", lora_r=4)
+    peft = build_peft(torch.Generator().manual_seed(1), cfg, peft_cfg,
+                      device=dev)
+    state = TrainState(trainable=peft, frozen=frozen,
+                       make_opt=lambda lv: make_optimizer("adamw", lv, 5e-4),
+                       gen=torch.Generator().manual_seed(2))
+    step = make_train_step(cfg, peft_cfg, image_size=cfg.image_size,
+                           mean=MEAN, std=STD, augment=True,
+                           use_autoaug=True, autoaug_policy="cifar10",
+                           cached_text=False)
+    images, labels, tokens = gate_batch(cfg, n_cls, bs)
+    batch = {"images": images.to(dev), "labels": labels.to(dev),
+             "tokens": tokens.to(dev), "mask": torch.zeros(n_cls, device=dev)}
+    return cfg, state, lambda: step(state, batch)["loss"]
+
+
+def lora_both_gate(card):
+    """The both-tower gate (``lora_both_setup``), with the launch counters
+    set to 0 just before it and read just after: every step runs the fused
+    block forward and backward once a layer of each tower."""
+    import torch
+    cfg, _, run_step = lora_both_setup()
+    steps = []
+
+    def one_step():
+        steps.append(1)
+        return run_step()
+
+    reset_launches()
+    out = gate_loop("lora-clip both towers", one_step, 64, card,
+                    model="ViT-B/16 LoRA r=4 on both towers, 100 uncached "
+                    "class rows, AutoAugment cifar10")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n = len(steps) * (cfg.vision_layers + cfg.text_layers)
+    assert launches["fused_ln_attention_fwd"] == n and \
+        launches["fused_ln_attention_bwd"] == n and \
+        launches["flash_attention_fwd"] == 0, (launches, len(steps))
+    out["launches"] = launches
+    log(f"lora-clip both towers gate: {len(steps)} steps, launches "
+        f"{launches}")
     return out
 
 
@@ -1254,6 +1344,199 @@ def prompted_lora_gate(card):
                      "layer (flash attention), no AutoAugment")
 
 
+def annotate_augmentation():
+    """Run every train pipeline the port builds from here on inside a
+    torch.profiler range (``AUG_RANGE``), so a step's profile splits out
+    the augmentation's device time. Costs a range push and pop a step."""
+    import torch
+    from lifelong_clip_tpu_torch.ops import preprocess
+    make = preprocess.make_train_pipeline
+
+    def annotated(*a, **kw):
+        pipe = make(*a, **kw)
+
+        def run(gen, images_u8):
+            with torch.profiler.record_function(AUG_RANGE):
+                return pipe(gen, images_u8)
+        return run
+
+    preprocess.make_train_pipeline = annotated
+
+
+# (label, image side, policy): CIFAR-size inputs under each policy, and the
+# native high-resolution road (e.g. ImageNet-R), all resized to 224
+AUG_CASES = (("32x32 cifar10", 32, "cifar10"), ("32x32 imagenet", 32,
+                                                "imagenet"),
+             ("32x32 svhn", 32, "svhn"), ("224x224 imagenet", 224,
+                                          "imagenet"))
+# exact on the card as on the CPU: integer arithmetic, selects, warps whose
+# tap weights are 0 or 1; the rest within 1e-5 (sums in another order)
+AUG_EXACT = ("Invert", "Posterize", "Solarize", "Equalize", "Identity",
+             "TranslateX", "TranslateY")
+
+
+def augmentation_phase(card, bs=64):
+    """The train pipeline alone (AutoAugment, resize + pad + crop, flip,
+    normalize; bf16 out as the step) at bs 64 on uint8 images, timed with
+    CUDA events and by device-busy ms, its host ms beside; then the card
+    against the CPU at the same draws: every op of the table on the same
+    input (``AUG_EXACT`` bit for bit, equalize among them; the rest within
+    1e-5; translations by whole pixels), each AutoAugment stage from the
+    same input within 1e-5, and the whole pipeline (fp32 out) within 1e-5
+    at every element."""
+    import numpy as np
+    import torch
+    from lifelong_clip_tpu_torch.ops import autoaugment as aa
+    from lifelong_clip_tpu_torch.ops import preprocess
+    dev = torch.device("cuda")
+    make = preprocess.TrainPipeline    # the port's own, not annotated
+    rows = []
+    for label, side, policy in AUG_CASES:
+        g = torch.Generator().manual_seed(side)
+        u8 = torch.randint(0, 256, (bs, side, side, 3), dtype=torch.uint8,
+                           generator=g)
+        xd = u8.to(dev)
+        pipe = make(224, MEAN, STD, use_autoaug=True, autoaug_policy=policy)
+        gen = torch.Generator().manual_seed(0)
+        row = {"case": label, "batchsize": bs, "policy": policy}
+        row["ms"] = timed(lambda: pipe(gen, xd), iters=20)
+        row["host_ms"] = host_ms(lambda: pipe(gen, xd), iters=20)
+        row["device_busy_ms"] = device_ms(lambda: pipe(gen, xd), iters=10)
+        # card against CPU
+        x = u8[:8].float() / 255.0
+        errs = {}
+        for name, (fn, _, kind) in aa._OPS.items():
+            mag = {True: -0.25, "enh": 1.6}.get(kind, 0.0)
+            mag = {"Rotate": 17.0, "Posterize": 5.0,
+                   "Solarize": 0.4}.get(name, mag)
+            want, got = fn(x, mag), fn(x.to(dev), mag).cpu()
+            errs[name] = float((got - want).abs().max())
+            exact = name in AUG_EXACT
+            assert (torch.equal(got, want) if exact else
+                    errs[name] <= 1e-5), (label, name, errs[name])
+        pick, gates, signs = aa.draw_auto_augment(
+            torch.Generator().manual_seed(1), 8, policy)
+        op_idx, _, mag = aa._policy_arrays(policy)
+        stage_in = x
+        for j in range(2):
+            oi = op_idx[pick.numpy(), j]
+            mg = aa._signed_mag(oi, mag[pick.numpy(), j], signs[j].numpy())
+            want = aa._apply_stage_batched(stage_in, oi, mg, gates[j])
+            got = aa._apply_stage_batched(stage_in.to(dev), oi, mg,
+                                          gates[j]).cpu()
+            errs[f"stage {j}"] = float((got - want).abs().max())
+            assert errs[f"stage {j}"] <= 1e-5, (label, j, errs)
+            stage_in = want
+        pipe32 = make(224, MEAN, STD, use_autoaug=True, autoaug_policy=policy,
+                      out_dtype=torch.float32)
+        draws = pipe32.draw(torch.Generator().manual_seed(2), 8, side, side)
+        want = pipe32.apply(u8[:8], draws)
+        got = pipe32.apply(xd[:8], draws).cpu()
+        errs["pipeline"] = float((got - want).abs().max())
+        assert errs["pipeline"] <= 1e-5, (label, errs)
+        assert tuple(got.shape) == (8, 224, 224, 3) and \
+            bool(np.isfinite(got.numpy()).all())
+        row["card_vs_cpu_max_abs_err"] = errs
+        log(f"augmentation {json.dumps(row)}")
+        rows.append(row)
+    return {"augmentation": rows, "card": card}
+
+
+class Preempted(Exception):
+    """Stands for a run killed right after a checkpoint."""
+
+
+def checkpoint_phase():
+    """Checkpoint/resume on the card through ``main``, with
+    ``scripts/lora_clip.sh``'s flags (LoRA on both towers, AutoAugment,
+    the prefetcher uploading through pinned memory; ViT-B/16,
+    synthetic-20, bs 64, 2 tasks): an uninterrupted run; a run stopped
+    right after task 0's checkpoint; and a run ``--resume_from`` that
+    checkpoint, which trains task 1 through ``run``. The resumed run's
+    task-1 losses, result and final LoRA tensors must equal the
+    uninterrupted run's bit for bit (the kernels use no atomics)."""
+    import torch
+    from lifelong_clip_tpu_torch import main as cli
+    from lifelong_clip_tpu_torch.methods import adapter_clip
+    from lifelong_clip_tpu_torch.methods.base import OnlineTrainer
+    from lifelong_clip_tpu_torch.utils.checkpoints import load_checkpoint
+
+    argv = ["--method", "lora-clip", "--model_name", "ViT-B/16", "--dataset",
+            "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
+            "--online_iter", "1", "--eval_period", "640", "--peft_encoder",
+            "both", "--visible_classes", "all", "--device", "cuda"]
+    make, save = adapter_clip.make_train_step, OnlineTrainer._maybe_checkpoint
+    losses = []
+
+    def collecting(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*b, **k):
+            out = step(*b, **k)
+            losses.append(out["loss"])
+            return out
+        return run
+
+    def preempt_after_task_0(self, task_id):
+        save(self, task_id)
+        if task_id == 0:
+            raise Preempted
+
+    def drive(tmp, name, *extra):
+        losses.clear()
+        log_path = os.path.join(tmp, name)
+        try:
+            result = cli.main(argv + ["--log_path", log_path, *extra])
+        except Preempted:
+            result = None
+        torch.cuda.synchronize()
+        found = [os.path.join(d, "result.txt")
+                 for d, _, fs in os.walk(log_path) if "result.txt" in fs]
+        text = open(found[0]).read() if found else None
+        return result, text, list(losses)
+
+    adapter_clip.make_train_step = collecting
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck_full = os.path.join(tmp, "ck_full")
+            ck_cut = os.path.join(tmp, "ck_cut")
+            t0 = time.perf_counter()
+            full, full_txt, full_l = drive(tmp, "full", "--ckpt_dir", ck_full)
+            OnlineTrainer._maybe_checkpoint = preempt_after_task_0
+            try:
+                _, cut_txt, cut_l = drive(tmp, "cut", "--ckpt_dir", ck_cut)
+            finally:
+                OnlineTrainer._maybe_checkpoint = save
+            cursor = load_checkpoint(ck_cut)["cursor"]
+            got, got_txt, got_l = drive(tmp, "resumed", "--ckpt_dir", ck_cut,
+                                        "--resume_from", ck_cut)
+            wall = time.perf_counter() - t0
+            want_t = load_checkpoint(ck_full)["state"]["trainable"]
+            got_t = load_checkpoint(ck_cut)["state"]["trainable"]
+    finally:
+        adapter_clip.make_train_step = make
+    n0 = len(cut_l)
+    same_before = len(full_l) > n0 > 0 and all(
+        torch.equal(a, b) for a, b in zip(full_l[:n0], cut_l))
+    same_loss = len(got_l) == len(full_l) - n0 and all(
+        torch.equal(a, b) for a, b in zip(full_l[n0:], got_l))
+    same = [torch.equal(a, b) for a, b in zip(want_t, got_t)]
+    out = {"checkpoint": {
+        "cursor": cursor, "task0_steps": n0, "task1_steps": len(got_l),
+        "first_task1_loss": float(full_l[n0]) if len(full_l) > n0 else None,
+        "resumed_first_task1_loss": float(got_l[0]) if got_l else None,
+        "bitwise_equal_task0_losses": same_before,
+        "bitwise_equal_task1_losses": same_loss,
+        "bitwise_equal_lora_tensors": f"{sum(same)} of {len(same)}",
+        "equal_result": got == full and got_txt == full_txt,
+        "result": full, "wall_s": wall}}
+    log(json.dumps(out))
+    assert cut_txt is None and cursor["task_id"] == 1, out
+    assert same_before and same_loss and same and all(same), out
+    assert full_txt is not None and got == full and got_txt == full_txt, out
+    return out
+
+
 PORT_KERNELS = ("gemm_kernel", "gemm_wgmma_kernel", "attn_fwd_kernel",
                 "attn_fwd_tiled_kernel", "attn_bwd_dq_tiled_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel", "ln_fwd_kernel",
@@ -1285,6 +1568,11 @@ def step_profile(run_step, step_ms, steps=3, top=12):
         log("train step profile: the profiler saw no device time")
         return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
                 "device_busy_ms_per_step": "not measured"}
+    # the train pipeline's kernels, by the profiler range each step's
+    # pipeline call runs in (``annotate_augmentation``)
+    aug = sum(e.device_time_total for e in prof.events()
+              if e.name == AUG_RANGE
+              and e.device_type == torch.autograd.DeviceType.CPU)
     total = sum(by_name.values()) or 1.0
     port = sum(v for k, v in by_name.items()
                if any(k.startswith(f"void {p}") or k.startswith(p)
@@ -1295,6 +1583,8 @@ def step_profile(run_step, step_ms, steps=3, top=12):
            "device_busy_ms_per_step": busy / 1e3 / steps,
            "idle_share_profiled": 1.0 - busy / 1e3 / wall_ms,
            "idle_share_of_step": 1.0 - busy / 1e3 / steps / step_ms,
+           "augmentation_device_ms_per_step": (aug / 1e3 / steps if aug
+                                               else "not measured"),
            "port_kernel_share": port / total,
            "top": [{"kernel": k[:120], "ms_per_step": v / 1e3 / steps}
                    for k, v in ranked]}
@@ -1320,6 +1610,7 @@ def main():
     _kernels.library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: "
         f"{os.path.relpath(path, REPO)} (register report beside it)")
+    annotate_augmentation()
 
     log(f"kernel checks: beyond one bf16 ulp (2**-7 of the value), y and "
         f"qkv within {kc.REL_FWD} and dx and every grad within {kc.REL_BWD} "
@@ -1329,6 +1620,10 @@ def main():
     torch.cuda.synchronize()
     cases.append(kernel_case("text K=20", 20, 77, 512, 8, 0, True, False, 1))
     cases.append(kernel_case("text K=64", 64, 77, 512, 8, 0, True, False, 2))
+    # the text tower of lora-clip with LoRA on both towers, CIFAR-100's
+    # 100 class rows: causal, r=4, the backward as its train step runs it
+    cases.append(kernel_case("text K=100 LoRA", 100, 77, 512, 8, 4, True,
+                             False, 16))
     cases.append(kernel_case("vision weight_grads", 64, 197, 768, 12, 4,
                              False, True, 3, time_it=False))
     # past 256 keys (the tiled roads): ViT-L/14's vision block, T = 512
@@ -1357,7 +1652,9 @@ def main():
     gemms = gemm_phase()
     torch.cuda.synchronize()
 
-    launches = main_path_phase()
+    aug = augmentation_phase(card)
+    torch.cuda.synchronize()
+    launches, lora_run = main_path_phase()
     torch.cuda.synchronize()
     l14_launches, l14_run = vit_l14_main_path_phase()
     torch.cuda.synchronize()
@@ -1368,13 +1665,24 @@ def main():
     pl_launches, pl_run = prompted_lora_phase()
     torch.cuda.synchronize()
     gates = []
-    for gate in (learning_gate, mvp_learning_gate, maple_learning_gate,
-                 prompted_lora_gate,
+    for gate in (learning_gate, lora_both_gate, mvp_learning_gate,
+                 maple_learning_gate, prompted_lora_gate,
                  lambda c: learning_gate(c, model="ViT-L/14")):
         gates.append(gate(card))
         torch.cuda.synchronize()
     remat = remat_phase(card)
     torch.cuda.synchronize()
+    ckpt = checkpoint_phase()
+    torch.cuda.synchronize()
+    # the text tower's share of a both-tower step: its device time less the
+    # image-only step's (64 cached class features there)
+    image, both = (gates[i]["profile"].get("device_busy_ms_per_step")
+                   for i in (0, 1))
+    text_share = (both - image) / both if all(
+        isinstance(v, float) for v in (both, image)) else "not measured"
+    log(json.dumps({"text_tower_share_of_both_tower_step": text_share,
+                    "both_tower_device_ms": both, "image_only_device_ms":
+                    image, "card": card}))
 
     src = "lifelong_clip_tpu_torch/csrc/fused_block_attn.cu"
     flash_src = "lifelong_clip_tpu_torch/csrc/flash_attention.cu"
@@ -1412,6 +1720,10 @@ def main():
                       for c in case_list]})
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
+    log(json.dumps({"lora_clip_main_path": lora_run,
+                    "lora_clip_launches": launches}))
+    log(json.dumps(aug))
+    log(json.dumps(ckpt))
     log(json.dumps({"vit_l14_main_path": l14_run,
                     "vit_l14_launches": l14_launches}))
     log(json.dumps({"mvp_main_path": mvp_run, "mvp_launches": mvp_launches}))

@@ -2,12 +2,12 @@
 
     python -m lifelong_clip_tpu_torch.main --method lora-clip \
         --model_name ViT-B/16 --dataset synthetic-20 --batchsize 64 \
-        --transforms --device cuda
+        --device cuda
 
 The flags and defaults are the JAX package's (``main.py:20-175``) plus
 ``--device {cuda,cpu}`` (default ``cuda``). Flags of parts not ported yet
-(other methods, AutoAugment, meshes, checkpoints, zero-shot eval) raise
-``NotImplementedError`` naming the ROADMAP.md item.
+(other methods, meshes, zero-shot eval) raise ``NotImplementedError``
+naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -221,7 +221,7 @@ def main(argv=None):
                                   "(ROADMAP.md, queue A)")
     trainer = trainer_class(cfg.method, args, parser)(
         cfg, synthetic_fallback=args.synthetic_fallback)
-    return trainer.run()
+    return trainer.run(resume_from=args.resume_from or None)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 """Online LoRA training of CLIP (``lora-clip``).
 
 Counterpart of ``lifelong_clip_tpu/methods/adapter_clip.py:AdapterCLIP``
-(reference ``methods/adapter_clip.py``) for the LoRA method on the image
-tower: per-step class tables, cached class-text features, the replay concat,
-optimizer reset at task boundaries, and eval against the exposed classes.
-Adapter and MoE PEFT are not ported yet (ROADMAP.md, queue A).
+(reference ``methods/adapter_clip.py``) for the LoRA method on either tower
+or both (``--peft_encoder``): per-step class tables, AutoAugment with the
+dataset's policy, class-text features cached while the text tower is frozen
+and recomputed in every step where it trains, the replay concat, optimizer
+reset at task boundaries, and eval against the exposed classes. Adapter and
+MoE PEFT are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -57,11 +59,10 @@ class AdapterCLIP(OnlineTrainer):
                  param_count(self.params), param_count(self.peft))
 
         use_autoaug = "autoaug" in cfg.transforms
+        # image-only PEFT: a class set's text features are constant, so
+        # they are cached outside the step; with LoRA on the text tower the
+        # step runs both towers forward and backward
         self._use_text_cache = not self.peft_cfg.on_text()
-        if not self._use_text_cache:
-            raise NotImplementedError(
-                "LoRA on the text tower (uncached text features) is not "
-                "ported yet (ROADMAP.md, queue A)")
         self._step_txt_cache = {}
         # remat (JAX adapter_clip.py:95-115): --remat, batches of 256 and
         # up, or remat_fallback's retry (fb) after the card runs out of
@@ -69,7 +70,11 @@ class AdapterCLIP(OnlineTrainer):
         self._train_step = remat_fallback(lambda fb: make_train_step(
             self.clip_cfg, self.peft_cfg, image_size=self.clip_cfg.image_size,
             mean=self.train_dataset.mean, std=self.train_dataset.std,
-            use_autoaug=use_autoaug, compute_dtype=self.compute_dtype,
+            use_autoaug=use_autoaug,
+            autoaug_policy=("cifar10" if "cifar" in cfg.dataset else
+                            "svhn" if "svhn" in cfg.dataset else "imagenet"),
+            cached_text=self._use_text_cache,
+            compute_dtype=self.compute_dtype,
             loss_fn=ce_on_probs_loss if cfg.ce_on_probs else None,
             remat=cfg.remat or cfg.batchsize >= 256 or fb))
         self._text_fn = make_text_feature_fn(
@@ -85,17 +90,18 @@ class AdapterCLIP(OnlineTrainer):
         return max(int(n / max(self.cfg.batchsize, 1)
                        * max(self.cfg.online_iter, 1)), 1)
 
-    def _tensor(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
-
     # -- hot loop --------------------------------------------------------------
     def online_step(self, images, labels, indices):
         cfg = self.cfg
         if cfg.memory_size > 0 and len(self.memory) > 0 \
                 and cfg.temp_batchsize > 0:
+            # the prefetcher leaves images on the host when memory is on;
+            # a caller's device tensor is concatenated on the device
             mem_idx = self.memory.sample(cfg.temp_batchsize)
             m_images, m_labels = self.train_dataset.gather(mem_idx)
-            images = np.concatenate([images, m_images], axis=0)
+            images = (torch.cat([images, self._tensor(m_images)])
+                      if isinstance(images, torch.Tensor)
+                      else np.concatenate([images, m_images], axis=0))
             labels = np.concatenate([labels, m_labels], axis=0)
 
         step_bs = cfg.batchsize + max(cfg.temp_batchsize, 0)
@@ -111,18 +117,23 @@ class AdapterCLIP(OnlineTrainer):
             slots = np.where(self.vocab.exposed_mask,
                              np.arange(self.vocab.max_classes), -1)
 
-        key = tuple(int(s) for s in slots)
-        feats = self._step_txt_cache.get(key)
-        if feats is None:
-            feats = self._text_fn(self.state.frozen, self.state.trainable,
-                                  self._tensor(tokens))
-            if len(self._step_txt_cache) > 512:
-                self._step_txt_cache.clear()
-            self._step_txt_cache[key] = feats
+        if self._use_text_cache:
+            key = tuple(int(s) for s in slots)
+            feats = self._step_txt_cache.get(key)
+            if feats is None:
+                feats = self._text_fn(self.state.frozen,
+                                      self.state.trainable,
+                                      self._tensor(tokens))
+                if len(self._step_txt_cache) > 512:
+                    self._step_txt_cache.clear()
+                self._step_txt_cache[key] = feats
+            tokens_or_feats = feats
+        else:
+            tokens_or_feats = self._tensor(tokens, torch.int64)
 
         batch = {"images": self._tensor(images),
                  "labels": self._tensor(y, torch.int64),
-                 "tokens": feats,
+                 "tokens": tokens_or_feats,
                  "mask": self._tensor(mask, torch.float32)}
         stats = {}
         for _ in range(max(int(cfg.online_iter), 1)):

@@ -3,8 +3,10 @@
 Counterpart of ``lifelong_clip_tpu/methods/base.py:OnlineTrainer`` (the
 reference's ``_Trainer``, ``methods/_trainer.py:249-653``): seeding, stream
 and dataset setup, the task x batch loop, periodic online evaluation and the
-result artifacts in the reference's format. Device meshes, the batch
-prefetcher and checkpoint/resume are not ported yet (ROADMAP.md, queue A).
+result artifacts in the reference's format, the batch prefetcher
+(``data/prefetch.py``) and checkpoint/resume at task boundaries
+(``utils/checkpoints.py``). Device meshes are not ported yet (ROADMAP.md,
+queue A).
 """
 
 from __future__ import annotations
@@ -41,9 +43,6 @@ class OnlineTrainer:
             raise NotImplementedError(
                 f"device meshes are not ported yet (got {cfg.mesh_shape}); "
                 "run with --mesh 1x1 (ROADMAP.md, queue A)")
-        if cfg.ckpt_dir or cfg.resume_from:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (ROADMAP.md, queue A)")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.gen = torch.Generator().manual_seed(cfg.seed)
@@ -124,13 +123,26 @@ class OnlineTrainer:
         pass
 
     # -- main loop ------------------------------------------------------------
-    def run(self):
+    def run(self, resume_from: Optional[str] = None):
+        """The task x batch loop; ``resume_from`` restores a checkpoint
+        first and starts at its cursor."""
         cfg = self.cfg
+        from ..data.prefetch import BatchPrefetcher
         from ..utils.observability import StepTimer, profile_trace
         self.step_timer = StepTimer()
+
+        start_task = 0
+        if resume_from:
+            from ..utils.checkpoints import restore_trainer
+            cursor = restore_trainer(self, resume_from)
+            start_task = cursor.get("task_id", 0)
+            self.samples_seen = cursor.get("samples_seen", 0)
+            self._next_eval = cursor.get("next_eval", cfg.eval_period)
+            log.info("resumed from %s at task %d", resume_from, start_task)
+
         profile_dir = os.path.join(self.result_dir(), "profile")
         with profile_trace(profile_dir, enabled=cfg.profile):
-            for task_id in range(self.stream.n_tasks):
+            for task_id in range(start_task, self.stream.n_tasks):
                 log.info("### task %d / %d ###", task_id + 1,
                          self.stream.n_tasks)
                 self.online_before_task(task_id)
@@ -138,9 +150,14 @@ class OnlineTrainer:
                 if cfg.debug:
                     task_indices = task_indices[:500]
                 for _ in range(max(int(cfg.epoch_num), 1)):
-                    for batch_idx in iter_batches(task_indices,
-                                                  cfg.batchsize):
-                        images, labels = self.train_dataset.gather(batch_idx)
+                    # the gather (and upload) of the next batches overlap
+                    # this batch's step
+                    pf = BatchPrefetcher(iter_batches(task_indices,
+                                                      cfg.batchsize),
+                                         self.train_dataset.gather,
+                                         place=self._prefetch_place(),
+                                         depth=2)
+                    for batch_idx, images, labels in pf:
                         self.vocab.expose(labels)
                         with self.step_timer.tick():
                             stats = self.online_step(images, labels,
@@ -153,10 +170,48 @@ class OnlineTrainer:
                             self._next_eval += cfg.eval_period
                 self.online_after_task(task_id)
                 self._task_end_eval(task_id)
+                self._maybe_checkpoint(task_id)
         try:
             return self.save_result()
         finally:
             self._teardown_run_logger()
+
+    def _prefetch_place(self):
+        """Where the prefetcher puts a batch's images (JAX
+        ``base.py:412-434``): on the card through pinned memory and a side
+        stream, except with replay memory (``memory_size > 0``), whose
+        concat assembles the step's batch on the host, and on the CPU."""
+        if self.cfg.memory_size > 0 or self.device.type != "cuda":
+            return None
+        if getattr(self, "_upload", None) is None:
+            from ..data.prefetch import DeviceUpload
+            self._upload = DeviceUpload(self.device)
+        return self._upload
+
+    def _maybe_checkpoint(self, task_id: int):
+        """Checkpoint after a task to ``--ckpt_dir`` (or ``LLC_CKPT_DIR``),
+        with the cursor at the next task's first batch."""
+        ckpt_dir = self.cfg.ckpt_dir or os.environ.get("LLC_CKPT_DIR", "")
+        if not ckpt_dir:
+            return
+        from ..utils.checkpoints import save_checkpoint
+        save_checkpoint(
+            ckpt_dir, state=getattr(self, "state", None), memory=self.memory,
+            vocab=self.vocab, metrics=self.metrics,
+            cursor={"task_id": task_id + 1,
+                    "samples_seen": self.samples_seen,
+                    "next_eval": self._next_eval},
+            extra=self.checkpoint_extra())
+        log.info("checkpoint saved to %s (post-task %d)", ckpt_dir,
+                 task_id + 1)
+
+    def checkpoint_extra(self):
+        """Hook: method state kept outside ``self.state`` to save with it
+        (tensors, arrays and plain Python values)."""
+        return {}
+
+    def restore_extra(self, extra):
+        """Hook: restore what ``checkpoint_extra`` saved."""
 
     # -- evaluation -----------------------------------------------------------
     def evaluate(self):
@@ -227,7 +282,8 @@ class OnlineTrainer:
     def _task_end_eval(self, task_id: int):
         correct, total = self.evaluate()
         acc = self.metrics.record_task_end(correct, total)
-        t = self.step_timer.summary()
+        timer = getattr(self, "step_timer", None)   # set by run()
+        t = timer.summary() if timer else {}
         log.info("task %d done | acc %.4f | elapsed %.1fs | "
                  "step p50 %.1fms p99 %.1fms", task_id + 1, acc,
                  time.time() - self._start, t.get("p50_ms", 0.0),
@@ -280,6 +336,16 @@ class OnlineTrainer:
         return out
 
     # -- misc helpers ----------------------------------------------------------
+    def _tensor(self, a, dtype=None):
+        """``a`` (a host array, or a tensor the prefetcher already put on
+        the device) as a tensor on the trainer's device. The copy from
+        pageable host memory is staged before this returns and does not
+        wait for the device's queue, so the host keeps ahead of the
+        device."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a))
+        return a.to(self.device, dtype, non_blocking=True)
+
     def next_gen(self) -> torch.Generator:
         """A fresh generator seeded from the trainer's (``next_rng``)."""
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.gen))
@@ -287,11 +353,14 @@ class OnlineTrainer:
 
 
 def pad_batch(images, labels, batch_size: int):
-    """Pad a short tail batch to the static step shape; returns valid count."""
+    """Pad a short tail batch to the static step shape; returns valid count.
+    ``images`` may be a host array or a tensor already on the device (the
+    prefetcher's upload), which is then padded there."""
     n = len(labels)
     if n == batch_size:
         return images, labels, n
     reps = -(-batch_size // n)
-    images = np.concatenate([images] * reps, axis=0)[:batch_size]
+    cat = torch.cat if isinstance(images, torch.Tensor) else np.concatenate
+    images = cat([images] * reps, 0)[:batch_size]
     labels = np.concatenate([labels] * reps, axis=0)[:batch_size]
     return images, labels, n

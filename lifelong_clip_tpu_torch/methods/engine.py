@@ -1,10 +1,11 @@
 """The online-learning engine: one train step, one eval step, the text pass.
 
-Counterpart of ``lifelong_clip_tpu/methods/engine.py`` on its single-device,
-cached-text road: the vision tower with LoRA runs forward and backward
-through the fused attention kernels (``base_grads=False``), logits go
-against cached normalized class-text features, and a ``torch.optim``
-optimizer updates the LoRA tree. The step runs eagerly (the JAX package
+Counterpart of ``lifelong_clip_tpu/methods/engine.py`` on one device: the
+towers with LoRA run forward and backward through the fused attention
+kernels (``base_grads=False``), the text tower too where it trains
+(``peft_forward``), else logits go against cached normalized class-text
+features (``peft_forward_cached_text``), and a ``torch.optim`` optimizer
+updates the LoRA tree. The step runs eagerly (the JAX package
 jits it); its state is an explicit ``TrainState`` object. ``remat``
 checkpoints the tower forward and ``remat_fallback`` retries a step once
 with it after the card runs out of memory, as the JAX engine does.
@@ -99,6 +100,19 @@ def remat_fallback(build: Callable[[bool], Callable]) -> Callable:
     return step
 
 
+def peft_forward(frozen, trainable, images, tokens, clip_cfg: CLIPConfig,
+                 peft_cfg: PEFTConfig, compute_dtype, attn_impl: str = "fused",
+                 remat: bool = False):
+    """CLIP forward over both towers with the PEFT trees routed to them
+    (``engine.py:130-142``): the text tower runs forward and backward every
+    step. The towers' own weights are frozen (``base_grads=False``)."""
+    return clip_fns.clip_forward(
+        frozen, images, tokens, clip_cfg, peft_cfg=peft_cfg,
+        peft_vision=trainable.get("vision"), peft_text=trainable.get("text"),
+        compute_dtype=compute_dtype, attn_impl=attn_impl, base_grads=False,
+        remat=remat)
+
+
 def peft_forward_cached_text(frozen, trainable, images, txt_features,
                              clip_cfg: CLIPConfig, peft_cfg: PEFTConfig,
                              compute_dtype, attn_impl: str = "fused",
@@ -133,32 +147,39 @@ def _default_loss(logits, labels):
 def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
                     image_size: int, mean, std, augment: bool = True,
                     use_autoaug: bool = False,
+                    autoaug_policy: str = "imagenet",
                     compute_dtype=torch.bfloat16, attn_impl: str = "fused",
                     forward_fn: Optional[Callable] = None,
                     loss_fn: Optional[Callable] = None,
+                    cached_text: bool = False,
                     remat: bool = False):
     """Build the online train step ``step(state, batch) -> metrics``.
 
     batch dict (tensors on the device):
       images  (B, H, W, C) uint8 raw samples
       labels  (B,) int64, already remapped to class-table slots
-      tokens  (K, E) cached normalized text features, or, with
-              ``forward_fn``, whatever it takes: MaPLe's (K, ctx) class
-              token table
+      tokens  (K, ctx) int class token table (both towers run,
+              ``peft_forward``), or with ``cached_text`` (K, E) cached
+              normalized text features (``peft_forward_cached_text``), or,
+              with ``forward_fn``, whatever it takes: MaPLe's (K, ctx)
+              class token table
       mask    (K,) f32, 0 on valid class slots, -inf on padding
     ``forward_fn(frozen, trainable, images, tokens) -> (logits, img, txt)``
-    replaces the image-PEFT forward (JAX ``engine.py:233-236``).
+    replaces the PEFT forward (JAX ``engine.py:233-236``).
     ``augment=False`` casts the raw uint8 straight to the compute dtype
-    (``engine.py:277-278``). ``remat`` checkpoints each vision block of
-    the image-PEFT forward, or the whole ``forward_fn`` (JAX
+    (``engine.py:277-278``); ``use_autoaug`` runs AutoAugment's
+    ``autoaug_policy`` first. ``remat`` checkpoints each block of the PEFT
+    forward's towers, or the whole ``forward_fn`` (JAX
     ``engine.py:237-242``): the backward recomputes the forward instead of
     keeping its intermediates. The step updates ``state`` in place.
     """
     pipeline = preprocess.make_train_pipeline(
         image_size, mean, std, use_autoaug=use_autoaug,
+        autoaug_policy=autoaug_policy,
         out_dtype=compute_dtype) if augment else None
     fwd = forward_fn or functools.partial(
-        peft_forward_cached_text, clip_cfg=clip_cfg, peft_cfg=peft_cfg,
+        peft_forward_cached_text if cached_text else peft_forward,
+        clip_cfg=clip_cfg, peft_cfg=peft_cfg,
         compute_dtype=compute_dtype, attn_impl=attn_impl, remat=remat)
     if forward_fn is not None and remat:
         fwd = functools.partial(torch.utils.checkpoint.checkpoint, forward_fn,

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import logging
 
-import numpy as np
 import torch
 
 from ..config import PEFTConfig
@@ -91,9 +90,6 @@ class MaPLe(OnlineTrainer):
         self._eval_fn = make_maple_eval_step(ccfg, n_ctx, mean=mean, std=std,
                                              compute_dtype=dt)
         self._txt_cache_key = None
-
-    def _tensor(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
     def online_before_task(self, task_id):
         # the reference rebuilds the optimizer at every task boundary

@@ -12,8 +12,8 @@ broadcast quirk), and the prompt-pool similarity loss is added.
 
 The text features do not depend on the trainable tree: the train step takes
 them from a cache keyed by the step's class slots, which changes no value.
-The e-prompt usage counts are a device tensor outside the optimizer.
-Checkpointing them waits for checkpoints (ROADMAP.md, queue A).
+The e-prompt usage counts are a device tensor outside the optimizer; a
+checkpoint keeps them (``checkpoint_extra``).
 """
 
 from __future__ import annotations
@@ -250,8 +250,18 @@ class CLIP_MVP(OnlineTrainer):
         self._step_txt_cache = {}
         self._txt_cache_n = -1
 
-    def _tensor(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+    # the e-prompt usage counts live outside TrainState: without them a
+    # resumed run would restart the pool's selection statistics at zero
+    def checkpoint_extra(self):
+        extra = super().checkpoint_extra()
+        extra["mvp_clip"] = {"count": self.count.detach().cpu()}
+        return extra
+
+    def restore_extra(self, extra):
+        super().restore_extra(extra)
+        st = (extra or {}).get("mvp_clip")
+        if st:
+            self.count = st["count"].to(self.device)
 
     def online_step(self, images, labels, indices):
         cfg = self.cfg

@@ -15,8 +15,9 @@ it has KV-prefix prompts, no LoRA and a mask that op takes, and otherwise
 ``ops/attention.multi_head_attention`` on the flash-attention op. Each op's
 CUDA kernels run on the card and its plain version on the CPU.
 ``attn_impl="unfused"`` (the JAX ``"xla"`` road) composes LN and
-``multi_head_attention`` on plain PyTorch. Adapter and MoE PEFT and
-text-side prompts are not ported yet.
+``multi_head_attention`` on plain PyTorch. ``clip_forward`` runs both
+towers, LoRA on either. Adapter and MoE PEFT and text-side prompts are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -257,9 +258,11 @@ def encode_image(params, images, cfg: CLIPConfig, *,
 def encode_text(params, tokens, cfg: CLIPConfig, *,
                 peft_cfg: Optional[PEFTConfig] = None, peft=None,
                 layer_prompts=None, compute_dtype=torch.bfloat16,
-                attn_impl: str = "fused", base_grads: bool = True):
+                attn_impl: str = "fused", base_grads: bool = True,
+                remat: bool = False):
     """Text tower. ``tokens``: (B, context_length) integer ids. Pools at the
-    EOT position (argmax of the ids, reference model.py:941-956)."""
+    EOT position (argmax of the ids, reference model.py:941-956);
+    ``remat``: checkpoint each block (``transformer``)."""
     if layer_prompts is not None:
         raise NotImplementedError("text-side KV-prefix prompts are not "
                                   "ported yet (ROADMAP.md, queue A)")
@@ -274,7 +277,7 @@ def encode_text(params, tokens, cfg: CLIPConfig, *,
                     peft_cfg=peft_cfg if (peft_cfg and peft_cfg.on_text())
                     else None,
                     peft=pt, attn_impl=attn_impl, act=cfg.act,
-                    base_grads=base_grads)
+                    base_grads=base_grads, remat=remat)
     x = layer_norm(x, t["ln_final"])
     eot = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -285,3 +288,23 @@ def normalize(x, eps: float = 1e-8):
     x32 = x.float()
     return (x32 / (torch.linalg.vector_norm(x32, dim=-1, keepdim=True)
                    + eps)).to(x.dtype)
+
+
+def clip_forward(params, images, tokens, cfg: CLIPConfig, *,
+                 peft_cfg: Optional[PEFTConfig] = None, peft_vision=None,
+                 peft_text=None, compute_dtype=torch.bfloat16,
+                 attn_impl: str = "fused", base_grads: bool = True,
+                 remat: bool = False):
+    """Both towers: (logits (B, K) fp32 at ``exp(logit_scale)``, normalized
+    image features, normalized text features) (JAX ``clip_forward``,
+    reference ``CLIP.forward`` without the transposed logits)."""
+    img = normalize(encode_image(
+        params, images, cfg, peft_cfg=peft_cfg, peft=peft_vision,
+        compute_dtype=compute_dtype, attn_impl=attn_impl,
+        base_grads=base_grads, remat=remat))
+    txt = normalize(encode_text(
+        params, tokens, cfg, peft_cfg=peft_cfg, peft=peft_text,
+        compute_dtype=compute_dtype, attn_impl=attn_impl,
+        base_grads=base_grads, remat=remat))
+    scale = torch.exp(params["logit_scale"]).float()
+    return scale * (img.float() @ txt.float().T), img, txt

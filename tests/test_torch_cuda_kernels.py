@@ -36,14 +36,17 @@ def _inputs(dev, b, t, d, r, seed=0):
 # T on and off a multiple of 16; the vision block's T = 197; past 256 keys
 # (the tiled roads): ViT-L/14's block (T = 257, D = 1024, 16 heads) with and
 # without weight_grads, T = 512, causal T = 300, and T = 800, whose queries
-# the dk/dv kernel cannot hold at once and streams
+# the dk/dv kernel cannot hold at once and streams; the text tower of
+# lora-clip with LoRA on both towers at CIFAR-100's 100 class rows (causal,
+# r=4, D = 512: the GEMMs' N = 1536 and 512)
 CASES = [(2, 13, 128, 2, 4, False, False), (3, 77, 256, 4, 0, True, True),
          (2, 197, 192, 3, 4, False, True), (2, 9, 128, 4, 4, True, False),
          (2, 32, 64, 4, 2, False, True),
          (2, 257, 1024, 16, 4, False, False),
          (2, 257, 1024, 16, 4, False, True),
          (2, 512, 256, 4, 4, False, False), (1, 300, 128, 2, 0, True, True),
-         (1, 800, 64, 1, 0, False, False)]
+         (1, 800, 64, 1, 0, False, False),
+         (100, 77, 512, 8, 4, True, False)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,r,causal,wg", CASES)

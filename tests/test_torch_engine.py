@@ -113,7 +113,7 @@ def test_three_train_steps_match_jax(setup, impl, jimpl):
         TCFG, PEFTConfig(method="lora", encoder="image", lora_r=4),
         image_size=32, mean=MEAN, std=STD, augment=False,
         compute_dtype=torch.float32, attn_impl=impl,
-        loss_fn=tengine.ce_on_probs_loss)
+        loss_fn=tengine.ce_on_probs_loss, cached_text=True)
     tbatch = {"images": torch.tensor(images),
               "labels": torch.tensor(labels, dtype=torch.int64),
               "tokens": torch.tensor(np.asarray(txt)),
@@ -196,8 +196,14 @@ def test_preprocess_ops_match_jax():
     out = tpre.make_train_pipeline(48, MEAN, STD)(
         torch.Generator().manual_seed(0), torch.tensor(u8))
     assert out.shape == (3, 48, 48, 3) and out.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        tpre.make_train_pipeline(48, MEAN, STD, use_autoaug=True)
+    # with AutoAugment (held against JAX in test_torch_autoaugment.py)
+    out = tpre.make_train_pipeline(48, MEAN, STD, use_autoaug=True,
+                                   autoaug_policy="cifar10")(
+        torch.Generator().manual_seed(0), torch.tensor(u8))
+    assert out.shape == (3, 48, 48, 3) and torch.isfinite(out.float()).all()
+    with pytest.raises(ValueError):
+        tpre.make_train_pipeline(48, MEAN, STD, use_autoaug=True,
+                                 autoaug_policy="no-such-policy")
 
 
 @pytest.mark.parametrize("opt", ["adamw", "adam", "sgd"])

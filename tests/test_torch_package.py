@@ -57,7 +57,7 @@ def test_cli_cpu_run_writes_result(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--transforms", "autoaug"],
+    ["--transforms", "--zero_shot_evaluation"],
     ["--transforms", "--method", "continual-clip"],
     ["--transforms", "--mesh", "2x1"],
 ])

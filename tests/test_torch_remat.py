@@ -75,7 +75,7 @@ def _lora_clip(remat):
                                   mean=MEAN, std=STD,
                                   compute_dtype=torch.float32,
                                   loss_fn=engine.ce_on_probs_loss,
-                                  remat=remat)
+                                  cached_text=True, remat=remat)
     images, labels, tokens = _data()
     txt = engine.make_text_feature_fn(cfg, peft_cfg,
                                       compute_dtype=torch.float32)(
