@@ -6,7 +6,8 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from lifelong_clip_tpu_torch/csrc.
 3. Kernel phase: the fused LN-attention block, forward and backward, at the
-   ViT-B/16 vision shape (64 x 197 x 768, 12 heads, LoRA r=4, bf16, no mask),
+   ViT-B/16 vision shape (64 x 197 x 768, 12 heads, LoRA r=4, bf16, no mask,
+   and with no LoRA and dx only, as adapter-clip and moe-clip run it),
    the text shape (20 and 64 x 77 x 512, 8 heads, causal), ViT-L/14's
    vision shape (64 x 257 x 1024, 16 heads, LoRA r=4) and T = 512 (8 x 512 x
    768, weight_grads), the KV-prefix block at the mvp-clip shape (64 x 197 x
@@ -55,17 +56,29 @@
    with LoRA r=4 and (12, 64, 20, 768) raw KV prompts, bs 64,
    ``ce_on_probs_loss``, AdamW over LoRA and prompts): 3 train steps and
    one eval forward, 12 flash launches forward and 12 backward a step.
+   Then adapter-clip and moe-clip as ``scripts/adapter_clip.sh`` sets them
+   (image tower, online_iter 3; kernel #1 in all 12 vision blocks and #2,
+   dx only, in blocks 1-11 of every step); an OpenAI-layout ViT-B/16
+   checkpoint written from a seed with ``torch.save`` and read back exactly
+   by ``models/convert.py``; continual-clip as
+   ``scripts/continual_clip.sh`` sets it from that checkpoint
+   (``--pretrained_path``) with ``--zero_shot_evaluation`` on synthetic-20,
+   whose line must close result.txt; and continual-clip's eval throughput
+   at test_batchsize 128 (the eval step alone, the text-cache pass and
+   ``evaluate`` end to end).
 6. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip
    step (AutoAugment cifar10, as bench.py), the same with LoRA on both
    towers at 100 uncached class rows, the mvp-clip, MaPLe and
-   prompted-LoRA steps and the ViT-L/14 lora-clip step on one batch lower
-   the loss by more than 0.02; each prints step ms, samples/s and the peak
+   prompted-LoRA steps, the ViT-L/14 lora-clip step and the adapter-clip
+   and moe-clip steps on one batch lower the loss by more than 0.02; each
+   prints step ms, samples/s and the peak
    device memory of its steps, then a torch.profiler window over 3 more
    steps (device ms a step by kernel, the device's idle share, the
-   augmentation's device ms by its profiler range). The lora-clip gates
-   also count their launches (one fused forward and backward a layer of
-   each trained tower a step); the text tower's share of the both-tower
-   step is its device time less the image-only step's.
+   augmentation's device ms by its profiler range). The lora-clip,
+   adapter-clip and moe-clip gates also count their launches (one fused
+   forward a layer of each trained tower a step, and one backward, but for
+   block 0 with the adapter or the MoE); the text tower's share of the
+   both-tower step is its device time less the image-only step's.
 7. Remat: the lora-clip and mvp-clip gate steps without remat and with it
    (each vision block, or mvp-clip's prompted tower, checkpointed), from
    the same seeds: bitwise equal loss and grads, a lower peak memory with
@@ -75,10 +88,13 @@
    it (as in 5) three times with ``--ckpt_dir``: uninterrupted, stopped
    right after task 0's checkpoint, and ``--resume_from`` that checkpoint;
    the resumed run's task-1 losses, result and final LoRA tensors must be
-   bitwise those of the uninterrupted run.
+   bitwise those of the uninterrupted run. The same for moe-clip with
+   ``scripts/adapter_clip.sh``'s flags, whose gate noise the resumed run
+   must draw as the uninterrupted one does.
 
 Any failure raises and exits non-zero. The line before the last is the
-``kernels`` JSON object (six kernels); the last line is
+``kernels`` JSON object (six kernels; each one's launches summed over
+every main path of 5); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -733,11 +749,13 @@ def reset_launches():
     fa.reset_launches()
 
 
-def run_main_path(label, module, factories, argv, loss_of):
+def run_main_path(label, module, factories, argv, loss_of, in_result=None):
     """Drive ``main(argv)`` with the launch counters set to 0 just before
     and read just after, counting each pass's launches by wrapping the
     method module's step factories (``factories``: pass -> factory name).
-    Returns (launches, per-pass launches, train-step outputs, wall s)."""
+    With a ``train`` pass every loss must be finite; ``in_result``: a text
+    result.txt must hold. Returns (launches, per-pass launches, train-step
+    outputs, wall s)."""
     import numpy as np
     import torch
     from lifelong_clip_tpu_torch import main as cli
@@ -771,15 +789,29 @@ def run_main_path(label, module, factories, argv, loss_of):
             found = [os.path.join(r, "result.txt")
                      for r, _, fs in os.walk(tmp) if "result.txt" in fs]
             assert found, f"{label} main path wrote no result.txt"
+            text = open(found[0]).read()
     finally:
         for p, f in factories.items():
             setattr(module, f, orig[p])
+    assert in_result is None or in_result in text, \
+        f"{label} result.txt lacks {in_result!r}: {text[-300:]!r}"
     losses = [loss_of(o) for o in outs]
-    assert losses and np.isfinite(losses).all(), f"{label} losses {losses}"
-    log(f"{label} main path: {len(losses)} train steps in {wall:.1f} s, "
-        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, result {result}, "
-        f"launches {launches}, per pass {per_pass}")
+    assert "train" not in factories or (
+        losses and np.isfinite(losses).all()), f"{label} losses {losses}"
+    trained = (f"{len(losses)} train steps, loss {losses[0]:.4f} -> "
+               f"{losses[-1]:.4f}" if losses else "no train steps")
+    log(f"{label} main path: {trained} in {wall:.1f} s, result {result}, "
+        f"launches {launches}, per pass {per_pass}, result.txt ends "
+        f"{text[-120:]!r}")
     return launches, per_pass, outs, wall
+
+
+# scripts/lora_clip.sh's flags on synthetic-20, 2 tasks
+LORA_SCRIPT_ARGV = ["--method", "lora-clip", "--model_name", "ViT-B/16",
+                    "--dataset", "synthetic-20", "--n_tasks", "2",
+                    "--batchsize", "64", "--online_iter", "1",
+                    "--eval_period", "640", "--peft_encoder", "both",
+                    "--visible_classes", "all"]
 
 
 def main_path_phase():
@@ -795,11 +827,7 @@ def main_path_phase():
         "lora-clip", adapter_clip,
         {"train": "make_train_step", "eval": "make_eval_step",
          "text": "make_text_feature_fn"},
-        ["--method", "lora-clip", "--model_name", "ViT-B/16", "--dataset",
-         "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
-         "--online_iter", "1", "--eval_period", "640", "--peft_encoder",
-         "both", "--visible_classes", "all"],
-        lambda st: float(st["loss"]))
+        LORA_SCRIPT_ARGV, lambda st: float(st["loss"]))
     tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
     steps = len(outs)
     assert tr["fused_ln_attention_fwd"] == tr["fused_ln_attention_bwd"] \
@@ -890,6 +918,187 @@ def maple_main_path_phase():
                       "per_pass": per_pass}
 
 
+# scripts/adapter_clip.sh's flags on synthetic-20, 2 tasks
+ADAPTER_ARGV = ["--dataset", "synthetic-20", "--n_tasks", "2", "--n", "50",
+                "--m", "10", "--rnd_NM", "--model_name", "ViT-B/16",
+                "--batchsize", "64", "--lr", "5e-4", "--opt_name", "adamw",
+                "--online_iter", "3", "--eval_period", "1000",
+                "--peft_encoder", "image", "--visible_classes", "all"]
+
+
+def adapter_main_path_phase(method):
+    """adapter-clip or moe-clip on ViT-B/16 through ``main`` with
+    ``scripts/adapter_clip.sh``'s flags (image tower, every class visible,
+    the default ``--transforms``): the adapter and the MoE sit outside the
+    fused op, so every train step runs kernel #1 forward in each of the 12
+    vision blocks with no LoRA and #2 (dx only, ``weight_grads=False``) in
+    blocks 1-11 (block 0's input needs no grad); the eval and text passes
+    run #1."""
+    from lifelong_clip_tpu_torch.methods import adapter_clip
+    launches, per_pass, outs, wall = run_main_path(
+        method, adapter_clip,
+        {"train": "make_train_step", "eval": "make_eval_step",
+         "text": "make_text_feature_fn"},
+        ["--method", method] + ADAPTER_ARGV,
+        lambda st: float(st["loss"]))
+    tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
+    steps = len(outs)
+    assert tr["fused_ln_attention_fwd"] == 12 * steps and \
+        tr["fused_ln_attention_bwd"] == 11 * steps and \
+        tr["flash_attention_fwd"] == 0, \
+        f"train pass launches {tr} over {steps} steps"
+    assert ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
+    assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
+    return launches, {"train_steps": steps, "wall_s": wall,
+                      "per_pass": per_pass}
+
+
+def openai_state_dict(params, cfg):
+    """The port's CLIP params (on the CPU) as an OpenAI CLIP ViT state dict:
+    the reference ``build_model``'s key names and (out, in) weights, the
+    inverse of ``models/convert.py:state_dict_to_params``."""
+    from lifelong_clip_tpu_torch.models.convert import _BLOCK_KEYS
+    v, t = params["vision"], params["text"]
+    p, w = cfg.patch_size, cfg.vision_width
+    sd = {"visual.conv1.weight":
+          v["patch_kernel"].reshape(p, p, 3, w).permute(3, 2, 0, 1),
+          "visual.class_embedding": v["class_embedding"],
+          "visual.positional_embedding": v["pos_embed"],
+          "visual.proj": v["proj"],
+          "token_embedding.weight": t["token_embedding"],
+          "positional_embedding": t["pos_embed"],
+          "text_projection": t["text_projection"],
+          "logit_scale": params["logit_scale"]}
+    for name, ln in (("visual.ln_pre", v["ln_pre"]),
+                     ("visual.ln_post", v["ln_post"]),
+                     ("ln_final", t["ln_final"])):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = ln["scale"], ln["bias"]
+    for prefix, blocks, layers in (
+            ("visual.transformer", v["blocks"], cfg.vision_layers),
+            ("transformer", t["blocks"], cfg.text_layers)):
+        for i in range(layers):
+            for (group, name), suffix, transposed in _BLOCK_KEYS:
+                a = blocks[group][name][i]
+                sd[f"{prefix}.resblocks.{i}.{suffix}"] = a.T if transposed \
+                    else a
+    return {k: a.contiguous() for k, a in sd.items()}
+
+
+def write_pretrained(tmp, model="ViT-B/16"):
+    """An OpenAI-layout checkpoint of ``model`` written with ``torch.save``
+    from seed 5, read back by ``models/convert.py:load_clip_params`` onto
+    the card: every tensor and the inferred architecture must come back
+    exactly. Returns (path, MB, s to write, s to load)."""
+    import dataclasses
+    import torch
+    from lifelong_clip_tpu_torch.config import resolve_clip_preset
+    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
+    from lifelong_clip_tpu_torch.models import build_clip
+    from lifelong_clip_tpu_torch.models.convert import load_clip_params
+    params, cfg = build_clip(model, gen=torch.Generator().manual_seed(5),
+                             device="cpu")
+    path = os.path.join(tmp, model.replace("/", "-") + ".pt")
+    t0 = time.perf_counter()
+    torch.save(openai_state_dict(params, cfg), path)
+    t1 = time.perf_counter()
+    loaded, lcfg = load_clip_params(path, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    assert dataclasses.asdict(lcfg) == dataclasses.asdict(
+        resolve_clip_preset(model)), lcfg
+    a, b = tree_leaves(params), tree_leaves(loaded)
+    assert len(a) == len(b) and all(
+        torch.equal(x, y.cpu()) for x, y in zip(a, b)), \
+        "the checkpoint did not read back exactly"
+    mb = os.path.getsize(path) / 1e6
+    log(f"pretrained {model} checkpoint: {mb:.1f} MB written in "
+        f"{t1 - t0:.2f} s, read onto the card in {t2 - t1:.2f} s, "
+        f"{len(b)} tensors exact")
+    return path, mb, t1 - t0, t2 - t1
+
+
+def continual_main_path_phase(ckpt):
+    """continual-clip through ``main`` as ``scripts/continual_clip.sh`` sets
+    it (5 tasks, test_batchsize 128), from the OpenAI-layout checkpoint at
+    ``ckpt`` (``--pretrained_path``), with ``--zero_shot_evaluation`` on
+    synthetic-20: no train step; kernel #1 runs forward in both towers in
+    the eval and text passes and in the zero-shot pass, whose line must
+    close result.txt."""
+    from lifelong_clip_tpu_torch.methods import continual_clip
+    launches, per_pass, _, wall = run_main_path(
+        "continual-clip", continual_clip,
+        {"eval": "make_eval_step", "text": "make_text_feature_fn"},
+        ["--method", "continual-clip", "--dataset", "synthetic-20",
+         "--n_tasks", "5", "--n", "50", "--m", "10", "--model_name",
+         "ViT-B/16", "--test_batchsize", "128", "--eval_period", "1000",
+         "--pretrained_path", ckpt, "--zero_shot_evaluation",
+         "--zero_shot_dataset", "synthetic-20"],
+        None, in_result="Dataset:synthetic-20 | test_acc:")
+    ev, tx = per_pass["eval"], per_pass["text"]
+    assert ev["fused_ln_attention_fwd"] > 0 and \
+        ev["fused_ln_attention_bwd"] == 0, f"eval pass launches {ev}"
+    assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
+    # the zero-shot pass: 12 vision blocks a batch, 12 text blocks
+    zero_shot = launches["fused_ln_attention_fwd"] - \
+        ev["fused_ln_attention_fwd"] - tx["fused_ln_attention_fwd"]
+    assert zero_shot >= 24, f"zero-shot pass launches {zero_shot}"
+    return launches, {"wall_s": wall, "per_pass": per_pass,
+                      "zero_shot_fused_fwd": zero_shot}
+
+
+def continual_eval_phase(card, ckpt, bs=128, iters=10):
+    """continual-clip's eval on the card (``scripts/continual_clip.sh``'s
+    test_batchsize 128; ViT-B/16 from the checkpoint at ``ckpt``): the eval
+    step alone on one batch of uint8 32 x 32 images (resize to 224, the
+    vision tower, logits against the cached text features) by CUDA events
+    and device-busy ms, as images/s; the text-cache pass (every class of
+    synthetic-20, and 100 rows as CIFAR-100's) likewise; and ``evaluate``
+    end to end over synthetic-20's 1000 test images (host gather, upload,
+    predictions read back)."""
+    import torch
+    from lifelong_clip_tpu_torch.config import StreamConfig, TrainConfig
+    from lifelong_clip_tpu_torch.methods import get_method
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(method="continual-clip", dataset="synthetic-20",
+                          model_name="ViT-B/16", pretrained_path=ckpt,
+                          test_batchsize=bs, log_path=tmp, device="cuda",
+                          stream=StreamConfig(n_tasks=5, n=50, m=10))
+        tr = get_method("continual-clip")(cfg)
+        tr.vocab.expose(tr.train_dataset.targets)
+        tr.prepare_eval()
+        images = tr._tensor(tr.test_dataset.images[:bs])
+        tokens20 = tr._tensor(tr.vocab.token_table, torch.int64)
+        tokens100 = gate_batch(tr.clip_cfg, 100, 1)[2].cuda()
+
+        def eval_step():
+            return tr._eval_fn(tr.params, None, images, tr._txt_cache,
+                               tr._mask)
+
+        out = {"eval_step_ms": timed(eval_step, iters=iters),
+               "eval_step_device_ms": device_ms(eval_step),
+               "eval_step_host_ms": host_ms(eval_step)}
+        out["eval_images_per_s"] = bs / out["eval_step_ms"] * 1e3
+        for k, tok in (("text_pass_20", tokens20),
+                       ("text_pass_100", tokens100)):
+            fn = lambda: tr._text_fn(tr.params, None, tok)   # noqa: E731
+            out[f"{k}_ms"] = timed(fn, iters=iters)
+            out[f"{k}_device_ms"] = device_ms(fn)
+        n = len(tr.test_dataset)
+        tr.evaluate()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        correct, total = tr.evaluate()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        assert int(total.sum()) == n, (int(total.sum()), n)
+        out.update({"evaluate_images": n, "evaluate_s": dt,
+                    "evaluate_images_per_s": n / dt,
+                    "evaluate_acc": float(correct.sum() / total.sum()),
+                    "test_batchsize": bs, "card": card})
+    log(f"continual-clip eval {json.dumps(out)}")
+    return out
+
+
 MEAN = (0.48145466, 0.4578275, 0.40821073)
 STD = (0.26862954, 0.26130258, 0.27577711)
 MVP_GATE_LR = 1e-2   # AdamW moves keys and prompts ~lr a step
@@ -958,13 +1167,16 @@ def frozen_clip(dev, model="ViT-B/16"):
     return params, cast_towers(params, torch.bfloat16), cfg
 
 
-def lora_setup(model="ViT-B/16", remat=False):
+def lora_setup(model="ViT-B/16", remat=False, method="lora"):
     """lora-clip's train step as ``bench.py:41-60`` times it (LoRA r=4 on
     the image tower, AutoAugment's cifar10 policy, AdamW 5e-4) on one batch
     of 64 against 64 cached class-text features; ``remat`` checkpoints each
-    vision block. The launch counters are set to 0 just
-    before the text pass. Returns (cfg, state, one step returning its loss,
-    the text pass's launches)."""
+    vision block; ``method`` "adapter" or "moe" trains adapter-clip's or
+    moe-clip's tree instead (``scripts/adapter_clip.sh``'s defaults:
+    adapters of 64, two experts, both selected; the MoE step draws its gate
+    noise). The launch counters are set to 0 just before the text pass.
+    Returns (cfg, state, one step returning its loss, the text pass's
+    launches)."""
     import torch
     from lifelong_clip_tpu_torch.config import PEFTConfig
     from lifelong_clip_tpu_torch.methods.engine import (
@@ -974,7 +1186,7 @@ def lora_setup(model="ViT-B/16", remat=False):
 
     dev = torch.device("cuda")
     _, frozen, cfg = frozen_clip(dev, model)
-    peft_cfg = PEFTConfig(method="lora", encoder="image", lora_r=4)
+    peft_cfg = PEFTConfig(method=method, encoder="image", lora_r=4)
     peft = build_peft(torch.Generator().manual_seed(1), cfg, peft_cfg,
                       device=dev)
     state = TrainState(trainable=peft, frozen=frozen,
@@ -994,29 +1206,36 @@ def lora_setup(model="ViT-B/16", remat=False):
     return cfg, state, lambda: step(state, batch)["loss"], text
 
 
-def learning_gate(card, model="ViT-B/16"):
-    """The lora-clip gate (``lora_setup``). The launch counters are set to
-    0 just before the text pass and the gate and read just after each: the
-    text pass must run the fused block forward in every text layer, every
-    step the fused block forward and backward once a vision layer, and
-    nothing runs the flash op."""
+GATE_PEFT = {"lora": "LoRA r=4", "adapter": "adapters of 64",
+             "moe": "MoE of 2 adapters of 64, top 2, gate noise"}
+
+
+def learning_gate(card, model="ViT-B/16", method="lora"):
+    """The lora-clip, adapter-clip or moe-clip gate (``lora_setup``). The
+    launch counters are set to 0 just before the text pass and the gate and
+    read just after each: the text pass must run the fused block forward in
+    every text layer, every step the fused block forward once a vision
+    layer and its backward once a vision layer (with LoRA; the adapter and
+    the MoE sit outside the fused op, so block 0, whose input needs no
+    grad, has no backward), and nothing runs the flash op."""
     import torch
-    cfg, _, run_step, text = lora_setup(model)
+    cfg, _, run_step, text = lora_setup(model, method=method)
     steps = []
 
     def one_step():
         steps.append(1)
         return run_step()
 
-    label = "lora-clip" if model == "ViT-B/16" else f"lora-clip {model}"
+    label = f"{method}-clip" + ("" if model == "ViT-B/16" else f" {model}")
     reset_launches()
     out = gate_loop(label, one_step, 64, card,
-                    model=f"{model} LoRA r=4, AutoAugment cifar10")
+                    model=f"{model} {GATE_PEFT[method]}, AutoAugment cifar10")
     torch.cuda.synchronize()
     launches = launch_counts()
     n = len(steps) * cfg.vision_layers
+    n_bwd = n if method == "lora" else n - len(steps)
     assert launches["fused_ln_attention_fwd"] == n and \
-        launches["fused_ln_attention_bwd"] == n and \
+        launches["fused_ln_attention_bwd"] == n_bwd and \
         launches["flash_attention_fwd"] == 0, (launches, len(steps))
     assert text["fused_ln_attention_fwd"] > 0 and \
         text["fused_ln_attention_fwd"] % cfg.text_layers == 0, text
@@ -1446,25 +1665,25 @@ class Preempted(Exception):
     """Stands for a run killed right after a checkpoint."""
 
 
-def checkpoint_phase():
-    """Checkpoint/resume on the card through ``main``, with
+def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV):
+    """Checkpoint/resume on the card through ``main``, by default with
     ``scripts/lora_clip.sh``'s flags (LoRA on both towers, AutoAugment,
     the prefetcher uploading through pinned memory; ViT-B/16,
-    synthetic-20, bs 64, 2 tasks): an uninterrupted run; a run stopped
-    right after task 0's checkpoint; and a run ``--resume_from`` that
-    checkpoint, which trains task 1 through ``run``. The resumed run's
-    task-1 losses, result and final LoRA tensors must equal the
-    uninterrupted run's bit for bit (the kernels use no atomics)."""
+    synthetic-20, bs 64, 2 tasks), and for moe-clip with
+    ``scripts/adapter_clip.sh``'s (its gate noise drawn from the train
+    state's generator, which the checkpoint keeps): an uninterrupted run; a
+    run stopped right after task 0's checkpoint; and a run
+    ``--resume_from`` that checkpoint, which trains task 1 through
+    ``run``. The resumed run's task-1 losses, result and final PEFT
+    tensors must equal the uninterrupted run's bit for bit (the kernels
+    use no atomics)."""
     import torch
     from lifelong_clip_tpu_torch import main as cli
     from lifelong_clip_tpu_torch.methods import adapter_clip
     from lifelong_clip_tpu_torch.methods.base import OnlineTrainer
     from lifelong_clip_tpu_torch.utils.checkpoints import load_checkpoint
 
-    argv = ["--method", "lora-clip", "--model_name", "ViT-B/16", "--dataset",
-            "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
-            "--online_iter", "1", "--eval_period", "640", "--peft_encoder",
-            "both", "--visible_classes", "all", "--device", "cuda"]
+    argv = list(argv) + ["--device", "cuda"]
     make, save = adapter_clip.make_train_step, OnlineTrainer._maybe_checkpoint
     losses = []
 
@@ -1522,12 +1741,13 @@ def checkpoint_phase():
         torch.equal(a, b) for a, b in zip(full_l[n0:], got_l))
     same = [torch.equal(a, b) for a, b in zip(want_t, got_t)]
     out = {"checkpoint": {
-        "cursor": cursor, "task0_steps": n0, "task1_steps": len(got_l),
+        "method": label, "cursor": cursor, "task0_steps": n0,
+        "task1_steps": len(got_l),
         "first_task1_loss": float(full_l[n0]) if len(full_l) > n0 else None,
         "resumed_first_task1_loss": float(got_l[0]) if got_l else None,
         "bitwise_equal_task0_losses": same_before,
         "bitwise_equal_task1_losses": same_loss,
-        "bitwise_equal_lora_tensors": f"{sum(same)} of {len(same)}",
+        "bitwise_equal_peft_tensors": f"{sum(same)} of {len(same)}",
         "equal_result": got == full and got_txt == full_txt,
         "result": full, "wall_s": wall}}
     log(json.dumps(out))
@@ -1624,6 +1844,10 @@ def main():
     # 100 class rows: causal, r=4, the backward as its train step runs it
     cases.append(kernel_case("text K=100 LoRA", 100, 77, 512, 8, 4, True,
                              False, 16))
+    # adapter-clip's and moe-clip's vision blocks: the adapter and the MoE
+    # sit outside the op, so it runs with no LoRA, the backward dx only
+    cases.append(kernel_case("vision, no LoRA", 64, 197, 768, 12, 0, False,
+                             False, 17))
     cases.append(kernel_case("vision weight_grads", 64, 197, 768, 12, 4,
                              False, True, 3, time_it=False))
     # past 256 keys (the tiled roads): ViT-L/14's vision block, T = 512
@@ -1664,15 +1888,30 @@ def main():
     torch.cuda.synchronize()
     pl_launches, pl_run = prompted_lora_phase()
     torch.cuda.synchronize()
+    adapter_launches, adapter_run = adapter_main_path_phase("adapter-clip")
+    torch.cuda.synchronize()
+    moe_launches, moe_run = adapter_main_path_phase("moe-clip")
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrained = write_pretrained(tmp)
+        cc_launches, cc_run = continual_main_path_phase(pretrained[0])
+        torch.cuda.synchronize()
+        cc_eval = continual_eval_phase(card, pretrained[0])
+        torch.cuda.synchronize()
     gates = []
     for gate in (learning_gate, lora_both_gate, mvp_learning_gate,
                  maple_learning_gate, prompted_lora_gate,
-                 lambda c: learning_gate(c, model="ViT-L/14")):
+                 lambda c: learning_gate(c, model="ViT-L/14"),
+                 lambda c: learning_gate(c, method="adapter"),
+                 lambda c: learning_gate(c, method="moe")):
         gates.append(gate(card))
         torch.cuda.synchronize()
     remat = remat_phase(card)
     torch.cuda.synchronize()
     ckpt = checkpoint_phase()
+    torch.cuda.synchronize()
+    moe_ckpt = checkpoint_phase("moe-clip", ["--method", "moe-clip"]
+                                + ADAPTER_ARGV)
     torch.cuda.synchronize()
     # the text tower's share of a both-tower step: its device time less the
     # image-only step's (64 cached class features there)
@@ -1687,20 +1926,22 @@ def main():
     src = "lifelong_clip_tpu_torch/csrc/fused_block_attn.cu"
     flash_src = "lifelong_clip_tpu_torch/csrc/flash_attention.cu"
     pl_shape = "prompted-LoRA 768 x 197 x 217 (B*H x T x S), dh 64, bf16"
+    # each kernel's launches over every main path above
+    runs = {k: sum(r[k] for r in (
+        launches, l14_launches, mvp_launches, maple_launches, pl_launches,
+        adapter_launches, moe_launches, cc_launches)) for k in launches}
     kernels = []
-    for name, pre, runs, case_list, source, shape in (
-            ("fused_ln_attention_fwd", "fwd", launches, cases, src,
+    for name, pre, case_list, source, shape in (
+            ("fused_ln_attention_fwd", "fwd", cases, src,
              "vision 64x197x768, 12 heads, LoRA r=4, bf16"),
-            ("fused_ln_attention_bwd", "bwd", launches, cases, src,
+            ("fused_ln_attention_bwd", "bwd", cases, src,
              "vision 64x197x768, 12 heads, LoRA r=4, bf16"),
-            ("fused_prefix_attention_fwd", "fwd", mvp_launches, pcases, src,
+            ("fused_prefix_attention_fwd", "fwd", pcases, src,
              "mvp 64x197x768, P=20 (5 live), 12 heads, bf16"),
-            ("fused_prefix_attention_bwd", "bwd", mvp_launches, pcases, src,
+            ("fused_prefix_attention_bwd", "bwd", pcases, src,
              "mvp 64x197x768, P=20 (5 live), 12 heads, bf16"),
-            ("flash_attention_fwd", "fwd", pl_launches, fcases, flash_src,
-             pl_shape),
-            ("flash_attention_bwd", "bwd", pl_launches, fcases, flash_src,
-             pl_shape)):
+            ("flash_attention_fwd", "fwd", fcases, flash_src, pl_shape),
+            ("flash_attention_bwd", "bwd", fcases, flash_src, pl_shape)):
         v = case_list[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1732,6 +1973,17 @@ def main():
     log(json.dumps({"prompted_lora_path": pl_run,
                     "prompted_lora_launches": pl_launches,
                     "note": "no registered method builds this block"}))
+    log(json.dumps({"adapter_clip_main_path": adapter_run,
+                    "adapter_clip_launches": adapter_launches}))
+    log(json.dumps({"moe_clip_main_path": moe_run,
+                    "moe_clip_launches": moe_launches}))
+    log(json.dumps({"continual_clip_main_path": cc_run,
+                    "continual_clip_launches": cc_launches,
+                    "pretrained_checkpoint_mb": pretrained[1],
+                    "pretrained_write_s": pretrained[2],
+                    "pretrained_load_s": pretrained[3]}))
+    log(json.dumps(cc_eval))
+    log(json.dumps(moe_ckpt))
     for g in gates:
         log(json.dumps(g))
     log(json.dumps(remat))

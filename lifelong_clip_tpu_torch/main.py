@@ -5,9 +5,10 @@
         --device cuda
 
 The flags and defaults are the JAX package's (``main.py:20-175``) plus
-``--device {cuda,cpu}`` (default ``cuda``). Flags of parts not ported yet
-(other methods, meshes, zero-shot eval) raise ``NotImplementedError``
-naming the ROADMAP.md item.
+``--device {cuda,cpu}`` (default ``cuda``). ``--zero_shot_evaluation``
+classifies ``--zero_shot_dataset`` zero-shot after the run. Flags of parts
+not ported yet (other methods, meshes, ResNet checkpoints) raise
+``NotImplementedError`` naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -216,12 +217,14 @@ def main(argv=None):
     parser = base_parser()
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
-    if args.zero_shot_evaluation:
-        raise NotImplementedError("zero-shot evaluation is not ported yet "
-                                  "(ROADMAP.md, queue A)")
     trainer = trainer_class(cfg.method, args, parser)(
         cfg, synthetic_fallback=args.synthetic_fallback)
-    return trainer.run(resume_from=args.resume_from or None)
+    out = trainer.run(resume_from=args.resume_from or None)
+    if args.zero_shot_evaluation:
+        from .methods.zero_shot_eval import run_zero_shot_eval
+        run_zero_shot_eval(trainer, args.zero_shot_dataset,
+                           synthetic_fallback=args.synthetic_fallback)
+    return out
 
 
 if __name__ == "__main__":

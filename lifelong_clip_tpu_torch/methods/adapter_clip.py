@@ -1,12 +1,14 @@
-"""Online LoRA training of CLIP (``lora-clip``).
+"""Online PEFT of CLIP: ``lora-clip``, ``adapter-clip``, ``moe-clip``.
 
 Counterpart of ``lifelong_clip_tpu/methods/adapter_clip.py:AdapterCLIP``
-(reference ``methods/adapter_clip.py``) for the LoRA method on either tower
-or both (``--peft_encoder``): per-step class tables, AutoAugment with the
+(reference ``methods/adapter_clip.py``) for LoRA, bottleneck adapters or a
+noisy-top-k mixture of adapters (MoE) on either tower or both
+(``--peft_encoder``): per-step class tables, AutoAugment with the
 dataset's policy, class-text features cached while the text tower is frozen
 and recomputed in every step where it trains, the replay concat, optimizer
-reset at task boundaries, and eval against the exposed classes. Adapter and
-MoE PEFT are not ported yet (ROADMAP.md, queue A).
+reset at task boundaries, and eval against the exposed classes. The MoE
+step's gate noise comes from the train state's generator, which the
+checkpoint keeps, so a resumed run draws what the uninterrupted one draws.
 """
 
 from __future__ import annotations
@@ -28,8 +30,13 @@ from .engine import (TrainState, ce_on_probs_loss, make_eval_step,
 log = logging.getLogger("lifelong_clip_tpu_torch")
 
 
+# method name -> the PEFT tree it trains (JAX adapter_clip.py:42-44)
+PEFT_METHODS = {"lora-clip": "lora", "adapter-clip": "adapter",
+                "moe-clip": "moe"}
+
+
 class AdapterCLIP(OnlineTrainer):
-    """Trainer for lora-clip."""
+    """Trainer for lora-clip, adapter-clip and moe-clip."""
 
     def setup_model(self):
         cfg = self.cfg
@@ -37,7 +44,8 @@ class AdapterCLIP(OnlineTrainer):
         self.params, self.clip_cfg = build_clip(
             cfg.model_name, cfg.pretrained_path, gen=self.next_gen(),
             device=dev)
-        self.peft_cfg = dataclasses.replace(cfg.peft, method="lora")
+        self.peft_cfg = dataclasses.replace(
+            cfg.peft, method=PEFT_METHODS.get(cfg.method, cfg.peft.method))
         self.peft = build_peft(self.next_gen(), self.clip_cfg, self.peft_cfg,
                                device=dev)
         self.compute_dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32

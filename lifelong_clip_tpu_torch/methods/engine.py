@@ -1,11 +1,12 @@
 """The online-learning engine: one train step, one eval step, the text pass.
 
 Counterpart of ``lifelong_clip_tpu/methods/engine.py`` on one device: the
-towers with LoRA run forward and backward through the fused attention
-kernels (``base_grads=False``), the text tower too where it trains
-(``peft_forward``), else logits go against cached normalized class-text
-features (``peft_forward_cached_text``), and a ``torch.optim`` optimizer
-updates the LoRA tree. The step runs eagerly (the JAX package
+towers with their PEFT trees (LoRA, adapter or MoE) run forward and
+backward through the fused attention kernels (``base_grads=False``), the
+text tower too where it trains (``peft_forward``), else logits go against
+cached normalized class-text features (``peft_forward_cached_text``), and a
+``torch.optim`` optimizer updates the PEFT tree. A MoE step draws its gate
+noise from the state's generator. The step runs eagerly (the JAX package
 jits it); its state is an explicit ``TrainState`` object. ``remat``
 checkpoints the tower forward and ``remat_fallback`` retries a step once
 with it after the card runs out of memory, as the JAX engine does.
@@ -23,6 +24,7 @@ import torch.utils.checkpoint
 
 from ..config import CLIPConfig, PEFTConfig
 from ..models import clip as clip_fns
+from ..ops import moe as moe_ops
 from ..ops import preprocess
 
 log = logging.getLogger("lifelong_clip_tpu_torch")
@@ -102,29 +104,31 @@ def remat_fallback(build: Callable[[bool], Callable]) -> Callable:
 
 def peft_forward(frozen, trainable, images, tokens, clip_cfg: CLIPConfig,
                  peft_cfg: PEFTConfig, compute_dtype, attn_impl: str = "fused",
-                 remat: bool = False):
+                 remat: bool = False, moe_noise=None):
     """CLIP forward over both towers with the PEFT trees routed to them
     (``engine.py:130-142``): the text tower runs forward and backward every
-    step. The towers' own weights are frozen (``base_grads=False``)."""
+    step. The towers' own weights are frozen (``base_grads=False``).
+    ``moe_noise``: ``{'vision', 'text'}`` gate noise (``clip_forward``)."""
     return clip_fns.clip_forward(
         frozen, images, tokens, clip_cfg, peft_cfg=peft_cfg,
         peft_vision=trainable.get("vision"), peft_text=trainable.get("text"),
         compute_dtype=compute_dtype, attn_impl=attn_impl, base_grads=False,
-        remat=remat)
+        remat=remat, moe_noise=moe_noise)
 
 
 def peft_forward_cached_text(frozen, trainable, images, txt_features,
                              clip_cfg: CLIPConfig, peft_cfg: PEFTConfig,
                              compute_dtype, attn_impl: str = "fused",
-                             remat: bool = False):
+                             remat: bool = False, moe_noise=None):
     """Image-only-PEFT forward against precomputed normalized text
     features (``engine.py:145-167``); ``remat`` checkpoints each vision
-    block."""
+    block; ``moe_noise``: ``{'vision'}`` gate noise."""
     img = clip_fns.encode_image(
         frozen, images, clip_cfg,
         peft_cfg=peft_cfg if peft_cfg.on_vision() else None,
         peft=trainable.get("vision"), compute_dtype=compute_dtype,
-        attn_impl=attn_impl, base_grads=False, remat=remat)
+        attn_impl=attn_impl, base_grads=False, remat=remat,
+        moe_noise=(moe_noise or {}).get("vision"))
     img = clip_fns.normalize(img)
     scale = torch.exp(frozen["logit_scale"]).float()
     logits = scale * (img.float() @ txt_features.float().T)
@@ -171,7 +175,11 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
     ``autoaug_policy`` first. ``remat`` checkpoints each block of the PEFT
     forward's towers, or the whole ``forward_fn`` (JAX
     ``engine.py:237-242``): the backward recomputes the forward instead of
-    keeping its intermediates. The step updates ``state`` in place.
+    keeping its intermediates. With MoE PEFT and no ``forward_fn`` each
+    step draws fresh gate noise for every trained tower from ``state.gen``
+    after the augmentation's draws (JAX ``engine.py:252-292`` draws a fresh
+    key a step; eval and text passes get none). The step updates ``state``
+    in place.
     """
     pipeline = preprocess.make_train_pipeline(
         image_size, mean, std, use_autoaug=use_autoaug,
@@ -185,14 +193,28 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
         fwd = functools.partial(torch.utils.checkpoint.checkpoint, forward_fn,
                                 use_reentrant=False, preserve_rng_state=False)
     compute_loss = loss_fn or _default_loss
+    draws_noise = peft_cfg is not None and peft_cfg.method == "moe" \
+        and forward_fn is None
+
+    def gate_noise(state, images, tokens):
+        """{tower: (L, rows, E) N(0, 1) draws} for each trained tower."""
+        rows = {"vision": (clip_cfg.vision_layers, images.shape[0]),
+                "text": (clip_cfg.text_layers, tokens.shape[0])}
+        return {tower: moe_ops.draw_gate_noise(
+                    state.gen, (*rows[tower], peft_cfg.moe_experts),
+                    images.device)
+                for tower in ("vision", "text")
+                if state.trainable.get(tower) is not None}
 
     def step(state: TrainState, batch):
         if pipeline is not None:
             images = pipeline(state.gen, batch["images"])
         else:
             images = batch["images"].to(compute_dtype)
+        kw = ({"moe_noise": gate_noise(state, images, batch["tokens"])}
+              if draws_noise else {})
         logits, _, _ = fwd(state.frozen, state.trainable, images,
-                           batch["tokens"])
+                           batch["tokens"], **kw)
         logits = logits + batch["mask"][None, :]
         loss = compute_loss(logits, batch["labels"])
         state.opt.zero_grad(set_to_none=True)

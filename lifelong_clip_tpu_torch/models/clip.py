@@ -1,10 +1,11 @@
 """CLIP image and text towers as functions of parameter dicts.
 
 Counterpart of ``lifelong_clip_tpu/models/clip.py``: one block
-implementation, with LoRA coming from an optional layer-stacked parameter
-subtree; depth is a Python loop over the stacked layers (the JAX package
-scans). Compute dtype policy as there: bf16 operands with fp32 LayerNorm,
-softmax and accumulation (``_cast_tree``).
+implementation, with LoRA, a bottleneck adapter or a mixture of adapters
+(MoE) coming from an optional layer-stacked parameter subtree; depth is a
+Python loop over the stacked layers (the JAX package scans). Compute dtype
+policy as there: bf16 operands with fp32 LayerNorm, softmax and
+accumulation (``_cast_tree``).
 
 On ``attn_impl="fused"`` (the default; the JAX package's ``"pallas"``) the
 attention half of a block goes, as in JAX ``_block``, through
@@ -15,9 +16,10 @@ it has KV-prefix prompts, no LoRA and a mask that op takes, and otherwise
 ``ops/attention.multi_head_attention`` on the flash-attention op. Each op's
 CUDA kernels run on the card and its plain version on the CPU.
 ``attn_impl="unfused"`` (the JAX ``"xla"`` road) composes LN and
-``multi_head_attention`` on plain PyTorch. ``clip_forward`` runs both
-towers, LoRA on either. Adapter and MoE PEFT and text-side prompts are not
-ported yet.
+``multi_head_attention`` on plain PyTorch. The adapter and the MoE are
+applied outside the attention op, as in JAX (``_block``, ``_mlp_half``), so
+their blocks run the same kernels. ``clip_forward`` runs both towers, PEFT
+on either. Text-side prompts are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..config import CLIPConfig, PEFTConfig
 from ..ops.attention import causal_mask, linear, mm32, multi_head_attention
 from ..ops.fused_block_attn import (fused_ln_attention_block,
                                     fused_prefix_attention_block)
+from ..ops.moe import moe_adapter_apply
 
 ATTN_IMPLS = ("fused", "unfused")
 
@@ -59,29 +62,43 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _adapter_apply(y, p, scale: float):
+    """Bottleneck adapter delta ``scale * up(relu(down(y)))`` (reference
+    ``models/clip/adapter.py:53-73``, no inner LayerNorm; the caller adds
+    the residual). Biases are added and ``scale`` applied in fp32, with
+    one rounding to y's dtype at the end, as JAX ``_adapter_apply``."""
+    h = torch.relu(mm32(y, p["w_down"]) + p["b_down"].float()).to(y.dtype)
+    out = mm32(h, p["w_up"]) + p["b_up"].float()
+    return (scale * out).to(y.dtype)
+
+
 def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
            attn_impl: str, act: str = "quick_gelu", base_grads: bool = True,
-           kv_prefix=None, prompt_ln: bool = False):
-    """One residual attention block (vanilla, LoRA or KV-prefixed).
+           kv_prefix=None, prompt_ln: bool = False, moe_noise=None):
+    """One residual attention block (vanilla, LoRA, adapter, MoE or
+    KV-prefixed).
 
     ``kv_prefix``: (B, P, D) prompt tokens joining the keys' and values'
     source, or a dict ``{'k', 'v'}`` of two. ``prompt_ln`` passes them
     through the block's ln_1 first (MVP's append-then-truncate prompts,
     JAX ``models/clip.py:111-113``). ``base_grads=False`` asserts the
     block's own weights are frozen: the fused kernels' backward then skips
-    their grads."""
+    their grads. ``moe_noise``: the MoE gates' (B, E) noise draws (train
+    steps), or None for clean gates."""
     if kv_prefix is not None and prompt_ln:
         kv_prefix = ({k: layer_norm(v, blk["ln_1"])
                       for k, v in kv_prefix.items()}
                      if isinstance(kv_prefix, dict)
                      else layer_norm(kv_prefix, blk["ln_1"]))
-    lora = None
+    lora = adapter = moe = None
     if peft is not None and peft_cfg is not None:
-        if peft_cfg.method != "lora":
-            raise NotImplementedError(
-                f"{peft_cfg.method} PEFT blocks are not ported yet "
-                "(ROADMAP.md, queue A)")
-        lora = dict(peft["lora"], scaling=peft_cfg.lora_alpha / peft_cfg.lora_r)
+        if peft_cfg.method == "lora":
+            lora = dict(peft["lora"],
+                        scaling=peft_cfg.lora_alpha / peft_cfg.lora_r)
+        elif peft_cfg.method == "adapter":
+            adapter = peft.get("adapter")
+        elif peft_cfg.method == "moe":
+            moe = peft.get("moe")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                          f"got {attn_impl!r}")
@@ -96,7 +113,10 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
             blk["attn"]["w_out"], blk["attn"]["b_out"], n_heads,
             float(lora["scaling"]) if lora is not None else 0.0, mask, arrays,
             base_grads)
-        return _mlp_half(y, blk, act)
+        if adapter is not None:
+            # the adapter reads the attention delta, bf16 y - x (JAX :148)
+            y = y + _adapter_apply(y - x, adapter, peft_cfg.adapter_scale)
+        return _mlp_half(y, blk, act, adapter, moe, peft_cfg, moe_noise)
     if attn_impl == "fused" and kv_prefix is not None and lora is None:
         pk, pv = ((kv_prefix["k"], kv_prefix["v"])
                   if isinstance(kv_prefix, dict) else (kv_prefix, kv_prefix))
@@ -107,7 +127,11 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
                 blk["attn"]["w_qkv"], blk["attn"]["b_qkv"],
                 blk["attn"]["w_out"], blk["attn"]["b_out"], n_heads, m2,
                 base_grads)
-            return _mlp_half(y, blk, act)
+            if adapter is not None:
+                y = y + _adapter_apply(y - x, adapter,
+                                       peft_cfg.adapter_scale)
+            return _mlp_half(y, blk, act, adapter, moe, peft_cfg,
+                             moe_noise)
     # the general road (JAX ``_block:175-190``): LN, then MHA with keys and
     # values from [prefix; h], on the flash op ("fused") or sdpa ("unfused")
     h = layer_norm(x, blk["ln_1"])
@@ -117,10 +141,12 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
                 torch.cat([kv_prefix["v"].to(h.dtype), h], 1))
     elif kv_prefix is not None:
         x_kv = torch.cat([kv_prefix.to(h.dtype), h], 1)
-    y = x + multi_head_attention(
+    a = multi_head_attention(
         h, blk["attn"], n_heads, x_kv=x_kv, mask=mask, lora=lora,
         impl="flash" if attn_impl == "fused" else "plain")
-    return _mlp_half(y, blk, act)
+    if adapter is not None:
+        a = a + _adapter_apply(a, adapter, peft_cfg.adapter_scale)
+    return _mlp_half(x + a, blk, act, adapter, moe, peft_cfg, moe_noise)
 
 
 def _prefix_kernel_mask(mask, s_len):
@@ -137,11 +163,20 @@ def _prefix_kernel_mask(mask, s_len):
     return False
 
 
-def _mlp_half(x, blk, act):
-    """Second block half: x + MLP(LN2(x))."""
+def _mlp_half(x, blk, act, adapter=None, moe=None, peft_cfg=None,
+              moe_noise=None):
+    """Second block half: x + MLP(LN2(x)), plus the adapter's delta of the
+    MLP output or the MoE's delta, which gates on x[:, 0] of this half's
+    input (the post-attention stream; reference ``_MoA.forward``,
+    ``model.py:596-636``)."""
     h = layer_norm(x, blk["ln_2"])
     m = _ACTS[act](linear(h, blk["mlp"]["w_fc"], blk["mlp"]["b_fc"]))
-    return x + linear(m, blk["mlp"]["w_proj"], blk["mlp"]["b_proj"])
+    m = linear(m, blk["mlp"]["w_proj"], blk["mlp"]["b_proj"])
+    if adapter is not None:
+        m = m + _adapter_apply(m, adapter, peft_cfg.adapter_scale)
+    if moe is not None:
+        m = m + moe_adapter_apply(x, moe, peft_cfg, noise=moe_noise)
+    return x + m
 
 
 def transformer(x, blocks, n_heads: int, *, mask=None,
@@ -149,7 +184,7 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
                 layer_prompts=None, layer_prompt_valid=None,
                 attn_impl: str = "fused", act: str = "quick_gelu",
                 prompt_ln: bool = False, base_grads: bool = True,
-                remat: bool = False):
+                remat: bool = False, moe_noise=None):
     """Run the layer-stacked residual blocks in order.
 
     ``layer_prompts`` (L, B, P, D), or (L, P, D) broadcast over the batch,
@@ -159,8 +194,12 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
     (JAX ``models/clip.py:280-311``). ``prompt_ln``: see ``_block``.
     ``remat=True`` checkpoints each block, as JAX wraps the scan body in
     ``jax.checkpoint`` (``:323-335``): the backward recomputes the block's
-    forward instead of keeping its intermediates."""
+    forward instead of keeping its intermediates. ``moe_noise`` (L, B, E):
+    each layer's MoE gate noise (JAX draws one key a layer, ``:272-279``);
+    it reaches the blocks only when ``peft_cfg`` is the MoE's."""
     n_layers = blocks["attn"]["w_qkv"].shape[0]
+    if peft_cfg is None or peft_cfg.method != "moe":
+        moe_noise = None
     pmask = None
     if layer_prompts is not None:
         def bcast(lp):
@@ -181,8 +220,9 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
             m = pmask[i] if m is None else m + pmask[i]
         args = (x, _layer(blocks, i), n_heads, m, peft_cfg, _layer(peft, i),
                 attn_impl, act, base_grads, _layer(layer_prompts, i),
-                prompt_ln)
-        # the blocks draw no random numbers: no RNG state to replay
+                prompt_ln, _layer(moe_noise, i))
+        # the blocks draw no random numbers (the MoE noise is an input): no
+        # RNG state to replay
         x = (torch.utils.checkpoint.checkpoint(
             _block, *args, use_reentrant=False, preserve_rng_state=False)
             if remat else _block(*args))
@@ -236,10 +276,11 @@ def encode_image(params, images, cfg: CLIPConfig, *,
                  peft_cfg: Optional[PEFTConfig] = None, peft=None,
                  layer_prompts=None, compute_dtype=torch.bfloat16,
                  attn_impl: str = "fused", base_grads: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, moe_noise=None):
     """Vision tower. ``images``: (B, H, W, 3) normalized floats;
     ``layer_prompts``: raw KV-prefix tokens per layer; ``remat``: checkpoint
-    each block (``transformer``).
+    each block (``transformer``); ``moe_noise``: (L, B, E) MoE gate noise.
+    The PEFT tree is cast to ``compute_dtype`` (JAX ``_cast_tree``).
     Returns the projected CLS embedding (B, embed_dim) in
     ``compute_dtype``."""
     cd = compute_dtype
@@ -250,7 +291,7 @@ def encode_image(params, images, cfg: CLIPConfig, *,
                     else None,
                     peft=cast_tree(peft, cd), layer_prompts=layer_prompts,
                     attn_impl=attn_impl, act=cfg.act, base_grads=base_grads,
-                    remat=remat)
+                    remat=remat, moe_noise=moe_noise)
     pooled = layer_norm(x[:, :1], v["ln_post"])[:, 0]
     return mm32(pooled, v["proj"]).to(cd)
 
@@ -259,10 +300,11 @@ def encode_text(params, tokens, cfg: CLIPConfig, *,
                 peft_cfg: Optional[PEFTConfig] = None, peft=None,
                 layer_prompts=None, compute_dtype=torch.bfloat16,
                 attn_impl: str = "fused", base_grads: bool = True,
-                remat: bool = False):
+                remat: bool = False, moe_noise=None):
     """Text tower. ``tokens``: (B, context_length) integer ids. Pools at the
     EOT position (argmax of the ids, reference model.py:941-956);
-    ``remat``: checkpoint each block (``transformer``)."""
+    ``remat``: checkpoint each block (``transformer``); ``moe_noise``: (L,
+    B, E) MoE gate noise."""
     if layer_prompts is not None:
         raise NotImplementedError("text-side KV-prefix prompts are not "
                                   "ported yet (ROADMAP.md, queue A)")
@@ -277,7 +319,7 @@ def encode_text(params, tokens, cfg: CLIPConfig, *,
                     peft_cfg=peft_cfg if (peft_cfg and peft_cfg.on_text())
                     else None,
                     peft=pt, attn_impl=attn_impl, act=cfg.act,
-                    base_grads=base_grads, remat=remat)
+                    base_grads=base_grads, remat=remat, moe_noise=moe_noise)
     x = layer_norm(x, t["ln_final"])
     eot = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -294,17 +336,21 @@ def clip_forward(params, images, tokens, cfg: CLIPConfig, *,
                  peft_cfg: Optional[PEFTConfig] = None, peft_vision=None,
                  peft_text=None, compute_dtype=torch.bfloat16,
                  attn_impl: str = "fused", base_grads: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, moe_noise=None):
     """Both towers: (logits (B, K) fp32 at ``exp(logit_scale)``, normalized
     image features, normalized text features) (JAX ``clip_forward``,
-    reference ``CLIP.forward`` without the transposed logits)."""
+    reference ``CLIP.forward`` without the transposed logits).
+    ``moe_noise``: ``{'vision', 'text'}`` (L, B, E) MoE gate noise of each
+    tower (train steps; JAX splits one key between the towers), or None
+    for clean gates."""
+    noise = moe_noise or {}
     img = normalize(encode_image(
         params, images, cfg, peft_cfg=peft_cfg, peft=peft_vision,
         compute_dtype=compute_dtype, attn_impl=attn_impl,
-        base_grads=base_grads, remat=remat))
+        base_grads=base_grads, remat=remat, moe_noise=noise.get("vision")))
     txt = normalize(encode_text(
         params, tokens, cfg, peft_cfg=peft_cfg, peft=peft_text,
         compute_dtype=compute_dtype, attn_impl=attn_impl,
-        base_grads=base_grads, remat=remat))
+        base_grads=base_grads, remat=remat, moe_noise=noise.get("text")))
     scale = torch.exp(params["logit_scale"]).float()
     return scale * (img.float() @ txt.float().T), img, txt

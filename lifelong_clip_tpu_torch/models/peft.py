@@ -1,10 +1,14 @@
-"""PEFT parameter trees for the towers: LoRA.
+"""PEFT parameter trees for the towers: LoRA, bottleneck adapters, MoE.
 
-Counterpart of ``lifelong_clip_tpu/models/peft.py`` (``init_lora``): per
-block a fused-qkv LoRA (A and B xavier-uniform, reference
+Counterpart of ``lifelong_clip_tpu/models/peft.py``, layer-stacked as
+there: per block a fused-qkv LoRA (A and B xavier-uniform, reference
 ``models/clip/lora.py:437-455``) and an out-projection LoRA (A
-kaiming-uniform, B zeros, ``lora.py:119-127``), layer-stacked. Adapter and
-MoE trees are not ported yet (ROADMAP.md, queue A).
+kaiming-uniform, B zeros, ``lora.py:119-127``); a bottleneck adapter
+(``w_down`` (L, D, k) kaiming-uniform, ``b_down`` (L, k), ``w_up`` (L, k, D)
+and ``b_up`` (L, D) zeros; reference ``models/clip/adapter.py:36-50``); or a
+noisy-top-k mixture of such adapters (``router`` and ``w_noise`` (L, D, E)
+zeros, the experts' leaves stacked on axis 1, (L, E, ...); reference
+``_MoA``, ``model.py:445-636``).
 """
 
 from __future__ import annotations
@@ -41,12 +45,39 @@ def init_lora(gen: torch.Generator, layers: int, width: int, cfg: PEFTConfig):
     }
 
 
+def init_adapter(gen: torch.Generator, layers: int, width: int,
+                 cfg: PEFTConfig):
+    """Bottleneck adapter per block: down kaiming-uniform, up and biases
+    zeros; the fixed ``adapter_scale`` is applied in the forward."""
+    k = cfg.adapter_dim
+    return {
+        "w_down": _kaiming_uniform(gen, (layers, width, k), width),
+        "b_down": torch.zeros(layers, k),
+        "w_up": torch.zeros(layers, k, width),
+        "b_up": torch.zeros(layers, width),
+    }
+
+
+def init_moe(gen: torch.Generator, layers: int, width: int, cfg: PEFTConfig):
+    """Noisy-top-k mixture of ``moe_experts`` adapters: router and noise
+    weights zeros, each expert as ``init_adapter``."""
+    e = cfg.moe_experts
+    experts = [init_adapter(gen, layers, width, cfg) for _ in range(e)]
+    return {
+        "router": torch.zeros(layers, width, e),
+        "w_noise": torch.zeros(layers, width, e),
+        "experts": {k: torch.stack([x[k] for x in experts], dim=1)
+                    for k in experts[0]},   # each leaf (layers, experts, ...)
+    }
+
+
 def init_tower_peft(gen, layers: int, width: int, cfg: PEFTConfig):
     if cfg.method == "lora":
         return {"lora": init_lora(gen, layers, width, cfg)}
-    if cfg.method in ("adapter", "moe"):
-        raise NotImplementedError(
-            f"{cfg.method} PEFT is not ported yet (ROADMAP.md, queue A)")
+    if cfg.method == "adapter":
+        return {"adapter": init_adapter(gen, layers, width, cfg)}
+    if cfg.method == "moe":
+        return {"moe": init_moe(gen, layers, width, cfg)}
     raise ValueError(f"unknown tower PEFT method {cfg.method!r}")
 
 
@@ -56,8 +87,9 @@ def init_peft(gen, clip_cfg: CLIPConfig, cfg: PEFTConfig, device=None):
     device = resolve_device(device)
 
     def place(tree):
-        return None if tree is None else {
-            k: {n: a.to(device) for n, a in v.items()} for k, v in tree.items()}
+        if isinstance(tree, dict):
+            return {k: place(v) for k, v in tree.items()}
+        return None if tree is None else tree.to(device)
 
     vision = (init_tower_peft(gen, clip_cfg.vision_layers,
                               clip_cfg.vision_width, cfg)

@@ -94,6 +94,11 @@ CASES = {
                                    peft=PEFTConfig(encoder="both")),
     "mvp-clip": dict(method="mvp-clip"),
     "maple": dict(method="maple"),
+    "adapter-clip image": dict(method="adapter-clip",
+                               peft=PEFTConfig(encoder="image")),
+    "moe-clip image": dict(method="moe-clip",
+                           peft=PEFTConfig(encoder="image")),
+    "moe-clip both": dict(method="moe-clip", peft=PEFTConfig(encoder="both")),
 }
 
 
@@ -101,8 +106,9 @@ CASES = {
 def test_resume_equivalence(tmp_path, synth, case):
     """Train task 0, checkpoint, restore into a fresh trainer: the first
     task-1 step's loss and accuracy, the updated trainable tensors, the
-    augmentation generator and the method's extra state (mvp-clip's
-    e-prompt counts) equal the uninterrupted run's bit for bit."""
+    generator (augmentation draws; moe-clip's gate noise too) and the
+    method's extra state (mvp-clip's e-prompt counts) equal the
+    uninterrupted run's bit for bit."""
     cfg = _cfg(tmp_path, **CASES[case])
     mask = cfg.method == "mvp-clip"
     tr = _trainer(cfg, synth, use_mask=mask)
