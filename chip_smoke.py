@@ -7,7 +7,8 @@
 2. Builds the CUDA kernels from lifelong_clip_tpu_torch/csrc.
 3. Kernel phase: the fused LN-attention block, forward and backward, at the
    ViT-B/16 vision shape (64 x 197 x 768, 12 heads, LoRA r=4, bf16, no mask,
-   and with no LoRA and dx only, as adapter-clip and moe-clip run it),
+   and with no LoRA and dx only, as adapter-clip and moe-clip run it, and
+   at 128 x 197 x 768 with no LoRA, continual-clip's eval batch),
    the text shape (20 and 64 x 77 x 512, 8 heads, causal), ViT-L/14's
    vision shape (64 x 257 x 1024, 16 heads, LoRA r=4) and T = 512 (8 x 512 x
    768, weight_grads), the KV-prefix block at the mvp-clip shape (64 x 197 x
@@ -59,8 +60,10 @@
    Then adapter-clip and moe-clip as ``scripts/adapter_clip.sh`` sets them
    (image tower, online_iter 3; kernel #1 in all 12 vision blocks and #2,
    dx only, in blocks 1-11 of every step); an OpenAI-layout ViT-B/16
-   checkpoint written from a seed with ``torch.save`` and read back exactly
-   by ``models/convert.py``; continual-clip as
+   checkpoint, its keys and shapes written out here from a seed (not from
+   the converter's tables), saved with ``torch.save`` and read by
+   ``models/convert.py`` onto the card, each tensor held to the file's by
+   the reference layout and the patch kernel by its conv2d; continual-clip as
    ``scripts/continual_clip.sh`` sets it from that checkpoint
    (``--pretrained_path``) with ``--zero_shot_evaluation`` on synthetic-20,
    whose line must close result.txt; and continual-clip's eval throughput
@@ -953,67 +956,160 @@ def adapter_main_path_phase(method):
                       "per_pass": per_pass}
 
 
-def openai_state_dict(params, cfg):
-    """The port's CLIP params (on the CPU) as an OpenAI CLIP ViT state dict:
-    the reference ``build_model``'s key names and (out, in) weights, the
-    inverse of ``models/convert.py:state_dict_to_params``."""
-    from lifelong_clip_tpu_torch.models.convert import _BLOCK_KEYS
-    v, t = params["vision"], params["text"]
-    p, w = cfg.patch_size, cfg.vision_width
-    sd = {"visual.conv1.weight":
-          v["patch_kernel"].reshape(p, p, 3, w).permute(3, 2, 0, 1),
-          "visual.class_embedding": v["class_embedding"],
-          "visual.positional_embedding": v["pos_embed"],
-          "visual.proj": v["proj"],
-          "token_embedding.weight": t["token_embedding"],
-          "positional_embedding": t["pos_embed"],
-          "text_projection": t["text_projection"],
-          "logit_scale": params["logit_scale"]}
-    for name, ln in (("visual.ln_pre", v["ln_pre"]),
-                     ("visual.ln_post", v["ln_post"]),
-                     ("ln_final", t["ln_final"])):
-        sd[f"{name}.weight"], sd[f"{name}.bias"] = ln["scale"], ln["bias"]
-    for prefix, blocks, layers in (
-            ("visual.transformer", v["blocks"], cfg.vision_layers),
-            ("transformer", t["blocks"], cfg.text_layers)):
+def openai_state_dict(cfg, seed=5):
+    """A seeded OpenAI CLIP ViT state dict of ``cfg``'s sizes on the CPU:
+    the reference ``build_model``'s key names and shapes, written out here
+    and not taken from ``models/convert.py``, so that ``check_loaded``
+    holds the converter's key map and transposes to the reference layout."""
+    import math
+    import torch
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(*shape, generator=g)
+
+    def ln(name, w):
+        return {f"{name}.weight": rnd(w, scale=0.1, shift=1.0),
+                f"{name}.bias": rnd(w, scale=0.1)}
+
+    def blocks(prefix, w, layers):
+        sd = {}
         for i in range(layers):
-            for (group, name), suffix, transposed in _BLOCK_KEYS:
-                a = blocks[group][name][i]
-                sd[f"{prefix}.resblocks.{i}.{suffix}"] = a.T if transposed \
-                    else a
-    return {k: a.contiguous() for k, a in sd.items()}
+            p = f"{prefix}.resblocks.{i}"
+            sd.update({**ln(f"{p}.ln_1", w), **ln(f"{p}.ln_2", w),
+                       f"{p}.attn.in_proj_weight":
+                           rnd(3 * w, w, scale=w ** -0.5),
+                       f"{p}.attn.in_proj_bias": rnd(3 * w, scale=0.02),
+                       f"{p}.attn.out_proj.weight":
+                           rnd(w, w, scale=w ** -0.5),
+                       f"{p}.attn.out_proj.bias": rnd(w, scale=0.02),
+                       f"{p}.mlp.c_fc.weight":
+                           rnd(4 * w, w, scale=w ** -0.5),
+                       f"{p}.mlp.c_fc.bias": rnd(4 * w, scale=0.02),
+                       f"{p}.mlp.c_proj.weight":
+                           rnd(w, 4 * w, scale=(4 * w) ** -0.5),
+                       f"{p}.mlp.c_proj.bias": rnd(w, scale=0.02)})
+        return sd
+
+    w, tw, p = cfg.vision_width, cfg.text_width, cfg.patch_size
+    grid = cfg.image_size // p
+    return {"visual.class_embedding": rnd(w, scale=w ** -0.5),
+            "visual.positional_embedding":
+                rnd(grid * grid + 1, w, scale=w ** -0.5),
+            "visual.proj": rnd(w, cfg.embed_dim, scale=w ** -0.5),
+            "visual.conv1.weight": rnd(w, 3, p, p, scale=0.05),
+            **ln("visual.ln_pre", w), **ln("visual.ln_post", w),
+            **blocks("visual.transformer", w, cfg.vision_layers),
+            "positional_embedding":
+                rnd(cfg.context_length, tw, scale=0.01),
+            "text_projection": rnd(tw, cfg.embed_dim, scale=tw ** -0.5),
+            "logit_scale": torch.tensor(math.log(1 / 0.07)),
+            "token_embedding.weight":
+                rnd(cfg.vocab_size, tw, scale=0.02),
+            **ln("ln_final", tw),
+            **blocks("transformer", tw, cfg.text_layers)}
 
 
-def write_pretrained(tmp, model="ViT-B/16"):
-    """An OpenAI-layout checkpoint of ``model`` written with ``torch.save``
-    from seed 5, read back by ``models/convert.py:load_clip_params`` onto
-    the card: every tensor and the inferred architecture must come back
-    exactly. Returns (path, MB, s to write, s to load)."""
+def check_loaded(params, sd, cfg):
+    """The tree ``load_clip_params`` read against the state dict it was
+    written from, by the reference layout: Linear weights (out, in) acting
+    as x @ W.T are kept as x @ W, blocks stacked on axis 0, every tensor
+    exact, every key of ``sd`` used; the patch kernel is held by what it
+    computes, the port's patch embedding of a seeded image against
+    ``conv2d`` with the file's kernel, within 1e-5 of the output's max
+    (fp32, two summation orders). Returns the number of tensors checked."""
+    import torch
+    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
+    from lifelong_clip_tpu_torch.models.clip import extract_patches
+    v, t = params["vision"], params["text"]
+    used, checked = set(), []
+
+    def same(got, *keys, transposed=False, stack=False):
+        want = [sd[k].T if transposed else sd[k] for k in keys]
+        want = torch.stack(want) if stack else want[0]
+        assert torch.equal(got.cpu(), want), keys[0]
+        used.update(keys)
+        checked.append(got)
+
+    for got, key in ((v["class_embedding"], "visual.class_embedding"),
+                     (v["pos_embed"], "visual.positional_embedding"),
+                     (v["proj"], "visual.proj"),
+                     (t["token_embedding"], "token_embedding.weight"),
+                     (t["pos_embed"], "positional_embedding"),
+                     (t["text_projection"], "text_projection")):
+        same(got, key)
+    assert float(params["logit_scale"]) == float(sd["logit_scale"])
+    used.add("logit_scale")
+    checked.append(params["logit_scale"])
+    for tree, name in ((v["ln_pre"], "visual.ln_pre"),
+                       (v["ln_post"], "visual.ln_post"),
+                       (t["ln_final"], "ln_final")):
+        same(tree["scale"], f"{name}.weight")
+        same(tree["bias"], f"{name}.bias")
+    for blk, prefix, layers in (
+            (v["blocks"], "visual.transformer", cfg.vision_layers),
+            (t["blocks"], "transformer", cfg.text_layers)):
+        for got, suffix, tr in (
+                (blk["ln_1"]["scale"], "ln_1.weight", False),
+                (blk["ln_1"]["bias"], "ln_1.bias", False),
+                (blk["attn"]["w_qkv"], "attn.in_proj_weight", True),
+                (blk["attn"]["b_qkv"], "attn.in_proj_bias", False),
+                (blk["attn"]["w_out"], "attn.out_proj.weight", True),
+                (blk["attn"]["b_out"], "attn.out_proj.bias", False),
+                (blk["ln_2"]["scale"], "ln_2.weight", False),
+                (blk["ln_2"]["bias"], "ln_2.bias", False),
+                (blk["mlp"]["w_fc"], "mlp.c_fc.weight", True),
+                (blk["mlp"]["b_fc"], "mlp.c_fc.bias", False),
+                (blk["mlp"]["w_proj"], "mlp.c_proj.weight", True),
+                (blk["mlp"]["b_proj"], "mlp.c_proj.bias", False)):
+            same(got, *(f"{prefix}.resblocks.{i}.{suffix}"
+                        for i in range(layers)), transposed=tr, stack=True)
+    conv = sd["visual.conv1.weight"]
+    img = torch.randn(2, 3, cfg.image_size, cfg.image_size,
+                      generator=torch.Generator().manual_seed(6))
+    want = torch.nn.functional.conv2d(img, conv, stride=cfg.patch_size)
+    want = want.flatten(2).transpose(1, 2)
+    got = extract_patches(img.permute(0, 2, 3, 1), cfg.patch_size) @ \
+        v["patch_kernel"].cpu()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), f"patch kernel err {err}"
+    used.add("visual.conv1.weight")
+    checked.append(v["patch_kernel"])
+    assert used == set(sd), sorted(set(sd) - used)
+    leaves = tree_leaves(params)
+    assert len(checked) == len(leaves) and \
+        {id(a) for a in checked} == {id(a) for a in leaves}, \
+        "a tensor of the loaded tree was not checked"
+    return len(leaves)
+
+
+def write_pretrained(tmp, model="ViT-B/16", device="cuda"):
+    """An OpenAI-layout checkpoint of ``model``'s sizes written with
+    ``torch.save`` from seed 5 (``openai_state_dict``), read back by
+    ``models/convert.py:load_clip_params`` onto ``device``: the inferred
+    architecture must be the preset's and the tree must hold the file's
+    tensors (``check_loaded``). Returns (path, MB, s to write, s to
+    load)."""
     import dataclasses
     import torch
     from lifelong_clip_tpu_torch.config import resolve_clip_preset
-    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
-    from lifelong_clip_tpu_torch.models import build_clip
     from lifelong_clip_tpu_torch.models.convert import load_clip_params
-    params, cfg = build_clip(model, gen=torch.Generator().manual_seed(5),
-                             device="cpu")
+    cfg = resolve_clip_preset(model)
+    sd = openai_state_dict(cfg)
     path = os.path.join(tmp, model.replace("/", "-") + ".pt")
     t0 = time.perf_counter()
-    torch.save(openai_state_dict(params, cfg), path)
+    torch.save(sd, path)
     t1 = time.perf_counter()
-    loaded, lcfg = load_clip_params(path, device="cuda")
-    torch.cuda.synchronize()
+    loaded, lcfg = load_clip_params(path, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
     t2 = time.perf_counter()
-    assert dataclasses.asdict(lcfg) == dataclasses.asdict(
-        resolve_clip_preset(model)), lcfg
-    a, b = tree_leaves(params), tree_leaves(loaded)
-    assert len(a) == len(b) and all(
-        torch.equal(x, y.cpu()) for x, y in zip(a, b)), \
-        "the checkpoint did not read back exactly"
+    assert dataclasses.asdict(lcfg) == dataclasses.asdict(cfg), lcfg
+    n = check_loaded(loaded, sd, lcfg)
     mb = os.path.getsize(path) / 1e6
     log(f"pretrained {model} checkpoint: {mb:.1f} MB written in "
         f"{t1 - t0:.2f} s, read onto the card in {t2 - t1:.2f} s, "
-        f"{len(b)} tensors exact")
+        f"{n} tensors held to the file's by the reference layout")
     return path, mb, t1 - t0, t2 - t1
 
 
@@ -1848,6 +1944,11 @@ def main():
     # sit outside the op, so it runs with no LoRA, the backward dx only
     cases.append(kernel_case("vision, no LoRA", 64, 197, 768, 12, 0, False,
                              False, 17))
+    # continual-clip's and its zero-shot pass's eval batch
+    # (scripts/continual_clip.sh: test_batchsize 128): B*T = 25216 rows, no
+    # partial tile; the eval runs the forward, the case checks both
+    cases.append(kernel_case("eval bs 128, no LoRA", 128, 197, 768, 12, 0,
+                             False, False, 18))
     cases.append(kernel_case("vision weight_grads", 64, 197, 768, 12, 4,
                              False, True, 3, time_it=False))
     # past 256 keys (the tiled roads): ViT-L/14's vision block, T = 512

@@ -8,8 +8,9 @@ the layer-stacked parameter dicts of ``models/init.py``. The file is read
 on the CPU and the result moved to the requested device. Nothing is
 downloaded: the checkpoint must be on disk (``--pretrained_path``).
 
-The ViT branch is ported. The ModifiedResNet branch (``models/resnet.py``)
-and timm ViTs (the vit-prompt methods) are not yet (ROADMAP.md, queue A).
+The ViT branch is ported. ModifiedResNet checkpoints (``models/resnet.py``)
+and timm ViTs (the vit-prompt methods) are not yet (ROADMAP.md, queue A):
+a checkpoint without ``visual.proj`` raises.
 """
 
 from __future__ import annotations
@@ -45,50 +46,30 @@ def infer_config(sd) -> CLIPConfig:
     """Shape-driven architecture inference (reference model.py:1005-1044).
 
     ViT checkpoints are identified by ``visual.proj`` (``build_model:1006``);
-    otherwise the ModifiedResNet branch reads stage depths from the
-    ``visual.layerN`` key families (``:1019-1033``)."""
-    embed_dim = sd["text_projection"].shape[1]
+    any other layout raises."""
+    if "visual.proj" not in sd:
+        raise NotImplementedError(
+            "only OpenAI CLIP ViT checkpoints are ported; ModifiedResNet "
+            "(models/resnet.py) comes later (ROADMAP.md, queue A)")
     text_width = sd["ln_final.weight"].shape[0]
-    text_layers = len({k.split(".")[2] for k in sd
-                       if k.startswith("transformer.resblocks")})
-    text_kw = dict(
-        embed_dim=embed_dim,
+    vision_width = sd["visual.conv1.weight"].shape[0]
+    patch_size = sd["visual.conv1.weight"].shape[-1]
+    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
+    return CLIPConfig(
+        embed_dim=sd["text_projection"].shape[1],
+        image_size=grid * patch_size,
+        patch_size=patch_size,
+        vision_width=vision_width,
+        # layer index is the 4th component: visual.transformer.resblocks.N
+        vision_layers=len({k.split(".")[3] for k in sd
+                           if k.startswith("visual.transformer.resblocks")}),
+        vision_heads=vision_width // 64,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         text_width=text_width,
         text_heads=text_width // 64,
-        text_layers=text_layers,
-    )
-    if "visual.proj" in sd:  # ViT
-        vision_width = sd["visual.conv1.weight"].shape[0]
-        patch_size = sd["visual.conv1.weight"].shape[-1]
-        # layer index is the 4th component: visual.transformer.resblocks.N
-        vision_layers = len({k.split(".")[3] for k in sd
-                             if k.startswith("visual.transformer.resblocks")})
-        grid = int(round(
-            (sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
-        return CLIPConfig(
-            image_size=grid * patch_size,
-            patch_size=patch_size,
-            vision_width=vision_width,
-            vision_layers=vision_layers,
-            vision_heads=vision_width // 64,
-            **text_kw,
-        )
-    counts = tuple(
-        len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}")})
-        for b in (1, 2, 3, 4))
-    vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
-    output_width = int(round(
-        (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5))
-    return CLIPConfig(
-        image_size=output_width * 32,
-        patch_size=32,  # unused for rn; keeps grid_size well-defined
-        vision_width=vision_width,
-        vision_layers=counts,
-        vision_heads=vision_width * 32 // 64,
-        tower="rn",
-        **text_kw,
+        text_layers=len({k.split(".")[2] for k in sd
+                         if k.startswith("transformer.resblocks")}),
     )
 
 
@@ -144,10 +125,6 @@ def state_dict_to_params(sd, cfg: CLIPConfig = None, device=None):
     """Returns (params, cfg) on ``device`` (``None``: the GPU). ``sd``: str
     -> fp32 tensor state dict of an OpenAI CLIP ViT."""
     cfg = cfg or infer_config(sd)
-    if cfg.tower == "rn":
-        raise NotImplementedError(
-            "ModifiedResNet checkpoints (models/resnet.py) are not ported "
-            "yet (ROADMAP.md, queue A)")
     conv = sd["visual.conv1.weight"]  # (W, 3, P, P)
     # the patch vectors are flattened (ph, pw, c): reorder the kernel to match
     params = {
@@ -172,10 +149,3 @@ def load_clip_params(path: str, device=None):
     """Checkpoint file -> (params on ``device``, cfg)."""
     return state_dict_to_params(_load_state_dict(path), device=device)
 
-
-def timm_vit_to_params(sd, cfg: CLIPConfig = None):
-    """timm ViT state dicts (the vit-prompt methods' backbone) are not
-    ported yet."""
-    raise NotImplementedError(
-        "timm ViT checkpoints (the l2p/dualprompt/mvp backbone) are not "
-        "ported yet (ROADMAP.md, queue A)")

@@ -46,7 +46,8 @@ CASES = [(2, 13, 128, 2, 4, False, False), (3, 77, 256, 4, 0, True, True),
          (2, 257, 1024, 16, 4, False, True),
          (2, 512, 256, 4, 4, False, False), (1, 300, 128, 2, 0, True, True),
          (1, 800, 64, 1, 0, False, False),
-         (100, 77, 512, 8, 4, True, False)]
+         (100, 77, 512, 8, 4, True, False),
+         (128, 197, 768, 12, 0, False, False)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,r,causal,wg", CASES)
