@@ -15,7 +15,16 @@
    768, P = 20 prompt slots, 12 heads, bf16; 5 live slots, none live, 5
    live with one prompt tensor as pk and pv as mvp-clip passes them, and 20
    live with weight_grads=True) and at S = P + T = 512 (8 x 197 x 768, P =
-   315, 40 live, weight_grads), and the flash-attention op at five shapes (the
+   315, 40 live, weight_grads); the new shapes of the prompt-pool methods:
+   L2P's prompted block (64 x 222 x 768, no LoRA, dx only), ProtoCLIP's
+   text prefix (64 x 25 x 512, 8 heads, causal), its CoPL image prefix (pk
+   != pv, P = 4, all and none live) and its suffix pass (64 x 512 x 512, 8
+   heads, one prompt tensor as pk and pv, P = 25, the block-diagonal
+   causal (512, 537) mask of 64 classes x 8 tokens, whose bound counts the
+   (query, key) pairs the mask leaves live), and the same at its main
+   path's 20 classes (64 and 90 rows x 160 tokens, the (160, 185) mask);
+   and the flash-attention op at
+   five shapes (the
    prompted-LoRA block, B*H = 768, T = 197, S = 217, dh 64, with no mask and
    with a (S,) key row of 5 live prompt slots; the text tower, 64 rows x 8
    heads, T = S = 77, causal; ViT-L/14 with no prefix, 64 x 257 x 1024, 16
@@ -68,12 +77,23 @@
    (``--pretrained_path``) with ``--zero_shot_evaluation`` on synthetic-20,
    whose line must close result.txt; and continual-clip's eval throughput
    at test_batchsize 128 (the eval step alone, the text-cache pass and
-   ``evaluate`` end to end).
+   ``evaluate`` end to end). Then l2p, dualprompt and mvp as
+   ``scripts/{l2p,dualprompt,mvp}.sh`` set them for cifar100
+   (``vit_base_patch16_224``, bs 64, online_iter 3, Adam 5e-3; mvp with
+   mask, contrastive, AFS and GSF) and ProtoCLIP
+   (``adapter-clip-proto_prompt``, ViT-B/16, bs 64, online_iter 3) over two
+   tasks: its stage 1, task-end sweeps, drift, CoPL advance, stage 2 and
+   the cached eval; every train step's launches exactly as
+   ``STEP_LAUNCHES``.
 6. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip
    step (AutoAugment cifar10, as bench.py), the same with LoRA on both
    towers at 100 uncached class rows, the mvp-clip, MaPLe and
    prompted-LoRA steps, the ViT-L/14 lora-clip step and the adapter-clip
-   and moe-clip steps on one batch lower the loss by more than 0.02; each
+   and moe-clip steps, and the l2p, dualprompt, mvp and ProtoCLIP stage-1
+   steps (built from their main paths' argv; MVP read on its cross entropy
+   before GSF; ProtoCLIP on 8 classes of one solid colour each on a
+   64-slot class table, its suffix pass at 64 x 512 tokens, ending 0.1
+   below log 8 too), on one batch lower the loss by more than 0.02; each
    prints step ms, samples/s and the peak
    device memory of its steps, then a torch.profiler window over 3 more
    steps (device ms a step by kernel, the device's idle share, the
@@ -93,7 +113,9 @@
    the resumed run's task-1 losses, result and final LoRA tensors must be
    bitwise those of the uninterrupted run. The same for moe-clip with
    ``scripts/adapter_clip.sh``'s flags, whose gate noise the resumed run
-   must draw as the uninterrupted one does.
+   must draw as the uninterrupted one does, for l2p (its frequency
+   counter) and for ProtoCLIP (prototypes, covariances, task counter and
+   the CoPL pools after the next task's advance and stage 2).
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels; each one's launches summed over
@@ -305,21 +327,27 @@ def block_cost(b, t, d, heads, r, weight_grads, backward, es=2):
     return flops, 2 * m * d * es + kept + w_bytes + out_bytes
 
 
-def prefix_cost(b, t, d, heads, p, live, weight_grads, backward, es=2):
+def prefix_cost(b, t, d, heads, p, live, weight_grads, backward, es=2,
+                pairs=None, mask_bytes=0):
     """(flops, bytes) of the KV-prefix block for this run's data: only the
     ``live`` prefix slots need their K/V projections, scores and grads
     (dead slots contribute exact zeros); dpk and dpv are written whole.
+    ``pairs``: the (query, key) pairs a row's mask leaves live (default
+    every one of T x (live + T)), the attention products this data needs;
+    ``mask_bytes``: the mask's, read once.
     The backward is the chain as a train step runs it: given x, the output
     grad and the forward's kept qkv16 and prefix K/V (with weight_grads
     also h16, ctx16 and the prompts), it recomputes none of the forward."""
     m, dh, s = b * t, d // heads, live + t
     bp = b * live
-    attn = 2 * b * heads * t * s * dh              # one T x S x dh product
+    pairs = t * s if pairs is None else pairs
+    attn = 2 * b * heads * pairs * dh              # one T x S x dh product
     w_bytes = 4 * d * d * 2 + 5 * d * 4
     if not backward:
         proj = 2 * m * d * 3 * d + 2 * bp * d * 2 * d  # token qkv, prefix K/V
         flops = proj + 2 * attn + 2 * m * d * d
-        return flops, m * d * es + 2 * bp * d * es + w_bytes + m * d * es
+        return flops, (m * d * es + 2 * bp * d * es + w_bytes + mask_bytes
+                       + m * d * es)
     flops = (2 * m * d * d                       # dctx
              + 5 * attn                          # s, dp, dv, dq, dk
              + 2 * m * 3 * d * d                 # dh
@@ -330,7 +358,7 @@ def prefix_cost(b, t, d, heads, p, live, weight_grads, backward, es=2):
         flops += 2 * m * d * d + 2 * m * d * 3 * d + 2 * bp * d * 2 * d
         kept += 2 * m * d * 2 + 2 * bp * d * es  # h16, ctx16, live pk, pv
         out_bytes += w_bytes
-    return flops, 2 * m * d * es + kept + w_bytes + out_bytes
+    return flops, 2 * m * d * es + kept + w_bytes + mask_bytes + out_bytes
 
 
 def bound_ms(flops, nbytes):
@@ -372,7 +400,9 @@ def library_prefix_block(x, pk, pv, blk, mask, heads):
     v = torch.cat([F.linear(pv, w[2 * d:], bq[2 * d:]), v], 1)
     q, k, v = (a.reshape(b, -1, heads, d // heads).transpose(1, 2)
                for a in (q, k, v))
-    am = None if mask is None else mask.to(x.dtype).reshape(1, -1)
+    am = None if mask is None else mask.to(x.dtype)
+    if am is not None and am.dim() == 1:
+        am = am.reshape(1, -1)
     ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
     ctx = ctx.transpose(1, 2).reshape(b, t, d)
     return x + F.linear(ctx, blk["w_out_t"], blk["b_out"])
@@ -420,13 +450,14 @@ def launch_breakdown(run_fwd, run_bwd, reps=3):
     return out
 
 
-def attention_cost(b, t, s, d, heads):
+def attention_cost(b, t, s, d, heads, pairs=None):
     """(flops, bytes) of the chains' attention backward alone (dq and dk/dv
     kernels): the 5 T x S x dh products (scores, dp, dv, dq, dk) of every
-    (batch row, head), qkv16, dctx16 and dqkv16 read or written once, and
+    (batch row, head), over ``pairs`` live (query, key) pairs where a mask
+    kills the rest, qkv16, dctx16 and dqkv16 read or written once, and
     (with weight_grads off) nothing else."""
     dh = d // heads
-    flops = 5 * 2 * b * heads * t * s * dh
+    flops = 5 * 2 * b * heads * (t * s if pairs is None else pairs) * dh
     return flops, (2 * (t + 2 * s) + t) * b * d * 2
 
 
@@ -546,18 +577,24 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
 
 
 def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
-                       shape=MVP_SHAPE, shared=False):
+                       shape=MVP_SHAPE, shared=False, mask=None):
     """The KV-prefix block at ``shape`` (B, T, D, heads, P; the mvp-clip
     shape by default) with ``live`` of P prompt slots live (``shared``: one
-    prompt tensor as pk and pv, as mvp-clip passes them): checked through
-    the op's autograd Function and, with ``time_it``, timed beside its plain
-    version and the yardstick."""
+    prompt tensor as pk and pv, as mvp-clip passes them; ``mask``: a (T, P +
+    T) mask in place of the key row, with every prefix slot live): checked
+    through the op's autograd Function and, with ``time_it``, timed beside
+    its plain version and the yardstick."""
     import torch
     from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
     from lifelong_clip_tpu_torch.ops import kernel_check as kc
     b, t, d, heads, p = shape
-    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(b, t, d, heads, p, live,
-                                                     seed, shared=shared)
+    x, pk, pv, blk, gy, row = kc.make_prefix_inputs(b, t, d, heads, p, live,
+                                                    seed, shared=shared)
+    assert mask is None or live == p
+    mask = row if mask is None else mask
+    # the (query, key) pairs the mask leaves live in a row
+    pairs = int((~torch.isneginf(torch.broadcast_to(
+        mask, (t, p + t)))).sum())
     args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], heads, mask)
     bargs = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], heads, mask,
              weight_grads)
@@ -569,16 +606,18 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
     log(f"{label}: checks {json.dumps(checks)}")
     res = {"label": label, "shape": [b, t, d], "heads": heads, "prompts": p,
            "live": live, "weight_grads": weight_grads, "shared": shared,
+           "live_pairs_per_row": pairs,
            "fwd_max_abs_err": errs["y"],
            "bwd_max_abs_err": max(v for k, v in errs.items() if k != "y")}
     for pre, bwd in (("fwd", False), ("bwd", True)):
-        fl, by = prefix_cost(b, t, d, heads, p, live, weight_grads, bwd)
+        fl, by = prefix_cost(b, t, d, heads, p, live, weight_grads, bwd,
+                             pairs=pairs, mask_bytes=mask.numel() * 4)
         res[f"{pre}_bound_ms"], res[f"{pre}_bound_by"] = bound_ms(fl, by)
     if not time_it:
         return res
 
     lb = library_weights(blk)
-    fl, by = attention_cost(b, t, live + t, d, heads)
+    fl, by = attention_cost(b, t, live + t, d, heads, pairs=pairs)
     res["attn_bwd_bound_ms"] = bound_ms(fl, by)[0]
     kept = fba._keep_for_prefix_backward(
         fba._cuda_prefix_forward(x, *args, keep=True)[1], weight_grads)
@@ -589,6 +628,20 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
         lambda: fba.fused_prefix_attention_block_reference_bwd(x, gy, *bargs),
         lambda *a: library_prefix_block(*a, lb, mask, heads),
         [a.detach().clone().requires_grad_(True) for a in (x, pk, pv)], gy)
+
+
+def proto_main_suffix_cases():
+    """ProtoCLIP's suffix pass at the shapes its main path (``PROTO_ARGV``:
+    synthetic-20, 20 class slots, S = 8, lp = 25) gives #3/#4: stage 1's and
+    stage 2's 64 rows and the eval cache's 90 prompt combinations, each of
+    20 x 8 = 160 tokens under the block-diagonal causal (160, 185) mask,
+    which takes the register road (S <= 256)."""
+    from lifelong_clip_tpu_torch.models.proto_clip import suffix_mask
+    mask = suffix_mask(20, 8, 25, device="cuda")
+    return [prefix_kernel_case(
+        f"ProtoCLIP suffix (main path), {b} x 20 x 8, lp = 25", 25, False,
+        seed, time_it=time_it, shape=(b, 160, 512, 8, 25), shared=True,
+        mask=mask) for b, seed, time_it in ((64, 24, True), (90, 25, False))]
 
 
 # (label, B, T, S, D, heads, mask): the prompted-LoRA block of ViT-B/16
@@ -752,10 +805,21 @@ def reset_launches():
     fa.reset_launches()
 
 
-def run_main_path(label, module, factories, argv, loss_of, in_result=None):
+def wrap_step(owner, attr, hook):
+    """Set ``owner.attr`` so that ``hook`` wraps every train or eval step
+    it runs: a trainer class's step method is wrapped itself, a method
+    module's step factory has each step it makes wrapped. Returns a
+    function restoring it."""
+    orig = getattr(owner, attr)
+    setattr(owner, attr, hook(orig) if isinstance(owner, type) else
+            (lambda *a, **kw: hook(orig(*a, **kw))))
+    return lambda: setattr(owner, attr, orig)
+
+
+def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
     """Drive ``main(argv)`` with the launch counters set to 0 just before
-    and read just after, counting each pass's launches by wrapping the
-    method module's step factories (``factories``: pass -> factory name).
+    and read just after, counting each pass's launches by wrapping its step
+    (``passes``: pass -> ``owner``'s attribute, through ``wrap_step``).
     With a ``train`` pass every loss must be finite; ``in_result``: a text
     result.txt must hold. Returns (launches, per-pass launches, train-step
     outputs, wall s)."""
@@ -763,7 +827,7 @@ def run_main_path(label, module, factories, argv, loss_of, in_result=None):
     import torch
     from lifelong_clip_tpu_torch import main as cli
 
-    per_pass = {p: {k: 0 for k in launch_counts()} for p in factories}
+    per_pass = {p: {k: 0 for k in launch_counts()} for p in passes}
     outs = []
 
     def counting(pass_name, fn):
@@ -777,10 +841,8 @@ def run_main_path(label, module, factories, argv, loss_of, in_result=None):
             return out
         return wrapped
 
-    orig = {p: getattr(module, f) for p, f in factories.items()}
-    for p, f in factories.items():
-        setattr(module, f, lambda *a, _p=p, **kw: counting(
-            _p, orig[_p](*a, **kw)))
+    restore = [wrap_step(owner, attr, lambda fn, _p=p: counting(_p, fn))
+               for p, attr in passes.items()]
     try:
         with tempfile.TemporaryDirectory() as tmp:
             reset_launches()
@@ -794,12 +856,12 @@ def run_main_path(label, module, factories, argv, loss_of, in_result=None):
             assert found, f"{label} main path wrote no result.txt"
             text = open(found[0]).read()
     finally:
-        for p, f in factories.items():
-            setattr(module, f, orig[p])
+        for r in restore:
+            r()
     assert in_result is None or in_result in text, \
         f"{label} result.txt lacks {in_result!r}: {text[-300:]!r}"
     losses = [loss_of(o) for o in outs]
-    assert "train" not in factories or (
+    assert "train" not in passes or (
         losses and np.isfinite(losses).all()), f"{label} losses {losses}"
     trained = (f"{len(losses)} train steps, loss {losses[0]:.4f} -> "
                f"{losses[-1]:.4f}" if losses else "no train steps")
@@ -954,6 +1016,143 @@ def adapter_main_path_phase(method):
     assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
     return launches, {"train_steps": steps, "wall_s": wall,
                       "per_pass": per_pass}
+
+
+# scripts/{l2p,dualprompt,mvp}.sh's cifar100 row (vit_base_patch16_224, bs
+# 64, online_iter 3, Adam 5e-3, no memory, the default --transforms) on
+# synthetic-20, 2 tasks
+VIT_PROMPT_ARGV = ["--model_name", "vit_base_patch16_224", "--dataset",
+                   "synthetic-20", "--n_tasks", "2", "--n", "50", "--m",
+                   "10", "--rnd_NM", "--batchsize", "64", "--lr", "5e-3",
+                   "--opt_name", "adam", "--sched_name", "default",
+                   "--online_iter", "3", "--eval_period", "1000",
+                   "--memory_size", "0"]
+MVP_FLAGS = ["--use_mask", "--use_contrastiv", "--use_afs", "--use_gsf"]
+STEP_KEYS = ("fused_ln_attention_fwd", "fused_ln_attention_bwd",
+             "fused_prefix_attention_fwd", "fused_prefix_attention_bwd")
+# kernel launches a train step, in STEP_KEYS order, at 12 layers:
+# L2P: the query and the prompted pass on #1, the prompted one backward
+# through all 12 blocks (the prompts enter before block 0); DualPrompt: the
+# query pass on #1, the prompted pass on #3/#4 in every block (layers 5-11
+# with all 20 slots dead); MVP: the query pass over 11 blocks
+# (--use_last_layer off), the prompted pass as DualPrompt's; ProtoCLIP
+# stage 1: #1 in the image query pass (12) and the text prefix pass (11:
+# the last block's output is no layer's input), #2 in the latter, #3 in
+# the CoPL image pass, the suffix pass and the suffix pass's per-layer
+# recompute (3 x 12), #4 in the image and suffix passes (2 x 12)
+STEP_LAUNCHES = {"l2p": (24, 12, 0, 0), "dualprompt": (12, 0, 12, 12),
+                 "mvp": (11, 0, 12, 12),
+                 "adapter-clip-proto_prompt": (23, 11, 36, 24)}
+
+
+def capture_trainers(cls):
+    """Patch ``cls.setup_model`` to record each trainer it sets up; returns
+    (the list, a function restoring it)."""
+    made, setup = [], cls.setup_model
+
+    def recording(self):
+        setup(self)
+        made.append(self)
+
+    cls.setup_model = recording
+
+    def restore():
+        cls.setup_model = setup
+    return made, restore
+
+
+def per_step_launches(method, launches, steps):
+    want = {k: n * steps for k, n in zip(STEP_KEYS, STEP_LAUNCHES[method])}
+    got = {k: launches[k] for k in STEP_KEYS}
+    assert got == want and launches["flash_attention_fwd"] == 0, (
+        f"{method}: {steps} train steps launched {launches}, want {want}")
+
+
+def vit_prompt_main_path_phase(method):
+    """l2p, dualprompt or mvp through ``main`` as ``scripts/{method}.sh``
+    sets it for cifar100 (``vit_base_patch16_224``: exact GELU, no ln_pre;
+    random weights from the seed), on synthetic-20: the train steps'
+    launches exactly as ``STEP_LAUNCHES``, the eval passes on the same ops,
+    and the usage counter advanced by every step's selections."""
+    from lifelong_clip_tpu_torch.methods import vit_prompt_methods as vpm
+    made, restore = capture_trainers(vpm._PromptPoolTrainer)
+    try:
+        launches, per_pass, outs, wall = run_main_path(
+            method, vpm._PromptPoolTrainer,
+            {"train": "train_step", "eval": "predict"},
+            ["--method", method] + VIT_PROMPT_ARGV
+            + (MVP_FLAGS if method == "mvp" else []),
+            lambda st: float(st["loss"]))
+    finally:
+        restore()
+    tr, ev = per_pass["train"], per_pass["eval"]
+    steps = len(outs)
+    per_step_launches(method, tr, steps)
+    op = "fused_ln_attention_fwd" if method == "l2p" \
+        else "fused_prefix_attention_fwd"
+    assert ev[op] > 0 and ev["fused_ln_attention_fwd"] > 0, \
+        f"eval pass launches {ev}"
+    trainer = made[-1]
+    # selections a step: L2P 5 of 10 a sample; DualPrompt and MVP one e-prompt
+    start, per = ((trainer.pool_size, trainer.selection_size)
+                  if method == "l2p" else (2 if method == "dualprompt" else 0,
+                                           1))
+    per *= trainer.cfg.batchsize
+    counter = trainer.counter.float().cpu()
+    assert float(counter.sum()) == start + per * steps, \
+        f"{method} counter {counter.tolist()} after {steps} steps"
+    log(f"{method} usage counter after the run: {counter.tolist()}")
+    return launches, {"train_steps": steps, "wall_s": wall,
+                      "per_pass": per_pass, "counter": counter.tolist()}
+
+
+# ProtoCLIP (`adapter-clip-proto_prompt`) at the adapter script's row
+# (ViT-B/16, bs 64, online_iter 3, AdamW 5e-4, the default --transforms)
+# on synthetic-20, 2 tasks
+PROTO_ARGV = ["--method", "adapter-clip-proto_prompt", "--model_name",
+              "ViT-B/16", "--dataset", "synthetic-20", "--n_tasks", "2",
+              "--n", "50", "--m", "10", "--rnd_NM", "--batchsize", "64",
+              "--lr", "5e-4", "--opt_name", "adamw", "--online_iter", "3",
+              "--eval_period", "1000"]
+
+
+def proto_main_path_phase():
+    """ProtoCLIP through ``main`` on ViT-B/16 (random weights), two tasks:
+    stage 1 (launches exactly as ``STEP_LAUNCHES``), the task-end feature
+    sweeps, the drift displacement of task 0's prototypes, the CoPL advance,
+    stage 2 after task 2 (its text passes on #1-#4), and the eval through
+    the 90-combination text cache."""
+    import numpy as np
+    from lifelong_clip_tpu_torch.methods import proto_clip
+    cls = proto_clip.Trainer_ProtoCLIP
+    made, restore = capture_trainers(cls)
+    try:
+        launches, per_pass, outs, wall = run_main_path(
+            "ProtoCLIP", cls,
+            {"train": "stage1_step", "stage2": "_stage2", "eval": "predict",
+             "cache": "prepare_eval", "sweep": "extract_plain"},
+            PROTO_ARGV, lambda st: float(st["loss"]))
+    finally:
+        restore()
+    steps = len(outs)
+    per_step_launches("adapter-clip-proto_prompt", per_pass["train"], steps)
+    s2, ev, cache = per_pass["stage2"], per_pass["eval"], per_pass["cache"]
+    assert all(s2[k] > 0 for k in STEP_KEYS), f"stage 2 launches {s2}"
+    assert ev["fused_prefix_attention_fwd"] > 0 and \
+        ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
+    assert cache["fused_prefix_attention_fwd"] > 0 and \
+        cache["fused_ln_attention_fwd"] > 0, f"text cache launches {cache}"
+    assert per_pass["sweep"]["fused_ln_attention_fwd"] > 0, per_pass["sweep"]
+    tr = made[-1]
+    means = tr._class_means[tr._have_proto]
+    assert tr.task_count == 1 and int(tr._have_proto.sum()) == 20 and \
+        np.isfinite(means).all() and np.isfinite(tr._class_covs).all(), \
+        (tr.task_count, tr._have_proto)
+    info = {"train_steps": steps, "wall_s": wall, "per_pass": per_pass,
+            "suffix_len": tr.suffix_len, "prototypes": int(
+                tr._have_proto.sum()), "task_count": tr.task_count}
+    log(f"ProtoCLIP: {json.dumps(info)}")
+    return launches, info
 
 
 def openai_state_dict(cfg, seed=5):
@@ -1448,6 +1647,165 @@ def mvp_learning_gate(card, lr=MVP_GATE_LR):
                      model="ViT-B/16 mvp-clip (mask, P = 20), no AutoAugment")
 
 
+# each gate's trainer: its main path's argv (the scripts' row)
+GATE_ARGV = {"l2p": ["--method", "l2p"] + VIT_PROMPT_ARGV,
+             "dualprompt": ["--method", "dualprompt"] + VIT_PROMPT_ARGV,
+             "mvp": ["--method", "mvp"] + VIT_PROMPT_ARGV + MVP_FLAGS,
+             "adapter-clip-proto_prompt": PROTO_ARGV}
+
+
+def prompt_trainer(method, tmp, device="cuda", class_names=None):
+    """A trainer of ``method`` built as ``main`` builds it from
+    ``GATE_ARGV``, over a 100-class synthetic set (so a batch can hold 64
+    classes; ``class_names`` in place of its own)."""
+    import dataclasses
+    from lifelong_clip_tpu_torch import main as cli
+    from lifelong_clip_tpu_torch.data.registry import make_synthetic
+    parser = cli.base_parser()
+    args = parser.parse_args(GATE_ARGV[method] + [
+        "--dataset", "synthetic-100", "--log_path", tmp, "--device", device])
+    data = make_synthetic(n_classes=100, per_class=2, image_size=32, seed=0)
+    if class_names is not None:
+        data = dataclasses.replace(data, class_names=list(class_names))
+    return cli.trainer_class(method, args, parser)(
+        cli.args_to_config(args), train_dataset=data, test_dataset=data)
+
+
+def gate_names(n=100, seed=3):
+    """``n`` distinct made-up class names of six letters (two or three BPE
+    tokens each): unlike the synthetic set's "pattern 0" .. "pattern 99",
+    which differ in a digit token, their rows give a random text tower
+    class features that differ."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    names = set()
+    while len(names) < n:
+        names.add("".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), 6)))
+    return sorted(names)
+
+
+def proto_gate_batch(seed=1):
+    """ProtoCLIP's gate batch of 64, on the CPU: ``PROTO_LIVE`` classes of
+    64 / ``PROTO_LIVE`` samples, each class one solid colour (a random
+    image tower tells noise images too little apart for the step to learn
+    their classes: PERF.md). Returns (images, labels)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    per = 64 // PROTO_LIVE
+    labels = np.repeat(rng.permutation(100)[:PROTO_LIVE], per)
+    colours = rng.integers(0, 255, (PROTO_LIVE, 1, 1, 3)).astype(np.uint8)
+    images = np.repeat(np.broadcast_to(colours, (PROTO_LIVE, 32, 32, 3)),
+                       per, 0)
+    return torch.from_numpy(images), torch.from_numpy(labels)
+
+
+def gate_step(tr, method, images, labels, dev):
+    """(the train step, its batch on the card) of ``tr`` on ``images`` /
+    ``labels``: ProtoCLIP's stage 1 on a class table of 64 slots (the
+    batch's classes, the rest -inf padding), the other trainers' step over
+    the exposed classes."""
+    import numpy as np
+    import torch
+    tr.vocab.expose(labels.numpy())
+    if method == "adapter-clip-proto_prompt":
+        tokens, mask, y, _ = tr.vocab.batch_table(labels.numpy(), 64)
+        batch = {"tokens": torch.from_numpy(tokens).long().to(dev)}
+        step = tr.stage1_step
+    else:
+        mask, y = tr.vocab.logit_mask(), tr.vocab.remap(labels.numpy())
+        batch, step = {}, tr.train_step
+    batch.update(images=images.to(dev), labels=torch.from_numpy(
+        np.asarray(y)).long().to(dev), mask=torch.from_numpy(
+        np.asarray(mask, np.float32)).to(dev))
+    return step, batch
+
+
+def record_ce(tr):
+    """Wrap ``tr.objective`` to keep each step's cross entropy of its
+    logits (MVP's before GSF weights it and the key loss is added).
+    Returns the list it appends to."""
+    import torch.nn.functional as F
+    ces, objective = [], tr.objective
+
+    def recording(frozen, trainable, images, batch, count):
+        loss, logits, new_count = objective(frozen, trainable, images, batch,
+                                            count)
+        ces.append(F.cross_entropy(logits.detach(), batch["labels"]))
+        return loss, logits, new_count
+
+    tr.objective = recording
+    return ces
+
+
+# ProtoCLIP's gate: PROTO_LIVE classes on its 64-slot class table
+# (``proto_gate_batch``); the loss must end PROTO_MARGIN below
+# log(PROTO_LIVE), the loss of a step that tells no class from another
+PROTO_LIVE = 8
+PROTO_MARGIN = 0.1
+GATE_MODELS = {
+    "l2p": "vit_base_patch16_224 L2P (pool 10, 5 of length 5 selected, "
+           "T = 222), Adam 5e-3, AutoAugment",
+    "dualprompt": "vit_base_patch16_224 DualPrompt (g 5 at layers 0-1, e 20 "
+                  "at 2-4), Adam 5e-3, AutoAugment",
+    "mvp": "vit_base_patch16_224 MVP (mask, contrastive, AFS, GSF), Adam "
+           "5e-3, AutoAugment; gated on the cross entropy before GSF",
+    "adapter-clip-proto_prompt": f"ViT-B/16 ProtoCLIP stage 1, {PROTO_LIVE} "
+                                 f"classes (made-up names, one solid "
+                                 f"colour each) on a 64-slot "
+                                 f"class table (suffix 64 x 8 = 512 tokens, "
+                                 f"lp = 25), AdamW 5e-4, AutoAugment"}
+
+
+def prompt_gate(card, method, device="cuda"):
+    """The learning gate of ``method``'s train step (``prompt_trainer``) on
+    one batch of 64, with the launch counters set to 0 just before and read
+    just after: every step launches exactly ``STEP_LAUNCHES``. MVP's gate
+    reads the cross entropy before GSF weights it: GSF scales the loss by
+    mean(ign ** gamma), a statistic of the head's per-sample gradients that
+    grows as the head trains, so the loss it scales can rise while the
+    step learns (PERF.md). ProtoCLIP's (``proto_gate_batch``) runs its
+    suffix pass at 64 x 512 x 512 under the block-diagonal mask, and must
+    also end ``PROTO_MARGIN`` below log(``PROTO_LIVE``)."""
+    import torch
+    proto = method == "adapter-clip-proto_prompt"
+    dev = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = prompt_trainer(method, tmp, device,
+                            class_names=gate_names() if proto else None)
+        if proto:
+            images, labels = proto_gate_batch()
+        else:
+            images, labels, _ = gate_batch(tr.clip_cfg, 64, 64)
+        step, batch = gate_step(tr, method, images, labels, dev)
+        ces = record_ce(tr) if method == "mvp" else None
+        steps = []
+
+        def one_step():
+            steps.append(1)
+            loss = step(batch)["loss"]
+            return loss if ces is None else ces[-1]
+
+        label = {"adapter-clip-proto_prompt": "ProtoCLIP stage 1"}.get(
+            method, method)
+        reset_launches()
+        out = gate_loop(label, one_step, 64, card, model=GATE_MODELS[method],
+                        **({"suffix_len": tr.suffix_len} if proto else {}))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        per_step_launches(method, launches, len(steps))
+        out["launches"] = launches
+        if proto:
+            chance = math.log(PROTO_LIVE)
+            out["chance_loss"] = chance
+            assert out["loss_last"] < chance - PROTO_MARGIN, (
+                f"{label} ended at {out['loss_last']:.4f}, not "
+                f"{PROTO_MARGIN} below log {PROTO_LIVE} = {chance:.4f}")
+        log(f"{label} gate: {len(steps)} steps, launches {launches}")
+        del tr
+    return out
+
+
 def host_step_ms(run_step, steps=5):
     """Host ms a train step over ``steps`` steps, closed by a loss read."""
     import torch
@@ -1761,7 +2119,25 @@ class Preempted(Exception):
     """Stands for a run killed right after a checkpoint."""
 
 
-def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV):
+def same_tree(a, b):
+    """Bitwise equality of two checkpoint trees (dicts, lists, tensors,
+    numpy arrays, numbers)."""
+    import numpy as np
+    import torch
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV, owner=None,
+                     attr="make_train_step"):
     """Checkpoint/resume on the card through ``main``, by default with
     ``scripts/lora_clip.sh``'s flags (LoRA on both towers, AutoAugment,
     the prefetcher uploading through pinned memory; ViT-B/16,
@@ -1772,7 +2148,11 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV):
     ``--resume_from`` that checkpoint, which trains task 1 through
     ``run``. The resumed run's task-1 losses, result and final PEFT
     tensors must equal the uninterrupted run's bit for bit (the kernels
-    use no atomics)."""
+    use no atomics), and so must the method state each run's last
+    checkpoint keeps outside the train state (``checkpoint_extra``: L2P's
+    frequency counter; ProtoCLIP's prototypes, covariances and task
+    counter). The train steps' losses are collected through ``owner``'s
+    ``attr`` (``wrap_step``)."""
     import torch
     from lifelong_clip_tpu_torch import main as cli
     from lifelong_clip_tpu_torch.methods import adapter_clip
@@ -1780,12 +2160,11 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV):
     from lifelong_clip_tpu_torch.utils.checkpoints import load_checkpoint
 
     argv = list(argv) + ["--device", "cuda"]
-    make, save = adapter_clip.make_train_step, OnlineTrainer._maybe_checkpoint
+    owner = adapter_clip if owner is None else owner
+    save = OnlineTrainer._maybe_checkpoint
     losses = []
 
-    def collecting(*a, **kw):
-        step = make(*a, **kw)
-
+    def collect(step):
         def run(*b, **k):
             out = step(*b, **k)
             losses.append(out["loss"])
@@ -1810,7 +2189,7 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV):
         text = open(found[0]).read() if found else None
         return result, text, list(losses)
 
-    adapter_clip.make_train_step = collecting
+    restore = wrap_step(owner, attr, collect)
     try:
         with tempfile.TemporaryDirectory() as tmp:
             ck_full = os.path.join(tmp, "ck_full")
@@ -1826,10 +2205,12 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV):
             got, got_txt, got_l = drive(tmp, "resumed", "--ckpt_dir", ck_cut,
                                         "--resume_from", ck_cut)
             wall = time.perf_counter() - t0
-            want_t = load_checkpoint(ck_full)["state"]["trainable"]
-            got_t = load_checkpoint(ck_cut)["state"]["trainable"]
+            want_ck, got_ck = load_checkpoint(ck_full), load_checkpoint(ck_cut)
+            want_t = want_ck["state"]["trainable"]
+            got_t = got_ck["state"]["trainable"]
+            same_extra = same_tree(want_ck["extra"], got_ck["extra"])
     finally:
-        adapter_clip.make_train_step = make
+        restore()
     n0 = len(cut_l)
     same_before = len(full_l) > n0 > 0 and all(
         torch.equal(a, b) for a, b in zip(full_l[:n0], cut_l))
@@ -1844,11 +2225,14 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV):
         "bitwise_equal_task0_losses": same_before,
         "bitwise_equal_task1_losses": same_loss,
         "bitwise_equal_peft_tensors": f"{sum(same)} of {len(same)}",
+        "bitwise_equal_extra_state": same_extra,
+        "extra_state_keys": sorted(want_ck["extra"]),
         "equal_result": got == full and got_txt == full_txt,
         "result": full, "wall_s": wall}}
     log(json.dumps(out))
     assert cut_txt is None and cursor["task_id"] == 1, out
     assert same_before and same_loss and same and all(same), out
+    assert same_extra, out
     assert full_txt is not None and got == full and got_txt == full_txt, out
     return out
 
@@ -1868,7 +2252,9 @@ def step_profile(run_step, step_ms, steps=3, top=12):
     union of kernel intervals); the device's idle share of the profiled
     window (inflated by the profiler's host overhead) and of ``step_ms``, the
     step time measured without the profiler; the share of the port's own
-    kernels in device time; and the ``top`` kernels by time."""
+    kernels in device time; the ``top`` kernels by time; and the kernel
+    events the window holds a step (a window that lost events, as
+    torch.profiler's can, shows fewer than the step launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1902,6 +2288,10 @@ def step_profile(run_step, step_ms, steps=3, top=12):
            "augmentation_device_ms_per_step": (aug / 1e3 / steps if aug
                                                else "not measured"),
            "port_kernel_share": port / total,
+           "kernel_events_per_step": sum(
+               1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != AUG_RANGE) / steps,
            "top": [{"kernel": k[:120], "ms_per_step": v / 1e3 / steps}
                    for k, v in ranked]}
     log(f"train step profile: {json.dumps(out)}")
@@ -1956,6 +2346,14 @@ def main():
                              False, 12))
     cases.append(kernel_case("T = 512 weight_grads", 8, 512, 768, 12, 4,
                              False, True, 13, time_it=False))
+    # K1, L2P's prompted pass: 1 + 5 x 5 + 196 = 222 tokens (a partial last
+    # row tile), no LoRA, the backward dx only, in all 12 blocks
+    cases.append(kernel_case("L2P prompted, T = 222", 64, 222, 768, 12, 0,
+                             False, False, 19))
+    # K3, ProtoCLIP's text prefix pass: [SOS] + 2 x 12 ctx tokens, T = 25
+    # (far below one tile) under its causal (25, 25) mask, dx only
+    cases.append(kernel_case("ProtoCLIP text prefix, T = 25", 64, 25, 512,
+                             8, 0, True, False, 20))
     torch.cuda.synchronize()
     pcases = [prefix_kernel_case("mvp prefix, 5 of 20 live", 5, False, 4)]
     pcases.append(prefix_kernel_case("mvp prefix, none live", 0, False, 5))
@@ -1967,6 +2365,23 @@ def main():
     pcases.append(prefix_kernel_case(
         "prefix S = 512 (P = 315, 40 live) weight_grads", 40, True, 14,
         time_it=False, shape=(8, 197, 768, 12, 315)))
+    # K2, ProtoCLIP's CoPL image pass: Ek != Ev, P = 4, all live (layers
+    # 0-6) and none live (layers 7-11)
+    pcases.append(prefix_kernel_case("ProtoCLIP image, P = 4, 4 live", 4,
+                                     False, 21, shape=(64, 197, 768, 12, 4)))
+    pcases.append(prefix_kernel_case(
+        "ProtoCLIP image, P = 4, none live", 0, False, 22, time_it=False,
+        shape=(64, 197, 768, 12, 4)))
+    # K4, ProtoCLIP's suffix pass at bs 64: C = 64 classes x S = 8 tokens as
+    # one 512-token row a sample, pk = pv = ln_1(prefix state) of lp = 25,
+    # the block-diagonal causal (512, 537) mask: most 64-key tiles of most
+    # rows are wholly dead
+    from lifelong_clip_tpu_torch.models.proto_clip import suffix_mask
+    pcases.append(prefix_kernel_case(
+        "ProtoCLIP suffix, C x S = 64 x 8, lp = 25", 25, False, 23,
+        shape=(64, 512, 512, 8, 25), shared=True,
+        mask=suffix_mask(64, 8, 25, device="cuda")))
+    pcases.extend(proto_main_suffix_cases())
     torch.cuda.synchronize()
 
     log(f"flash checks: o, dq, dk, dv against the plain versions within "
@@ -1999,12 +2414,22 @@ def main():
         torch.cuda.synchronize()
         cc_eval = continual_eval_phase(card, pretrained[0])
         torch.cuda.synchronize()
+    prompt_runs = {}
+    for method in ("l2p", "dualprompt", "mvp"):
+        prompt_runs[method] = vit_prompt_main_path_phase(method)
+        torch.cuda.synchronize()
+    prompt_runs["ProtoCLIP"] = proto_main_path_phase()
+    torch.cuda.synchronize()
     gates = []
     for gate in (learning_gate, lora_both_gate, mvp_learning_gate,
                  maple_learning_gate, prompted_lora_gate,
                  lambda c: learning_gate(c, model="ViT-L/14"),
                  lambda c: learning_gate(c, method="adapter"),
-                 lambda c: learning_gate(c, method="moe")):
+                 lambda c: learning_gate(c, method="moe"),
+                 lambda c: prompt_gate(c, "l2p"),
+                 lambda c: prompt_gate(c, "dualprompt"),
+                 lambda c: prompt_gate(c, "mvp"),
+                 lambda c: prompt_gate(c, "adapter-clip-proto_prompt")):
         gates.append(gate(card))
         torch.cuda.synchronize()
     remat = remat_phase(card)
@@ -2013,6 +2438,19 @@ def main():
     torch.cuda.synchronize()
     moe_ckpt = checkpoint_phase("moe-clip", ["--method", "moe-clip"]
                                 + ADAPTER_ARGV)
+    torch.cuda.synchronize()
+    from lifelong_clip_tpu_torch.methods import proto_clip
+    from lifelong_clip_tpu_torch.methods import vit_prompt_methods as vpm
+    l2p_ckpt = checkpoint_phase("l2p", ["--method", "l2p"] + VIT_PROMPT_ARGV,
+                                owner=vpm._PromptPoolTrainer,
+                                attr="train_step")
+    torch.cuda.synchronize()
+    # two stage-2 epochs in place of five: the three runs' stage 2 is most
+    # of this phase's time, and the resume it checks is the same
+    proto_ckpt = checkpoint_phase("ProtoCLIP", PROTO_ARGV + ["--ca_epochs",
+                                                             "2"],
+                                  owner=proto_clip.Trainer_ProtoCLIP,
+                                  attr="stage1_step")
     torch.cuda.synchronize()
     # the text tower's share of a both-tower step: its device time less the
     # image-only step's (64 cached class features there)
@@ -2030,7 +2468,8 @@ def main():
     # each kernel's launches over every main path above
     runs = {k: sum(r[k] for r in (
         launches, l14_launches, mvp_launches, maple_launches, pl_launches,
-        adapter_launches, moe_launches, cc_launches)) for k in launches}
+        adapter_launches, moe_launches, cc_launches,
+        *[r[0] for r in prompt_runs.values()])) for k in launches}
     kernels = []
     for name, pre, case_list, source, shape in (
             ("fused_ln_attention_fwd", "fwd", cases, src,
@@ -2085,6 +2524,11 @@ def main():
                     "pretrained_load_s": pretrained[3]}))
     log(json.dumps(cc_eval))
     log(json.dumps(moe_ckpt))
+    for name, (run_launches, info) in prompt_runs.items():
+        log(json.dumps({f"{name}_main_path": info,
+                        f"{name}_launches": run_launches}))
+    log(json.dumps(l2p_ckpt))
+    log(json.dumps(proto_ckpt))
     for g in gates:
         log(json.dumps(g))
     log(json.dumps(remat))

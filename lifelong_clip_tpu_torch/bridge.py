@@ -5,8 +5,12 @@ init_lora``) are nested dicts whose transformer blocks are layer-stacked with
 a leading L axis; weights keep the ``x @ W`` orientation (``w_qkv`` (D, 3D),
 ``w_out`` (D, D); LoRA ``a_in`` (L, D, r), ``b_in`` (L, r, 3D), ``a_out``
 (L, D, r), ``b_out`` (L, r, D)). The port uses the same layout, so the bridge
-only converts leaves. It takes nested dicts of numpy arrays (convert a JAX
-tree with ``jax.tree.map(np.asarray, tree)``) and never sees JAX itself.
+only converts leaves. The method trees go through it the same way: the
+prompt pools and heads of L2P and DualPrompt (``pool``/``g_pool``/
+``e_pool`` {``key``, ``prompts``}, ``head`` {``w``, ``b``}), the MVP(ViT)
+tree and ProtoCLIP's (``text_key``, ``text_prompt``, ``copl`` {``p``,
+``k``, ``a``}). It takes nested dicts of numpy arrays (convert a JAX tree
+with ``jax.tree.map(np.asarray, tree)``) and never sees JAX itself.
 """
 
 from __future__ import annotations

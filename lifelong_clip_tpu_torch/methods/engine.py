@@ -59,6 +59,26 @@ class TrainState:
         """Fresh moments and a restarted schedule (``tx.init``)."""
         self.opt, self.sched = self.make_opt(tree_leaves(self.trainable))
 
+    def apply(self, loss):
+        """One update from ``loss`` (``tx.update`` + ``apply_updates``):
+        backward, the optimizer's and the schedule's step."""
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        fill_missing_grads(tree_leaves(self.trainable))
+        self.opt.step()
+        self.sched.step()
+        self.step += 1
+
+
+def fill_missing_grads(leaves):
+    """Zero grads for the leaves the loss does not reach (``grad`` None),
+    so that the optimizer updates them as optax updates a leaf whose grad
+    is zeros: its moments decay and any weight decay applies. torch's
+    optimizers skip a leaf with no grad."""
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
 
 def remat_fallback(build: Callable[[bool], Callable]) -> Callable:
     """A train step that falls back to remat once the card runs out of
@@ -217,11 +237,7 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
                            batch["tokens"], **kw)
         logits = logits + batch["mask"][None, :]
         loss = compute_loss(logits, batch["labels"])
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        state.opt.step()
-        state.sched.step()
-        state.step += 1
+        state.apply(loss)
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["labels"]).float().mean()
         return {"loss": loss.detach(), "acc": acc}

@@ -134,11 +134,7 @@ def make_mvp_train_step(clip_cfg: CLIPConfig, *, image_size: int, mean, std,
         images = pipeline(state.gen, batch["images"])
         loss, logits, new_count = objective(state.frozen, state.trainable,
                                             count, images, batch)
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        state.opt.step()
-        state.sched.step()
-        state.step += 1
+        state.apply(loss)
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["labels"]).float().mean()
         return new_count.detach(), {"loss": loss.detach(), "acc": acc}

@@ -62,6 +62,13 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _all_but_last(tree):
+    """A layer-stacked tree without its last layer."""
+    if isinstance(tree, dict):
+        return {k: _all_but_last(v) for k, v in tree.items()}
+    return tree[:-1]
+
+
 def _adapter_apply(y, p, scale: float):
     """Bottleneck adapter delta ``scale * up(relu(down(y)))`` (reference
     ``models/clip/adapter.py:53-73``, no inner LayerNorm; the caller adds
@@ -184,7 +191,8 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
                 layer_prompts=None, layer_prompt_valid=None,
                 attn_impl: str = "fused", act: str = "quick_gelu",
                 prompt_ln: bool = False, base_grads: bool = True,
-                remat: bool = False, moe_noise=None):
+                remat: bool = False, moe_noise=None,
+                collect_inputs: bool = False):
     """Run the layer-stacked residual blocks in order.
 
     ``layer_prompts`` (L, B, P, D), or (L, P, D) broadcast over the batch,
@@ -196,7 +204,11 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
     ``jax.checkpoint`` (``:323-335``): the backward recomputes the block's
     forward instead of keeping its intermediates. ``moe_noise`` (L, B, E):
     each layer's MoE gate noise (JAX draws one key a layer, ``:272-279``);
-    it reaches the blocks only when ``peft_cfg`` is the MoE's."""
+    it reaches the blocks only when ``peft_cfg`` is the MoE's.
+    ``collect_inputs=True`` returns ``(x, states)`` with ``states`` (L, B,
+    T, D) each block's input (JAX ``:227-240, 313-320``; ProtoCLIP's
+    prefix pass); under ``remat`` they are the checkpoints' inputs, kept
+    anyway."""
     n_layers = blocks["attn"]["w_qkv"].shape[0]
     if peft_cfg is None or peft_cfg.method != "moe":
         moe_noise = None
@@ -214,7 +226,10 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
             pmask = torch.cat([prefix, torch.zeros(
                 prefix.shape[0], x.shape[1], device=x.device)], 1)
             pmask = pmask[:, None, None, :]   # (L, 1, 1, P + T)
+    inputs = []
     for i in range(n_layers):
+        if collect_inputs:
+            inputs.append(x)
         m = mask
         if pmask is not None:
             m = pmask[i] if m is None else m + pmask[i]
@@ -226,7 +241,7 @@ def transformer(x, blocks, n_heads: int, *, mask=None,
         x = (torch.utils.checkpoint.checkpoint(
             _block, *args, use_reentrant=False, preserve_rng_state=False)
             if remat else _block(*args))
-    return x
+    return (x, torch.stack(inputs)) if collect_inputs else x
 
 
 def cast_tree(tree, dtype):

@@ -8,9 +8,11 @@ the layer-stacked parameter dicts of ``models/init.py``. The file is read
 on the CPU and the result moved to the requested device. Nothing is
 downloaded: the checkpoint must be on disk (``--pretrained_path``).
 
-The ViT branch is ported. ModifiedResNet checkpoints (``models/resnet.py``)
-and timm ViTs (the vit-prompt methods) are not yet (ROADMAP.md, queue A):
-a checkpoint without ``visual.proj`` raises.
+The ViT branch is ported, and ``timm_vit_to_params`` reads a timm ViT
+state dict (the vit-prompt methods' backbone) into the vision tree as a
+library function, as in JAX, where no main path calls it. ModifiedResNet
+checkpoints (``models/resnet.py``) are not ported yet (ROADMAP.md, queue
+A): a checkpoint without ``visual.proj`` raises.
 """
 
 from __future__ import annotations
@@ -149,3 +151,65 @@ def load_clip_params(path: str, device=None):
     """Checkpoint file -> (params on ``device``, cfg)."""
     return state_dict_to_params(_load_state_dict(path), device=device)
 
+
+# (tree path, timm suffix, transposed) of a timm ViT block
+_TIMM_BLOCK_KEYS = (
+    (("ln_1", "scale"), "norm1.weight", False),
+    (("ln_1", "bias"), "norm1.bias", False),
+    (("attn", "w_qkv"), "attn.qkv.weight", True),
+    (("attn", "b_qkv"), "attn.qkv.bias", False),
+    (("attn", "w_out"), "attn.proj.weight", True),
+    (("attn", "b_out"), "attn.proj.bias", False),
+    (("ln_2", "scale"), "norm2.weight", False),
+    (("ln_2", "bias"), "norm2.bias", False),
+    (("mlp", "w_fc"), "mlp.fc1.weight", True),
+    (("mlp", "b_fc"), "mlp.fc1.bias", False),
+    (("mlp", "w_proj"), "mlp.fc2.weight", True),
+    (("mlp", "b_proj"), "mlp.fc2.bias", False),
+)
+
+
+def timm_vit_to_params(sd, cfg: CLIPConfig = None, device=None):
+    """A timm ViT state dict (``blocks.N.attn.qkv.weight`` ...; str -> fp32
+    tensor) -> ``({'vision', 'logit_scale'}, cfg, head)`` on ``device``
+    (JAX ``convert.py:175-240``; the reference's L2P/DualPrompt/MVP
+    backbone, ``vit_base_patch16_224``). The qkv, proj and fc weights are
+    transposed to ``x @ W``; the patch projection's bias becomes
+    ``patch_bias``; ``ln_pre`` and ``proj`` are identities (timm has
+    neither; ``cfg.use_ln_pre`` is False); the classifier head
+    (``head.weight/bias``) comes back separately as ``{'w' (D, C), 'b'}``,
+    or None. Without ``cfg`` it is inferred with exact GELU and no
+    ln_pre."""
+    layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    width = sd["cls_token"].shape[-1]
+    conv = sd["patch_embed.proj.weight"]     # (W, 3, P, P)
+    if cfg is None:
+        grid = int(round((sd["pos_embed"].shape[-2] - 1) ** 0.5))
+        cfg = CLIPConfig(embed_dim=width, vision_width=width,
+                         vision_layers=layers, vision_heads=width // 64,
+                         patch_size=conv.shape[-1],
+                         image_size=grid * conv.shape[-1], act="gelu",
+                         use_ln_pre=False)
+    blocks = {}
+    for (group, name), suffix, transposed in _TIMM_BLOCK_KEYS:
+        per_layer = [sd[f"blocks.{i}.{suffix}"] for i in range(layers)]
+        blocks.setdefault(group, {})[name] = torch.stack(
+            [a.T if transposed else a for a in per_layer])
+    pos = sd["pos_embed"]
+    vision = {
+        "patch_kernel": conv.permute(2, 3, 1, 0).reshape(-1, width),
+        **({"patch_bias": sd["patch_embed.proj.bias"]}
+           if "patch_embed.proj.bias" in sd else {}),
+        "class_embedding": sd["cls_token"].reshape(-1),
+        "pos_embed": pos[0] if pos.dim() == 3 else pos,
+        "ln_pre": {"scale": torch.ones(width), "bias": torch.zeros(width)},
+        "blocks": blocks,
+        "ln_post": _ln(sd, "norm"),
+        "proj": torch.eye(width),
+    }
+    head = None
+    if "head.weight" in sd:
+        head = _to({"w": sd["head.weight"].T, "b": sd["head.bias"]},
+                   resolve_device(device))
+    params = {"vision": vision, "logit_scale": torch.tensor(0.0)}
+    return _to(params, resolve_device(device)), cfg, head

@@ -60,12 +60,6 @@ def _cos(a, b, eps=1e-8):
     return (a * b).sum(-1)
 
 
-def _all_but_last_layer(tree):
-    if isinstance(tree, dict):
-        return {k: _all_but_last_layer(a) for k, a in tree.items()}
-    return tree[:-1]
-
-
 def _vit_prelude(frozen, images, cfg: CLIPConfig, compute_dtype):
     """The vision tower in ``compute_dtype`` and its token sequence before
     the blocks."""
@@ -73,29 +67,37 @@ def _vit_prelude(frozen, images, cfg: CLIPConfig, compute_dtype):
     return clip_fns.vit_embed(v, images, cfg, compute_dtype), v
 
 
-def _layer_prompt_tensors(mvp, sel_e, batch: int, layers: int, len_g: int,
-                          len_e: int, dtype, pos_g=POS_G, pos_e=POS_E):
-    """The padded (L, B, P_max, D) prompt tokens and the (L, P_max) valid
-    mask: g slices at ``pos_g``, the selected e slices at ``pos_e``.
-    Positions beyond the tower's depth are dropped (small test towers)."""
-    d = mvp["g_prompts"].shape[-1]
-    p_max = max(len_g, len_e)
-    dev = mvp["g_prompts"].device
+def layer_prompts(slices, batch: int, layers: int, p_max: int, d: int,
+                  dtype, device):
+    """The padded (L, B, p_max, D) prompt tokens and the (L, p_max) valid
+    mask from ``(layer, (B, n, D) tokens)`` slices; a later slice at a
+    layer replaces an earlier one (JAX's ``.at[].set``), and positions
+    beyond the tower's depth are dropped (small test towers)."""
     valid = np.zeros((layers, p_max), bool)
-    rows = [torch.zeros(batch, p_max, d, dtype=dtype, device=dev)
+    rows = [torch.zeros(batch, p_max, d, dtype=dtype, device=device)
             for _ in range(layers)]
-    g = mvp["g_prompts"][0].reshape(len(pos_g), len_g, d)
-    e = sel_e.reshape(batch, len(pos_e), len_e, d)
-    slices = [(layer, g[i][None].expand(batch, len_g, d), len_g)
-              for i, layer in enumerate(pos_g)]
-    slices += [(layer, e[:, i], len_e) for i, layer in enumerate(pos_e)]
-    for layer, val, n in slices:   # a later slice overrides, as .at[].set
+    for layer, val in slices:
         if layer >= layers:
             continue
-        pad = torch.zeros(batch, p_max - n, d, dtype=dtype, device=dev)
+        n = val.shape[1]
+        pad = torch.zeros(batch, p_max - n, d, dtype=dtype, device=device)
         rows[layer] = torch.cat([val.to(dtype), pad], 1)
         valid[layer, :n] = True
     return torch.stack(rows), valid
+
+
+def _layer_prompt_tensors(mvp, sel_e, batch: int, layers: int, len_g: int,
+                          len_e: int, dtype, pos_g=POS_G, pos_e=POS_E):
+    """``layer_prompts`` of the g slices at ``pos_g`` and the selected e
+    slices at ``pos_e``."""
+    d = mvp["g_prompts"].shape[-1]
+    g = mvp["g_prompts"][0].reshape(len(pos_g), len_g, d)
+    e = sel_e.reshape(batch, len(pos_e), len_e, d)
+    slices = [(layer, g[i][None].expand(batch, len_g, d))
+              for i, layer in enumerate(pos_g)]
+    slices += [(layer, e[:, i]) for i, layer in enumerate(pos_e)]
+    return layer_prompts(slices, batch, layers, max(len_g, len_e), d, dtype,
+                         mvp["g_prompts"].device)
 
 
 def mvp_features(frozen, mvp, count, images, cfg: CLIPConfig, *,
@@ -113,7 +115,7 @@ def mvp_features(frozen, mvp, count, images, cfg: CLIPConfig, *,
     # promptless query pass, no grad (reference forward_features:196-218)
     with torch.no_grad():
         q_blocks = v["blocks"] if use_last_layer else \
-            _all_but_last_layer(v["blocks"])
+            clip_fns._all_but_last(v["blocks"])
         q = clip_fns.transformer(x, q_blocks, cfg.vision_heads, act=cfg.act,
                                  attn_impl=attn_impl, base_grads=False)
         query = clip_fns.layer_norm(q[:, :1], v["ln_post"])[:, 0] \

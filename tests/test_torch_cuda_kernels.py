@@ -47,7 +47,10 @@ CASES = [(2, 13, 128, 2, 4, False, False), (3, 77, 256, 4, 0, True, True),
          (2, 512, 256, 4, 4, False, False), (1, 300, 128, 2, 0, True, True),
          (1, 800, 64, 1, 0, False, False),
          (100, 77, 512, 8, 4, True, False),
-         (128, 197, 768, 12, 0, False, False)]
+         (128, 197, 768, 12, 0, False, False),
+         # L2P's prompted pass (T = 1 + 25 + 196, a partial row tile, no
+         # LoRA) and ProtoCLIP's text prefix (T = 25, causal), narrowed
+         (2, 222, 192, 3, 0, False, False), (4, 25, 128, 2, 0, True, False)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,r,causal,wg", CASES)
@@ -130,6 +133,23 @@ def test_prefix_kernels_take_a_full_mask(cuda):
     assert fba._prefix_mask_arg(full, 77, 85, cuda)[1] == 85
     assert fba._prefix_mask_arg(mask, 77, 85, cuda)[1] == 0
     kc.check_prefix_case(x, pk, pv, blk, gy, full, 4, True)
+
+
+@pytest.mark.parametrize("c,s,lp", [(8, 8, 7), (40, 8, 25)])
+def test_prefix_kernels_take_the_suffix_block_diagonal_mask(cuda, c, s, lp):
+    """ProtoCLIP's suffix pass: C classes x S tokens as one row, one
+    prompt tensor as pk and pv (lp prefix states), under the (C * S, lp +
+    C * S) block-diagonal causal mask; on the register road (T = 64) and on
+    the tiled one (T = 320), where whole 64-key tiles of a row are dead.
+    Every output and dpk + dpv within ``ops/kernel_check.py``'s
+    tolerances, and nothing NaN."""
+    from lifelong_clip_tpu_torch.models.proto_clip import suffix_mask
+    x, pk, pv, blk, gy, _ = kc.make_prefix_inputs(
+        2, c * s, 128, 2, lp, lp, 9, device=cuda, shared=True)
+    mask = suffix_mask(c, s, lp, device=cuda)
+    assert fba._prefix_mask_arg(mask, c * s, lp + c * s, cuda)[1] \
+        == lp + c * s
+    kc.check_prefix_case(x, pk, pv, blk, gy, mask, 2, False)
 
 
 @pytest.mark.parametrize("shared,d", [(True, 256), (True, 192),

@@ -270,3 +270,32 @@ def test_cli_cpu_mvp_clip_run_writes_result(tmp_path, monkeypatch):
     found = [os.path.join(d, "result.txt") for d, _, fs in os.walk(tmp_path)
              if "result.txt" in fs]
     assert len(found) == 1
+
+
+def test_a_leaf_the_loss_does_not_reach_updates_as_optax():
+    """Without ``use_mask`` the class mask gets no grad. optax updates it
+    with a zero grad (AdamW: its decoupled weight decay still applies);
+    torch's optimizers skip a leaf whose grad is None, so the step gives it
+    a zero grad. The mask after one AdamW step equals optax's."""
+    from lifelong_clip_tpu_torch.methods.engine import TrainState
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+    frozen, mvp, images, batch, count = _setup()
+    lr = 1e-2
+    state = TrainState(
+        trainable=params_from_numpy(mvp), frozen=params_from_numpy(frozen),
+        make_opt=lambda lv: make_optimizer("adamw", lv, lr),
+        gen=torch.Generator().manual_seed(0))
+    step = tmethod.make_mvp_train_step(
+        TCFG, image_size=32, mean=(0.5,) * 3, std=(0.25,) * 3,
+        compute_dtype=torch.float32, attn_impl="unfused", use_mask=False)
+    u8 = np.random.default_rng(1).integers(0, 256, (B, 32, 32, 3),
+                                           dtype=np.uint8)
+    tbatch = {k: torch.tensor(v) for k, v in batch.items()}
+    step(state, dict(tbatch, images=torch.tensor(u8)), torch.tensor(count))
+    tx = optax.adamw(lr, weight_decay=1e-5)
+    mask = jnp.asarray(mvp["mask"])
+    upd, _ = tx.update(jnp.zeros_like(mask), tx.init(mask), mask)
+    want = np.asarray(optax.apply_updates(mask, upd))
+    assert not np.array_equal(want, mvp["mask"])
+    np.testing.assert_allclose(state.trainable["mask"].detach().numpy(), want,
+                               rtol=1e-7, atol=0)

@@ -182,6 +182,36 @@ def test_remat_flag_and_large_batch_reach_the_step(tmp_path, method,
         assert bool(checkpoint_calls) == on, (flags, len(checkpoint_calls))
 
 
+PROMPT_METHODS = ["l2p", "dualprompt", "mvp", "adapter-clip-proto_prompt"]
+
+
+@pytest.mark.parametrize("method", PROMPT_METHODS)
+def test_remat_in_the_prompt_trainers_matches_plain(tmp_path, method,
+                                                    checkpoint_calls):
+    """``--remat`` checkpoints the prompted forward of l2p, dualprompt and
+    mvp (JAX ``jax.checkpoint`` of ``fwd_body`` / ``feats_body``) and
+    ProtoCLIP's prompted image tower (its text passes checkpoint each layer
+    whatever the flag): two online steps give the same losses and trainable
+    tensors bit for bit, and only the flag adds checkpoint calls."""
+    out = {}
+    for flags in ((), ("--remat",)):
+        tr = _trainer(tmp_path, method, "--batchsize", "4", "--no_bf16",
+                      *flags)
+        idx = np.arange(4)
+        images, labels = tr.train_dataset.gather(idx)
+        tr.vocab.expose(labels)
+        del checkpoint_calls[:]
+        losses = [float(tr.online_step(images, labels, idx)["loss"])
+                  for _ in range(2)]
+        out[flags] = (losses, len(checkpoint_calls), [
+            p.detach().clone() for p in engine.tree_leaves(
+                tr.state.trainable)])
+    (plain, n_plain, t_plain), (remat, n_remat, t_remat) = out.values()
+    assert plain == remat
+    assert n_remat > n_plain, (n_plain, n_remat)
+    assert all(torch.equal(a, b) for a, b in zip(t_plain, t_remat))
+
+
 class _State:
     def __init__(self):
         self.gen = torch.Generator().manual_seed(0)
