@@ -16,7 +16,11 @@
    live with one prompt tensor as pk and pv as mvp-clip passes them, and 20
    live with weight_grads=True) and at S = P + T = 512 (8 x 197 x 768, P =
    315, 40 live, weight_grads); the new shapes of the prompt-pool methods:
-   L2P's prompted block (64 x 222 x 768, no LoRA, dx only), ProtoCLIP's
+   L2P's prompted block (64 x 222 x 768, no LoRA, dx only); the ER
+   family's (no LoRA: Finetuning's whole-tower step at 16 x 197 x 768 with
+   the weight grads, whose library yardstick's autograd computes the same
+   weight and LN grads, ER's step at the same shape, CLIB's miss recompute
+   at 256 x 197 x 768); ProtoCLIP's
    text prefix (64 x 25 x 512, 8 heads, causal), its CoPL image prefix (pk
    != pv, P = 4, all and none live) and its suffix pass (64 x 512 x 512, 8
    heads, one prompt tensor as pk and pv, P = 25, the block-diagonal
@@ -84,7 +88,17 @@
    (``adapter-clip-proto_prompt``, ViT-B/16, bs 64, online_iter 3) over two
    tasks: its stage 1, task-end sweeps, drift, CoPL advance, stage 2 and
    the cached eval; every train step's launches exactly as
-   ``STEP_LAUNCHES``.
+   ``STEP_LAUNCHES``. Then the ER family through ``main``: er,
+   Finetuning, lwf and ewc++ as ``scripts/er.sh`` sets them (ViT-B/16, bs
+   16 = 8 stream + 8 memory samples, memory 500, AdamW 3e-4, CutMix and
+   AutoAugment, 5 tasks), clib as ``scripts/clib.sh synthetic-20`` sets it,
+   and rm with ``--memory_epoch 2 --rm_uncertainty`` (2 tasks of
+   synthetic-20x20, memory 128); every train step's launches exactly
+   ``STEP_LAUNCHES`` (the frozen tower forward only; EWC++ two forwards;
+   FT forward and backward with the weight grads in all 12 blocks). And
+   continual-clip from a seeded OpenAI RN50-layout checkpoint (the
+   ModifiedResNet tower on cuDNN; every tensor held to the file's) with
+   zero-shot eval, and its eval throughput at test_batchsize 128.
 6. Learning gates (bench.py:98-104): 22 steps of the ViT-B/16 lora-clip
    step (AutoAugment cifar10, as bench.py), the same with LoRA on both
    towers at 100 uncached class rows, the mvp-clip, MaPLe and
@@ -93,7 +107,10 @@
    steps (built from their main paths' argv; MVP read on its cross entropy
    before GSF; ProtoCLIP on 8 classes of one solid colour each on a
    64-slot class table, its suffix pass at 64 x 512 tokens, ending 0.1
-   below log 8 too), on one batch lower the loss by more than 0.02; each
+   below log 8 too), and the ER, FT (whole tower) and CLIB (clib.sh's
+   cifar100 row: bs 64, AdamW 5e-3, weight decay 1e-4) steps on the
+   synthetic set's images, on one batch lower the loss by more than 0.02;
+   each
    prints step ms, samples/s and the peak
    device memory of its steps, then a torch.profiler window over 3 more
    steps (device ms a step by kernel, the device's idle share, the
@@ -115,7 +132,10 @@
    ``scripts/adapter_clip.sh``'s flags, whose gate noise the resumed run
    must draw as the uninterrupted one does, for l2p (its frequency
    counter) and for ProtoCLIP (prototypes, covariances, task counter and
-   the CoPL pools after the next task's advance and stage 2).
+   the CoPL pools after the next task's advance and stage 2); since the ER
+   family for ewc++ (Fisher, score, importance, task snapshot) and rm (the
+   lr after its memory epochs, the memory and its generators, the view
+   generator); every checkpoint phase also holds the memory and the lr.
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels; each one's launches summed over
@@ -500,6 +520,11 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     lb = library_weights(blk)
     wrt = [x.detach().clone().requires_grad_(True)] + (
         [] if ll is None else [a.requires_grad_(True) for a in ll.values()])
+    if weight_grads:
+        # the yardstick's autograd computes the same weight and LN grads
+        lb = {k: v.detach().clone().requires_grad_(k in LIBRARY_WEIGHTS)
+              for k, v in lb.items()}
+        wrt += [lb[k] for k in LIBRARY_WEIGHTS]
     fl, by = attention_cost(b, t, t, d, heads)
     res["attn_bwd_bound_ms"] = bound_ms(fl, by)[0]
     # the backward as a train step runs it: reading the forward's kept
@@ -512,6 +537,10 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
         lambda: fba._cuda_backward(x, gy, *bargs, saved=kept),
         lambda: fba.fused_ln_attention_block_reference_bwd(x, gy, *bargs),
         lambda xg, *_: library_block(xg, lb, ll, s, mask, heads), wrt, gy)
+
+
+LIBRARY_WEIGHTS = ("ln_scale", "ln_bias", "w_qkv_t", "b_qkv", "w_out_t",
+                   "b_out")
 
 
 def library_weights(blk):
@@ -819,10 +848,11 @@ def wrap_step(owner, attr, hook):
 def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
     """Drive ``main(argv)`` with the launch counters set to 0 just before
     and read just after, counting each pass's launches by wrapping its step
-    (``passes``: pass -> ``owner``'s attribute, through ``wrap_step``).
-    With a ``train`` pass every loss must be finite; ``in_result``: a text
-    result.txt must hold. Returns (launches, per-pass launches, train-step
-    outputs, wall s)."""
+    (``passes``: pass -> ``owner``'s attribute, or an (owner, attribute)
+    pair, through ``wrap_step``). The outputs of every pass whose name
+    starts with ``train`` are collected in call order, and with one every
+    loss must be finite; ``in_result``: a text result.txt must hold.
+    Returns (launches, per-pass launches, train-step outputs, wall s)."""
     import numpy as np
     import torch
     from lifelong_clip_tpu_torch import main as cli
@@ -836,13 +866,15 @@ def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
             out = fn(*a, **kw)
             for k, n in launch_counts().items():
                 per_pass[pass_name][k] += n - before[k]
-            if pass_name == "train":
+            if pass_name.startswith("train"):
                 outs.append(out)
             return out
         return wrapped
 
-    restore = [wrap_step(owner, attr, lambda fn, _p=p: counting(_p, fn))
-               for p, attr in passes.items()]
+    restore = [wrap_step(*(spec if isinstance(spec, tuple)
+                           else (owner, spec)),
+                         lambda fn, _p=p: counting(_p, fn))
+               for p, spec in passes.items()]
     try:
         with tempfile.TemporaryDirectory() as tmp:
             reset_launches()
@@ -861,7 +893,7 @@ def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
     assert in_result is None or in_result in text, \
         f"{label} result.txt lacks {in_result!r}: {text[-300:]!r}"
     losses = [loss_of(o) for o in outs]
-    assert "train" not in passes or (
+    assert not any(p.startswith("train") for p in passes) or (
         losses and np.isfinite(losses).all()), f"{label} losses {losses}"
     trained = (f"{len(losses)} train steps, loss {losses[0]:.4f} -> "
                f"{losses[-1]:.4f}" if losses else "no train steps")
@@ -1156,10 +1188,13 @@ def proto_main_path_phase():
 
 
 def openai_state_dict(cfg, seed=5):
-    """A seeded OpenAI CLIP ViT state dict of ``cfg``'s sizes on the CPU:
-    the reference ``build_model``'s key names and shapes, written out here
-    and not taken from ``models/convert.py``, so that ``check_loaded``
-    holds the converter's key map and transposes to the reference layout."""
+    """A seeded OpenAI CLIP state dict of ``cfg``'s sizes on the CPU, a ViT
+    or (``cfg.tower == "rn"``) a ModifiedResNet: the reference
+    ``build_model``'s key names and shapes (conv kernels OIHW, Linear
+    weights (out, in), BatchNorm running statistics and counters), written
+    out here and not taken from ``models/convert.py``, so that
+    ``check_loaded`` holds the converter's key map and transposes to the
+    reference layout."""
     import math
     import torch
     g = torch.Generator().manual_seed(seed)
@@ -1170,6 +1205,14 @@ def openai_state_dict(cfg, seed=5):
     def ln(name, w):
         return {f"{name}.weight": rnd(w, scale=0.1, shift=1.0),
                 f"{name}.bias": rnd(w, scale=0.1)}
+
+    def bn(name, c):
+        return {**ln(name, c), f"{name}.running_mean": rnd(c, scale=0.1),
+                f"{name}.running_var": 0.5 + torch.rand(c, generator=g),
+                f"{name}.num_batches_tracked": torch.tensor(0)}
+
+    def conv(cout, cin, k):
+        return rnd(cout, cin, k, k, scale=(cin * k * k) ** -0.5)
 
     def blocks(prefix, w, layers):
         sd = {}
@@ -1190,15 +1233,54 @@ def openai_state_dict(cfg, seed=5):
                        f"{p}.mlp.c_proj.bias": rnd(w, scale=0.02)})
         return sd
 
-    w, tw, p = cfg.vision_width, cfg.text_width, cfg.patch_size
-    grid = cfg.image_size // p
-    return {"visual.class_embedding": rnd(w, scale=w ** -0.5),
-            "visual.positional_embedding":
-                rnd(grid * grid + 1, w, scale=w ** -0.5),
-            "visual.proj": rnd(w, cfg.embed_dim, scale=w ** -0.5),
-            "visual.conv1.weight": rnd(w, 3, p, p, scale=0.05),
-            **ln("visual.ln_pre", w), **ln("visual.ln_post", w),
-            **blocks("visual.transformer", w, cfg.vision_layers),
+    def resnet():
+        # reference ModifiedResNet (model.py:113-191): a 3-conv stem, four
+        # stages of bottlenecks (downsample in each stage's first block),
+        # the attention pool over the (image / 32)^2 grid + the mean token
+        w = cfg.vision_width
+        sd = {"visual.conv1.weight": conv(w // 2, 3, 3),
+              "visual.conv2.weight": conv(w // 2, w // 2, 3),
+              "visual.conv3.weight": conv(w, w // 2, 3),
+              **bn("visual.bn1", w // 2), **bn("visual.bn2", w // 2),
+              **bn("visual.bn3", w)}
+        inplanes = w
+        for s, depth in enumerate(cfg.vision_layers):
+            planes = w * 2 ** s
+            for b in range(depth):
+                p = f"visual.layer{s + 1}.{b}"
+                sd.update({f"{p}.conv1.weight": conv(planes, inplanes, 1),
+                           f"{p}.conv2.weight": conv(planes, planes, 3),
+                           f"{p}.conv3.weight": conv(planes * 4, planes, 1),
+                           **bn(f"{p}.bn1", planes), **bn(f"{p}.bn2", planes),
+                           **bn(f"{p}.bn3", planes * 4)})
+                if b == 0:
+                    sd.update({f"{p}.downsample.0.weight":
+                               conv(planes * 4, inplanes, 1),
+                               **bn(f"{p}.downsample.1", planes * 4)})
+                inplanes = planes * 4
+        c, grid = w * 32, cfg.image_size // 32
+        sd["visual.attnpool.positional_embedding"] = rnd(
+            grid * grid + 1, c, scale=c ** -0.5)
+        for name, dout in (("q", c), ("k", c), ("v", c),
+                           ("c", cfg.embed_dim)):
+            sd[f"visual.attnpool.{name}_proj.weight"] = rnd(
+                dout, c, scale=c ** -0.5)
+            sd[f"visual.attnpool.{name}_proj.bias"] = rnd(dout, scale=0.02)
+        return sd
+
+    def vit():
+        w, p = cfg.vision_width, cfg.patch_size
+        grid = cfg.image_size // p
+        return {"visual.class_embedding": rnd(w, scale=w ** -0.5),
+                "visual.positional_embedding":
+                    rnd(grid * grid + 1, w, scale=w ** -0.5),
+                "visual.proj": rnd(w, cfg.embed_dim, scale=w ** -0.5),
+                "visual.conv1.weight": rnd(w, 3, p, p, scale=0.05),
+                **ln("visual.ln_pre", w), **ln("visual.ln_post", w),
+                **blocks("visual.transformer", w, cfg.vision_layers)}
+
+    tw = cfg.text_width
+    return {**(resnet() if cfg.tower == "rn" else vit()),
             "positional_embedding":
                 rnd(cfg.context_length, tw, scale=0.01),
             "text_projection": rnd(tw, cfg.embed_dim, scale=tw ** -0.5),
@@ -1212,42 +1294,85 @@ def openai_state_dict(cfg, seed=5):
 def check_loaded(params, sd, cfg):
     """The tree ``load_clip_params`` read against the state dict it was
     written from, by the reference layout: Linear weights (out, in) acting
-    as x @ W.T are kept as x @ W, blocks stacked on axis 0, every tensor
-    exact, every key of ``sd`` used; the patch kernel is held by what it
-    computes, the port's patch embedding of a seeded image against
-    ``conv2d`` with the file's kernel, within 1e-5 of the output's max
-    (fp32, two summation orders). Returns the number of tensors checked."""
+    as x @ W.T are kept as x @ W, blocks stacked on axis 0, conv kernels
+    (RN) OIHW as HWIO, every tensor exact, every key of ``sd`` used but the
+    BatchNorm counters; the ViT's patch kernel is held by what it computes,
+    the port's patch embedding of a seeded image against ``conv2d`` with
+    the file's kernel, within 1e-5 of the output's max (fp32, two summation
+    orders). Returns the number of tensors checked."""
     import torch
     from lifelong_clip_tpu_torch.methods.engine import tree_leaves
     from lifelong_clip_tpu_torch.models.clip import extract_patches
     v, t = params["vision"], params["text"]
     used, checked = set(), []
 
-    def same(got, *keys, transposed=False, stack=False):
+    def same(got, *keys, transposed=False, stack=False, conv=False):
         want = [sd[k].T if transposed else sd[k] for k in keys]
+        want = [a.permute(2, 3, 1, 0) if conv else a for a in want]
         want = torch.stack(want) if stack else want[0]
         assert torch.equal(got.cpu(), want), keys[0]
         used.update(keys)
         checked.append(got)
 
-    for got, key in ((v["class_embedding"], "visual.class_embedding"),
-                     (v["pos_embed"], "visual.positional_embedding"),
-                     (v["proj"], "visual.proj"),
-                     (t["token_embedding"], "token_embedding.weight"),
+    for got, key in ((t["token_embedding"], "token_embedding.weight"),
                      (t["pos_embed"], "positional_embedding"),
                      (t["text_projection"], "text_projection")):
         same(got, key)
     assert float(params["logit_scale"]) == float(sd["logit_scale"])
     used.add("logit_scale")
     checked.append(params["logit_scale"])
-    for tree, name in ((v["ln_pre"], "visual.ln_pre"),
-                       (v["ln_post"], "visual.ln_post"),
-                       (t["ln_final"], "ln_final")):
-        same(tree["scale"], f"{name}.weight")
-        same(tree["bias"], f"{name}.bias")
-    for blk, prefix, layers in (
-            (v["blocks"], "visual.transformer", cfg.vision_layers),
-            (t["blocks"], "transformer", cfg.text_layers)):
+    same(t["ln_final"]["scale"], "ln_final.weight")
+    same(t["ln_final"]["bias"], "ln_final.bias")
+    stacks = [(t["blocks"], "transformer", cfg.text_layers)]
+    if cfg.tower == "rn":
+        def bn(tree, name):
+            for leaf, stat in (("scale", "weight"), ("bias", "bias"),
+                               ("mean", "running_mean"),
+                               ("var", "running_var")):
+                same(tree[leaf], f"{name}.{stat}")
+            used.add(f"{name}.num_batches_tracked")
+
+        for i, st in enumerate(v["stem"], 1):
+            same(st["w"], f"visual.conv{i}.weight", conv=True)
+            bn(st["bn"], f"visual.bn{i}")
+        for s, stage in enumerate(v["layers"], 1):
+            for b, blk in enumerate(stage):
+                p = f"visual.layer{s}.{b}"
+                for j in (1, 2, 3):
+                    same(blk[f"conv{j}"], f"{p}.conv{j}.weight", conv=True)
+                    bn(blk[f"bn{j}"], f"{p}.bn{j}")
+                if blk["downsample"] is not None:
+                    same(blk["downsample"]["conv"],
+                         f"{p}.downsample.0.weight", conv=True)
+                    bn(blk["downsample"]["bn"], f"{p}.downsample.1")
+        ap = v["attnpool"]
+        same(ap["pos_embed"], "visual.attnpool.positional_embedding")
+        for name in ("q", "k", "v", "c"):
+            same(ap[name]["w"], f"visual.attnpool.{name}_proj.weight",
+                 transposed=True)
+            same(ap[name]["b"], f"visual.attnpool.{name}_proj.bias")
+    else:
+        for got, key in ((v["class_embedding"], "visual.class_embedding"),
+                         (v["pos_embed"], "visual.positional_embedding"),
+                         (v["proj"], "visual.proj")):
+            same(got, key)
+        for tree, name in ((v["ln_pre"], "visual.ln_pre"),
+                           (v["ln_post"], "visual.ln_post")):
+            same(tree["scale"], f"{name}.weight")
+            same(tree["bias"], f"{name}.bias")
+        stacks.append((v["blocks"], "visual.transformer", cfg.vision_layers))
+        conv = sd["visual.conv1.weight"]
+        img = torch.randn(2, 3, cfg.image_size, cfg.image_size,
+                          generator=torch.Generator().manual_seed(6))
+        want = torch.nn.functional.conv2d(img, conv, stride=cfg.patch_size)
+        want = want.flatten(2).transpose(1, 2)
+        got = extract_patches(img.permute(0, 2, 3, 1), cfg.patch_size) @ \
+            v["patch_kernel"].cpu()
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), f"patch kernel err {err}"
+        used.add("visual.conv1.weight")
+        checked.append(v["patch_kernel"])
+    for blk, prefix, layers in stacks:
         for got, suffix, tr in (
                 (blk["ln_1"]["scale"], "ln_1.weight", False),
                 (blk["ln_1"]["bias"], "ln_1.bias", False),
@@ -1263,17 +1388,6 @@ def check_loaded(params, sd, cfg):
                 (blk["mlp"]["b_proj"], "mlp.c_proj.bias", False)):
             same(got, *(f"{prefix}.resblocks.{i}.{suffix}"
                         for i in range(layers)), transposed=tr, stack=True)
-    conv = sd["visual.conv1.weight"]
-    img = torch.randn(2, 3, cfg.image_size, cfg.image_size,
-                      generator=torch.Generator().manual_seed(6))
-    want = torch.nn.functional.conv2d(img, conv, stride=cfg.patch_size)
-    want = want.flatten(2).transpose(1, 2)
-    got = extract_patches(img.permute(0, 2, 3, 1), cfg.patch_size) @ \
-        v["patch_kernel"].cpu()
-    err = float((got - want).abs().max())
-    assert err <= 1e-5 * float(want.abs().max()), f"patch kernel err {err}"
-    used.add("visual.conv1.weight")
-    checked.append(v["patch_kernel"])
     assert used == set(sd), sorted(set(sd) - used)
     leaves = tree_leaves(params)
     assert len(checked) == len(leaves) and \
@@ -1303,7 +1417,13 @@ def write_pretrained(tmp, model="ViT-B/16", device="cuda"):
     if device == "cuda":
         torch.cuda.synchronize()
     t2 = time.perf_counter()
-    assert dataclasses.asdict(lcfg) == dataclasses.asdict(cfg), lcfg
+    # the RN tower has no patches: JAX's and the port's inference set its
+    # unused patch_size to 32, the preset leaves the default
+    unused = {"patch_size"} if cfg.tower == "rn" else set()
+    assert {k: v for k, v in dataclasses.asdict(lcfg).items()
+            if k not in unused} == {k: v for k, v in
+                                    dataclasses.asdict(cfg).items()
+                                    if k not in unused}, lcfg
     n = check_loaded(loaded, sd, lcfg)
     mb = os.path.getsize(path) / 1e6
     log(f"pretrained {model} checkpoint: {mb:.1f} MB written in "
@@ -1341,9 +1461,9 @@ def continual_main_path_phase(ckpt):
                       "zero_shot_fused_fwd": zero_shot}
 
 
-def continual_eval_phase(card, ckpt, bs=128, iters=10):
+def continual_eval_phase(card, ckpt, bs=128, iters=10, model="ViT-B/16"):
     """continual-clip's eval on the card (``scripts/continual_clip.sh``'s
-    test_batchsize 128; ViT-B/16 from the checkpoint at ``ckpt``): the eval
+    test_batchsize 128; ``model`` from the checkpoint at ``ckpt``): the eval
     step alone on one batch of uint8 32 x 32 images (resize to 224, the
     vision tower, logits against the cached text features) by CUDA events
     and device-busy ms, as images/s; the text-cache pass (every class of
@@ -1355,7 +1475,7 @@ def continual_eval_phase(card, ckpt, bs=128, iters=10):
     from lifelong_clip_tpu_torch.methods import get_method
     with tempfile.TemporaryDirectory() as tmp:
         cfg = TrainConfig(method="continual-clip", dataset="synthetic-20",
-                          model_name="ViT-B/16", pretrained_path=ckpt,
+                          model_name=model, pretrained_path=ckpt,
                           test_batchsize=bs, log_path=tmp, device="cuda",
                           stream=StreamConfig(n_tasks=5, n=50, m=10))
         tr = get_method("continual-clip")(cfg)
@@ -1389,8 +1509,197 @@ def continual_eval_phase(card, ckpt, bs=128, iters=10):
         out.update({"evaluate_images": n, "evaluate_s": dt,
                     "evaluate_images_per_s": n / dt,
                     "evaluate_acc": float(correct.sum() / total.sum()),
-                    "test_batchsize": bs, "card": card})
+                    "test_batchsize": bs, "model": model, "card": card})
     log(f"continual-clip eval {json.dumps(out)}")
+    return out
+
+
+# scripts/er.sh as written on synthetic-20 (ViT-B/16, bs 16 = 8 stream + 8
+# memory samples, memory 500, AdamW 3e-4, the default --transforms: CutMix
+# and AutoAugment); the other ER-family methods take the same flags
+ER_ARGV = ["--dataset", "synthetic-20", "--n_tasks", "5", "--n", "50",
+           "--m", "10", "--batchsize", "16", "--temp_batchsize", "8",
+           "--memory_size", "500", "--lr", "3e-4", "--opt_name", "adamw",
+           "--online_iter", "1", "--eval_period", "1000"]
+# RM with its memory epochs and the Monte-Carlo rebuild, cut to 2 tasks of
+# synthetic-20 at 20 samples a class and a memory of 128: each stream batch
+# trains online_iter x temp_batchsize = 8 steps, and each memory epoch
+# walks the memory len // bs times over
+def argv_with(argv, **flags):
+    """``argv`` with the value of each ``--flag`` in ``flags`` replaced."""
+    out = list(argv)
+    for flag, value in flags.items():
+        out[out.index(f"--{flag}") + 1] = str(value)
+    return out
+
+
+RM_ARGV = ["--method", "rm"] + argv_with(ER_ARGV, dataset="synthetic-20x20",
+                                         n_tasks=2, memory_size=128) + [
+    "--memory_epoch", "2", "--rm_uncertainty"]
+# scripts/clib.sh synthetic-20 as written: its synthetic row (memory 64, bs
+# 16, online_iter 1, Adam 1e-3, which CLIB replaces by optax.adamw's
+# defaults at that lr), 5 tasks
+CLIB_ARGV = ["--method", "clib", "--dataset", "synthetic-20", "--n_tasks",
+             "5", "--n", "50", "--m", "10", "--rnd_NM", "--model_name",
+             "ViT-B/16", "--batchsize", "16", "--lr", "1e-3", "--opt_name",
+             "adam", "--sched_name", "default", "--online_iter", "1",
+             "--eval_period", "200", "--memory_size", "64", "--lr_step",
+             "0.95", "--lr_length", "10", "--lr_period", "10",
+             "--imp_update_period", "1", "--seed", "1", "--rnd_seed", "1"]
+ER_FAMILY_ARGV = {m: ["--method", m] + ER_ARGV
+                  for m in ("er", "Finetuning", "lwf", "ewc++")}
+ER_FAMILY_ARGV.update(clib=CLIB_ARGV, rm=RM_ARGV)
+# the ER family's train steps: the frozen tower's forward and no backward
+# (no grad reaches it); EWC++ two forwards (two updates); FT forward and
+# backward, the latter with the weight grads, in all 12 blocks (block 0's
+# weights train)
+STEP_LAUNCHES.update({"er": (12, 0, 0, 0), "Finetuning": (12, 12, 0, 0),
+                      "lwf": (12, 0, 0, 0), "ewc++": (24, 0, 0, 0),
+                      "clib": (12, 0, 0, 0), "rm": (12, 0, 0, 0)})
+
+
+def er_family_main_path_phase(method):
+    """``method`` of the ER family through ``main`` on ViT-B/16 (random
+    weights) with ``ER_FAMILY_ARGV``'s flags: every train step's launches
+    exactly ``STEP_LAUNCHES`` (LwF's plain and KD steps, EWC++'s double
+    update, CLIB's memory steps, RM's stream and memory-epoch steps), the
+    eval passes on kernel #1, CLIB's incoming-feature pass and RM's
+    Monte-Carlo views on #1 too."""
+    import numpy as np
+    from lifelong_clip_tpu_torch.methods import clib, er_baseline, ewcpp
+    from lifelong_clip_tpu_torch.methods import lwf
+    from lifelong_clip_tpu_torch.methods import rainbow_memory as rm
+    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
+    passes = {"train": {"ewc++": (ewcpp.EWCpp, "ewc_step"),
+                        "clib": (clib.CLIB, "clib_step")}.get(
+                  method, (er_baseline, "make_train_step")),
+              "eval": (er_baseline.ER, "predict")}
+    if method == "lwf":
+        passes["train_kd"] = (lwf.LwF, "kd_step")
+    if method == "clib":
+        passes["feats"] = (clib.CLIB, "eval_feats")
+    if method == "rm":
+        passes["mc"] = (rm.RM, "mc_uncertainty")
+    made, restore = capture_trainers(er_baseline.ER)
+    try:
+        launches, per_pass, outs, wall = run_main_path(
+            method, None, passes, ER_FAMILY_ARGV[method],
+            lambda st: float(st["loss"]))
+    finally:
+        restore()
+    steps = len(outs)
+    train = {k: per_pass["train"][k] + per_pass.get("train_kd", {}).get(k, 0)
+             for k in per_pass["train"]}
+    per_step_launches(method, train, steps)
+    for p in set(per_pass) - {"train", "train_kd"}:
+        assert per_pass[p]["fused_ln_attention_fwd"] > 0 and \
+            per_pass[p]["fused_ln_attention_bwd"] == 0, (p, per_pass[p])
+    tr = made[-1]
+    info = {"train_steps": steps, "wall_s": wall, "per_pass": per_pass,
+            "memory": len(tr.memory),
+            "lr": tr.state.opt.param_groups[0]["lr"]}
+    if method == "lwf":
+        info["kd_steps"] = per_pass["train_kd"]["fused_ln_attention_fwd"] // 12
+        assert info["kd_steps"] > 0, info
+    if method == "ewc++":
+        assert float(tr.ewc_state["has_reg"]) == 1.0
+        info["importance_max"] = max(float(a.abs().max()) for a in
+                                     tree_leaves(tr.ewc_state["importance"]))
+    if method == "clib":
+        info["lr_high"], info["lr_low"] = tr._lr_high, tr._lr_low
+        assert tr._loss_sweep is not None and \
+            np.isfinite(tr._loss_sweep).all(), tr._loss_sweep
+    log(f"{method}: {json.dumps(info)}")
+    return launches, info
+
+
+def rn_continual_main_path_phase(ckpt):
+    """continual-clip through ``main`` as ``scripts/continual_clip.sh`` sets
+    it, from the OpenAI RN50-layout checkpoint at ``ckpt`` (the ModifiedResNet
+    tower on cuDNN convolutions; JAX runs them outside any Pallas kernel),
+    with ``--zero_shot_evaluation``: the eval passes launch no fused kernel,
+    the text passes kernel #1 in every text block."""
+    from lifelong_clip_tpu_torch.methods import continual_clip
+    launches, per_pass, _, wall = run_main_path(
+        "continual-clip RN50", continual_clip,
+        {"eval": "make_eval_step", "text": "make_text_feature_fn"},
+        ["--method", "continual-clip", "--dataset", "synthetic-20",
+         "--n_tasks", "5", "--n", "50", "--m", "10", "--model_name",
+         "RN50", "--test_batchsize", "128", "--eval_period", "1000",
+         "--pretrained_path", ckpt, "--zero_shot_evaluation",
+         "--zero_shot_dataset", "synthetic-20"],
+        None, in_result="Dataset:synthetic-20 | test_acc:")
+    ev, tx = per_pass["eval"], per_pass["text"]
+    assert ev["fused_ln_attention_fwd"] == 0, f"eval pass launches {ev}"
+    assert tx["fused_ln_attention_fwd"] > 0 and \
+        tx["fused_ln_attention_fwd"] % 12 == 0, f"text pass launches {tx}"
+    # the zero-shot pass: its text pass's 12 blocks
+    zero_shot = launches["fused_ln_attention_fwd"] - \
+        tx["fused_ln_attention_fwd"]
+    assert zero_shot >= 12, f"zero-shot pass launches {zero_shot}"
+    return launches, {"wall_s": wall, "per_pass": per_pass,
+                      "zero_shot_fused_fwd": zero_shot}
+
+
+def er_family_trainer(argv, tmp, dataset=None):
+    """A trainer built as ``main`` builds it from ``argv`` (``dataset`` in
+    place of its own) on the card."""
+    from lifelong_clip_tpu_torch import main as cli
+    parser = cli.base_parser()
+    args = parser.parse_args(argv + ["--log_path", tmp, "--device", "cuda"]
+                             + (["--dataset", dataset] if dataset else []))
+    return cli.trainer_class(args.method, args, parser)(
+        cli.args_to_config(args))
+
+
+# the ER family's gates: (argv, batch size, dataset, what the step is)
+ER_GATES = {
+    "er": (ER_FAMILY_ARGV["er"], 16, None,
+           "ViT-B/16 ER step from scripts/er.sh (head over the frozen "
+           "tower, AdamW 3e-4, CutMix + AutoAugment)"),
+    "Finetuning": (ER_FAMILY_ARGV["Finetuning"], 16, None,
+                   "ViT-B/16 FT step (the whole CLIP tree, AdamW 3e-4, #2 "
+                   "with weight grads in 12 blocks, CutMix + AutoAugment)"),
+    "clib": (argv_with(CLIB_ARGV, batchsize=64, lr="5e-3", memory_size=2000,
+                       online_iter=3), 64, "synthetic-100",
+             "ViT-B/16 CLIB step at scripts/clib.sh's cifar100 row (bs 64, "
+             "AdamW lr 5e-3, weight decay 1e-4, AutoAugment)")}
+
+
+def er_family_gate(card, method):
+    """The learning gate of ``method``'s train step (``ER_GATES``) on one
+    batch of the synthetic set's class-structured images, with the launch
+    counters set to 0 just before and read just after: every step
+    launches exactly ``STEP_LAUNCHES``."""
+    import numpy as np
+    import torch
+    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
+    argv, bs, dataset, model = ER_GATES[method]
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = er_family_trainer(argv, tmp, dataset)
+        idx = np.random.default_rng(0).permutation(len(tr.train_dataset))[:bs]
+        images, labels = tr.train_dataset.gather(idx)
+        tr.vocab.expose(labels)
+        batch = tr._batch(images, labels)
+        step = (tr.clib_step if method == "clib"
+                else tr._train_step)
+        steps = []
+
+        def one_step():
+            steps.append(1)
+            return step(tr.state, batch)["loss"]
+
+        reset_launches()
+        out = gate_loop(method, one_step, bs, card, model=model,
+                        trainable_params=sum(
+                            p.numel() for p in tree_leaves(
+                                tr.state.trainable)))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        per_step_launches(method, launches, len(steps))
+        out["launches"] = launches
+        log(f"{method} gate: {len(steps)} steps, launches {launches}")
+        del tr
     return out
 
 
@@ -2151,8 +2460,10 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV, owner=None,
     use no atomics), and so must the method state each run's last
     checkpoint keeps outside the train state (``checkpoint_extra``: L2P's
     frequency counter; ProtoCLIP's prototypes, covariances and task
-    counter). The train steps' losses are collected through ``owner``'s
-    ``attr`` (``wrap_step``)."""
+    counter; EWC++'s Fisher, score, importance and task snapshot; RM's
+    view generator), the replay memory with its generators, and the lr of
+    the next update (RM's, after its memory epochs). The train steps'
+    losses are collected through ``owner``'s ``attr`` (``wrap_step``)."""
     import torch
     from lifelong_clip_tpu_torch import main as cli
     from lifelong_clip_tpu_torch.methods import adapter_clip
@@ -2209,6 +2520,11 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV, owner=None,
             want_t = want_ck["state"]["trainable"]
             got_t = got_ck["state"]["trainable"]
             same_extra = same_tree(want_ck["extra"], got_ck["extra"])
+            # the lr the next update takes (RM sets it in place) and the
+            # replay memory, its generators' states included
+            lrs = [[g["lr"] for g in ck["state"]["opt"]["param_groups"]]
+                   for ck in (want_ck, got_ck)]
+            same_memory = same_tree(want_ck["memory"], got_ck["memory"])
     finally:
         restore()
     n0 = len(cut_l)
@@ -2227,12 +2543,14 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV, owner=None,
         "bitwise_equal_peft_tensors": f"{sum(same)} of {len(same)}",
         "bitwise_equal_extra_state": same_extra,
         "extra_state_keys": sorted(want_ck["extra"]),
+        "lr": lrs[0], "resumed_lr": lrs[1],
+        "bitwise_equal_memory": same_memory,
         "equal_result": got == full and got_txt == full_txt,
         "result": full, "wall_s": wall}}
     log(json.dumps(out))
     assert cut_txt is None and cursor["task_id"] == 1, out
     assert same_before and same_loss and same and all(same), out
-    assert same_extra, out
+    assert same_extra and same_memory and lrs[0] == lrs[1], out
     assert full_txt is not None and got == full and got_txt == full_txt, out
     return out
 
@@ -2354,6 +2672,16 @@ def main():
     # (far below one tile) under its causal (25, 25) mask, dx only
     cases.append(kernel_case("ProtoCLIP text prefix, T = 25", 64, 25, 512,
                              8, 0, True, False, 20))
+    # the ER family: Finetuning's whole-tower step (#1 keeping h16/ctx16, #2
+    # with the weight grads, r = 0, in all 12 blocks), ER's step (the
+    # frozen tower, forward only on its path) and CLIB's miss recompute in
+    # chunks of 256 rows (B*T = 50432, forward only on its path)
+    cases.append(kernel_case("FT, no LoRA, weight_grads", 16, 197, 768, 12,
+                             0, False, True, 24))
+    cases.append(kernel_case("ER step, no LoRA", 16, 197, 768, 12, 0, False,
+                             False, 25))
+    cases.append(kernel_case("CLIB miss recompute, no LoRA", 256, 197, 768,
+                             12, 0, False, False, 26))
     torch.cuda.synchronize()
     pcases = [prefix_kernel_case("mvp prefix, 5 of 20 live", 5, False, 4)]
     pcases.append(prefix_kernel_case("mvp prefix, none live", 0, False, 5))
@@ -2414,12 +2742,21 @@ def main():
         torch.cuda.synchronize()
         cc_eval = continual_eval_phase(card, pretrained[0])
         torch.cuda.synchronize()
+        rn_pretrained = write_pretrained(tmp, "RN50")
+        rn_launches, rn_run = rn_continual_main_path_phase(rn_pretrained[0])
+        torch.cuda.synchronize()
+        rn_eval = continual_eval_phase(card, rn_pretrained[0], model="RN50")
+        torch.cuda.synchronize()
     prompt_runs = {}
     for method in ("l2p", "dualprompt", "mvp"):
         prompt_runs[method] = vit_prompt_main_path_phase(method)
         torch.cuda.synchronize()
     prompt_runs["ProtoCLIP"] = proto_main_path_phase()
     torch.cuda.synchronize()
+    er_runs = {}
+    for method in ER_FAMILY_ARGV:
+        er_runs[method] = er_family_main_path_phase(method)
+        torch.cuda.synchronize()
     gates = []
     for gate in (learning_gate, lora_both_gate, mvp_learning_gate,
                  maple_learning_gate, prompted_lora_gate,
@@ -2429,7 +2766,10 @@ def main():
                  lambda c: prompt_gate(c, "l2p"),
                  lambda c: prompt_gate(c, "dualprompt"),
                  lambda c: prompt_gate(c, "mvp"),
-                 lambda c: prompt_gate(c, "adapter-clip-proto_prompt")):
+                 lambda c: prompt_gate(c, "adapter-clip-proto_prompt"),
+                 lambda c: er_family_gate(c, "er"),
+                 lambda c: er_family_gate(c, "Finetuning"),
+                 lambda c: er_family_gate(c, "clib")):
         gates.append(gate(card))
         torch.cuda.synchronize()
     remat = remat_phase(card)
@@ -2452,6 +2792,14 @@ def main():
                                   owner=proto_clip.Trainer_ProtoCLIP,
                                   attr="stage1_step")
     torch.cuda.synchronize()
+    from lifelong_clip_tpu_torch.methods import er_baseline, ewcpp
+    ewc_ckpt = checkpoint_phase("ewc++", argv_with(
+                                    ER_FAMILY_ARGV["ewc++"], n_tasks=2,
+                                    dataset="synthetic-20x20"),
+                                owner=ewcpp.EWCpp, attr="ewc_step")
+    torch.cuda.synchronize()
+    rm_ckpt = checkpoint_phase("rm", RM_ARGV, owner=er_baseline)
+    torch.cuda.synchronize()
     # the text tower's share of a both-tower step: its device time less the
     # image-only step's (64 cached class features there)
     image, both = (gates[i]["profile"].get("device_busy_ms_per_step")
@@ -2468,8 +2816,9 @@ def main():
     # each kernel's launches over every main path above
     runs = {k: sum(r[k] for r in (
         launches, l14_launches, mvp_launches, maple_launches, pl_launches,
-        adapter_launches, moe_launches, cc_launches,
-        *[r[0] for r in prompt_runs.values()])) for k in launches}
+        adapter_launches, moe_launches, cc_launches, rn_launches,
+        *[r[0] for r in prompt_runs.values()],
+        *[r[0] for r in er_runs.values()])) for k in launches}
     kernels = []
     for name, pre, case_list, source, shape in (
             ("fused_ln_attention_fwd", "fwd", cases, src,
@@ -2529,6 +2878,17 @@ def main():
                         f"{name}_launches": run_launches}))
     log(json.dumps(l2p_ckpt))
     log(json.dumps(proto_ckpt))
+    for name, (run_launches, info) in er_runs.items():
+        log(json.dumps({f"{name}_main_path": info,
+                        f"{name}_launches": run_launches}))
+    log(json.dumps({"continual_clip_rn50_main_path": rn_run,
+                    "continual_clip_rn50_launches": rn_launches,
+                    "pretrained_checkpoint_mb": rn_pretrained[1],
+                    "pretrained_write_s": rn_pretrained[2],
+                    "pretrained_load_s": rn_pretrained[3]}))
+    log(json.dumps(rn_eval))
+    log(json.dumps(ewc_ckpt))
+    log(json.dumps(rm_ckpt))
     for g in gates:
         log(json.dumps(g))
     log(json.dumps(remat))

@@ -9,8 +9,11 @@ only converts leaves. The method trees go through it the same way: the
 prompt pools and heads of L2P and DualPrompt (``pool``/``g_pool``/
 ``e_pool`` {``key``, ``prompts``}, ``head`` {``w``, ``b``}), the MVP(ViT)
 tree and ProtoCLIP's (``text_key``, ``text_prompt``, ``copl`` {``p``,
-``k``, ``a``}). It takes nested dicts of numpy arrays (convert a JAX tree
-with ``jax.tree.map(np.asarray, tree)``) and never sees JAX itself.
+``k``, ``a``}). The ModifiedResNet vision tree (``models/resnet.py``)
+keeps JAX's layout too (HWIO kernels, its stages and blocks as lists, a
+missing ``downsample`` as None), so it crosses the same way. It takes
+nested dicts and lists of numpy arrays (convert a JAX tree with
+``jax.tree.map(np.asarray, tree)``) and never sees JAX itself.
 """
 
 from __future__ import annotations
@@ -20,13 +23,15 @@ import torch
 
 
 def params_from_numpy(tree, device="cpu", dtype=None):
-    """Nested dicts of numpy arrays (or scalars) -> the same dicts of tensors.
-    ``dtype`` casts floating leaves; ``None`` keeps each leaf's dtype
-    (bfloat16 leaves from ``ml_dtypes`` arrive as torch.bfloat16)."""
+    """Nested dicts and lists of numpy arrays (or scalars) -> the same of
+    tensors. ``dtype`` casts floating leaves; ``None`` keeps each leaf's
+    dtype (bfloat16 leaves from ``ml_dtypes`` arrive as torch.bfloat16)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device, dtype) for v in tree]
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -38,11 +43,14 @@ def params_from_numpy(tree, device="cpu", dtype=None):
 
 
 def params_to_numpy(tree):
-    """Nested dicts of tensors -> numpy (bf16 leaves become float32)."""
+    """Nested dicts and lists of tensors -> numpy (bf16 leaves become
+    float32)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()

@@ -31,12 +31,29 @@ log = logging.getLogger("lifelong_clip_tpu_torch")
 
 
 def tree_leaves(tree):
-    """Tensors of a nested dict in a fixed (insertion) order."""
+    """Tensors of a nested dict (or list: the ModifiedResNet tower's stages
+    and blocks) in a fixed (insertion) order; None holds no leaf."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of ``rest``,
+    trees of its structure), keeping the structure (``jax.tree.map``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 class TrainState:
@@ -168,10 +185,20 @@ def _default_loss(logits, labels):
     return F.cross_entropy(logits, labels)
 
 
+def soft_label_loss(logits, y_soft):
+    """Soft-label CE written as JAX writes it (``engine.py:313-319``):
+    ``-sum(where(y > 0, y * log_softmax, 0))`` a row, meaned. A masked class
+    slot carries log_softmax = -inf, and ``0 * -inf`` would give NaN."""
+    ls = torch.log_softmax(logits, dim=-1)
+    per = -torch.where(y_soft > 0, y_soft * ls, 0.0).sum(-1)
+    return per.mean()
+
+
 def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
                     image_size: int, mean, std, augment: bool = True,
                     use_autoaug: bool = False,
                     autoaug_policy: str = "imagenet",
+                    use_cutmix: bool = False,
                     compute_dtype=torch.bfloat16, attn_impl: str = "fused",
                     forward_fn: Optional[Callable] = None,
                     loss_fn: Optional[Callable] = None,
@@ -192,7 +219,12 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
     replaces the PEFT forward (JAX ``engine.py:233-236``).
     ``augment=False`` casts the raw uint8 straight to the compute dtype
     (``engine.py:277-278``); ``use_autoaug`` runs AutoAugment's
-    ``autoaug_policy`` first. ``remat`` checkpoints each block of the PEFT
+    ``autoaug_policy`` first. ``use_cutmix``: after the augmentation's draws
+    each step draws one Bernoulli(0.5) from ``state.gen`` and, where it
+    comes up, batch CutMix's partner permutation, area and centre
+    (``preprocess.random_cutmix``); the labels become soft one-hots over
+    ``tokens.shape[0]`` slots and the loss ``soft_label_loss`` (JAX
+    ``engine.py:294-319``). ``remat`` checkpoints each block of the PEFT
     forward's towers, or the whole ``forward_fn`` (JAX
     ``engine.py:237-242``): the backward recomputes the forward instead of
     keeping its intermediates. With MoE PEFT and no ``forward_fn`` each
@@ -233,10 +265,17 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
             images = batch["images"].to(compute_dtype)
         kw = ({"moe_noise": gate_noise(state, images, batch["tokens"])}
               if draws_noise else {})
+        if use_cutmix:
+            y_soft = F.one_hot(batch["labels"],
+                               batch["tokens"].shape[0]).float()
+            if float(torch.rand((), generator=state.gen)) < 0.5:
+                images, y_soft, _ = preprocess.random_cutmix(
+                    state.gen, images, y_soft)
         logits, _, _ = fwd(state.frozen, state.trainable, images,
                            batch["tokens"], **kw)
         logits = logits + batch["mask"][None, :]
-        loss = compute_loss(logits, batch["labels"])
+        loss = (soft_label_loss(logits, y_soft) if use_cutmix
+                else compute_loss(logits, batch["labels"]))
         state.apply(loss)
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["labels"]).float().mean()

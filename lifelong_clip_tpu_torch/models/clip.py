@@ -19,7 +19,9 @@ CUDA kernels run on the card and its plain version on the CPU.
 ``multi_head_attention`` on plain PyTorch. The adapter and the MoE are
 applied outside the attention op, as in JAX (``_block``, ``_mlp_half``), so
 their blocks run the same kernels. ``clip_forward`` runs both towers, PEFT
-on either. Text-side prompts are not ported yet.
+on either. Text-side prompts are not ported yet. ``encode_image`` runs
+the ModifiedResNet tower (``models/resnet.py``) for ``cfg.tower ==
+"rn"``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..ops.attention import causal_mask, linear, mm32, multi_head_attention
 from ..ops.fused_block_attn import (fused_ln_attention_block,
                                     fused_prefix_attention_block)
 from ..ops.moe import moe_adapter_apply
+from .resnet import rn_encode_image
 
 ATTN_IMPLS = ("fused", "unfused")
 
@@ -255,8 +258,11 @@ def cast_tree(tree, dtype):
 
 def cast_towers(params, dtype):
     """Cast the frozen towers once (they are never updated); the logit scale
-    stays fp32 as the JAX step reads it from the uncast tree."""
-    return {k: cast_tree(v, dtype) if k in ("vision", "text") else v
+    stays fp32 as the JAX step reads it from the uncast tree, and so does a
+    ModifiedResNet vision tree, whose convolutions cast their kernels a
+    call and whose BatchNorm runs in fp32 (JAX ``resnet.py``)."""
+    return {k: cast_tree(v, dtype)
+            if k == "text" or (k == "vision" and "stem" not in v) else v
             for k, v in params.items()}
 
 
@@ -273,8 +279,7 @@ def vit_embed(v, images, cfg: CLIPConfig, cd):
     """Patch embedding, class token, positions and ln_pre of the vision
     tower ``v`` (already in ``cd``): the token sequence (B, 1 + N, D)."""
     if cfg.tower != "vit":
-        raise NotImplementedError("the ModifiedResNet tower is not ported "
-                                  "yet (ROADMAP.md, queue A)")
+        raise ValueError("the ModifiedResNet tower has no token sequence")
     x = extract_patches(images.to(cd), cfg.patch_size)
     x = mm32(x, v["patch_kernel"]).to(cd)
     if "patch_bias" in v:
@@ -297,8 +302,15 @@ def encode_image(params, images, cfg: CLIPConfig, *,
     each block (``transformer``); ``moe_noise``: (L, B, E) MoE gate noise.
     The PEFT tree is cast to ``compute_dtype`` (JAX ``_cast_tree``).
     Returns the projected CLS embedding (B, embed_dim) in
-    ``compute_dtype``."""
+    ``compute_dtype``. ``cfg.tower == "rn"`` runs the ModifiedResNet tower
+    (``resnet.rn_encode_image``, JAX ``:392-397``), which takes no PEFT
+    tree and no prompts."""
     cd = compute_dtype
+    if cfg.tower == "rn":
+        if peft is not None or layer_prompts is not None:
+            raise ValueError("the ModifiedResNet tower takes no PEFT or "
+                             "prompt tree")
+        return rn_encode_image(params, images, cfg, compute_dtype=cd)
     v = cast_tree(params["vision"], cd)
     x = vit_embed(v, images, cfg, cd)
     x = transformer(x, v["blocks"], cfg.vision_heads,

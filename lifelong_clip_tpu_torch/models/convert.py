@@ -8,11 +8,11 @@ the layer-stacked parameter dicts of ``models/init.py``. The file is read
 on the CPU and the result moved to the requested device. Nothing is
 downloaded: the checkpoint must be on disk (``--pretrained_path``).
 
-The ViT branch is ported, and ``timm_vit_to_params`` reads a timm ViT
+Both of the reference's branches are ported: ViT checkpoints, and
+ModifiedResNet ones (RN50 ...) whose vision tree ``resnet.py`` reads
+(``rn_state_dict_to_vision``); ``timm_vit_to_params`` reads a timm ViT
 state dict (the vit-prompt methods' backbone) into the vision tree as a
-library function, as in JAX, where no main path calls it. ModifiedResNet
-checkpoints (``models/resnet.py``) are not ported yet (ROADMAP.md, queue
-A): a checkpoint without ``visual.proj`` raises.
+library function, as in JAX, where no main path calls it.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import torch
 
 from ..config import CLIPConfig
 from ..device import resolve_device
+from .resnet import rn_state_dict_to_vision
+from .resnet import tree_to as _to
 
 
 def _load_state_dict(path: str):
@@ -48,24 +50,11 @@ def infer_config(sd) -> CLIPConfig:
     """Shape-driven architecture inference (reference model.py:1005-1044).
 
     ViT checkpoints are identified by ``visual.proj`` (``build_model:1006``);
-    any other layout raises."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError(
-            "only OpenAI CLIP ViT checkpoints are ported; ModifiedResNet "
-            "(models/resnet.py) comes later (ROADMAP.md, queue A)")
+    otherwise the ModifiedResNet branch reads the stage depths from the
+    ``visual.layerN`` key families (``:1019-1033``)."""
     text_width = sd["ln_final.weight"].shape[0]
-    vision_width = sd["visual.conv1.weight"].shape[0]
-    patch_size = sd["visual.conv1.weight"].shape[-1]
-    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
-    return CLIPConfig(
+    text_kw = dict(
         embed_dim=sd["text_projection"].shape[1],
-        image_size=grid * patch_size,
-        patch_size=patch_size,
-        vision_width=vision_width,
-        # layer index is the 4th component: visual.transformer.resblocks.N
-        vision_layers=len({k.split(".")[3] for k in sd
-                           if k.startswith("visual.transformer.resblocks")}),
-        vision_heads=vision_width // 64,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         text_width=text_width,
@@ -73,6 +62,33 @@ def infer_config(sd) -> CLIPConfig:
         text_layers=len({k.split(".")[2] for k in sd
                          if k.startswith("transformer.resblocks")}),
     )
+    if "visual.proj" not in sd:   # ModifiedResNet
+        width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        grid = int(round(
+            (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5))
+        return CLIPConfig(
+            image_size=grid * 32,
+            patch_size=32,   # unused by the tower; keeps grid_size defined
+            vision_width=width,
+            vision_layers=tuple(
+                len({k.split(".")[2] for k in sd
+                     if k.startswith(f"visual.layer{b}.")})
+                for b in (1, 2, 3, 4)),
+            vision_heads=width * 32 // 64,
+            tower="rn",
+            **text_kw)
+    vision_width = sd["visual.conv1.weight"].shape[0]
+    patch_size = sd["visual.conv1.weight"].shape[-1]
+    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
+    return CLIPConfig(
+        image_size=grid * patch_size,
+        patch_size=patch_size,
+        vision_width=vision_width,
+        # layer index is the 4th component: visual.transformer.resblocks.N
+        vision_layers=len({k.split(".")[3] for k in sd
+                           if k.startswith("visual.transformer.resblocks")}),
+        vision_heads=vision_width // 64,
+        **text_kw)
 
 
 def _ln(sd, prefix):
@@ -117,16 +133,15 @@ def _text_params(sd, cfg: CLIPConfig):
     }
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.contiguous().to(device)
-
-
 def state_dict_to_params(sd, cfg: CLIPConfig = None, device=None):
     """Returns (params, cfg) on ``device`` (``None``: the GPU). ``sd``: str
-    -> fp32 tensor state dict of an OpenAI CLIP ViT."""
+    -> fp32 tensor state dict of an OpenAI CLIP ViT or ModifiedResNet."""
     cfg = cfg or infer_config(sd)
+    if cfg.tower == "rn":
+        params = {"vision": rn_state_dict_to_vision(sd),
+                  "text": _text_params(sd, cfg),
+                  "logit_scale": sd["logit_scale"].reshape(())}
+        return _to(params, resolve_device(device)), cfg
     conv = sd["visual.conv1.weight"]  # (W, 3, P, P)
     # the patch vectors are flattened (ph, pw, c): reorder the kernel to match
     params = {

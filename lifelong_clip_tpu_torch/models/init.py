@@ -14,6 +14,7 @@ import torch
 
 from ..config import CLIPConfig
 from ..device import resolve_device
+from .resnet import init_rn_params
 
 
 def _normal(gen, shape, std):
@@ -64,10 +65,13 @@ def _to(tree, device):
 
 
 def init_clip_params(gen: torch.Generator, cfg: CLIPConfig, device=None):
-    """Seeded params on ``device`` (``None``: the GPU)."""
-    if cfg.tower != "vit":
-        raise NotImplementedError(
-            "the ModifiedResNet tower is not ported yet (ROADMAP.md, queue A)")
+    """Seeded params on ``device`` (``None``: the GPU); ``cfg.tower ==
+    "rn"`` draws a ModifiedResNet vision tree (``resnet.init_rn_params``)."""
+    if cfg.tower == "rn":
+        return {"vision": init_rn_params(gen, cfg, device=device),
+                **_to({"text": _text_tree(gen, cfg),
+                       "logit_scale": torch.tensor(math.log(1.0 / 0.07))},
+                      resolve_device(device))}
     vw = cfg.vision_width
     vscale = vw ** -0.5
     patch_dim = cfg.patch_size * cfg.patch_size * 3
@@ -92,4 +96,6 @@ def param_count(tree) -> int:
         return 0
     if isinstance(tree, dict):
         return sum(param_count(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_count(v) for v in tree)
     return tree.numel()

@@ -58,3 +58,14 @@ def make_optimizer(opt_name: str, params, lr: float, *,
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, make_schedule(sched_name, total_steps=total_steps))
     return opt, sched
+
+
+def set_lr(opt, sched, lr: float) -> None:
+    """Make ``lr`` the learning rate of every update from the next one on,
+    the optimizer's moments kept (JAX ``optax.inject_hyperparams``, whose
+    ``hyperparams['learning_rate']`` the trainer sets). ``LambdaLR.step``
+    rewrites each group's lr from ``base_lrs``, so both are set; under the
+    constant schedule the trainers that set their lr run, that holds it."""
+    sched.base_lrs = [lr] * len(opt.param_groups)
+    for group in opt.param_groups:
+        group["lr"] = lr

@@ -22,6 +22,7 @@ from lifelong_clip_tpu_torch.bridge import params_from_numpy, params_to_numpy
 from lifelong_clip_tpu_torch.models import build_clip
 from lifelong_clip_tpu_torch.models import clip as tclip
 from lifelong_clip_tpu_torch.models import convert as tconvert
+from lifelong_clip_tpu_torch.models.init import init_clip_params
 
 # tiny OpenAI-layout ViT: 32 px images of 8 px patches, width 64 (one head
 # of 64, as infer_config derives heads from the width)
@@ -231,23 +232,27 @@ def test_build_clip_reads_the_file_when_it_exists(ckpt, loaded, tmp_path):
 
 
 def test_resnet_layout_is_inferred_and_refused(tmp_path):
-    """A ModifiedResNet checkpoint (no ``visual.proj``; JAX infers the RN
-    tower from it) raises until models/resnet.py is ported: from the dict
-    and through the loader, from a file."""
+    """A ModifiedResNet checkpoint (no ``visual.proj``) is inferred as the
+    RN tower with JAX's config, from the dict and through the loader from a
+    file; the RN tower refuses a PEFT tree, as JAX's does (the reference
+    puts PEFT only into transformer blocks). The RN converter itself is
+    held against JAX's in ``tests/test_torch_resnet.py``."""
     sd = {k: v for k, v in openai_state_dict(text_layers=1).items()
           if not k.startswith("visual.")}
     for b, depth in zip((1, 2, 3, 4), (1, 1, 2, 1)):
         for i in range(depth):
             sd[f"visual.layer{b}.{i}.conv1.weight"] = torch.zeros(8, 8, 1, 1)
     sd["visual.attnpool.positional_embedding"] = torch.zeros(50, 256)
-    assert jconvert.infer_config(
-        {k: v.numpy() for k, v in sd.items()}).tower == "rn"
-    with pytest.raises(NotImplementedError, match="queue A"):
-        tconvert.state_dict_to_params(sd, device="cpu")
-    path = str(tmp_path / "RN-tiny.pt")
-    torch.save(sd, path)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        build_clip("RN50", path, device="cpu")
+    jcfg = jconvert.infer_config({k: v.numpy() for k, v in sd.items()})
+    tcfg = tconvert.infer_config(sd)
+    assert jcfg.tower == tcfg.tower == "rn"
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.vision_layers == (1, 1, 2, 1) and tcfg.image_size == 224
+    params = init_clip_params(torch.Generator().manual_seed(0), tcfg,
+                              device="cpu")
+    with pytest.raises(ValueError, match="no PEFT"):
+        tclip.encode_image(params, torch.zeros(1, 224, 224, 3), tcfg,
+                           peft={"lora": {}})
 
 
 def test_bridged_params_equal_loaded_params(loaded):

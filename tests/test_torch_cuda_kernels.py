@@ -50,7 +50,12 @@ CASES = [(2, 13, 128, 2, 4, False, False), (3, 77, 256, 4, 0, True, True),
          (128, 197, 768, 12, 0, False, False),
          # L2P's prompted pass (T = 1 + 25 + 196, a partial row tile, no
          # LoRA) and ProtoCLIP's text prefix (T = 25, causal), narrowed
-         (2, 222, 192, 3, 0, False, False), (4, 25, 128, 2, 0, True, False)]
+         (2, 222, 192, 3, 0, False, False), (4, 25, 128, 2, 0, True, False),
+         # the ER family at ViT-B/16's widths: Finetuning's whole-tower step
+         # (no LoRA, weight grads), ER's step and CLIB's 256-row recompute
+         (16, 197, 768, 12, 0, False, True),
+         (16, 197, 768, 12, 0, False, False),
+         (256, 197, 768, 12, 0, False, False)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,r,causal,wg", CASES)

@@ -1,6 +1,5 @@
 """Package-level checks of the PyTorch port: no JAX anywhere in it, the CLI
-end to end on the CPU, and the refusals of what is not ported (another
-method, a ResNet checkpoint, a mesh)."""
+end to end on the CPU, and the refusal of what is not ported (a mesh)."""
 
 import ast
 import os
@@ -57,33 +56,10 @@ def test_cli_cpu_run_writes_result(tmp_path):
     assert first.startswith("Dataset:synthetic-10x8 | A_auc ")
 
 
-RN_CKPT = "<a ModifiedResNet-layout checkpoint>"
-
-
-def _write_resnet_checkpoint(path):
-    """The keys an OpenAI ModifiedResNet state dict is told apart by (its
-    text tower, stage blocks and attention pool), at toy sizes."""
-    sd = {"text_projection": torch.zeros(8, 4),
-          "ln_final.weight": torch.ones(8), "ln_final.bias": torch.zeros(8),
-          "positional_embedding": torch.zeros(77, 8),
-          "token_embedding.weight": torch.zeros(49408, 8),
-          "transformer.resblocks.0.ln_1.weight": torch.ones(8),
-          "visual.attnpool.positional_embedding": torch.zeros(50, 16)}
-    for b in (1, 2, 3, 4):
-        sd[f"visual.layer{b}.0.conv1.weight"] = torch.zeros(4, 4, 1, 1)
-    torch.save(sd, path)
-
-
 @pytest.mark.parametrize("extra", [
-    ["--transforms", "--method", "er"],
-    ["--transforms", "--pretrained_path", RN_CKPT],
     ["--transforms", "--mesh", "2x1"],
 ])
 def test_unported_parts_raise(tmp_path, extra):
-    if RN_CKPT in extra:
-        path = str(tmp_path / "RN-toy.pt")
-        _write_resnet_checkpoint(path)
-        extra = [path if a == RN_CKPT else a for a in extra]
     with pytest.raises(NotImplementedError):
         cli.main(TINY_ARGS + ["--device", "cpu", "--log_path",
                               str(tmp_path)] + extra)
