@@ -136,6 +136,16 @@
    family for ewc++ (Fisher, score, importance, task snapshot) and rm (the
    lr after its memory epochs, the memory and its generators, the view
    generator); every checkpoint phase also holds the memory and the lr.
+9. Mesh (``mesh_phase``): two ranks sharing this one card in a gloo group
+   over CUDA tensors (so no scaling is measured), at full ViT-B/16 width
+   with augmentation off: 3 steps of lora-clip (``scripts/lora_clip.sh``),
+   mvp-clip and Finetuning under ``--mesh 2x1``, one step of lora-clip
+   (tensor parallel) and moe-clip (expert parallel) under ``--mesh 1x2``,
+   each held against the 1-process step on the same card and batches
+   (tolerances in ``mesh_phase``), then the lora-clip DP step in a
+   one-rank nccl group; each prints its backend, step ms, all-reduce
+   bytes and ms a step. The kernel phase times the per-rank shapes of
+   2x1 (lora-clip's 32 rows, Finetuning's 8, mvp-clip's prefix at 32).
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels; each one's launches summed over
@@ -143,6 +153,7 @@ every main path of 5); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -2565,6 +2576,533 @@ PORT_KERNELS = ("gemm_kernel", "gemm_wgmma_kernel", "attn_fwd_kernel",
                 "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 
 
+# -- the mesh phase: 2 ranks sharing one card ---------------------------------
+
+MESH_STEPS = 3
+# mvp-clip with --use_mask --use_contrastiv; moe-clip as
+# scripts/adapter_clip.sh at one update a batch (its online_iter 3 would
+# take the grads the checks read from weights the two sides moved apart)
+MVP_DP_ARGV = ["--method", "mvp-clip", "--model_name", "ViT-B/16",
+               "--dataset", "synthetic-20", "--n_tasks", "2",
+               "--batchsize", "64", "--use_mask", "--use_contrastiv"]
+MOE_EP_ARGV = ["--method", "moe-clip"] + argv_with(ADAPTER_ARGV,
+                                                    online_iter=1)
+# the data-parallel cases: lora-clip as scripts/lora_clip.sh sets it,
+# Finetuning at scripts/er.sh's batch of 16 with the whole tower training
+# and neither a memory nor a temp batch (FT keeps no memory: under er.sh's
+# temp batch of 8 each step tiles 8 stream samples to 16, and the two ranks
+# would hold the same rows)
+MESH_DP = [("lora-clip DP", LORA_SCRIPT_ARGV), ("mvp-clip DP", MVP_DP_ARGV),
+           ("Finetuning DP", argv_with(ER_FAMILY_ARGV["Finetuning"],
+                                       memory_size=0, temp_batchsize=0))]
+# the planted faults of the controls (``plant``)
+MESH_FAULTS = ("grads not reduced", "grads averaged twice")
+# limits, each between the sound readings and the planted faults' (PERF.md
+# section 6, PR 11; H100 80GB HBM3, 700 W): step 1's worst grad difference
+# over that grad's largest entry on the data-parallel road (bf16, the
+# kernels; sound 1.52e-3 to 2.14e-2, faults 0.50 to 2.0) and on the model
+# axis in fp32 (sound 2.89e-6, 5.71e-6); the share of trainable entries
+# whose step-1 update is more than one update off the reference's
+# (AdamW's first update is lr times the grad's sign, so these are the
+# entries whose grad changed sign; sound up to 2.30e-3, the unreduced
+# grads of lora-clip and mvp-clip 1.21e-2 to 0.209); a bf16 model-axis
+# step against the fp32 1-process step: each leaf's grad within
+# BF16_FACTOR times as far as the bf16 1-process step's, the loss within
+# BF16_LOSS_RTOL (sound 0.9e-5 to 7.9e-5; a row-parallel sum left
+# partial moves a tiny tower's loss by 4.2e-3 to 5.1e-3)
+DP_GRAD_LIMIT = 5e-2
+MODEL_AXIS_GRAD_LIMIT = 1e-3
+MOVED_LIMIT = 5e-3
+BF16_FACTOR = 2.0
+BF16_LOSS_RTOL = 5e-4
+
+
+def mesh_case(label, argv, mesh, steps=1, ref_argv=None, fault=None):
+    """A mesh phase case: ``argv`` under ``mesh`` for ``steps`` steps,
+    held against the 1-process steps of ``ref_argv`` (default ``argv``;
+    with a model axis on the ``"unfused"`` road, as the axis runs it);
+    ``fault``: one of ``MESH_FAULTS``, planted in the ranks."""
+    return {"label": label, "argv": argv, "mesh": tuple(mesh),
+            "steps": steps, "ref_argv": ref_argv or argv, "fault": fault}
+
+
+# the model-axis steps in fp32 (--no_bf16), where only the order of the
+# partial sums differs from the 1-process step's, and in bf16, as users run
+# them, against the same fp32 step beside the bf16 1-process step
+MESH_CASES = (
+    [mesh_case(lab, argv, (2, 1), MESH_STEPS) for lab, argv in MESH_DP]
+    + [mesh_case("lora-clip TP", LORA_SCRIPT_ARGV + ["--no_bf16"], (1, 2)),
+       mesh_case("moe-clip EP", MOE_EP_ARGV + ["--no_bf16"], (1, 2)),
+       mesh_case("lora-clip TP, bf16", LORA_SCRIPT_ARGV, (1, 2),
+                 ref_argv=LORA_SCRIPT_ARGV + ["--no_bf16"]),
+       mesh_case("moe-clip EP, bf16", MOE_EP_ARGV, (1, 2),
+                 ref_argv=MOE_EP_ARGV + ["--no_bf16"])]
+    + [mesh_case(f"{lab}, {fault}", argv, (2, 1), fault=fault)
+       for lab, argv in MESH_DP for fault in MESH_FAULTS])
+
+
+@contextlib.contextmanager
+def eval_pixels():
+    """The train pipeline replaced by the eval preprocessing while the
+    block runs, and put back after: the ranks draw their own augmentation
+    by design, so the mesh steps are held on the same pixels."""
+    from lifelong_clip_tpu_torch.ops import preprocess
+    real = preprocess.make_train_pipeline
+
+    def same_pixels(image_size, mean, std, out_dtype=None, **_):
+        pipe = preprocess.make_eval_pipeline(image_size, mean, std,
+                                             out_dtype=out_dtype)
+        return lambda gen, x: pipe(x)
+
+    preprocess.make_train_pipeline = same_pixels
+    try:
+        yield
+    finally:
+        preprocess.make_train_pipeline = real
+
+
+def mesh_trainer(argv, mesh, device, tmp, unfused=False, **attrs):
+    """The trainer ``main`` builds from ``argv``, here on ``device`` under
+    ``mesh``; ``unfused``: its towers on the ``"unfused"`` road (a model
+    axis chooses it by itself); ``attrs``: more class attributes."""
+    import dataclasses
+    from lifelong_clip_tpu_torch import main as cli
+    parser = cli.base_parser()
+    args = parser.parse_args(argv + ["--log_path", tmp, "--transforms"])
+    cfg = dataclasses.replace(cli.args_to_config(args), device=str(device),
+                              mesh_shape=tuple(mesh))
+    cls = cli.trainer_class(cfg.method, args, parser)
+    if unfused:
+        attrs = {"_attn_impl": "unfused", **attrs}
+    return type(cls.__name__, (cls,), attrs)(cfg) if attrs else cls(cfg)
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_steps(tr, steps, calls=()):
+    """``steps`` online steps on the first batches of the trainer's own
+    stream (the same in every process): each step's loss and ms (host
+    clock to a synchronize), the kernels' launches over them, the
+    trainable tree before step 1 (``start``), after it with its grads
+    (``first``: the one step both sides take from the same weights) and
+    after the last (``last``); with ``calls`` (``collective_meter``'s
+    record) each step's collective ms."""
+    idx = tr.stream.task_indices[0]
+    bs = tr.cfg.batchsize
+    start = {k: p for k, (p, _) in trainable_of(tr).items()}
+    reset_launches()
+    losses, ms, coll_ms = [], [], []
+    for i in range(steps):
+        before = len(calls)
+        batch_idx = idx[i * bs:(i + 1) * bs]
+        images, labels = tr.train_dataset.gather(batch_idx)
+        tr.vocab.expose(labels)
+        sync(tr.device)
+        t0 = time.perf_counter()
+        st = tr.online_step(images, labels, batch_idx)
+        sync(tr.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(sum(c[2] for c in calls[before:]))
+        losses.append(float(st["loss"]))
+        if i == 0:
+            first = trainable_of(tr)
+    return {"losses": losses, "step_ms": ms, "launches": launch_counts(),
+            "start": start, "first": first, "coll_ms": coll_ms,
+            "last": {k: p for k, (p, _) in trainable_of(tr).items()}}
+
+
+def trainable_of(tr):
+    """{key path: (leaf, grad)} of the trainable tree, on the host."""
+    import torch
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from walk(v, path + (str(k),))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                yield from walk(v, path + (str(i),))
+        elif t is not None:
+            yield "/".join(path), t
+
+    def host(t):    # a copy, also of a tensor on the CPU already
+        return t.detach().to("cpu", torch.float32, copy=True)
+
+    return {k: (host(p), None if p.grad is None else host(p.grad))
+            for k, p in walk(tr.state.trainable, ())}
+
+
+def step1_errors(got, ref, by_leaf=False):
+    """A run's trainable tree against the reference's (``mesh_steps``'s
+    records). After step 1, taken from the same weights: the worst grad
+    difference over that grad's largest entry (and its leaf; with
+    ``by_leaf`` each leaf's), and the
+    share of entries whose update is more than one update (the reference's
+    largest step-1 move) off the reference's; after the last step, where
+    both took as many, the worst entry difference (reported: AdamW moves
+    every entry by about lr a step whatever its grad, so it holds nothing
+    beyond step 1; None where the steps differ)."""
+    want, start = ref["first"], ref["start"]
+    assert got["first"].keys() == want.keys() == start.keys()
+    move = max(float((p - start[k]).abs().max())
+               for k, (p, _) in want.items())
+    same = len(got["losses"]) == len(ref["losses"])
+    grad_rel, worst_leaf, moved, total, last = 0.0, "", 0, 0, 0.0
+    rels = {}
+    for k, (p, g) in want.items():
+        q, h = got["first"][k]
+        moved += int(((q - p).abs() > move).sum())
+        total += p.numel()
+        if same:
+            last = max(last, float((got["last"][k] - ref["last"][k])
+                                   .abs().max()))
+        if g is not None and h is not None and float(g.abs().max()) > 0:
+            rels[k] = rel = float((h - g).abs().max() / g.abs().max())
+            if rel > grad_rel:
+                grad_rel, worst_leaf = rel, k
+    out = {"step1_grad_max_rel": grad_rel, "step1_worst_grad": worst_leaf,
+           "step1_moved_share": moved / total, "step1_move": move,
+           "last_max_diff": last if same else None}
+    if by_leaf:
+        out["step1_grad_rel_by_leaf"] = rels
+    return out
+
+
+def collective_meter(device):
+    """Wrap ``torch.distributed.all_reduce`` and ``all_gather_into_tensor``
+    to count each call's bytes and time it between two synchronizes;
+    returns the record list, (op, bytes, ms) a call, and a function that
+    puts the two back."""
+    import torch.distributed as dist
+    calls = []
+    real = dist.all_reduce, dist.all_gather_into_tensor
+
+    def restore():
+        dist.all_reduce, dist.all_gather_into_tensor = real
+
+    def metered(name, real):
+        def run(t, *a, **kw):
+            sync(device)
+            t0 = time.perf_counter()
+            out = real(t, *a, **kw)
+            sync(device)
+            calls.append((name, t.numel() * t.element_size(),
+                          (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    dist.all_reduce = metered("all_reduce", dist.all_reduce)
+    dist.all_gather_into_tensor = metered("all_gather",
+                                          dist.all_gather_into_tensor)
+    return calls, restore
+
+
+def plant(fault):
+    """Plant ``fault`` (``MESH_FAULTS``) in the data-parallel road, for
+    the controls: the grads, and the loss and accuracy riding with them,
+    kept as each rank's own (no all-reduce), or averaged a second time.
+    Returns the function that takes it out."""
+    import torch
+    from lifelong_clip_tpu_torch.parallel.mesh import Mesh
+    real = Mesh.all_mean
+
+    def not_reduced(self, tensors, totals=()):
+        return None
+
+    def twice(self, tensors, totals=()):
+        tensors = list(tensors)
+        real(self, tensors, totals)
+        with torch.no_grad():
+            for t in tensors:
+                t.div_(self.data)
+
+    Mesh.all_mean = {"grads not reduced": not_reduced,
+                     "grads averaged twice": twice}[fault]
+
+    def undo():
+        Mesh.all_mean = real
+    return undo
+
+
+def mesh_kind(case, world):
+    if world == 1:
+        return "one rank"
+    if case["fault"]:
+        return "fault"
+    if case["mesh"][1] > 1:
+        return ("bf16 model axis" if case["ref_argv"] != case["argv"]
+                else "model axis")
+    return "data parallel"
+
+
+def mesh_case_on_rank(rank, world, backend, init_file, case, dev, **attrs):
+    """One case on one rank: a ``backend`` group on ``dev``, the case's
+    trainer (its fault planted), its steps, every leaf and grad held
+    against the 1-process reference saved at ``case["ref"]``."""
+    import torch
+    import torch.distributed as dist
+    undo = plant(case["fault"]) if case["fault"] else None
+    dist.init_process_group(backend, init_method="file://" + init_file,
+                            rank=rank, world_size=world)
+    calls, restore = collective_meter(dev)
+    try:
+        mesh = case["mesh"] if world > 1 else (1, 1)
+        with eval_pixels(), tempfile.TemporaryDirectory() as tmp:
+            tr = mesh_trainer(case["argv"], mesh, dev, tmp, **attrs)
+            assert mesh == (1, 1) or tr.mesh.shape == {
+                "data": mesh[0], "model": mesh[1]}
+            run = mesh_steps(tr, case["steps"], calls)
+            del tr
+        ref = torch.load(case["ref"], weights_only=False)
+        errs = step1_errors(run, ref,
+                            by_leaf=case["ref_argv"] != case["argv"])
+        dist.barrier()
+    finally:
+        restore()
+        if undo is not None:
+            undo()
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    steps = case["steps"]
+    reduce_calls = [(b, t) for n, b, t in calls if n == "all_reduce"]
+    return {"label": case["label"] + (", one rank" if world == 1 else ""),
+            "kind": mesh_kind(case, world), "backend": backend,
+            "ranks": world, "mesh": list(mesh), "losses": run["losses"],
+            "ref_losses": ref["losses"][:steps], "step_ms": run["step_ms"],
+            "ref_step_ms": ref["step_ms"][:steps],
+            "launches": run["launches"], **errs,
+            "all_reduce_bytes_per_step": sum(b for b, _ in reduce_calls)
+            / steps,
+            "all_reduce_ms_per_step": sum(t for _, t in reduce_calls) / steps,
+            "collective_ms_by_step": run["coll_ms"],
+            "largest_all_reduce_bytes": max(
+                (b for b, _ in reduce_calls), default=0),
+            "all_gather_calls_per_step": sum(
+                n == "all_gather" for n, _, _ in calls) / steps}
+
+
+def mesh_rank(rank, tmp, cases, device, outbox):
+    """One of the two ranks sharing ``device`` (cuda:0): every case of
+    ``cases`` in a gloo group of two (the gloo collectives on CUDA
+    tensors), then, rank 0 alone, the first case (lora-clip DP) in a
+    one-rank nccl group. Puts (rank, result or traceback) to ``outbox`` per
+    case."""
+    import traceback
+    sys.path.insert(0, REPO)
+    try:
+        import torch
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        for i, case in enumerate(cases):
+            outbox.put((rank, mesh_case_on_rank(
+                rank, 2, "gloo", os.path.join(tmp, f"pg{i}"), case, dev)))
+        if rank == 0:
+            from lifelong_clip_tpu_torch.parallel.mesh import Mesh
+            one = Mesh((1, 1), 0, dev)
+            outbox.put((rank, mesh_case_on_rank(
+                0, 1, "nccl" if dev.type == "cuda" else "gloo",
+                os.path.join(tmp, "pg_one"), cases[0], dev,
+                resolve_dp_mesh=lambda self, *a, **k: one)))
+    except BaseException:
+        outbox.put((rank, traceback.format_exc()))
+
+
+def kernels_ran(res):
+    """A mesh case's kernels: the DP steps launch #1/#2 (mvp-clip's
+    prompted pass #3/#4), the model axis none (the plain road)."""
+    n = res["launches"]
+    if res["mesh"] == [1, 2]:
+        return not any(n.values())
+    op = ("fused_prefix_attention" if res["label"].startswith("mvp")
+          else "fused_ln_attention")
+    return n[op + "_fwd"] > 0 and n[op + "_bwd"] > 0
+
+
+def mesh_checks(res, witness, launched):
+    """{check: passed} of one rank's result (``mesh_phase`` gives the
+    limits); ``witness``: the bf16 1-process step against the fp32 one,
+    for a bf16 model-axis case."""
+    lo, ref = res["losses"], res["ref_losses"]
+    checks = {"finite": all(math.isfinite(v) for v in lo),
+              "all-reduce": res["all_reduce_bytes_per_step"] > 0,
+              "kernels": not launched or kernels_ran(res),
+              "all-gather": not res["label"].startswith("mvp") or
+              res["all_gather_calls_per_step"] > 0}
+    if res["kind"] == "bf16 model axis":
+        w = witness[res["label"]]
+        checks.update({
+            "step 1 loss": abs(lo[0] - ref[0]) <= BF16_LOSS_RTOL * abs(ref[0]),
+            "step 1 grads": res["step1_grad_worst_ratio_to_witness"] <=
+            BF16_FACTOR,
+            "step 1 leaves": res["step1_moved_share"] <=
+            BF16_FACTOR * w["step1_moved_share"] + MOVED_LIMIT})
+        return checks
+    checks.update({
+        "step 1 loss": abs(lo[0] - ref[0]) <= 1e-5 * abs(ref[0]),
+        "losses": all(abs(a - b) <= 2e-3 * abs(b) for a, b in zip(lo, ref)),
+        "step 1 grads": res["step1_grad_max_rel"] <= (
+            MODEL_AXIS_GRAD_LIMIT if res["mesh"][1] > 1 else DP_GRAD_LIMIT),
+        "step 1 leaves": res["step1_moved_share"] <= MOVED_LIMIT})
+    if res["kind"] == "one rank":
+        checks["bitwise"] = lo == ref and res["last_max_diff"] == 0
+    return checks
+
+
+def mesh_phase(card, device="cuda:0", mesh_cases=None):
+    """Data parallelism (lora-clip, mvp-clip, Finetuning: 3 steps under
+    --mesh 2x1), tensor parallelism (lora-clip) and expert parallelism
+    (moe-clip: one step under --mesh 1x2, in fp32 and in bf16) at full
+    ViT-B/16 width, two ranks in a gloo group sharing this one card (so it
+    measures no scaling), each held against the 1-process step on the same
+    card and batches with augmentation off; then the lora-clip DP steps in
+    a one-rank nccl group, which must equal the 1-process steps bitwise;
+    then the controls: each DP case's step 1 with a fault planted in the
+    ranks (``MESH_FAULTS``), which the checks must catch.
+
+    Tolerances (the limits above ``mesh_case``): on the DP road (bf16, the
+    kernels) step 1's loss within rtol 1e-5 (each row's forward is the
+    1-process one; only the fp32 mean's order differs) and later steps'
+    within 2e-3; step 1's grads within DP_GRAD_LIMIT of each grad's largest
+    entry (each rank's partial grad goes through the bf16 backward, the
+    kernels' bf16 LoRA grads and, with the text tower training, 12 text
+    blocks' bf16 dx on its own, where the 1-process step rounds the sum).
+    On the model axis in fp32 (TF32 off) the loss within rtol 1e-5 and the
+    grads within MODEL_AXIS_GRAD_LIMIT: only the order of the partial sums
+    differs; in bf16 each leaf's grad within BF16_FACTOR times the distance
+    of the bf16 1-process step's from the fp32 one, the loss within
+    BF16_LOSS_RTOL of the fp32 one. Step 1's
+    moved share within MOVED_LIMIT (BF16_FACTOR times the witness's, plus
+    it, in bf16). A planted fault must fail the grad check."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import torch
+    from lifelong_clip_tpu_torch.ops import preprocess
+    real_pipeline = preprocess.make_train_pipeline
+    t_phase = time.perf_counter()
+    cases = [dict(c) for c in (mesh_cases or MESH_CASES)]
+    out, witness = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the 1-process references, one per (argv, road), at the most steps
+        # a case takes from it; the bf16 1-process steps of the bf16
+        # model-axis cases against their fp32 references
+        refs, need = {}, {}
+        for c in cases:
+            c["ref_key"] = (tuple(c["ref_argv"]), c["mesh"][1] > 1)
+            need[c["ref_key"]] = max(need.get(c["ref_key"], 0), c["steps"])
+        with eval_pixels():
+            for c in cases:
+                key = c["ref_key"]
+                if key not in refs:
+                    refs[key] = os.path.join(tmp, f"ref{len(refs)}.pt")
+                    tr = mesh_trainer(list(key[0]), (1, 1), device, tmp,
+                                      unfused=key[1])
+                    run = mesh_steps(tr, need[key])
+                    del tr
+                    torch.save(run, refs[key])
+                c["ref"] = refs[key]
+                if c["ref_argv"] != c["argv"]:
+                    tr = mesh_trainer(c["argv"], (1, 1), device, tmp,
+                                      unfused=True)
+                    run = mesh_steps(tr, 1)
+                    del tr
+                    ref = torch.load(c["ref"], weights_only=False)
+                    witness[c["label"]] = {"loss": run["losses"][0],
+                                           "ref_loss": ref["losses"][0],
+                                           **step1_errors(run, ref, True)}
+                if device.startswith("cuda"):
+                    torch.cuda.empty_cache()
+        for label, w in witness.items():
+            log(f"mesh witness {label}: the bf16 1-process step against the "
+                f"fp32 one: {json.dumps(w)}; {card}")
+        ctx = mp.get_context("spawn")
+        outbox = ctx.Queue()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, tmp, cases, device, outbox))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        results = {0: [], 1: []}
+        want = {0: len(cases) + 1, 1: len(cases)}
+        deadline = time.monotonic() + 900
+        try:
+            while any(len(results[r]) < want[r] for r in results):
+                try:
+                    rank, res = outbox.get(timeout=5)
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead or time.monotonic() > deadline:
+                        got = {r: len(v) for r, v in results.items()}
+                        raise RuntimeError(f"mesh phase: ranks exited "
+                                           f"{dead} or timed out ({got})")
+                    continue
+                if isinstance(res, str):
+                    raise RuntimeError(f"mesh phase, rank {rank}:\n{res}")
+                results[rank].append(res)
+        finally:
+            for p in procs:
+                p.join(60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        assert all(p.exitcode == 0 for p in procs), \
+            [p.exitcode for p in procs]
+    assert preprocess.make_train_pipeline is real_pipeline
+    launched = device.startswith("cuda")   # the counters count launches
+    failed = []
+    for res in results[0] + results[1]:
+        if res["kind"] == "bf16 model axis":
+            w = witness[res["label"]]["step1_grad_rel_by_leaf"]
+            got = res.pop("step1_grad_rel_by_leaf")
+            res["step1_grad_worst_ratio_to_witness"] = max(
+                got[k] / v for k, v in w.items())
+        checks = mesh_checks(res, witness, launched)
+        res["failed_checks"] = [k for k, ok in checks.items() if not ok]
+        if res["kind"] == "fault":
+            ok = "step 1 grads" in res["failed_checks"]
+        else:
+            ok = not res["failed_checks"]
+        if not ok:
+            failed.append((res["label"], res["ranks"],
+                           res["failed_checks"]))
+        out.append(res)
+        lo, ref = res["losses"], res["ref_losses"]
+        log(f"mesh {res['label']} ({res['kind']}, {res['backend']}, "
+            f"{res['ranks']} rank(s) sharing one card, mesh {res['mesh']}): "
+            f"step ms {[round(v, 1) for v in res['step_ms']]} (1 process: "
+            f"{[round(v, 1) for v in res['ref_step_ms']]}), all-reduce "
+            f"{res['all_reduce_bytes_per_step']:.0f} B and "
+            f"{res['all_reduce_ms_per_step']:.2f} ms a step (collectives "
+            f"by step {[round(v, 2) for v in res['collective_ms_by_step']]} "
+            f"ms), losses {lo} vs {ref}; step-1 grads within "
+            f"{res['step1_grad_max_rel']:.2e} of the largest "
+            f"({res['step1_worst_grad']}), moved share "
+            f"{res['step1_moved_share']:.2e}, worst leaf's grad over the "
+            f"bf16 1-process step's "
+            f"{res.get('step1_grad_worst_ratio_to_witness', '-')}, "
+            f"last step's worst entry "
+            f"{res['last_max_diff']}; failed checks "
+            f"{res['failed_checks']}; {card}")
+    assert not failed, f"mesh phase checks failed: {failed}"
+    return {"mesh_phase": out, "witness": witness,
+            "limits": {"dp_grad": DP_GRAD_LIMIT,
+                       "model_axis_grad": MODEL_AXIS_GRAD_LIMIT,
+                       "moved_share": MOVED_LIMIT,
+                       "bf16_factor": BF16_FACTOR,
+                       "bf16_loss_rtol": BF16_LOSS_RTOL},
+            "wall_s": time.perf_counter() - t_phase,
+            "note": "2 ranks sharing one card: no scaling is measured",
+            "card": card}
+
+
 def step_profile(run_step, step_ms, steps=3, top=12):
     """torch.profiler over ``steps`` train steps: device ms per step (the
     union of kernel intervals); the device's idle share of the profiled
@@ -2682,6 +3220,12 @@ def main():
                              False, 25))
     cases.append(kernel_case("CLIB miss recompute, no LoRA", 256, 197, 768,
                              12, 0, False, False, 26))
+    # the mesh phase's per-rank shapes (--mesh 2x1): lora-clip's 32 of 64
+    # rows, Finetuning's 8 of 16 with the weight grads
+    cases.append(kernel_case("per rank of 2x1: lora-clip, 32 rows", 32, 197,
+                             768, 12, 4, False, False, 27))
+    cases.append(kernel_case("per rank of 2x1: FT weight_grads, 8 rows", 8,
+                             197, 768, 12, 0, False, True, 28))
     torch.cuda.synchronize()
     pcases = [prefix_kernel_case("mvp prefix, 5 of 20 live", 5, False, 4)]
     pcases.append(prefix_kernel_case("mvp prefix, none live", 0, False, 5))
@@ -2710,6 +3254,10 @@ def main():
         shape=(64, 512, 512, 8, 25), shared=True,
         mask=suffix_mask(64, 8, 25, device="cuda")))
     pcases.extend(proto_main_suffix_cases())
+    # mvp-clip's prompted block on one rank of --mesh 2x1
+    pcases.append(prefix_kernel_case(
+        "per rank of 2x1: mvp prefix, 32 rows, 5 of 20 live", 5, False, 29,
+        shape=(32, 197, 768, 12, 20)))
     torch.cuda.synchronize()
 
     log(f"flash checks: o, dq, dk, dv against the plain versions within "
@@ -2774,6 +3322,8 @@ def main():
         torch.cuda.synchronize()
     remat = remat_phase(card)
     torch.cuda.synchronize()
+    mesh = mesh_phase(card)
+    torch.cuda.synchronize()
     ckpt = checkpoint_phase()
     torch.cuda.synchronize()
     moe_ckpt = checkpoint_phase("moe-clip", ["--method", "moe-clip"]
@@ -2813,12 +3363,15 @@ def main():
     src = "lifelong_clip_tpu_torch/csrc/fused_block_attn.cu"
     flash_src = "lifelong_clip_tpu_torch/csrc/flash_attention.cu"
     pl_shape = "prompted-LoRA 768 x 197 x 217 (B*H x T x S), dh 64, bf16"
-    # each kernel's launches over every main path above
+    # each kernel's launches over every main path above (the mesh phase's
+    # controls, with their planted faults, left out)
     runs = {k: sum(r[k] for r in (
         launches, l14_launches, mvp_launches, maple_launches, pl_launches,
         adapter_launches, moe_launches, cc_launches, rn_launches,
         *[r[0] for r in prompt_runs.values()],
-        *[r[0] for r in er_runs.values()])) for k in launches}
+        *[r[0] for r in er_runs.values()],
+        *[r["launches"] for r in mesh["mesh_phase"]
+          if r["kind"] != "fault"])) for k in launches}
     kernels = []
     for name, pre, case_list, source, shape in (
             ("fused_ln_attention_fwd", "fwd", cases, src,
@@ -2892,6 +3445,7 @@ def main():
     for g in gates:
         log(json.dumps(g))
     log(json.dumps(remat))
+    log(json.dumps(mesh))
     log(json.dumps({"gemm": gemms, "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {

@@ -6,15 +6,21 @@
 
 The flags and defaults are the JAX package's (``main.py:20-175``) plus
 ``--device {cuda,cpu}`` (default ``cuda``). ``--zero_shot_evaluation``
-classifies ``--zero_shot_dataset`` zero-shot after the run. Flags of parts
-not ported yet (other methods, meshes, ResNet checkpoints) raise
-``NotImplementedError`` naming the ROADMAP.md item.
+classifies ``--zero_shot_dataset`` zero-shot after the run. ``--mesh DxM``
+other than ``1x1`` runs one process a device under ``torchrun``:
+
+    torchrun --nproc_per_node 8 -m lifelong_clip_tpu_torch.main \
+        --method lora-clip --mesh 8x1 ...
+
+each rank on ``cuda:LOCAL_RANK`` in an ``nccl`` group (``gloo`` with
+``--device cpu``), ``D * M`` equal to ``WORLD_SIZE``.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from .config import PEFTConfig, StreamConfig, TrainConfig
 
@@ -210,6 +216,39 @@ def trainer_class(method: str, args, parser):
     return cls
 
 
+def init_process_group(mesh_shape, device: str):
+    """The process group of a ``--mesh`` run under ``torchrun``
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and the rendezvous address in
+    the environment): ``nccl`` on ``cuda:LOCAL_RANK``, which must be
+    present, ``gloo`` on the CPU. Returns the rank's device."""
+    import torch
+    import torch.distributed as dist
+    d, m = mesh_shape
+    env = [os.environ.get(k) for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK")]
+    if None in env:
+        raise ValueError(
+            f"--mesh {d}x{m} runs one process a device: launch it with "
+            f"torchrun --nproc_per_node {d * m} -m "
+            f"lifelong_clip_tpu_torch.main ... (WORLD_SIZE, RANK and "
+            f"LOCAL_RANK are not set)")
+    world, rank, local = (int(v) for v in env)
+    if d * m != world:
+        raise ValueError(f"--mesh {d}x{m} needs {d * m} processes; torchrun "
+                         f"started WORLD_SIZE={world}")
+    if device == "cpu":
+        dev = torch.device("cpu")
+    else:
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"LOCAL_RANK {local} has no card: "
+                f"{torch.cuda.device_count()} CUDA device(s) visible")
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo" if dev.type == "cpu" else "nccl",
+                            rank=rank, world_size=world)
+    return dev
+
+
 def main(argv=None):
     logging.basicConfig(
         level=logging.INFO,
@@ -217,13 +256,23 @@ def main(argv=None):
     parser = base_parser()
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
-    trainer = trainer_class(cfg.method, args, parser)(
-        cfg, synthetic_fallback=args.synthetic_fallback)
-    out = trainer.run(resume_from=args.resume_from or None)
-    if args.zero_shot_evaluation:
-        from .methods.zero_shot_eval import run_zero_shot_eval
-        run_zero_shot_eval(trainer, args.zero_shot_dataset,
-                           synthetic_fallback=args.synthetic_fallback)
+    meshed = cfg.mesh_shape != (1, 1)
+    if meshed:
+        import dataclasses
+        dev = init_process_group(cfg.mesh_shape, args.device)
+        cfg = dataclasses.replace(cfg, device=str(dev))
+    try:
+        trainer = trainer_class(cfg.method, args, parser)(
+            cfg, synthetic_fallback=args.synthetic_fallback)
+        out = trainer.run(resume_from=args.resume_from or None)
+        if args.zero_shot_evaluation:
+            from .methods.zero_shot_eval import run_zero_shot_eval
+            run_zero_shot_eval(trainer, args.zero_shot_dataset,
+                               synthetic_fallback=args.synthetic_fallback)
+    finally:
+        if meshed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return out
 
 

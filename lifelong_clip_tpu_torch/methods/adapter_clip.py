@@ -9,6 +9,14 @@ and recomputed in every step where it trains, the replay concat, optimizer
 reset at task boundaries, and eval against the exposed classes. The MoE
 step's gate noise comes from the train state's generator, which the
 checkpoint keeps, so a resumed run draws what the uninterrupted one draws.
+
+Meshes follow JAX's routing (``:60-85``, ``:209-219``): a pure
+data-parallel mesh runs the fused kernels on each rank's rows; a model axis
+runs train, text and eval passes on the ``"unfused"`` road with the frozen
+towers split over the model group by heads and hidden units and, for
+moe-clip, the experts split too (``parallel/mesh.py``). The kernels take
+whole heads, as GSPMD cannot split JAX's opaque kernel calls: the road is
+the design of a model axis, not a fallback.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 from ..models import build_clip, build_peft
 from ..models.clip import cast_towers
 from ..models.init import param_count
+from ..parallel.mesh import MODEL_AXIS, local_rows, model_parallel
 from ..utils.train_utils import make_optimizer
 from .base import OnlineTrainer, pad_batch
 from .engine import (TrainState, ce_on_probs_loss, make_eval_step,
@@ -36,7 +45,11 @@ PEFT_METHODS = {"lora-clip": "lora", "adapter-clip": "adapter",
 
 
 class AdapterCLIP(OnlineTrainer):
-    """Trainer for lora-clip, adapter-clip and moe-clip."""
+    """Trainer for lora-clip, adapter-clip and moe-clip. ``_attn_impl``:
+    the towers' road (``models/clip.py``), ``"unfused"`` under a model
+    axis."""
+
+    _attn_impl = "fused"
 
     def setup_model(self):
         cfg = self.cfg
@@ -59,8 +72,17 @@ class AdapterCLIP(OnlineTrainer):
                                   sched_name=cfg.sched_name,
                                   total_steps=total)
 
-        # the towers are frozen: cast them to the compute dtype once
-        frozen = cast_towers(self.params, self.compute_dtype)
+        step_bs = cfg.batchsize + max(cfg.temp_batchsize, 0)
+        self._dp_mesh = self.resolve_dp_mesh(step_bs, allow_model_axis=True)
+        self._eval_dp_mesh = self.resolve_dp_mesh(cfg.test_batchsize,
+                                                  allow_model_axis=True)
+        tp = self.mesh is not None and self.mesh.shape[MODEL_AXIS] > 1
+        if tp:
+            self._attn_impl = "unfused"
+        # the towers are frozen: cast them to the compute dtype once (and
+        # under a model axis keep this rank's heads of them)
+        frozen = self.place_state(cast_towers(self.params,
+                                              self.compute_dtype))
         self.state = TrainState(trainable=self.peft, frozen=frozen,
                                 make_opt=make_opt, gen=self.next_gen())
         log.info("backbone params: %d | trainable PEFT params: %d",
@@ -84,13 +106,15 @@ class AdapterCLIP(OnlineTrainer):
             cached_text=self._use_text_cache,
             compute_dtype=self.compute_dtype,
             loss_fn=ce_on_probs_loss if cfg.ce_on_probs else None,
+            attn_impl=self._attn_impl, dp=self._dp_mesh,
             remat=cfg.remat or cfg.batchsize >= 256 or fb))
         self._text_fn = make_text_feature_fn(
-            self.clip_cfg, self.peft_cfg, compute_dtype=self.compute_dtype)
+            self.clip_cfg, self.peft_cfg, compute_dtype=self.compute_dtype,
+            attn_impl=self._attn_impl)
         self._eval_fn = make_eval_step(
             self.clip_cfg, self.peft_cfg, image_size=self.clip_cfg.image_size,
             mean=self.train_dataset.mean, std=self.train_dataset.std,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, attn_impl=self._attn_impl)
         self._txt_cache_key = None
 
     def _estimate_steps(self) -> int:
@@ -129,9 +153,10 @@ class AdapterCLIP(OnlineTrainer):
             key = tuple(int(s) for s in slots)
             feats = self._step_txt_cache.get(key)
             if feats is None:
-                feats = self._text_fn(self.state.frozen,
-                                      self.state.trainable,
-                                      self._tensor(tokens))
+                with model_parallel(self.mesh):
+                    feats = self._text_fn(self.state.frozen,
+                                          self.state.trainable,
+                                          self._tensor(tokens))
                 if len(self._step_txt_cache) > 512:
                     self._step_txt_cache.clear()
                 self._step_txt_cache[key] = feats
@@ -139,13 +164,15 @@ class AdapterCLIP(OnlineTrainer):
         else:
             tokens_or_feats = self._tensor(tokens, torch.int64)
 
-        batch = {"images": self._tensor(images),
-                 "labels": self._tensor(y, torch.int64),
+        dp = self._dp_mesh
+        batch = {"images": self._tensor(local_rows(images, dp)),
+                 "labels": self._tensor(local_rows(y, dp), torch.int64),
                  "tokens": tokens_or_feats,
                  "mask": self._tensor(mask, torch.float32)}
         stats = {}
-        for _ in range(max(int(cfg.online_iter), 1)):
-            stats = self._train_step(self.state, batch)
+        with model_parallel(self.mesh):
+            for _ in range(max(int(cfg.online_iter), 1)):
+                stats = self._train_step(self.state, batch)
 
         if cfg.memory_size > 0:
             for i, lab in zip(indices, labels[:len(indices)]):
@@ -162,14 +189,16 @@ class AdapterCLIP(OnlineTrainer):
     def prepare_eval(self):
         key = (len(self.vocab), self.state.step)
         if self._txt_cache_key != key:
-            self._txt_cache = self._text_fn(
-                self.state.frozen, self.state.trainable,
-                self._tensor(self.vocab.token_table))
+            with model_parallel(self.mesh):
+                self._txt_cache = self._text_fn(
+                    self.state.frozen, self.state.trainable,
+                    self._tensor(self.vocab.token_table))
             self._mask = self._tensor(self.vocab.logit_mask(), torch.float32)
             self._txt_cache_key = key
 
     def predict(self, images):
-        preds, _ = self._eval_fn(self.state.frozen, self.state.trainable,
-                                 self._tensor(images), self._txt_cache,
-                                 self._mask)
+        with model_parallel(self.mesh):
+            preds, _ = self._eval_fn(self.state.frozen, self.state.trainable,
+                                     self._tensor(images), self._txt_cache,
+                                     self._mask)
         return preds

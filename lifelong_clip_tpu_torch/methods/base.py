@@ -5,8 +5,11 @@ reference's ``_Trainer``, ``methods/_trainer.py:249-653``): seeding, stream
 and dataset setup, the task x batch loop, periodic online evaluation and the
 result artifacts in the reference's format, the batch prefetcher
 (``data/prefetch.py``) and checkpoint/resume at task boundaries
-(``utils/checkpoints.py``). Device meshes are not ported yet (ROADMAP.md,
-queue A).
+(``utils/checkpoints.py``), and the device mesh (JAX ``:67-68``,
+``:370-517``): under ``--mesh DxM`` every rank runs this host program, the
+step's rows split over the data axis (``resolve_dp_mesh``,
+``parallel/mesh.py``), eval's rows too with the predictions all-gathered,
+and rank 0 alone writes the run's files.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 from ..config import TrainConfig, resolve_clip_preset
 from ..data.registry import ArrayDataset, get_dataset
 from ..device import resolve_device
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, gather_rows, make_mesh,
+                             shard_params)
 from ..utils.class_vocab import ClassVocabulary
 from ..utils.memory import ReplayMemory
 from ..utils.metrics import OnlineMetrics, confusion_matrix, per_class_counts
@@ -33,18 +38,24 @@ log = logging.getLogger("lifelong_clip_tpu_torch")
 
 
 class OnlineTrainer:
-    """Base online continual-learning trainer."""
+    """Base online continual-learning trainer.
+
+    ``_dp_mesh`` / ``_eval_dp_mesh``: the data-parallel mesh of the train
+    step and of eval (``resolve_dp_mesh``; the trainers set them, as
+    JAX's), None for the whole batch on every rank."""
+
+    _dp_mesh = None
+    _eval_dp_mesh = None
 
     def __init__(self, cfg: TrainConfig,
                  train_dataset: Optional[ArrayDataset] = None,
                  test_dataset: Optional[ArrayDataset] = None,
                  synthetic_fallback: bool = False):
-        if tuple(cfg.mesh_shape) != (1, 1):
-            raise NotImplementedError(
-                f"device meshes are not ported yet (got {cfg.mesh_shape}); "
-                "run with --mesh 1x1 (ROADMAP.md, queue A)")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        self.mesh = make_mesh(tuple(cfg.mesh_shape), self.device) \
+            if np.prod(cfg.mesh_shape) > 1 else None
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.gen = torch.Generator().manual_seed(cfg.seed)
 
         self.train_dataset = train_dataset or get_dataset(
@@ -74,8 +85,9 @@ class OnlineTrainer:
         log.info("stream data config: %s",
                  [f"task{t}: {int((h > 0).sum())} classes / {int(h.sum())} "
                   f"samples" for t, h in enumerate(hist)])
-        np.save(os.path.join(self.result_dir(), "train_data_config.npy"),
-                hist)
+        if self.is_main:
+            np.save(os.path.join(self.result_dir(), "train_data_config.npy"),
+                    hist)
         self.samples_seen = 0
         self._next_eval = cfg.eval_period
         self.eval_records = {"acc": [], "time": [], "step": []}
@@ -84,9 +96,12 @@ class OnlineTrainer:
 
     def _setup_run_logger(self):
         """Per-run ``log.txt`` on the package logger (reference
-        ``_trainer.py:486-503``); ``run()`` detaches it at the end."""
+        ``_trainer.py:486-503``), rank 0's alone; ``run()`` detaches it at
+        the end."""
         pkg = logging.getLogger("lifelong_clip_tpu_torch")
         self._teardown_run_logger()
+        if not self.is_main:
+            return
         fh = logging.FileHandler(os.path.join(self.result_dir(), "log.txt"))
         fh.setFormatter(logging.Formatter(
             "%(asctime)s %(name)s %(levelname)s %(message)s"))
@@ -180,13 +195,62 @@ class OnlineTrainer:
         """Where the prefetcher puts a batch's images (JAX
         ``base.py:412-434``): on the card through pinned memory and a side
         stream, except with replay memory (``memory_size > 0``), whose
-        concat assembles the step's batch on the host, and on the CPU."""
+        concat assembles the step's batch on the host, and on the CPU.
+        Under a data-parallel mesh the whole batch goes up and the step
+        takes a view of this rank's rows (``local_rows``)."""
         if self.cfg.memory_size > 0 or self.device.type != "cuda":
             return None
         if getattr(self, "_upload", None) is None:
             from ..data.prefetch import DeviceUpload
             self._upload = DeviceUpload(self.device)
         return self._upload
+
+    def resolve_dp_mesh(self, *batch_sizes, allow_model_axis=False):
+        """The data-parallel mesh of a step whose batches have these sizes
+        (JAX ``resolve_dp_mesh``, the one multi-device road every method
+        family shares): each rank runs the step on its rows and the grads
+        are averaged over the data group (``TrainState.apply``).
+
+        A model axis raises unless the trainer splits its towers over it
+        (``allow_model_axis``: the adapter family and continual-clip); a
+        batch size that does not divide the data axis warns once and gives
+        None, the whole batch on every rank; a mesh with no data axis gives
+        None."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        if mesh.shape[MODEL_AXIS] > 1 and not allow_model_axis:
+            raise ValueError(
+                f"method {self.cfg.method!r} supports pure data-parallel "
+                f"meshes only (--mesh Nx1); got a model axis of "
+                f"{mesh.shape[MODEL_AXIS]}")
+        n = mesh.shape[DATA_AXIS]
+        if n == 1:
+            return None
+        bad = sorted({int(b) for b in batch_sizes if b % n != 0})
+        if bad:
+            if not getattr(self, "_warned_mesh_skip", False):
+                log.warning(
+                    "batch size(s) %s do not divide the %d-way data axis; "
+                    "method %r runs the whole batch on every rank (pick "
+                    "sizes divisible by the data axis)", bad, n,
+                    self.cfg.method)
+                self._warned_mesh_skip = True
+            return None
+        return mesh
+
+    def place_state(self, frozen):
+        """The frozen towers as this rank holds them (JAX
+        ``_MeshMixin.place_state``): under a model axis their block leaves
+        cut to the rank's heads and hidden units
+        (``parallel/mesh.py:shard_params``), else as they are. Trainable
+        leaves stay whole on every rank, MoE experts included: each rank
+        computes its share of the experts (``ops/moe.py``), so the
+        optimizer, the data-parallel reduce and the checkpoint see one
+        layout whatever the mesh."""
+        if self.mesh is None or self.mesh.shape[MODEL_AXIS] == 1:
+            return frozen
+        return shard_params(frozen, self.mesh)
 
     def _maybe_checkpoint(self, task_id: int):
         """Checkpoint after a task to ``--ckpt_dir`` (or ``LLC_CKPT_DIR``),
@@ -196,8 +260,8 @@ class OnlineTrainer:
             return
         from ..utils.checkpoints import save_checkpoint
         save_checkpoint(
-            ckpt_dir, state=getattr(self, "state", None), memory=self.memory,
-            vocab=self.vocab, metrics=self.metrics,
+            ckpt_dir, mesh=self.mesh, state=getattr(self, "state", None),
+            memory=self.memory, vocab=self.vocab, metrics=self.metrics,
             cursor={"task_id": task_id + 1,
                     "samples_seen": self.samples_seen,
                     "next_eval": self._next_eval},
@@ -224,6 +288,7 @@ class OnlineTrainer:
         if len(idx) == 0:
             return correct, total
         bs = self.cfg.test_batchsize
+        dp = self._eval_dp_mesh
         self.prepare_eval()
         all_labels, all_preds = [], []
         exposed = np.asarray(self.vocab.exposed)
@@ -250,7 +315,11 @@ class OnlineTrainer:
             if n < bs:   # tile the tail up to the fixed batch shape
                 reps = -(-bs // n)
                 images = np.concatenate([images] * reps, axis=0)[:bs]
-            cur.append((self.predict(images), labels, n))
+            if dp is None:
+                preds = self.predict(images)
+            else:   # this rank's rows; every rank keeps all predictions
+                preds = gather_rows(self.predict(dp.local(images)), dp)
+            cur.append((preds, labels, n))
             if len(cur) == GROUP_N:
                 groups.append(cur)
                 cur = []
@@ -308,8 +377,11 @@ class OnlineTrainer:
 
     def save_result(self):
         """seed_k*.npy accuracy curves, the last eval's confusion matrix,
-        result.txt in the reference's text format, and result.jsonl."""
+        result.txt in the reference's text format, and result.jsonl, from
+        rank 0 alone; every rank returns the summary."""
         out = self.metrics.summary()
+        if not self.is_main:
+            return out
         d = self.result_dir()
         seed = self.cfg.seed
         np.save(os.path.join(d, f"seed_{seed}.npy"),

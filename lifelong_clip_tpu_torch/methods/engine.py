@@ -1,6 +1,6 @@
 """The online-learning engine: one train step, one eval step, the text pass.
 
-Counterpart of ``lifelong_clip_tpu/methods/engine.py`` on one device: the
+Counterpart of ``lifelong_clip_tpu/methods/engine.py``: the
 towers with their PEFT trees (LoRA, adapter or MoE) run forward and
 backward through the fused attention kernels (``base_grads=False``), the
 text tower too where it trains (``peft_forward``), else logits go against
@@ -9,7 +9,11 @@ cached normalized class-text features (``peft_forward_cached_text``), and a
 noise from the state's generator. The step runs eagerly (the JAX package
 jits it); its state is an explicit ``TrainState`` object. ``remat``
 checkpoints the tower forward and ``remat_fallback`` retries a step once
-with it after the card runs out of memory, as the JAX engine does.
+with it after the card runs out of memory, as the JAX engine does; each
+rank of a mesh retries on its own. The data-parallel road (JAX
+``:83-113``, ``:255-340``): the step runs on the rank's rows with the
+rank's draws and ``TrainState.apply`` averages the grads over the data
+group in one all-reduce.
 """
 
 from __future__ import annotations
@@ -76,12 +80,24 @@ class TrainState:
         """Fresh moments and a restarted schedule (``tx.init``)."""
         self.opt, self.sched = self.make_opt(tree_leaves(self.trainable))
 
-    def apply(self, loss):
+    def apply(self, loss, dp=None, mean=(), total=()):
         """One update from ``loss`` (``tx.update`` + ``apply_updates``):
-        backward, the optimizer's and the schedule's step."""
+        backward, the optimizer's and the schedule's step.
+
+        ``dp``: the step's data-parallel mesh (``parallel/mesh.py``), or
+        None. Under it the trainable grads, the tensors of ``mean`` (the
+        step's loss and accuracy) and those of ``total`` (usage-count
+        increments) ride one all-reduce over the data group between the
+        backward and the optimizer's step: the grads and ``mean`` come back
+        as the ranks' mean (JAX's ``pmean``; equal shards make it the
+        global batch's), ``total`` as their sum, each in place. Without it
+        nothing is reduced or copied."""
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
-        fill_missing_grads(tree_leaves(self.trainable))
+        leaves = tree_leaves(self.trainable)
+        fill_missing_grads(leaves)
+        if dp is not None:
+            dp.all_mean([p.grad for p in leaves] + list(mean), total)
         self.opt.step()
         self.sched.step()
         self.step += 1
@@ -203,7 +219,7 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
                     forward_fn: Optional[Callable] = None,
                     loss_fn: Optional[Callable] = None,
                     cached_text: bool = False,
-                    remat: bool = False):
+                    remat: bool = False, dp=None):
     """Build the online train step ``step(state, batch) -> metrics``.
 
     batch dict (tensors on the device):
@@ -230,8 +246,12 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
     keeping its intermediates. With MoE PEFT and no ``forward_fn`` each
     step draws fresh gate noise for every trained tower from ``state.gen``
     after the augmentation's draws (JAX ``engine.py:252-292`` draws a fresh
-    key a step; eval and text passes get none). The step updates ``state``
-    in place.
+    key a step; eval and text passes get none). ``dp``: the data-parallel
+    mesh (JAX's ``dp_mesh``): the batch holds this rank's rows, the draws
+    come from the rank's generator (``Mesh.fold_gen``, JAX
+    ``dp_fold_rng``; CutMix mixes within the rank's rows) and the grads,
+    loss and accuracy are averaged over the data group
+    (``TrainState.apply``). The step updates ``state`` in place.
     """
     pipeline = preprocess.make_train_pipeline(
         image_size, mean, std, use_autoaug=use_autoaug,
@@ -248,38 +268,40 @@ def make_train_step(clip_cfg: CLIPConfig, peft_cfg: PEFTConfig, *,
     draws_noise = peft_cfg is not None and peft_cfg.method == "moe" \
         and forward_fn is None
 
-    def gate_noise(state, images, tokens):
+    def gate_noise(gen, state, images, tokens):
         """{tower: (L, rows, E) N(0, 1) draws} for each trained tower."""
         rows = {"vision": (clip_cfg.vision_layers, images.shape[0]),
                 "text": (clip_cfg.text_layers, tokens.shape[0])}
         return {tower: moe_ops.draw_gate_noise(
-                    state.gen, (*rows[tower], peft_cfg.moe_experts),
+                    gen, (*rows[tower], peft_cfg.moe_experts),
                     images.device)
                 for tower in ("vision", "text")
                 if state.trainable.get(tower) is not None}
 
     def step(state: TrainState, batch):
+        gen = state.gen if dp is None else dp.fold_gen(state.gen)
         if pipeline is not None:
-            images = pipeline(state.gen, batch["images"])
+            images = pipeline(gen, batch["images"])
         else:
             images = batch["images"].to(compute_dtype)
-        kw = ({"moe_noise": gate_noise(state, images, batch["tokens"])}
+        kw = ({"moe_noise": gate_noise(gen, state, images, batch["tokens"])}
               if draws_noise else {})
         if use_cutmix:
             y_soft = F.one_hot(batch["labels"],
                                batch["tokens"].shape[0]).float()
-            if float(torch.rand((), generator=state.gen)) < 0.5:
+            if float(torch.rand((), generator=gen)) < 0.5:
                 images, y_soft, _ = preprocess.random_cutmix(
-                    state.gen, images, y_soft)
+                    gen, images, y_soft)
         logits, _, _ = fwd(state.frozen, state.trainable, images,
                            batch["tokens"], **kw)
         logits = logits + batch["mask"][None, :]
         loss = (soft_label_loss(logits, y_soft) if use_cutmix
                 else compute_loss(logits, batch["labels"]))
-        state.apply(loss)
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["labels"]).float().mean()
-        return {"loss": loss.detach(), "acc": acc}
+        stats = {"loss": loss.detach(), "acc": acc}
+        state.apply(loss, dp, mean=stats.values())
+        return stats
 
     return step
 

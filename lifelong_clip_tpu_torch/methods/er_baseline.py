@@ -13,8 +13,11 @@ leaves, and the vision blocks run the fused kernels' backward with the
 weight grads (``base_grads=True``). The text tower gets no grad; it is in
 the trainable tree all the same and AdamW decays it, as optax does
 (``engine.fill_missing_grads``). The train step runs eagerly on the device
-and updates the state in place; the data-parallel road of the JAX trainer
-is not ported (meshes raise, ``base.py``).
+and updates the state in place. A data-parallel mesh runs the engine's
+step on each rank's rows (JAX ``:107-123``; the stream batch and the
+memory-epoch batch must both divide the data axis); the subclasses' own
+steps (LwF's KD, EWC++, CLIB) run the whole batch on every rank, as JAX's
+stay replicated.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..models import clip as clip_fns
 from ..models.clip import cast_towers
 from ..models.init import param_count
 from ..ops import preprocess
+from ..parallel.mesh import local_rows
 from ..utils.train_utils import make_optimizer, set_lr
 from .base import OnlineTrainer, pad_batch
 from .engine import TrainState, make_train_step, remat_fallback
@@ -107,6 +111,8 @@ class ER(OnlineTrainer):
         self.state = TrainState(trainable=trainable, frozen=frozen,
                                 make_opt=self.make_opt, gen=self.next_gen())
         log.info("trainable params: %d", param_count(trainable))
+        self._dp_mesh = self.resolve_dp_mesh(self._step_bs(), cfg.batchsize)
+        self._eval_dp_mesh = self.resolve_dp_mesh(cfg.test_batchsize)
 
         self._fwd = functools.partial(
             head_forward, clip_cfg=self.clip_cfg,
@@ -135,7 +141,7 @@ class ER(OnlineTrainer):
             mean=self.train_dataset.mean, std=self.train_dataset.std,
             use_autoaug="autoaug" in cfg.transforms, use_cutmix=use_cutmix,
             compute_dtype=self.compute_dtype, forward_fn=self._fwd,
-            remat=self.remat or fb))
+            remat=self.remat or fb, dp=self._dp_mesh))
 
     def replay_concat(self, images, labels):
         """The training batch (JAX ``:151-168``): with ``temp_batchsize``
@@ -175,14 +181,15 @@ class ER(OnlineTrainer):
                 "mask": (self._tensor(self.vocab.logit_mask(), torch.float32)
                          if mask is None else mask)}
 
-    def stream_batch(self, images, labels):
-        """The replay concat padded to the step's batch, on the device."""
+    def stream_batch(self, images, labels, dp=None):
+        """The replay concat padded to the step's batch, on the device
+        (this rank's rows under ``dp``)."""
         images, labels = self.replay_concat(images, labels)
         images, labels, _ = pad_batch(images, labels, self._step_bs())
-        return self._batch(images, labels)
+        return self._batch(local_rows(images, dp), local_rows(labels, dp))
 
     def online_step(self, images, labels, indices):
-        batch = self.stream_batch(images, labels)
+        batch = self.stream_batch(images, labels, dp=self._dp_mesh)
         stats = {}
         for _ in range(max(int(self.cfg.online_iter), 1)):
             stats = self._train_step(self.state, batch)

@@ -89,7 +89,11 @@ class LwF(ER):
         return {"loss": loss.detach(), "acc": acc}
 
     def online_step(self, images, labels, indices):
-        batch = self.stream_batch(images, labels)
+        # the first task's steps ride the data-parallel road; the KD step
+        # runs the whole batch on every rank
+        batch = self.stream_batch(
+            images, labels,
+            dp=self._dp_mesh if self._old_trainable is None else None)
         stats = {}
         for _ in range(max(int(self.cfg.online_iter), 1)):
             if self._old_trainable is None:

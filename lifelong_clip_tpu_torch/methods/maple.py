@@ -6,6 +6,7 @@ Counterpart of ``lifelong_clip_tpu/methods/maple.py`` (reference
 ``ClassVocabulary`` whose template is the MaPLe prefix; the forward is
 ``models/maple.py:maple_forward`` over both towers inside the engine's train
 step (its ``forward_fn``), with plain cross entropy on the masked logits.
+A data-parallel mesh runs the step on each rank's rows (JAX ``:77-94``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..models.init import param_count
 from ..models.maple import (init_maple_params, maple_encode_image,
                             maple_encode_text, maple_forward)
 from ..ops import preprocess
+from ..parallel.mesh import local_rows
 from ..utils import tokenizer as tok
 from ..utils.class_vocab import ClassVocabulary
 from ..utils.train_utils import make_optimizer
@@ -34,8 +36,10 @@ CTX_INIT = "a bad photo of a"
 
 
 class MaPLe(OnlineTrainer):
-    """Trainer for maple."""
+    """Trainer for maple; ``_attn_impl``: the towers' road
+    (``models/clip.py``)."""
 
+    _attn_impl = "fused"
     n_ctx = 3
     prompt_depth = 3
 
@@ -74,10 +78,13 @@ class MaPLe(OnlineTrainer):
         self.step_capacity = min(self.vocab.max_classes, cfg.batchsize)
 
         ccfg, dt, n_ctx = self.clip_cfg, self.compute_dtype, self.n_ctx
+        impl = self._attn_impl
+        self._dp_mesh = self.resolve_dp_mesh(cfg.batchsize)
+        self._eval_dp_mesh = self.resolve_dp_mesh(cfg.test_batchsize)
 
         def fwd(frozen, trainable, images, tokens):
             return maple_forward(frozen, trainable, images, tokens, ccfg,
-                                 n_ctx, dt)
+                                 n_ctx, dt, impl)
 
         mean, std = self.train_dataset.mean, self.train_dataset.std
         # remat as JAX maple.py:88-96: the whole forward checkpointed
@@ -85,10 +92,11 @@ class MaPLe(OnlineTrainer):
             ccfg, self.peft_cfg, image_size=ccfg.image_size, mean=mean,
             std=std, use_autoaug="autoaug" in cfg.transforms,
             compute_dtype=dt, forward_fn=fwd,
-            remat=cfg.remat or cfg.batchsize >= 256 or fb))
-        self._text_fn = make_maple_text_fn(ccfg, n_ctx, compute_dtype=dt)
+            remat=cfg.remat or cfg.batchsize >= 256 or fb, dp=self._dp_mesh))
+        self._text_fn = make_maple_text_fn(ccfg, n_ctx, compute_dtype=dt,
+                                           attn_impl=impl)
         self._eval_fn = make_maple_eval_step(ccfg, n_ctx, mean=mean, std=std,
-                                             compute_dtype=dt)
+                                             compute_dtype=dt, attn_impl=impl)
         self._txt_cache_key = None
 
     def online_before_task(self, task_id):
@@ -107,8 +115,9 @@ class MaPLe(OnlineTrainer):
             tokens = self.vocab.token_table
             mask = self.vocab.logit_mask()
             y = self.vocab.remap(labels)
-        batch = {"images": self._tensor(images),
-                 "labels": self._tensor(y, torch.int64),
+        dp = self._dp_mesh
+        batch = {"images": self._tensor(local_rows(images, dp)),
+                 "labels": self._tensor(local_rows(y, dp), torch.int64),
                  "tokens": self._tensor(tokens, torch.int64),
                  "mask": self._tensor(mask, torch.float32)}
         stats = {}

@@ -13,7 +13,11 @@ broadcast quirk), and the prompt-pool similarity loss is added.
 The text features do not depend on the trainable tree: the train step takes
 them from a cache keyed by the step's class slots, which changes no value.
 The e-prompt usage counts are a device tensor outside the optimizer; a
-checkpoint keeps them (``checkpoint_extra``).
+checkpoint keeps them (``checkpoint_extra``). A data-parallel mesh runs the
+step on each rank's rows (JAX ``:38-64``, ``:118-209``): the batch-mean
+text gradient and GSF's scale are the global batch's (averaged over the
+data group), the contrastive term spans it (``models/mvp_clip.py``) and the
+count increments are summed.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..models.init import param_count
 from ..models.mvp_clip import init_mvp_params, mvp_features, mvp_head
 from ..ops import preprocess
 from ..ops.attention import mm32
+from ..parallel.mesh import local_rows
 from ..utils.train_utils import make_optimizer
 from .base import OnlineTrainer, pad_batch
 from .engine import TrainState
@@ -42,9 +47,11 @@ log = logging.getLogger("lifelong_clip_tpu_torch")
 
 
 def mvp_scores(img_f, txt_f, y, cls_mask, class_mask, scale, use_mask: bool,
-               margin: float):
+               margin: float, dp=None):
     """(ign_score, cps_score) per sample from detached features (reference
-    ``_compute_grads`` + ``_get_ignore`` / ``_get_compensation``)."""
+    ``_compute_grads`` + ``_get_ignore`` / ``_get_compensation``). ``dp``:
+    the data-parallel mesh; the batch-mean gradient is then the global
+    batch's, the mean of the ranks' (equal shards)."""
     with torch.no_grad():
         img_n = clip_fns.normalize(img_f).float()
         txt_n = clip_fns.normalize(txt_f).float()
@@ -58,7 +65,10 @@ def mvp_scores(img_f, txt_f, y, cls_mask, class_mask, scale, use_mask: bool,
             y, logit.shape[1]).float()
         coef = coef * scale if m is None else coef * scale * m      # (B, C)
         sample_grad = coef.gather(1, y[:, None]) * img_n            # (B, D)
-        batch_grad = (mm32(coef.T, img_n) / img_n.shape[0])[y]      # (B, D)
+        batch_grad = mm32(coef.T, img_n) / img_n.shape[0]           # (C, D)
+        if dp is not None:
+            dp.all_mean([batch_grad])
+        batch_grad = batch_grad[y]                                  # (B, D)
 
         def cos(a, b, eps=1e-8):
             na = torch.linalg.vector_norm(a, dim=-1) + eps
@@ -76,12 +86,13 @@ def mvp_objective(frozen, mvp, count, images, batch, clip_cfg: CLIPConfig, *,
                   use_afs: bool = False, use_gsf: bool = False,
                   use_last_layer: bool = False, alpha: float = 0.5,
                   gamma: float = 2.0, margin: float = 0.5,
-                  remat: bool = False):
+                  remat: bool = False, dp=None):
     """The train objective (JAX ``CLIP_MVP.setup_model.step.objective``,
     ``:160-198``) on normalized images: returns (loss, logits, new_count).
     ``remat`` checkpoints the ``mvp_features`` call (JAX ``:146-150``): the
     backward recomputes the prompted tower instead of keeping its
-    intermediates.
+    intermediates. ``dp``: the data-parallel mesh (``mvp_features``,
+    ``mvp_scores``; GSF's scale is the global batch's mean).
 
     batch dict (tensors on the device):
       labels        (B,) int64, remapped to class-table slots
@@ -98,10 +109,10 @@ def mvp_objective(frozen, mvp, count, images, batch, clip_cfg: CLIPConfig, *,
     img, cls_mask_full, sim_loss, new_count, _ = feats(
         frozen, mvp, count, images, clip_cfg, use_contrastiv=use_contrastiv,
         use_last_layer=use_last_layer, train=True,
-        compute_dtype=compute_dtype, attn_impl=attn_impl)
+        compute_dtype=compute_dtype, attn_impl=attn_impl, dp=dp)
     cls_mask = cls_mask_full[:, batch["slot_globals"].clamp(min=0)]
     ign, cps = mvp_scores(img, txt, labels, cls_mask, batch["mask"], scale,
-                          use_mask, margin)
+                          use_mask, margin, dp=dp)
     img_used = img / cps[:, None].to(img.dtype) if use_afs else img
     logits = mvp_head(frozen, img_used, txt,
                       cls_mask=cls_mask if use_mask else None,
@@ -111,33 +122,42 @@ def mvp_objective(frozen, mvp, count, images, batch, clip_cfg: CLIPConfig, *,
         # the reference's broadcast quirk (mvp_clip.py:273-276): the CE is
         # already mean-reduced when ign ** gamma meets it
         gsf_w = (ign ** gamma).mean()
+        if dp is not None:   # a constant of the backward: ign has no grad
+            dp.all_mean([gsf_w])
         loss = (1 - alpha) * loss + alpha * gsf_w * loss
     return loss + sim_loss, logits, new_count
 
 
 def make_mvp_train_step(clip_cfg: CLIPConfig, *, image_size: int, mean, std,
                         use_autoaug: bool = False,
-                        compute_dtype=torch.bfloat16, **objective_kw):
+                        compute_dtype=torch.bfloat16, dp=None,
+                        **objective_kw):
     """The online step ``step(state, batch, count) -> (new_count, metrics)``
     (JAX ``:152-217``): augmentation, ``mvp_objective`` on the batch (its
     dict plus ``images``, uint8 (B, H, W, C)), backward, optimizer update.
     ``objective_kw``: the method flags of ``mvp_objective`` and its
-    ``remat``. The step updates ``state`` in place."""
+    ``remat``. ``dp``: the data-parallel mesh (the batch holds this rank's
+    rows; the count increments are summed over the data group with the
+    grads' all-reduce). The step updates ``state`` in place."""
     pipeline = preprocess.make_train_pipeline(
         image_size, mean, std, use_autoaug=use_autoaug,
         out_dtype=compute_dtype)
     objective = functools.partial(mvp_objective, clip_cfg=clip_cfg,
-                                  compute_dtype=compute_dtype,
+                                  compute_dtype=compute_dtype, dp=dp,
                                   **objective_kw)
 
     def step(state: TrainState, batch, count):
-        images = pipeline(state.gen, batch["images"])
+        gen = state.gen if dp is None else dp.fold_gen(state.gen)
+        images = pipeline(gen, batch["images"])
         loss, logits, new_count = objective(state.frozen, state.trainable,
                                             count, images, batch)
-        state.apply(loss)
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["labels"]).float().mean()
-        return new_count.detach(), {"loss": loss.detach(), "acc": acc}
+        stats = {"loss": loss.detach(), "acc": acc}
+        new_count = new_count.detach()
+        inc = [] if dp is None else [new_count - count]
+        state.apply(loss, dp, mean=stats.values(), total=inc)
+        return (count + inc[0] if inc else new_count), stats
 
     return step
 
@@ -197,6 +217,7 @@ class CLIP_MVP(OnlineTrainer):
     gamma = 2.0
     margin = 0.5
     task_num = 10   # e-prompt pool size (reference mvp_clip.py:26)
+    _attn_impl = "fused"   # the towers' road (models/clip.py)
 
     def setup_model(self):
         cfg = self.cfg
@@ -227,21 +248,27 @@ class CLIP_MVP(OnlineTrainer):
 
         flags = dict(use_mask=self.use_mask,
                      use_contrastiv=self.use_contrastiv,
-                     use_last_layer=self.use_last_layer)
+                     use_last_layer=self.use_last_layer,
+                     attn_impl=self._attn_impl)
         ccfg, dt = self.clip_cfg, self.compute_dtype
+        self._dp_mesh = self.resolve_dp_mesh(cfg.batchsize)
+        self._eval_dp_mesh = self.resolve_dp_mesh(cfg.test_batchsize)
         self._train_step = make_mvp_train_step(
             ccfg, image_size=ccfg.image_size, mean=self.train_dataset.mean,
             std=self.train_dataset.std,
             use_autoaug="autoaug" in cfg.transforms, compute_dtype=dt,
-            use_afs=self.use_afs, use_gsf=self.use_gsf, alpha=self.alpha,
+            dp=self._dp_mesh, use_afs=self.use_afs, use_gsf=self.use_gsf,
+            alpha=self.alpha,
             gamma=self.gamma, margin=self.margin,
             # JAX mvp_clip.py:146-150: no OOM fallback for this step
             remat=cfg.remat or cfg.batchsize >= 256, **flags)
         self._eval_fn = make_mvp_eval_step(
             ccfg, image_size=ccfg.image_size, mean=self.train_dataset.mean,
             std=self.train_dataset.std, compute_dtype=dt, **flags)
-        self._step_text_fn = make_mvp_text_fn(ccfg, compute_dtype=dt)
+        self._step_text_fn = make_mvp_text_fn(ccfg, compute_dtype=dt,
+                                              attn_impl=self._attn_impl)
         self._text_fn = make_mvp_text_fn(ccfg, compute_dtype=dt,
+                                         attn_impl=self._attn_impl,
                                          normalized=True)
         self._step_txt_cache = {}
         self._txt_cache_n = -1
@@ -278,8 +305,9 @@ class CLIP_MVP(OnlineTrainer):
             if len(self._step_txt_cache) > 512:
                 self._step_txt_cache.clear()
             self._step_txt_cache[key] = txt
-        batch = {"images": self._tensor(images),
-                 "labels": self._tensor(y, torch.int64),
+        dp = self._dp_mesh
+        batch = {"images": self._tensor(local_rows(images, dp)),
+                 "labels": self._tensor(local_rows(y, dp), torch.int64),
                  "txt": txt,
                  "mask": self._tensor(mask, torch.float32),
                  "slot_globals": self._tensor(slot_globals, torch.int64)}

@@ -23,8 +23,10 @@ Counterpart of ``lifelong_clip_tpu/methods/proto_clip.py`` (reference
 
 Prototypes, covariances, the task counter and the task's sample list live
 outside the train state and are saved with a checkpoint
-(``checkpoint_extra``). The data-parallel road of the JAX trainer is not
-ported (meshes raise, ``base.py``).
+(``checkpoint_extra``). A data-parallel mesh runs stage 1 on each rank's
+rows and eval on its rows (JAX ``:103-180``); stage 2 and the feature
+sweeps of the task boundary run whole on every rank, as JAX's stay
+replicated.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..models.init import param_count
 from ..models.vit_prompt import top_k_indices
 from ..ops import preprocess
 from ..ops.attention import mm32
+from ..parallel.mesh import local_rows
 from ..utils.class_vocab import ClassVocabulary
 from ..utils.train_utils import make_optimizer
 from .base import OnlineTrainer, pad_batch
@@ -123,6 +126,8 @@ class Trainer_ProtoCLIP(OnlineTrainer):
         log.info("ProtoCLIP trainable params: %d", param_count(proto))
         self.step_capacity = min(self.vocab.max_classes, cfg.batchsize)
         self.task_count = 0
+        self._dp_mesh = self.resolve_dp_mesh(cfg.batchsize)
+        self._eval_dp_mesh = self.resolve_dp_mesh(cfg.test_batchsize)
 
         e = self.clip_cfg.embed_dim
         self._class_means = np.zeros((self.vocab.max_classes, e), np.float64)
@@ -175,8 +180,9 @@ class Trainer_ProtoCLIP(OnlineTrainer):
         """Stage 1's loss and logits on a batch dict (tensors on the
         device: uint8 images, remapped labels, the class token table and
         its -inf padding mask)."""
-        state = self.state
-        images = self._pipeline(state.gen, batch["images"])
+        state, dp = self.state, self._dp_mesh
+        gen = state.gen if dp is None else dp.fold_gen(state.gen)
+        images = self._pipeline(gen, batch["images"])
         img = self.encode_image(state.trainable, images, train=True)
         txt = self.text_features(state.trainable, img, batch["tokens"])
         logits = pc.proto_logits(state.frozen, img, txt) \
@@ -185,10 +191,11 @@ class Trainer_ProtoCLIP(OnlineTrainer):
 
     def stage1_step(self, batch):
         loss, logits = self.stage1_loss(batch)
-        self.state.apply(loss)
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["labels"]).float().mean()
-        return {"loss": loss.detach(), "acc": acc}
+        stats = {"loss": loss.detach(), "acc": acc}
+        self.state.apply(loss, self._dp_mesh, mean=stats.values())
+        return stats
 
     # -- task boundary: optimizer reset, pre-task features, pool advance ----
     def online_before_task(self, task_id):
@@ -227,8 +234,9 @@ class Trainer_ProtoCLIP(OnlineTrainer):
             tokens = self.vocab.token_table
             mask = self.vocab.logit_mask()
             y = self.vocab.remap(labels)
-        batch = {"images": self._tensor(images),
-                 "labels": self._tensor(y, torch.int64),
+        dp = self._dp_mesh
+        batch = {"images": self._tensor(local_rows(images, dp)),
+                 "labels": self._tensor(local_rows(y, dp), torch.int64),
                  "tokens": self._tensor(tokens, torch.int64),
                  "mask": self._tensor(mask, torch.float32)}
         stats = {}

@@ -89,7 +89,7 @@ class RM(ER):
                                                   1)
 
     def online_step(self, images, labels, indices):
-        batch = self.stream_batch(images, labels)
+        batch = self.stream_batch(images, labels, dp=self._dp_mesh)
         stats = {}
         for _ in range(self._iters_per_batch()):
             stats = self._train_step(self.state, batch)
@@ -193,8 +193,10 @@ class RM(ER):
         order ``len(memory) // batchsize`` times over, at
         ``memory_epoch_lr``; the tail batch runs unpadded, as the
         reference's DataLoader runs its short last batch (tiling would
-        weigh the leading rows more). Fewer samples than a batch: no
-        epochs (the reference's iteration count is 0)."""
+        weigh the leading rows more), except on the data-parallel road,
+        which needs whole batches: there it pads by tiling, as JAX's.
+        Fewer samples than a batch: no epochs (the reference's iteration
+        count is 0)."""
         cfg = self.cfg
         n = len(self.memory)
         iters = n // cfg.batchsize
@@ -207,4 +209,10 @@ class RM(ER):
             for lo in range(0, len(mem), cfg.batchsize):
                 imgs, labs = self.train_dataset.gather(
                     mem[lo:lo + cfg.batchsize])
+                dp = self._dp_mesh
+                if dp is not None:
+                    # the data-parallel road needs whole batches: the tail
+                    # pads by tiling there (JAX ``:241-265``)
+                    imgs, labs, _ = pad_batch(imgs, labs, cfg.batchsize)
+                    imgs, labs = dp.local(imgs), dp.local(labs)
                 self._train_step(self.state, self._batch(imgs, labs, mask))

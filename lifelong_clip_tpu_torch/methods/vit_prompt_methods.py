@@ -11,8 +11,10 @@ outside the optimizer (``frequency``, ``e_frequency``, ``count``), advanced
 every step and saved with a checkpoint under the JAX package's key.
 ``--remat`` or ``batchsize >= 256`` checkpoints the prompted forward (JAX
 ``jax.checkpoint`` of the forward). The train step runs eagerly on the
-device and updates the state in place; the data-parallel road of the JAX
-trainers is not ported (meshes raise, ``base.py``).
+device and updates the state in place. A data-parallel mesh runs it on each
+rank's rows (JAX ``:75-109``, ``:230-265``, ``:339-373``, ``:456-517``): the
+selection counts are summed over the data group, MVP's batch-mean head
+gradient and GSF's scale averaged.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..models.init import param_count
 from ..models.mvp_clip import init_mvp_params, mvp_features
 from ..ops import preprocess
 from ..ops.attention import mm32
+from ..parallel.mesh import local_rows
 from ..utils.train_utils import make_optimizer
 from .base import OnlineTrainer, pad_batch
 from .engine import TrainState
@@ -77,21 +80,29 @@ class _PromptPoolTrainer(OnlineTrainer):
             ccfg.image_size, self.train_dataset.mean, self.train_dataset.std,
             out_dtype=self.compute_dtype)
         self.remat = cfg.remat or cfg.batchsize >= 256
+        self._dp_mesh = self.resolve_dp_mesh(cfg.batchsize)
+        self._eval_dp_mesh = self.resolve_dp_mesh(cfg.test_batchsize)
 
     # -- the step -------------------------------------------------------------
     def train_step(self, batch):
         """One update on ``batch`` (images uint8, labels, mask on the
-        device): augmentation, the objective, backward, optimizer step;
-        advances the counter. Returns the step's metrics."""
-        state = self.state
-        images = self._pipeline(state.gen, batch["images"])
+        device; this rank's rows under the data-parallel road):
+        augmentation, the objective, backward, optimizer step; advances the
+        counter by the increments of every rank. Returns the step's
+        metrics."""
+        state, dp = self.state, self._dp_mesh
+        gen = state.gen if dp is None else dp.fold_gen(state.gen)
+        images = self._pipeline(gen, batch["images"])
         loss, logits, counter = self.objective(
             state.frozen, state.trainable, images, batch, self.counter)
-        state.apply(loss)
-        self.counter = counter.detach()
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch["labels"]).float().mean()
-        return {"loss": loss.detach(), "acc": acc}
+        stats = {"loss": loss.detach(), "acc": acc}
+        counter = counter.detach()
+        inc = [] if dp is None else [counter - self.counter]
+        state.apply(loss, dp, mean=stats.values(), total=inc)
+        self.counter = self.counter + inc[0] if inc else counter
+        return stats
 
     def forward(self, fn, *args, **kw):
         """``fn(*args, **kw)``, checkpointed under remat."""
@@ -104,9 +115,10 @@ class _PromptPoolTrainer(OnlineTrainer):
     def online_step(self, images, labels, indices):
         cfg = self.cfg
         images, labels, _ = pad_batch(images, labels, cfg.batchsize)
-        batch = {"images": self._tensor(images),
-                 "labels": self._tensor(self.vocab.remap(labels),
-                                        torch.int64),
+        dp = self._dp_mesh
+        batch = {"images": self._tensor(local_rows(images, dp)),
+                 "labels": self._tensor(local_rows(self.vocab.remap(labels),
+                                                   dp), torch.int64),
                  "mask": self._tensor(self.vocab.logit_mask(),
                                       torch.float32)}
         stats = {}
@@ -228,13 +240,14 @@ class DualPrompt(_PromptPoolTrainer):
 
 
 def mvp_head_scores(feat, w, b, y, cls_mask, class_mask, use_mask: bool,
-                    margin: float):
+                    margin: float, dp=None):
     """(ign_score, cps_score) per sample from the linear head (JAX ``:338``,
     reference ``methods/mvp.py:_compute_grads`` + ``_get_ignore`` /
     ``_get_compensation``) in closed form: for ``z = (f @ W + b) * m + M``
     the per-sample gradient of CE_i w.r.t. head column c is ``(p_ic -
     1{c = y_i}) * m_ic * f_i``. Features and head are not normalized and
-    the bias enters the softmax. No grad flows."""
+    the bias enters the softmax. No grad flows. ``dp``: the data-parallel
+    mesh; the batch-mean gradient is then the global batch's."""
     with torch.no_grad():
         f = feat.float()
         z = mm32(f, w.float()) + b.float()
@@ -246,7 +259,10 @@ def mvp_head_scores(feat, w, b, y, cls_mask, class_mask, use_mask: bool,
         if use_mask:
             coef = coef * m                                      # (B, C)
         sample_grad = coef.gather(1, y[:, None]) * f             # (B, E)
-        batch_grad = (mm32(coef.T, f) / y.shape[0])[y]           # (B, E)
+        batch_grad = mm32(coef.T, f) / y.shape[0]                # (C, E)
+        if dp is not None:
+            dp.all_mean([batch_grad])
+        batch_grad = batch_grad[y]                               # (B, E)
 
         def cos(a, bb, eps=1e-8):
             na = torch.linalg.vector_norm(a, dim=-1) + eps
@@ -290,7 +306,8 @@ class MVP(_PromptPoolTrainer):
             frozen, trainable, count, images, self.clip_cfg,
             use_contrastiv=self.use_contrastiv,
             use_last_layer=self.use_last_layer, train=train, query_ln=False,
-            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl)
+            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
+            dp=self._dp_mesh if train else None)
 
     def _head_logits(self, trainable, img, cls_mask, class_mask=None):
         logits = mm32(img.float(), trainable["head"]["w"]) \
@@ -306,7 +323,7 @@ class MVP(_PromptPoolTrainer):
         ign, cps = mvp_head_scores(
             img.detach(), head["w"].detach(), head["b"].detach(),
             batch["labels"], cls_mask.detach(), batch["mask"],
-            self.use_mask, self.margin)
+            self.use_mask, self.margin, dp=self._dp_mesh)
         img_used = img / cps[:, None].to(img.dtype) if self.use_afs else img
         logits = self._head_logits(trainable, img_used, cls_mask,
                                    batch["mask"])
@@ -315,6 +332,8 @@ class MVP(_PromptPoolTrainer):
             # the reference's broadcast quirk (mvp.py:248-250): the CE is
             # mean-reduced before the (B,) ign ** gamma meets it
             gsf_w = (ign ** self.gamma).mean()
+            if self._dp_mesh is not None:   # ign has no grad: a constant
+                self._dp_mesh.all_mean([gsf_w])
             loss = (1 - self.alpha) * loss + self.alpha * gsf_w * loss
         return loss + sim_loss, logits, new_count
 

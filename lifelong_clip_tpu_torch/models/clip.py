@@ -37,6 +37,7 @@ from ..ops.attention import causal_mask, linear, mm32, multi_head_attention
 from ..ops.fused_block_attn import (fused_ln_attention_block,
                                     fused_prefix_attention_block)
 from ..ops.moe import moe_adapter_apply
+from ..parallel import mesh as mesh_lib
 from .resnet import rn_encode_image
 
 ATTN_IMPLS = ("fused", "unfused")
@@ -112,6 +113,10 @@ def _block(x, blk, n_heads: int, mask, peft_cfg: Optional[PEFTConfig], peft,
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                          f"got {attn_impl!r}")
+    if attn_impl == "fused" and mesh_lib.tensor_parallel() is not None:
+        # the kernels take whole heads: a model axis runs the plain road,
+        # as GSPMD cannot split JAX's opaque kernel calls
+        raise ValueError("a model-axis mesh runs attn_impl='unfused'")
     t = x.shape[1]
     square_mask = mask is None or (mask.dim() <= 2 and mask.shape[-1] == t)
     if attn_impl == "fused" and kv_prefix is None and square_mask:
@@ -180,8 +185,18 @@ def _mlp_half(x, blk, act, adapter=None, moe=None, peft_cfg=None,
     input (the post-attention stream; reference ``_MoA.forward``,
     ``model.py:596-636``)."""
     h = layer_norm(x, blk["ln_2"])
-    m = _ACTS[act](linear(h, blk["mlp"]["w_fc"], blk["mlp"]["b_fc"]))
-    m = linear(m, blk["mlp"]["w_proj"], blk["mlp"]["b_proj"])
+    mlp = blk["mlp"]
+    tp = mesh_lib.tensor_parallel()
+    if tp is None:
+        m = _ACTS[act](linear(h, mlp["w_fc"], mlp["b_fc"]))
+        m = linear(m, mlp["w_proj"], mlp["b_proj"])
+    else:
+        # this rank's hidden units: column-parallel up, row-parallel down,
+        # the partial sums reduced over the model group before the bias
+        m = _ACTS[act](linear(mesh_lib.copy_to_model(h, tp), mlp["w_fc"],
+                              mlp["b_fc"]))
+        m = (mesh_lib.reduce_from_model(mm32(m, mlp["w_proj"]), tp)
+             + mlp["b_proj"].float()).to(h.dtype)
     if adapter is not None:
         m = m + _adapter_apply(m, adapter, peft_cfg.adapter_scale)
     if moe is not None:

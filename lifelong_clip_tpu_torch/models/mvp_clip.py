@@ -17,8 +17,9 @@ Counterpart of ``lifelong_clip_tpu/models/mvp_clip.py`` (reference
 * the head: cosine logits x logit_scale, the per-sample mask
   ``sigmoid(m) * 2``, and the similarity loss.
 
-Randomness comes from an explicit ``torch.Generator``. The data-parallel
-road of the JAX module (``dp_axis``) is not ported: meshes raise.
+Randomness comes from an explicit ``torch.Generator``. Under a
+data-parallel mesh (``dp``, JAX's ``dp_axis``) the contrastive term spans
+the global batch.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from ..config import CLIPConfig
 from . import clip as clip_fns
 from ..ops.attention import mm32
+from ..parallel import mesh as mesh_lib
 
 POS_G = (0, 1)
 POS_E = (2, 3, 4)
@@ -103,12 +105,18 @@ def _layer_prompt_tensors(mvp, sel_e, batch: int, layers: int, len_g: int,
 def mvp_features(frozen, mvp, count, images, cfg: CLIPConfig, *,
                  use_contrastiv: bool = False, use_last_layer: bool = True,
                  train: bool = True, query_ln: bool = True,
-                 compute_dtype=torch.bfloat16, attn_impl: str = "fused"):
+                 compute_dtype=torch.bfloat16, attn_impl: str = "fused",
+                 dp=None):
     """Returns (image_feats, per-sample class mask, similarity_loss,
     new_count, selected idx), as the JAX function.
 
     ``query_ln``: apply the tower's final LN to the query CLS token
-    (reference ``models/mvp_clip.py:218``)."""
+    (reference ``models/mvp_clip.py:218``). ``dp``: the data-parallel
+    mesh of the step (JAX's ``dp_axis``): the contrastive term's count
+    mass is all-gathered, so the (B, B) cross terms span the global batch,
+    and ``pos`` and ``anchor`` are averaged over the data group before the
+    log; ``new_count`` holds this rank's increments (the step sums
+    them)."""
     x, v = _vit_prelude(frozen, images, cfg, compute_dtype)
     b = x.shape[0]
 
@@ -136,8 +144,13 @@ def mvp_features(frozen, mvp, count, images, cfg: CLIPConfig, *,
         # too, and the mean runs over the (B, B) cross terms
         m = mass[idx]
         kd = key_dist[idx]
+        if dp is not None:
+            m = mesh_lib.gather_rows(m, dp)
         pos = torch.exp(kd[:, None, :] / m[None, :, None]).mean()
         anchor = torch.exp(sel_dist[:, None] / m[None, :]).mean()
+        if dp is not None:
+            pos, anchor = mesh_lib.mean_over(pos, dp), \
+                mesh_lib.mean_over(anchor, dp)
         similarity_loss = -torch.log(pos / (anchor + pos) + 1e-6)
     else:
         similarity_loss = sel_dist.mean()

@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel import mesh as mesh_lib
+
 
 @contextlib.contextmanager
 def _no_tf32():
@@ -59,17 +61,39 @@ def linear(x, w, b):
     return (mm32(x, w) + b.float()).to(x.dtype)
 
 
-def qkv_projection(x_q, x_k, x_v, w_qkv, b_qkv, lora=None):
+def qkv_projection(x_q, x_k, x_v, w_qkv, b_qkv, lora=None, tp=None):
     """Queries from ``x_q``, keys from ``x_k``, values from ``x_v``.
     ``lora``: optional dict with ``a_in`` (D, r), ``b_in`` (r, 3D) and a
-    float ``scaling``."""
-    d = x_q.shape[-1]
+    float ``scaling``. ``tp``: a mesh whose model group splits the heads
+    (``parallel/mesh.py``): ``w_qkv``/``b_qkv`` hold this rank's heads of
+    q, k and v (D, 3D/M) and the projections are this rank's columns; the
+    replicated LoRA factors are read at the same columns."""
+    d = w_qkv.shape[-1] // 3
+    b_in = None if lora is None else lora["b_in"]
+    if tp is not None and lora is not None:
+        b_in = mesh_lib.take(b_in, -1, mesh_lib.qkv_columns(
+            b_in.shape[-1] // 3, tp), tp)
+
+    def into_heads(a):
+        # a replicated value entering this rank's heads: the backward
+        # sums the ranks' partial grads (each its heads' share)
+        return a if tp is None else mesh_lib.copy_to_model(a, tp)
+
+    sources = {}
+
+    def source(x):
+        """``x`` and its LoRA factor ``x @ a_in`` as the projections read
+        them, once per distinct source (self-attention reads one)."""
+        if id(x) not in sources:
+            z = None if lora is None else into_heads(mm32(x, lora["a_in"]))
+            sources[id(x)] = into_heads(x), z
+        return sources[id(x)]
 
     def proj(x, lo, hi):
-        y = mm32(x, w_qkv[:, lo:hi]) + b_qkv[lo:hi].float()
+        xh, z = source(x)
+        y = mm32(xh, w_qkv[:, lo:hi]) + b_qkv[lo:hi].float()
         if lora is not None:
-            z = mm32(x, lora["a_in"])
-            y = y + lora["scaling"] * mm32(z, lora["b_in"][:, lo:hi])
+            y = y + lora["scaling"] * mm32(z, b_in[:, lo:hi])
         return y.to(x.dtype)
 
     return proj(x_q, 0, d), proj(x_k, d, 2 * d), proj(x_v, 2 * d, 3 * d)
@@ -112,18 +136,34 @@ def multi_head_attention(x_q, params, n_heads: int, *, x_kv=None, mask=None,
     if impl == "flash" and mask is not None and any(
             n != 1 for n in mask.shape[:-2]):
         impl = "plain"
+    tp = mesh_lib.tensor_parallel()
     x_kv = x_q if x_kv is None else x_kv
     x_k, x_v = x_kv if isinstance(x_kv, tuple) else (x_kv, x_kv)
     q, k, v = qkv_projection(x_q, x_k, x_v, params["w_qkv"], params["b_qkv"],
-                             lora=lora)
+                             lora=lora, tp=tp)
+    if tp is not None:   # this rank's heads
+        n_heads = n_heads * q.shape[-1] // x_q.shape[-1]
     if impl == "flash":
         from .flash_attention import flash_attention
         ctx = flash_attention(q, k, v, n_heads, mask=mask)
     else:
         ctx = sdpa(q, k, v, n_heads, mask=mask)
-    out = mm32(ctx, params["w_out"]) + params["b_out"].float()
-    if lora is not None and lora.get("a_out") is not None:
-        z = mm32(ctx, lora["a_out"])
+    lora_out = lora is not None and lora.get("a_out") is not None
+    if tp is None:
+        out = mm32(ctx, params["w_out"]) + params["b_out"].float()
+        if lora_out:
+            z = mm32(ctx, lora["a_out"])
+            out = out + lora["scaling"] * mm32(z, lora["b_out"])
+        return out.to(x_q.dtype)
+    # row-parallel: the ranks' partial products summed over the model
+    # group before the bias; the LoRA factor's too, before its replicated
+    # second factor
+    out = mesh_lib.reduce_from_model(mm32(ctx, params["w_out"]), tp) \
+        + params["b_out"].float()
+    if lora_out:
+        a_out = mesh_lib.take(lora["a_out"], 0, mesh_lib.head_columns(
+            lora["a_out"].shape[0], tp), tp)
+        z = mesh_lib.reduce_from_model(mm32(ctx, a_out), tp)
         out = out + lora["scaling"] * mm32(z, lora["b_out"])
     return out.to(x_q.dtype)
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import PEFTConfig
+from ..parallel import mesh as mesh_lib
 from .attention import mm32
 
 
@@ -59,16 +60,32 @@ def moe_adapter_apply(x, moe, cfg: PEFTConfig, *, noise=None):
 
     x: (B, T, D) block activations (the gates read x[:, 0]); moe: one
     layer of ``models.peft.init_moe``'s tree (``router``/``w_noise`` (D, E),
-    experts' leaves (E, ...)); noise: (B, E) or None."""
+    experts' leaves (E, ...)); noise: (B, E) or None. Under a model-axis
+    mesh (``parallel/mesh.py``) each rank runs its E/M experts; the router
+    and the expert leaves stay whole on every rank."""
     gates, _ = noisy_top_k_gates(x[:, 0], moe["router"], moe["w_noise"],
                                  cfg.moe_top_k, noise=noise)
     ex = moe["experts"]
+    tp = mesh_lib.tensor_parallel()
+    if tp is not None:
+        # expert parallelism: this rank's E/M experts on the whole
+        # sequence, the gated sums reduced over the model group
+        e = gates.shape[-1]
+        if e % tp.model:
+            raise ValueError(f"{e} experts do not split over a "
+                             f"{tp.model}-way model axis")
+        cols = mesh_lib.head_columns(e, tp)
+        gates = mesh_lib.take(gates, 1, cols, tp)
+        ex = {k: mesh_lib.take(v, 0, cols, tp) for k, v in ex.items()}
+        x = mesh_lib.copy_to_model(x, tp)
     h = mm32(x[:, None], ex["w_down"][None])          # (B, E, T, k)
     h = torch.relu(h + ex["b_down"].float()[None, :, None, :]).to(x.dtype)
     y = mm32(h, ex["w_up"][None]) + ex["b_up"].float()[None, :, None, :]
     y = cfg.adapter_scale * y                         # (B, E, T, D) fp32
     # elementwise, so no TF32 product on the card
     out = (gates[:, :, None, None] * y).sum(dim=1)
+    if tp is not None:
+        out = mesh_lib.reduce_from_model(out, tp)
     return out.to(x.dtype)
 
 

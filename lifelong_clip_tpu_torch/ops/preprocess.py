@@ -5,7 +5,7 @@ JAX's order: [AutoAugment] -> [Cutout] -> [RandAugment] -> Resize(S, S) ->
 RandomCrop(S, pad=4) -> RandomHorizontalFlip -> Normalize, the resize, pad
 and crop fused as per-sample matrix contractions (uint8 in, normalized
 compute-dtype out). Test: Resize -> Normalize. CutMix (``cutmix``) mixes a
-batch and its labels; the ER family applies it (not ported yet). The random
+batch and its labels; the ER family's step applies it. The random
 draws come from a ``torch.Generator`` on the host; the deterministic cores
 (``resize_pad_crop``, ``hflip``, ``cutout``, ``cutmix``,
 ``TrainPipeline.apply``) take them explicitly, so tests can feed them the

@@ -36,12 +36,19 @@ def _train_state(state):
             "step": state.step, "gen": state.gen.get_state()}
 
 
-def save_checkpoint(path: str, *, state=None, memory=None, vocab=None,
-                    cursor: Dict[str, Any] = None, metrics=None,
+def save_checkpoint(path: str, *, mesh=None, state=None, memory=None,
+                    vocab=None, cursor: Dict[str, Any] = None, metrics=None,
                     extra: Dict[str, Any] = None):
     """Write the run's state to ``path``/checkpoint.pt (written to a
     temporary name and renamed, so a crash mid-write leaves the previous
-    checkpoint)."""
+    checkpoint). Under a ``mesh`` (``parallel/mesh.py``) rank 0 writes,
+    the ranks holding the same state, and every rank waits at a barrier
+    until the file is there; every rank then restores from it, under any
+    mesh: the file holds the whole trainable tree, its layout the same
+    whatever the mesh."""
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
+        return
     os.makedirs(path, exist_ok=True)
     ckpt = {
         "state": _train_state(state),
@@ -59,6 +66,8 @@ def save_checkpoint(path: str, *, state=None, memory=None, vocab=None,
     tmp = os.path.join(path, FILE + ".tmp")
     torch.save(ckpt, tmp)
     os.replace(tmp, os.path.join(path, FILE))
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_checkpoint(path: str, map_location="cpu"):

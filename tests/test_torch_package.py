@@ -60,7 +60,9 @@ def test_cli_cpu_run_writes_result(tmp_path):
     ["--transforms", "--mesh", "2x1"],
 ])
 def test_unported_parts_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError):
+    # a mesh runs one process a device: without torchrun's environment the
+    # CLI refuses it
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(TINY_ARGS + ["--device", "cpu", "--log_path",
                               str(tmp_path)] + extra)
 

@@ -110,3 +110,26 @@ def test_device_upload_lands_each_batch_on_the_card(data):
         assert images.device.type == "cuda"
         torch.testing.assert_close(images.cpu(),
                                    torch.from_numpy(data.images[bidx]))
+
+
+@pytest.mark.cuda
+def test_device_upload_of_a_ranks_rows(data):
+    """Under a data-parallel mesh the batch goes up whole, as without one,
+    and the step takes a view of the rank's rows on the card; a short tail
+    batch goes up whole too, to be padded there before it is cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from lifelong_clip_tpu_torch.parallel.mesh import Mesh, local_rows
+    dp = Mesh.__new__(Mesh)     # rank 1 of a data axis of 2, no group
+    dp.shape, dp.data_rank = {"data": 2, "model": 1}, 1
+    place = DeviceUpload(torch.device("cuda"))
+    seen = list(BatchPrefetcher(iter_batches(np.arange(10), 4), data.gather,
+                                place=place, depth=1))
+    for bidx, images, _ in seen[:2]:
+        rows = local_rows(images, dp)
+        assert rows.device.type == "cuda" and len(rows) == 2
+        assert rows.data_ptr() == images[2:].data_ptr()
+        torch.testing.assert_close(rows.cpu(),
+                                   torch.from_numpy(data.images[bidx[2:]]))
+    tail = seen[2][1]
+    assert tail.device.type == "cuda" and len(tail) == 2
