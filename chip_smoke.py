@@ -146,14 +146,26 @@
    one-rank nccl group; each prints its backend, step ms, all-reduce
    bytes and ms a step. The kernel phase times the per-rank shapes of
    2x1 (lora-clip's 32 rows, Finetuning's 8, mvp-clip's prefix at 32).
+10. Pipeline (``pipeline_phase``): lora-clip's step with its vision tower
+   in two stages of a ``--mesh 1x2`` (``parallel/pipeline.py``; two gloo
+   ranks sharing this card, no scaling), 4 microbatches of 16 rows, the
+   fused kernels #1/#2 in every stage: ViT-B/16 in fp32 (the loss at JAX's
+   rtol 1e-5 against the 1-process step, the grads and leaves as the mesh
+   phase holds a row split) and in bf16 (the mesh phase's witness rule),
+   ViT-L/14 in bf16;
+   each stage's launches of #1/#2, step and device ms, idle share beside
+   the bubble share, and the ring permutes' bytes and ms; then a planted
+   fault (the permute's backward dropped) that the check must catch. The
+   kernel phase times #1/#2 at the microbatch shapes.
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels; each one's launches summed over
-every main path of 5); the last line is
+every main path of 5 and the sound steps of 9 and 10); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 import contextlib
+import datetime
 import json
 import math
 import os
@@ -2715,25 +2727,28 @@ def mesh_steps(tr, steps, calls=()):
             "last": {k: p for k, (p, _) in trainable_of(tr).items()}}
 
 
+def walk_tree(t, path=()):
+    """("key/path", leaf) over a nested dict/list tree, None left out."""
+    if isinstance(t, dict):
+        for k, v in t.items():
+            yield from walk_tree(v, path + (str(k),))
+    elif isinstance(t, (list, tuple)):
+        for i, v in enumerate(t):
+            yield from walk_tree(v, path + (str(i),))
+    elif t is not None:
+        yield "/".join(path), t
+
+
+def host(t):
+    """An fp32 copy on the host, also of a tensor on the CPU already."""
+    import torch
+    return t.detach().to("cpu", torch.float32, copy=True)
+
+
 def trainable_of(tr):
     """{key path: (leaf, grad)} of the trainable tree, on the host."""
-    import torch
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k, v in t.items():
-                yield from walk(v, path + (str(k),))
-        elif isinstance(t, (list, tuple)):
-            for i, v in enumerate(t):
-                yield from walk(v, path + (str(i),))
-        elif t is not None:
-            yield "/".join(path), t
-
-    def host(t):    # a copy, also of a tensor on the CPU already
-        return t.detach().to("cpu", torch.float32, copy=True)
-
     return {k: (host(p), None if p.grad is None else host(p.grad))
-            for k, p in walk(tr.state.trainable, ())}
+            for k, p in walk_tree(tr.state.trainable)}
 
 
 def step1_errors(got, ref, by_leaf=False):
@@ -3103,6 +3118,413 @@ def mesh_phase(card, device="cuda:0", mesh_cases=None):
             "card": card}
 
 
+# -- the pipeline phase: 2 stages sharing one card ---------------------------
+
+PP_MICRO = 4            # microbatches of 16 rows at bs 64
+PP_BS = 64
+PP_CLASSES = 20
+PP_LR = 5e-4            # bench.py's AdamW
+PP_TIMED = 2            # timed steps after the checked one
+PP_FAULT = "permute backward dropped"
+# (label, model, compute dtype, planted fault), each under --mesh 1x2: two
+# stages of 6 layers on ViT-B/16, of 12 on ViT-L/14 (T = 257, the tiled
+# road), as JAX's pipeline docstring names it
+PP_CASES = (("ViT-B/16 fp32", "ViT-B/16", "fp32", None),
+            ("ViT-B/16 bf16", "ViT-B/16", "bf16", None),
+            ("ViT-L/14 bf16", "ViT-L/14", "bf16", None),
+            (f"ViT-B/16 fp32, {PP_FAULT}", "ViT-B/16", "fp32", PP_FAULT))
+# JAX's own tolerances of the pipelined step (tests/test_pipeline.py:99-107):
+# the fp32 loss is held to PP_LOSS_RTOL; the leaves' count outside PP_LEAF_*
+# is reported. Through the kernels the step-1 grads are not that close: the
+# kernels round h, qkv and ctx to bf16 a row, so a row's last-bit fp32
+# difference (the MLP's cuBLAS GEMMs at 3152 rows against 12608) can move
+# a rounding, and AdamW's first update is lr times the grad's sign, so any
+# grad below that noise lands 2 lr off (H100 80GB HBM3, 700 W: grads
+# within 3.46e-3 of the largest entry, 843 of 221184 leaf entries outside
+# JAX's atol/rtol, every one 2 lr off; the planted fault 1.0 and 111069).
+# So the leaves and grads are held as the mesh phase holds a row split
+# through the kernels: DP_GRAD_LIMIT and MOVED_LIMIT.
+PP_LOSS_RTOL = 1e-5
+PP_LEAF_ATOL, PP_LEAF_RTOL = 1e-5, 1e-4
+
+
+def pp_setup(model, dtype, dev, mesh):
+    """lora-clip's step with its vision tower pipelined over ``mesh``'s
+    model axis (``parallel/pipeline.py:make_pp_forward``, ``PP_MICRO``
+    microbatches; the (1, 1) mesh gives the 1-process tower): LoRA r=4 on
+    the image tower, every leaf that starts at zero given seeded N(0,
+    0.02^2) draws (so that every grad is live), AutoAugment's cifar10
+    policy, AdamW 5e-4, the text tower forward each step on ``PP_CLASSES``
+    class rows, one batch of ``PP_BS``; the stages' slices from
+    ``shard_params_pp``. Returns (cfg, state, one step returning its
+    loss)."""
+    import numpy as np
+    import torch
+    from lifelong_clip_tpu_torch.config import PEFTConfig
+    from lifelong_clip_tpu_torch.methods.engine import (
+        TrainState, make_train_step, tree_leaves)
+    from lifelong_clip_tpu_torch.models import build_clip, build_peft
+    from lifelong_clip_tpu_torch.models.clip import cast_towers
+    from lifelong_clip_tpu_torch.parallel.mesh import shard_params_pp
+    from lifelong_clip_tpu_torch.parallel.pipeline import make_pp_forward
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+    cd = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    params, cfg = build_clip(model, gen=torch.Generator().manual_seed(0),
+                             device=dev)
+    frozen = shard_params_pp(cast_towers(params, cd), mesh)
+    del params
+    peft_cfg = PEFTConfig(method="lora", encoder="image", lora_r=4)
+    peft = build_peft(torch.Generator().manual_seed(1), cfg, peft_cfg,
+                      device=dev)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for p in tree_leaves(peft):
+            if not p.any():
+                p.copy_(torch.from_numpy(
+                    0.02 * rng.standard_normal(tuple(p.shape))))
+    state = TrainState(
+        trainable=shard_params_pp(peft, mesh, match=("vision",)),
+        frozen=frozen,
+        make_opt=lambda lv: make_optimizer("adamw", lv, PP_LR),
+        gen=torch.Generator().manual_seed(2))
+    step = make_train_step(
+        cfg, peft_cfg, image_size=cfg.image_size, mean=MEAN, std=STD,
+        use_autoaug=True, autoaug_policy="cifar10", compute_dtype=cd,
+        forward_fn=make_pp_forward(cfg, peft_cfg, mesh, PP_MICRO,
+                                   compute_dtype=cd))
+    images, labels, tokens = gate_batch(cfg, PP_CLASSES, PP_BS)
+    batch = {"images": images.to(dev), "labels": labels.to(dev),
+             "tokens": tokens.to(dev),
+             "mask": torch.zeros(PP_CLASSES, device=dev)}
+    return cfg, state, lambda: step(state, batch)["loss"]
+
+
+def pp_snapshot(state, mesh, n_layers, loss):
+    """The step's loss and the whole trainable tree after it, grads and
+    leaves (the stages' slices gathered, ``gather_stages``), on the
+    host."""
+    from lifelong_clip_tpu_torch.methods.engine import tree_map
+    from lifelong_clip_tpu_torch.parallel.mesh import gather_stages
+    out = {"loss": float(loss)}
+    for name, fn in (("grad", lambda p: p.grad), ("leaf", lambda p: p)):
+        tree = gather_stages(tree_map(lambda p: fn(p).detach(),
+                                      state.trainable),
+                             mesh, n_layers, match=("vision",))
+        out[name] = {k: host(v) for k, v in walk_tree(tree)}
+    return out
+
+
+def pp_errors(got, ref):
+    """A step's snapshot (``pp_snapshot``) against a reference step's: the
+    loss's relative distance; each leaf's worst grad difference over that
+    grad's largest entry; the updated leaves' worst difference, the entries
+    outside JAX's atol / rtol and the share of entries more than one update
+    (AdamW's first: lr) off."""
+    rels = {k: float((g - ref["grad"][k]).abs().max()
+                     / ref["grad"][k].abs().max())
+            for k, g in got["grad"].items()
+            if float(ref["grad"][k].abs().max()) > 0}
+    worst, outside, moved, total = 0.0, 0, 0, 0
+    for k, v in got["leaf"].items():
+        w = ref["leaf"][k]
+        d = (v - w).abs()
+        worst = max(worst, float(d.max()))
+        outside += int((d > PP_LEAF_ATOL + PP_LEAF_RTOL * w.abs()).sum())
+        moved += int((d > PP_LR).sum())
+        total += d.numel()
+    return {"loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_rel_by_leaf": rels, "grad_rel_max": max(rels.values()),
+            "leaf_max_diff": worst, "leaf_entries_outside": outside,
+            "leaf_entries": total, "moved_share": moved / total}
+
+
+def pp_times(run, dev, steps=PP_TIMED, meter=True):
+    """Host ms of each of ``steps`` steps (between two synchronizes), the
+    device-busy ms of one more (torch.profiler) and, with ``meter``, over
+    one more, every all-gather (the ring permutes) and all-reduce with its
+    bytes and ms (``collective_meter``)."""
+    ms = []
+    for _ in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        run()
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    busy = device_ms(run, iters=1, warmup=0) if dev.type == "cuda" else None
+    if not meter:
+        return {"step_ms": ms, "device_ms": busy}
+    calls, restore = collective_meter(dev)
+    try:
+        run()
+        sync(dev)
+    finally:
+        restore()
+    return {"step_ms": ms, "device_ms": busy, "collectives": calls}
+
+
+def pp_reference(model, dtype, dev):
+    """The 1-process step of ``pp_setup``: its snapshot after one step,
+    then its step and device ms."""
+    import torch
+    from lifelong_clip_tpu_torch.parallel.mesh import Mesh
+    one = Mesh((1, 1), 0, dev)
+    cfg, state, run = pp_setup(model, dtype, dev, one)
+    snap = pp_snapshot(state, one, cfg.vision_layers, run())
+    snap["times"] = pp_times(run, dev, meter=False)
+    log(f"pipeline reference {model} {dtype}: loss {snap['loss']}, step ms "
+        f"{snap['times']['step_ms']}")
+    del state, run
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return snap
+
+
+def pp_plant(fault):
+    """Plant ``fault`` (``PP_FAULT``): the ring permute's backward hands
+    back zeros, so no grad reaches an earlier stage. Returns the function
+    that takes it out."""
+    import torch
+    from lifelong_clip_tpu_torch.parallel import mesh as mesh_lib
+    assert fault == PP_FAULT, fault
+    real = mesh_lib._RingPermute.backward
+    mesh_lib._RingPermute.backward = staticmethod(
+        lambda ctx, g: (torch.zeros_like(g), None, None, None))
+    return lambda: setattr(mesh_lib._RingPermute, "backward",
+                           staticmethod(real))
+
+
+def pp_case_on_rank(rank, world, init_file, case, dev, ref_file):
+    """One case on one stage: a gloo group, the pipelined step, its step-1
+    snapshot against the fp32 1-process step's (and the launches of step
+    1), then the timed steps (but under a planted fault)."""
+    import torch
+    import torch.distributed as dist
+    from lifelong_clip_tpu_torch.parallel.mesh import make_mesh
+    label, model, dtype, fault = case
+    undo = pp_plant(fault) if fault else None
+    dist.init_process_group("gloo", init_method="file://" + init_file,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=180))
+    try:
+        mesh = make_mesh((1, world), dev)
+        cfg, state, run = pp_setup(model, dtype, dev, mesh)
+        log(f"pipeline stage {rank}: {label} built")
+        reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        loss = run()
+        sync(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        step1 = launch_counts()
+        snap = pp_snapshot(state, mesh, cfg.vision_layers, loss)
+        ref = torch.load(ref_file, weights_only=False)[(model, "fp32")]
+        errs = pp_errors(snap, ref)
+        log(f"pipeline stage {rank}: {label} step 1 checked")
+        times = None if fault else pp_times(run, dev)
+        launches = launch_counts()
+        dist.barrier()
+        del state, run
+    finally:
+        if undo is not None:
+            undo()
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    stage_layers = cfg.vision_layers // world
+    return {"label": label, "model": model, "dtype": dtype, "fault": fault,
+            "rank": rank, "loss": snap["loss"], "ref_loss": ref["loss"],
+            "first_step_ms": first_ms, "times": times, "step1": step1,
+            "launches": launches, **errs,
+            "expected_fwd": (PP_MICRO + world - 1) * stage_layers
+            + cfg.text_layers,
+            "expected_bwd": (PP_MICRO + world - 1) * stage_layers}
+
+
+def pp_rank(rank, tmp, cases, device, ref_file, outbox):
+    """One of the two stages sharing ``device``: every case of ``cases``
+    in a gloo group of two. Puts (rank, result or traceback) to ``outbox``
+    per case."""
+    import traceback
+    sys.path.insert(0, REPO)
+    try:
+        import torch
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        for i, case in enumerate(cases):
+            outbox.put((rank, pp_case_on_rank(
+                rank, 2, os.path.join(tmp, f"pp{i}"), case, dev, ref_file)))
+    except BaseException:
+        outbox.put((rank, traceback.format_exc()))
+
+
+def pp_checks(res, witness, launched):
+    """{check: passed} of one stage's result: fp32 against the fp32
+    1-process step, the loss at JAX's rtol, the grads and the moved share
+    as the mesh phase holds a row split (above ``PP_LOSS_RTOL``); bf16 by
+    the mesh phase's witness rule
+    (each leaf's grad within BF16_FACTOR times the bf16 1-process step's
+    distance from the fp32 one; the loss within BF16_LOSS_RTOL of it, or
+    within BF16_FACTOR times the witness's distance where that is more: a
+    tiny tower's bf16 loss moves 1.3e-3);
+    both stages' launches of #1 and #2 in step 1: (M + S - 1) ticks x L/S
+    layers each, #1 also the text tower's."""
+    n = res["step1"]
+    checks = {"finite": math.isfinite(res["loss"]),
+              "kernels": not launched or (
+                  n["fused_ln_attention_fwd"] == res["expected_fwd"]
+                  and n["fused_ln_attention_bwd"] == res["expected_bwd"])}
+    if res["dtype"] == "fp32":
+        checks.update({
+            "step 1 loss": res["loss_rel"] <= PP_LOSS_RTOL,
+            "step 1 grads": res["grad_rel_max"] <= DP_GRAD_LIMIT,
+            "step 1 leaves": res["moved_share"] <= MOVED_LIMIT})
+    else:
+        w = witness[res["model"]]
+        res["grad_worst_ratio_to_witness"] = max(
+            res["grad_rel_by_leaf"][k] / v
+            for k, v in w["grad_rel_by_leaf"].items())
+        checks.update({
+            "step 1 loss": res["loss_rel"] <= max(
+                BF16_LOSS_RTOL, BF16_FACTOR * w["loss_rel"]),
+            "step 1 grads": res["grad_worst_ratio_to_witness"]
+            <= BF16_FACTOR})
+    return checks
+
+
+def pipeline_phase(card, device="cuda:0", cases=None):
+    """Pipeline parallelism (``parallel/pipeline.py``): lora-clip's step
+    (``pp_setup``) with its vision tower in two stages, two ranks in a
+    gloo group sharing this one card (so it measures no scaling), ViT-B/16
+    in fp32 and bf16 and ViT-L/14 in bf16, each held after step 1 against
+    the 1-process step on the same card (``pp_checks``); then the fault
+    control (``pp_plant``), which the grads check must catch 10 times past
+    its limit. Each stage
+    prints its step ms, device ms and idle share beside the bubble share
+    (S - 1) / (M + S - 1), the permutes' bytes and ms a tick and its
+    kernels' launches."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import torch
+    t_phase = time.perf_counter()
+    cases = list(cases or PP_CASES)
+    dev = torch.device(device)
+    refs, witness, failed, out = {}, {}, [], []
+    for _, model, dtype, _ in cases:
+        for need in ("fp32", dtype):
+            if (model, need) not in refs:
+                refs[(model, need)] = pp_reference(model, need, dev)
+        if dtype == "bf16" and model not in witness:
+            witness[model] = pp_errors(refs[(model, "bf16")],
+                                       refs[(model, "fp32")])
+    for model, w in witness.items():
+        log(f"pipeline witness {model}: the bf16 1-process step against the "
+            f"fp32 one: loss {w['loss_rel']:.2e} relative, grads "
+            f"{w['grad_rel_max']:.2e} of the largest entry; {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_file = os.path.join(tmp, "refs.pt")
+        torch.save(refs, ref_file)
+        ctx = mp.get_context("spawn")
+        outbox = ctx.Queue()
+        procs = [ctx.Process(target=pp_rank, args=(r, tmp, cases, device,
+                                                   ref_file, outbox))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        results = {0: [], 1: []}
+        deadline = time.monotonic() + 600
+        try:
+            while any(len(v) < len(cases) for v in results.values()):
+                try:
+                    rank, res = outbox.get(timeout=5)
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead or time.monotonic() > deadline:
+                        got = {r: len(v) for r, v in results.items()}
+                        raise RuntimeError(f"pipeline phase: ranks exited "
+                                           f"{dead} or timed out ({got})")
+                    continue
+                if isinstance(res, str):
+                    raise RuntimeError(f"pipeline phase, rank {rank}:\n{res}")
+                results[rank].append(res)
+        finally:
+            for p in procs:
+                p.join(60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        assert all(p.exitcode == 0 for p in procs), \
+            [p.exitcode for p in procs]
+    launched = dev.type == "cuda"   # the counters count launches
+    bubble = (2 - 1) / (PP_MICRO + 2 - 1)
+    for res in results[0] + results[1]:
+        checks = pp_checks(res, witness, launched)
+        res["failed_checks"] = [k for k, ok in checks.items() if not ok]
+        if res["fault"]:
+            # caught far outside: stage 0's grads wholly lost
+            ok = "step 1 grads" in res["failed_checks"] and \
+                res["grad_rel_max"] >= 10 * DP_GRAD_LIMIT
+        else:
+            ok = not res["failed_checks"]
+        if not ok:
+            failed.append((res["label"], res["rank"], res["failed_checks"]))
+        t = res.pop("times")
+        if t is not None:
+            step_ms = sum(t["step_ms"]) / len(t["step_ms"])
+            gathers = [(b, ms) for op, b, ms in t["collectives"]
+                       if op == "all_gather"]
+            reduces = [(b, ms) for op, b, ms in t["collectives"]
+                       if op == "all_reduce"]
+            res.update({
+                "step_ms": t["step_ms"], "device_ms": t["device_ms"],
+                "idle_share": (None if t["device_ms"] is None
+                               else 1.0 - t["device_ms"] / step_ms),
+                "bubble_share": bubble,
+                "permutes_per_step": len(gathers),
+                "permute_bytes_gathered": [b for b, _ in gathers],
+                "permute_ms": [ms for _, ms in gathers],
+                "all_reduce_bytes": [b for b, _ in reduces],
+                "all_reduce_ms": [ms for _, ms in reduces]})
+        ref = refs[(res["model"], res["dtype"])]["times"]
+        res["ref_step_ms"], res["ref_device_ms"] = (ref["step_ms"],
+                                                    ref["device_ms"])
+        by_leaf = res.pop("grad_rel_by_leaf")
+        out.append(res)
+        log(f"pipeline {res['label']} (stage {res['rank']} of 2 sharing one "
+            f"card, {PP_MICRO} microbatches of {PP_BS // PP_MICRO}): loss "
+            f"{res['loss']} vs {res['ref_loss']} (fp32 1-process), grads "
+            f"within {res['grad_rel_max']:.2e} of the largest entry "
+            f"(worst leaf {max(by_leaf, key=by_leaf.get)}), leaves "
+            f"{res['leaf_entries_outside']} of {res['leaf_entries']} entries "
+            f"outside atol {PP_LEAF_ATOL} / rtol {PP_LEAF_RTOL} (worst "
+            f"{res['leaf_max_diff']:.2e}), moved share "
+            f"{res['moved_share']:.2e}; step 1 launches "
+            f"{res['step1']} (expected #1 {res['expected_fwd']}, #2 "
+            f"{res['expected_bwd']}); step ms {res.get('step_ms')} (1 "
+            f"process {res['ref_step_ms']}), device ms "
+            f"{res.get('device_ms')} (1 process {res['ref_device_ms']}), "
+            f"idle share {res.get('idle_share')} beside the bubble "
+            f"{bubble}; permutes {res.get('permutes_per_step')} a step, "
+            f"{res.get('permute_bytes_gathered')} B gathered, ms "
+            f"{res.get('permute_ms')}; all-reduce "
+            f"{res.get('all_reduce_bytes')} B, ms {res.get('all_reduce_ms')};"
+            f" failed checks {res['failed_checks']}; {card}")
+    assert not failed, f"pipeline phase checks failed: {failed}"
+    return {"pipeline_phase": out,
+            "witness": {m: {k: v for k, v in w.items()
+                            if k != "grad_rel_by_leaf"}
+                        for m, w in witness.items()},
+            "limits": {"loss_rtol": PP_LOSS_RTOL, "grad": DP_GRAD_LIMIT,
+                       "moved_share": MOVED_LIMIT, "bf16_factor": BF16_FACTOR,
+                       "bf16_loss_rtol": BF16_LOSS_RTOL},
+            "wall_s": time.perf_counter() - t_phase,
+            "note": "2 stages sharing one card: no scaling is measured",
+            "card": card}
+
+
 def step_profile(run_step, step_ms, steps=3, top=12):
     """torch.profiler over ``steps`` train steps: device ms per step (the
     union of kernel intervals); the device's idle share of the profiled
@@ -3226,6 +3648,12 @@ def main():
                              768, 12, 4, False, False, 27))
     cases.append(kernel_case("per rank of 2x1: FT weight_grads, 8 rows", 8,
                              197, 768, 12, 0, False, True, 28))
+    # the pipeline phase's microbatch of 16 rows on each stage (LoRA r=4):
+    # ViT-B/16 and ViT-L/14 (T = 257, the tiled road)
+    cases.append(kernel_case("pipeline microbatch: ViT-B/16, 16 rows", 16,
+                             197, 768, 12, 4, False, False, 30))
+    cases.append(kernel_case("pipeline microbatch: ViT-L/14, 16 rows", 16,
+                             257, 1024, 16, 4, False, False, 31))
     torch.cuda.synchronize()
     pcases = [prefix_kernel_case("mvp prefix, 5 of 20 live", 5, False, 4)]
     pcases.append(prefix_kernel_case("mvp prefix, none live", 0, False, 5))
@@ -3324,6 +3752,8 @@ def main():
     torch.cuda.synchronize()
     mesh = mesh_phase(card)
     torch.cuda.synchronize()
+    pipeline = pipeline_phase(card)
+    torch.cuda.synchronize()
     ckpt = checkpoint_phase()
     torch.cuda.synchronize()
     moe_ckpt = checkpoint_phase("moe-clip", ["--method", "moe-clip"]
@@ -3363,15 +3793,17 @@ def main():
     src = "lifelong_clip_tpu_torch/csrc/fused_block_attn.cu"
     flash_src = "lifelong_clip_tpu_torch/csrc/flash_attention.cu"
     pl_shape = "prompted-LoRA 768 x 197 x 217 (B*H x T x S), dh 64, bf16"
-    # each kernel's launches over every main path above (the mesh phase's
-    # controls, with their planted faults, left out)
+    # each kernel's launches over every main path above (the mesh and
+    # pipeline phases' controls, with their planted faults, left out)
     runs = {k: sum(r[k] for r in (
         launches, l14_launches, mvp_launches, maple_launches, pl_launches,
         adapter_launches, moe_launches, cc_launches, rn_launches,
         *[r[0] for r in prompt_runs.values()],
         *[r[0] for r in er_runs.values()],
         *[r["launches"] for r in mesh["mesh_phase"]
-          if r["kind"] != "fault"])) for k in launches}
+          if r["kind"] != "fault"],
+        *[r["launches"] for r in pipeline["pipeline_phase"]
+          if r["fault"] is None])) for k in launches}
     kernels = []
     for name, pre, case_list, source, shape in (
             ("fused_ln_attention_fwd", "fwd", cases, src,
@@ -3446,6 +3878,7 @@ def main():
         log(json.dumps(g))
     log(json.dumps(remat))
     log(json.dumps(mesh))
+    log(json.dumps(pipeline))
     log(json.dumps({"gemm": gemms, "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {

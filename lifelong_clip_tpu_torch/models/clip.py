@@ -311,10 +311,13 @@ def encode_image(params, images, cfg: CLIPConfig, *,
                  peft_cfg: Optional[PEFTConfig] = None, peft=None,
                  layer_prompts=None, compute_dtype=torch.bfloat16,
                  attn_impl: str = "fused", base_grads: bool = True,
-                 remat: bool = False, moe_noise=None):
+                 remat: bool = False, moe_noise=None, depth_runner=None):
     """Vision tower. ``images``: (B, H, W, 3) normalized floats;
     ``layer_prompts``: raw KV-prefix tokens per layer; ``remat``: checkpoint
     each block (``transformer``); ``moe_noise``: (L, B, E) MoE gate noise.
+    ``depth_runner`` replaces ``transformer`` with the same signature (JAX
+    ``:380,411-420``; ``parallel/pipeline.py:pipelined_transformer``); it
+    gets ``remat`` and ``moe_noise`` only when they are set.
     The PEFT tree is cast to ``compute_dtype`` (JAX ``_cast_tree``).
     Returns the projected CLS embedding (B, embed_dim) in
     ``compute_dtype``. ``cfg.tower == "rn"`` runs the ModifiedResNet tower
@@ -328,12 +331,14 @@ def encode_image(params, images, cfg: CLIPConfig, *,
         return rn_encode_image(params, images, cfg, compute_dtype=cd)
     v = cast_tree(params["vision"], cd)
     x = vit_embed(v, images, cfg, cd)
-    x = transformer(x, v["blocks"], cfg.vision_heads,
-                    peft_cfg=peft_cfg if (peft_cfg and peft_cfg.on_vision())
-                    else None,
-                    peft=cast_tree(peft, cd), layer_prompts=layer_prompts,
-                    attn_impl=attn_impl, act=cfg.act, base_grads=base_grads,
-                    remat=remat, moe_noise=moe_noise)
+    extra = {} if moe_noise is None else {"moe_noise": moe_noise}
+    if remat:
+        extra["remat"] = True
+    x = (depth_runner or transformer)(
+        x, v["blocks"], cfg.vision_heads,
+        peft_cfg=peft_cfg if (peft_cfg and peft_cfg.on_vision()) else None,
+        peft=cast_tree(peft, cd), layer_prompts=layer_prompts,
+        attn_impl=attn_impl, act=cfg.act, base_grads=base_grads, **extra)
     pooled = layer_norm(x[:, :1], v["ln_post"])[:, 0]
     return mm32(pooled, v["proj"]).to(cd)
 

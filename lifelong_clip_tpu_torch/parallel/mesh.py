@@ -21,8 +21,9 @@ The collectives that gradients pass through are autograd Functions:
 ``reduce_from_model`` (all-reduce forward, identity backward) bracket a
 model-parallel region, ``take`` reads this rank's slice of a replicated
 leaf (its backward all-reduces the zero-filled grad, so every rank ends
-with the whole grad), ``gather_rows`` all-gathers along rows and
-``mean_over`` is a differentiable ``pmean``.
+with the whole grad), ``gather_rows`` all-gathers along rows,
+``mean_over`` is a differentiable ``pmean`` and ``ring_permute`` hands a
+tensor to the next rank of the model group (``lax.ppermute`` over a ring).
 """
 
 from __future__ import annotations
@@ -192,6 +193,18 @@ def param_split(name: str, leaf) -> Optional[int]:
     return None
 
 
+def _path_leaves(tree, fn, path=()):
+    """``fn(path, leaf)`` over a nested dict/list tree, keeping its
+    structure; ``path`` holds the keys (list indices as strings)."""
+    if isinstance(tree, dict):
+        return {k: _path_leaves(v, fn, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_path_leaves(v, fn, path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
 def shard_params(tree, mesh: Mesh):
     """The frozen towers with their block leaves cut to this rank's slice
     (JAX ``shard_params(..., tensor_parallel=True)``): ``[q | k | v]`` by
@@ -212,13 +225,57 @@ def shard_params(tree, mesh: Mesh):
                  else torch.arange(width)[head_columns(width, mesh)])
         return leaf.index_select(dim, index.to(leaf.device)).contiguous()
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: (walk(v) if isinstance(v, dict) else cut(k, v))
-                    for k, v in t.items()}
-        return t
+    return _path_leaves(tree, lambda path, leaf: cut(path[-1], leaf))
 
-    return walk(tree)
+
+def shard_params_pp(tree, mesh: Mesh, match=("vision", "blocks")):
+    """Pipeline placement (JAX ``shard_params_pp``): a leaf whose path holds
+    every name in ``match`` and whose leading (layer) dim divides the stage
+    count (the model axis) becomes this rank's contiguous slice ``[s * L/S,
+    (s + 1) * L/S)`` of its stage ``s``, a fresh leaf (trainable slices take
+    their own grads); every other leaf is kept whole. ``match=()`` cuts a
+    tree that is layer-stacked throughout (the vision LoRA subtree). With
+    one stage the tree comes back as it is."""
+    n = mesh.model
+    if n == 1:
+        return tree
+
+    def place(path, leaf):
+        if (isinstance(leaf, torch.Tensor) and leaf.dim() >= 1
+                and all(m in path for m in match) and leaf.shape[0] % n == 0):
+            k = leaf.shape[0] // n
+            cut = leaf.detach()[mesh.model_rank * k:(mesh.model_rank + 1) * k]
+            return cut.clone().requires_grad_(leaf.requires_grad)
+        return leaf
+
+    return _path_leaves(tree, place)
+
+
+@torch.no_grad()
+def gather_stages(tree, mesh: Mesh, n_layers: int,
+                  match=("vision", "blocks")):
+    """The whole tree of a staged one (``shard_params_pp``'s inverse, for
+    checks against the 1-process tree): each leaf on a matching path whose
+    leading dim is ``n_layers / S`` is all-gathered over the model group in
+    stage order; every other leaf is returned as it is (a leaf kept whole
+    whose leading dim happened to be ``n_layers / S`` would be gathered too:
+    the CLIP and PEFT trees have none). Every rank of the model group must
+    call it."""
+    n = mesh.model
+    if n == 1:
+        return tree
+
+    def join(path, leaf):
+        if (isinstance(leaf, torch.Tensor) and leaf.dim() >= 1
+                and all(m in path for m in match)
+                and leaf.shape[0] * n == n_layers):
+            x = leaf.detach().contiguous()
+            out = x.new_empty((n_layers,) + tuple(x.shape[1:]))
+            dist.all_gather_into_tensor(out, x, group=mesh.model_group)
+            return out
+        return leaf
+
+    return _path_leaves(tree, join)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -290,6 +347,29 @@ class _MeanOver(torch.autograd.Function):
         return g / ctx.n, None, None
 
 
+def _roll(x, group, n, rank, shift):
+    """Rank ``(rank - shift) % n``'s ``x`` of the group: one all-gather
+    into one tensor (the one transport that gloo takes on CPU and CUDA
+    tensors alike, and nccl too), of which this rank keeps one slice."""
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    src = (rank - shift) % n
+    return out[src * x.shape[0]:(src + 1) * x.shape[0]].clone()
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, rank):
+        ctx.group, ctx.n, ctx.rank = group, n, rank
+        return _roll(x, group, n, rank, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the inverse permutation: each grad goes back to the rank before
+        return _roll(g, ctx.group, ctx.n, ctx.rank, -1), None, None, None
+
+
 def copy_to_model(x, mesh: Mesh):
     """``x`` entering a model-parallel region: identity forward; the
     backward sums the ranks' partial grads over the model group."""
@@ -321,3 +401,13 @@ def mean_over(x, mesh: Mesh):
     """``pmean`` over the data group: the mean of the ranks' values; its
     backward averages the grads the same way."""
     return _MeanOver.apply(x, mesh.data_group, mesh.data)
+
+
+def ring_permute(x, mesh: Mesh):
+    """``x`` sent to model rank ``(s + 1) % S`` and received from ``(s - 1)
+    % S`` (JAX ``lax.ppermute`` over the ring ``[(i, (i + 1) % S)]``); the
+    backward is the inverse permutation. Every rank of the model group must
+    call it. The all-gather moves S times the bytes of a point-to-point
+    send."""
+    return _RingPermute.apply(x, mesh.model_group, mesh.model,
+                              mesh.model_rank)

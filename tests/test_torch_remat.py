@@ -2,8 +2,10 @@
 tests of it (``tests/test_engine.py:235-320``, ``tests/test_remat_flag.py``):
 remat is a pure scheduling change, so a step with it gives the loss, grads
 and updates of the step without it; ``--remat`` and ``batchsize >= 256``
-reach the lora-clip, MaPLe and mvp-clip steps; ``remat_fallback`` rebuilds
-a step once with remat after the card runs out of memory.
+reach the lora-clip, MaPLe and mvp-clip steps; the prompt trainers' and
+the ER family's (er, Finetuning, lwf with its KD step, ewc++) remat'd
+online steps equal their plain ones; ``remat_fallback`` rebuilds a step
+once with remat after the card runs out of memory.
 
 On the CPU the fused ops take their plain versions, which are
 deterministic, so remat'd and plain steps agree bit for bit. Torch only, on
@@ -193,6 +195,15 @@ def test_remat_in_the_prompt_trainers_matches_plain(tmp_path, method,
     ProtoCLIP's prompted image tower (its text passes checkpoint each layer
     whatever the flag): two online steps give the same losses and trainable
     tensors bit for bit, and only the flag adds checkpoint calls."""
+    _two_online_steps_with_and_without_remat(tmp_path, method,
+                                             checkpoint_calls)
+
+
+def _two_online_steps_with_and_without_remat(tmp_path, method,
+                                             checkpoint_calls):
+    """Two online steps of ``method``'s trainer (bs 4, fp32) without and
+    with ``--remat``: the same losses and trainable tensors bit for bit,
+    and more checkpoint calls with the flag."""
     out = {}
     for flags in ((), ("--remat",)):
         tr = _trainer(tmp_path, method, "--batchsize", "4", "--no_bf16",
@@ -210,6 +221,19 @@ def test_remat_in_the_prompt_trainers_matches_plain(tmp_path, method,
     assert plain == remat
     assert n_remat > n_plain, (n_plain, n_remat)
     assert all(torch.equal(a, b) for a, b in zip(t_plain, t_remat))
+
+
+@pytest.mark.parametrize("method", ["er", "Finetuning", "lwf", "ewc++"])
+def test_remat_in_the_er_family_matches_plain(tmp_path, method,
+                                              checkpoint_calls):
+    """``--remat`` in the ER family (JAX ``er_baseline.py:124-133``,
+    ``lwf.py:56-113``, ``ewcpp.py:73-77``): the classifier step's whole
+    forward checkpointed (Finetuning's whole trained tower with it), lwf's
+    second step its KD step (the frozen tower's one pass feeds both heads,
+    so the KD step has nothing to checkpoint), ewc++ both forwards of its
+    double update; two online steps equal the plain ones bit for bit."""
+    _two_online_steps_with_and_without_remat(tmp_path, method,
+                                             checkpoint_calls)
 
 
 class _State:

@@ -399,3 +399,144 @@ def main_under_env(rank, world, tmp, port):
                   "MASTER_PORT"):
             os.environ.pop(k, None)
     return {"summary": out, "initialized_after": dist.is_initialized()}
+
+
+# -- the depth pipeline (parallel/pipeline.py) --------------------------------
+
+def _pp_mesh(shape):
+    """The mesh of the pool's group, or the one-process (1, 1) mesh."""
+    from lifelong_clip_tpu_torch.parallel import mesh as mesh_lib
+    cpu = torch.device("cpu")
+    if tuple(shape) == (1, 1):
+        return mesh_lib.Mesh((1, 1), 0, cpu)
+    return mesh_lib.make_mesh(tuple(shape), cpu)
+
+
+def _rows_of_all(x, mesh):
+    """The data group's rows of ``x`` in rank order."""
+    from lifelong_clip_tpu_torch.parallel import mesh as mesh_lib
+    return x if mesh.data == 1 else mesh_lib.gather_rows(x, mesh)
+
+
+@contextlib.contextmanager
+def fused_calls():
+    """{'fwd', 'bwd'}: the fused block op's forward and backward calls
+    while the block runs (its plain versions on the CPU); put back after."""
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    calls = {"fwd": 0, "bwd": 0}
+    real = fba._forward, fba._backward
+
+    def fwd(*a, **kw):
+        calls["fwd"] += 1
+        return real[0](*a, **kw)
+
+    def bwd(*a, **kw):
+        calls["bwd"] += 1
+        return real[1](*a, **kw)
+
+    fba._forward, fba._backward = fwd, bwd
+    try:
+        yield calls
+    finally:
+        fba._forward, fba._backward = real
+
+
+def pp_transformer(rank, world, shape, micro, x, blocks, heads, lora=None,
+                   cot=None, attn_impl="unfused", remat=False):
+    """``pipelined_transformer`` under the ``(data, model)`` mesh
+    ``shape`` on this rank's rows of ``x`` (numpy, the whole batch) with
+    the stage's slice of ``blocks`` (and of the vision LoRA stack
+    ``lora``): the output of every row (gathered over the data group); with
+    ``cot``, the output's cotangent, also the grads of every row of ``x``
+    and of the whole LoRA stack (gathered over the stages); the fused op's
+    calls on this rank."""
+    from lifelong_clip_tpu_torch.bridge import params_from_numpy
+    from lifelong_clip_tpu_torch.config import PEFTConfig
+    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
+    from lifelong_clip_tpu_torch.parallel import mesh as mesh_lib
+    from lifelong_clip_tpu_torch.parallel.pipeline import \
+        pipelined_transformer
+    mesh = _pp_mesh(shape)
+    blk = mesh_lib.shard_params_pp(
+        {"vision": {"blocks": params_from_numpy(blocks)}},
+        mesh)["vision"]["blocks"]
+    peft = peft_cfg = None
+    if lora is not None:
+        peft = mesh_lib.shard_params_pp(params_from_numpy(lora), mesh,
+                                        match=())
+        for p in tree_leaves(peft):
+            p.requires_grad_(True)
+        peft_cfg = PEFTConfig(method="lora", encoder="image",
+                              lora_r=lora["lora"]["a_in"].shape[-1])
+    xl = mesh.local(torch.tensor(x)).requires_grad_(cot is not None)
+    with fused_calls() as calls:
+        out = pipelined_transformer(
+            xl, blk, heads, mesh=mesh, n_microbatches=micro,
+            peft_cfg=peft_cfg, peft=peft, attn_impl=attn_impl, remat=remat)
+        res = {"out": _rows_of_all(out, mesh).detach().numpy().copy()}
+        if cot is not None:
+            (out * mesh.local(torch.from_numpy(cot))).sum().backward()
+            res["gx"] = _rows_of_all(xl.grad, mesh).numpy().copy()
+            if peft is not None:
+                grads = mesh_lib.gather_stages(
+                    _grad_tree(peft), mesh, len(blocks["ln_1"]["scale"]),
+                    match=())
+                res["glora"] = flat(grads)
+    res["calls"] = dict(calls)
+    return res
+
+
+def pp_train_step(rank, world, shape, micro, cfg_kw, frozen, peft, batch,
+                  remat=False, mean=(0.5,) * 3, std=(0.25,) * 3):
+    """One lora-clip train step (image LoRA, AdamW 1e-3, fp32, the
+    ``"unfused"`` road, the train pipeline replaced by the eval
+    preprocessing) from the numpy trees ``frozen`` and ``peft`` on the
+    numpy ``batch`` (whole): under ``shape`` (M > 1) with the vision tower
+    pipelined (``make_pp_forward``) and this rank's rows, else the
+    1-process step on all of it. The loss and the whole trainable tree
+    after the step (gathered over the stages), and under a mesh one draw of
+    the rank's per-row generator (``Mesh.fold_gen``)."""
+    from lifelong_clip_tpu_torch.bridge import params_from_numpy
+    from lifelong_clip_tpu_torch.config import CLIPConfig, PEFTConfig
+    from lifelong_clip_tpu_torch.methods.engine import (TrainState,
+                                                        make_train_step)
+    from lifelong_clip_tpu_torch.parallel import mesh as mesh_lib
+    from lifelong_clip_tpu_torch.parallel.pipeline import make_pp_forward
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+    cfg = CLIPConfig(**cfg_kw)
+    peft_cfg = PEFTConfig(method="lora", encoder="image", lora_r=4)
+    frozen, trainable = params_from_numpy(frozen), params_from_numpy(peft)
+    mesh = _pp_mesh(shape) if world > 1 else None
+    fwd = dp = None
+    if mesh is not None:
+        frozen = mesh_lib.shard_params_pp(frozen, mesh)
+        trainable = mesh_lib.shard_params_pp(trainable, mesh,
+                                             match=("vision",))
+        fwd = make_pp_forward(cfg, peft_cfg, mesh, micro,
+                              compute_dtype=torch.float32,
+                              attn_impl="unfused")
+        dp = mesh if mesh.data > 1 else None
+    state = TrainState(trainable=trainable, frozen=frozen,
+                       make_opt=lambda lv: make_optimizer("adamw", lv, 1e-3),
+                       gen=torch.Generator().manual_seed(2))
+    rows = (lambda a: a) if dp is None else dp.local
+    b = {"images": rows(torch.from_numpy(batch["images"])),
+         "labels": rows(torch.from_numpy(batch["labels"]).long()),
+         "tokens": torch.from_numpy(batch["tokens"]).long(),
+         "mask": torch.from_numpy(batch["mask"])}
+    with same_pixels(), fused_calls() as calls:
+        step = make_train_step(cfg, peft_cfg, image_size=cfg.image_size,
+                               mean=mean, std=std,
+                               compute_dtype=torch.float32,
+                               attn_impl="unfused", forward_fn=fwd, dp=dp,
+                               remat=remat)
+        loss = float(step(state, b)["loss"])
+    tree = state.trainable
+    draw = None
+    if mesh is not None:
+        tree = mesh_lib.gather_stages(tree, mesh, cfg.vision_layers,
+                                      match=("vision",))
+        draw = int(torch.randint(0, 2 ** 30, (1,), generator=mesh.fold_gen(
+            torch.Generator().manual_seed(7))))
+    return {"loss": loss, "trainable": flat(tree), "calls": dict(calls),
+            "draw": draw}

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s mesh phase alone, on one card: the kernels built
-first, then every case of ``MESH_CASES`` (the data-parallel, model-axis and
-bf16 model-axis steps, the one-rank nccl step and the planted-fault
-controls) with the card's name and power limit.
+"""``chip_smoke.py``'s mesh or pipeline phase alone, on one card: the
+kernels built first, then every case of ``MESH_CASES`` (the data-parallel,
+model-axis and bf16 model-axis steps, the one-rank nccl step and the
+planted-fault controls) or of ``PP_CASES`` (lora-clip's vision tower in two
+pipeline stages: ViT-B/16 in fp32 and bf16, ViT-L/14 in bf16, and the
+planted fault), with the card's name and power limit.
 
-    python3 tools/torch_mesh_phase.py [--out FILE]
+    python3 tools/torch_mesh_phase.py [--phase mesh|pipeline] [--out FILE]
 
 Writes the phase's record as JSON to ``--out`` (default
-``chiprun_out/mesh_phase.json``) and exits 1 if a check failed.
+``chiprun_out/<phase>_phase.json``) and exits 1 if a check failed.
 """
 
 import argparse
@@ -20,9 +22,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
-                                                  "mesh_phase.json"))
+    p.add_argument("--phase", choices=("mesh", "pipeline"), default="mesh")
+    p.add_argument("--out", default=None)
     args = p.parse_args()
+    out = args.out or os.path.join(REPO, "chiprun_out",
+                                   f"{args.phase}_phase.json")
     sys.path.insert(0, REPO)
     import torch
     import chip_smoke as cs
@@ -36,15 +40,17 @@ def main():
     cs.log(card)
     _kernels.build()
     _kernels.library()
+    phase = cs.mesh_phase if args.phase == "mesh" else cs.pipeline_phase
     try:
-        res = cs.mesh_phase(card)
+        res = phase(card)
     except AssertionError as e:
-        cs.log(f"mesh phase failed: {e}")
+        cs.log(f"{args.phase} phase failed: {e}")
         return 1
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(res, f, default=str)
-    cs.log(f"mesh phase ok in {res['wall_s']:.1f} s; record in {args.out}")
+    cs.log(f"{args.phase} phase ok in {res['wall_s']:.1f} s; record in "
+           f"{out}")
     return 0
 
 
