@@ -46,8 +46,13 @@
    backward chains is logged by device ms, and each timed backward's
    attention kernels (dq, dk/dv) are split out beside the attention
    backward's bound. The timed backwards read the forward's kept
-   intermediates, as a train step does. Then the port's GEMM at the qkv,
-   out and dh shapes with the chain's epilogue terms, beside
+   intermediates, as a train step does. Each case under a 2-D mask first
+   prints what its tile map leaves live of its road (64-key tiles, 16 x
+   16 blocks, the dk/dv kernel's 32-query steps). Then the tile-map phase:
+   the suffix pass's K4 and main-path shapes with the mask's tile map and
+   with a null map (every block swept), ctx, dqkv and dkvp bit for bit
+   equal, each chain's device ms both ways. Then the port's GEMM at the
+   qkv, out and dh shapes with the chain's epilogue terms, beside
    ``torch.matmul``.
 4. Augmentation: the train pipeline alone (AutoAugment, resize + pad +
    crop, flip, normalize) at bs 64 on 32 x 32 uint8 under each policy and
@@ -656,9 +661,13 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
     errs = {k: v["max_abs_err"] for k, v in checks.items()
             if "max_abs_err" in v}
     log(f"{label}: checks {json.dumps(checks)}")
+    live_tiles = tile_liveness(mask, t, p) if mask.dim() == 2 else None
+    if live_tiles:
+        log(f"{label}: live of the road under the tile map "
+            f"{json.dumps(live_tiles)}")
     res = {"label": label, "shape": [b, t, d], "heads": heads, "prompts": p,
            "live": live, "weight_grads": weight_grads, "shared": shared,
-           "live_pairs_per_row": pairs,
+           "live_pairs_per_row": pairs, "tile_liveness": live_tiles,
            "fwd_max_abs_err": errs["y"],
            "bwd_max_abs_err": max(v for k, v in errs.items() if k != "y")}
     for pre, bwd in (("fwd", False), ("bwd", True)):
@@ -694,6 +703,71 @@ def proto_main_suffix_cases():
         f"ProtoCLIP suffix (main path), {b} x 20 x 8, lp = 25", 25, False,
         seed, time_it=time_it, shape=(b, 160, 512, 8, 25), shared=True,
         mask=mask) for b, seed, time_it in ((64, 24, True), (90, 25, False))]
+
+
+def tile_liveness(mask, t, p):
+    """What the tile map of a (T, P + T) mask leaves the prefix kernels, as
+    [live, total]: the tiled roads' 64-key tiles of each 64-query tile, the
+    16 x 16 blocks (the tiled roads' warps and the register roads' warp
+    pairs walk these), and the dk/dv kernel's 32-query steps of each 16-key
+    group; and the road S = P + T takes."""
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    buf = fba.mask_tile_map(mask)
+    tm = fba.unpack_tile_map(buf, t, p + t)[0].bool().cpu()
+    nrb, nkb = tm.shape
+    nk = -(-(p + t) // 64)
+    tiles = [bool(tm[q:q + 4, 4 * k:4 * k + 4].any())
+             for q in range(0, nrb, 4) for k in range(nk)]
+    steps = [bool(tm[r:r + 2, g].any())
+             for g in range(nkb) for r in range(0, nrb, 2)]
+    return {"road": "tiled" if 16 * nkb > 256 else "register",
+            "key_tiles_64": [sum(tiles), len(tiles)],
+            "blocks_16x16": [int(tm.sum()), nrb * nkb],
+            "dkv_steps_32": [sum(steps), len(steps)]}
+
+
+def tile_map_phase():
+    """ProtoCLIP's suffix pass at K4 (64 x 512 x 512) and at its main path's
+    shape (64 x 160 x 512), the inputs of the kernel phase's cases: the
+    prefix attention kernels with the mask's tile map and with a null map
+    (every block swept) give ctx, dqkv and dkvp bit for bit equal (a
+    difference raises), and each chain's device ms both ways in this run,
+    with the attention kernels' and the map kernel's own."""
+    import torch
+    from lifelong_clip_tpu_torch.models.proto_clip import suffix_mask
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    from lifelong_clip_tpu_torch.ops import kernel_check as kc
+    out = []
+    for label, c, seed in (("K4 suffix, 64 x 512 x 512", 64, 23),
+                           ("main-path suffix, 64 x 160 x 512", 20, 24)):
+        t, p, heads = 8 * c, 25, 8
+        mask = suffix_mask(c, 8, p, device="cuda")
+        x, pk, pv, blk, gy, _ = kc.make_prefix_inputs(64, t, 512, heads, p, p,
+                                                      seed, shared=True)
+        skip, full = (kc.prefix_attention_outputs(x, pk, pv, blk, gy, mask,
+                                                  heads, tile_map=m)
+                      for m in (True, False))
+        differ = [k for k in skip if not kc.same_bits(skip[k], full[k])]
+        res = {"label": label, "tile_liveness": tile_liveness(mask, t, p),
+               "bitwise_equal": not differ, "differ": differ}
+        args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], heads, mask)
+        bargs = (*args[:7], heads, mask, False)
+        for name, tm in (("map", True), ("null_map", False)):
+            kept = fba._keep_for_prefix_backward(fba._cuda_prefix_forward(
+                x, *args, keep=True, tile_map=tm)[1], False)
+            res[f"fwd_device_ms_{name}"], fsplit = device_split(
+                lambda: fba._cuda_prefix_forward(x, *args, tile_map=tm))
+            res[f"bwd_device_ms_{name}"], bsplit = device_split(
+                lambda: fba._cuda_prefix_backward(x, gy, *bargs, saved=kept,
+                                                  tile_map=tm))
+            res[f"kernels_device_ms_{name}"] = {
+                f"{d} {kernel_short(k)}": v
+                for d, sp in (("fwd", fsplit), ("bwd", bsplit))
+                for k, v in sp.items() if "attn" in k or "tile_map" in k}
+        log(f"tile map: {json.dumps(res)}")
+        assert not differ, f"{label}: the tile map changed {differ}"
+        out.append(res)
+    return out
 
 
 # (label, B, T, S, D, heads, mask): the prompted-LoRA block of ViT-B/16
@@ -1198,6 +1272,9 @@ def proto_main_path_phase():
     assert cache["fused_prefix_attention_fwd"] > 0 and \
         cache["fused_ln_attention_fwd"] > 0, f"text cache launches {cache}"
     assert per_pass["sweep"]["fused_ln_attention_fwd"] > 0, per_pass["sweep"]
+    # the suffix pass's 2-D mask: its chains built the tile map
+    assert all(per_pass[k]["prefix_tile_map"] > 0 for k in
+               ("train", "stage2", "cache")), per_pass
     tr = made[-1]
     means = tr._class_means[tr._have_proto]
     assert tr.task_count == 1 and int(tr._have_proto.sum()) == 20 and \
@@ -3687,6 +3764,8 @@ def main():
         "per rank of 2x1: mvp prefix, 32 rows, 5 of 20 live", 5, False, 29,
         shape=(32, 197, 768, 12, 20)))
     torch.cuda.synchronize()
+    tile_maps = tile_map_phase()
+    torch.cuda.synchronize()
 
     log(f"flash checks: o, dq, dk, dv against the plain versions within "
         f"{kc.FLASH_REL} of each output's max (bf16: beyond one bf16 ulp)")
@@ -3833,6 +3912,10 @@ def main():
             "cases": [{k: c[k] for k in c if k.startswith(pre) or k in
                        ("label", "shape", "attn_bwd_bound_ms")}
                       for c in case_list]})
+    # the prefix chains under a 2-D mask (ProtoCLIP's suffix pass) build
+    # its tile map: one launch each
+    kernels[2]["tile_map_launches"] = runs["prefix_tile_map"]
+    assert runs["prefix_tile_map"] > 0, runs
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     log(json.dumps({"lora_clip_main_path": lora_run,
@@ -3879,6 +3962,7 @@ def main():
     log(json.dumps(remat))
     log(json.dumps(mesh))
     log(json.dumps(pipeline))
+    log(json.dumps({"tile_map_phase": tile_maps, "card": card}))
     log(json.dumps({"gemm": gemms, "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {

@@ -74,6 +74,17 @@
 //     dpv = dv16 @ W_v^T (_prefix_bwd_kernel:843-852); the token rows fill
 //     dqkv16, so dh is the one dqkv16 @ W_qkv^T GEMM (:854-857 up to
 //     summation order).
+//   * Under a (T, S) mask the prefix kernels skip what the mask kills. The
+//     TPU kernels compute every tile; ProtoCLIP's block-diagonal suffix
+//     mask leaves 5.6% of a 512 x 537 score matrix live, so the full sweep
+//     was 20x (forward) and 63x (backward) its bound on an H100. Each op
+//     call builds the mask's tile map on the card (mask_tile_map_kernel,
+//     one byte per 16 x 16 block, no host sync); the tiled roads walk only
+//     the 64-key tiles live for some row of a query tile and, inside them,
+//     each warp only its live 16-key blocks; the register roads' warps skip
+//     their dead 16-key tiles; the dk/dv kernel skips each key group's dead
+//     32-query steps. Dead blocks hold p = 0 exactly, so the values are the
+//     full sweep's bit for bit; a null map is the full sweep.
 //   * The backward chains read the forward's h16, z16, qkv16, ctx16, z2
 //     (prefix: h16, qkv16, kvp16, ctx16), which the forward keeps for them.
 //   * LN (warp per row) and the LoRA factor z = h @ A (the
@@ -1024,11 +1035,189 @@ __device__ __forceinline__ void stage_mask_row(float* Ms, const float* mask,
     for (int j = tid; j < Sp; j += nthreads) Ms[j] = j < S ? mask[j] : 0.f;
 }
 
+constexpr float LOG2E = 1.4426950408889634f;
+
 template <bool ROW>
 __device__ __forceinline__ float mask_at(const float* mask, const float* Ms,
                                          int i, int j, int S, int T) {
   if constexpr (ROW) return Ms[j];
   return mask && i < T ? mask[(size_t)i * S + j] : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// Tile-liveness map of a (T, S) mask (the prefix kernels' 2-D mask, e.g.
+// ProtoCLIP's block-diagonal suffix mask, 5.6% live at 512 x 537), one
+// buffer: a byte per block of 16 query rows x 16 keys (ceil(T/16) row
+// blocks of nkb = ceil(S/16)), then, 16-byte aligned, 8 words a block.
+//   * byte 0: the block is dead. Only if every entry of it (rows < T, keys
+//     < S) is -inf, so any finite entry, NaN or +inf keeps it, and only if
+//     each of its rows has a live key somewhere: a row with no live key at
+//     all keeps its whole row of blocks, so it gets the NaN the full sweep
+//     gives it (p = exp(-inf - -inf)) and hands that NaN on to every key's
+//     dk and dv as the full sweep does. Every entry of a dead block has p =
+//     0 exactly in a row whose max is finite, so it adds exact zeros to the
+//     row sums, ctx, dq, dk and dv.
+//   * byte 2: live, and every entry is +0.0 or -inf (a causal or
+//     block-diagonal mask): the tiled roads and the dk/dv kernel take its
+//     entries from the words, 32 bits a row pair, not from the fp32 mask.
+//     Word w holds row w's 16 bits (bit c: key 16k + c is not -inf) in its
+//     low half and row w + 8's in its high half; rows past T are all ones
+//     (the kernels add 0 there, as mask_at does), keys past S zero.
+//   * byte 1: live, any other values: the kernels read the mask.
+// fmaf(s, sl2, bit ? 0 : -inf) is fmaf(s, sl2, log2(e) * m) for m = +0 or
+// -inf, so the kernels that skip dead blocks and read the bits give the
+// full sweep's values bit for bit. A null map is every block live, read
+// from the mask: the full sweep. One block of 8 warps a 16-row group reads
+// the group's rows twice (a few microseconds at 512 x 537); each op call
+// builds its map anew.
+// ---------------------------------------------------------------------------
+constexpr int TM_THREADS = 256;
+
+// Bytes of a map's byte part, 16-byte aligned: its words start there.
+__host__ __device__ inline size_t tile_map_words_at(int T, int S) {
+  return ((size_t)((T + 15) / 16) * ((S + 15) / 16) + 15) / 16 * 16;
+}
+
+__global__ void __launch_bounds__(TM_THREADS)
+mask_tile_map_kernel(const float* __restrict__ mask,
+                     unsigned char* __restrict__ tmap, int T, int S) {
+  __shared__ unsigned rows_live;   // bit r: row 16 rb + r has a live key
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rb = blockIdx.x, nkb = (S + 15) / 16;
+  unsigned* words = reinterpret_cast<unsigned*>(tmap + tile_map_words_at(T, S));
+  if (tid == 0) rows_live = 0u;
+  __syncthreads();
+  for (int r = warp; r < 16; r += TM_THREADS / 32) {
+    const int i = rb * 16 + r;
+    bool any = i >= T;   // a row past T is no row of the block
+    if (i < T)
+      for (int j = lane; j < S; j += 32)
+        any |= mask[(size_t)i * S + j] != -INFINITY;
+    if (__any_sync(0xffffffffu, any) && lane == 0) atomicOr(&rows_live, 1u << r);
+  }
+  __syncthreads();
+  const bool whole = rows_live != 0xffffu;
+  for (int kb = warp; kb < nkb; kb += TM_THREADS / 32) {
+    // lane: row r = lane / 2 of the block, keys (lane & 1) * 8 .. + 7
+    const int r = lane >> 1, i = rb * 16 + r, j0 = kb * 16 + (lane & 1) * 8;
+    unsigned bits = 0xffu;   // a row past T: every key adds 0
+    bool any = false, plain = true;
+    if (i < T) {
+      bits = 0u;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (j0 + e >= S) continue;
+        const float v = mask[(size_t)i * S + j0 + e];
+        const bool lv = v != -INFINITY;
+        any |= lv;
+        bits |= (unsigned)lv << e;
+        plain &= !lv || __float_as_uint(v) == 0u;   // -inf or +0.0
+      }
+    }
+    any = __any_sync(0xffffffffu, any);
+    plain = __all_sync(0xffffffffu, plain);
+    // the even lane's row: its 8 keys, then the odd lane's
+    const unsigned row = bits | (__shfl_xor_sync(0xffffffffu, bits, 1) << 8);
+    const unsigned row8 = __shfl_sync(0xffffffffu, row, (lane + 16) & 31);
+    if (!(lane & 1) && r < 8)
+      words[((size_t)rb * nkb + kb) * 8 + r] = (row & 0xffffu) | (row8 << 16);
+    if (lane == 0)
+      tmap[(size_t)rb * nkb + kb] = (whole || any) ? (plain ? 2 : 1) : 0;
+  }
+}
+
+// Bit k: 16-key block kb0 + k (k < n <= 32) of row block rb is live in the
+// map (every bit without one). Warp-wide (a ballot).
+__device__ __forceinline__ unsigned map_bits(const unsigned char* tmap,
+                                             int rb, int nkb, int kb0, int n,
+                                             int lane) {
+  if (!tmap) return 0xffffffffu;
+  return __ballot_sync(0xffffffffu,
+                       lane < n && tmap[(size_t)rb * nkb + kb0 + lane] != 0);
+}
+
+// The tiled roads: of the four 16-key blocks of the 64-key tile at k0, for
+// row block rb, bit kb is set where block kb is live and bit 4 + kb where
+// its entries come from the map's words (byte 2); 0xf (all live, read from
+// the mask) without MAP or without a map.
+template <bool MAP>
+__device__ __forceinline__ unsigned tile_blocks(const unsigned char* tmap,
+                                                int rb, int nkb, int k0) {
+  if constexpr (!MAP) {
+    return 0xfu;
+  } else {
+    if (!tmap) return 0xfu;
+    unsigned sub = 0u;
+    const int kb0 = k0 / 16;
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const unsigned v = kb0 + kb < nkb ? tmap[(size_t)rb * nkb + kb0 + kb] : 0u;
+      sub |= (v != 0u) << kb | (v == 2u) << (4 + kb);
+    }
+    return sub;
+  }
+}
+
+// The tiled roads: the map's words of the 16-key blocks sub marks (bits
+// 4-7) for the lane's rows g (low half) and g + 8 (high half) of row block
+// rb; 0 for the others.
+template <bool MAP>
+__device__ __forceinline__ void tile_words(unsigned (&wb)[4],
+                                           const unsigned* words, int rb,
+                                           int nkb, int k0, unsigned sub,
+                                           int g) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+    wb[kb] = MAP && ((sub >> (4 + kb)) & 1u)
+                 ? words[((size_t)rb * nkb + k0 / 16 + kb) * 8 + g] : 0u;
+}
+
+// log2(e) x the mask entry (i, j) of a tiled-road score: from the map's
+// words where sub marks its block (bit (j & 15) of the row's half: +0.0 or
+// -inf), else from the mask; e < 2 is row g, else g + 8.
+template <bool MAP, bool ROW>
+__device__ __forceinline__ float tile_mask(const float* mask, const float* Ms,
+                                           const unsigned (&wb)[4],
+                                           unsigned sub, int nt, int e, int i,
+                                           int j, int S, int T) {
+  if constexpr (MAP) {
+    if ((sub >> (4 + (nt >> 1))) & 1u)
+      return (wb[nt >> 1] >> ((e >> 1) * 16 + (j & 15))) & 1u ? 0.f : -INFINITY;
+  }
+  return LOG2E * mask_at<ROW>(mask, Ms, i, j, S, T);
+}
+
+// The tiled roads: the 64-key tiles live for some row of the 64-query tile
+// at row block rb0 (the OR of its up to 4 x 4 map bytes), in order, into
+// tl[0 .. n) with n at tl[nk], by warp 0; every thread returns n after a
+// barrier. nk (every tile, tl unread) without MAP or without a map.
+template <bool MAP>
+__device__ __forceinline__ int live_key_tiles(int* tl,
+                                              const unsigned char* tmap,
+                                              int rb0, int nrb, int nkb,
+                                              int nk, int warp, int lane) {
+  if constexpr (!MAP) {
+    return nk;
+  } else {
+    if (!tmap) return nk;
+    if (warp == 0) {
+      int cnt = 0;
+      for (int base = 0; base < nk; base += 32) {
+        const int k = base + lane;
+        bool lv = false;
+        if (k < nk)
+          for (int r = rb0; r < min(rb0 + 4, nrb); ++r)
+            for (int kb = 4 * k; kb < min(4 * k + 4, nkb); ++kb)
+              lv |= tmap[(size_t)r * nkb + kb] != 0;
+        const unsigned bal = __ballot_sync(0xffffffffu, lv);
+        if (lv) tl[cnt + __popc(bal & ((1u << lane) - 1u))] = k;
+        cnt += __popc(bal);
+      }
+      if (lane == 0) tl[nk] = cnt;
+    }
+    __syncthreads();
+    return tl[nk];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1055,7 +1244,6 @@ __device__ __forceinline__ float mask_at(const float* mask, const float* Ms,
 // ---------------------------------------------------------------------------
 constexpr int KV_CHUNK = 64;   // key rows per commit group
 constexpr int AF_PAIRS = 4, AF_THREADS = 64 * AF_PAIRS;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // cp.async.wait_group n for a count only known once a loop is unrolled
 __device__ __forceinline__ void cp_async_wait_upto3(int n) {
@@ -1071,18 +1259,19 @@ __device__ __forceinline__ void pair_sync(int pair) {
 }
 
 // s[i] (16 x 8 scores of the query fragments qa) += q k^T for this warp's
-// 8-key tiles tbase + i, i < tcnt, that lie in [lo, hi).
+// 8-key tiles tbase + i, i < tcnt, that lie in [lo, hi) and whose 16-key
+// block is live (bit i / 2 of lm).
 template <int DH, int HT>
 __device__ __forceinline__ void attn_half_scores(float (*s)[4],
                                                  unsigned (*qa)[4],
                                                  const bf16* Ks, int tbase,
                                                  int tcnt, int lo, int hi,
-                                                 int lane) {
+                                                 unsigned lm, int lane) {
   constexpr int LD = DH + 8;
 #pragma unroll
   for (int i = 0; i < HT; i += 2) {
     const int t = tbase + i;
-    if (i >= tcnt || t < lo || t >= hi) continue;
+    if (i >= tcnt || t < lo || t >= hi || !((lm >> (i >> 1)) & 1u)) continue;
 #pragma unroll
     for (int kc = 0; kc < DH / 16; ++kc) {
       unsigned kb[4];
@@ -1097,9 +1286,11 @@ __device__ __forceinline__ void attn_half_scores(float (*s)[4],
 template <int DH, int MAXNT, bool PRE, bool ROW>   // MAXNT: 8-key tiles a row holds
 __global__ void __launch_bounds__(AF_THREADS, 2)
 attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
-                const float* __restrict__ mask, bf16* __restrict__ ctx,
+                const float* __restrict__ mask,
+                const unsigned char* __restrict__ tmap, bf16* __restrict__ ctx,
                 int T, int P, int D, int Sp,
                 float scale) {
+  constexpr bool MAP = PRE && !ROW;   // a (T, S) mask may bring a tile map
   constexpr int LD = DH + 8;
   constexpr int NCH = (MAXNT * 8 + KV_CHUNK - 1) / KV_CHUNK;
   constexpr int HT = 2 * ((MAXNT / 2 + 1) / 2);   // 8-key tiles a warp holds
@@ -1114,6 +1305,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   float* red = xs + pair * 64;        // [max | sum][half][16 rows]
   float* op = xs + AF_PAIRS * 64 + pair * 1024;   // the second warp's p @ v
   float* Ms = xs + AF_PAIRS * (64 + 1024);        // a key-mask row
+  unsigned char* Mp = reinterpret_cast<unsigned char*>(Ms);   // MAP: the map
   const int g = lane >> 2, t4 = lane & 3;
   const int hd = blockIdx.x, b = blockIdx.y;
   const int S = P + T, ngroups = (T + 15) / 16;
@@ -1122,6 +1314,14 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   const int tbase = half ? 2 * h0 : 0, tcnt = half ? 2 * (npair - h0) : 2 * h0;
   const size_t rs = 3 * (size_t)D;
   const bf16* qbase = qkv + (size_t)b * T * rs + hd * DH;
+  // this warp's live 16-key blocks of group grp's rows (bit i / 2 for its
+  // tile i): the tiles a dead block holds get no product and no mask read;
+  // the map's bytes (<= 16 x 16) are staged in shared memory
+  auto live_blocks = [&](int grp) -> unsigned {
+    if constexpr (MAP) return map_bits(tmap ? Mp : nullptr, grp, npair, tbase / 2,
+                                       tcnt / 2, lane);
+    else return 0xffffffffu;
+  };
   // commit groups, oldest first: the pair's first query slab, then one per
   // K/V chunk (empty past Sp, so the count is the same for every shape)
   if (pair < ngroups)
@@ -1137,6 +1337,11 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     cp_async_commit();
   }
   stage_mask_row<ROW>(Ms, mask, S, Sp, tid, AF_THREADS);
+  if constexpr (MAP) {   // seen after the first chunk's barrier
+    if (tmap)
+      for (int x = tid; x < ngroups * npair; x += AF_THREADS) Mp[x] = tmap[x];
+  }
+  unsigned lm = 0xffffffffu;
 
   unsigned qa[DH / 16][4];
   float s[HT][4];
@@ -1152,17 +1357,20 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     __syncthreads();
     if (pair < ngroups) {
       if (c == 0) {
+        lm = live_blocks(pair);
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc)
           ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
       }
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lane);
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lm,
+                               lane);
     }
   }
 
   const float sl2 = scale * LOG2E;
   for (int grp = pair; grp < ngroups; grp += AF_PAIRS) {
     if (grp != pair) {   // a later group: K and V are all in shared memory
+      lm = live_blocks(grp);
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc)
         ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
@@ -1170,7 +1378,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
       for (int i = 0; i < HT; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lane);
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lm, lane);
     }
 
     // scale and mask in base 2 (s log2(e), so exp2 gives exp(s - max) at
@@ -1184,7 +1392,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
       for (int e = 0; e < 2; ++e) {
         const int j = (tbase + i) * 8 + 2 * t4 + e;
         float va = -INFINITY, vb = -INFINITY;
-        if (i < tcnt && j < S) {
+        if (i < tcnt && j < S && ((lm >> (i >> 1)) & 1u)) {
           va = fmaf(s[i][e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ia, j, S, T));
           vb = fmaf(s[i][2 + e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ib, j, S, T));
         }
@@ -1245,7 +1453,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
       for (int e = 0; e < 4; ++e) o[ct][e] = 0.f;
 #pragma unroll
     for (int i = 0; i < HT; i += 2) {
-      if (i >= tcnt) continue;
+      if (i >= tcnt || !((lm >> (i >> 1)) & 1u)) continue;   // p = 0 there
       unsigned pa[4];
       pa[0] = pack_bf16(s[i][0] * ila, s[i][1] * ila);
       pa[1] = pack_bf16(s[i][2] * ilb, s[i][3] * ilb);
@@ -1291,6 +1499,12 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
 // ---------------------------------------------------------------------------
 constexpr int TQ = 64;            // query (or key) rows a tile of the tiled roads
 constexpr int TT_THREADS = 128;   // tiled roads: 4 warps x 16 rows
+// The tiled roads under a tile map (MAP) hold up to this many live 64-key
+// tiles in shared memory for both passes, each loaded once, all in flight
+// together: ProtoCLIP's block-diagonal mask leaves a 64-query tile (8
+// classes) the prefix tile and the two its 64 suffix keys straddle. More
+// live tiles stream through two of the buffers as without a map.
+constexpr int TILES_HELD = 3;
 
 // cp.async.wait_group n for a count known only at run time: waiting for
 // fewer pending groups than asked is also correct
@@ -1316,17 +1530,17 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // acc (16 x 64 keys) += a . B^T: a the warp's 16-row fragments over the head
-// dim, B the 64 rows of a [key][dim] tile (16-key chunks at or past nlive
-// skipped).
+// dim, B the 64 rows of a [key][dim] tile (16-key chunks at or past nlive,
+// or whose bit in sub is clear, skipped).
 template <int DH>
 __device__ __forceinline__ void dot_rows64(float (*acc)[4],
                                            const unsigned (*a)[4],
                                            const bf16* Bs, int nlive,
-                                           int lane) {
+                                           unsigned sub, int lane) {
   constexpr int LD = DH + 8;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    if (16 * j >= nlive) continue;
+    if (16 * j >= nlive || !((sub >> j) & 1u)) continue;
 #pragma unroll
     for (int kc = 0; kc < DH / 16; ++kc) {
       unsigned kb[4];
@@ -1340,15 +1554,15 @@ __device__ __forceinline__ void dot_rows64(float (*acc)[4],
 
 // acc (16 x DH) += bf16(x) . B: x fp32 (16 x 64 keys, C fragments), rounded
 // once to bf16 as the A operand; B the [key][dim] tile x contracts over
-// (16-key chunks at or past nlive skipped).
+// (16-key chunks at or past nlive, or whose bit in sub is clear, skipped).
 template <int DH>
 __device__ __forceinline__ void mm_rows64(float (*acc)[4], const float (*x)[4],
                                           const bf16* Bs, int nlive,
-                                          int lane) {
+                                          unsigned sub, int lane) {
   constexpr int LD = DH + 8;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if (16 * c >= nlive) continue;
+    if (16 * c >= nlive || !((sub >> c) & 1u)) continue;
     unsigned a[4];
     a[0] = pack_bf16(x[2 * c][0], x[2 * c][1]);
     a[1] = pack_bf16(x[2 * c][2], x[2 * c][3]);
@@ -1380,42 +1594,69 @@ __device__ __forceinline__ void zero_acc(float (*x)[4]) {
 // row max and the row sum (the sum brought to each new max, so the second
 // pass normalises with the row's true max and sum), the second p = exp(s -
 // max) / sum normalised in fp32 and rounded once to bf16 before p @ v, as
-// _kernel:102-108. No online rescaling of p or of o.
+// _kernel:102-108. No online rescaling of p or of o. With a tile map (PRE,
+// a 2-D mask) both passes walk only the 64-key tiles live for some row of
+// the query tile: a dead tile gets no load, no q.k and no mask read. Up to
+// TILES_HELD live tiles stay in shared memory for both passes, loaded once
+// and all in flight together (more stream through two buffers, the next
+// live one prefetched). Inside a live tile each warp skips the 16-key
+// blocks dead for its 16 rows (their scores -inf, so p = 0): the products,
+// the mask reads, and their chunk of p @ v; a block of +0.0 and -inf
+// entries only takes them from the map's words, not from the mask.
 // ---------------------------------------------------------------------------
 template <int DH, bool PRE, bool ROW>
 __global__ void __launch_bounds__(TT_THREADS)
 attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
-                      const float* __restrict__ mask, bf16* __restrict__ ctx,
-                      int T, int P, int D, int Sp, float scale) {
-  constexpr int LD = DH + 8, TE = TQ * LD;
+                      const float* __restrict__ mask,
+                      const unsigned char* __restrict__ tmap,
+                      bf16* __restrict__ ctx, int T, int P, int D, int Sp,
+                      float scale) {
+  constexpr bool MAP = PRE && !ROW;
+  constexpr int LD = DH + 8, TE = TQ * LD, NBUF = MAP ? TILES_HELD : 2;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + TE;        // 2 x [key][dim]
-  bf16* Vs = Ks + 2 * TE;    // 2 x [key][dim]
-  float* Ms = reinterpret_cast<float*>(Vs + 2 * TE);   // a key-mask row
+  bf16* Ks = Qs + TE;           // NBUF x [key][dim]
+  bf16* Vs = Ks + NBUF * TE;    // NBUF x [key][dim]
+  float* Ms = reinterpret_cast<float*>(Vs + NBUF * TE);   // a key-mask row
+  int* tl = reinterpret_cast<int*>(Vs + NBUF * TE);       // MAP: live key tiles
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int hd = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * TQ;
-  const int r0 = warp * 16, S = P + T, nk = (S + TQ - 1) / TQ, total = 2 * nk;
+  const int r0 = warp * 16, S = P + T, nk = (S + TQ - 1) / TQ, nkb = Sp / 16;
   const size_t rs = 3 * (size_t)D;
   load_tile(Qs, LD, qkv + ((size_t)b * T + q0) * rs + hd * DH, rs, TQ, T - q0,
             DH, tid, TT_THREADS);
-  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, TQ, DH, tid,
-               TT_THREADS);
-  cp_async_commit();
+  const int nl = live_key_tiles<MAP>(tl, tmap, q0 / 16, (T + 15) / 16, nkb,
+                                     nk, warp, lane);
+  auto key_tile = [&](int n) { return (MAP && tmap ? tl[n] : n) * TQ; };
+  const unsigned* words = tmap ? reinterpret_cast<const unsigned*>(
+      tmap + tile_map_words_at(T, S)) : nullptr;
+  const int total = 2 * nl;
+  // held: every live tile in its own buffer for both passes, one commit
+  // group each (the first with Q); else the first tile's, the rest
+  // prefetched into the other of two buffers an iteration ahead
+  const bool held = MAP && tmap && nl <= NBUF;
+  for (int n = 0; n < (held ? nl : 1); ++n) {
+    load_kv<PRE>(Ks + n * TE, Vs + n * TE, LD, qkv, kvp, b, T, P, D, hd * DH,
+                 key_tile(n), TQ, DH, tid, TT_THREADS);
+    cp_async_commit();
+  }
   stage_mask_row<ROW>(Ms, mask, S, Sp, tid, TT_THREADS);
 
   const bool live = q0 + r0 < T;   // warp-uniform
-  const int ia = q0 + r0 + g, ib = ia + 8;
+  const int ia = q0 + r0 + g, ib = ia + 8, rb = (q0 + r0) / 16;
   const float sl2 = scale * LOG2E;
   unsigned qa[DH / 16][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, il[2] = {0.f, 0.f};
   float o[DH / 8][4], s[8][4];
   zero_acc<DH / 8>(o);
   for (int it = 0; it < total; ++it) {
-    const int pass = it >= nk, k0 = (it % nk) * TQ, buf = it & 1;
-    if (it + 1 < total) {
-      const int kn = ((it + 1) % nk) * TQ, nb = buf ^ 1;
+    const int pass = it >= nl, k0 = key_tile(it % nl);
+    const int buf = held ? it % nl : it & 1;
+    if (held) {
+      if (it < nl) cp_async_wait_dyn(nl - 1 - it);
+    } else if (it + 1 < total) {
+      const int kn = key_tile((it + 1) % nl), nb = buf ^ 1;
       load_kv<PRE>(Ks + nb * TE, Vs + nb * TE, LD, qkv, kvp, b, T, P, D,
                    hd * DH, kn, TQ, DH, tid, TT_THREADS);
       cp_async_commit();
@@ -1423,54 +1664,63 @@ attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
+    if (!held || it < nl) __syncthreads();
     if (live) {
       if (it == 0) {
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc)
           ldsm_x4(qa[kc], Qs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
       }
-      zero_acc<8>(s);
-      dot_rows64<DH>(s, qa, Ks + buf * TE, S - k0, lane);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
-          s[nt][e] = j < S ? fmaf(s[nt][e], sl2,
-                                  LOG2E * mask_at<ROW>(mask, Ms, i, j, S, T))
-                           : -INFINITY;
-        }
-      if (pass == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float cm = -INFINITY;
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-            cm = fmaxf(cm, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-          const float mn = fmaxf(m[h], quad_max(cm));
-          if (mn != -INFINITY) {
-            l[h] *= exp2f(m[h] - mn);   // 0 while m was -inf
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-              l[h] += exp2f(s[nt][2 * h] - mn) + exp2f(s[nt][2 * h + 1] - mn);
-          }
-          m[h] = mn;
-        }
-      } else {
+      const unsigned sub = tile_blocks<MAP>(tmap, rb, nkb, k0);
+      // a tile dead for all 16 rows leaves m and l as they are (exp2 of -inf
+      // is 0) and adds nothing to o
+      if (sub & 0xfu) {
+        unsigned wb[4];
+        tile_words<MAP>(wb, words, rb, nkb, k0, sub, g);
+        zero_acc<8>(s);
+        dot_rows64<DH>(s, qa, Ks + buf * TE, S - k0, sub, lane);
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[nt][e] = exp2f(s[nt][e] - m[e >> 1]) * il[e >> 1];   // p, fp32
-        mm_rows64<DH>(o, s, Vs + buf * TE, S - k0, lane);
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
+            s[nt][e] = j < S && ((sub >> (nt >> 1)) & 1u)
+                           ? fmaf(s[nt][e], sl2,
+                                  tile_mask<MAP, ROW>(mask, Ms, wb, sub, nt,
+                                                      e, i, j, S, T))
+                           : -INFINITY;
+          }
+        if (pass == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float cm = -INFINITY;
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+              cm = fmaxf(cm, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+            const float mn = fmaxf(m[h], quad_max(cm));
+            if (mn != -INFINITY) {
+              l[h] *= exp2f(m[h] - mn);   // 0 while m was -inf
+#pragma unroll
+              for (int nt = 0; nt < 8; ++nt)
+                l[h] += exp2f(s[nt][2 * h] - mn) + exp2f(s[nt][2 * h + 1] - mn);
+            }
+            m[h] = mn;
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[nt][e] = exp2f(s[nt][e] - m[e >> 1]) * il[e >> 1];   // p, fp32
+          mm_rows64<DH>(o, s, Vs + buf * TE, S - k0, sub, lane);
+        }
       }
-      if (it == nk - 1) {
+      if (it == nl - 1) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) il[h] = 1.f / quad_sum(l[h]);
       }
     }
-    __syncthreads();   // the buffer read here is refilled next iteration
+    if (!held) __syncthreads();   // the buffer read here is refilled next
   }
   if (!live) return;
 #pragma unroll
@@ -1509,18 +1759,27 @@ attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp
 //     * tiled road (S > 256), attn_bwd_dq_tiled_kernel: grid (ceil(T/64), H,
 //       B), K and V streamed in double-buffered 64-key tiles over two
 //       passes: the row max, sum l and t = sum(dp * e), both brought to each
-//       new max (delta = t / l); then ds and dq.
+//       new max (delta = t / l); then ds and dq. Under a tile map
+//       (attn_bwd_dq_tiled_map_kernel) the live tiles and blocks only, as
+//       the tiled forward.
 //   dk/dv kernel (any S), attn_bwd_dkv_kernel: one block per (head, batch
 //     row), 4 warps over 16-key groups, two blocks an SM (8 warps, one
-//     block an SM, took 0.151 ms where 4 take 0.130, as above). Q, dctx
-//     and the row statistics come in 64-query cp.async chunks, held for
-//     the whole block where shared memory allows (else streamed again for
-//     each round of key groups).
+//     block an SM, took 0.151 ms where 4 take 0.130, as above); under a
+//     tile map (PRE, a 2-D mask) 8 warps where one block fills the SM's
+//     shared memory anyway (ProtoCLIP's K4), and, every chunk resident,
+//     the warps wait for all of them once and then run free, each taking
+//     the next key group from a counter, so the few live steps of most
+//     groups spread over the warps while the dense prefix groups run. Q,
+//     dctx and the row statistics come in 64-query cp.async chunks, held
+//     for the whole block where shared memory allows (else streamed again
+//     for each round of key groups).
 //     With keys as rows, s^T = k q^T and dp^T = v dctx^T come out in the
 //     layout the next products take as their A operand: p^T = exp2(s^T *
 //     scale * log2(e) + mask * log2(e) - m2) * (1/l), no division, and dv +=
 //     p16^T dctx, dk += ds16^T q. A key-mask row is read once a key group; a
-//     (T, S) mask is staged 32 x 16 a step in the warp's shared memory.
+//     (T, S) mask is staged 32 x 16 a step in the warp's shared memory, or,
+//     under a tile map, a step whose two blocks are dead skipped and one
+//     whose blocks hold only +0.0 and -inf taken from the map's words.
 // Writes dqkv16 (B*T, 3D) bf16 and, when dqkv32 != nullptr, the fp32 values.
 // With PRE, dk and dv of the P prefix keys go to dkvp16 (B*P, 2D: dK | dV)
 // and, when dkvp32 != nullptr, its fp32 twin. A dead key (mask -inf) has p =
@@ -1533,9 +1792,11 @@ __global__ void __launch_bounds__(DQ_THREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                    const bf16* __restrict__ dctx,
                    const float* __restrict__ mask,
+                   const unsigned char* __restrict__ tmap,
                    bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
                    float4* __restrict__ stats, int T, int P, int D, int Sp,
                    float scale) {
+  constexpr bool MAP = PRE && !ROW;
   constexpr int LD = DH + 8;
   constexpr int NCH = (MAXNT * 8 + KV_CHUNK - 1) / KV_CHUNK;
   constexpr int HT = 2 * ((MAXNT / 2 + 1) / 2);   // 8-key tiles a warp holds
@@ -1551,6 +1812,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   float* red = xs + pair * 96;        // [max | sum | delta][half][16 rows]
   float* op = xs + DQ_PAIRS * 96 + pair * DH * 16;   // the second warp's dq
   float* Ms = xs + DQ_PAIRS * (96 + DH * 16);        // a key-mask row
+  unsigned char* Mp = reinterpret_cast<unsigned char*>(Ms);   // MAP: the map
   const int g = lane >> 2, t4 = lane & 3;
   const int hd = blockIdx.x, b = blockIdx.y, H = gridDim.x;
   const int S = P + T, ngroups = (T + 15) / 16;
@@ -1559,6 +1821,12 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   const size_t rs = 3 * (size_t)D;
   const bf16* qbase = qkv + (size_t)b * T * rs + hd * DH;
   const bf16* gbase = dctx + (size_t)b * T * D + hd * DH;
+  // as the forward: this warp's live 16-key blocks of group grp's rows
+  auto live_blocks = [&](int grp) -> unsigned {
+    if constexpr (MAP) return map_bits(tmap ? Mp : nullptr, grp, npair, tbase / 2,
+                                       tcnt / 2, lane);
+    else return 0xffffffffu;
+  };
   auto load_slabs = [&](int grp) {
     load_tile(Qp, LD, qbase + (size_t)grp * 16 * rs, rs, 16, T - grp * 16, DH,
               tid & 63, 64);
@@ -1578,6 +1846,11 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     cp_async_commit();
   }
   stage_mask_row<ROW>(Ms, mask, S, Sp, tid, DQ_THREADS);
+  if constexpr (MAP) {   // seen after the first chunk's barrier
+    if (tmap)
+      for (int x = tid; x < ngroups * npair; x += DQ_THREADS) Mp[x] = tmap[x];
+  }
+  unsigned lm = 0xffffffffu;
 
   unsigned qa[DH / 16][4], da[DH / 16][4];
   float s[HT][4];
@@ -1589,13 +1862,15 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     __syncthreads();
     if (pair < ngroups) {
       if (c == 0) {
+        lm = live_blocks(pair);
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc) {
           ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
           ldsm_x4(da[kc], Gp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
         }
       }
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lane);
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lm,
+                               lane);
     }
   }
 
@@ -1603,15 +1878,17 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   float4* st = stats + ((size_t)b * H + hd) * (size_t)(ngroups * 16);
   for (int grp = pair; grp < ngroups; grp += DQ_PAIRS) {
     if (grp != pair) {   // a later group: K and V are all in shared memory
+      lm = live_blocks(grp);
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc) {
         ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
         ldsm_x4(da[kc], Gp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
       }
       zero_acc<HT>(s);
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lane);
+      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lm, lane);
     }
     // scale and mask in base 2, this warp's half of the row max, the pair's
+    // (a dead 16-key block: -inf, p = 0, dp = 0, no mask read)
     const int ia = grp * 16 + g, ib = ia + 8;
     float ma = -INFINITY, mb = -INFINITY;
 #pragma unroll
@@ -1620,7 +1897,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
       for (int e = 0; e < 2; ++e) {
         const int j = (tbase + i) * 8 + 2 * t4 + e;
         float va = -INFINITY, vb = -INFINITY;
-        if (i < tcnt && j < S) {
+        if (i < tcnt && j < S && ((lm >> (i >> 1)) & 1u)) {
           va = fmaf(s[i][e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ia, j, S, T));
           vb = fmaf(s[i][2 + e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ib, j, S, T));
         }
@@ -1639,7 +1916,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     // dp = dctx v^T for this warp's keys while the maxima cross
     float dp[HT][4];
     zero_acc<HT>(dp);
-    attn_half_scores<DH, HT>(dp, da, Vs, tbase, tcnt, 0, MAXNT, lane);
+    attn_half_scores<DH, HT>(dp, da, Vs, tbase, tcnt, 0, MAXNT, lm, lane);
     pair_sync(pair);   // both halves' maxima, and both warps have read the slabs
     ma = fmaxf(ma, red[(half ^ 1) * 16 + g]);
     mb = fmaxf(mb, red[(half ^ 1) * 16 + g + 8]);
@@ -1694,7 +1971,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     zero_acc<DH / 8>(dq);
 #pragma unroll
     for (int i = 0; i < HT; i += 2) {
-      if (i >= tcnt) continue;
+      if (i >= tcnt || !((lm >> (i >> 1)) & 1u)) continue;   // ds = 0 there
       unsigned sa[4];
       sa[0] = pack_bf16(s[i][0] * (dp[i][0] - dla), s[i][1] * (dp[i][1] - dla));
       sa[1] = pack_bf16(s[i][2] * (dp[i][2] - dlb), s[i][3] * (dp[i][3] - dlb));
@@ -1747,37 +2024,48 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
 }
 
 template <int DH, bool PRE, bool ROW>
-__global__ void __launch_bounds__(TT_THREADS)
-attn_bwd_dq_tiled_kernel(const bf16* __restrict__ qkv,
-                         const bf16* __restrict__ kvp,
-                         const bf16* __restrict__ dctx,
-                         const float* __restrict__ mask,
-                         bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
-                         float4* __restrict__ stats, int T, int P, int D,
-                         int Sp, float scale) {
-  constexpr int LD = DH + 8, TE = TQ * LD;
+__device__ __forceinline__ void
+attn_bwd_dq_tiled(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
+                  const bf16* __restrict__ dctx, const float* __restrict__ mask,
+                  const unsigned char* __restrict__ tmap,
+                  bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
+                  float4* __restrict__ stats, int T, int P, int D, int Sp,
+                  float scale) {
+  constexpr bool MAP = PRE && !ROW;
+  constexpr int LD = DH + 8, TE = TQ * LD, NBUF = MAP ? TILES_HELD : 2;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Gs = Qs + TE;
-  bf16* Ks = Gs + TE;        // 2 x [key][dim]
-  bf16* Vs = Ks + 2 * TE;    // 2 x [key][dim]
-  float* Ms = reinterpret_cast<float*>(Vs + 2 * TE);   // a key-mask row
+  bf16* Ks = Gs + TE;           // NBUF x [key][dim]
+  bf16* Vs = Ks + NBUF * TE;    // NBUF x [key][dim]
+  float* Ms = reinterpret_cast<float*>(Vs + NBUF * TE);   // a key-mask row
+  int* tl = reinterpret_cast<int*>(Vs + NBUF * TE);       // MAP: live key tiles
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int hd = blockIdx.y, b = blockIdx.z, H = gridDim.y, q0 = blockIdx.x * TQ;
-  const int r0 = warp * 16, S = P + T, nk = (S + TQ - 1) / TQ, total = 2 * nk;
+  const int r0 = warp * 16, S = P + T, nk = (S + TQ - 1) / TQ, nkb = Sp / 16;
   const size_t rs = 3 * (size_t)D;
   load_tile(Qs, LD, qkv + ((size_t)b * T + q0) * rs + hd * DH, rs, TQ, T - q0,
             DH, tid, TT_THREADS);
   load_tile(Gs, LD, dctx + ((size_t)b * T + q0) * D + hd * DH, D, TQ, T - q0,
             DH, tid, TT_THREADS);
-  load_kv<PRE>(Ks, Vs, LD, qkv, kvp, b, T, P, D, hd * DH, 0, TQ, DH, tid,
-               TT_THREADS);
-  cp_async_commit();
+  // as the tiled forward: the live key tiles only, in both passes
+  const int nl = live_key_tiles<MAP>(tl, tmap, q0 / 16, (T + 15) / 16, nkb,
+                                     nk, warp, lane);
+  auto key_tile = [&](int n) { return (MAP && tmap ? tl[n] : n) * TQ; };
+  const unsigned* words = tmap ? reinterpret_cast<const unsigned*>(
+      tmap + tile_map_words_at(T, S)) : nullptr;
+  const int total = 2 * nl;
+  const bool held = MAP && tmap && nl <= NBUF;   // as the tiled forward
+  for (int n = 0; n < (held ? nl : 1); ++n) {
+    load_kv<PRE>(Ks + n * TE, Vs + n * TE, LD, qkv, kvp, b, T, P, D, hd * DH,
+                 key_tile(n), TQ, DH, tid, TT_THREADS);
+    cp_async_commit();
+  }
   stage_mask_row<ROW>(Ms, mask, S, Sp, tid, TT_THREADS);
 
   const bool live = q0 + r0 < T;   // warp-uniform
-  const int ia = q0 + r0 + g, ib = ia + 8;
+  const int ia = q0 + r0 + g, ib = ia + 8, rb = (q0 + r0) / 16;
   const float sl2 = scale * LOG2E;
   unsigned qa[DH / 16][4], ga[DH / 16][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
@@ -1785,9 +2073,12 @@ attn_bwd_dq_tiled_kernel(const bf16* __restrict__ qkv,
   float dq[DH / 8][4], s[8][4], dp[8][4];
   zero_acc<DH / 8>(dq);
   for (int it = 0; it < total; ++it) {
-    const int pass = it >= nk, k0 = (it % nk) * TQ, buf = it & 1;
-    if (it + 1 < total) {
-      const int kn = ((it + 1) % nk) * TQ, nb = buf ^ 1;
+    const int pass = it >= nl, k0 = key_tile(it % nl);
+    const int buf = held ? it % nl : it & 1;
+    if (held) {
+      if (it < nl) cp_async_wait_dyn(nl - 1 - it);
+    } else if (it + 1 < total) {
+      const int kn = key_tile((it + 1) % nl), nb = buf ^ 1;
       load_kv<PRE>(Ks + nb * TE, Vs + nb * TE, LD, qkv, kvp, b, T, P, D,
                    hd * DH, kn, TQ, DH, tid, TT_THREADS);
       cp_async_commit();
@@ -1795,7 +2086,7 @@ attn_bwd_dq_tiled_kernel(const bf16* __restrict__ qkv,
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
+    if (!held || it < nl) __syncthreads();
     if (live) {
       if (it == 0) {
 #pragma unroll
@@ -1804,54 +2095,63 @@ attn_bwd_dq_tiled_kernel(const bf16* __restrict__ qkv,
           ldsm_x4(ga[kc], Gs + (r0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
         }
       }
-      const bf16* Kb = Ks + buf * TE;
-      zero_acc<8>(s);
-      zero_acc<8>(dp);
-      dot_rows64<DH>(s, qa, Kb, S - k0, lane);
-      dot_rows64<DH>(dp, ga, Vs + buf * TE, S - k0, lane);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
-          s[nt][e] = j < S ? fmaf(s[nt][e], sl2,
-                                  LOG2E * mask_at<ROW>(mask, Ms, i, j, S, T))
-                           : -INFINITY;
-        }
-      if (pass == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float cm = -INFINITY;
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-            cm = fmaxf(cm, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-          const float mn = fmaxf(m[h], quad_max(cm));
-          if (mn != -INFINITY) {
-            const float f = exp2f(m[h] - mn);   // 0 while m was -inf
-            l[h] *= f;
-            t[h] *= f;
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float ev = exp2f(s[nt][2 * h + e] - mn);
-                l[h] += ev;
-                t[h] = fmaf(dp[nt][2 * h + e], ev, t[h]);
-              }
-          }
-          m[h] = mn;
-        }
-      } else {
+      // a 16-key block dead for the warp's rows: s = -inf, dp = 0, so e = 0
+      // leaves l and t as they are and ds adds nothing to dq
+      const unsigned sub = tile_blocks<MAP>(tmap, rb, nkb, k0);
+      if (sub & 0xfu) {
+        unsigned wb[4];
+        tile_words<MAP>(wb, words, rb, nkb, k0, sub, g);
+        const bf16* Kb = Ks + buf * TE;
+        zero_acc<8>(s);
+        zero_acc<8>(dp);
+        dot_rows64<DH>(s, qa, Kb, S - k0, sub, lane);
+        dot_rows64<DH>(dp, ga, Vs + buf * TE, S - k0, sub, lane);
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1;
-            s[nt][e] = exp2f(s[nt][e] - m[h]) * il[h] * (dp[nt][e] - dl[h]);
+            const int i = e < 2 ? ia : ib, j = k0 + nt * 8 + 2 * t4 + (e & 1);
+            s[nt][e] = j < S && ((sub >> (nt >> 1)) & 1u)
+                           ? fmaf(s[nt][e], sl2,
+                                  tile_mask<MAP, ROW>(mask, Ms, wb, sub, nt,
+                                                      e, i, j, S, T))
+                           : -INFINITY;
           }
-        mm_rows64<DH>(dq, s, Kb, S - k0, lane);   // ds16 k
+        if (pass == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float cm = -INFINITY;
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+              cm = fmaxf(cm, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+            const float mn = fmaxf(m[h], quad_max(cm));
+            if (mn != -INFINITY) {
+              const float f = exp2f(m[h] - mn);   // 0 while m was -inf
+              l[h] *= f;
+              t[h] *= f;
+#pragma unroll
+              for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float ev = exp2f(s[nt][2 * h + e] - mn);
+                  l[h] += ev;
+                  t[h] = fmaf(dp[nt][2 * h + e], ev, t[h]);
+                }
+            }
+            m[h] = mn;
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int h = e >> 1;
+              s[nt][e] = exp2f(s[nt][e] - m[h]) * il[h] * (dp[nt][e] - dl[h]);
+            }
+          mm_rows64<DH>(dq, s, Kb, S - k0, sub, lane);   // ds16 k
+        }
       }
-      if (it == nk - 1) {
+      if (it == nl - 1) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           il[h] = 1.f / quad_sum(l[h]);
@@ -1859,7 +2159,7 @@ attn_bwd_dq_tiled_kernel(const bf16* __restrict__ qkv,
         }
       }
     }
-    __syncthreads();   // the buffer read here is refilled next iteration
+    if (!held) __syncthreads();   // the buffer read here is refilled next
   }
   if (!live) return;
   const int t16 = (T + 15) / 16 * 16;
@@ -1881,7 +2181,33 @@ attn_bwd_dq_tiled_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-constexpr int DKV_WARPS = 4, DKV_THREADS = 32 * DKV_WARPS;
+#define LLC_DQ_TILED_ARGS                                                     \
+  const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,                 \
+      const bf16* __restrict__ dctx, const float* __restrict__ mask,          \
+      const unsigned char* __restrict__ tmap, bf16* __restrict__ dqkv16,      \
+      float* __restrict__ dqkv32, float4* __restrict__ stats, int T, int P,   \
+      int D, int Sp, float scale
+template <int DH, bool PRE, bool ROW>
+__global__ void __launch_bounds__(TT_THREADS)
+attn_bwd_dq_tiled_kernel(LLC_DQ_TILED_ARGS) {
+  attn_bwd_dq_tiled<DH, PRE, ROW>(qkv, kvp, dctx, mask, tmap, dqkv16, dqkv32,
+                                  stats, T, P, D, Sp, scale);
+}
+
+// The same under a tile map (PRE, a 2-D mask), three blocks an SM: at ~190
+// registers a thread only two fit, and the few live tiles leave each block
+// waiting on its loads, which a third block covers (faster at ProtoCLIP's
+// K4 on an H100). A wrapper of its own keeps the bound off the other roads.
+template <int DH>
+__global__ void __launch_bounds__(TT_THREADS, 3)
+attn_bwd_dq_tiled_map_kernel(LLC_DQ_TILED_ARGS) {
+  attn_bwd_dq_tiled<DH, true, false>(qkv, kvp, dctx, mask, tmap, dqkv16,
+                                     dqkv32, stats, T, P, D, Sp, scale);
+}
+#undef LLC_DQ_TILED_ARGS
+
+constexpr int DKV_WARPS = 4;       // a block's warps (key groups at once)
+constexpr int DKV_MAP_WARPS = 8;   // ... under a tile map (the PRE 2-D mask)
 
 // Bytes of one 64-query chunk of the dk/dv kernel: q and dctx [query][dim]
 // bf16, and the float4 statistics.
@@ -1889,15 +2215,17 @@ __host__ __device__ constexpr size_t dkv_chunk_bytes(int dh) {
   return (size_t)TQ * (dh + 8) * 2 * sizeof(bf16) + (size_t)TQ * sizeof(float4);
 }
 
-template <int DH, bool PRE, bool ROW>
-__global__ void __launch_bounds__(DKV_THREADS, 1)
+template <int DH, bool PRE, bool ROW, int NW>
+__global__ void __launch_bounds__(32 * NW, 1)
 attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                     const bf16* __restrict__ dctx,
                     const float* __restrict__ mask,
+                    const unsigned char* __restrict__ tmap,
                     bf16* __restrict__ dqkv16,
                     float* __restrict__ dqkv32, bf16* __restrict__ dkvp16,
                     float* __restrict__ dkvp32, const float4* __restrict__ stats,
                     int T, int P, int D, int Sp, int NB, float scale) {
+  constexpr bool MAP = PRE && !ROW;
   constexpr int LD = DH + 8, TE = TQ * LD;
   constexpr size_t CHUNK = dkv_chunk_bytes(DH);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1906,23 +2234,33 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   const int hd = blockIdx.x, b = blockIdx.y, H = gridDim.x;
   const int S = P + T, t16 = (T + 15) / 16 * 16;
   const int nq = (T + TQ - 1) / TQ, ngroups = Sp / 16;
-  const int rounds = (ngroups + DKV_WARPS - 1) / DKV_WARPS;
+  const int rounds = (ngroups + NW - 1) / NW;
   const bool resident = NB >= nq;   // every chunk held for the whole block
   const int nload = resident ? nq : rounds * nq;
   const size_t rs = 3 * (size_t)D;
   const bool mat = mask && !ROW;    // a (T, S) matrix
   float* Mt = reinterpret_cast<float*>(smem + NB * CHUNK) + warp * 32 * 17;
+  // MAP with every chunk resident: the warps wait for all chunks once, then
+  // run free, each taking the next key group from a counter after its
+  // first, so the cheap groups a tile map leaves (a few live steps) spread
+  // over the warps while the dense ones (the prefix keys) run
+  const bool queue = MAP && resident;
+  int* next_group = reinterpret_cast<int*>(
+      smem + NB * CHUNK + (mat ? (size_t)NW * 32 * 17 * sizeof(float) : 0));
+  if (queue && tid == 0) *next_group = NW;   // seen after the barrier below
+  const unsigned* words = tmap ? reinterpret_cast<const unsigned*>(
+      tmap + tile_map_words_at(T, S)) : nullptr;
   const float4* gst = stats + ((size_t)b * H + hd) * (size_t)t16;
   auto qs = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * CHUNK); };
   auto issue = [&](int li) {   // chunk load li (in consumption order)
     const int c = li % nq, buf = li % NB, q0 = c * TQ;
     bf16* Qb = qs(buf);
     load_tile(Qb, LD, qkv + ((size_t)b * T + q0) * rs + hd * DH, rs, TQ,
-              T - q0, DH, tid, DKV_THREADS);
+              T - q0, DH, tid, 32 * NW);
     load_tile(Qb + TE, LD, dctx + ((size_t)b * T + q0) * D + hd * DH, D, TQ,
-              T - q0, DH, tid, DKV_THREADS);
+              T - q0, DH, tid, 32 * NW);
     float4* Sb = reinterpret_cast<float4*>(Qb + 2 * TE);
-    for (int r = tid; r < TQ; r += DKV_THREADS) {
+    for (int r = tid; r < TQ; r += 32 * NW) {
       const bool ok = q0 + r < t16;
       cp_async16(Sb + r, ok ? gst + q0 + r : gst, ok);
     }
@@ -1931,9 +2269,22 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   int issued = 0;
   for (; issued < min(NB, nload); ++issued) issue(issued);
 
+  if (queue) {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
   const float sl2 = scale * LOG2E;
-  for (int r = 0; r < rounds; ++r) {
-    const int grp = r * DKV_WARPS + warp, j0 = grp * 16;
+  for (int r = 0;; ++r) {
+    int grp = r * NW + warp;
+    if (queue && r > 0) {
+      int gq = 0;
+      if (lane == 0) gq = atomicAdd(next_group, 1);
+      grp = __shfl_sync(0xffffffffu, gq, 0);
+      if (grp >= ngroups) break;
+    } else if (r >= rounds) {
+      break;
+    }
+    const int j0 = grp * 16;
     const bool live = grp < ngroups;   // warp-uniform
     const int ja = j0 + g, jb = ja + 8;
     const bool oka = ja < S, okb = jb < S;
@@ -1969,7 +2320,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     }
     for (int c = 0; c < nq; ++c) {
       const int li = resident ? c : r * nq + c;
-      if (!resident || r == 0) {
+      if (!resident || (r == 0 && !queue)) {
         cp_async_wait_dyn(issued - li - 1);
         __syncthreads();
       }
@@ -1980,7 +2331,28 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
         // 32 queries a step: two k16 halves whose products interleave
         for (int lq = 0; lq < TQ && c * TQ + lq < T; lq += 32) {
           const int qb = c * TQ + lq;
-          if (mat) {   // the (32 queries x 16 keys) mask tile, log2(e)-scaled
+          // MAP: the step's two row blocks dead for the group's keys: p = 0,
+          // nothing to add; each dead or plain (map byte 0 or 2): the
+          // entries come from the map's words, a lane x < 16 holding word
+          // x & 7 of row block qb / 16 + x / 8 (rows past T all ones)
+          bool from_words = false;
+          unsigned wq = 0u;
+          if constexpr (MAP) {
+            if (tmap) {
+              const int rb = qb >> 4;
+              const unsigned v0 = tmap[(size_t)rb * ngroups + grp];
+              const unsigned v1 = 16 * (rb + 1) < T
+                                      ? tmap[(size_t)(rb + 1) * ngroups + grp] : 0u;
+              if (!v0 && !v1) continue;
+              from_words = v0 != 1u && v1 != 1u;
+              if (from_words) {
+                const int rx = rb + ((lane >> 3) & 1);
+                wq = 16 * rx < T ? words[((size_t)rx * ngroups + grp) * 8 + (lane & 7)]
+                                 : 0xffffffffu;
+              }
+            }
+          }
+          if (mat && !from_words) {   // the (32 queries x 16 keys) mask tile, log2(e)-scaled
             __syncwarp();
             for (int x = lane; x < 512; x += 32) {
               const int i = qb + (x >> 4), j = j0 + (x & 15);
@@ -2016,12 +2388,21 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
             for (int e = 0; e < 2; ++e) {
               const int rq = 8 * n + 2 * t4 + e;
               const float4 q = Sb[lq + rq];   // (m2, 1/l, delta)
+              // row rq's 16 bits (from_words: a warp-uniform branch)
+              const unsigned wr =
+                  MAP && from_words
+                      ? __shfl_sync(0xffffffffu, wq, (rq >> 4) * 8 + (rq & 7)) >>
+                            (((rq >> 3) & 1) * 16)
+                      : 0u;
 #pragma unroll
               for (int w = 0; w < 2; ++w) {   // w = 0: key ja, 1: key jb
                 float pv = 0.f;
                 if (w ? okb : oka) {
-                  const float mv = ROW ? (w ? mkb : mka)
-                                       : (mat ? Mt[rq * 17 + g + 8 * w] : 0.f);
+                  const float mv =
+                      ROW ? (w ? mkb : mka)
+                          : MAP && from_words
+                                ? ((wr >> (g + 8 * w)) & 1u ? 0.f : -INFINITY)
+                                : (mat ? Mt[rq * 17 + g + 8 * w] : 0.f);
                   pv = exp2f(fmaf(sT[n][2 * w + e], sl2, mv) - q.x) * q.y;
                 }
                 sT[n][2 * w + e] = pv;
@@ -2113,34 +2494,40 @@ static int max_smem_optin() {
 }
 
 // K, V, the 4 pairs' query slabs, their row-max and row-sum exchange and
-// partial p @ v, plus the key-mask row with ROW
-static size_t attn_fwd_smem(int Sp, int dh, bool row) {
+// partial p @ v, plus the key-mask row with ROW or the tile map's bytes
+// (<= 16 x 16 up to 256 keys) with map
+static size_t attn_fwd_smem(int Sp, int dh, bool row, bool map) {
   return (size_t)(2 * Sp + 16 * AF_PAIRS) * (dh + 8) * sizeof(bf16) +
          (size_t)AF_PAIRS * (64 + 1024) * sizeof(float) +
-         (row ? (size_t)Sp * sizeof(float) : 0);
+         (row ? (size_t)Sp * sizeof(float) : 0) + (map ? 256 : 0);
 }
 
 // K, V, the 4 pairs' q and dctx slabs, their max / sum / delta exchange and
-// partial dq, plus the key-mask row with ROW
-static size_t attn_bwd_dq_smem(int Sp, int dh, bool row) {
+// partial dq, plus the key-mask row with ROW or the tile map's bytes with
+// map
+static size_t attn_bwd_dq_smem(int Sp, int dh, bool row, bool map) {
   return (size_t)(2 * Sp + 32 * DQ_PAIRS) * (dh + 8) * sizeof(bf16) +
          (size_t)DQ_PAIRS * (96 + dh * 16) * sizeof(float) +
-         (row ? (size_t)Sp * sizeof(float) : 0);
+         (row ? (size_t)Sp * sizeof(float) : 0) + (map ? 256 : 0);
 }
 
-// the tiled roads: ``tiles`` 64-row bf16 tiles plus the key-mask row
-static size_t attn_tiled_smem(int tiles, int Sp, int dh, bool row) {
+// the tiled roads: ``tiles`` 64-row bf16 tiles plus the key-mask row (ROW)
+// or the list of live key tiles and its count (MAP: PRE without ROW)
+static size_t attn_tiled_smem(int tiles, int Sp, int dh, bool row, bool map) {
   return (size_t)tiles * TQ * (dh + 8) * sizeof(bf16) +
-         (row ? (size_t)Sp * sizeof(float) : 0);
+         (row ? (size_t)Sp * sizeof(float) : 0) +
+         (map ? (size_t)((Sp + TQ - 1) / TQ + 1) * sizeof(int) : 0);
 }
 
 // Shared arguments of the attention launches. Without a prefix P = 0 and
-// kvp, dkvp16 and dkvp32 are null.
+// kvp, dkvp16 and dkvp32 are null; tmap (the tile map of a 2-D mask) is
+// read by the PRE kernels without ROW only, null there meaning every block.
 struct AttnArgs {
   const bf16* qkv;
   const bf16* kvp;
   const bf16* dctx;
   const float* mask;
+  const unsigned char* tmap;
   bf16* ctx;
   bf16* dqkv16;
   float* dqkv32;
@@ -2154,22 +2541,50 @@ struct AttnArgs {
 template <int DH, int MAXNT, bool PRE, bool ROW>
 static int launch_attn_fwd_nt(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
-  const size_t smem = attn_fwd_smem(Sp, DH, ROW);
+  const size_t smem = attn_fwd_smem(Sp, DH, ROW, PRE && !ROW);
   raise_smem(attn_fwd_kernel<DH, MAXNT, PRE, ROW>, smem);
   attn_fwd_kernel<DH, MAXNT, PRE, ROW><<<dim3(a.H, a.B), AF_THREADS, smem, s>>>(
-      a.qkv, a.kvp, a.mask, a.ctx, a.T, a.P, a.D, Sp, a.scale);
+      a.qkv, a.kvp, a.mask, a.tmap, a.ctx, a.T, a.P, a.D, Sp, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <int DH, bool PRE, bool ROW>
 static int launch_attn_fwd_tiled(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
-  const size_t smem = attn_tiled_smem(5, Sp, DH, ROW);
+  // Q and NBUF buffers of K and V (two; TILES_HELD under a tile map)
+  const size_t smem = attn_tiled_smem(PRE && !ROW ? 1 + 2 * TILES_HELD : 5, Sp,
+                                      DH, ROW, PRE && !ROW);
   if (smem > (size_t)max_smem_optin()) return (int)cudaErrorInvalidValue;
   raise_smem(attn_fwd_tiled_kernel<DH, PRE, ROW>, smem);
   attn_fwd_tiled_kernel<DH, PRE, ROW>
       <<<dim3((a.T + TQ - 1) / TQ, a.H, a.B), TT_THREADS, smem, s>>>(
-          a.qkv, a.kvp, a.mask, a.ctx, a.T, a.P, a.D, Sp, a.scale);
+          a.qkv, a.kvp, a.mask, a.tmap, a.ctx, a.T, a.P, a.D, Sp, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of the dk/dv kernel beside its query chunks: the warps'
+// mask tiles for a (T, S) mask (not a key-mask row) and, in the kernel
+// that takes a tile map (map), the group counter.
+static size_t dkv_extra(const AttnArgs& a, int nw, bool row, bool map) {
+  return (a.mask && !row ? (size_t)nw * 32 * 17 * sizeof(float) : 0) +
+         (map ? 16 : 0);
+}
+
+// The dk/dv kernel with NW warps and as many 64-query chunks resident as
+// shared memory holds.
+template <int DH, bool PRE, bool ROW, int NW>
+static int launch_attn_dkv(const AttnArgs& a, int Sp, cudaStream_t s) {
+  const size_t chunk = dkv_chunk_bytes(DH);
+  const size_t extra = dkv_extra(a, NW, ROW, PRE && !ROW);
+  const int nq = (a.T + TQ - 1) / TQ;
+  const long long fit = ((long long)max_smem_optin() - (long long)extra) / (long long)chunk;
+  if (fit < 2) return (int)cudaErrorInvalidValue;
+  const int nb = (int)(fit < nq ? fit : nq);
+  const size_t smem = nb * chunk + extra;
+  raise_smem(attn_bwd_dkv_kernel<DH, PRE, ROW, NW>, smem);
+  attn_bwd_dkv_kernel<DH, PRE, ROW, NW><<<dim3(a.H, a.B), 32 * NW, smem, s>>>(
+      a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.dqkv32, a.dkvp16,
+      a.dkvp32, a.stats, a.T, a.P, a.D, Sp, nb, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -2179,35 +2594,34 @@ template <int DH, int MAXNT, bool PRE, bool ROW>
 static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
   if constexpr (MAXNT == 0) {
-    const size_t smem = attn_tiled_smem(6, Sp, DH, ROW);
+    const size_t smem = attn_tiled_smem(PRE && !ROW ? 2 + 2 * TILES_HELD : 6,
+                                        Sp, DH, ROW, PRE && !ROW);
     if (smem > (size_t)max_smem_optin()) return (int)cudaErrorInvalidValue;
-    raise_smem(attn_bwd_dq_tiled_kernel<DH, PRE, ROW>, smem);
-    attn_bwd_dq_tiled_kernel<DH, PRE, ROW>
-        <<<dim3((a.T + TQ - 1) / TQ, a.H, a.B), TT_THREADS, smem, s>>>(
-            a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.stats, a.T,
-            a.P, a.D, Sp, a.scale);
+    auto kern = attn_bwd_dq_tiled_kernel<DH, PRE, ROW>;
+    if constexpr (PRE && !ROW) kern = attn_bwd_dq_tiled_map_kernel<DH>;
+    raise_smem(kern, smem);
+    kern<<<dim3((a.T + TQ - 1) / TQ, a.H, a.B), TT_THREADS, smem, s>>>(
+        a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.dqkv32, a.stats, a.T,
+        a.P, a.D, Sp, a.scale);
   } else {
-    const size_t smem = attn_bwd_dq_smem(Sp, DH, ROW);
+    const size_t smem = attn_bwd_dq_smem(Sp, DH, ROW, PRE && !ROW);
     raise_smem(attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>, smem);
     attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>
         <<<dim3(a.H, a.B), DQ_THREADS, smem, s>>>(
-            a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.stats, a.T,
-            a.P, a.D, Sp, a.scale);
+            a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.dqkv32, a.stats,
+            a.T, a.P, a.D, Sp, a.scale);
   }
   int e = (int)cudaGetLastError();
   if (e) return e;
-  const size_t chunk = dkv_chunk_bytes(DH);
-  const size_t extra = (a.mask && !ROW) ? (size_t)DKV_WARPS * 32 * 17 * sizeof(float) : 0;
-  const int nq = (a.T + TQ - 1) / TQ;
-  const long long fit = ((long long)max_smem_optin() - (long long)extra) / (long long)chunk;
-  if (fit < 2) return (int)cudaErrorInvalidValue;
-  const int nb = (int)(fit < nq ? fit : nq);
-  const size_t smem = nb * chunk + extra;
-  raise_smem(attn_bwd_dkv_kernel<DH, PRE, ROW>, smem);
-  attn_bwd_dkv_kernel<DH, PRE, ROW><<<dim3(a.H, a.B), DKV_THREADS, smem, s>>>(
-      a.qkv, a.kvp, a.dctx, a.mask, a.dqkv16, a.dqkv32, a.dkvp16, a.dkvp32,
-      a.stats, a.T, a.P, a.D, Sp, nb, a.scale);
-  return (int)cudaGetLastError();
+  if constexpr (PRE && !ROW) {
+    // 8 warps where one block takes the SM's shared memory anyway (K4's 8
+    // resident chunks: ~173 KB), else 4 warps and two blocks an SM
+    const int nq = (a.T + TQ - 1) / TQ;
+    const size_t big = (size_t)nq * dkv_chunk_bytes(DH) + dkv_extra(a, DKV_WARPS, ROW, true);
+    if (2 * big > (size_t)max_smem_optin())
+      return launch_attn_dkv<DH, PRE, ROW, DKV_MAP_WARPS>(a, Sp, s);
+  }
+  return launch_attn_dkv<DH, PRE, ROW, DKV_WARPS>(a, Sp, s);
 }
 
 // Dispatch on head dim and on the padded key count Sp a score row holds: up
@@ -2522,16 +2936,29 @@ int llc_attn_bwd(const void* qkv, const void* dctx, const float* mask,
   return launch_attn<true, false, false>(a, (cudaStream_t)stream);
 }
 
+// The tile map of a (T, S) fp32 mask (mask_tile_map_kernel) into tmap,
+// ceil(T/16) x ceil(S/16) bytes.
+int llc_mask_tile_map(const float* mask, void* tmap, int T, int S,
+                      void* stream) {
+  if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  mask_tile_map_kernel<<<(T + 15) / 16, TM_THREADS, 0, (cudaStream_t)stream>>>(
+      mask, (unsigned char*)tmap, T, S);
+  return (int)cudaGetLastError();
+}
+
 // KV-prefix attention: kvp (B*P, 2D) holds the projected prefix keys and
 // values (K | V); mask is null, (T, P + T) fp32 with mask_rs = P + T, or one
-// (P + T,) key-mask row for every query with mask_rs = 0.
+// (P + T,) key-mask row for every query with mask_rs = 0. tmap: the (T, P +
+// T) mask's tile map (llc_mask_tile_map), whose dead blocks the kernels
+// skip, or null (every block); only with a (T, P + T) mask.
 int llc_attn_prefix_fwd(const void* qkv, const void* kvp, const float* mask,
-                        int mask_rs, void* ctx, int B, int T, int P, int D,
-                        int H, float scale, void* stream) {
-  if (P < 1 || (mask_rs && mask_rs != P + T)) return (int)cudaErrorInvalidValue;
+                        int mask_rs, const void* tmap, void* ctx, int B, int T,
+                        int P, int D, int H, float scale, void* stream) {
+  if (P < 1 || (mask_rs && mask_rs != P + T) || (tmap && !(mask && mask_rs)))
+    return (int)cudaErrorInvalidValue;
   AttnArgs a = {};
   a.qkv = (const bf16*)qkv; a.kvp = (const bf16*)kvp; a.mask = mask;
-  a.ctx = (bf16*)ctx;
+  a.tmap = (const unsigned char*)tmap; a.ctx = (bf16*)ctx;
   a.B = B; a.T = T; a.P = P; a.D = D; a.H = H; a.scale = scale;
   return mask && !mask_rs
       ? launch_attn<false, true, true>(a, (cudaStream_t)stream)
@@ -2541,14 +2968,16 @@ int llc_attn_prefix_fwd(const void* qkv, const void* kvp, const float* mask,
 // dkvp16 (B*P, 2D) receives dK | dV of the prefix keys (dkvp32: the fp32
 // values, or null), dqkv16 those of the tokens as llc_attn_bwd.
 int llc_attn_prefix_bwd(const void* qkv, const void* kvp, const void* dctx,
-                        const float* mask, int mask_rs, void* dqkv16,
-                        float* dqkv32, void* dkvp16, float* dkvp32,
-                        float* stats, int B, int T, int P, int D, int H,
-                        float scale, void* stream) {
-  if (P < 1 || (mask_rs && mask_rs != P + T)) return (int)cudaErrorInvalidValue;
+                        const float* mask, int mask_rs, const void* tmap,
+                        void* dqkv16, float* dqkv32, void* dkvp16,
+                        float* dkvp32, float* stats, int B, int T, int P,
+                        int D, int H, float scale, void* stream) {
+  if (P < 1 || (mask_rs && mask_rs != P + T) || (tmap && !(mask && mask_rs)))
+    return (int)cudaErrorInvalidValue;
   AttnArgs a = {};
   a.qkv = (const bf16*)qkv; a.kvp = (const bf16*)kvp;
   a.dctx = (const bf16*)dctx; a.mask = mask;
+  a.tmap = (const unsigned char*)tmap;
   a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32;
   a.dkvp16 = (bf16*)dkvp16; a.dkvp32 = dkvp32; a.stats = (float4*)stats;
   a.B = B; a.T = T; a.P = P; a.D = D; a.H = H; a.scale = scale;

@@ -43,10 +43,11 @@ _SIGNATURES = {
                  _I, _LL, _LL, _VP],
     "llc_attn_fwd": [_VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
     "llc_attn_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
-    "llc_attn_prefix_fwd": [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _F,
-                            _VP],
+    "llc_mask_tile_map": [_VP, _VP, _I, _I, _VP],
+    "llc_attn_prefix_fwd": [_VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
+                            _F, _VP],
     "llc_attn_prefix_bwd": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
-                            _I, _I, _I, _I, _I, _F, _VP],
+                            _VP, _I, _I, _I, _I, _I, _F, _VP],
     "llc_flash_fwd": [_I, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _I, _I, _I, _I,
                       _I, _F, _VP],
     "llc_flash_bwd": [_I, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP, _VP, _VP,

@@ -25,7 +25,13 @@ name (``:652-696``): the same half block without LoRA, whose keys come from
 Its forward replaces ``_prefix_kernel`` (``:524``, Pallas call at ``:631``)
 and its backward ``_prefix_bwd_kernel`` (``:699``, Pallas call at ``:897``),
 with the same kernel chain: a prefix K/V GEMM beside the token qkv GEMM, and
-attention kernels that read their keys from both.
+attention kernels that read their keys from both. Under a (T, P + T) mask
+(ProtoCLIP's block-diagonal suffix mask) each chain first builds the mask's
+tile map on the card (``mask_tile_map``: one byte per 16 query rows x 16
+keys, 0 where every entry is -inf) and the attention kernels skip the
+blocks it marks dead; those hold p = 0 exactly, so the values are those of
+the full sweep bit for bit. The map's kernel replaces no TPU kernel: the
+TPU kernels compute every tile.
 
 Bound on one H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at the ViT-B/16 vision
 block, bs=64: forward ~67.1 GFLOP (~68 us, compute-bound); backward with
@@ -55,9 +61,11 @@ EPS = 1e-5
 _BF = torch.bfloat16
 _DT = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of each kernel chain: one per op call on a CUDA tensor
+# launches of each kernel chain: one per op call on a CUDA tensor; and of
+# the tile-map kernel, one per prefix chain under a (T, P + T) mask
 LAUNCHES = {"fused_ln_attention_fwd": 0, "fused_ln_attention_bwd": 0,
-            "fused_prefix_attention_fwd": 0, "fused_prefix_attention_bwd": 0}
+            "fused_prefix_attention_fwd": 0, "fused_prefix_attention_bwd": 0,
+            "prefix_tile_map": 0}
 
 
 def reset_launches() -> None:
@@ -673,6 +681,91 @@ def fused_prefix_attention_block_reference_bwd(x, g, pk, pv, ln_scale,
 
 
 # ---------------------------------------------------------------------------
+# the tile map of a 2-D mask
+# ---------------------------------------------------------------------------
+
+def mask_tile_map_reference(mask, tq: int = 16, tk: int = 16):
+    """Plain version of the tile-map kernel's bytes (``mask_tile_map_kernel``):
+    the (ceil(T/tq), ceil(S/tk)) uint8 map of a (T, S) additive mask over
+    blocks of tq query rows x tk keys (rows < T, keys < S). 0: dead, every
+    entry -inf and every row of the block has a live key somewhere (a row
+    with none keeps its whole row of blocks, so the kernels give it the
+    full sweep's NaN); 2: live, every entry +0.0 or -inf; 1: live, any
+    other values."""
+    t, s = mask.shape
+    nr, nc = -(-t // tq), -(-s // tk)
+    live = ~torch.isneginf(mask)
+    plain = ~live | ((mask == 0) & ~torch.signbit(mask))
+    pad = torch.zeros(nr * tq, nc * tk, dtype=torch.bool, device=mask.device)
+    pad[:t, :s] = live
+    blocks = pad.view(nr, tq, nc, tk).any(3).any(1)
+    no_key = torch.zeros(nr * tq, dtype=torch.bool, device=mask.device)
+    no_key[:t] = ~live.any(1)
+    blocks |= no_key.view(nr, tq).any(1, keepdim=True)
+    pad = torch.ones(nr * tq, nc * tk, dtype=torch.bool, device=mask.device)
+    pad[:t, :s] = plain
+    plain = pad.view(nr, tq, nc, tk).all(3).all(1)
+    return torch.where(blocks, torch.where(plain, 2, 1), 0).to(torch.uint8)
+
+
+def mask_tile_words_reference(mask):
+    """Plain version of the tile-map kernel's words: (ceil(T/16),
+    ceil(S/16), 8) int32, word w of a 16 x 16 block holding row w's 16 bits
+    (bit c: key 16k + c is not -inf) in its low half and row w + 8's in its
+    high half; rows past T all ones, keys past S zero."""
+    t, s = mask.shape
+    nr, nc = -(-t // 16), -(-s // 16)
+    bits = torch.zeros(nr * 16, nc * 16, dtype=torch.int64,
+                       device=mask.device)
+    bits[:t, :s] = (~torch.isneginf(mask)).long()
+    bits[t:] = 1
+    rows = (bits.view(nr, 16, nc, 16)
+            << torch.arange(16, device=mask.device)).sum(3)   # (nr, 16, nc)
+    words = (rows[:, :8] | rows[:, 8:] << 16).permute(0, 2, 1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32).contiguous()
+
+
+def _words_at(t, s):
+    """Byte offset of the words in a tile-map buffer (16-byte aligned)."""
+    return -(-(-(-t // 16) * -(-s // 16)) // 16) * 16
+
+
+def unpack_tile_map(buf, t, s):
+    """A tile-map buffer's (bytes (ceil(T/16), ceil(S/16)), words
+    (ceil(T/16), ceil(S/16), 8) int32) views."""
+    nr, nc = -(-t // 16), -(-s // 16)
+    off = _words_at(t, s)
+    return (buf[:nr * nc].view(nr, nc),
+            buf[off:off + nr * nc * 32].view(torch.int32).view(nr, nc, 8))
+
+
+def mask_tile_map(mask):
+    """The tile map of a contiguous fp32 (T, S) mask as the prefix kernels
+    take it, one uint8 buffer (``unpack_tile_map``): on the card one launch
+    of ``mask_tile_map_kernel`` (counted in ``LAUNCHES``), on the CPU its
+    plain versions."""
+    t, s = mask.shape
+    nr, nc = -(-t // 16), -(-s // 16)
+    buf = torch.empty(_words_at(t, s) + nr * nc * 32, dtype=torch.uint8,
+                      device=mask.device)
+    if mask.device.type == "cpu":
+        tmap, words = unpack_tile_map(buf, t, s)
+        tmap.copy_(mask_tile_map_reference(mask))
+        words.copy_(mask_tile_words_reference(mask))
+        return buf
+    if mask.device.type != "cuda" or mask.dtype != torch.float32 \
+            or mask.dim() != 2 or not mask.is_contiguous():
+        raise ValueError("mask_tile_map: takes a contiguous fp32 (T, S) mask "
+                         f"on the card; got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    _kernels.call("llc_mask_tile_map", mask.data_ptr(), buf.data_ptr(), t, s,
+                  _stream(mask))
+    LAUNCHES["prefix_tile_map"] += 1
+    return buf
+
+
+# ---------------------------------------------------------------------------
 # KV-prefix variant: CUDA kernel chains
 # ---------------------------------------------------------------------------
 
@@ -690,13 +783,15 @@ def _prefix_mask_arg(mask, t, s, device):
 
 
 def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
-                    b_out, n_heads, mask):
+                    b_out, n_heads, mask, tile_map=True):
     """Operands of the prefix chain: the block's as ``_Prepared``, the
     prompts cast to x's dtype then bf16 (as the TPU wrapper and kernel
     cast them; once where x is bf16) as (B*P, D) rows, the mask as
-    ``_prefix_mask_arg`` gives it. One tensor as pk and pv stays one; two
-    are stacked in one (2, B*P, D) buffer, so one grouped GEMM projects
-    both."""
+    ``_prefix_mask_arg`` gives it and, for a (T, P + T) mask, its tile map
+    (``mask_tile_map``; None with ``tile_map=False``: the kernels sweep
+    every block, which gives the same values bit for bit). One tensor as
+    pk and pv stays one; two are stacked in one (2, B*P, D) buffer, so one
+    grouped GEMM projects both."""
     op = "fused_prefix_attention_block"
     b, t, d = x.shape
     if pk.dim() != 3 or pk.shape != pv.shape or pk.shape[0] != b \
@@ -709,6 +804,7 @@ def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
                    None, 0.0)
     pp.p = pk.shape[1]
     pp.mask, pp.mask_rs = _prefix_mask_arg(mask, t, pp.p + t, x.device)
+    pp.tmap = mask_tile_map(pp.mask) if pp.mask_rs and tile_map else None
 
     def b16(a):
         a = a.detach()
@@ -723,12 +819,14 @@ def _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
 
 
 def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
-                         b_out, n_heads, mask, keep=False):
+                         b_out, n_heads, mask, keep=False, tile_map=True):
     """y on the card; with ``keep``, (y, (h16, qkv16 (B*T, 3D), kvp16
     (B*P, 2D: K | V of the prefix rows), ctx16)) for the backward chain to
-    read."""
+    read. ``tile_map=False`` sweeps every block of a 2-D mask (the
+    yardstick of the skipping kernels)."""
     pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
-                                     b_qkv, w_out, b_out, n_heads, mask)
+                                     b_qkv, w_out, b_out, n_heads, mask,
+                                     tile_map)
     m, d, bp = pp.m, pp.d, pp.b * pp.p
     h16, _, qkv16 = _cuda_ln_qkv(pp)
     kvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=pp.x.device)
@@ -743,7 +841,7 @@ def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
               bias=pp.b_qkv[d:], groups=(2, bp, d))
     ctx16 = torch.empty(pp.m, d, dtype=_BF, device=pp.x.device)
     _kernels.call("llc_attn_prefix_fwd", qkv16.data_ptr(),
-                  kvp16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
+                  kvp16.data_ptr(), _ptr(pp.mask), pp.mask_rs, _ptr(pp.tmap),
                   ctx16.data_ptr(),
                   pp.b, pp.t, pp.p, d, n_heads, (d // n_heads) ** -0.5,
                   pp.stream)
@@ -756,14 +854,37 @@ def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
     return (y, saved) if keep else y
 
 
+def _prefix_attention_bwd(pp, qkv16, kvp16, dctx16, n_heads, fp32):
+    """The prefix attention backward (dq, then dk/dv): (dqkv16 (B*T, 3D),
+    dkvp16 (B*P, 2D: dK | dV of the prefix rows), and with ``fp32`` their
+    fp32 twins, else None)."""
+    m, d, bp, dev = pp.m, pp.d, pp.b * pp.p, pp.x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
+    dkvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=dev)
+    dqkv32 = torch.empty(m, 3 * d, **f32) if fp32 else None
+    dkvp32 = torch.empty(bp, 2 * d, **f32) if fp32 else None
+    stats = _stats(pp, n_heads)
+    _kernels.call("llc_attn_prefix_bwd", qkv16.data_ptr(), kvp16.data_ptr(),
+                  dctx16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
+                  _ptr(pp.tmap), dqkv16.data_ptr(),
+                  _ptr(dqkv32), dkvp16.data_ptr(), _ptr(dkvp32),
+                  stats.data_ptr(), pp.b, pp.t, pp.p, d, n_heads,
+                  (d // n_heads) ** -0.5, pp.stream)
+    return dqkv16, dkvp16, dqkv32, dkvp32
+
+
 def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
-                          w_out, n_heads, mask, weight_grads, saved):
+                          w_out, n_heads, mask, weight_grads, saved,
+                          tile_map=True):
     """The prefix backward chain on the card. ``saved``: the forward's
     (h16, qkv16, kvp16, ctx16), those the backward reads
     (``_keep_for_prefix_backward`` of ``_cuda_prefix_forward(...,
-    keep=True)``)."""
+    keep=True)``). A 2-D mask's tile map is built anew here (one launch);
+    ``tile_map`` as the forward's."""
     pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
-                                     b_qkv, w_out, None, n_heads, mask)
+                                     b_qkv, w_out, None, n_heads, mask,
+                                     tile_map)
     m, d, bp = pp.m, pp.d, pp.b * pp.p
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -778,17 +899,8 @@ def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
     dctx16 = _gemm(torch.empty(m, d, dtype=_BF, device=dev), g16, (d, 1),
                    pp.w_out, (1, d), m, d, d)
 
-    dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
-    dkvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=dev)
-    dqkv32 = torch.empty(m, 3 * d, **f32) if weight_grads else None
-    dkvp32 = torch.empty(bp, 2 * d, **f32) if weight_grads else None
-    stats = _stats(pp, n_heads)
-    _kernels.call("llc_attn_prefix_bwd", qkv16.data_ptr(), kvp16.data_ptr(),
-                  dctx16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
-                  dqkv16.data_ptr(),
-                  _ptr(dqkv32), dkvp16.data_ptr(), _ptr(dkvp32),
-                  stats.data_ptr(), pp.b, pp.t, pp.p, d, n_heads,
-                  (d // n_heads) ** -0.5, pp.stream)
+    dqkv16, dkvp16, dqkv32, dkvp32 = _prefix_attention_bwd(
+        pp, qkv16, kvp16, dctx16, n_heads, weight_grads)
 
     # dpk = dK16_pre @ W_k^T, dpv = dV16_pre @ W_v^T (:843-852)
     dpkv = [_gemm(torch.empty(bp, d, **f32), dkvp16[:, i * d:(i + 1) * d],

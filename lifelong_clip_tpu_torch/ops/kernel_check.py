@@ -23,7 +23,10 @@ The prefix case (``make_prefix_inputs``, ``check_prefix_case``) holds y on
 y - x, dx on dx - g, dpk, dpv and, with ``weight_grads``, every block grad
 in the same way; asserts that the prefix's share of y (y against y with
 every slot dead) is visible to the y check; and asserts that the grads of
-the dead prefix slots are exactly zero.
+the dead prefix slots are exactly zero. Under a (T, P + T) mask the prefix
+kernels skip the blocks the mask's tile map marks dead:
+``prefix_attention_outputs`` gives the attention kernels' own outputs (ctx,
+dqkv, dkvp) with and without the map, which ``same_bits`` holds bit for bit.
 
 The flash case (``make_flash_inputs``, ``check_flash_case``) holds o, dq, dk
 and dv whole. Kernels and plain versions both compute in fp32 and round
@@ -235,6 +238,36 @@ def check_prefix_case(x, pk, pv, blk, gy, mask, heads, weight_grads):
             else:
                 assert float(got.abs().max()) == 0.0, f"d{key} is not zero"
     return rep
+
+
+def prefix_attention_outputs(x, pk, pv, blk, gy, mask, heads,
+                             tile_map=True):
+    """The prefix attention kernels' own outputs on the card for the output
+    grad ``gy``: ctx16 of the forward and, of the backward, dqkv16, dkvp16
+    and their fp32 twins; with the mask's tile map or, with
+    ``tile_map=False``, sweeping every block."""
+    wb = [blk[k] for k in BLOCK_KEYS]
+    _, (_, qkv16, kvp16, ctx16) = fba._cuda_prefix_forward(
+        x, pk, pv, *wb, heads, mask, keep=True, tile_map=tile_map)
+    pp, _, _ = fba._prefix_prepare(x, pk, pv, *wb, heads, mask, tile_map)
+    g16 = fba._grad_rows(pp, gy)[1]
+    dctx16 = fba._gemm(torch.empty_like(ctx16), g16, (pp.d, 1), pp.w_out,
+                       (1, pp.d), pp.m, pp.d, pp.d)
+    grads = fba._prefix_attention_bwd(pp, qkv16, kvp16, dctx16, heads, True)
+    return dict(zip(("ctx16", "dqkv16", "dkvp16", "dqkv32", "dkvp32"),
+                    (ctx16, *grads)))
+
+
+_BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def same_bits(a, b):
+    """Whether a and b are equal bit for bit, any NaN equal to any NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(na, nb):
+        return False
+    return torch.equal(a.masked_fill(na, 0).view(_BITS[a.dtype]),
+                       b.masked_fill(nb, 0).view(_BITS[b.dtype]))
 
 
 def make_flash_inputs(b, t, s, d, heads, seed, mask=None,

@@ -93,7 +93,8 @@ def test_op_launches_kernels_and_counts_them(cuda):
     assert fba.LAUNCHES == {"fused_ln_attention_fwd": 1,
                             "fused_ln_attention_bwd": 1,
                             "fused_prefix_attention_fwd": 0,
-                            "fused_prefix_attention_bwd": 0}
+                            "fused_prefix_attention_bwd": 0,
+                            "prefix_tile_map": 0}
     for k in LORA_KEYS:   # bf16 primals get bf16 grads
         assert lora[k].grad.dtype == torch.bfloat16, k
 
@@ -140,21 +141,126 @@ def test_prefix_kernels_take_a_full_mask(cuda):
     kc.check_prefix_case(x, pk, pv, blk, gy, full, 4, True)
 
 
-@pytest.mark.parametrize("c,s,lp", [(8, 8, 7), (40, 8, 25)])
-def test_prefix_kernels_take_the_suffix_block_diagonal_mask(cuda, c, s, lp):
-    """ProtoCLIP's suffix pass: C classes x S tokens as one row, one
-    prompt tensor as pk and pv (lp prefix states), under the (C * S, lp +
-    C * S) block-diagonal causal mask; on the register road (T = 64) and on
-    the tiled one (T = 320), where whole 64-key tiles of a row are dead.
-    Every output and dpk + dpv within ``ops/kernel_check.py``'s
-    tolerances, and nothing NaN."""
+def _suffix(c, s, lp, dead_row=None, prefix_dead_row=None):
+    """ProtoCLIP's (C * S, lp + C * S) suffix mask on the CPU; optionally
+    one row with no live key at all, or one row whose prefix keys are dead
+    (its only live keys are then its own class's)."""
     from lifelong_clip_tpu_torch.models.proto_clip import suffix_mask
+    m = suffix_mask(c, s, lp)
+    if dead_row is not None:
+        m[dead_row] = float("-inf")
+    if prefix_dead_row is not None:
+        m[prefix_dead_row, :lp] = float("-inf")
+    return m
+
+
+def _random_blocks(t, p, block, seed, values=False):
+    """Seeded 0 / -inf entries, about a third dead, with whole ``block`` x
+    ``block`` squares dead; every prefix key live for the first row. With
+    ``values``, the live entries of every other row are N(0, 1) draws, so
+    their blocks are read from the mask, not from the map's words."""
+    g = torch.Generator().manual_seed(seed)
+    m = torch.where(torch.rand(t, p + t, generator=g) < 0.3,
+                    float("-inf"), 0.0)
+    for r in range(0, t, block):
+        for c in range(0, p + t, block):
+            if float(torch.rand((), generator=g)) < 0.6:
+                m[r:r + block, c:c + block] = float("-inf")
+    m[0, :p] = 0.0
+    if values:
+        m[::2] += torch.randn(m[::2].shape, generator=g)
+    return m
+
+
+def _corner(t, p):
+    """The causal mask with one 16 x 16 block of keys dead for its rows but
+    for one entry of -1e30 in its last corner."""
+    from lifelong_clip_tpu_torch.ops.attention import causal_mask
+    m = causal_mask(t, prefix=p)
+    m[32:48, 16:32] = float("-inf")
+    m[47, 31] = -1e30
+    return m
+
+
+# (P, T, mask on the CPU): ProtoCLIP's suffix mask on the register road (T
+# = 64) and the tiled one (T = 320); the text tower's causal mask with a
+# prefix as a 2-D mask on both roads; seeded masks with whole 16 x 16 and 64
+# x 64 blocks dead (and, on the tiled road, finite values other than 0,
+# read from the mask); a dead block but for one -1e30 entry; a row whose only
+# live keys are its class's suffix keys in the last 64-key tile; a row with
+# no live key at all
+TILE_MAP_CASES = {
+    "suffix register road": (7, 64, lambda: _suffix(8, 8, 7)),
+    "suffix tiled road": (25, 320, lambda: _suffix(40, 8, 25)),
+    "causal register road": (8, 77, None),
+    "causal tiled road": (20, 300, None),
+    "random 16-blocks": (53, 150, lambda: _random_blocks(150, 53, 16, 0)),
+    "random 64-blocks": (25, 320, lambda: _random_blocks(320, 25, 64, 1)),
+    "random values, tiled road": (
+        25, 320, lambda: _random_blocks(320, 25, 16, 2, values=True)),
+    "corner -1e30": (20, 70, lambda: _corner(70, 20)),
+    "live only in the last tile": (
+        25, 320, lambda: _suffix(40, 8, 25, prefix_dead_row=317)),
+    "a row with no live key": (25, 320, lambda: _suffix(40, 8, 25,
+                                                        dead_row=37)),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_MAP_CASES))
+def test_prefix_kernels_take_the_suffix_block_diagonal_mask(cuda, case):
+    """2-D masks on the KV-prefix kernels, ProtoCLIP's block-diagonal
+    suffix mask first (C classes x S tokens as one row, one prompt tensor
+    as pk and pv): the map kernel gives ``mask_tile_map_reference``'s bytes
+    and ``mask_tile_words_reference``'s words;
+    every output and dpk + dpv within ``ops/kernel_check.py``'s tolerances
+    of the plain version (a row with no live key: NaN where the plain
+    version has NaN, the rest within them); and ctx, dqkv and dkvp bit for
+    bit those of the same kernels with a null map (every block swept; NaN
+    equal to NaN)."""
+    from lifelong_clip_tpu_torch.ops.attention import causal_mask
+    p, t, make = TILE_MAP_CASES[case]
+    mask = (make() if make else causal_mask(t, prefix=p)).to(cuda)
+    assert fba._prefix_mask_arg(mask, t, p + t, cuda)[1] == p + t
+    tmap, words = fba.unpack_tile_map(fba.mask_tile_map(mask), t, p + t)
+    assert torch.equal(tmap, fba.mask_tile_map_reference(mask))
+    assert torch.equal(words, fba.mask_tile_words_reference(mask))
     x, pk, pv, blk, gy, _ = kc.make_prefix_inputs(
-        2, c * s, 128, 2, lp, lp, 9, device=cuda, shared=True)
-    mask = suffix_mask(c, s, lp, device=cuda)
-    assert fba._prefix_mask_arg(mask, c * s, lp + c * s, cuda)[1] \
-        == lp + c * s
-    kc.check_prefix_case(x, pk, pv, blk, gy, mask, 2, False)
+        2, t, 128, 2, p, p, 9, device=cuda, shared=True)
+    if not bool(torch.isneginf(mask).all(1).any()):
+        kc.check_prefix_case(x, pk, pv, blk, gy, mask, 2, False)
+    else:
+        _check_nan_rows(x, pk, blk, gy, mask)
+    skip, full = (kc.prefix_attention_outputs(x, pk, pv, blk, gy, mask, 2,
+                                              tile_map=m)
+                  for m in (True, False))
+    for key in skip:
+        assert kc.same_bits(skip[key], full[key]), key
+
+
+def _check_nan_rows(x, pk, blk, gy, mask):
+    """A mask with a row that sees no key: the op's y is NaN on that row as
+    the plain version's is, within the tolerances elsewhere, and each grad
+    NaN exactly where the plain version's is."""
+    xl, pkl = (a.detach().clone().requires_grad_(True) for a in (x, pk))
+    ref_args = [blk[k] for k in kc.BLOCK_KEYS]
+    y = fba.fused_prefix_attention_block(xl, pkl, pkl, *ref_args, 2, mask,
+                                         False)
+    y.backward(gy)
+    y = y.detach()
+    with torch.no_grad():
+        y_ref = fba.fused_prefix_attention_block_reference(
+            x, pk, pk, *ref_args, 2, mask)
+        grads = fba.fused_prefix_attention_block_reference_bwd(
+            x, gy, pk, pk, *ref_args[:5], 2, mask, False)
+    nan_rows = torch.isnan(y_ref).any(-1)
+    assert bool(nan_rows.any()) and torch.equal(torch.isnan(y),
+                                                torch.isnan(y_ref))
+    ok = ~nan_rows
+    kc._held({}, "y", y[ok], y_ref[ok], y_ref[ok].float() - x[ok].float(),
+             kc.REL_FWD)
+    assert torch.equal(torch.isnan(xl.grad), torch.isnan(grads[0]))
+    assert torch.equal(torch.isnan(pkl.grad),
+                       torch.isnan(grads[1].float() + grads[2].float()))
 
 
 @pytest.mark.parametrize("shared,d", [(True, 256), (True, 192),
