@@ -20,7 +20,9 @@
    family's (no LoRA: Finetuning's whole-tower step at 16 x 197 x 768 with
    the weight grads, whose library yardstick's autograd computes the same
    weight and LN grads, ER's step at the same shape, CLIB's miss recompute
-   at 256 x 197 x 768); ProtoCLIP's
+   at 256 x 197 x 768, and the small batches where the attention kernels
+   split each (head, batch row) over blocks: 8 rows (Finetuning's with the
+   weight grads, ER's forward and dx) and one row); ProtoCLIP's
    text prefix (64 x 25 x 512, 8 heads, causal), its CoPL image prefix (pk
    != pv, P = 4, all and none live) and its suffix pass (64 x 512 x 512, 8
    heads, one prompt tensor as pk and pv, P = 25, the block-diagonal
@@ -50,8 +52,11 @@
    prints what its tile map leaves live of its road (64-key tiles, 16 x
    16 blocks, the dk/dv kernel's 32-query steps). Then the tile-map phase:
    the suffix pass's K4 and main-path shapes with the mask's tile map and
-   with a null map (every block swept), ctx, dqkv and dkvp bit for bit
-   equal, each chain's device ms both ways. Then the port's GEMM at the
+   with a null map (every block swept), ctx, dqkv, dkvp and the weight
+   grads' bias partials bit for bit equal, each chain's device ms both
+   ways. Then batch invariance: ctx, y and dx of 1, 8 and 16 rows (split
+   attention kernels) bit for bit those of the same rows in a 64-row batch
+   (unsplit). Then the port's GEMM at the
    qkv, out and dh shapes with the chain's epilogue terms, beside
    ``torch.matmul``.
 4. Augmentation: the train pipeline alone (AutoAugment, resize + pad +
@@ -730,8 +735,8 @@ def tile_map_phase():
     """ProtoCLIP's suffix pass at K4 (64 x 512 x 512) and at its main path's
     shape (64 x 160 x 512), the inputs of the kernel phase's cases: the
     prefix attention kernels with the mask's tile map and with a null map
-    (every block swept) give ctx, dqkv and dkvp bit for bit equal (a
-    difference raises), and each chain's device ms both ways in this run,
+    (every block swept) give ctx, dqkv, dkvp and the bias partials bit for
+    bit equal (a difference raises), and each chain's device ms both ways in this run,
     with the attention kernels' and the map kernel's own."""
     import torch
     from lifelong_clip_tpu_torch.models.proto_clip import suffix_mask
@@ -766,6 +771,29 @@ def tile_map_phase():
                 for k, v in sp.items() if "attn" in k or "tile_map" in k}
         log(f"tile map: {json.dumps(res)}")
         assert not differ, f"{label}: the tile map changed {differ}"
+        out.append(res)
+    return out
+
+
+def batch_invariance_phase():
+    """The rows of the ER family's small batches (8 and 16 rows, where the
+    attention kernels split each (head, batch row) over blocks, and one)
+    against the same rows inside a 64-row batch (unsplit): ctx, y and dx
+    of the #1/#2 chains bit for bit (a difference raises)."""
+    import torch
+    from lifelong_clip_tpu_torch.ops import kernel_check as kc
+    x, blk, _, gy, _ = kc.make_inputs(64, 197, 768, 12, 0, False, 32)
+    whole = kc.batch_rows(x, blk, gy, 12)
+    out = []
+    for n in (1, 8, 16):
+        part = kc.batch_rows(x[:n], blk, gy[:n], 12)
+        torch.cuda.synchronize()
+        differ = [k for k in part
+                  if not kc.same_bits(part[k], whole[k][:n])]
+        res = {"rows": n, "of": 64, "bitwise_equal": not differ,
+               "differ": differ}
+        log(f"batch invariance: {json.dumps(res)}")
+        assert not differ, f"{n} of 64 rows: the batch changed {differ}"
         out.append(res)
     return out
 
@@ -2657,9 +2685,11 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV, owner=None,
 
 PORT_KERNELS = ("gemm_kernel", "gemm_wgmma_kernel", "attn_fwd_kernel",
                 "attn_fwd_tiled_kernel", "attn_bwd_dq_tiled_kernel",
+                "attn_bwd_dq_tiled_map_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel", "ln_fwd_kernel",
-                "ln_bwd_kernel", "cast_bf16_kernel", "colsum_kernel",
-                "splitk_reduce_kernel", "flash_fwd_kernel",
+                "ln_bwd_kernel", "ln_partials_kernel", "cast_bf16_kernel",
+                "partial_sums_kernel", "splitk_reduce_kernel",
+                "mask_tile_map_kernel", "flash_fwd_kernel",
                 "flash_fwd_tc_kernel", "flash_fwd_tc_tiled_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
@@ -3725,6 +3755,12 @@ def main():
                              768, 12, 4, False, False, 27))
     cases.append(kernel_case("per rank of 2x1: FT weight_grads, 8 rows", 8,
                              197, 768, 12, 0, False, True, 28))
+    # ER's step at 8 rows and one row (r = 0, forward and dx only): the
+    # attention kernels split each (head, batch row) over blocks
+    cases.append(kernel_case("ER step, 8 rows, no LoRA", 8, 197, 768, 12, 0,
+                             False, False, 33))
+    cases.append(kernel_case("one row, no LoRA", 1, 197, 768, 12, 0, False,
+                             False, 34))
     # the pipeline phase's microbatch of 16 rows on each stage (LoRA r=4):
     # ViT-B/16 and ViT-L/14 (T = 257, the tiled road)
     cases.append(kernel_case("pipeline microbatch: ViT-B/16, 16 rows", 16,
@@ -3765,6 +3801,8 @@ def main():
         shape=(32, 197, 768, 12, 20)))
     torch.cuda.synchronize()
     tile_maps = tile_map_phase()
+    torch.cuda.synchronize()
+    invariance = batch_invariance_phase()
     torch.cuda.synchronize()
 
     log(f"flash checks: o, dq, dk, dv against the plain versions within "
@@ -3963,6 +4001,7 @@ def main():
     log(json.dumps(mesh))
     log(json.dumps(pipeline))
     log(json.dumps({"tile_map_phase": tile_maps, "card": card}))
+    log(json.dumps({"batch_invariance": invariance, "card": card}))
     log(json.dumps({"gemm": gemms, "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {

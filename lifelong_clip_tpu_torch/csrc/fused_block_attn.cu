@@ -87,6 +87,27 @@
 //     full sweep's bit for bit; a null map is the full sweep.
 //   * The backward chains read the forward's h16, z16, qkv16, ctx16, z2
 //     (prefix: h16, qkv16, kvp16, ctx16), which the forward keeps for them.
+//   * The weight grads (Finetuning's whole-tower step at 16 batch rows, 8 a
+//     rank): the bias and LN grads are folded into the kernels that make
+//     the rows. The dq and dk/dv kernels write the fp32 column sums of each
+//     16-row group they store (group_colsum); the LN backward writes each
+//     row's mean and rstd, and one column-parallel pass over dh, x and g
+//     (ln_partials_kernel) the sums of dh * xhat, dh and g over chunks of
+//     rows; one launch (partial_sums_kernel) adds every partial in a fixed
+//     order: no fp32 copy of dqkv or dh * xhat, no column-sum passes over
+//     (M, D) fp32 buffers, no float atomics. dW_qkv and dW_out split K only where their tiles
+//     would leave SMs idle (the caller's cost model: dW_qkv unsplit on 108
+//     tiles of 128 x 128, dW_out in 3 splits of 36), as deterministic as
+//     before. The LN params and biases are read in their own dtype (bf16
+//     or fp32), so no chain casts them first.
+//   * Small batches: where B x H blocks leave SMs idle (16 or 8 batch rows:
+//     192 or 96 blocks for 264 slots), the register-road attention kernels
+//     split each (head, batch row) over blocks (attn_splits: a list
+//     schedule of the latency-bound blocks), the forward and dq over their
+//     16-row query groups, dk/dv over its key groups, each row's arithmetic
+//     the unsplit road's bit for bit; and the dh product takes 128 x 64
+//     tiles where 128 x 128 ones would run a second, mostly empty round
+//     (150 tiles at 16 rows) and its long K pays for the smaller tiles.
 //   * LN (warp per row) and the LoRA factor z = h @ A (the
 //     64x16 tile, rounded to bf16 as _kernel:76-84 and :117-126 round it).
 //     The prefix rows' keys and values (pk @ W_k + b_k, pv @ W_v + b_v, bias
@@ -105,7 +126,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <functional>
+#include <map>
 #include <mutex>
+#include <tuple>
+#include <vector>
 
 #include "mma.cuh"
 
@@ -131,16 +157,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 // ---------------------------------------------------------------------------
 // LayerNorm forward (fp32 statistics, eps) -> h in bf16. One warp per row,
 // the row in registers: lane l holds elements l, l + 32, ... (D <= 1024).
+// The scale and bias are read in their own dtype G (fp32 or bf16), so the
+// chain casts nothing before its first kernel.
 // ---------------------------------------------------------------------------
 constexpr int LN_THREADS = 256, LN_MAXK = 32;
+constexpr int LN_ROWS = LN_THREADS / 32;   // rows a block (a warp each)
 
-template <typename T>
+template <typename T, typename G>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, bf16* __restrict__ h, int M,
+ln_fwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
+              const G* __restrict__ beta, bf16* __restrict__ h, int M,
               int D, float eps) {
   const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  const size_t row = (size_t)blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
   if (row >= (size_t)M) return;
   const T* xr = x + row * D;
   float v[LN_MAXK];
@@ -162,23 +191,26 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
   for (int k = 0; k < LN_MAXK; ++k) {
     const int i = lane + 32 * k;
-    if (i < D) h[row * D + i] = __float2bfloat16((v[k] - mean) * rstd * gamma[i] + beta[i]);
+    if (i < D)
+      h[row * D + i] = __float2bfloat16((v[k] - mean) * rstd * to_f(gamma[i]) +
+                                        to_f(beta[i]));
   }
 }
 
 // ---------------------------------------------------------------------------
 // LayerNorm backward plus the residual: dx = g + LN'(x)^T dh. Recomputes the
-// statistics from x; one warp per row as the forward. With dhx != nullptr
-// also writes dh * xhat (fp32) for the LN-scale grad.
+// statistics from x; one warp per row as the forward. With STATS (the
+// weight grads) it also writes each row's (mean, rstd) for
+// ln_partials_kernel.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, typename G, bool STATS>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+ln_bwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
               const float* __restrict__ dh, const T* __restrict__ g,
-              T* __restrict__ dx, float* __restrict__ dhx, int M, int D,
+              T* __restrict__ dx, float2* __restrict__ stats, int M, int D,
               float eps) {
   const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  const size_t row = (size_t)blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
   if (row >= (size_t)M) return;
   const T* xr = x + row * D;
   const float* dhr = dh + row * D;
@@ -188,7 +220,7 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   for (int k = 0; k < LN_MAXK; ++k) {
     const int i = lane + 32 * k;
     v[k] = i < D ? to_f(xr[i]) : 0.f;
-    dxh[k] = i < D ? dhr[i] * gamma[i] : 0.f;
+    dxh[k] = i < D ? dhr[i] * to_f(gamma[i]) : 0.f;
     s += v[k];
   }
   const float mean = warp_sum(s) / D;
@@ -199,6 +231,7 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     q += d * d;
   }
   const float rstd = rsqrtf(warp_sum(q) / D + eps);
+  if (STATS && lane == 0) stats[row] = make_float2(mean, rstd);
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int k = 0; k < LN_MAXK; ++k) {
@@ -214,12 +247,48 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     if (i >= D) continue;
     const float dxln = rstd * (dxh[k] - m1 - v[k] * m2);
     dx[row * D + i] = from_f<T>(to_f(g[row * D + i]) + dxln);
-    if (dhx) dhx[row * D + i] = dhr[i] * v[k];
   }
 }
 
+// The LN grads' and the out-projection bias grad's column sums with the
+// weight grads (the TPU kernel's dls, dlb and dbout, _bwd_kernel:436-438 and
+// :325), with no (M, D) fp32 buffer: a thread a column of a chunk of
+// consecutive rows adds dh * xhat (xhat from x and the row's (mean, rstd)
+// the LN backward wrote, as it computes it), dh and g in row order into
+// part[(q * gridDim.y + chunk) * D + c], q = 0, 1, 2: one pass over dh, x
+// and g, coalesced along the columns, whose partials partial_sums_kernel
+// adds in a fixed order. (Folded into the LN backward's warp-a-row layout
+// these sums needed a transpose through shared memory and cost the 16-row
+// chain more than this pass; PERF.md.)
+constexpr int LN_PART_THREADS = 256, LN_PART_SLOTS = 264;
+
+template <typename T>
+__global__ void __launch_bounds__(LN_PART_THREADS)
+ln_partials_kernel(const T* __restrict__ x, const float* __restrict__ dh,
+                   const T* __restrict__ g, const float2* __restrict__ stats,
+                   float* __restrict__ part, int M, int D, int rows) {
+  const int c = blockIdx.x * LN_PART_THREADS + threadIdx.x;
+  if (c >= D) return;
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+#pragma unroll 4
+  for (int r = r0; r < r1; ++r) {
+    const size_t o = (size_t)r * D + c;
+    const float2 st = stats[r];
+    const float d = dh[o];
+    a0 += d * ((to_f(x[o]) - st.x) * st.y);
+    a1 += d;
+    a2 += to_f(g[o]);
+  }
+  const size_t n = (size_t)gridDim.y * D, o = (size_t)blockIdx.y * D + c;
+  part[o] = a0;
+  part[n + o] = a1;
+  part[2 * n + o] = a2;
+}
+
 // ---------------------------------------------------------------------------
-// Small helpers: cast to bf16, deterministic column sums, split-K reduction.
+// Small helpers: cast to bf16, the weight grads' column sums, split-K
+// reduction.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void cast_bf16_kernel(const T* __restrict__ x, bf16* __restrict__ y,
@@ -229,17 +298,42 @@ __global__ void cast_bf16_kernel(const T* __restrict__ x, bf16* __restrict__ y,
     y[i] = __float2bfloat16(to_f(x[i]));
 }
 
-// out[chunk, n] = sum of X[r, n] over the chunk's rows, in row order.
-template <typename T>
-__global__ void colsum_kernel(const T* __restrict__ X, int M, int N,
-                              int rows_per_chunk, float* __restrict__ out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int r0 = blockIdx.y * rows_per_chunk;
-  const int r1 = min(M, r0 + rows_per_chunk);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += to_f(X[(size_t)r * N + n]);
-  out[(size_t)blockIdx.y * N + n] = s;
+// The bias and LN grads of the backward with weight grads, from the
+// partials the kernels that make the rows wrote (the attention backward's
+// per 16-row group, the LN backward's per block): segment s sums
+// part[r * n + c] over its rows r in a fixed order into out[c]. A block
+// takes 32 columns of one segment; its 8 row lanes take every 8th row in
+// order, then lane 0 adds the 8 in order. One launch for every segment.
+constexpr int SUM_SEGS = 8;
+struct SumSegs {
+  const float* part[SUM_SEGS];
+  float* out[SUM_SEGS];
+  int rows[SUM_SEGS], n[SUM_SEGS];
+  int count;
+};
+
+__global__ void __launch_bounds__(256)
+partial_sums_kernel(SumSegs sg) {
+  __shared__ float red[8][33];
+  int tile = blockIdx.x, si = 0;
+  while (si < sg.count && tile >= (sg.n[si] + 31) / 32) {
+    tile -= (sg.n[si] + 31) / 32;
+    ++si;
+  }
+  if (si >= sg.count) return;
+  const int cx = threadIdx.x & 31, ry = threadIdx.x >> 5;
+  const int c = tile * 32 + cx, n = sg.n[si];
+  float acc = 0.f;
+  if (c < n)
+    for (int r = ry; r < sg.rows[si]; r += 8) acc += sg.part[si][(size_t)r * n + c];
+  red[ry][cx] = acc;
+  __syncthreads();
+  if (ry == 0 && c < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += red[w][cx];
+    sg.out[si][c] = t;
+  }
 }
 
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws, int splits,
@@ -304,7 +398,8 @@ struct GemmArgs {
   const bf16* B;
   long long sbk, sbn;
   float alpha;
-  const float* bias;
+  const void* bias;   // fp32, or bf16 where bias_bf16
+  int bias_bf16;
   const bf16* lz;
   long long szm, szr;
   const bf16* lb;
@@ -438,14 +533,23 @@ __device__ __forceinline__ void gemm_store2(const GemmArgs& p, float v0,
 // group's column offset into bias and out (gn * g).
 constexpr int LORA_RMAX = 16;
 
+// Bias element i in the bias's own dtype (the chain casts nothing first).
+__device__ __forceinline__ float bias_at(const GemmArgs& p, long long i) {
+  return p.bias_bf16 ? __bfloat162float(static_cast<const bf16*>(p.bias)[i])
+                     : static_cast<const float*>(p.bias)[i];
+}
+
 // The terms before the residual, in the TPU kernel's order: alpha * acc
-// (+ bias) (+ lscale * z16 @ L from the staged factors).
+// (+ bias) (+ lscale * z16 @ L from the staged factors). bs (not null): the
+// bias staged in shared memory as fp32 by the caller, bs[8j (+1)] that of
+// columns n + 8j (+1), zero past N.
 template <int NI>
 __device__ __forceinline__ void gemm_epilogue_terms(const GemmArgs& p,
                                                     float (*c)[4], int n,
                                                     long long col_off,
                                                     const float* zs,
-                                                    const float* ls, int ldl) {
+                                                    const float* ls, int ldl,
+                                                    const float* bs = nullptr) {
 #pragma unroll
   for (int j = 0; j < NI; ++j)
 #pragma unroll
@@ -454,8 +558,15 @@ __device__ __forceinline__ void gemm_epilogue_terms(const GemmArgs& p,
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
       const int nj = n + 8 * j;
-      const float b0 = nj < p.N ? p.bias[col_off + nj] : 0.f;
-      const float b1 = nj + 1 < p.N ? p.bias[col_off + nj + 1] : 0.f;
+      float b0, b1;
+      if (bs) {
+        const float2 bv = *reinterpret_cast<const float2*>(bs + 8 * j);
+        b0 = bv.x;
+        b1 = bv.y;
+      } else {
+        b0 = nj < p.N ? bias_at(p, col_off + nj) : 0.f;
+        b1 = nj + 1 < p.N ? bias_at(p, col_off + nj + 1) : 0.f;
+      }
       c[j][0] += b0; c[j][1] += b1;
       c[j][2] += b0; c[j][3] += b1;
     }
@@ -479,9 +590,10 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& p, float (*c)[4],
                                               const float* zs = nullptr,
                                               const float* ls = nullptr,
                                               int ldl = 0,
-                                              long long col_off = 0) {
+                                              long long col_off = 0,
+                                              const float* bs = nullptr) {
   if (p.splits == 1) {
-    gemm_epilogue_terms<NI>(p, c, n, col_off, zs, ls, ldl);
+    gemm_epilogue_terms<NI>(p, c, n, col_off, zs, ls, ldl, bs);
     for (int r = 0; !zs && p.lz && r < p.R; ++r) {
       const float za = m < p.M ? p.lscale * __bfloat162float(
           p.lz[(size_t)m * p.szm + (size_t)r * p.szr]) : 0.f;
@@ -547,8 +659,9 @@ __device__ __forceinline__ int stage_offset(int row, int col) {
 template <int NI>
 __device__ __forceinline__ void gemm_epilogue_staged(
     const GemmArgs& p, float (*c)[4], int mr, int nc, int n, long long col_off,
-    const float* zs, const float* ls, int ldl, unsigned char* stage) {
-  gemm_epilogue_terms<NI>(p, c, n, col_off, zs, ls, ldl);
+    const float* zs, const float* ls, int ldl, unsigned char* stage,
+    const float* bs) {
+  gemm_epilogue_terms<NI>(p, c, n, col_off, zs, ls, ldl, bs);
 #pragma unroll
   for (int j = 0; j < NI; ++j)
 #pragma unroll
@@ -585,7 +698,9 @@ gemm_kernel(GemmArgs p) {
   if (gi) {
     p.A += gi * p.gm * p.sam;
     p.B += gi * p.gn * p.sbn;
-    if (p.bias) p.bias += gi * p.gn;
+    if (p.bias)
+      p.bias = static_cast<const char*>(p.bias) +
+               gi * p.gn * (p.bias_bf16 ? sizeof(bf16) : sizeof(float));
     p.out = reinterpret_cast<OutT*>(p.out) + gi * p.gn;
   }
   const int kbeg = zi * p.k_per_split;
@@ -651,16 +766,17 @@ gemm_kernel(GemmArgs p) {
 // Hopper GEMM, the same contract (layouts by strides, epilogue, split-K
 // partials) for operands TMA can read: a unit stride in one dimension, the
 // other a multiple of 16 bytes, a 16-byte aligned base. Tile 128 x BN x 64
-// (BN 128 or 256), one block of 3 warpgroups:
+// (BN 64, 128 or 256), one block of 3 warpgroups:
 //   * warpgroup 0 is the producer: one thread keeps a ring of STAGES tiles
 //     in flight, each A and B tile one or a few cp.async.bulk.tensor loads
 //     into 128B-swizzled shared memory, completion counted by the stage's
 //     "full" mbarrier (expect_tx);
 //   * warpgroups 1 and 2 each own 64 rows of the tile and run
-//     wgmma.mma_async m64n128k16 (fp32 accumulators in registers, both
-//     operands read from shared memory through matrix descriptors; bf16
-//     wgmma reads K-major or MN-major tiles, so NN, NT and TN need no
-//     transposing copy), keep one group of products in flight, and release
+//     wgmma.mma_async m64n128k16 (m64n64k16 for BN 64; fp32 accumulators
+//     in registers, both operands read from shared memory through matrix
+//     descriptors; bf16 wgmma reads K-major or MN-major tiles, so NN, NT
+//     and TN need no transposing copy), keep one group of products in
+//     flight, and release
 //     a stage to the producer through its "empty" mbarrier when its
 //     products have retired;
 //   * the epilogue (gemm_epilogue) runs from the accumulators.
@@ -681,11 +797,12 @@ struct WgTile {
   static constexpr int STAGES = BN == 256 ? 4 : (STAGE ? 5 : 6);
   static constexpr int STAGE_BYTES = WG_A_BYTES + BN * WG_BK * 2;
   static constexpr int OUT = STAGE ? WG_BM * BN * 2 : 0;   // bf16 staging
-  // the ring, the staging tile, the LoRA factors of the tile (fp32), the
-  // barriers, alignment
+  // the ring, the staging tile, the LoRA factors and the bias of the tile
+  // (fp32), the barriers, alignment
   static constexpr int LORA = (WG_BM + BN) * LORA_RMAX * 4;
-  static constexpr size_t SMEM =
-      (size_t)STAGES * STAGE_BYTES + OUT + LORA + (2 * STAGES + 1) * 8 + 1024;
+  static constexpr int BIAS = BN * 4;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + OUT + LORA +
+                                 BIAS + (2 * STAGES + 1) * 8 + 1024;
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -751,9 +868,10 @@ __device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo,
 
 // Keeps the compiler from moving accumulator accesses across the
 // asynchronous products.
-__device__ __forceinline__ void wg_reg_fence(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void wg_reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128, fp32) += A (64 x 16) . B (16 x 128); TA / TB: A M-major / B
@@ -785,6 +903,34 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x 64, fp32) += A (64 x 16) . B (16 x 64): the 128 x 64 tile's.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// One k16 step of a consumer's 64 x HN slab (HN 128 or 64).
+template <int HN, int TA, int TB>
+__device__ __forceinline__ void wgmma_k16(float (&d)[HN / 2], uint64_t da,
+                                          uint64_t db) {
+  if constexpr (HN == 128) wgmma_m64n128k16<TA, TB>(d, da, db);
+  else wgmma_m64n64k16<TA, TB>(d, da, db);
+}
+
 // STAGE (bf16 out, 128 x 128 tiles, no split-K): the epilogue goes through a
 // 32 KB staging tile in shared memory. The first consumer thread loads the
 // tile's residual into it by TMA (tma_r, counted by ``rbar``) as the tile's
@@ -803,13 +949,16 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ CUtensorMap tma_r, GemmArgs p) {
   using TL = WgTile<BN, STAGE>;
   constexpr int STAGES = TL::STAGES;
+  // a consumer's 64 x BN slab as NH wgmma products of 64 x HN each
+  constexpr int HN = BN < 128 ? BN : 128, NH = BN / HN;
   extern __shared__ __align__(1024) unsigned char wsm[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on it
   unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
   unsigned char* stage = base + STAGES * TL::STAGE_BYTES;
   float* zs = reinterpret_cast<float*>(stage + TL::OUT);
   float* ls = zs + WG_BM * LORA_RMAX;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ls + LORA_RMAX * BN);
+  float* bsm = ls + LORA_RMAX * BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bsm + BN);
   uint64_t* empty = full + STAGES;
   uint64_t* rbar = empty + STAGES;
   // persistent: block b takes tiles b, b + gridDim.x, ...; n fastest, then
@@ -884,36 +1033,38 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
           tma_load(stage + j * 16384, &tma_r, rbar, n0 + (int)col_off + 64 * j,
                    m0);
       }
-      // the LoRA factors of this tile into shared memory while the ring
-      // fills (the epilogue reads each many times); rows and columns past M
-      // and N stage as zeros
-      if (lora_smem) {
+      // the LoRA factors and the bias of this tile into shared memory as
+      // fp32 while the ring fills (the epilogue reads each many times, the
+      // bias in its own dtype); rows and columns past M and N stage as zeros
+      if (lora_smem || p.bias) {
         asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the last epilogue is done
         const int tc = threadIdx.x - 128;
-        for (int i = tc; i < WG_BM * p.R; i += 256) {
+        for (int i = tc; lora_smem && i < WG_BM * p.R; i += 256) {
           const int row = i / p.R, r = i % p.R, m = m0 + row;
           zs[row * LORA_RMAX + r] = m < p.M ? p.lscale * __bfloat162float(
               p.lz[(size_t)m * p.szm + (size_t)r * p.szr]) : 0.f;
         }
-        for (int i = tc; i < p.R * BN; i += 256) {
+        for (int i = tc; lora_smem && i < p.R * BN; i += 256) {
           const int r = i / BN, nn = i % BN, n = n0 + nn;
           ls[r * BN + nn] = n < p.N ? __bfloat162float(
               p.lb[(size_t)r * p.slr + (size_t)n * p.sln]) : 0.f;
         }
+        for (int i = tc; p.bias && i < BN; i += 256)
+          bsm[i] = n0 + i < p.N ? bias_at(p, col_off + n0 + i) : 0.f;
         asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the consumers only
       }
-      float acc[BN / 128][64];
+      float acc[NH][HN / 2];
 #pragma unroll
-      for (int h = 0; h < BN / 128; ++h)
+      for (int h = 0; h < NH; ++h)
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+        for (int i = 0; i < HN / 2; ++i) acc[h][i] = 0.f;
       for (int k = kbeg; k < kend; k += WG_BK, ++it) {
         const int s = it % STAGES;
         mbar_wait(full + s, (it / STAGES) & 1);
         const unsigned char* As = base + s * TL::STAGE_BYTES + c * WG_BOX;
         const unsigned char* Bs = base + s * TL::STAGE_BYTES + WG_A_BYTES;
 #pragma unroll
-        for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
+        for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk) {
@@ -921,22 +1072,22 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
           const uint64_t da = AT ? wg_desc(As + kk * 2048, WG_BOX, 1024)
                                  : wg_desc(As + kk * 32, 16, 1024);
 #pragma unroll
-          for (int h = 0; h < BN / 128; ++h) {
+          for (int h = 0; h < NH; ++h) {
             const uint64_t db = BT ? wg_desc(Bs + h * 16384 + kk * 32, 16, 1024)
                                    : wg_desc(Bs + h * 16384 + kk * 2048, WG_BOX, 1024);
-            wgmma_m64n128k16<AT ? 1 : 0, BT ? 0 : 1>(acc[h], da, db);
+            wgmma_k16<HN, AT ? 1 : 0, BT ? 0 : 1>(acc[h], da, db);
           }
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
+        for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
         // the previous k-tile's products have retired: hand its stage back
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         if (k > kbeg) mbar_arrive(empty + (it - 1) % STAGES);
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-      for (int h = 0; h < BN / 128; ++h) wg_reg_fence(acc[h]);
+      for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
       if (kend > kbeg) mbar_arrive(empty + (it - 1) % STAGES);   // the last one
       if constexpr (STAGE) {
         // every consumer is past the last tile's staging writes and the
@@ -944,10 +1095,10 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
         if (p.resid) mbar_wait(rbar, tl & 1);
         const int nn = 2 * (lane & 3);
-        gemm_epilogue_staged<16>(p, reinterpret_cast<float(*)[4]>(acc[0]), mm,
+        gemm_epilogue_staged<HN / 8>(p, reinterpret_cast<float(*)[4]>(acc[0]), mm,
                                  nn, n0 + nn, col_off,
                                  lora_smem ? zs + mm * LORA_RMAX : nullptr,
-                                 ls + nn, BN, stage);
+                                 ls + nn, BN, stage, bsm + nn);
         // the generic-proxy writes become visible to TMA, then one store
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -960,12 +1111,12 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
         }
       } else {
 #pragma unroll
-        for (int h = 0; h < BN / 128; ++h) {
-          const int nn = 128 * h + 2 * (lane & 3);
-          gemm_epilogue<OutT, 16>(p, reinterpret_cast<float(*)[4]>(acc[h]),
+        for (int h = 0; h < NH; ++h) {
+          const int nn = HN * h + 2 * (lane & 3);
+          gemm_epilogue<OutT, HN / 8>(p, reinterpret_cast<float(*)[4]>(acc[h]),
                                   m0 + mm, n0 + nn, zi,
                                   lora_smem ? zs + mm * LORA_RMAX : nullptr,
-                                  ls + nn, BN, col_off);
+                                  ls + nn, BN, col_off, bsm + nn);
         }
       }
     }
@@ -1237,7 +1388,14 @@ __device__ __forceinline__ int live_key_tiles(int* tl,
 // log2(e)-scaled scores) normalised in fp32, then rounded to bf16 as the A
 // operand of p @ v (mma.sync m16n8k16, fp32 accumulation); the second warp's
 // part of p @ v is added to the first's, in that order, before the one
-// rounding of ctx. With PRE the keys and values are the P prefix rows of kvp
+// rounding of ctx. Where B x H blocks would leave SMs idle (the ER family's
+// 16 or 8 batch rows: 192 or 96 blocks for 264 slots), the launcher splits
+// each (head, batch row) over gridDim.x blocks (grid (splits, H, B): a
+// row's splits are dispatched together), split z taking every
+// gridDim.x-th round of the pairs' query groups; each group's arithmetic
+// is the same, so ctx is the unsplit road's bit for bit, and K and V are
+// loaded once a block (from L2 for the later splits). With PRE the keys
+// and values are the P prefix rows of kvp
 // followed by the T tokens (S = P + T) and the mask is (T, S); without,
 // S = T. The row max is taken after the mask is added, so a dead key (-inf)
 // gets p = 0 exactly.
@@ -1307,8 +1465,11 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   float* Ms = xs + AF_PAIRS * (64 + 1024);        // a key-mask row
   unsigned char* Mp = reinterpret_cast<unsigned char*>(Ms);   // MAP: the map
   const int g = lane >> 2, t4 = lane & 3;
-  const int hd = blockIdx.x, b = blockIdx.y;
+  const int hd = blockIdx.y, b = blockIdx.z;
   const int S = P + T, ngroups = (T + 15) / 16;
+  // split z = blockIdx.x takes the query groups z * AF_PAIRS + pair + k *
+  // gstep: pair p's first is g0
+  const int gstep = AF_PAIRS * gridDim.x, g0 = blockIdx.x * AF_PAIRS + pair;
   // the key tiles in pairs (16 keys), the first ceil(n/2) to the first warp
   const int npair = Sp / 16, h0 = (npair + 1) / 2;
   const int tbase = half ? 2 * h0 : 0, tcnt = half ? 2 * (npair - h0) : 2 * h0;
@@ -1324,8 +1485,8 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   };
   // commit groups, oldest first: the pair's first query slab, then one per
   // K/V chunk (empty past Sp, so the count is the same for every shape)
-  if (pair < ngroups)
-    load_tile(Qp, LD, qbase + (size_t)pair * 16 * rs, rs, 16, T - pair * 16, DH,
+  if (g0 < ngroups)
+    load_tile(Qp, LD, qbase + (size_t)g0 * 16 * rs, rs, 16, T - g0 * 16, DH,
               tid & 63, 64);
   cp_async_commit();
 #pragma unroll
@@ -1355,9 +1516,9 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   for (int c = 0; c < NCH; ++c) {
     cp_async_wait_upto3(NCH - 1 - c);
     __syncthreads();
-    if (pair < ngroups) {
+    if (g0 < ngroups) {
       if (c == 0) {
-        lm = live_blocks(pair);
+        lm = live_blocks(g0);
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc)
           ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
@@ -1368,8 +1529,8 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   }
 
   const float sl2 = scale * LOG2E;
-  for (int grp = pair; grp < ngroups; grp += AF_PAIRS) {
-    if (grp != pair) {   // a later group: K and V are all in shared memory
+  for (int grp = g0; grp < ngroups; grp += gstep) {
+    if (grp != g0) {     // a later group: K and V are all in shared memory
       lm = live_blocks(grp);
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc)
@@ -1414,9 +1575,9 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     ma = fmaxf(ma, red[(half ^ 1) * 16 + g]);
     mb = fmaxf(mb, red[(half ^ 1) * 16 + g + 8]);
     // the next group's queries into the slab while this group's products run
-    if (grp + AF_PAIRS < ngroups)
-      load_tile(Qp, LD, qbase + (size_t)(grp + AF_PAIRS) * 16 * rs, rs, 16,
-                T - (grp + AF_PAIRS) * 16, DH, tid & 63, 64);
+    if (grp + gstep < ngroups)
+      load_tile(Qp, LD, qbase + (size_t)(grp + gstep) * 16 * rs, rs, 16,
+                T - (grp + gstep) * 16, DH, tid & 63, 64);
     cp_async_commit();
 
     float la = 0.f, lb = 0.f;
@@ -1780,12 +1941,31 @@ attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp
 //     (T, S) mask is staged 32 x 16 a step in the warp's shared memory, or,
 //     under a tile map, a step whose two blocks are dead skipped and one
 //     whose blocks hold only +0.0 and -inf taken from the map's words.
-// Writes dqkv16 (B*T, 3D) bf16 and, when dqkv32 != nullptr, the fp32 values.
-// With PRE, dk and dv of the P prefix keys go to dkvp16 (B*P, 2D: dK | dV)
-// and, when dkvp32 != nullptr, its fp32 twin. A dead key (mask -inf) has p =
-// 0, so ds = 0 and its dk and dv are exactly 0.
+// Writes dqkv16 (B*T, 3D) bf16; with PRE, dk and dv of the P prefix keys go
+// to dkvp16 (B*P, 2D: dK | dV). With the weight grads (qpart / kvpart not
+// null) each 16-row group's fp32 column sums of dq, and of dk and dv
+// (prefix keys and tokens alike), go to their partials (AttnArgs). The
+// register roads split each (head, batch row) over gridDim.x blocks where
+// the launcher finds that faster (attn_splits). A dead key (mask -inf) has
+// p = 0, so ds = 0 and its dk and dv are exactly 0.
 // ---------------------------------------------------------------------------
 constexpr int DQ_PAIRS = 2, DQ_THREADS = 64 * DQ_PAIRS;
+
+// The weight grads' bias sums, folded into the kernels that make the rows:
+// (c0, c1) is the lane's rows g and g + 8 of a 16-row group, summed, in two
+// neighbouring columns of the MMA C layout; the 8 lanes of a column pair add
+// theirs in a fixed butterfly order and lane t4 < 4 stores the group's two
+// column sums (fp32, over the unrounded values, as _bwd_kernel:414 sums
+// dqkv) at dst. Warp-wide.
+__device__ __forceinline__ void group_colsum(float* dst, float c0, float c1,
+                                             int lane) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+  }
+  if (lane < 4) *reinterpret_cast<float2*>(dst) = make_float2(c0, c1);
+}
 
 template <int DH, int MAXNT, bool PRE, bool ROW>   // MAXNT: 8-key tiles a row holds
 __global__ void __launch_bounds__(DQ_THREADS)
@@ -1793,7 +1973,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                    const bf16* __restrict__ dctx,
                    const float* __restrict__ mask,
                    const unsigned char* __restrict__ tmap,
-                   bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
+                   bf16* __restrict__ dqkv16, float* __restrict__ qpart,
                    float4* __restrict__ stats, int T, int P, int D, int Sp,
                    float scale) {
   constexpr bool MAP = PRE && !ROW;
@@ -1814,8 +1994,11 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   float* Ms = xs + DQ_PAIRS * (96 + DH * 16);        // a key-mask row
   unsigned char* Mp = reinterpret_cast<unsigned char*>(Ms);   // MAP: the map
   const int g = lane >> 2, t4 = lane & 3;
-  const int hd = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int hd = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int S = P + T, ngroups = (T + 15) / 16;
+  // as the forward: split z = blockIdx.x takes the query groups z *
+  // DQ_PAIRS + pair + k * gstep
+  const int gstep = DQ_PAIRS * gridDim.x, g0 = blockIdx.x * DQ_PAIRS + pair;
   const int npair = Sp / 16, h0 = (npair + 1) / 2;
   const int tbase = half ? 2 * h0 : 0, tcnt = half ? 2 * (npair - h0) : 2 * h0;
   const size_t rs = 3 * (size_t)D;
@@ -1835,7 +2018,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   };
   // commit groups, oldest first: the pair's first slabs, then one per K/V
   // chunk (empty past Sp, so the count is the same for every shape)
-  if (pair < ngroups) load_slabs(pair);
+  if (g0 < ngroups) load_slabs(g0);
   cp_async_commit();
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
@@ -1860,9 +2043,9 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   for (int c = 0; c < NCH; ++c) {
     cp_async_wait_upto3(NCH - 1 - c);
     __syncthreads();
-    if (pair < ngroups) {
+    if (g0 < ngroups) {
       if (c == 0) {
-        lm = live_blocks(pair);
+        lm = live_blocks(g0);
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc) {
           ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
@@ -1876,8 +2059,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
 
   const float sl2 = scale * LOG2E;
   float4* st = stats + ((size_t)b * H + hd) * (size_t)(ngroups * 16);
-  for (int grp = pair; grp < ngroups; grp += DQ_PAIRS) {
-    if (grp != pair) {   // a later group: K and V are all in shared memory
+  for (int grp = g0; grp < ngroups; grp += gstep) {
+    if (grp != g0) {     // a later group: K and V are all in shared memory
       lm = live_blocks(grp);
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc) {
@@ -1921,7 +2104,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     ma = fmaxf(ma, red[(half ^ 1) * 16 + g]);
     mb = fmaxf(mb, red[(half ^ 1) * 16 + g + 8]);
     // the next group's q and dctx into the slabs while this group computes
-    if (grp + DQ_PAIRS < ngroups) load_slabs(grp + DQ_PAIRS);
+    if (grp + gstep < ngroups) load_slabs(grp + gstep);
     cp_async_commit();
 
     // e = exp(s - max), this warp's half of the row sum l and of t =
@@ -2003,6 +2186,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
         const int c = hd * DH + ct * 8 + 2 * t4;
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[ct][e] += op[(ct * 4 + e) * 32 + lane];
+        float c0 = 0.f, c1 = 0.f;   // the group's column sums (qpart)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = h ? ib : ia;
@@ -2010,8 +2194,10 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
           const float v0 = dq[ct][2 * h] * scale, v1 = dq[ct][2 * h + 1] * scale;
           const size_t o = ((size_t)b * T + i) * rs + c;
           *reinterpret_cast<unsigned*>(dqkv16 + o) = pack_bf16(v0, v1);
-          if (dqkv32) { dqkv32[o] = v0; dqkv32[o + 1] = v1; }
+          c0 += v0;
+          c1 += v1;
         }
+        if (qpart) group_colsum(qpart + ((size_t)b * ngroups + grp) * D + c, c0, c1, lane);
       }
       if (t4 == 0) {
         st[ia] = ia < T ? make_float4(ma, ila, dla, 0.f)
@@ -2028,7 +2214,7 @@ __device__ __forceinline__ void
 attn_bwd_dq_tiled(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                   const bf16* __restrict__ dctx, const float* __restrict__ mask,
                   const unsigned char* __restrict__ tmap,
-                  bf16* __restrict__ dqkv16, float* __restrict__ dqkv32,
+                  bf16* __restrict__ dqkv16, float* __restrict__ qpart,
                   float4* __restrict__ stats, int T, int P, int D, int Sp,
                   float scale) {
   constexpr bool MAP = PRE && !ROW;
@@ -2170,14 +2356,23 @@ attn_bwd_dq_tiled(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     if (t4 == 0 && i < t16)
       st[i] = i < T ? make_float4(m[h], il[h], dl[h], 0.f)
                     : make_float4(INFINITY, 0.f, 0.f, 0.f);
-    if (i >= T) continue;
+  }
 #pragma unroll
-    for (int ct = 0; ct < DH / 8; ++ct) {
+  for (int ct = 0; ct < DH / 8; ++ct) {
+    float c0 = 0.f, c1 = 0.f;   // the warp's 16-row group's column sums
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = h ? ib : ia;
+      if (i >= T) continue;
       const float v0 = dq[ct][2 * h] * scale, v1 = dq[ct][2 * h + 1] * scale;
       const size_t o = ((size_t)b * T + i) * rs + hd * DH + ct * 8 + 2 * t4;
       *reinterpret_cast<unsigned*>(dqkv16 + o) = pack_bf16(v0, v1);
-      if (dqkv32) { dqkv32[o] = v0; dqkv32[o + 1] = v1; }
+      c0 += v0;
+      c1 += v1;
     }
+    if (qpart)
+      group_colsum(qpart + ((size_t)b * ((T + 15) / 16) + rb) * D + hd * DH +
+                       ct * 8 + 2 * t4, c0, c1, lane);
   }
 }
 
@@ -2185,12 +2380,12 @@ attn_bwd_dq_tiled(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,                 \
       const bf16* __restrict__ dctx, const float* __restrict__ mask,          \
       const unsigned char* __restrict__ tmap, bf16* __restrict__ dqkv16,      \
-      float* __restrict__ dqkv32, float4* __restrict__ stats, int T, int P,   \
+      float* __restrict__ qpart, float4* __restrict__ stats, int T, int P,    \
       int D, int Sp, float scale
 template <int DH, bool PRE, bool ROW>
 __global__ void __launch_bounds__(TT_THREADS)
 attn_bwd_dq_tiled_kernel(LLC_DQ_TILED_ARGS) {
-  attn_bwd_dq_tiled<DH, PRE, ROW>(qkv, kvp, dctx, mask, tmap, dqkv16, dqkv32,
+  attn_bwd_dq_tiled<DH, PRE, ROW>(qkv, kvp, dctx, mask, tmap, dqkv16, qpart,
                                   stats, T, P, D, Sp, scale);
 }
 
@@ -2202,7 +2397,7 @@ template <int DH>
 __global__ void __launch_bounds__(TT_THREADS, 3)
 attn_bwd_dq_tiled_map_kernel(LLC_DQ_TILED_ARGS) {
   attn_bwd_dq_tiled<DH, true, false>(qkv, kvp, dctx, mask, tmap, dqkv16,
-                                     dqkv32, stats, T, P, D, Sp, scale);
+                                     qpart, stats, T, P, D, Sp, scale);
 }
 #undef LLC_DQ_TILED_ARGS
 
@@ -2221,9 +2416,8 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                     const bf16* __restrict__ dctx,
                     const float* __restrict__ mask,
                     const unsigned char* __restrict__ tmap,
-                    bf16* __restrict__ dqkv16,
-                    float* __restrict__ dqkv32, bf16* __restrict__ dkvp16,
-                    float* __restrict__ dkvp32, const float4* __restrict__ stats,
+                    bf16* __restrict__ dqkv16, bf16* __restrict__ dkvp16,
+                    float* __restrict__ kvpart, const float4* __restrict__ stats,
                     int T, int P, int D, int Sp, int NB, float scale) {
   constexpr bool MAP = PRE && !ROW;
   constexpr int LD = DH + 8, TE = TQ * LD;
@@ -2231,10 +2425,13 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int hd = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int hd = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int S = P + T, t16 = (T + 15) / 16 * 16;
   const int nq = (T + TQ - 1) / TQ, ngroups = Sp / 16;
-  const int rounds = (ngroups + NW - 1) / NW;
+  // split z = blockIdx.x takes the key groups z * NW + warp + r * gstride:
+  // each key's sums over the queries keep their order
+  const int gstride = NW * gridDim.x, gfirst = blockIdx.x * NW;
+  const int rounds = (ngroups - gfirst + gstride - 1) / gstride;
   const bool resident = NB >= nq;   // every chunk held for the whole block
   const int nload = resident ? nq : rounds * nq;
   const size_t rs = 3 * (size_t)D;
@@ -2275,7 +2472,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   }
   const float sl2 = scale * LOG2E;
   for (int r = 0;; ++r) {
-    int grp = r * NW + warp;
+    int grp = gfirst + r * gstride + warp;
     if (queue && r > 0) {
       int gq = 0;
       if (lane == 0) gq = atomicAdd(next_group, 1);
@@ -2446,6 +2643,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
 #pragma unroll
     for (int ct = 0; ct < DH / 8; ++ct) {
       const int c = hd * DH + ct * 8 + 2 * t4;
+      float ck0 = 0.f, ck1 = 0.f, cv0 = 0.f, cv1 = 0.f;   // column sums
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int j = h ? jb : ja;
@@ -2453,23 +2651,25 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
         const float k0v = dk[ct][2 * h] * scale, k1v = dk[ct][2 * h + 1] * scale;
         const float v0 = dv[ct][2 * h], v1 = dv[ct][2 * h + 1];
         bf16* o16;
-        float* o32;
         size_t o;
         if (PRE && j < P) {   // a prefix key: (B*P, 2D), dK at 0, dV at D
           o = ((size_t)b * P + j) * 2 * D + c;
           o16 = dkvp16;
-          o32 = dkvp32;
         } else {              // a token key: (B*T, 3D), dK at D, dV at 2D
           o = ((size_t)b * T + j - P) * rs + D + c;
           o16 = dqkv16;
-          o32 = dqkv32;
         }
         *reinterpret_cast<unsigned*>(o16 + o) = pack_bf16(k0v, k1v);
         *reinterpret_cast<unsigned*>(o16 + o + D) = pack_bf16(v0, v1);
-        if (o32) {
-          o32[o] = k0v; o32[o + 1] = k1v;
-          o32[o + D] = v0; o32[o + D + 1] = v1;
-        }
+        ck0 += k0v; ck1 += k1v;
+        cv0 += v0; cv1 += v1;
+      }
+      // the key group's sums of dk and dv, prefix and token keys alike
+      // (b_k and b_v see both): row b * ngroups + grp of (B * Sp/16, 2D)
+      if (kvpart) {
+        float* row = kvpart + ((size_t)b * ngroups + grp) * 2 * D + c;
+        group_colsum(row, ck0, ck1, lane);
+        group_colsum(row + D, cv0, cv1, lane);
       }
     }
   }
@@ -2520,8 +2720,10 @@ static size_t attn_tiled_smem(int tiles, int Sp, int dh, bool row, bool map) {
 }
 
 // Shared arguments of the attention launches. Without a prefix P = 0 and
-// kvp, dkvp16 and dkvp32 are null; tmap (the tile map of a 2-D mask) is
-// read by the PRE kernels without ROW only, null there meaning every block.
+// kvp and dkvp16 are null; tmap (the tile map of a 2-D mask) is read by the
+// PRE kernels without ROW only, null there meaning every block. bpart: null,
+// or the weight grads' bias partials, those of dq (B * ceil(T/16), D) then
+// those of dk | dv (B * ceil(S/16), 2D), one row a 16-row group.
 struct AttnArgs {
   const bf16* qkv;
   const bf16* kvp;
@@ -2530,20 +2732,97 @@ struct AttnArgs {
   const unsigned char* tmap;
   bf16* ctx;
   bf16* dqkv16;
-  float* dqkv32;
   bf16* dkvp16;
-  float* dkvp32;
+  float* bpart;
   float4* stats;
   int B, T, P, D, H;
   float scale;
 };
 
+static int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The end of a list schedule of ``blocks`` blocks (split z of ``ns`` the
+// fastest index, as the grid dispatches them) onto ``slots`` block slots,
+// each taking the next free one: block z costs its rounds of groups, 2 a
+// round, plus 1 to load K and V (or Q and dctx).
+static long long attn_schedule(int ns, long long blocks, long long slots,
+                               int groups, int units) {
+  std::vector<long long> ends(slots < blocks ? slots : blocks, 0);
+  std::make_heap(ends.begin(), ends.end(), std::greater<long long>());
+  long long last = 0;
+  for (long long i = 0; i < blocks; ++i) {
+    const int z = (int)(i % ns);
+    const long long rounds = z * units < groups
+        ? (groups - z * units - 1) / ((long long)units * ns) + 1 : 0;
+    std::pop_heap(ends.begin(), ends.end(), std::greater<long long>());
+    ends.back() += 2 * rounds + 1;
+    last = ends.back() > last ? ends.back() : last;
+    std::push_heap(ends.begin(), ends.end(), std::greater<long long>());
+  }
+  return last;
+}
+
+// How many blocks each (head, batch row) of a register-road attention
+// kernel takes (gridDim.x), each taking every split-th round of ``units``
+// groups of 16 rows at once (warp pairs or warps) of ``groups``: the count
+// whose list schedule (attn_schedule) over the blocks the card holds at
+// once (the kernel's occupancy at ``smem``) ends first, the fewest on a
+// tie. The blocks are latency-bound (a pair's round takes about as long
+// with one block on its SM as with two), so where B x H blocks leave SMs
+// idle (the ER family's 16 and 8 batch rows: 192 and 96 for 264 slots) a
+// split runs more rounds at once; where they fill the card twice (64 batch
+// rows and up) it is 1, the unsplit road. Each (kernel, shared memory, B x
+// H, groups) is worked out once: a chain launches the same shapes every
+// step, and the host sets the small batches' pace.
+template <typename Kernel>
+static int attn_splits(Kernel kern, int threads, size_t smem, int bh,
+                       int groups, int units) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, size_t, int, int>, int> seen;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kern), smem,
+                                   bh, groups);
+  auto it = seen.find(key);
+  if (it != seen.end()) return it->second;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  const long long slots = (long long)per_sm * sm_count();
+  int best = 1;
+  if ((long long)bh < 2 * slots) {
+    long long best_end = attn_schedule(1, bh, slots, groups, units);
+    for (int ns = 2; ns <= (groups + units - 1) / units; ++ns) {
+      const long long end = attn_schedule(ns, (long long)bh * ns, slots, groups,
+                                          units);
+      if (end < best_end) {
+        best = ns;
+        best_end = end;
+      }
+    }
+  }
+  seen[key] = best;
+  return best;
+}
+
 template <int DH, int MAXNT, bool PRE, bool ROW>
 static int launch_attn_fwd_nt(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
   const size_t smem = attn_fwd_smem(Sp, DH, ROW, PRE && !ROW);
-  raise_smem(attn_fwd_kernel<DH, MAXNT, PRE, ROW>, smem);
-  attn_fwd_kernel<DH, MAXNT, PRE, ROW><<<dim3(a.H, a.B), AF_THREADS, smem, s>>>(
+  auto kern = attn_fwd_kernel<DH, MAXNT, PRE, ROW>;
+  raise_smem(kern, smem);
+  const int ns = attn_splits(kern, AF_THREADS, smem, a.H * a.B, (a.T + 15) / 16,
+                             AF_PAIRS);
+  kern<<<dim3(ns, a.H, a.B), AF_THREADS, smem, s>>>(
       a.qkv, a.kvp, a.mask, a.tmap, a.ctx, a.T, a.P, a.D, Sp, a.scale);
   return (int)cudaGetLastError();
 }
@@ -2581,10 +2860,17 @@ static int launch_attn_dkv(const AttnArgs& a, int Sp, cudaStream_t s) {
   if (fit < 2) return (int)cudaErrorInvalidValue;
   const int nb = (int)(fit < nq ? fit : nq);
   const size_t smem = nb * chunk + extra;
-  raise_smem(attn_bwd_dkv_kernel<DH, PRE, ROW, NW>, smem);
-  attn_bwd_dkv_kernel<DH, PRE, ROW, NW><<<dim3(a.H, a.B), 32 * NW, smem, s>>>(
-      a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.dqkv32, a.dkvp16,
-      a.dkvp32, a.stats, a.T, a.P, a.D, Sp, nb, a.scale);
+  auto kern = attn_bwd_dkv_kernel<DH, PRE, ROW, NW>;
+  raise_smem(kern, smem);
+  // the key groups split over blocks as the forward's query groups; not
+  // under a tile map, whose warps take their groups from a counter
+  const int ns = PRE && !ROW ? 1 : attn_splits(kern, 32 * NW, smem, a.H * a.B,
+                                               Sp / 16, NW);
+  float* kvpart = a.bpart ? a.bpart + (size_t)a.B * ((a.T + 15) / 16) * a.D
+                          : nullptr;
+  kern<<<dim3(ns, a.H, a.B), 32 * NW, smem, s>>>(
+      a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.dkvp16, kvpart,
+      a.stats, a.T, a.P, a.D, Sp, nb, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -2601,15 +2887,17 @@ static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
     if constexpr (PRE && !ROW) kern = attn_bwd_dq_tiled_map_kernel<DH>;
     raise_smem(kern, smem);
     kern<<<dim3((a.T + TQ - 1) / TQ, a.H, a.B), TT_THREADS, smem, s>>>(
-        a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.dqkv32, a.stats, a.T,
+        a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.bpart, a.stats, a.T,
         a.P, a.D, Sp, a.scale);
   } else {
     const size_t smem = attn_bwd_dq_smem(Sp, DH, ROW, PRE && !ROW);
-    raise_smem(attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>, smem);
-    attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>
-        <<<dim3(a.H, a.B), DQ_THREADS, smem, s>>>(
-            a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.dqkv32, a.stats,
-            a.T, a.P, a.D, Sp, a.scale);
+    auto kern = attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>;
+    raise_smem(kern, smem);
+    const int ns = attn_splits(kern, DQ_THREADS, smem, a.H * a.B,
+                               (a.T + 15) / 16, DQ_PAIRS);
+    kern<<<dim3(ns, a.H, a.B), DQ_THREADS, smem, s>>>(
+        a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.bpart, a.stats,
+        a.T, a.P, a.D, Sp, a.scale);
   }
   int e = (int)cudaGetLastError();
   if (e) return e;
@@ -2706,6 +2994,17 @@ static int make_tma(CUtensorMap* map, const void* ptr, long long inner,
     *map = slot.map;
     return 0;
   }
+  // the encoding is a driver call, which needs a current context: a host
+  // thread whose first CUDA call this is (autograd's backward thread, where
+  // no launch came first) has none until the runtime binds the device's
+  // primary context to it
+  CUcontext ctx = nullptr;
+  if (cuCtxGetCurrent(&ctx) != CUDA_SUCCESS || !ctx) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess ||
+        cudaFree(nullptr) != cudaSuccess)
+      return (int)cudaErrorInvalidValue;
+  }
   cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
@@ -2741,12 +3040,7 @@ static int launch_wgmma_tile(const GemmArgs& p, int splits,
   auto kern = gemm_wgmma_kernel<OutT, BN, AT, BT, STAGE>;
   raise_smem(kern, TL::SMEM);
   // persistent: one block an SM, or one a tile where there are fewer
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int sms = sm_count();
   const long long ntiles = (long long)((p.N + BN - 1) / BN) *
                            ((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
   kern<<<(int)(ntiles < sms ? ntiles : sms), WG_THREADS, TL::SMEM, s>>>(
@@ -2783,20 +3077,41 @@ static int launch_wgmma(const GemmArgs& p, bool at, bool bt, int splits,
 }
 
 // Tile by problem shape: the mma.sync 64x16 tile for N <= 16 and 16x128 for
-// M <= 16 (the rank-r LoRA shapes); else the wgmma tile, which needs
+// M <= 16 (the rank-r LoRA shapes); else the wgmma tile (for fp32 output
+// 128 x 64 where 128 x 128 tiles would take a second, mostly empty round
+// and K is long), which needs
 // operands TMA can read (``tma``: other strides are refused, as no caller
 // has them): 128 x 128 with the staged epilogue for bf16 output, and for
-// fp32 output 128 x 256 where N >= 2048, else 128 x 128 (the faster at the
-// qkv and dh shapes; PERF.md: the qkv GEMM 0.131 ms on 128 x 256 tiles,
-// 0.090 on staged 128 x 128 ones).
+// fp32 output 128 x 256 where N >= 2048 and those tiles fill the card's
+// SMs at least once, else 128 x 128 (the faster at the qkv and dh shapes;
+// PERF.md: the qkv GEMM 0.131 ms on 128 x 256 tiles, 0.090 on staged 128 x
+// 128 ones; at the weight grads of 16 batch rows without split-K, dW_qkv's
+// 54 tiles of 128 x 256 would leave 78 SMs idle).
 template <typename OutT>
 static int launch_gemm(const GemmArgs& p, bool at, bool bt, bool tma,
                        int splits, cudaStream_t s) {
   if (p.N <= 16) return launch_gemm_layout<OutT, 4, 1, 1, 2>(p, at, bt, splits, s);
   if (p.M <= 16) return launch_gemm_layout<OutT, 1, 4, 1, 4>(p, at, bt, splits, s);
   if (!tma) return (int)cudaErrorInvalidValue;
-  if constexpr (sizeof(OutT) == 4)
-    if (p.N >= 2048) return launch_wgmma<OutT, 256>(p, at, bt, splits, s);
+  const long long sms = sm_count();
+  const long long tiles_m = (long long)((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
+  if constexpr (sizeof(OutT) == 4) {
+    if (p.N >= 2048 && (p.N + 255) / 256 * tiles_m >= sms)
+      return launch_wgmma<OutT, 256>(p, at, bt, splits, s);
+    // a second round of 128 x 128 tiles that would run mostly empty (the
+    // dh product at 16 batch rows: 150 tiles on 132 SMs): 128 x 64 tiles
+    // where their rounds cost less. A round costs its tiles' k-steps (a 128
+    // x 64 step ~0.55 of a 128 x 128 one) plus ~6 steps of fill and
+    // epilogue, so only a long K pays (on an H100 at 16 rows: dh, K = 2304,
+    // 35.6 -> 32.1 us; the bf16 out and dctx products, K = 768, ran 0.4 us
+    // slower and keep 128 x 128; PERF.md)
+    const long long t128 = (p.N + 127) / 128 * tiles_m, t64 = (p.N + 63) / 64 * tiles_m;
+    const long long ks = (p.k_per_split + WG_BK - 1) / WG_BK;
+    if (!at && t128 > sms && t128 < 2 * sms &&
+        (t64 + sms - 1) / sms * (11 * ks + 120) < (t128 + sms - 1) / sms * (20 * ks + 120))
+      return bt ? launch_wgmma_epi<OutT, 64, false, true>(p, splits, s)
+                : launch_wgmma_epi<OutT, 64, false, false>(p, splits, s);
+  }
   return launch_wgmma<OutT, 128>(p, at, bt, splits, s);
 }
 
@@ -2804,30 +3119,71 @@ extern "C" {
 
 const char* llc_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-static int ln_blocks(int M) { return (M + LN_THREADS / 32 - 1) / (LN_THREADS / 32); }
+static int ln_blocks(int M) { return (M + LN_ROWS - 1) / LN_ROWS; }
 
-int llc_ln_fwd(int dt, const void* x, const float* gamma, const float* beta,
-               void* h, int M, int D, float eps, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D > 32 * LN_MAXK) return (int)cudaErrorInvalidValue;
-  if (dt == DT_BF16)
-    ln_fwd_kernel<bf16><<<ln_blocks(M), LN_THREADS, 0, s>>>((const bf16*)x, gamma, beta, (bf16*)h, M, D, eps);
-  else
-    ln_fwd_kernel<float><<<ln_blocks(M), LN_THREADS, 0, s>>>((const float*)x, gamma, beta, (bf16*)h, M, D, eps);
-  return (int)cudaGetLastError();
-}
-
-int llc_ln_bwd(int dt, const void* x, const float* gamma, const float* dh,
-               const void* g, void* dx, float* dhx, int M, int D, float eps,
+// gdt: the dtype of gamma and beta (DT_F32 or DT_BF16).
+int llc_ln_fwd(int dt, int gdt, const void* x, const void* gamma,
+               const void* beta, void* h, int M, int D, float eps,
                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D > 32 * LN_MAXK) return (int)cudaErrorInvalidValue;
+#define LLC_LN_FWD(T, G)                                                     \
+  ln_fwd_kernel<T, G><<<ln_blocks(M), LN_THREADS, 0, s>>>(                   \
+      (const T*)x, (const G*)gamma, (const G*)beta, (bf16*)h, M, D, eps)
+  if (dt == DT_BF16) {
+    if (gdt == DT_BF16) LLC_LN_FWD(bf16, bf16); else LLC_LN_FWD(bf16, float);
+  } else {
+    if (gdt == DT_BF16) LLC_LN_FWD(float, bf16); else LLC_LN_FWD(float, float);
+  }
+#undef LLC_LN_FWD
+  return (int)cudaGetLastError();
+}
+
+// The LN partials' row chunks (ln_partials_kernel): about LN_PART_SLOTS
+// blocks over the column blocks, at least 16 rows each.
+static int ln_part_chunks(int M, int D) {
+  const int cols = (D + LN_PART_THREADS - 1) / LN_PART_THREADS;
+  const int by_rows = (M + 15) / 16, by_slots = LN_PART_SLOTS / cols;
+  const int n = by_rows < by_slots ? by_rows : by_slots;
+  return n < 1 ? 1 : n;
+}
+
+// part: null, or the weight grads' LN workspace: 3 * ln_part_chunks(M, D) *
+// D floats of column-sum partials of dh * xhat, dh and g, then 2 * M floats
+// of row statistics.
+int llc_ln_bwd(int dt, int gdt, const void* x, const void* gamma,
+               const float* dh, const void* g, void* dx, float* part, int M,
+               int D, float eps, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D > 32 * LN_MAXK) return (int)cudaErrorInvalidValue;
+  const int chunks = ln_part_chunks(M, D);
+  float2* stats = part ? reinterpret_cast<float2*>(part + (size_t)3 * chunks * D)
+                       : nullptr;
+#define LLC_LN_BWD(T, G)                                                     \
+  if (part)                                                                  \
+    ln_bwd_kernel<T, G, true><<<ln_blocks(M), LN_THREADS, 0, s>>>(           \
+        (const T*)x, (const G*)gamma, dh, (const T*)g, (T*)dx, stats, M, D,  \
+        eps);                                                                \
+  else                                                                       \
+    ln_bwd_kernel<T, G, false><<<ln_blocks(M), LN_THREADS, 0, s>>>(          \
+        (const T*)x, (const G*)gamma, dh, (const T*)g, (T*)dx, stats, M, D,  \
+        eps)
+  if (dt == DT_BF16) {
+    if (gdt == DT_BF16) { LLC_LN_BWD(bf16, bf16); } else { LLC_LN_BWD(bf16, float); }
+  } else {
+    if (gdt == DT_BF16) { LLC_LN_BWD(float, bf16); } else { LLC_LN_BWD(float, float); }
+  }
+#undef LLC_LN_BWD
+  int e = (int)cudaGetLastError();
+  if (e || !part) return e;
+  const dim3 grid((D + LN_PART_THREADS - 1) / LN_PART_THREADS, chunks);
+  const int rows = (M + chunks - 1) / chunks;
   if (dt == DT_BF16)
-    ln_bwd_kernel<bf16><<<ln_blocks(M), LN_THREADS, 0, s>>>((const bf16*)x, gamma, dh, (const bf16*)g,
-                                                            (bf16*)dx, dhx, M, D, eps);
+    ln_partials_kernel<bf16><<<grid, LN_PART_THREADS, 0, s>>>(
+        (const bf16*)x, dh, (const bf16*)g, stats, part, M, D, rows);
   else
-    ln_bwd_kernel<float><<<ln_blocks(M), LN_THREADS, 0, s>>>((const float*)x, gamma, dh, (const float*)g,
-                                                             (float*)dx, dhx, M, D, eps);
+    ln_partials_kernel<float><<<grid, LN_PART_THREADS, 0, s>>>(
+        (const float*)x, dh, (const float*)g, stats, part, M, D, rows);
   return (int)cudaGetLastError();
 }
 
@@ -2841,19 +3197,22 @@ int llc_cast_bf16(int dt, const void* x, void* y, long long n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// out (N,) fp32 = column sums of X (M, N); ws holds ceil(M/128) * N floats.
-int llc_colsum(int dt, const void* X, int M, int N, float* ws, float* out,
-               void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int rpc = 128, chunks = (M + rpc - 1) / rpc;
-  dim3 grid((N + 255) / 256, chunks);
-  if (dt == DT_BF16)
-    colsum_kernel<bf16><<<grid, 256, 0, s>>>((const bf16*)X, M, N, rpc, ws);
-  else
-    colsum_kernel<float><<<grid, 256, 0, s>>>((const float*)X, M, N, rpc, ws);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  colsum_kernel<float><<<dim3((N + 255) / 256, 1), 256, 0, s>>>(ws, chunks, N, chunks, out);
+// The column sums of ``count`` <= SUM_SEGS segments of partials in one
+// launch: desc holds, for each, (part, out, rows, n) as four 64-bit words;
+// out[c] = the sum over r < rows of part[r * n + c] in a fixed order.
+int llc_partial_sums(int count, const long long* desc, void* stream) {
+  if (count < 1 || count > SUM_SEGS) return (int)cudaErrorInvalidValue;
+  SumSegs sg = {};
+  sg.count = count;
+  int tiles = 0;
+  for (int i = 0; i < count; ++i) {
+    sg.part[i] = reinterpret_cast<const float*>(desc[4 * i]);
+    sg.out[i] = reinterpret_cast<float*>(desc[4 * i + 1]);
+    sg.rows[i] = (int)desc[4 * i + 2];
+    sg.n[i] = (int)desc[4 * i + 3];
+    tiles += (sg.n[i] + 31) / 32;
+  }
+  partial_sums_kernel<<<tiles, 256, 0, (cudaStream_t)stream>>>(sg);
   return (int)cudaGetLastError();
 }
 
@@ -2865,7 +3224,8 @@ int llc_colsum(int dt, const void* X, int M, int N, float* ws, float* out,
 // takes neither split-K, LoRA nor a residual.
 int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
              long long sak, const void* B, long long sbk, long long sbn,
-             float alpha, const float* bias, const void* lz, long long szm,
+             float alpha, const void* bias, int bias_dt, const void* lz,
+             long long szm,
              long long szr, const void* lb, long long slr, long long sln, int R,
              float lscale, const void* resid, long long ldr, void* out,
              long long ldo, int splits, float* ws, int groups, long long gm,
@@ -2878,7 +3238,7 @@ int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
     return (int)cudaErrorInvalidValue;
   p.A = (const bf16*)A; p.sam = sam; p.sak = sak;
   p.B = (const bf16*)B; p.sbk = sbk; p.sbn = sbn;
-  p.alpha = alpha; p.bias = bias;
+  p.alpha = alpha; p.bias = bias; p.bias_bf16 = bias_dt == DT_BF16;
   p.lz = (const bf16*)lz; p.szm = szm; p.szr = szr;
   p.lb = (const bf16*)lb; p.slr = slr; p.sln = sln; p.R = R; p.lscale = lscale;
   p.resid = resid; p.ldr = ldr; p.out = out; p.ldo = ldo;
@@ -2925,13 +3285,14 @@ int llc_attn_fwd(const void* qkv, const float* mask, void* ctx, int B, int T,
 }
 
 // stats: B * H * ceil16(T) float4s of workspace (row max, 1 / row sum,
-// delta; 16-byte aligned).
+// delta; 16-byte aligned). bpart: null, or the bias partials (AttnArgs),
+// (B * ceil(T/16) * D + B * ceil(S/16) * 2D) floats.
 int llc_attn_bwd(const void* qkv, const void* dctx, const float* mask,
-                 void* dqkv16, float* dqkv32, float* stats, int B, int T,
+                 void* dqkv16, float* bpart, float* stats, int B, int T,
                  int D, int H, float scale, void* stream) {
   AttnArgs a = {};
   a.qkv = (const bf16*)qkv; a.dctx = (const bf16*)dctx; a.mask = mask;
-  a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32; a.stats = (float4*)stats;
+  a.dqkv16 = (bf16*)dqkv16; a.bpart = bpart; a.stats = (float4*)stats;
   a.B = B; a.T = T; a.P = 0; a.D = D; a.H = H; a.scale = scale;
   return launch_attn<true, false, false>(a, (cudaStream_t)stream);
 }
@@ -2965,12 +3326,12 @@ int llc_attn_prefix_fwd(const void* qkv, const void* kvp, const float* mask,
       : launch_attn<false, true, false>(a, (cudaStream_t)stream);
 }
 
-// dkvp16 (B*P, 2D) receives dK | dV of the prefix keys (dkvp32: the fp32
-// values, or null), dqkv16 those of the tokens as llc_attn_bwd.
+// dkvp16 (B*P, 2D) receives dK | dV of the prefix keys, dqkv16 those of the
+// tokens, and bpart the bias partials, as llc_attn_bwd (S = P + T).
 int llc_attn_prefix_bwd(const void* qkv, const void* kvp, const void* dctx,
                         const float* mask, int mask_rs, const void* tmap,
-                        void* dqkv16, float* dqkv32, void* dkvp16,
-                        float* dkvp32, float* stats, int B, int T, int P,
+                        void* dqkv16, void* dkvp16, float* bpart,
+                        float* stats, int B, int T, int P,
                         int D, int H, float scale, void* stream) {
   if (P < 1 || (mask_rs && mask_rs != P + T) || (tmap && !(mask && mask_rs)))
     return (int)cudaErrorInvalidValue;
@@ -2978,8 +3339,8 @@ int llc_attn_prefix_bwd(const void* qkv, const void* kvp, const void* dctx,
   a.qkv = (const bf16*)qkv; a.kvp = (const bf16*)kvp;
   a.dctx = (const bf16*)dctx; a.mask = mask;
   a.tmap = (const unsigned char*)tmap;
-  a.dqkv16 = (bf16*)dqkv16; a.dqkv32 = dqkv32;
-  a.dkvp16 = (bf16*)dkvp16; a.dkvp32 = dkvp32; a.stats = (float4*)stats;
+  a.dqkv16 = (bf16*)dqkv16; a.dkvp16 = (bf16*)dkvp16;
+  a.bpart = bpart; a.stats = (float4*)stats;
   a.B = B; a.T = T; a.P = P; a.D = D; a.H = H; a.scale = scale;
   return mask && !mask_rs
       ? launch_attn<true, true, true>(a, (cudaStream_t)stream)

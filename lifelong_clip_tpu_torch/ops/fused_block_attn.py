@@ -39,9 +39,17 @@ block, bs=64: forward ~67.1 GFLOP (~68 us, compute-bound); backward with
 runs the op as a chain of kernels whose intermediates (h, qkv, ctx, dctx,
 dqkv, dh) go through device memory where the TPU kernel kept them in VMEM;
 fusing them back is the first target of a later redesign. Weight-type grads
-are contractions over all B*T rows done as split-K GEMMs whose partials a
-second pass sums in a fixed order: no atomics, as the TPU kernel's
-sequential grid had none.
+are contractions over all B*T rows done as GEMMs split over K only where
+the tiles would leave SMs idle (``_weight_grad_splits``), whose partials a
+second pass sums in a fixed order; the bias and LN grads are folded into
+the kernels that make the rows (the attention backward's column sums of
+each 16-row group of dq, dk and dv) and one column-parallel pass after the
+LN backward (dh * xhat, dh and g over chunks of rows), whose partials one
+launch sums in a fixed order: no
+float atomics, as the TPU kernel's sequential grid had none. The LN params
+and biases are read in their own dtype (no cast launches at the head of a
+chain). At the ER family's 16 and 8 batch rows the attention kernels split
+each (head, batch row) over blocks, each row's arithmetic unchanged.
 
 Beside the kernels sit their plain PyTorch versions,
 ``fused_ln_attention_block_reference`` and
@@ -52,6 +60,9 @@ the CPU; a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -242,23 +253,63 @@ def _stream(t):
 
 
 def _row_splits(m_blocks_n_blocks: int, k: int) -> int:
-    """Split-K factor for a contraction over all B*T rows: enough blocks to
-    fill the card's 132 SMs twice, and at least 256 rows per split."""
+    """Split-K factor for a LoRA grad (a contraction over all B*T rows on
+    the rank-r tiles): enough blocks to fill the card's 132 SMs twice, and
+    at least 256 rows per split."""
     want = -(-264 // max(m_blocks_n_blocks, 1))
     return max(1, min(want, k // 256))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the weight grads' split-K cost model, in one 128 x 128 x 64 step of the
+# wgmma GEMM on one SM (~0.5 us on an H100): the split-K reduction's launch,
+# and the fp32 bytes one step's time moves
+_STEP_LAUNCH, _STEP_BYTES = 6.0, 1.5e6
+
+
+def _weight_grad_splits(m: int, n: int, k: int, sms: int) -> int:
+    """Split-K factor for a weight grad, an (m, n) fp32 contraction over
+    all k = B*T rows on the wgmma tiles: the one that finishes soonest, its
+    tiles' rounds over the card's SMs (the persistent GEMM) against the
+    fp32 partials the split writes and a second launch sums. The tile is
+    the launcher's (``launch_gemm``: 128 x 256 only for N >= 2048 where
+    those tiles fill the SMs). At 16 batch rows this takes dW_qkv unsplit
+    on 108 tiles and dW_out in 3 splits of 36 where the fixed 264-block
+    rule took 3 and 8."""
+    best, best_cost = 1, None
+    for want in range(1, max(1, k // 256) + 1):
+        kps = -(-(-(-k // want)) // 64) * 64
+        s = -(-k // kps)
+        tiles_m = -(-m // 128)
+        bn = 256 if n >= 2048 and -(-n // 256) * tiles_m * s >= sms else 128
+        tiles = -(-n // bn) * tiles_m * s
+        cost = -(-tiles // sms) * (kps // 64) * (bn // 128)
+        if s > 1:
+            cost += _STEP_LAUNCH + 2 * s * m * n * 4 / _STEP_BYTES
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
 
 
 def _gemm(out, a, a_strides, b, b_strides, m, n, k, *, alpha=1.0, bias=None,
           lz=None, lb=None, lscale=0.0, resid=None, splits=1, groups=None):
     """out (m, n) = epilogue(alpha * A @ B) on the card; see ``llc_gemm``.
-    ``lz``/``lb`` are (tensor, stride, stride) for the LoRA epilogue term.
-    ``groups`` (count, gm, gn): one launch of ``count`` such products, the
-    g-th reading A rows g * gm on and B columns g * gn on into out (and
-    bias) columns g * gn on."""
+    ``lz``/``lb`` are (tensor, stride, stride) for the LoRA epilogue term;
+    ``bias`` fp32 or bf16. ``groups`` (count, gm, gn): one launch of
+    ``count`` such products, the g-th reading A rows g * gm on and B
+    columns g * gn on into out (and bias) columns g * gn on. ``splits``:
+    -1 a LoRA grad's (``_row_splits``), -2 a weight grad's
+    (``_weight_grad_splits``)."""
     assert out.dim() == 2 and out.stride(1) == 1
     ws = None
-    if splits == -1:   # auto: a contraction over all B*T rows
+    if splits == -1:   # auto: a LoRA grad over all B*T rows
         splits = _row_splits(-(-n // 128) * -(-m // 128), k)
+    elif splits == -2:   # auto: a weight grad over all B*T rows
+        splits = _weight_grad_splits(m, n, k, _sm_count(out.device.index))
     if splits > 1:
         ws = torch.empty(splits * m * n, dtype=torch.float32,
                          device=out.device)
@@ -268,19 +319,11 @@ def _gemm(out, a, a_strides, b, b_strides, m, n, k, *, alpha=1.0, bias=None,
     _kernels.call(
         "llc_gemm", _DT[out.dtype], m, n, k, a.data_ptr(), a_strides[0],
         a_strides[1], b.data_ptr(), b_strides[0], b_strides[1], alpha,
-        _ptr(bias), _ptr(lzt), szm, szr, _ptr(lbt), slr, sln, r, lscale,
+        _ptr(bias), _DT[bias.dtype] if bias is not None else 0, _ptr(lzt),
+        szm, szr, _ptr(lbt), slr, sln, r, lscale,
         _ptr(resid), resid.stride(0) if resid is not None else 0,
         out.data_ptr(), out.stride(0), splits, _ptr(ws),
         *(groups or (1, 0, 0)), _stream(out))
-    return out
-
-
-def _colsum(x2d):
-    m, n = x2d.shape
-    ws = torch.empty(-(-m // 128) * n, dtype=torch.float32, device=x2d.device)
-    out = torch.empty(n, dtype=torch.float32, device=x2d.device)
-    _kernels.call("llc_colsum", _DT[x2d.dtype], x2d.data_ptr(), m, n,
-                  ws.data_ptr(), out.data_ptr(), _stream(x2d))
     return out
 
 
@@ -297,25 +340,34 @@ def _check_cuda(x, n_heads, op="fused_ln_attention_block"):
                          f"D <= 1024; got D={d}, heads={n_heads}, T={t}")
 
 
+def _param(a):
+    """An LN param or bias as the kernels read it: contiguous, in its own
+    dtype where that is fp32 or bf16 (the kernels convert on load, so the
+    chain casts nothing first), else fp32."""
+    a = a.detach()
+    return a.to(a.dtype if a.dtype in _DT else torch.float32).contiguous()
+
+
 class _Prepared:
     """Operands in the kernels' layouts: weights and LoRA factors bf16 (as the
-    TPU wrapper casts them), LN params and biases fp32, contiguous."""
+    TPU wrapper casts them), LN params and biases in their own dtype (fp32
+    or bf16, ``_param``), contiguous."""
 
     def __init__(self, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, mask,
                  lora, lora_scaling):
-        def f32(a):
-            return a.detach().to(torch.float32).contiguous()
-
         def b16(a):
             return a.detach().to(_BF).contiguous()
 
         self.x = x.detach().contiguous()
         b, t, d = x.shape
         self.b, self.t, self.d, self.m = b, t, d, b * t
-        self.gamma, self.beta = f32(ln_scale), f32(ln_bias)
+        # the LN kernels read gamma and beta as one type
+        self.gamma, self.beta = _param(ln_scale), _param(ln_bias)
+        if self.gamma.dtype != self.beta.dtype:
+            self.gamma, self.beta = self.gamma.float(), self.beta.float()
         self.w_qkv, self.w_out = b16(w_qkv), b16(w_out)
-        self.b_qkv = f32(b_qkv)
-        self.b_out = f32(b_out) if b_out is not None else None
+        self.b_qkv = _param(b_qkv)
+        self.b_out = _param(b_out) if b_out is not None else None
         self.mask = _mask32(mask, t, t, x.device)
         lt = _lora16(lora, lora_scaling)
         self.lora = None if lt is None else tuple(
@@ -345,13 +397,50 @@ def _stats(pp: _Prepared, n_heads):
                        dtype=torch.float32, device=pp.x.device)
 
 
-def _zero_block_grads(d, device):
-    """fp32 zeros for (dls, dlb, dwqkv, dbqkv, dwout, dbout): the block
-    grads without ``weight_grads``."""
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.zeros(d, **f32), torch.zeros(d, **f32),
-            torch.zeros(d, 3 * d, **f32), torch.zeros(3 * d, **f32),
-            torch.zeros(d, d, **f32), torch.zeros(d, **f32))
+def _ln_part_chunks(m: int, d: int) -> int:
+    """The LN partials' row chunks (``ln_part_chunks`` in the source): about
+    264 blocks over the 256-column blocks, at least 16 rows each."""
+    return max(1, min(-(-m // 16), 264 // -(-d // 256)))
+
+
+def _bias_rows(pp: _Prepared, s_len):
+    """The partial rows of the weight grads' sums: dq's 16-row groups, dk |
+    dv's (S = ``s_len`` keys), the LN partials' row chunks."""
+    return (pp.b * -(-pp.t // 16), pp.b * -(-s_len // 16),
+            _ln_part_chunks(pp.m, pp.d))
+
+
+def _bias_workspace(pp: _Prepared, s_len):
+    """One fp32 buffer for the weight grads' sums (dbqkv (3D), dls, dlb,
+    dbout) and the partials the kernels that make the rows write: the
+    attention backward's of dq (B * ceil(T/16) groups of D) and of dk | dv
+    (B * ceil(S/16) groups of 2D), the LN backward's of dh * xhat, dh and g
+    (3 x ``_ln_part_chunks`` row chunks of D, then its (mean, rstd) a row).
+    Returns (sums, attention partials, LN workspace)."""
+    d = pp.d
+    nq, nk, nl = _bias_rows(pp, s_len)
+    attn = nq * d + nk * 2 * d
+    ws = torch.empty(6 * d + attn + 3 * nl * d + 2 * pp.m,
+                     dtype=torch.float32, device=pp.x.device)
+    return ws[:6 * d], ws[6 * d:6 * d + attn], ws[6 * d + attn:]
+
+
+def _bias_sums(pp: _Prepared, s_len, sums, attn_part, ln_part):
+    """dbqkv, dls, dlb and dbout from the partials (``_bias_workspace``), in
+    one launch of the fixed-order sums; views of ``sums``."""
+    d = pp.d
+    nq, nk, nl = _bias_rows(pp, s_len)
+    segs = ((attn_part, 0, nq, d), (attn_part, nq * d, nk, 2 * d),
+            (ln_part, 0, nl, d), (ln_part, nl * d, nl, d),
+            (ln_part, 2 * nl * d, nl, d))
+    desc, out = [], 0
+    for buf, off, rows, n in segs:
+        desc += [buf.data_ptr() + 4 * off, sums.data_ptr() + 4 * out, rows, n]
+        out += n
+    arr = (ctypes.c_longlong * len(desc))(*desc)
+    _kernels.call("llc_partial_sums", len(segs), ctypes.addressof(arr),
+                  pp.stream)
+    return sums[:3 * d], sums[3 * d:4 * d], sums[4 * d:5 * d], sums[5 * d:]
 
 
 def _cuda_ln_qkv(pp: _Prepared):
@@ -359,9 +448,9 @@ def _cuda_ln_qkv(pp: _Prepared):
     m, d, r = pp.m, pp.d, pp.r
     dev = pp.x.device
     h16 = torch.empty(m, d, dtype=_BF, device=dev)
-    _kernels.call("llc_ln_fwd", _DT[pp.x.dtype], pp.x.data_ptr(),
-                  pp.gamma.data_ptr(), pp.beta.data_ptr(), h16.data_ptr(),
-                  m, d, EPS, pp.stream)
+    _kernels.call("llc_ln_fwd", _DT[pp.x.dtype], _DT[pp.gamma.dtype],
+                  pp.x.data_ptr(), pp.gamma.data_ptr(), pp.beta.data_ptr(),
+                  h16.data_ptr(), m, d, EPS, pp.stream)
     z16 = None
     if pp.lora is not None:
         z16 = _gemm(torch.empty(m, r, dtype=_BF, device=dev), h16, (d, 1),
@@ -406,7 +495,11 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
                    lora_scaling, mask, lora, weight_grads, saved):
     """The backward chain on the card. ``saved``: the forward's (h16, z16,
     qkv16, ctx16, z2_16), those the backward reads (``_keep_for_backward``
-    of ``_cuda_forward(..., keep=True)``)."""
+    of ``_cuda_forward(..., keep=True)``). The block grads (dls, dlb,
+    dwqkv, dbqkv, dwout, dbout) are None without ``weight_grads`` (the op
+    gives exact zeros to a primal that needs a grad); with it the bias and
+    LN grads come from the partials the attention and LN backward write,
+    summed in one launch."""
     _check_cuda(x, n_heads)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, None, mask,
                    lora, lora_scaling)
@@ -416,11 +509,12 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     h16, z16, qkv16, ctx16, z2 = saved
     g2, g16 = _grad_rows(pp, g)
 
-    dls, dlb, dwqkv, dbqkv, dwout, dbout = _zero_block_grads(d, dev)
+    grads = (None,) * 6
+    sums = attn_part = ln_part = None
     if weight_grads:
+        sums, attn_part, ln_part = _bias_workspace(pp, pp.t)
         dwout = _gemm(torch.empty(d, d, **f32), ctx16, (1, d), g16, (d, 1),
-                      d, d, m, splits=-1)
-        dbout = _colsum(g2)
+                      d, d, m, splits=-2)
     dlora = None
     dz2 = None
     if pp.lora is not None:
@@ -438,10 +532,9 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
                    lscale=1.0)
 
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
-    dqkv32 = torch.empty(m, 3 * d, **f32) if weight_grads else None
     stats = _stats(pp, n_heads)
     _kernels.call("llc_attn_bwd", qkv16.data_ptr(), dctx16.data_ptr(),
-                  _ptr(pp.mask), dqkv16.data_ptr(), _ptr(dqkv32),
+                  _ptr(pp.mask), dqkv16.data_ptr(), _ptr(attn_part),
                   stats.data_ptr(), pp.b, pp.t, d, n_heads,
                   (d // n_heads) ** -0.5, pp.stream)
 
@@ -460,19 +553,27 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
                lb=(pp.lora[0], 1, r) if dz is not None else None, lscale=1.0)
     if weight_grads:
         dwqkv = _gemm(torch.empty(d, 3 * d, **f32), h16, (1, d), dqkv16,
-                      (3 * d, 1), d, 3 * d, m, splits=-1)
-        dbqkv = _colsum(dqkv32)
+                      (3 * d, 1), d, 3 * d, m, splits=-2)
 
-    dx = torch.empty_like(pp.x)
-    dhx = torch.empty(m, d, **f32) if weight_grads else None
-    _kernels.call("llc_ln_bwd", _DT[x.dtype], pp.x.data_ptr(),
-                  pp.gamma.data_ptr(), dh.data_ptr(), g2.data_ptr(),
-                  dx.data_ptr(), _ptr(dhx), m, d, EPS, pp.stream)
+    dx = _ln_backward(pp, dh, g2, ln_part)
     if weight_grads:
-        dls = _colsum(dhx)
-        dlb = _colsum(dh)
+        dbqkv, dls, dlb, dbout = _bias_sums(pp, pp.t, sums, attn_part,
+                                            ln_part)
+        grads = (dls, dlb, dwqkv, dbqkv, dwout, dbout)
     LAUNCHES["fused_ln_attention_bwd"] += 1
-    return (dx, dls, dlb, dwqkv, dbqkv, dwout, dbout), dlora
+    return (dx, *grads), dlora
+
+
+def _ln_backward(pp: _Prepared, dh, g2, ln_part):
+    """dx = g + LN'(x)^T dh on the card (one launch); with ``ln_part`` (the
+    weight grads) also the LN partials of dls, dlb and dbout (a second
+    launch, ``ln_partials_kernel``)."""
+    dx = torch.empty_like(pp.x)
+    _kernels.call("llc_ln_bwd", _DT[pp.x.dtype], _DT[pp.gamma.dtype],
+                  pp.x.data_ptr(), pp.gamma.data_ptr(), dh.data_ptr(),
+                  g2.data_ptr(), dx.data_ptr(), _ptr(ln_part), pp.m, pp.d,
+                  EPS, pp.stream)
+    return dx
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +611,16 @@ def _keep_for_backward(saved, weight_grads):
     return (h16 if wide else None, z16, qkv16, ctx16 if wide else None, z2)
 
 
+def _primal_grads(grads, primals, needs):
+    """Each grad in its primal's dtype (``_fused_bwd:236-245``): bf16 LoRA
+    primals get bf16-rounded grads, as on the TPU. Frozen primals get none;
+    a block grad the chain did not compute (None: ``weight_grads=False``)
+    is exact zeros for a primal that needs one, made only then."""
+    return tuple(None if not need else torch.zeros_like(p) if gr is None
+                 else gr.to(p.dtype).reshape(p.shape)
+                 for gr, p, need in zip(grads, primals, needs))
+
+
 class _FusedLNAttention(torch.autograd.Function):
 
     @staticmethod
@@ -541,12 +652,7 @@ class _FusedLNAttention(torch.autograd.Function):
             ctx.lora_scaling, ctx.mask, lora, ctx.weight_grads,
             saved=tuple(saved))
         primals = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out)
-        # grads come back in each primal's dtype (``_fused_bwd:236-245``):
-        # bf16 LoRA primals get bf16-rounded grads, as on the TPU. Frozen
-        # primals get none.
-        out = tuple(gr.to(p.dtype).reshape(p.shape) if need else None
-                    for gr, p, need in zip(grads, primals,
-                                           ctx.needs_input_grad))
+        out = _primal_grads(grads, primals, ctx.needs_input_grad)
         if lora is None:
             dl = (None,) * 4
         elif dlora is None:   # lora_scaling == 0: the LoRA terms are absent
@@ -854,24 +960,20 @@ def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
     return (y, saved) if keep else y
 
 
-def _prefix_attention_bwd(pp, qkv16, kvp16, dctx16, n_heads, fp32):
+def _prefix_attention_bwd(pp, qkv16, kvp16, dctx16, n_heads, attn_part=None):
     """The prefix attention backward (dq, then dk/dv): (dqkv16 (B*T, 3D),
-    dkvp16 (B*P, 2D: dK | dV of the prefix rows), and with ``fp32`` their
-    fp32 twins, else None)."""
+    dkvp16 (B*P, 2D: dK | dV of the prefix rows)), and into ``attn_part``
+    (``_bias_workspace``'s) the bias partials where given."""
     m, d, bp, dev = pp.m, pp.d, pp.b * pp.p, pp.x.device
-    f32 = dict(dtype=torch.float32, device=dev)
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
     dkvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=dev)
-    dqkv32 = torch.empty(m, 3 * d, **f32) if fp32 else None
-    dkvp32 = torch.empty(bp, 2 * d, **f32) if fp32 else None
     stats = _stats(pp, n_heads)
     _kernels.call("llc_attn_prefix_bwd", qkv16.data_ptr(), kvp16.data_ptr(),
                   dctx16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
-                  _ptr(pp.tmap), dqkv16.data_ptr(),
-                  _ptr(dqkv32), dkvp16.data_ptr(), _ptr(dkvp32),
-                  stats.data_ptr(), pp.b, pp.t, pp.p, d, n_heads,
-                  (d // n_heads) ** -0.5, pp.stream)
-    return dqkv16, dkvp16, dqkv32, dkvp32
+                  _ptr(pp.tmap), dqkv16.data_ptr(), dkvp16.data_ptr(),
+                  _ptr(attn_part), stats.data_ptr(), pp.b, pp.t, pp.p, d,
+                  n_heads, (d // n_heads) ** -0.5, pp.stream)
+    return dqkv16, dkvp16
 
 
 def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
@@ -881,7 +983,8 @@ def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
     (h16, qkv16, kvp16, ctx16), those the backward reads
     (``_keep_for_prefix_backward`` of ``_cuda_prefix_forward(...,
     keep=True)``). A 2-D mask's tile map is built anew here (one launch);
-    ``tile_map`` as the forward's."""
+    ``tile_map`` as the forward's. The block grads as ``_cuda_backward``'s
+    (None without ``weight_grads``)."""
     pp, pk16, pv16 = _prefix_prepare(x, pk, pv, ln_scale, ln_bias, w_qkv,
                                      b_qkv, w_out, None, n_heads, mask,
                                      tile_map)
@@ -891,16 +994,17 @@ def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
     h16, qkv16, kvp16, ctx16 = saved
     g2, g16 = _grad_rows(pp, g)
 
-    dls, dlb, dwqkv, dbqkv, dwout, dbout = _zero_block_grads(d, dev)
+    grads = (None,) * 6
+    sums = attn_part = ln_part = None
     if weight_grads:
+        sums, attn_part, ln_part = _bias_workspace(pp, pp.p + pp.t)
         dwout = _gemm(torch.empty(d, d, **f32), ctx16, (1, d), g16, (d, 1),
-                      d, d, m, splits=-1)
-        dbout = _colsum(g2)
+                      d, d, m, splits=-2)
     dctx16 = _gemm(torch.empty(m, d, dtype=_BF, device=dev), g16, (d, 1),
                    pp.w_out, (1, d), m, d, d)
 
-    dqkv16, dkvp16, dqkv32, dkvp32 = _prefix_attention_bwd(
-        pp, qkv16, kvp16, dctx16, n_heads, weight_grads)
+    dqkv16, dkvp16 = _prefix_attention_bwd(pp, qkv16, kvp16, dctx16, n_heads,
+                                           attn_part)
 
     # dpk = dK16_pre @ W_k^T, dpv = dV16_pre @ W_v^T (:843-852)
     dpkv = [_gemm(torch.empty(bp, d, **f32), dkvp16[:, i * d:(i + 1) * d],
@@ -910,28 +1014,24 @@ def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
                (1, 3 * d), m, d, 3 * d)
     if weight_grads:
         dwqkv = _gemm(torch.empty(d, 3 * d, **f32), h16, (1, d), dqkv16,
-                      (3 * d, 1), d, 3 * d, m, splits=-1)
+                      (3 * d, 1), d, 3 * d, m, splits=-2)
         # the prefix rows join the K and V contractions: dW_k += pk16^T dK,
         # dW_v += pv16^T dV, through the residual epilogue in place
         for i, src in enumerate((pk16, pv16)):
             blk = dwqkv[:, (i + 1) * d:(i + 2) * d]
             _gemm(blk, src, (1, d), dkvp16[:, i * d:(i + 1) * d], (2 * d, 1),
                   d, d, bp, resid=blk)
-        dbqkv = _colsum(dqkv32)
-        dbqkv[d:] += _colsum(dkvp32)
 
-    dx = torch.empty_like(pp.x)
-    dhx = torch.empty(m, d, **f32) if weight_grads else None
-    _kernels.call("llc_ln_bwd", _DT[x.dtype], pp.x.data_ptr(),
-                  pp.gamma.data_ptr(), dh.data_ptr(), g2.data_ptr(),
-                  dx.data_ptr(), _ptr(dhx), m, d, EPS, pp.stream)
+    dx = _ln_backward(pp, dh, g2, ln_part)
     if weight_grads:
-        dls = _colsum(dhx)
-        dlb = _colsum(dh)
+        # the key groups' partials hold the prefix keys' dk and dv too
+        dbqkv, dls, dlb, dbout = _bias_sums(pp, pp.p + pp.t, sums, attn_part,
+                                            ln_part)
+        grads = (dls, dlb, dwqkv, dbqkv, dwout, dbout)
     LAUNCHES["fused_prefix_attention_bwd"] += 1
     dpk, dpv = (a.view(pp.b, pp.p, d).to(src.dtype)
                 for a, src in zip(dpkv, (pk, pv)))
-    return dx, dpk, dpv, dls, dlb, dwqkv, dbqkv, dwout, dbout
+    return (dx, dpk, dpv, *grads)
 
 
 # ---------------------------------------------------------------------------
@@ -993,11 +1093,8 @@ class _FusedPrefixAttention(torch.autograd.Function):
         grads = _prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv,
                                  b_qkv, w_out, ctx.n_heads, ctx.mask,
                                  ctx.weight_grads, saved=saved)
-        # each grad in its primal's dtype (``_prefix_bwd:687-693``); frozen
-        # primals get none
-        out = tuple(gr.to(p.dtype).reshape(p.shape) if need else None
-                    for gr, p, need in zip(grads, primals,
-                                           ctx.needs_input_grad))
+        # as _FusedLNAttention (``_prefix_bwd:687-693``)
+        out = _primal_grads(grads, primals, ctx.needs_input_grad)
         return out + (None,) * 4
 
 

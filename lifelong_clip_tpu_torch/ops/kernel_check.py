@@ -26,7 +26,10 @@ every slot dead) is visible to the y check; and asserts that the grads of
 the dead prefix slots are exactly zero. Under a (T, P + T) mask the prefix
 kernels skip the blocks the mask's tile map marks dead:
 ``prefix_attention_outputs`` gives the attention kernels' own outputs (ctx,
-dqkv, dkvp) with and without the map, which ``same_bits`` holds bit for bit.
+dqkv, dkvp, the weight grads' bias partials) with and without the map,
+which ``same_bits`` holds bit for bit. ``batch_rows`` gives ctx, y and dx
+of a batch, for holding a small batch's rows bit for bit to the same rows
+of a larger one.
 
 The flash case (``make_flash_inputs``, ``check_flash_case``) holds o, dq, dk
 and dv whole. Kernels and plain versions both compute in fp32 and round
@@ -244,7 +247,8 @@ def prefix_attention_outputs(x, pk, pv, blk, gy, mask, heads,
                              tile_map=True):
     """The prefix attention kernels' own outputs on the card for the output
     grad ``gy``: ctx16 of the forward and, of the backward, dqkv16, dkvp16
-    and their fp32 twins; with the mask's tile map or, with
+    and the weight grads' bias partials (fp32 column sums of each 16-row
+    group of dq, dk and dv); with the mask's tile map or, with
     ``tile_map=False``, sweeping every block."""
     wb = [blk[k] for k in BLOCK_KEYS]
     _, (_, qkv16, kvp16, ctx16) = fba._cuda_prefix_forward(
@@ -253,9 +257,24 @@ def prefix_attention_outputs(x, pk, pv, blk, gy, mask, heads,
     g16 = fba._grad_rows(pp, gy)[1]
     dctx16 = fba._gemm(torch.empty_like(ctx16), g16, (pp.d, 1), pp.w_out,
                        (1, pp.d), pp.m, pp.d, pp.d)
-    grads = fba._prefix_attention_bwd(pp, qkv16, kvp16, dctx16, heads, True)
-    return dict(zip(("ctx16", "dqkv16", "dkvp16", "dqkv32", "dkvp32"),
-                    (ctx16, *grads)))
+    part = fba._bias_workspace(pp, pp.p + pp.t)[1]
+    grads = fba._prefix_attention_bwd(pp, qkv16, kvp16, dctx16, heads, part)
+    return dict(zip(("ctx16", "dqkv16", "dkvp16", "bias_partials"),
+                    (ctx16, *grads, part)))
+
+
+def batch_rows(x, blk, gy, heads):
+    """The kernels' ctx16 and y of the forward and dx of the backward (no
+    LoRA, no mask, ``weight_grads=False``) for the batch ``x``, each (B, T,
+    D): what a batch-invariance check compares row for row between a small
+    batch, whose attention kernels split each (head, batch row) over
+    blocks, and a larger one holding the same rows."""
+    wb = [blk[k] for k in BLOCK_KEYS]
+    y, saved = fba._cuda_forward(x, *wb, heads, 0.0, None, None, keep=True)
+    kept = fba._keep_for_backward(saved, False)
+    grads, _ = fba._cuda_backward(x, gy, *wb[:5], heads, 0.0, None, None,
+                                  False, kept)
+    return {"ctx16": saved[3].view(x.shape), "y": y, "dx": grads[0]}
 
 
 _BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}

@@ -8,6 +8,8 @@ without one. On the card, without JAX (this file imports torch only):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -55,7 +57,12 @@ CASES = [(2, 13, 128, 2, 4, False, False), (3, 77, 256, 4, 0, True, True),
          # (no LoRA, weight grads), ER's step and CLIB's 256-row recompute
          (16, 197, 768, 12, 0, False, True),
          (16, 197, 768, 12, 0, False, False),
-         (256, 197, 768, 12, 0, False, False)]
+         (256, 197, 768, 12, 0, False, False),
+         # Finetuning's 8 rows a rank of --mesh 2x1, and B = 1 and 3, where
+         # the attention kernels split each (head, batch row) over blocks
+         (8, 197, 768, 12, 0, False, True),
+         (1, 197, 768, 12, 0, False, False),
+         (3, 197, 768, 12, 0, False, False)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,r,causal,wg", CASES)
@@ -68,20 +75,61 @@ def test_kernels_match_plain_versions(cuda, b, t, d, heads, r, causal, wg):
     kc.check_case(x, blk, lora, gy, mask, heads, 0.25 if r else 0.0, wg)
 
 
-def test_backward_is_deterministic(cuda):
-    """No atomics: two backward passes on the same inputs, reading the
-    forward's kept intermediates as a train step does, agree bit for bit,
-    the row contractions included."""
-    x, blk, lora, gy = _inputs(cuda, 4, 197, 192, 4, seed=1)
-    _, saved = fba._cuda_forward(x, *blk, 3, 0.25, None, lora, keep=True)
-    bargs = (*blk[:5], 3, 0.25, None, lora, True)
+@pytest.mark.parametrize("b,d,heads,r", [(4, 192, 3, 4), (16, 768, 12, 0)])
+def test_backward_is_deterministic(cuda, b, d, heads, r):
+    """No float atomics: two backward passes on the same inputs, reading
+    the forward's kept intermediates as a train step does, agree bit for
+    bit, the row contractions and the bias and LN sums included; also at
+    Finetuning's 16 rows, where the attention kernels split each (head,
+    batch row) over blocks."""
+    x, blk, lora, gy = _inputs(cuda, b, 197, d, r, seed=1)
+    s = 0.25 if r else 0.0
+    _, saved = fba._cuda_forward(x, *blk, heads, s, None, lora, keep=True)
+    bargs = (*blk[:5], heads, s, None, lora, True)
     saved = fba._keep_for_backward(saved, True)
     first = fba._cuda_backward(x, gy, *bargs, saved)
     second = fba._cuda_backward(x, gy, *bargs, saved)
-    for a, b in zip(first[0], second[0]):
-        assert torch.equal(a, b)
-    for k in LORA_KEYS:
+    for one, two in zip(first[0], second[0]):
+        assert kc.same_bits(one, two)
+    for k in (LORA_KEYS if r else ()):
         assert torch.equal(first[1][k], second[1][k]), k
+
+
+def test_backward_in_a_fresh_host_thread(cuda):
+    """The chain's first launch in a host thread that made no CUDA call
+    before (autograd's backward thread at a process's first op, once no
+    PyTorch launch leads the chain) encodes new TMA maps: the launcher
+    makes the device's context current first. Shapes no other case uses,
+    so the maps are new."""
+    x, blk, _, gy = _inputs(cuda, 3, 61, 256, 0, seed=4)
+    _, saved = fba._cuda_forward(x, *blk, 4, 0.0, None, None, keep=True)
+    kept = fba._keep_for_backward(saved, True)
+    out = {}
+
+    def run():
+        try:
+            out["grads"] = fba._cuda_backward(x, gy, *blk[:5], 4, 0.0, None,
+                                              None, True, kept)
+        except Exception as e:   # noqa: BLE001 - reported below
+            out["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert "error" not in out, out.get("error")
+    assert all(torch.isfinite(g).all() for g in out["grads"][0])
+
+
+def test_rows_do_not_depend_on_the_batch(cuda):
+    """The rows of a 16-row batch, whose attention kernels split each
+    (head, batch row) over blocks, give ctx, y and dx bit for bit equal to
+    the same rows inside a 64-row batch, which does not split: each row's
+    arithmetic is the same on both roads."""
+    x, blk, _, gy, _ = kc.make_inputs(64, 197, 768, 12, 0, False, 9,
+                                      device=cuda)
+    got = [kc.batch_rows(x[:n], blk, gy[:n], 12) for n in (16, 64)]
+    for key in got[0]:
+        assert kc.same_bits(got[0][key], got[1][key][:got[0][key].shape[0]]), key
 
 
 def test_op_launches_kernels_and_counts_them(cuda):
@@ -432,6 +480,11 @@ GEMM_CASES = [
     ("TN", "f32", 768, 768, 12608, "", -1),
     ("TN", "f32", 760, 2304, 1000, "resid", 1),
     ("NN", "f32", 1000, 328, 520, "alpha", 1),
+    # 16 batch rows (M = 3152, 150 tiles of 128 x 128): the out and dctx
+    # products, and dh, which takes 128 x 64 tiles (fp32 out, K = 2304)
+    ("NN", "bf16", 3152, 768, 768, "bias,resid", 1),
+    ("NT", "bf16", 3152, 768, 768, "lora", 1),
+    ("NT", "f32", 3152, 768, 2304, "lora", 1),
 ]
 
 
