@@ -167,10 +167,26 @@
    the bubble share, and the ring permutes' bytes and ms; then a planted
    fault (the permute's backward dropped) that the check must catch. The
    kernel phase times #1/#2 at the microbatch shapes.
+11. Whole runs (``whole_run_phase``): lora-clip, Finetuning and mvp-clip
+   through ``main`` with their main paths' flags, three times each from the
+   same seed and augmentation draws: the kernel road (bf16; the main path
+   run of 5, its losses and eval accuracies recorded), the library road
+   (``"unfused"``: cuBLAS and SDPA, no hand-written kernel, bf16; the
+   trainer's class attribute set, no CLI flag) and the reference (the
+   library road in fp32, ``--no_bf16``). Each path prints its step count,
+   each bf16 road's distances from the reference (max |loss difference|
+   over the first 10 steps, the mean-loss difference, the L2 distance of
+   the trained leaves at the end), their ratios (kernel over library) and
+   every eval accuracy of the three runs; the ratios of the first and the
+   last must be within ``WHOLE_RUN_MULTIPLE``. Then lora-clip's kernel road
+   with planted faults (the dx that the fused op's backward returns for
+   its last vision block scaled): the sign flip must read at least five
+   times the multiple, half the rows halved must fail the check.
 
 Any failure raises and exits non-zero. The line before the last is the
 ``kernels`` JSON object (six kernels; each one's launches summed over
-every main path of 5 and the sound steps of 9 and 10); the last line is
+every main path of 5 and the sound steps of 9 and 10; the whole runs of 11
+add none); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -970,14 +986,18 @@ def wrap_step(owner, attr, hook):
     return lambda: setattr(owner, attr, orig)
 
 
-def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
+def run_main_path(label, owner, passes, argv, loss_of, in_result=None,
+                  record=None):
     """Drive ``main(argv)`` with the launch counters set to 0 just before
     and read just after, counting each pass's launches by wrapping its step
     (``passes``: pass -> ``owner``'s attribute, or an (owner, attribute)
     pair, through ``wrap_step``). The outputs of every pass whose name
     starts with ``train`` are collected in call order, and with one every
-    loss must be finite; ``in_result``: a text result.txt must hold.
-    Returns (launches, per-pass launches, train-step outputs, wall s)."""
+    loss must be finite; ``in_result``: a text result.txt must hold;
+    ``record``: a dict that gets the run's train losses, eval accuracies
+    (``eval_curve``), result and trained leaves at the end (``trained``:
+    one fp32 vector on the card). Returns (launches, per-pass launches,
+    train-step outputs, wall s)."""
     import numpy as np
     import torch
     from lifelong_clip_tpu_torch import main as cli
@@ -1000,6 +1020,8 @@ def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
                            else (owner, spec)),
                          lambda fn, _p=p: counting(_p, fn))
                for p, spec in passes.items()]
+    if record is not None:
+        restore.append(record_trained(record))
     try:
         with tempfile.TemporaryDirectory() as tmp:
             reset_launches()
@@ -1012,6 +1034,9 @@ def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
                      for r, _, fs in os.walk(tmp) if "result.txt" in fs]
             assert found, f"{label} main path wrote no result.txt"
             text = open(found[0]).read()
+            if record is not None:
+                record.update(eval_curve(os.path.dirname(found[0])),
+                              result=result, wall_s=wall)
     finally:
         for r in restore:
             r()
@@ -1020,12 +1045,47 @@ def run_main_path(label, owner, passes, argv, loss_of, in_result=None):
     losses = [loss_of(o) for o in outs]
     assert not any(p.startswith("train") for p in passes) or (
         losses and np.isfinite(losses).all()), f"{label} losses {losses}"
+    if record is not None:
+        record["losses"] = losses
     trained = (f"{len(losses)} train steps, loss {losses[0]:.4f} -> "
                f"{losses[-1]:.4f}" if losses else "no train steps")
     log(f"{label} main path: {trained} in {wall:.1f} s, result {result}, "
         f"launches {launches}, per pass {per_pass}, result.txt ends "
         f"{text[-120:]!r}")
     return launches, per_pass, outs, wall
+
+
+def record_trained(record):
+    """Wraps the trainers' ``run`` so that ``record["trained"]`` gets the
+    trained leaves at the end of the run, flattened into one fp32 vector;
+    returns the undo."""
+    import torch
+    from lifelong_clip_tpu_torch.methods import base
+    from lifelong_clip_tpu_torch.methods.engine import tree_leaves
+    real = base.OnlineTrainer.__dict__["run"]
+
+    def run(self, *a, **kw):
+        out = real(self, *a, **kw)
+        record["trained"] = torch.cat(
+            [p.detach().float().flatten()
+             for p in tree_leaves(self.state.trainable)])
+        return out
+    base.OnlineTrainer.run = run
+    return lambda: setattr(base.OnlineTrainer, "run", real)
+
+
+def eval_curve(result_dir):
+    """A run's eval accuracies from its files: each periodic eval's
+    (``seed_k_eval.npy``) and each task end's (``seed_k.npy``)."""
+    import numpy as np
+    out = {}
+    for f in os.listdir(result_dir):
+        if f.startswith("seed_") and f.endswith("_eval.npy"):
+            out["periodic_acc"] = np.load(
+                os.path.join(result_dir, f)).tolist()
+        elif f.startswith("seed_") and f[5:-4].isdigit():
+            out["task_acc"] = np.load(os.path.join(result_dir, f)).tolist()
+    return out
 
 
 # scripts/lora_clip.sh's flags on synthetic-20, 2 tasks
@@ -1036,20 +1096,20 @@ LORA_SCRIPT_ARGV = ["--method", "lora-clip", "--model_name", "ViT-B/16",
                     "--visible_classes", "all"]
 
 
-def main_path_phase():
+def main_path_phase(record=None):
     """lora-clip on ViT-B/16 through ``main`` with ``scripts/lora_clip.sh``'s
     flags: LoRA on both towers (``--peft_encoder both``), every exposed
     class visible (the (20, 77) token table), the default ``--transforms``
     (AutoAugment), the batch prefetcher uploading through pinned memory.
     Kernels #1 and #2 run in the vision and the text tower of every train
-    step (12 + 12 forward and backward), #1 in the eval and text
-    passes."""
+    step (12 + 12 forward and backward), #1 in the eval and text passes.
+    ``record``: as ``run_main_path`` (the whole-run phase's kernel road)."""
     from lifelong_clip_tpu_torch.methods import adapter_clip
     launches, per_pass, outs, wall = run_main_path(
         "lora-clip", adapter_clip,
         {"train": "make_train_step", "eval": "make_eval_step",
          "text": "make_text_feature_fn"},
-        LORA_SCRIPT_ARGV, lambda st: float(st["loss"]))
+        LORA_SCRIPT_ARGV, lambda st: float(st["loss"]), record=record)
     tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
     steps = len(outs)
     assert tr["fused_ln_attention_fwd"] == tr["fused_ln_attention_bwd"] \
@@ -1083,21 +1143,24 @@ def vit_l14_main_path_phase():
     return launches, {"wall_s": wall, "per_pass": per_pass}
 
 
-def mvp_main_path_phase():
+MVP_CLIP_ARGV = ["--method", "mvp-clip", "--model_name", "ViT-B/16",
+                 "--dataset", "synthetic-20", "--n_tasks", "2", "--batchsize",
+                 "64", "--online_iter", "3", "--use_mask", "--use_contrastiv",
+                 "--eval_period", "640"]
+
+
+def mvp_main_path_phase(record=None):
     """mvp-clip on ViT-B/16 through ``main`` (``scripts/mvp_clip.sh``'s
     method flags, the default ``--transforms``): the prompted pass runs
-    kernels #3 and #4, the query and text passes kernel #1."""
+    kernels #3 and #4, the query and text passes kernel #1. ``record``: as
+    ``run_main_path``."""
     import torch
     from lifelong_clip_tpu_torch.methods import mvp_clip
     launches, per_pass, outs, wall = run_main_path(
         "mvp-clip", mvp_clip,
         {"train": "make_mvp_train_step", "eval": "make_mvp_eval_step",
          "text": "make_mvp_text_fn"},
-        ["--method", "mvp-clip", "--model_name", "ViT-B/16", "--dataset",
-         "synthetic-20", "--n_tasks", "2", "--batchsize", "64",
-         "--online_iter", "3", "--use_mask", "--use_contrastiv",
-         "--eval_period", "640"],
-        lambda out: float(out[1]["loss"]))
+        MVP_CLIP_ARGV, lambda out: float(out[1]["loss"]), record=record)
     tr, ev, tx = per_pass["train"], per_pass["eval"], per_pass["text"]
     assert tr["fused_prefix_attention_fwd"] > 0 and \
         tr["fused_prefix_attention_bwd"] > 0 and \
@@ -1686,13 +1749,13 @@ STEP_LAUNCHES.update({"er": (12, 0, 0, 0), "Finetuning": (12, 12, 0, 0),
                       "clib": (12, 0, 0, 0), "rm": (12, 0, 0, 0)})
 
 
-def er_family_main_path_phase(method):
+def er_family_main_path_phase(method, record=None):
     """``method`` of the ER family through ``main`` on ViT-B/16 (random
     weights) with ``ER_FAMILY_ARGV``'s flags: every train step's launches
     exactly ``STEP_LAUNCHES`` (LwF's plain and KD steps, EWC++'s double
     update, CLIB's memory steps, RM's stream and memory-epoch steps), the
     eval passes on kernel #1, CLIB's incoming-feature pass and RM's
-    Monte-Carlo views on #1 too."""
+    Monte-Carlo views on #1 too. ``record``: as ``run_main_path``."""
     import numpy as np
     from lifelong_clip_tpu_torch.methods import clib, er_baseline, ewcpp
     from lifelong_clip_tpu_torch.methods import lwf
@@ -1712,7 +1775,7 @@ def er_family_main_path_phase(method):
     try:
         launches, per_pass, outs, wall = run_main_path(
             method, None, passes, ER_FAMILY_ARGV[method],
-            lambda st: float(st["loss"]))
+            lambda st: float(st["loss"]), record=record)
     finally:
         restore()
     steps = len(outs)
@@ -3632,6 +3695,214 @@ def pipeline_phase(card, device="cuda:0", cases=None):
             "card": card}
 
 
+# ---------------------------------------------------------------------------
+# whole runs: the kernel road and the library road, each against fp32
+# ---------------------------------------------------------------------------
+
+# the kernel road's distance from the fp32 run may be at most this many times
+# the library road's, on each statistic of WHOLE_RUN_CHECKED (PERF.md §2:
+# fixed before the final chip run, from the readings of an earlier one)
+WHOLE_RUN_MULTIPLE = 1.5
+WHOLE_RUN_STEPS = 10      # "loss10": max |loss difference| over these
+WHOLE_RUN_CHECKED = ("loss10", "trained")
+# each path: its main path's argv, the trainer class and its road attribute
+# (module, class, attribute), the train pass and the loss of a step's output
+WHOLE_RUN_PATHS = {
+    "lora-clip": (LORA_SCRIPT_ARGV,
+                  ("adapter_clip", "AdapterCLIP", "_attn_impl"),
+                  ("adapter_clip", "make_train_step"), "stats"),
+    "Finetuning": (ER_FAMILY_ARGV["Finetuning"],
+                   ("er_baseline", "ER", "attn_impl"),
+                   ("er_baseline", "make_train_step"), "stats"),
+    "mvp-clip": (MVP_CLIP_ARGV, ("mvp_clip", "CLIP_MVP", "_attn_impl"),
+                 ("mvp_clip", "make_mvp_train_step"), "count, stats"),
+}
+# planted faults in lora-clip's kernel road: the dx that the backward of its
+# last vision block's fused op (_FusedLNAttention) returns, scaled by a factor
+# on the first share of the batch rows. Each must read at least its need
+# times WHOLE_RUN_MULTIPLE on one statistic of WHOLE_RUN_CHECKED: the sign
+# flip gives the check's margin (five times), half the rows halved, as a
+# fault in a split over rows would leave them, must fail the check. (One
+# positive scale on every row scales every grad upstream of the block by one
+# constant, which AdamW's m / sqrt(v) cancels: no run can see that.)
+WHOLE_RUN_FAULTS = (
+    # label, factor, share of the rows, need
+    ("dx x -1, last vision block", -1.0, 1.0, 5.0),
+    ("dx x 0.5 on the first half of the rows, last vision block", 0.5, 0.5,
+     1.0),
+)
+
+
+def _methods(name):
+    import importlib
+    return importlib.import_module(f"lifelong_clip_tpu_torch.methods.{name}")
+
+
+def road_run(path, impl, bf16):
+    """One run of ``path`` through ``main`` with its trainer class on the
+    ``impl`` road (``"fused"``: the kernels; ``"unfused"``: cuBLAS and
+    SDPA, no hand-written kernel) in bf16 or fp32 (``--no_bf16``): its
+    losses, eval accuracies, result, trained leaves, wall s and kernel
+    launches."""
+    script, (mod, cls, attr), (tmod, tattr), out_kind = WHOLE_RUN_PATHS[path]
+    owner = getattr(_methods(mod), cls)
+    real = owner.__dict__[attr]
+    setattr(owner, attr, impl)
+    rec = {}
+    try:
+        launches, _, _, _ = run_main_path(
+            f"{path} ({impl}, {'bf16' if bf16 else 'fp32'})", None,
+            {"train": (_methods(tmod), tattr)},
+            script + ([] if bf16 else ["--no_bf16"]),
+            (lambda st: float(st["loss"])) if out_kind == "stats" else
+            (lambda out: float(out[1]["loss"])), record=rec)
+    finally:
+        setattr(owner, attr, real)
+    rec["launches"] = launches
+    return rec
+
+
+@contextlib.contextmanager
+def planted_dx_fault(factor, share, vision_tokens, n_blocks):
+    """The fused op's backward with the dx it returns for the last of
+    ``n_blocks`` vision blocks (counted in forward order; vision inputs are
+    those of ``vision_tokens`` tokens) scaled by ``factor`` on the first
+    ``share`` of its rows; yields the list that gets one entry a faulty
+    backward."""
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    op = fba._FusedLNAttention
+    fwd, bwd = op.__dict__["forward"], op.__dict__["backward"]
+    seen, hits = [0], []
+
+    def forward(ctx, x, *args):
+        ctx.planted = False
+        if x.shape[1] == vision_tokens:
+            ctx.planted = seen[0] % n_blocks == n_blocks - 1
+            seen[0] += 1
+        return fwd.__func__(ctx, x, *args)
+
+    def backward(ctx, g):
+        grads = bwd.__func__(ctx, g)
+        if not ctx.planted:
+            return grads
+        hits.append(1)
+        dx = grads[0].clone()
+        dx[:round(dx.shape[0] * share)] *= factor
+        return (dx,) + tuple(grads[1:])
+
+    op.forward, op.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield hits
+    finally:
+        op.forward, op.backward = fwd, bwd
+
+
+def whole_run_distances(run, ref):
+    """A run's distances from the fp32 run ``ref``: max |loss difference|
+    over the first WHOLE_RUN_STEPS steps (``loss10``), the difference of
+    the mean losses (``mean``), max |loss difference| over every step
+    (``loss_all``) and the L2 distance of the trained leaves at the end
+    (``trained``)."""
+    import numpy as np
+    a, b = np.asarray(run["losses"]), np.asarray(ref["losses"])
+    assert a.shape == b.shape, (a.shape, b.shape)
+    n = WHOLE_RUN_STEPS
+    return {"loss10": float(np.abs(a[:n] - b[:n]).max()),
+            "mean": float(abs(a.mean() - b.mean())),
+            "loss_all": float(np.abs(a - b).max()),
+            "trained": float((run["trained"] - ref["trained"]).norm())}
+
+
+def ratios(dist, lib):
+    return {k: dist[k] / lib[k] if lib[k] > 0 else math.inf for k in dist}
+
+
+def whole_run_phase(card, kernel_runs=None):
+    """Each path of ``WHOLE_RUN_PATHS`` run three times through ``main``
+    with the same seed and augmentation draws: the kernel road (bf16; the
+    main path phase's run, ``kernel_runs[path]``, where given), the library
+    road (``"unfused"``, bf16: no hand-written kernel may launch) and the
+    reference (``"unfused"``, fp32). On each statistic of
+    ``WHOLE_RUN_CHECKED`` the kernel road's distance from the reference
+    (``whole_run_distances``) must be within ``WHOLE_RUN_MULTIPLE`` times
+    the library road's; then lora-clip's kernel road again with each
+    planted fault of ``WHOLE_RUN_FAULTS``, which must read at least its
+    need times the multiple on one of them."""
+    from lifelong_clip_tpu_torch.config import resolve_clip_preset
+    t_phase = time.perf_counter()
+    kernel_runs = kernel_runs or {}
+    rows, failed, ref_of, lib_of = [], [], {}, {}
+    for path, spec in WHOLE_RUN_PATHS.items():
+        kern = kernel_runs.get(path) or road_run(path, "fused", True)
+        lib = road_run(path, "unfused", True)
+        ref = road_run(path, "unfused", False)
+        assert not any(lib["launches"].values()), \
+            f"{path}: the library road launched kernels {lib['launches']}"
+        dk = whole_run_distances(kern, ref)
+        dl = whole_run_distances(lib, ref)
+        ref_of[path], lib_of[path] = ref, dl
+        for r in (kern, lib):
+            r.pop("trained")
+        runs = (("kernel", kern), ("library", lib), ("fp32", ref))
+        row = {"path": path, "steps": len(ref["losses"]),
+               "kernel": dk, "library": dl, "ratio": ratios(dk, dl),
+               "losses": {road: r["losses"] for road, r in runs},
+               "eval_acc": {road: {k: r.get(k) for k in
+                                   ("periodic_acc", "task_acc")}
+                            for road, r in runs},
+               "result": {road: r["result"] for road, r in runs},
+               "wall_s": {road: r["wall_s"] for road, r in runs}}
+        over = [f"{k} {row['ratio'][k]:.3f}" for k in WHOLE_RUN_CHECKED
+                if row["ratio"][k] > WHOLE_RUN_MULTIPLE]
+        if over:
+            failed.append(f"{path}: ratio {', '.join(over)}")
+        rows.append(row)
+        log(json.dumps({"whole_run": row}))
+        log(f"whole run {path}: {row['steps']} steps; distance from fp32 "
+            f"(max |dloss| over the first {WHOLE_RUN_STEPS} steps, trained "
+            f"leaves' L2): kernel road {dk['loss10']:.4e}, "
+            f"{dk['trained']:.4e}; library road {dl['loss10']:.4e}, "
+            f"{dl['trained']:.4e}; ratio {row['ratio']['loss10']:.3f}, "
+            f"{row['ratio']['trained']:.3f} (limit {WHOLE_RUN_MULTIPLE}); "
+            f"mean-loss difference: kernel {dk['mean']:.4e}, library "
+            f"{dl['mean']:.4e}; max |dloss| over every step: kernel "
+            f"{dk['loss_all']:.4e}, library {dl['loss_all']:.4e}; eval "
+            f"accuracies {json.dumps(row['eval_acc'])}; wall s "
+            f"{row['wall_s']}; {card}")
+    path = "lora-clip"
+    argv = WHOLE_RUN_PATHS[path][0]
+    cfg = resolve_clip_preset(argv[argv.index("--model_name") + 1])
+    tokens = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    faults = []
+    for label, factor, share, need in WHOLE_RUN_FAULTS:
+        with planted_dx_fault(factor, share, tokens,
+                              cfg.vision_layers) as hits:
+            run = road_run(path, "fused", True)
+        assert len(hits) == len(run["losses"]), (label, len(hits))
+        df = whole_run_distances(run, ref_of[path])
+        reads = ratios(df, lib_of[path])
+        faults.append({"fault": label, "distance": df, "reads": reads,
+                       "needs": need * WHOLE_RUN_MULTIPLE,
+                       "losses": run["losses"], "wall_s": run["wall_s"]})
+        log(f"whole run {path} with the planted fault '{label}': distance "
+            f"from fp32 {df['loss10']:.4e} (max |dloss| over the first "
+            f"{WHOLE_RUN_STEPS} steps), {df['trained']:.4e} (trained "
+            f"leaves), {reads['loss10']:.2f} and {reads['trained']:.2f} x "
+            f"the library road's (needs > {need * WHOLE_RUN_MULTIPLE} on "
+            f"one); mean-loss difference {df['mean']:.4e}; {card}")
+        log(json.dumps({"whole_run_fault": faults[-1]}))
+        if max(reads[k] for k in WHOLE_RUN_CHECKED) <= \
+                need * WHOLE_RUN_MULTIPLE:
+            failed.append(f"the planted fault '{label}' reads {reads}")
+    for r in ref_of.values():
+        r.pop("trained")
+    wall = time.perf_counter() - t_phase
+    assert not failed, f"whole-run phase checks failed: {failed}"
+    return {"whole_run_phase": rows, "planted_faults": faults,
+            "multiple": WHOLE_RUN_MULTIPLE, "checked": WHOLE_RUN_CHECKED,
+            "steps": WHOLE_RUN_STEPS, "wall_s": wall, "card": card}
+
+
 def step_profile(run_step, step_ms, steps=3, top=12):
     """torch.profiler over ``steps`` train steps: device ms per step (the
     union of kernel intervals); the device's idle share of the profiled
@@ -3696,7 +3967,7 @@ def main():
 
     card = card_line()
     log(card)
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     path = _kernels.build()
     _kernels.library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: "
@@ -3815,11 +4086,13 @@ def main():
 
     aug = augmentation_phase(card)
     torch.cuda.synchronize()
-    launches, lora_run = main_path_phase()
+    # the whole-run phase's kernel road: these main paths' own runs
+    kernel_road = {path: {} for path in WHOLE_RUN_PATHS}
+    launches, lora_run = main_path_phase(kernel_road["lora-clip"])
     torch.cuda.synchronize()
     l14_launches, l14_run = vit_l14_main_path_phase()
     torch.cuda.synchronize()
-    mvp_launches, mvp_run = mvp_main_path_phase()
+    mvp_launches, mvp_run = mvp_main_path_phase(kernel_road["mvp-clip"])
     torch.cuda.synchronize()
     maple_launches, maple_run = maple_main_path_phase()
     torch.cuda.synchronize()
@@ -3848,8 +4121,11 @@ def main():
     torch.cuda.synchronize()
     er_runs = {}
     for method in ER_FAMILY_ARGV:
-        er_runs[method] = er_family_main_path_phase(method)
+        er_runs[method] = er_family_main_path_phase(
+            method, kernel_road.get(method))
         torch.cuda.synchronize()
+    whole_run = whole_run_phase(card, kernel_road)
+    torch.cuda.synchronize()
     gates = []
     for gate in (learning_gate, lora_both_gate, mvp_learning_gate,
                  maple_learning_gate, prompted_lora_gate,
@@ -4003,6 +4279,10 @@ def main():
     log(json.dumps({"tile_map_phase": tile_maps, "card": card}))
     log(json.dumps({"batch_invariance": invariance, "card": card}))
     log(json.dumps({"gemm": gemms, "card": card}))
+    log(json.dumps(whole_run))
+    log(json.dumps({"chip_smoke_wall_s": time.perf_counter() - t_start,
+                    "whole_run_phase_wall_s": whole_run["wall_s"],
+                    "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,33 @@
+"""Whole-run parity of MaPLe and mvp-clip (``--use_mask
+--use_contrastiv``), each through the port's ``run()`` against the JAX
+package's over one two-task stream (``tests/torch_whole_run.py``: the same
+tower, data and starting trees, augmentation off on both sides, JAX on its
+``"xla"`` road), with ``online_iter 3``. MaPLe's per-task reset and
+mvp-clip's prompt counts run as ``run()`` drives them.
+
+The port runs its ``"unfused"`` road, as
+``tests/test_torch_whole_run_adapter.py`` says why (MaPLe on the
+``"fused"`` road: step 0 off by 2.4e-3 against rtol 1e-4). mvp-clip's lr
+1e-2 moves the accuracy between eval points; MaPLe runs 1e-3: at 1e-2 its
+losses drift from 1e-7 to 7e-3 over the 48 steps on both roads' fp32
+arithmetic, at 5e-3 and 1e-3 they stay within 3e-5.
+"""
+
+import pytest
+
+import torch_whole_run as wr
+
+one_thread = pytest.fixture(autouse=True, scope="module")(wr.one_thread)
+
+CASES = [
+    wr.Case("maple", (("lr", 1e-3), ("online_iter", 3)), impl="unfused"),
+    wr.Case("mvp-clip", (("lr", 1e-2), ("online_iter", 3)),
+            attrs=(("use_mask", True), ("use_contrastiv", True)),
+            impl="unfused"),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c.name for c in CASES])
+def test_whole_run_matches_jax(case, tmp_path):
+    j, t = wr.whole_run(case, tmp_path)
+    print(wr.report_line(wr.check(case, j, t)))

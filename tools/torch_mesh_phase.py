@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s mesh or pipeline phase alone, on one card: the
-kernels built first, then every case of ``MESH_CASES`` (the data-parallel,
-model-axis and bf16 model-axis steps, the one-rank nccl step and the
-planted-fault controls) or of ``PP_CASES`` (lora-clip's vision tower in two
-pipeline stages: ViT-B/16 in fp32 and bf16, ViT-L/14 in bf16, and the
-planted fault), with the card's name and power limit.
+"""``chip_smoke.py``'s mesh, pipeline or whole-run phase alone, on one
+card: the kernels built first, then every case of ``MESH_CASES`` (the
+data-parallel, model-axis and bf16 model-axis steps, the one-rank nccl step
+and the planted-fault controls), of ``PP_CASES`` (lora-clip's vision tower
+in two pipeline stages: ViT-B/16 in fp32 and bf16, ViT-L/14 in bf16, and
+the planted fault) or of ``WHOLE_RUN_PATHS`` (lora-clip, Finetuning and
+mvp-clip through ``main`` on the kernel road, the library road and in fp32,
+then lora-clip with each planted fault of ``WHOLE_RUN_FAULTS``), with the
+card's name and power limit.
 
-    python3 tools/torch_mesh_phase.py [--phase mesh|pipeline] [--out FILE]
+    python3 tools/torch_mesh_phase.py [--phase mesh|pipeline|whole_run]
+                                      [--out FILE]
 
 Writes the phase's record as JSON to ``--out`` (default
 ``chiprun_out/<phase>_phase.json``) and exits 1 if a check failed.
@@ -22,7 +26,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phase", choices=("mesh", "pipeline"), default="mesh")
+    p.add_argument("--phase", choices=("mesh", "pipeline", "whole_run"),
+                   default="mesh")
     p.add_argument("--out", default=None)
     args = p.parse_args()
     out = args.out or os.path.join(REPO, "chiprun_out",
@@ -40,7 +45,8 @@ def main():
     cs.log(card)
     _kernels.build()
     _kernels.library()
-    phase = cs.mesh_phase if args.phase == "mesh" else cs.pipeline_phase
+    phase = {"mesh": cs.mesh_phase, "pipeline": cs.pipeline_phase,
+             "whole_run": cs.whole_run_phase}[args.phase]
     try:
         res = phase(card)
     except AssertionError as e:
