@@ -29,12 +29,17 @@
    causal (512, 537) mask of 64 classes x 8 tokens, whose bound counts the
    (query, key) pairs the mask leaves live), and the same at its main
    path's 20 classes (64 and 90 rows x 160 tokens, the (160, 185) mask);
+   the text tower with KV-prefix prompts (100 class rows x 77 tokens, 512
+   wide, 8 heads, P = 20, one prompt tensor as pk and pv, the causal
+   (77, 97) mask with the prompts always visible);
    and the flash-attention op at
-   five shapes (the
+   six shapes (the
    prompted-LoRA block, B*H = 768, T = 197, S = 217, dh 64, with no mask and
    with a (S,) key row of 5 live prompt slots; the text tower, 64 rows x 8
    heads, T = S = 77, causal; ViT-L/14 with no prefix, 64 x 257 x 1024, 16
-   heads, S = 257; T = 77, S = 700, causal, the bf16 forward's tiled road),
+   heads, S = 257; T = 77, S = 700, causal, the bf16 forward's tiled road;
+   the prompted text tower with LoRA, 100 rows x 8 heads, T = 77, S = 97,
+   causal),
    each run through its op's autograd Function as the
    train step runs it, against the plain PyTorch versions on the same
    inputs on the card, with the tolerances stated in
@@ -80,6 +85,17 @@
    with LoRA r=4 and (12, 64, 20, 768) raw KV prompts, bs 64,
    ``ce_on_probs_loss``, AdamW over LoRA and prompts): 3 train steps and
    one eval forward, 12 flash launches forward and 12 backward a step.
+   Then the text prompt path (``text_prompt_phase``; no registered method
+   passes text prompts): (12, 20, 512) KV-prefix prompts through
+   ``encode_text`` on ViT-B/16's text tower over 100 class rows, alone and
+   beside a text LoRA r=4, 10 AdamW steps fitting the class features to
+   64 fixed image features under cross entropy, on the kernel road, the
+   library road (bf16) and in fp32: each kernel-road step launches #3/#4
+   12 + 12 times (with tile maps of the (77, 97) mask) without LoRA, #5/#6
+   12 + 12 with it, nothing else; on the losses and on the prompts at the
+   end the kernel road's distance from fp32 must be within
+   ``WHOLE_RUN_MULTIPLE`` times the library road's; the device ms of a
+   forward with and without the prompts, and of a step.
    Then adapter-clip and moe-clip as ``scripts/adapter_clip.sh`` sets them
    (image tower, online_iter 3; kernel #1 in all 12 vision blocks and #2,
    dx only, in blocks 1-11 of every step); an OpenAI-layout ViT-B/16
@@ -712,6 +728,19 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
         [a.detach().clone().requires_grad_(True) for a in (x, pk, pv)], gy)
 
 
+def text_prompt_prefix_case():
+    """#3/#4 at the shape the text prompt path (``text_prompt_phase``)
+    gives them without LoRA: K = 100 class rows x 77 tokens, 512 wide, 8
+    heads, P = 20 slots, one prompt tensor as pk and pv (as ``_block``
+    passes ``encode_text``'s prompts), the causal mask with the 20 prompts
+    always visible, (77, 97)."""
+    from lifelong_clip_tpu_torch.ops.attention import causal_mask
+    return prefix_kernel_case(
+        "text prompts K=100, P=20, causal", TP_SLOTS, False, 35,
+        shape=(TP_CLASSES, 77, 512, 8, TP_SLOTS), shared=True,
+        mask=causal_mask(77, prefix=TP_SLOTS, device="cuda"))
+
+
 def proto_main_suffix_cases():
     """ProtoCLIP's suffix pass at the shapes its main path (``PROTO_ARGV``:
     synthetic-20, 20 class slots, S = 8, lp = 25) gives #3/#4: stage 1's and
@@ -818,13 +847,17 @@ def batch_invariance_phase():
 # (20 raw KV prompt slots, S = 217) with no mask and with mvp-clip's (S,)
 # key row of 5 live slots; the text tower's causal shape; ViT-L/14 with no
 # prefix, S = 257 > 256 (no key limit), and S = 700 (a long prefix, as
-# ProtoCLIP's grows with its classes): the bf16 forward's tiled road
+# ProtoCLIP's grows with its classes): the bf16 forward's tiled road; the
+# text tower with 20 KV prompt slots and a text LoRA (text_prompt_phase):
+# 100 class rows, S = 97, causal with the prompts always visible
 FLASH_CASES = (("prompted-LoRA", 64, 197, 217, 768, 12, None),
                ("prompted-LoRA, 5 of 20 slots live", 64, 197, 217, 768, 12,
                 5),
                ("text causal", 64, 77, 77, 512, 8, "causal"),
                ("ViT-L/14, S = 257", 64, 257, 257, 1024, 16, None),
                ("tiled road, S = 700, causal", 64, 77, 700, 768, 12,
+                "causal"),
+               ("text prompts + LoRA, K=100, P=20", 100, 77, 97, 512, 8,
                 "causal"))
 
 
@@ -2517,6 +2550,188 @@ def prompted_lora_gate(card):
                      "layer (flash attention), no AutoAugment")
 
 
+TP_SLOTS = MVP_SHAPE[4]     # text prompt slots a layer: mvp-clip's count
+TP_CLASSES = 100            # CIFAR-100's class rows (lora_both_setup)
+TP_IMAGES = 64              # fixed image features the class rows are fit to
+TP_LR = 1e-3
+# (label, text LoRA rank): prompts alone take #3/#4, with LoRA #5/#6
+TP_VARIANTS = (("text prompts", 0), ("text prompts + LoRA r=4", 4))
+# (road, attn_impl, bf16): the kernels, the library calls, the reference
+TP_ROADS = (("kernel", "fused", True), ("library", "unfused", True),
+            ("fp32", "unfused", False))
+
+
+def text_prompt_setup(tower, lora_r, impl, bf16):
+    """Text-side KV-prefix prompts trained on ViT-B/16's text tower at full
+    width (12 layers, 512 wide, 8 heads) through ``encode_text(...,
+    layer_prompts=...)``: (12, TP_SLOTS, 512) prompts broadcast over
+    TP_CLASSES class-token rows (77 tokens, the causal mask with TP_SLOTS
+    always-visible keys), with ``lora_r`` a text LoRA beside them; the
+    class features fit to TP_IMAGES fixed unit image features under cross
+    entropy over the classes, AdamW at TP_LR, ``base_grads=False``.
+    ``tower``: (fp32 params, bf16 params, cfg) of ``frozen_clip``. Every
+    road starts from the same seeds. Returns (trainable dict, step
+    returning the loss, loss of a forward with or without the prompts)."""
+    import torch
+    import torch.nn.functional as F
+    from lifelong_clip_tpu_torch.config import PEFTConfig
+    from lifelong_clip_tpu_torch.models import build_peft
+    from lifelong_clip_tpu_torch.models import clip as clip_fns
+    from lifelong_clip_tpu_torch.utils.train_utils import make_optimizer
+    params, params16, cfg = tower
+    dev = torch.device("cuda")
+    frozen = params16 if bf16 else params
+    dt = torch.bfloat16 if bf16 else torch.float32
+    _, _, tokens = gate_batch(cfg, TP_CLASSES, 0)
+    tokens = tokens.to(dev)
+    g = torch.Generator().manual_seed(4)
+    img = F.normalize(torch.randn(TP_IMAGES, cfg.embed_dim, generator=g),
+                      dim=-1).to(dev)
+    labels = torch.randint(0, TP_CLASSES, (TP_IMAGES,), generator=g).to(dev)
+    trainable = {"prompts": torch.randn(
+        cfg.text_layers, TP_SLOTS, cfg.text_width,
+        generator=torch.Generator().manual_seed(3)).to(dev)}
+    peft_cfg = None
+    if lora_r:
+        peft_cfg = PEFTConfig(method="lora", encoder="text", lora_r=lora_r)
+        trainable["lora"] = build_peft(torch.Generator().manual_seed(1), cfg,
+                                       peft_cfg, device=dev)["text"]
+    leaves = [trainable["prompts"]] + (
+        list(trainable["lora"]["lora"].values()) if lora_r else [])
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    opt, _ = make_optimizer("adamw", leaves, TP_LR)
+    scale = torch.exp(params["logit_scale"]).float()
+
+    def loss_of(prompts):
+        txt = clip_fns.encode_text(
+            frozen, tokens, cfg, peft_cfg=peft_cfg,
+            peft=trainable.get("lora"), layer_prompts=prompts,
+            compute_dtype=dt, attn_impl=impl, base_grads=False)
+        logits = scale * (img @ clip_fns.normalize(txt).float().T)
+        return F.cross_entropy(logits, labels)
+
+    def step(prompts_on=True):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(trainable["prompts"] if prompts_on else None)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def forward(prompts_on=True):
+        with torch.no_grad():
+            return loss_of(trainable["prompts"] if prompts_on else None)
+
+    return trainable, step, forward
+
+
+def text_prompt_phase(card):
+    """Each of ``TP_VARIANTS`` trained WHOLE_RUN_STEPS steps
+    (``text_prompt_setup``) on each road of ``TP_ROADS`` from the same
+    seeds, the launch counters set to 0 just before the kernel road and
+    read just after. Each kernel-road step must launch #3/#4 once a text
+    layer each (and build tile maps of the (77, 97) mask) without LoRA, and
+    #5/#6 once a layer each with it, and nothing else; the library and fp32
+    roads launch none. On the losses and on the prompts at the end
+    (``whole_run_distances``: ``loss10``, ``trained``) the kernel road's
+    distance from fp32 must be within WHOLE_RUN_MULTIPLE times the library
+    road's. Then the kernel road's device ms a forward with the prompts
+    and without them, and a step (without the prompts only where a LoRA
+    trains). Returns (launches summed over the kernel roads, results)."""
+    import numpy as np
+    import torch
+    tower = frozen_clip(torch.device("cuda"))
+    cfg = tower[2]
+    n = cfg.text_layers
+    total = {k: 0 for k in launch_counts()}
+    out, failed = [], []
+    for label, lora_r in TP_VARIANTS:
+        runs, per_step = {}, []
+        for road, impl, bf16 in TP_ROADS:
+            trainable, step, forward = text_prompt_setup(tower, lora_r, impl,
+                                                         bf16)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            losses = []
+            for _ in range(WHOLE_RUN_STEPS):
+                before = launch_counts()
+                losses.append(float(step()))
+                if road == "kernel":
+                    after = launch_counts()
+                    per_step.append({k: after[k] - before[k] for k in after
+                                     if after[k] != before[k]})
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            runs[road] = {"losses": losses,
+                          "trained": trainable["prompts"].detach().float()
+                          .clone(),
+                          "lora": None if not lora_r else torch.cat(
+                              [v.detach().float().flatten() for v in
+                               trainable["lora"]["lora"].values()]),
+                          "wall_s": time.perf_counter() - t0,
+                          "launches": launches}
+            assert np.isfinite(losses).all(), (label, road, losses)
+            if road != "kernel":
+                assert not any(launches.values()), \
+                    f"{label}: the {road} road launched kernels {launches}"
+                continue
+            for k, v in launches.items():
+                total[k] += v
+            if lora_r:
+                want = {"flash_attention_fwd": n, "flash_attention_bwd": n}
+            else:
+                want = {"fused_prefix_attention_fwd": n,
+                        "fused_prefix_attention_bwd": n}
+            for d in per_step:
+                kernels = {k: v for k, v in d.items()
+                           if k != "prefix_tile_map"}
+                maps = d.get("prefix_tile_map", 0)
+                assert kernels == want and (lora_r or maps > 0), \
+                    (label, d, want)
+            timing = {
+                "fwd_device_ms_with_prompts": device_ms(forward),
+                "fwd_device_ms_without_prompts": device_ms(
+                    lambda: forward(False)),
+                "step_device_ms_with_prompts": device_ms(step),
+                # without LoRA nothing else trains: no step to time
+                "step_device_ms_without_prompts": device_ms(
+                    lambda: step(False)) if lora_r else None}
+            tile_maps = launches["prefix_tile_map"]
+        ref = runs["fp32"]
+        dk = whole_run_distances(runs["kernel"], ref)
+        dl = whole_run_distances(runs["library"], ref)
+        row = {"variant": label, "steps": WHOLE_RUN_STEPS,
+               "kernel": dk, "library": dl, "ratio": ratios(dk, dl),
+               "losses": {r: runs[r]["losses"] for r in runs},
+               "wall_s": {r: runs[r]["wall_s"] for r in runs},
+               "launches_per_step": per_step[0],
+               "tile_maps": tile_maps, **timing, "card": card}
+        if lora_r:
+            row["lora_l2"] = {r: float((runs[r]["lora"] - ref["lora"]).norm())
+                              for r in ("kernel", "library")}
+        over = [f"{k} {row['ratio'][k]:.3f}" for k in WHOLE_RUN_CHECKED
+                if row["ratio"][k] > WHOLE_RUN_MULTIPLE]
+        if over:
+            failed.append(f"{label}: ratio {', '.join(over)}")
+        log(f"{label}: {WHOLE_RUN_STEPS} steps; distance from fp32 (max "
+            f"|dloss|, prompts' L2): kernel road {dk['loss10']:.4e}, "
+            f"{dk['trained']:.4e}; library road {dl['loss10']:.4e}, "
+            f"{dl['trained']:.4e}; ratio {row['ratio']['loss10']:.3f}, "
+            f"{row['ratio']['trained']:.3f} (limit {WHOLE_RUN_MULTIPLE}); "
+            f"launches a step {json.dumps(per_step[0])}; device ms a "
+            f"forward with prompts {fmt(timing['fwd_device_ms_with_prompts'])}"
+            f", without {fmt(timing['fwd_device_ms_without_prompts'])}; a "
+            f"step with prompts "
+            f"{fmt(timing['step_device_ms_with_prompts'])}"
+            + (f", without {fmt(timing['step_device_ms_without_prompts'])}"
+               if lora_r else "") + f"; {card}")
+        log(json.dumps({"text_prompts": row}))
+        out.append(row)
+    assert not failed, f"text prompt phase checks failed: {failed}"
+    return total, {"text_prompt_phase": out, "card": card}
+
+
 def annotate_augmentation():
     """Run every train pipeline the port builds from here on inside a
     torch.profiler range (``AUG_RANGE``), so a step's profile splits out
@@ -4070,6 +4285,7 @@ def main():
     pcases.append(prefix_kernel_case(
         "per rank of 2x1: mvp prefix, 32 rows, 5 of 20 live", 5, False, 29,
         shape=(32, 197, 768, 12, 20)))
+    pcases.append(text_prompt_prefix_case())
     torch.cuda.synchronize()
     tile_maps = tile_map_phase()
     torch.cuda.synchronize()
@@ -4097,6 +4313,8 @@ def main():
     maple_launches, maple_run = maple_main_path_phase()
     torch.cuda.synchronize()
     pl_launches, pl_run = prompted_lora_phase()
+    torch.cuda.synchronize()
+    tp_launches, tp_run = text_prompt_phase(card)
     torch.cuda.synchronize()
     adapter_launches, adapter_run = adapter_main_path_phase("adapter-clip")
     torch.cuda.synchronize()
@@ -4190,7 +4408,7 @@ def main():
     # pipeline phases' controls, with their planted faults, left out)
     runs = {k: sum(r[k] for r in (
         launches, l14_launches, mvp_launches, maple_launches, pl_launches,
-        adapter_launches, moe_launches, cc_launches, rn_launches,
+        tp_launches, adapter_launches, moe_launches, cc_launches, rn_launches,
         *[r[0] for r in prompt_runs.values()],
         *[r[0] for r in er_runs.values()],
         *[r["launches"] for r in mesh["mesh_phase"]
@@ -4244,6 +4462,9 @@ def main():
     log(json.dumps({"prompted_lora_path": pl_run,
                     "prompted_lora_launches": pl_launches,
                     "note": "no registered method builds this block"}))
+    log(json.dumps({"text_prompt_path": tp_run,
+                    "text_prompt_launches": tp_launches,
+                    "note": "no registered method passes text prompts"}))
     log(json.dumps({"adapter_clip_main_path": adapter_run,
                     "adapter_clip_launches": adapter_launches}))
     log(json.dumps({"moe_clip_main_path": moe_run,

@@ -19,9 +19,10 @@ CUDA kernels run on the card and its plain version on the CPU.
 ``multi_head_attention`` on plain PyTorch. The adapter and the MoE are
 applied outside the attention op, as in JAX (``_block``, ``_mlp_half``), so
 their blocks run the same kernels. ``clip_forward`` runs both towers, PEFT
-on either. Text-side prompts are not ported yet. ``encode_image`` runs
-the ModifiedResNet tower (``models/resnet.py``) for ``cfg.tower ==
-"rn"``.
+on either. ``encode_text`` takes KV-prefix prompts as JAX does (each
+query sees every prompt slot and the tokens up to its own), on the same
+roads. ``encode_image`` runs the ModifiedResNet tower
+(``models/resnet.py``) for ``cfg.tower == "rn"``.
 """
 
 from __future__ import annotations
@@ -350,22 +351,24 @@ def encode_text(params, tokens, cfg: CLIPConfig, *,
                 remat: bool = False, moe_noise=None):
     """Text tower. ``tokens``: (B, context_length) integer ids. Pools at the
     EOT position (argmax of the ids, reference model.py:941-956);
-    ``remat``: checkpoint each block (``transformer``); ``moe_noise``: (L,
-    B, E) MoE gate noise."""
-    if layer_prompts is not None:
-        raise NotImplementedError("text-side KV-prefix prompts are not "
-                                  "ported yet (ROADMAP.md, queue A)")
+    ``layer_prompts``: raw KV-prefix tokens per layer, one tensor (L, P,
+    D) broadcast over the rows or (L, B, P, D), behind the causal mask
+    extended by P always-visible keys (JAX ``:451-452``); ``remat``:
+    checkpoint each block (``transformer``); ``moe_noise``: (L, B, E) MoE
+    gate noise."""
     cd = compute_dtype
     t = cast_tree(params["text"], cd)
     pt = cast_tree(peft, cd)
     tokens = tokens.long()
     x = t["token_embedding"][tokens].to(cd)
     x = x + t["pos_embed"].to(cd)
-    mask = causal_mask(cfg.context_length, device=x.device)
+    prefix = 0 if layer_prompts is None else layer_prompts.shape[-2]
+    mask = causal_mask(cfg.context_length, prefix=prefix, device=x.device)
     x = transformer(x, t["blocks"], cfg.text_heads, mask=mask,
                     peft_cfg=peft_cfg if (peft_cfg and peft_cfg.on_text())
                     else None,
-                    peft=pt, attn_impl=attn_impl, act=cfg.act,
+                    peft=pt, layer_prompts=layer_prompts,
+                    attn_impl=attn_impl, act=cfg.act,
                     base_grads=base_grads, remat=remat, moe_noise=moe_noise)
     x = layer_norm(x, t["ln_final"])
     eot = tokens.argmax(dim=-1)

@@ -59,6 +59,7 @@ from lifelong_clip_tpu_torch.methods import get_method
 from lifelong_clip_tpu_torch.ops import preprocess as tpre
 from lifelong_clip_tpu_torch.utils.stream import (exposed_test_indices,
                                                   iter_batches)
+from torch_learning_gates import copy_trainable, flat, one_thread  # noqa: F401
 
 # the registries import every trainer module (CLIB's scipy.stats, the
 # meshes' torch.distributed): once, while the test files are collected
@@ -106,28 +107,8 @@ ER_FLAGS = (("batchsize", 4), ("temp_batchsize", 2), ("memory_size", 32))
 POOL_FLAGS = (("opt_name", "adam"), ("lr", 5e-2), ("online_iter", 3))
 
 
-def one_thread():
-    """Tiny towers gain nothing from intra-op threads, and under the suite's
-    parallel workers those threads oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
-
-
-def flat(tree, path=()):
-    """{key path: leaf} of a nested dict, whatever its key order."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(flat(v, path + (k,)))
-        else:
-            out[path + (k,)] = v
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -200,22 +181,6 @@ def port_class(case: Case):
     return type(cls.__name__, (cls,), {"attn_impl": case.impl,
                                        "_attn_impl": case.impl,
                                        **dict(case.attrs)})
-
-
-def copy_trainable(start, ttr):
-    """JAX's starting trainable tree (numpy) into the port's leaves; the
-    port's optimizer made fresh over them."""
-    want = flat(params_from_numpy(start))
-    live = flat(ttr.state.trainable)
-    assert live.keys() == want.keys(), set(live) ^ set(want)
-    with torch.no_grad():
-        for k, p in live.items():
-            if p is None or want[k] is None:
-                assert p is None and want[k] is None, k
-                continue
-            assert p.shape == want[k].shape, k
-            p.copy_(want[k])
-    ttr.state.reset_optimizer()
 
 
 # ---------------------------------------------------------------------------

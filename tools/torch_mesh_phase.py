@@ -6,11 +6,12 @@ and the planted-fault controls), of ``PP_CASES`` (lora-clip's vision tower
 in two pipeline stages: ViT-B/16 in fp32 and bf16, ViT-L/14 in bf16, and
 the planted fault) or of ``WHOLE_RUN_PATHS`` (lora-clip, Finetuning and
 mvp-clip through ``main`` on the kernel road, the library road and in fp32,
-then lora-clip with each planted fault of ``WHOLE_RUN_FAULTS``), with the
-card's name and power limit.
+then lora-clip with each planted fault of ``WHOLE_RUN_FAULTS``) or the
+text prompts (the #3/#4 and #5/#6 kernel cases at the text prompt path's
+shapes, then ``text_prompt_phase``), with the card's name and power limit.
 
-    python3 tools/torch_mesh_phase.py [--phase mesh|pipeline|whole_run]
-                                      [--out FILE]
+    python3 tools/torch_mesh_phase.py
+        [--phase mesh|pipeline|whole_run|text_prompts] [--out FILE]
 
 Writes the phase's record as JSON to ``--out`` (default
 ``chiprun_out/<phase>_phase.json``) and exits 1 if a check failed.
@@ -20,14 +21,30 @@ import argparse
 import json
 import os
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def text_prompts_phase(card):
+    """The kernel cases of the text prompt path (the last of
+    ``FLASH_CASES`` with its seed in ``chip_smoke.main``), then its
+    phase."""
+    import chip_smoke as cs
+    t0 = time.perf_counter()
+    prefix = cs.text_prompt_prefix_case()
+    flash = cs.flash_kernel_case(*cs.FLASH_CASES[-1],
+                                 seed=7 + len(cs.FLASH_CASES) - 1)
+    launches, res = cs.text_prompt_phase(card)
+    return {"prefix_case": prefix, "flash_case": flash,
+            "launches": launches, **res,
+            "wall_s": time.perf_counter() - t0}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phase", choices=("mesh", "pipeline", "whole_run"),
-                   default="mesh")
+    p.add_argument("--phase", choices=("mesh", "pipeline", "whole_run",
+                                       "text_prompts"), default="mesh")
     p.add_argument("--out", default=None)
     args = p.parse_args()
     out = args.out or os.path.join(REPO, "chiprun_out",
@@ -46,7 +63,8 @@ def main():
     _kernels.build()
     _kernels.library()
     phase = {"mesh": cs.mesh_phase, "pipeline": cs.pipeline_phase,
-             "whole_run": cs.whole_run_phase}[args.phase]
+             "whole_run": cs.whole_run_phase,
+             "text_prompts": text_prompts_phase}[args.phase]
     try:
         res = phase(card)
     except AssertionError as e:
