@@ -59,10 +59,12 @@
    the suffix pass's K4 and main-path shapes with the mask's tile map and
    with a null map (every block swept), ctx, dqkv, dkvp and the weight
    grads' bias partials bit for bit equal, each chain's device ms both
-   ways. Then batch invariance: ctx, y and dx of 1, 8 and 16 rows (split
-   attention kernels) bit for bit those of the same rows in a 64-row batch
-   (unsplit). Then the port's GEMM at the
-   qkv, out and dh shapes with the chain's epilogue terms, beside
+   ways; the same for #1/#2 under the causal (T, T) mask at ``text K=100
+   LoRA`` and K3 (ctx, y, dx, the LoRA grads). Then batch invariance: ctx,
+   y and dx of 1, 8 and 16 rows (split attention kernels) bit for bit
+   those of the same rows in a 64-row batch (unsplit), and of the text
+   tower's 20 and 64 causal class rows in its 100. Then the port's GEMM
+   at the qkv, out and dh shapes with the chain's epilogue terms, beside
    ``torch.matmul``.
 4. Augmentation: the train pipeline alone (AutoAugment, resize + pad +
    crop, flip, normalize) at bs 64 on 32 x 32 uint8 under each policy and
@@ -384,14 +386,17 @@ def fmt(v, digits=3):
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def block_cost(b, t, d, heads, r, weight_grads, backward, es=2):
+def block_cost(b, t, d, heads, r, weight_grads, backward, es=2, pairs=None):
     """(flops, bytes) the function needs: each input read once, each output
-    written once. The backward is the chain as a train step runs it: given
-    x, the output grad and the forward's kept qkv16 (with LoRA or
-    weight_grads also h16 and ctx16, with LoRA z16 and z2), it recomputes
-    none of the forward."""
+    written once. ``pairs``: the (query, key) pairs the mask leaves live
+    (default every one of T x T), the attention products this data needs
+    (a dead pair has p = 0 exactly). The backward is the chain as a train
+    step runs it: given x, the output grad and the forward's kept qkv16
+    (with LoRA or weight_grads also h16 and ctx16, with LoRA z16 and z2), it
+    recomputes none of the forward."""
     m, dh = b * t, d // heads
-    attn = 2 * b * heads * t * t * dh            # one T x T x dh product
+    pairs = t * t if pairs is None else pairs
+    attn = 2 * b * heads * pairs * dh            # one (live pairs) x dh product
     w_bytes = 4 * d * d * 2 + 5 * d * 4 + (2 * d * r + 4 * d * r) * 2
     if not backward:
         lora_fwd = 2 * m * r * (d + 3 * d + d + d)
@@ -554,6 +559,13 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     x, blk, lora, gy, mask = kc.make_inputs(b, t, d, heads, lora_r, masked,
                                             seed)
     s = 0.25 if lora_r else 0.0
+    # the (query, key) pairs the causal mask leaves live, and what its tile
+    # map leaves the kernels
+    pairs = None if mask is None else int((~torch.isneginf(mask)).sum())
+    live_tiles = None if mask is None else tile_liveness(mask, t, 0)
+    if live_tiles:
+        log(f"{label}: live of the road under the tile map "
+            f"{json.dumps(live_tiles)}")
     args = (blk["ln_scale"], blk["ln_bias"], blk["w_qkv"], blk["b_qkv"],
             blk["w_out"], blk["b_out"], heads, s, mask, lora)
     bargs = (blk["ln_scale"], blk["ln_bias"], blk["w_qkv"], blk["b_qkv"],
@@ -569,10 +581,13 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     log(f"{label}: checks {json.dumps(checks)}")
     res = {"label": label, "shape": [b, t, d], "heads": heads,
            "lora_r": lora_r, "masked": masked, "weight_grads": weight_grads,
+           "live_pairs_per_row": pairs, "tile_liveness": live_tiles,
            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
-    fl, by = block_cost(b, t, d, heads, lora_r, weight_grads, False)
+    fl, by = block_cost(b, t, d, heads, lora_r, weight_grads, False,
+                        pairs=pairs)
     res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(fl, by)
-    fl, by = block_cost(b, t, d, heads, lora_r, weight_grads, True)
+    fl, by = block_cost(b, t, d, heads, lora_r, weight_grads, True,
+                        pairs=pairs)
     res["bwd_bound_ms"], res["bwd_bound_by"] = bound_ms(fl, by)
     if not time_it:
         return res
@@ -590,7 +605,7 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
         lb = {k: v.detach().clone().requires_grad_(k in LIBRARY_WEIGHTS)
               for k, v in lb.items()}
         wrt += [lb[k] for k in LIBRARY_WEIGHTS]
-    fl, by = attention_cost(b, t, t, d, heads)
+    fl, by = attention_cost(b, t, t, d, heads, pairs=pairs)
     res["attn_bwd_bound_ms"] = bound_ms(fl, by)[0]
     # the backward as a train step runs it: reading the forward's kept
     # intermediates
@@ -756,7 +771,8 @@ def proto_main_suffix_cases():
 
 
 def tile_liveness(mask, t, p):
-    """What the tile map of a (T, P + T) mask leaves the prefix kernels, as
+    """What the tile map of a (T, P + T) mask (P = 0: the block kernels'
+    (T, T) mask) leaves the attention kernels, as
     [live, total]: the tiled roads' 64-key tiles of each 64-query tile, the
     16 x 16 blocks (the tiled roads' warps and the register roads' warp
     pairs walk these), and the dk/dv kernel's 32-query steps of each 16-key
@@ -782,7 +798,9 @@ def tile_map_phase():
     prefix attention kernels with the mask's tile map and with a null map
     (every block swept) give ctx, dqkv, dkvp and the bias partials bit for
     bit equal (a difference raises), and each chain's device ms both ways in this run,
-    with the attention kernels' and the map kernel's own."""
+    with the attention kernels' and the map kernel's own. Then #1/#2 under
+    the causal (T, T) mask at the kernel phase's ``text K=100 LoRA`` and K3
+    inputs: ctx, y, dx and the LoRA grads bit for bit equal both ways."""
     import torch
     from lifelong_clip_tpu_torch.models.proto_clip import suffix_mask
     from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
@@ -817,29 +835,71 @@ def tile_map_phase():
         log(f"tile map: {json.dumps(res)}")
         assert not differ, f"{label}: the tile map changed {differ}"
         out.append(res)
+    # #1/#2 under the text tower's causal mask: lora-clip's text tower
+    # (both towers, 100 class rows) and ProtoCLIP's K3 text prefix
+    for label, b, t, r, seed in (("text K=100 LoRA", 100, 77, 4, 16),
+                                 ("K3 text prefix, T = 25", 64, 25, 0, 20)):
+        x, blk, lora, gy, mask = kc.make_inputs(b, t, 512, 8, r, True, seed)
+        s = 0.25 if r else 0.0
+        skip, full = (kc.block_outputs(x, blk, lora, s, gy, mask, 8,
+                                       tile_map=m) for m in (True, False))
+        differ = [k for k in skip if not kc.same_bits(skip[k], full[k])]
+        res = {"label": label, "tile_liveness": tile_liveness(mask, t, 0),
+               "bitwise_equal": not differ, "differ": differ,
+               "compared": sorted(skip)}
+        wb = [blk[k] for k in kc.BLOCK_KEYS]
+        args = (*wb, 8, s, mask, lora)
+        bargs = (*wb[:5], 8, s, mask, lora, False)
+        for name, tm in (("map", True), ("null_map", False)):
+            kept = fba._keep_for_backward(fba._cuda_forward(
+                x, *args, keep=True, tile_map=tm)[1], False)
+            res[f"fwd_device_ms_{name}"], fsplit = device_split(
+                lambda: fba._cuda_forward(x, *args, tile_map=tm))
+            res[f"bwd_device_ms_{name}"], bsplit = device_split(
+                lambda: fba._cuda_backward(x, gy, *bargs, saved=kept,
+                                           tile_map=tm))
+            res[f"kernels_device_ms_{name}"] = {
+                f"{d} {kernel_short(k)}": v
+                for d, sp in (("fwd", fsplit), ("bwd", bsplit))
+                for k, v in sp.items() if "attn" in k}
+        # the map kernel alone: one launch a tower pass (fba._tile_map)
+        res["tile_map_device_ms"] = device_ms(lambda: fba.mask_tile_map(mask))
+        log(f"tile map: {json.dumps(res)}")
+        assert not differ, f"{label}: the tile map changed {differ}"
+        out.append(res)
     return out
 
 
 def batch_invariance_phase():
     """The rows of the ER family's small batches (8 and 16 rows, where the
     attention kernels split each (head, batch row) over blocks, and one)
-    against the same rows inside a 64-row batch (unsplit): ctx, y and dx
-    of the #1/#2 chains bit for bit (a difference raises)."""
+    against the same rows inside a 64-row batch (unsplit), and the text
+    tower's 20 and 64 class rows (causal, LoRA r=4, under the mask's tile
+    map) against the same rows inside its 100: ctx, y and dx of the #1/#2
+    chains bit for bit (a difference raises)."""
     import torch
     from lifelong_clip_tpu_torch.ops import kernel_check as kc
-    x, blk, _, gy, _ = kc.make_inputs(64, 197, 768, 12, 0, False, 32)
-    whole = kc.batch_rows(x, blk, gy, 12)
     out = []
-    for n in (1, 8, 16):
-        part = kc.batch_rows(x[:n], blk, gy[:n], 12)
-        torch.cuda.synchronize()
-        differ = [k for k in part
-                  if not kc.same_bits(part[k], whole[k][:n])]
-        res = {"rows": n, "of": 64, "bitwise_equal": not differ,
-               "differ": differ}
-        log(f"batch invariance: {json.dumps(res)}")
-        assert not differ, f"{n} of 64 rows: the batch changed {differ}"
-        out.append(res)
+    for label, shape, r, causal, parts, seed in (
+            ("vision", (64, 197, 768, 12), 0, False, (1, 8, 16), 32),
+            ("text, causal, LoRA r=4", (100, 77, 512, 8), 4, True, (20, 64),
+             36)):
+        b, t, d, heads = shape
+        x, blk, lora, gy, mask = kc.make_inputs(b, t, d, heads, r, causal,
+                                                seed)
+        s = 0.25 if r else 0.0
+        whole = kc.batch_rows(x, blk, gy, heads, lora, s, mask)
+        for n in parts:
+            part = kc.batch_rows(x[:n], blk, gy[:n], heads, lora, s, mask)
+            torch.cuda.synchronize()
+            differ = [k for k in part
+                      if not kc.same_bits(part[k], whole[k][:n])]
+            res = {"block": label, "rows": n, "of": b,
+                   "bitwise_equal": not differ, "differ": differ}
+            log(f"batch invariance: {json.dumps(res)}")
+            assert not differ, \
+                f"{label}, {n} of {b} rows: the batch changed {differ}"
+            out.append(res)
     return out
 
 
@@ -1150,6 +1210,10 @@ def main_path_phase(record=None):
         f"train pass launches {tr} over {steps} steps"
     assert ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
     assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
+    # the text tower's causal mask: one tile map a step, its 12 blocks'
+    # forwards and backwards sharing it
+    assert tr["block_tile_map"] == steps and tx["block_tile_map"] > 0, \
+        (tr, tx)
     return launches, {"train_steps": steps, "wall_s": wall,
                       "per_pass": per_pass}
 
@@ -4444,10 +4508,12 @@ def main():
             "cases": [{k: c[k] for k in c if k.startswith(pre) or k in
                        ("label", "shape", "attn_bwd_bound_ms")}
                       for c in case_list]})
-    # the prefix chains under a 2-D mask (ProtoCLIP's suffix pass) build
-    # its tile map: one launch each
+    # the tile maps, each op's own: one a pass of #1/#2 under the text
+    # tower's causal mask, one each prefix chain under a 2-D mask builds
+    # (ProtoCLIP's suffix pass, text prompts)
+    kernels[0]["tile_map_launches"] = runs["block_tile_map"]
     kernels[2]["tile_map_launches"] = runs["prefix_tile_map"]
-    assert runs["prefix_tile_map"] > 0, runs
+    assert runs["block_tile_map"] > 0 and runs["prefix_tile_map"] > 0, runs
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     log(json.dumps({"lora_clip_main_path": lora_run,

@@ -84,7 +84,14 @@
 //     each warp only its live 16-key blocks; the register roads' warps skip
 //     their dead 16-key tiles; the dk/dv kernel skips each key group's dead
 //     32-query steps. Dead blocks hold p = 0 exactly, so the values are the
-//     full sweep's bit for bit; a null map is the full sweep.
+//     full sweep's bit for bit; a null map is the full sweep. The block op
+//     under a (T, T) mask (the text tower's causal mask: 15 of 25 blocks
+//     live at T = 77) takes the same kernels with P = 0 and a map built
+//     once a tower pass. Blocks holding only +0.0 and -inf take their
+//     entries from the map's words, not the fp32 mask; under a map the
+//     register roads' warp pairs take the 16-key blocks in turn (a causal
+//     group's live blocks split evenly) and the query groups heaviest
+//     first, in a snake over the pairs.
 //   * The backward chains read the forward's h16, z16, qkv16, ctx16, z2
 //     (prefix: h16, qkv16, kvp16, ctx16), which the forward keeps for them.
 //   * The weight grads (Finetuning's whole-tower step at 16 batch rows, 8 a
@@ -131,6 +138,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 #include <vector>
 
 #include "mma.cuh"
@@ -1277,14 +1285,43 @@ mask_tile_map_kernel(const float* __restrict__ mask,
   }
 }
 
-// Bit k: 16-key block kb0 + k (k < n <= 32) of row block rb is live in the
-// map (every bit without one). Warp-wide (a ballot).
-__device__ __forceinline__ unsigned map_bits(const unsigned char* tmap,
-                                             int rb, int nkb, int kb0, int n,
-                                             int lane) {
-  if (!tmap) return 0xffffffffu;
-  return __ballot_sync(0xffffffffu,
-                       lane < n && tmap[(size_t)rb * nkb + kb0 + lane] != 0);
+// The register roads: of a warp's 16-key blocks half, half + 2, ... (n <=
+// 32 of them) of row block rb, bit k of live where block half + 2k is live
+// in the map and bit k of plain where its entries come from the map's
+// words (byte 2); without a map every block live, none plain. Warp-wide
+// (ballots).
+__device__ __forceinline__ void map_blocks(const unsigned char* tmap, int rb,
+                                           int nkb, int half, int n, int lane,
+                                           unsigned& live, unsigned& plain) {
+  if (!tmap) {
+    live = 0xffffffffu;
+    plain = 0u;
+    return;
+  }
+  const unsigned v = lane < n ? tmap[(size_t)rb * nkb + half + 2 * lane] : 0u;
+  live = __ballot_sync(0xffffffffu, v != 0u);
+  plain = __ballot_sync(0xffffffffu, v == 2u);
+}
+
+// The register roads deal the query groups to their units (the warp pairs
+// of every split, unit u of U): the k-th group of unit u (grp: its
+// (k-1)-th), -1 past its last. Without a map: groups u, u + U, ... Under a
+// map the groups go by
+// their live work, heaviest first: unit u takes the groups u, 2U - 1 - u,
+// 2U + u, ... from the last (a snake), so a causal mask's heaviest groups
+// go one to a unit and its lightest pair up (5 groups on 4 pairs: 4, 3, 2
+// and 1 + 0; on 2 pairs: 4 + 1 + 0 and 3 + 2). Under a causal mask, alone
+// or behind always-visible prefix keys, a group's live 16-key blocks grow
+// with its index; the order is fixed, not read from the map, so the first
+// group's queries load before anything else.
+__device__ __forceinline__ int unit_group(int k, int grp, int u, int U,
+                                          int ngroups, bool by_work) {
+  if (!by_work) {
+    const int next = k ? grp + U : u;
+    return next < ngroups ? next : -1;
+  }
+  const int r = (k & 1) ? (k + 1) * U - 1 - u : k * U + u;
+  return r < ngroups ? ngroups - 1 - r : -1;
 }
 
 // The tiled roads: of the four 16-key blocks of the 64-key tile at k0, for
@@ -1378,12 +1415,14 @@ __device__ __forceinline__ int live_key_tiles(int* tl,
 // of cp.async copies, one commit group a chunk, and the first q k^T
 // products start as soon as the chunk they read has landed. The block's 8
 // warps work in 4 pairs; pair p takes the query rows 16 at a time (groups
-// p, p + 4, ...; each group's q through the pair's 16-row slab, loaded while
-// the pair's previous group computes), so a ragged last group (T = 197: 5
-// live rows) costs 16 rows, not a 64-row tile. The two warps of a pair split
-// the keys of the group's score rows in halves of whole 16-key tiles and
-// keep them in registers, so the softmax is the exact full-row one, its row
-// max and row sum exchanged through shared memory: fp32 scores of bf16 q.k,
+// p, p + 4, ...; under a tile map by their live work, unit_group; each
+// group's q through the pair's 16-row slab, loaded while the pair's
+// previous group computes), so a ragged last group (T = 197: 5 live rows)
+// costs 16 rows, not a 64-row tile. The two warps of a pair split the
+// group's 16-key blocks (warp_tile: in turn where a tile map may come, else
+// in halves) and keep their score rows in registers, so the softmax is the
+// exact full-row one, its row max and row sum exchanged through shared
+// memory: fp32 scores of bf16 q.k,
 // times scale, plus the mask; p = exp(s - max) / sum (as exp2 of
 // log2(e)-scaled scores) normalised in fp32, then rounded to bf16 as the A
 // operand of p @ v (mma.sync m16n8k16, fp32 accumulation); the second warp's
@@ -1396,9 +1435,11 @@ __device__ __forceinline__ int live_key_tiles(int* tl,
 // is the same, so ctx is the unsplit road's bit for bit, and K and V are
 // loaded once a block (from L2 for the later splits). With PRE the keys
 // and values are the P prefix rows of kvp
-// followed by the T tokens (S = P + T) and the mask is (T, S); without,
-// S = T. The row max is taken after the mask is added, so a dead key (-inf)
-// gets p = 0 exactly.
+// followed by the T tokens (S = P + T; P may be 0) and the mask is (T, S);
+// without, S = T and no mask or map. Under a tile map a warp skips the
+// products of its dead 16-key blocks and takes a plain block's mask entries
+// from the map's words (attn_half_mask). The row max is taken after the
+// mask is added, so a dead key (-inf) gets p = 0 exactly.
 // ---------------------------------------------------------------------------
 constexpr int KV_CHUNK = 64;   // key rows per commit group
 constexpr int AF_PAIRS = 4, AF_THREADS = 64 * AF_PAIRS;
@@ -1416,19 +1457,48 @@ __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
+// The 16-key blocks of a group that warp `half` of a pair holds: its
+// 8-key tile i is key tile warp_tile(i, t0), t0 its first tile
+// (warp_tiles). In the kernels that may take a tile map (IL) the warps take
+// the blocks in turn, half, half + 2, ...: under a causal mask each gets
+// half of a group's live blocks, and as the split does not look at the
+// map, a map only drops terms (exact zeros) and leaves the order of the
+// rest. The others (no mask, or a key-mask row) keep the halves, the first
+// ceil(blocks / 2) to warp 0, and with them the order of their sums.
+template <bool IL>
+__device__ __forceinline__ int warp_tile(int i, int t0) {
+  if constexpr (IL) return 4 * (i >> 1) + t0 + (i & 1);
+  else return t0 + i;
+}
+
+// Warp `half`'s first 8-key tile (t0) and count of them (tcnt) of npair
+// 16-key blocks.
+template <bool IL>
+__device__ __forceinline__ void warp_tiles(int npair, int half, int& t0,
+                                           int& tcnt) {
+  const int h0 = (npair + 1) / 2;
+  if constexpr (IL) {
+    t0 = 2 * half;
+    tcnt = 2 * ((npair + 1 - half) / 2);
+  } else {
+    t0 = half ? 2 * h0 : 0;
+    tcnt = half ? 2 * (npair - h0) : 2 * h0;
+  }
+}
+
 // s[i] (16 x 8 scores of the query fragments qa) += q k^T for this warp's
-// 8-key tiles tbase + i, i < tcnt, that lie in [lo, hi) and whose 16-key
-// block is live (bit i / 2 of lm).
-template <int DH, int HT>
+// 8-key tiles warp_tile(i, t0), i < tcnt, that lie in [lo, hi) and whose
+// 16-key block is live (bit i / 2 of lm).
+template <int DH, int HT, bool IL>
 __device__ __forceinline__ void attn_half_scores(float (*s)[4],
                                                  unsigned (*qa)[4],
-                                                 const bf16* Ks, int tbase,
+                                                 const bf16* Ks, int t0,
                                                  int tcnt, int lo, int hi,
                                                  unsigned lm, int lane) {
   constexpr int LD = DH + 8;
 #pragma unroll
   for (int i = 0; i < HT; i += 2) {
-    const int t = tbase + i;
+    const int t = warp_tile<IL>(i, t0);
     if (i >= tcnt || t < lo || t >= hi || !((lm >> (i >> 1)) & 1u)) continue;
 #pragma unroll
     for (int kc = 0; kc < DH / 16; ++kc) {
@@ -1441,6 +1511,52 @@ __device__ __forceinline__ void attn_half_scores(float (*s)[4],
   }
 }
 
+// The register roads' scores of a group in base 2: s * scale * log2(e) +
+// log2(e) * mask on this warp's live 16-key blocks (bit i / 2 of lm), -inf
+// on the rest and past S (p = 0 exactly, no mask read). A block marked in
+// lp (map byte 2: every entry +0.0 or -inf) takes its entries from the
+// map's words, wrow[8 kb] holding the lane's rows ia (low half) and ib
+// (high half) of block kb, the others from the mask: fmaf(s, sl2, bit ? 0 :
+// -inf) is fmaf(s, sl2, log2(e) * m) for m = +0 or -inf, so the values are
+// the mask's bit for bit. Returns the lane's row maxima of its entries.
+template <int HT, bool ROW, bool IL>
+__device__ __forceinline__ void attn_half_mask(
+    float (*s)[4], int t0, int tcnt, unsigned lm, unsigned lp,
+    const unsigned* wrow, const float* mask, const float* Ms, int ia, int ib,
+    int S, int T, float sl2, int t4, float& ma, float& mb) {
+  ma = mb = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < HT; i += 2) {
+    const bool on = i < tcnt && ((lm >> (i >> 1)) & 1u);
+    const bool words = on && ((lp >> (i >> 1)) & 1u);   // warp-uniform
+    const unsigned w =
+        words ? wrow[8 * (warp_tile<IL>(i, t0) >> 1)] : 0u;
+#pragma unroll
+    for (int ii = i; ii < i + 2; ++ii) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = warp_tile<IL>(ii, t0) * 8 + 2 * t4 + e;
+        float va = -INFINITY, vb = -INFINITY;
+        if (on && j < S) {
+          if (words) {
+            va = fmaf(s[ii][e], sl2, (w >> (j & 15)) & 1u ? 0.f : -INFINITY);
+            vb = fmaf(s[ii][2 + e], sl2,
+                      (w >> (16 + (j & 15))) & 1u ? 0.f : -INFINITY);
+          } else {
+            va = fmaf(s[ii][e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ia, j, S, T));
+            vb = fmaf(s[ii][2 + e], sl2,
+                      LOG2E * mask_at<ROW>(mask, Ms, ib, j, S, T));
+          }
+        }
+        s[ii][e] = va;
+        s[ii][2 + e] = vb;
+        ma = fmaxf(ma, va);
+        mb = fmaxf(mb, vb);
+      }
+    }
+  }
+}
+
 template <int DH, int MAXNT, bool PRE, bool ROW>   // MAXNT: 8-key tiles a row holds
 __global__ void __launch_bounds__(AF_THREADS, 2)
 attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
@@ -1449,6 +1565,9 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                 int T, int P, int D, int Sp,
                 float scale) {
   constexpr bool MAP = PRE && !ROW;   // a (T, S) mask may bring a tile map
+  // a (T, T) mask takes the PRE instances with P = 0 (llc_attn_fwd), so
+  // these have none: null at compile time, their mask reads fold away
+  if constexpr (!PRE) mask = nullptr;
   constexpr int LD = DH + 8;
   constexpr int NCH = (MAXNT * 8 + KV_CHUNK - 1) / KV_CHUNK;
   constexpr int HT = 2 * ((MAXNT / 2 + 1) / 2);   // 8-key tiles a warp holds
@@ -1464,28 +1583,33 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   float* op = xs + AF_PAIRS * 64 + pair * 1024;   // the second warp's p @ v
   float* Ms = xs + AF_PAIRS * (64 + 1024);        // a key-mask row
   unsigned char* Mp = reinterpret_cast<unsigned char*>(Ms);   // MAP: the map
+  unsigned* Mw = reinterpret_cast<unsigned*>(Mp + 256);       // ... its words
   const int g = lane >> 2, t4 = lane & 3;
   const int hd = blockIdx.y, b = blockIdx.z;
   const int S = P + T, ngroups = (T + 15) / 16;
-  // split z = blockIdx.x takes the query groups z * AF_PAIRS + pair + k *
-  // gstep: pair p's first is g0
-  const int gstep = AF_PAIRS * gridDim.x, g0 = blockIdx.x * AF_PAIRS + pair;
-  // the key tiles in pairs (16 keys), the first ceil(n/2) to the first warp
-  const int npair = Sp / 16, h0 = (npair + 1) / 2;
-  const int tbase = half ? 2 * h0 : 0, tcnt = half ? 2 * (npair - h0) : 2 * h0;
+  // unit u = blockIdx.x * AF_PAIRS + pair of U: split z = blockIdx.x takes
+  // its pairs' groups (unit_group); g0 the pair's first
+  const int U = AF_PAIRS * gridDim.x, u = blockIdx.x * AF_PAIRS + pair;
+  const bool by_work = MAP && tmap;
+  const int npair = Sp / 16;
+  const int g0 = unit_group(0, 0, u, U, ngroups, by_work);
+  // this warp's 16-key blocks (warp_tile)
+  int t0, tcnt;
+  warp_tiles<MAP>(npair, half, t0, tcnt);
   const size_t rs = 3 * (size_t)D;
   const bf16* qbase = qkv + (size_t)b * T * rs + hd * DH;
   // this warp's live 16-key blocks of group grp's rows (bit i / 2 for its
-  // tile i): the tiles a dead block holds get no product and no mask read;
-  // the map's bytes (<= 16 x 16) are staged in shared memory
-  auto live_blocks = [&](int grp) -> unsigned {
-    if constexpr (MAP) return map_bits(tmap ? Mp : nullptr, grp, npair, tbase / 2,
-                                       tcnt / 2, lane);
-    else return 0xffffffffu;
+  // tile i; the tiles a dead block holds get no product and no mask read)
+  // and its plain ones (entries from the words); the map (<= 16 x 16 bytes
+  // and their words) is staged in shared memory
+  unsigned lm = 0xffffffffu, lp = 0u;
+  auto live_blocks = [&](int grp) {
+    if constexpr (MAP) map_blocks(tmap ? Mp : nullptr, grp, npair, half,
+                                  tcnt / 2, lane, lm, lp);
   };
   // commit groups, oldest first: the pair's first query slab, then one per
   // K/V chunk (empty past Sp, so the count is the same for every shape)
-  if (g0 < ngroups)
+  if (g0 >= 0)
     load_tile(Qp, LD, qbase + (size_t)g0 * 16 * rs, rs, 16, T - g0 * 16, DH,
               tid & 63, 64);
   cp_async_commit();
@@ -1499,10 +1623,13 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   }
   stage_mask_row<ROW>(Ms, mask, S, Sp, tid, AF_THREADS);
   if constexpr (MAP) {   // seen after the first chunk's barrier
-    if (tmap)
+    if (tmap) {
+      const unsigned* words = reinterpret_cast<const unsigned*>(
+          tmap + tile_map_words_at(T, S));
       for (int x = tid; x < ngroups * npair; x += AF_THREADS) Mp[x] = tmap[x];
+      for (int x = tid; x < ngroups * npair * 8; x += AF_THREADS) Mw[x] = words[x];
+    }
   }
-  unsigned lm = 0xffffffffu;
 
   unsigned qa[DH / 16][4];
   float s[HT][4];
@@ -1516,22 +1643,23 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   for (int c = 0; c < NCH; ++c) {
     cp_async_wait_upto3(NCH - 1 - c);
     __syncthreads();
-    if (g0 < ngroups) {
+    if (g0 >= 0) {
       if (c == 0) {
-        lm = live_blocks(g0);
+        live_blocks(g0);
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc)
           ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
       }
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lm,
-                               lane);
+      attn_half_scores<DH, HT, MAP>(s, qa, Ks, t0, tcnt, 8 * c, 8 * c + 8, lm,
+                                    lane);
     }
   }
 
   const float sl2 = scale * LOG2E;
-  for (int grp = g0; grp < ngroups; grp += gstep) {
-    if (grp != g0) {     // a later group: K and V are all in shared memory
-      lm = live_blocks(grp);
+  for (int k = 0, grp = g0; grp >= 0;
+       ++k, grp = unit_group(k, grp, u, U, ngroups, by_work)) {
+    if (k > 0) {     // a later group: K and V are all in shared memory
+      live_blocks(grp);
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc)
         ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
@@ -1539,30 +1667,17 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
       for (int i = 0; i < HT; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lm, lane);
+      attn_half_scores<DH, HT, MAP>(s, qa, Ks, t0, tcnt, 0, MAXNT, lm, lane);
     }
 
     // scale and mask in base 2 (s log2(e), so exp2 gives exp(s - max) at
     // one MUFU.EX2), this warp's half of the row max (a row lives in the 4
     // lanes of a quad), then the pair's
     const int ia = grp * 16 + g, ib = ia + 8;
-    float ma = -INFINITY, mb = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < HT; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = (tbase + i) * 8 + 2 * t4 + e;
-        float va = -INFINITY, vb = -INFINITY;
-        if (i < tcnt && j < S && ((lm >> (i >> 1)) & 1u)) {
-          va = fmaf(s[i][e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ia, j, S, T));
-          vb = fmaf(s[i][2 + e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ib, j, S, T));
-        }
-        s[i][e] = va;
-        s[i][2 + e] = vb;
-        ma = fmaxf(ma, va);
-        mb = fmaxf(mb, vb);
-      }
-    }
+    float ma, mb;
+    attn_half_mask<HT, ROW, MAP>(s, t0, tcnt, lm, lp,
+                                 Mw + (size_t)grp * npair * 8 + g, mask, Ms,
+                                 ia, ib, S, T, sl2, t4, ma, mb);
     ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 1));
     ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 2));
     mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
@@ -1575,9 +1690,10 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     ma = fmaxf(ma, red[(half ^ 1) * 16 + g]);
     mb = fmaxf(mb, red[(half ^ 1) * 16 + g + 8]);
     // the next group's queries into the slab while this group's products run
-    if (grp + gstep < ngroups)
-      load_tile(Qp, LD, qbase + (size_t)(grp + gstep) * 16 * rs, rs, 16,
-                T - (grp + gstep) * 16, DH, tid & 63, 64);
+    const int next = unit_group(k + 1, grp, u, U, ngroups, by_work);
+    if (next >= 0)
+      load_tile(Qp, LD, qbase + (size_t)next * 16 * rs, rs, 16,
+                T - next * 16, DH, tid & 63, 64);
     cp_async_commit();
 
     float la = 0.f, lb = 0.f;
@@ -1620,7 +1736,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
       pa[1] = pack_bf16(s[i][2] * ilb, s[i][3] * ilb);
       pa[2] = pack_bf16(s[i + 1][0] * ila, s[i + 1][1] * ila);
       pa[3] = pack_bf16(s[i + 1][2] * ilb, s[i + 1][3] * ilb);
-      const int k0 = (tbase + i) * 8;
+      const int k0 = warp_tile<MAP>(i, t0) * 8;
 #pragma unroll
       for (int cp = 0; cp < DH / 16; ++cp) {
         unsigned vb[4];
@@ -1773,6 +1889,7 @@ attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp
                       bf16* __restrict__ ctx, int T, int P, int D, int Sp,
                       float scale) {
   constexpr bool MAP = PRE && !ROW;
+  if constexpr (!PRE) mask = nullptr;   // as attn_fwd_kernel's
   constexpr int LD = DH + 8, TE = TQ * LD, NBUF = MAP ? TILES_HELD : 2;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -1928,9 +2045,11 @@ attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp
 //     block an SM, took 0.151 ms where 4 take 0.130, as above); under a
 //     tile map (PRE, a 2-D mask) 8 warps where one block fills the SM's
 //     shared memory anyway (ProtoCLIP's K4), and, every chunk resident,
-//     the warps wait for all of them once and then run free, each taking
-//     the next key group from a counter, so the few live steps of most
-//     groups spread over the warps while the dense prefix groups run. Q,
+//     the warps wait for all of them once (their first key group's K and V
+//     rows in flight) and then run free, each taking the next key group
+//     from a counter, so the few live steps of most groups spread over the
+//     warps while the dense prefix groups run (a causal (77, 77) mask
+//     leaves its 5 key groups 3, 3, 2, 2 and 1 live steps). Q,
 //     dctx and the row statistics come in 64-query cp.async chunks, held
 //     for the whole block where shared memory allows (else streamed again
 //     for each round of key groups).
@@ -1940,7 +2059,9 @@ attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp
 //     p16^T dctx, dk += ds16^T q. A key-mask row is read once a key group; a
 //     (T, S) mask is staged 32 x 16 a step in the warp's shared memory, or,
 //     under a tile map, a step whose two blocks are dead skipped and one
-//     whose blocks hold only +0.0 and -inf taken from the map's words.
+//     whose blocks hold only +0.0 and -inf taken from the map's words (the
+//     words loaded for such a step only, a warp-uniform branch between the
+//     two ways of taking the entries).
 // Writes dqkv16 (B*T, 3D) bf16; with PRE, dk and dv of the P prefix keys go
 // to dkvp16 (B*P, 2D: dK | dV). With the weight grads (qpart / kvpart not
 // null) each 16-row group's fp32 column sums of dq, and of dk and dv
@@ -1977,6 +2098,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                    float4* __restrict__ stats, int T, int P, int D, int Sp,
                    float scale) {
   constexpr bool MAP = PRE && !ROW;
+  if constexpr (!PRE) mask = nullptr;   // as attn_fwd_kernel's
   constexpr int LD = DH + 8;
   constexpr int NCH = (MAXNT * 8 + KV_CHUNK - 1) / KV_CHUNK;
   constexpr int HT = 2 * ((MAXNT / 2 + 1) / 2);   // 8-key tiles a warp holds
@@ -1993,22 +2115,26 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   float* op = xs + DQ_PAIRS * 96 + pair * DH * 16;   // the second warp's dq
   float* Ms = xs + DQ_PAIRS * (96 + DH * 16);        // a key-mask row
   unsigned char* Mp = reinterpret_cast<unsigned char*>(Ms);   // MAP: the map
+  unsigned* Mw = reinterpret_cast<unsigned*>(Mp + 256);       // ... its words
   const int g = lane >> 2, t4 = lane & 3;
   const int hd = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int S = P + T, ngroups = (T + 15) / 16;
-  // as the forward: split z = blockIdx.x takes the query groups z *
-  // DQ_PAIRS + pair + k * gstep
-  const int gstep = DQ_PAIRS * gridDim.x, g0 = blockIdx.x * DQ_PAIRS + pair;
-  const int npair = Sp / 16, h0 = (npair + 1) / 2;
-  const int tbase = half ? 2 * h0 : 0, tcnt = half ? 2 * (npair - h0) : 2 * h0;
+  // as the forward: unit u = blockIdx.x * DQ_PAIRS + pair of U takes its
+  // groups from unit_group
+  const int U = DQ_PAIRS * gridDim.x, u = blockIdx.x * DQ_PAIRS + pair;
+  const bool by_work = MAP && tmap;
+  const int npair = Sp / 16;
+  const int g0 = unit_group(0, 0, u, U, ngroups, by_work);
+  int t0, tcnt;
+  warp_tiles<MAP>(npair, half, t0, tcnt);
   const size_t rs = 3 * (size_t)D;
   const bf16* qbase = qkv + (size_t)b * T * rs + hd * DH;
   const bf16* gbase = dctx + (size_t)b * T * D + hd * DH;
-  // as the forward: this warp's live 16-key blocks of group grp's rows
-  auto live_blocks = [&](int grp) -> unsigned {
-    if constexpr (MAP) return map_bits(tmap ? Mp : nullptr, grp, npair, tbase / 2,
-                                       tcnt / 2, lane);
-    else return 0xffffffffu;
+  // as the forward: this warp's live and plain 16-key blocks of group grp
+  unsigned lm = 0xffffffffu, lp = 0u;
+  auto live_blocks = [&](int grp) {
+    if constexpr (MAP) map_blocks(tmap ? Mp : nullptr, grp, npair, half,
+                                  tcnt / 2, lane, lm, lp);
   };
   auto load_slabs = [&](int grp) {
     load_tile(Qp, LD, qbase + (size_t)grp * 16 * rs, rs, 16, T - grp * 16, DH,
@@ -2018,7 +2144,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   };
   // commit groups, oldest first: the pair's first slabs, then one per K/V
   // chunk (empty past Sp, so the count is the same for every shape)
-  if (g0 < ngroups) load_slabs(g0);
+  if (g0 >= 0) load_slabs(g0);
   cp_async_commit();
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
@@ -2030,10 +2156,13 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   }
   stage_mask_row<ROW>(Ms, mask, S, Sp, tid, DQ_THREADS);
   if constexpr (MAP) {   // seen after the first chunk's barrier
-    if (tmap)
+    if (tmap) {
+      const unsigned* words = reinterpret_cast<const unsigned*>(
+          tmap + tile_map_words_at(T, S));
       for (int x = tid; x < ngroups * npair; x += DQ_THREADS) Mp[x] = tmap[x];
+      for (int x = tid; x < ngroups * npair * 8; x += DQ_THREADS) Mw[x] = words[x];
+    }
   }
-  unsigned lm = 0xffffffffu;
 
   unsigned qa[DH / 16][4], da[DH / 16][4];
   float s[HT][4];
@@ -2043,53 +2172,41 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   for (int c = 0; c < NCH; ++c) {
     cp_async_wait_upto3(NCH - 1 - c);
     __syncthreads();
-    if (g0 < ngroups) {
+    if (g0 >= 0) {
       if (c == 0) {
-        lm = live_blocks(g0);
+        live_blocks(g0);
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc) {
           ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
           ldsm_x4(da[kc], Gp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
         }
       }
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 8 * c, 8 * c + 8, lm,
-                               lane);
+      attn_half_scores<DH, HT, MAP>(s, qa, Ks, t0, tcnt, 8 * c, 8 * c + 8, lm,
+                                    lane);
     }
   }
 
   const float sl2 = scale * LOG2E;
   float4* st = stats + ((size_t)b * H + hd) * (size_t)(ngroups * 16);
-  for (int grp = g0; grp < ngroups; grp += gstep) {
-    if (grp != g0) {     // a later group: K and V are all in shared memory
-      lm = live_blocks(grp);
+  for (int k = 0, grp = g0; grp >= 0;
+       ++k, grp = unit_group(k, grp, u, U, ngroups, by_work)) {
+    if (k > 0) {     // a later group: K and V are all in shared memory
+      live_blocks(grp);
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc) {
         ldsm_x4(qa[kc], Qp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
         ldsm_x4(da[kc], Gp + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
       }
       zero_acc<HT>(s);
-      attn_half_scores<DH, HT>(s, qa, Ks, tbase, tcnt, 0, MAXNT, lm, lane);
+      attn_half_scores<DH, HT, MAP>(s, qa, Ks, t0, tcnt, 0, MAXNT, lm, lane);
     }
     // scale and mask in base 2, this warp's half of the row max, the pair's
     // (a dead 16-key block: -inf, p = 0, dp = 0, no mask read)
     const int ia = grp * 16 + g, ib = ia + 8;
-    float ma = -INFINITY, mb = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < HT; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = (tbase + i) * 8 + 2 * t4 + e;
-        float va = -INFINITY, vb = -INFINITY;
-        if (i < tcnt && j < S && ((lm >> (i >> 1)) & 1u)) {
-          va = fmaf(s[i][e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ia, j, S, T));
-          vb = fmaf(s[i][2 + e], sl2, LOG2E * mask_at<ROW>(mask, Ms, ib, j, S, T));
-        }
-        s[i][e] = va;
-        s[i][2 + e] = vb;
-        ma = fmaxf(ma, va);
-        mb = fmaxf(mb, vb);
-      }
-    }
+    float ma, mb;
+    attn_half_mask<HT, ROW, MAP>(s, t0, tcnt, lm, lp,
+                                 Mw + (size_t)grp * npair * 8 + g, mask, Ms,
+                                 ia, ib, S, T, sl2, t4, ma, mb);
     ma = quad_max(ma);
     mb = quad_max(mb);
     if (t4 == 0) {
@@ -2099,12 +2216,13 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
     // dp = dctx v^T for this warp's keys while the maxima cross
     float dp[HT][4];
     zero_acc<HT>(dp);
-    attn_half_scores<DH, HT>(dp, da, Vs, tbase, tcnt, 0, MAXNT, lm, lane);
+    attn_half_scores<DH, HT, MAP>(dp, da, Vs, t0, tcnt, 0, MAXNT, lm, lane);
     pair_sync(pair);   // both halves' maxima, and both warps have read the slabs
     ma = fmaxf(ma, red[(half ^ 1) * 16 + g]);
     mb = fmaxf(mb, red[(half ^ 1) * 16 + g + 8]);
     // the next group's q and dctx into the slabs while this group computes
-    if (grp + gstep < ngroups) load_slabs(grp + gstep);
+    const int next = unit_group(k + 1, grp, u, U, ngroups, by_work);
+    if (next >= 0) load_slabs(next);
     cp_async_commit();
 
     // e = exp(s - max), this warp's half of the row sum l and of t =
@@ -2162,7 +2280,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                         s[i + 1][1] * (dp[i + 1][1] - dla));
       sa[3] = pack_bf16(s[i + 1][2] * (dp[i + 1][2] - dlb),
                         s[i + 1][3] * (dp[i + 1][3] - dlb));
-      const int k0 = (tbase + i) * 8;
+      const int k0 = warp_tile<MAP>(i, t0) * 8;
 #pragma unroll
       for (int cp = 0; cp < DH / 16; ++cp) {
         unsigned kb[4];
@@ -2218,6 +2336,7 @@ attn_bwd_dq_tiled(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                   float4* __restrict__ stats, int T, int P, int D, int Sp,
                   float scale) {
   constexpr bool MAP = PRE && !ROW;
+  if constexpr (!PRE) mask = nullptr;   // as attn_fwd_kernel's
   constexpr int LD = DH + 8, TE = TQ * LD, NBUF = MAP ? TILES_HELD : 2;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -2420,6 +2539,7 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
                     float* __restrict__ kvpart, const float4* __restrict__ stats,
                     int T, int P, int D, int Sp, int NB, float scale) {
   constexpr bool MAP = PRE && !ROW;
+  if constexpr (!PRE) mask = nullptr;   // as attn_fwd_kernel's
   constexpr int LD = DH + 8, TE = TQ * LD;
   constexpr size_t CHUNK = dkv_chunk_bytes(DH);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -2466,10 +2586,6 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
   int issued = 0;
   for (; issued < min(NB, nload); ++issued) issue(issued);
 
-  if (queue) {
-    cp_async_wait<0>();
-    __syncthreads();
-  }
   const float sl2 = scale * LOG2E;
   for (int r = 0;; ++r) {
     int grp = gfirst + r * gstride + warp;
@@ -2515,6 +2631,10 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
       zero_acc<DH / 8>(dk);
       zero_acc<DH / 8>(dv);
     }
+    if (queue && r == 0) {   // every chunk, once, the first K and V rows in flight
+      cp_async_wait<0>();
+      __syncthreads();
+    }
     for (int c = 0; c < nq; ++c) {
       const int li = resident ? c : r * nq + c;
       if (!resident || (r == 0 && !queue)) {
@@ -2536,6 +2656,8 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
           unsigned wq = 0u;
           if constexpr (MAP) {
             if (tmap) {
+              // the words only for a step that is live and plain: a dead
+              // step (most of ProtoCLIP's K4) loads nothing more
               const int rb = qb >> 4;
               const unsigned v0 = tmap[(size_t)rb * ngroups + grp];
               const unsigned v1 = 16 * (rb + 1) < T
@@ -2578,35 +2700,44 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
               mma16816(dT[2 * hh + 1], va[kc], gb4[2], gb4[3]);
             }
           }
-          // p^T = exp2(s^T sl2 + mask - m2) / l and ds^T = p^T (dp^T - delta)
+          // p^T = exp2(s^T sl2 + mask - m2) / l and ds^T = p^T (dp^T - delta),
+          // the mask entries from the map's words (WORDS) or as the mask
+          // gives them: a warp-uniform branch around two copies of the
+          // loop, so neither tests the other's case at every entry
+          auto rebuild = [&](auto words) {
+            constexpr bool WORDS = decltype(words)::value;
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
+            for (int n = 0; n < 4; ++n) {
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int rq = 8 * n + 2 * t4 + e;
-              const float4 q = Sb[lq + rq];   // (m2, 1/l, delta)
-              // row rq's 16 bits (from_words: a warp-uniform branch)
-              const unsigned wr =
-                  MAP && from_words
-                      ? __shfl_sync(0xffffffffu, wq, (rq >> 4) * 8 + (rq & 7)) >>
-                            (((rq >> 3) & 1) * 16)
-                      : 0u;
+              for (int e = 0; e < 2; ++e) {
+                const int rq = 8 * n + 2 * t4 + e;
+                const float4 q = Sb[lq + rq];   // (m2, 1/l, delta)
+                unsigned wr = 0u;   // row rq's 16 bits
+                if constexpr (WORDS)
+                  wr = __shfl_sync(0xffffffffu, wq, (rq >> 4) * 8 + (rq & 7)) >>
+                       (((rq >> 3) & 1) * 16);
 #pragma unroll
-              for (int w = 0; w < 2; ++w) {   // w = 0: key ja, 1: key jb
-                float pv = 0.f;
-                if (w ? okb : oka) {
-                  const float mv =
-                      ROW ? (w ? mkb : mka)
-                          : MAP && from_words
-                                ? ((wr >> (g + 8 * w)) & 1u ? 0.f : -INFINITY)
-                                : (mat ? Mt[rq * 17 + g + 8 * w] : 0.f);
-                  pv = exp2f(fmaf(sT[n][2 * w + e], sl2, mv) - q.x) * q.y;
+                for (int w = 0; w < 2; ++w) {   // w = 0: key ja, 1: key jb
+                  float pv = 0.f;
+                  if (w ? okb : oka) {
+                    float mv;
+                    if constexpr (WORDS)
+                      mv = (wr >> (g + 8 * w)) & 1u ? 0.f : -INFINITY;
+                    else
+                      mv = ROW ? (w ? mkb : mka)
+                               : (mat ? Mt[rq * 17 + g + 8 * w] : 0.f);
+                    pv = exp2f(fmaf(sT[n][2 * w + e], sl2, mv) - q.x) * q.y;
+                  }
+                  sT[n][2 * w + e] = pv;
+                  dT[n][2 * w + e] = pv * (dT[n][2 * w + e] - q.z);
                 }
-                sT[n][2 * w + e] = pv;
-                dT[n][2 * w + e] = pv * (dT[n][2 * w + e] - q.z);
               }
             }
-          }
+          };
+          if (MAP && from_words)
+            rebuild(std::integral_constant<bool, MAP>{});
+          else
+            rebuild(std::false_type{});
           // dv += p16^T dctx, dk += ds16^T q, one k16 half of the queries
           // after the other
 #pragma unroll
@@ -2693,22 +2824,26 @@ static int max_smem_optin() {
   return v;
 }
 
+// The register roads' copy of a tile map: its bytes (<= 16 x 16 up to 256
+// keys) in 256, then its words (8 a block; ceil(T/16) <= Sp/16 row blocks)
+static size_t map_smem(int Sp) {
+  return 256 + (size_t)(Sp / 16) * (Sp / 16) * 8 * sizeof(unsigned);
+}
+
 // K, V, the 4 pairs' query slabs, their row-max and row-sum exchange and
-// partial p @ v, plus the key-mask row with ROW or the tile map's bytes
-// (<= 16 x 16 up to 256 keys) with map
+// partial p @ v, plus the key-mask row with ROW or the tile map with map
 static size_t attn_fwd_smem(int Sp, int dh, bool row, bool map) {
   return (size_t)(2 * Sp + 16 * AF_PAIRS) * (dh + 8) * sizeof(bf16) +
          (size_t)AF_PAIRS * (64 + 1024) * sizeof(float) +
-         (row ? (size_t)Sp * sizeof(float) : 0) + (map ? 256 : 0);
+         (row ? (size_t)Sp * sizeof(float) : 0) + (map ? map_smem(Sp) : 0);
 }
 
 // K, V, the 4 pairs' q and dctx slabs, their max / sum / delta exchange and
-// partial dq, plus the key-mask row with ROW or the tile map's bytes with
-// map
+// partial dq, plus the key-mask row with ROW or the tile map with map
 static size_t attn_bwd_dq_smem(int Sp, int dh, bool row, bool map) {
   return (size_t)(2 * Sp + 32 * DQ_PAIRS) * (dh + 8) * sizeof(bf16) +
          (size_t)DQ_PAIRS * (96 + dh * 16) * sizeof(float) +
-         (row ? (size_t)Sp * sizeof(float) : 0) + (map ? 256 : 0);
+         (row ? (size_t)Sp * sizeof(float) : 0) + (map ? map_smem(Sp) : 0);
 }
 
 // the tiled roads: ``tiles`` 64-row bf16 tiles plus the key-mask row (ROW)
@@ -2721,7 +2856,8 @@ static size_t attn_tiled_smem(int tiles, int Sp, int dh, bool row, bool map) {
 
 // Shared arguments of the attention launches. Without a prefix P = 0 and
 // kvp and dkvp16 are null; tmap (the tile map of a 2-D mask) is read by the
-// PRE kernels without ROW only, null there meaning every block. bpart: null,
+// PRE kernels without ROW only, null there meaning every block (those
+// kernels also take a (T, T) mask with no prefix, P = 0). bpart: null,
 // or the weight grads' bias partials, those of dq (B * ceil(T/16), D) then
 // those of dk | dv (B * ceil(S/16), 2D), one row a 16-row group.
 struct AttnArgs {
@@ -2817,7 +2953,7 @@ static int attn_splits(Kernel kern, int threads, size_t smem, int bh,
 template <int DH, int MAXNT, bool PRE, bool ROW>
 static int launch_attn_fwd_nt(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
-  const size_t smem = attn_fwd_smem(Sp, DH, ROW, PRE && !ROW);
+  const size_t smem = attn_fwd_smem(Sp, DH, ROW, PRE && !ROW && a.tmap);
   auto kern = attn_fwd_kernel<DH, MAXNT, PRE, ROW>;
   raise_smem(kern, smem);
   const int ns = attn_splits(kern, AF_THREADS, smem, a.H * a.B, (a.T + 15) / 16,
@@ -2890,7 +3026,7 @@ static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
         a.qkv, a.kvp, a.dctx, a.mask, a.tmap, a.dqkv16, a.bpart, a.stats, a.T,
         a.P, a.D, Sp, a.scale);
   } else {
-    const size_t smem = attn_bwd_dq_smem(Sp, DH, ROW, PRE && !ROW);
+    const size_t smem = attn_bwd_dq_smem(Sp, DH, ROW, PRE && !ROW && a.tmap);
     auto kern = attn_bwd_dq_kernel<DH, MAXNT, PRE, ROW>;
     raise_smem(kern, smem);
     const int ns = attn_splits(kern, DQ_THREADS, smem, a.H * a.B,
@@ -3276,25 +3412,37 @@ int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
   return launch_gemm<float>(p, at, bt, tma, 1, s);
 }
 
-int llc_attn_fwd(const void* qkv, const float* mask, void* ctx, int B, int T,
-                 int D, int H, float scale, void* stream) {
+// mask: null or a (T, T) fp32 matrix; tmap: null (every block) or that
+// mask's tile map (llc_mask_tile_map), whose dead blocks the kernels skip.
+// A mask takes the map-reading kernels of the prefix road with P = 0; no
+// mask keeps the kernels that read none.
+int llc_attn_fwd(const void* qkv, const float* mask, const void* tmap,
+                 void* ctx, int B, int T, int D, int H, float scale,
+                 void* stream) {
+  if (tmap && !mask) return (int)cudaErrorInvalidValue;
   AttnArgs a = {};
-  a.qkv = (const bf16*)qkv; a.mask = mask; a.ctx = (bf16*)ctx;
+  a.qkv = (const bf16*)qkv; a.mask = mask;
+  a.tmap = (const unsigned char*)tmap; a.ctx = (bf16*)ctx;
   a.B = B; a.T = T; a.P = 0; a.D = D; a.H = H; a.scale = scale;
-  return launch_attn<false, false, false>(a, (cudaStream_t)stream);
+  return mask ? launch_attn<false, true, false>(a, (cudaStream_t)stream)
+              : launch_attn<false, false, false>(a, (cudaStream_t)stream);
 }
 
 // stats: B * H * ceil16(T) float4s of workspace (row max, 1 / row sum,
 // delta; 16-byte aligned). bpart: null, or the bias partials (AttnArgs),
-// (B * ceil(T/16) * D + B * ceil(S/16) * 2D) floats.
+// (B * ceil(T/16) * D + B * ceil(S/16) * 2D) floats. mask and tmap as
+// llc_attn_fwd's.
 int llc_attn_bwd(const void* qkv, const void* dctx, const float* mask,
-                 void* dqkv16, float* bpart, float* stats, int B, int T,
-                 int D, int H, float scale, void* stream) {
+                 const void* tmap, void* dqkv16, float* bpart, float* stats,
+                 int B, int T, int D, int H, float scale, void* stream) {
+  if (tmap && !mask) return (int)cudaErrorInvalidValue;
   AttnArgs a = {};
   a.qkv = (const bf16*)qkv; a.dctx = (const bf16*)dctx; a.mask = mask;
+  a.tmap = (const unsigned char*)tmap;
   a.dqkv16 = (bf16*)dqkv16; a.bpart = bpart; a.stats = (float4*)stats;
   a.B = B; a.T = T; a.P = 0; a.D = D; a.H = H; a.scale = scale;
-  return launch_attn<true, false, false>(a, (cudaStream_t)stream);
+  return mask ? launch_attn<true, true, false>(a, (cudaStream_t)stream)
+              : launch_attn<true, false, false>(a, (cudaStream_t)stream);
 }
 
 // The tile map of a (T, S) fp32 mask (mask_tile_map_kernel) into tmap,

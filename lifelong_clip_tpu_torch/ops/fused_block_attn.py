@@ -30,8 +30,11 @@ attention kernels that read their keys from both. Under a (T, P + T) mask
 tile map on the card (``mask_tile_map``: one byte per 16 query rows x 16
 keys, 0 where every entry is -inf) and the attention kernels skip the
 blocks it marks dead; those hold p = 0 exactly, so the values are those of
-the full sweep bit for bit. The map's kernel replaces no TPU kernel: the
-TPU kernels compute every tile.
+the full sweep bit for bit. The block op does the same under a (T, T) mask
+(the text tower's causal mask: 15 of 25 blocks live at T = 77), its map
+built once per mask tensor (``_tile_map``: the blocks of a tower pass share
+one). The map's kernel replaces no TPU kernel: the TPU kernels compute
+every tile.
 
 Bound on one H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at the ViT-B/16 vision
 block, bs=64: forward ~67.1 GFLOP (~68 us, compute-bound); backward with
@@ -65,6 +68,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _kernels
 
@@ -73,10 +77,12 @@ _BF = torch.bfloat16
 _DT = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each kernel chain: one per op call on a CUDA tensor; and of
-# the tile-map kernel, one per prefix chain under a (T, P + T) mask
+# the tile-map kernel: one per prefix chain under a (T, P + T) mask
+# (prefix_tile_map), one per (T, T) mask tensor of the block op
+# (block_tile_map, ``_tile_map``)
 LAUNCHES = {"fused_ln_attention_fwd": 0, "fused_ln_attention_bwd": 0,
             "fused_prefix_attention_fwd": 0, "fused_prefix_attention_bwd": 0,
-            "prefix_tile_map": 0}
+            "prefix_tile_map": 0, "block_tile_map": 0}
 
 
 def reset_launches() -> None:
@@ -348,13 +354,44 @@ def _param(a):
     return a.to(a.dtype if a.dtype in _DT else torch.float32).contiguous()
 
 
+# tile maps of the block op's (T, T) masks by the mask tensor: the blocks of
+# a tower pass share one mask, so its map is built once (a map a call would
+# cost a launch of ~6% of ProtoCLIP's T = 25 forward chain on an H100). An
+# entry goes with its mask; another version of the mask (an in-place write)
+# or another T or device builds anew.
+_MAPS = WeakIdKeyDictionary()
+
+
+def _tile_map(mask, mask32):
+    """The tile map (``mask_tile_map``) of ``mask32``, the kernels' copy of
+    the (T, T) tensor ``mask``, built once while ``mask`` lives unchanged."""
+    key = (mask._version, mask32.shape[0], mask32.device)
+    hit = _MAPS.get(mask)
+    if hit is None or hit[0] != key:
+        hit = _MAPS[mask] = (key, mask_tile_map(mask32, "block_tile_map"))
+    return hit[1]
+
+
+def _mask_and_map(mask, t, device, tile_map=True):
+    """The mask as the block kernels take it (``_mask32``: fp32 (T, T) or
+    None) and, for a 2-D (T, T) mask, its tile map (``_tile_map``), whose
+    dead blocks the attention kernels skip; no map for no mask or one that
+    broadcasts to (T, T) (a key-mask row), nor with ``tile_map=False``
+    (every block swept: the same values bit for bit, the yardstick)."""
+    mask32 = _mask32(mask, t, t, device)
+    square = mask is not None and tuple(mask.shape) == (t, t)
+    return mask32, (_tile_map(mask, mask32) if square and tile_map
+                    else None)
+
+
 class _Prepared:
     """Operands in the kernels' layouts: weights and LoRA factors bf16 (as the
     TPU wrapper casts them), LN params and biases in their own dtype (fp32
-    or bf16, ``_param``), contiguous."""
+    or bf16, ``_param``), contiguous; the mask fp32 (T, T) with its tile map
+    (``_mask_and_map``)."""
 
     def __init__(self, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, mask,
-                 lora, lora_scaling):
+                 lora, lora_scaling, tile_map=True):
         def b16(a):
             return a.detach().to(_BF).contiguous()
 
@@ -368,7 +405,7 @@ class _Prepared:
         self.w_qkv, self.w_out = b16(w_qkv), b16(w_out)
         self.b_qkv = _param(b_qkv)
         self.b_out = _param(b_out) if b_out is not None else None
-        self.mask = _mask32(mask, t, t, x.device)
+        self.mask, self.tmap = _mask_and_map(mask, t, x.device, tile_map)
         lt = _lora16(lora, lora_scaling)
         self.lora = None if lt is None else tuple(
             a.detach().contiguous() for a in lt)
@@ -464,17 +501,19 @@ def _cuda_ln_qkv(pp: _Prepared):
 
 
 def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
-                  lora_scaling, mask, lora, keep=False):
+                  lora_scaling, mask, lora, keep=False, tile_map=True):
     """y on the card; with ``keep``, (y, (h16, z16, qkv16, ctx16, z2_16))
-    for the backward chain to read (z16 and z2_16 None without LoRA)."""
+    for the backward chain to read (z16 and z2_16 None without LoRA).
+    ``tile_map=False`` sweeps every block of a (T, T) mask (the yardstick
+    of the skipping kernels)."""
     _check_cuda(x, n_heads)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, mask,
-                   lora, lora_scaling)
+                   lora, lora_scaling, tile_map)
     m, d, r = pp.m, pp.d, pp.r
     h16, z16, qkv16 = _cuda_ln_qkv(pp)
     ctx16 = torch.empty(m, d, dtype=_BF, device=x.device)
     _kernels.call("llc_attn_fwd", qkv16.data_ptr(), _ptr(pp.mask),
-                  ctx16.data_ptr(), pp.b, pp.t, d, n_heads,
+                  _ptr(pp.tmap), ctx16.data_ptr(), pp.b, pp.t, d, n_heads,
                   (d // n_heads) ** -0.5, pp.stream)
     z2 = None
     if pp.lora is not None:
@@ -492,17 +531,18 @@ def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
 
 
 def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
-                   lora_scaling, mask, lora, weight_grads, saved):
+                   lora_scaling, mask, lora, weight_grads, saved,
+                   tile_map=True):
     """The backward chain on the card. ``saved``: the forward's (h16, z16,
     qkv16, ctx16, z2_16), those the backward reads (``_keep_for_backward``
     of ``_cuda_forward(..., keep=True)``). The block grads (dls, dlb,
     dwqkv, dbqkv, dwout, dbout) are None without ``weight_grads`` (the op
     gives exact zeros to a primal that needs a grad); with it the bias and
     LN grads come from the partials the attention and LN backward write,
-    summed in one launch."""
+    summed in one launch. ``tile_map`` as the forward's."""
     _check_cuda(x, n_heads)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, None, mask,
-                   lora, lora_scaling)
+                   lora, lora_scaling, tile_map)
     m, d, r, s = pp.m, pp.d, pp.r, pp.s
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -534,7 +574,8 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
     stats = _stats(pp, n_heads)
     _kernels.call("llc_attn_bwd", qkv16.data_ptr(), dctx16.data_ptr(),
-                  _ptr(pp.mask), dqkv16.data_ptr(), _ptr(attn_part),
+                  _ptr(pp.mask), _ptr(pp.tmap), dqkv16.data_ptr(),
+                  _ptr(attn_part),
                   stats.data_ptr(), pp.b, pp.t, d, n_heads,
                   (d // n_heads) ** -0.5, pp.stream)
 
@@ -846,11 +887,12 @@ def unpack_tile_map(buf, t, s):
             buf[off:off + nr * nc * 32].view(torch.int32).view(nr, nc, 8))
 
 
-def mask_tile_map(mask):
-    """The tile map of a contiguous fp32 (T, S) mask as the prefix kernels
-    take it, one uint8 buffer (``unpack_tile_map``): on the card one launch
-    of ``mask_tile_map_kernel`` (counted in ``LAUNCHES``), on the CPU its
-    plain versions."""
+def mask_tile_map(mask, counter="prefix_tile_map"):
+    """The tile map of a contiguous fp32 (T, S) mask as the attention
+    kernels take it, one uint8 buffer (``unpack_tile_map``): on the card one
+    launch of ``mask_tile_map_kernel`` (counted in ``LAUNCHES[counter]``:
+    the prefix op's maps, or the block op's), on the CPU its plain
+    versions."""
     t, s = mask.shape
     nr, nc = -(-t // 16), -(-s // 16)
     buf = torch.empty(_words_at(t, s) + nr * nc * 32, dtype=torch.uint8,
@@ -867,7 +909,7 @@ def mask_tile_map(mask):
                          f"{tuple(mask.shape)} on {mask.device}")
     _kernels.call("llc_mask_tile_map", mask.data_ptr(), buf.data_ptr(), t, s,
                   _stream(mask))
-    LAUNCHES["prefix_tile_map"] += 1
+    LAUNCHES[counter] += 1
     return buf
 
 

@@ -27,9 +27,10 @@ the dead prefix slots are exactly zero. Under a (T, P + T) mask the prefix
 kernels skip the blocks the mask's tile map marks dead:
 ``prefix_attention_outputs`` gives the attention kernels' own outputs (ctx,
 dqkv, dkvp, the weight grads' bias partials) with and without the map,
-which ``same_bits`` holds bit for bit. ``batch_rows`` gives ctx, y and dx
-of a batch, for holding a small batch's rows bit for bit to the same rows
-of a larger one.
+which ``same_bits`` holds bit for bit; ``block_outputs`` gives the #1/#2
+chains' outputs the same two ways under a (T, T) mask. ``batch_rows``
+gives ctx, y and dx of a batch, for holding a small batch's rows bit for
+bit to the same rows of a larger one.
 
 The flash case (``make_flash_inputs``, ``check_flash_case``) holds o, dq, dk
 and dv whole. Kernels and plain versions both compute in fp32 and round
@@ -263,18 +264,35 @@ def prefix_attention_outputs(x, pk, pv, blk, gy, mask, heads,
                     (ctx16, *grads, part)))
 
 
-def batch_rows(x, blk, gy, heads):
-    """The kernels' ctx16 and y of the forward and dx of the backward (no
-    LoRA, no mask, ``weight_grads=False``) for the batch ``x``, each (B, T,
-    D): what a batch-invariance check compares row for row between a small
-    batch, whose attention kernels split each (head, batch row) over
-    blocks, and a larger one holding the same rows."""
+def block_outputs(x, blk, lora, s, gy, mask, heads, tile_map=True,
+                  weight_grads=False):
+    """The #1/#2 chains' outputs on the card for the output grad ``gy``:
+    ctx16 (B, T, D) and y of the forward, dx, the LoRA grads (``d`` +
+    factor name) and, with ``weight_grads``, the block grads (``d`` +
+    ``BLOCK_KEYS`` name; their bias and LN parts summed from the kernels'
+    partials) of the backward; with the (T, T) mask's tile map or, with
+    ``tile_map=False``, sweeping every block."""
     wb = [blk[k] for k in BLOCK_KEYS]
-    y, saved = fba._cuda_forward(x, *wb, heads, 0.0, None, None, keep=True)
-    kept = fba._keep_for_backward(saved, False)
-    grads, _ = fba._cuda_backward(x, gy, *wb[:5], heads, 0.0, None, None,
-                                  False, kept)
-    return {"ctx16": saved[3].view(x.shape), "y": y, "dx": grads[0]}
+    y, saved = fba._cuda_forward(x, *wb, heads, s, mask, lora, keep=True,
+                                 tile_map=tile_map)
+    kept = fba._keep_for_backward(saved, weight_grads)
+    grads, dlora = fba._cuda_backward(x, gy, *wb[:5], heads, s, mask, lora,
+                                      weight_grads, kept, tile_map=tile_map)
+    out = {"ctx16": saved[3].view(x.shape), "y": y, "dx": grads[0]}
+    out.update({f"d{k}": v for k, v in (dlora or {}).items()})
+    if weight_grads:
+        out.update({f"d{k}": v for k, v in zip(BLOCK_KEYS, grads[1:])})
+    return out
+
+
+def batch_rows(x, blk, gy, heads, lora=None, s=0.0, mask=None):
+    """The kernels' ctx16 and y of the forward and dx of the backward
+    (``weight_grads=False``) for the batch ``x``, each (B, T, D): what a
+    batch-invariance check compares row for row between a small batch,
+    whose attention kernels split each (head, batch row) over blocks, and
+    a larger one holding the same rows."""
+    out = block_outputs(x, blk, lora, s, gy, mask, heads)
+    return {k: out[k] for k in ("ctx16", "y", "dx")}
 
 
 _BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}

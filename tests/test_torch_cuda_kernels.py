@@ -132,6 +132,68 @@ def test_rows_do_not_depend_on_the_batch(cuda):
         assert kc.same_bits(got[0][key], got[1][key][:got[0][key].shape[0]]), key
 
 
+# (b, t, d, heads, lora r, weight_grads) under the causal (T, T) mask: the
+# text tower's shape (lora-clip with LoRA on both towers, 100 class rows
+# cut to 6), ProtoCLIP's K3 text prefix (T = 25, narrowed), one row block
+# (T = 9), the weight grads' bias partials, and past 256 keys (the tiled
+# roads)
+CAUSAL_CASES = [(6, 77, 512, 8, 4, False), (4, 25, 128, 2, 0, False),
+                (2, 9, 128, 4, 4, False), (3, 77, 256, 4, 0, True),
+                (1, 300, 128, 2, 0, True)]
+
+
+@pytest.mark.parametrize("b,t,d,heads,r,wg", CAUSAL_CASES)
+def test_causal_tile_map_changes_no_bit(cuda, b, t, d, heads, r, wg):
+    """#1/#2 under the causal mask with its tile map (dead 16 x 16 blocks
+    skipped, plain blocks' entries from the map's words) and with a null
+    map (every block swept, the mask read): ctx, y, dx, the LoRA grads and
+    the block grads bit for bit equal."""
+    x, blk, lora, gy, mask = kc.make_inputs(b, t, d, heads, r, True, 5,
+                                            device=cuda)
+    s = 0.25 if r else 0.0
+    skip, full = (kc.block_outputs(x, blk, lora, s, gy, mask, heads,
+                                   tile_map=m, weight_grads=wg)
+                  for m in (True, False))
+    assert fba._Prepared(x, *[blk[k] for k in kc.BLOCK_KEYS], mask, lora,
+                         s).tmap is not None
+    for key in skip:
+        assert kc.same_bits(skip[key], full[key]), key
+
+
+def test_causal_text_rows_do_not_depend_on_the_batch(cuda):
+    """The text tower's 20 and 64 class rows (causal, LoRA r=4, under the
+    mask's tile map) give ctx, y and dx bit for bit equal to the same rows
+    inside its 100."""
+    x, blk, lora, gy, mask = kc.make_inputs(100, 77, 512, 8, 4, True, 11,
+                                            device=cuda)
+    whole = kc.batch_rows(x, blk, gy, 8, lora, 0.25, mask)
+    for n in (20, 64):
+        part = kc.batch_rows(x[:n], blk, gy[:n], 8, lora, 0.25, mask)
+        for key in part:
+            assert kc.same_bits(part[key], whole[key][:n]), (n, key)
+
+
+def test_one_tile_map_a_mask(cuda):
+    """The blocks of a tower pass share one mask tensor: its tile map is
+    built once for all their forwards and backwards, and anew for another
+    mask tensor or after an in-place write to it."""
+    from lifelong_clip_tpu_torch.ops.attention import causal_mask
+    x, blk, lora, gy = _inputs(cuda, 2, 37, 128, 4, seed=6)
+    mask = causal_mask(37, device=cuda)
+    fba.reset_launches()
+    for _ in range(3):
+        xl = x.detach().clone().requires_grad_(True)
+        fba.fused_ln_attention_block(xl, *blk, 2, 0.25, mask, lora,
+                                     False).backward(gy)
+    assert fba.LAUNCHES["block_tile_map"] == 1
+    assert fba.LAUNCHES["fused_ln_attention_bwd"] == 3
+    mask[0, 1] = 0.0   # a write: the map is stale
+    fba.fused_ln_attention_block(x, *blk, 2, 0.25, mask, lora)
+    fba.fused_ln_attention_block(x, *blk, 2, 0.25, causal_mask(37,
+                                 device=cuda), lora)
+    assert fba.LAUNCHES["block_tile_map"] == 3
+
+
 def test_op_launches_kernels_and_counts_them(cuda):
     x, blk, lora, gy = _inputs(cuda, 2, 13, 128, 4, seed=2)
     lora = {k: v.requires_grad_() for k, v in lora.items()}
@@ -142,7 +204,8 @@ def test_op_launches_kernels_and_counts_them(cuda):
                             "fused_ln_attention_bwd": 1,
                             "fused_prefix_attention_fwd": 0,
                             "fused_prefix_attention_bwd": 0,
-                            "prefix_tile_map": 0}
+                            "prefix_tile_map": 0,
+                            "block_tile_map": 0}
     for k in LORA_KEYS:   # bf16 primals get bf16 grads
         assert lora[k].grad.dtype == torch.bfloat16, k
 

@@ -3,9 +3,11 @@
 backward) of one checkout at the ViT-B/16 vision shape (64 x 197 x 768, 12
 heads, LoRA r=4, bf16, no mask), its KV-prefix chains (#3, #4) at the
 mvp-clip shape (P = 20, 5 slots live), and its flash-attention forward (#5)
-at the prompted-LoRA shape (B*H = 768, T = 197, S = 217, bf16), on one GPU,
-beside the library calls (LN + ``F.linear`` + SDPA + ``F.linear``; SDPA on
-the fp32-upcast q, k, v):
+at the prompted-LoRA shape (B*H = 768, T = 197, S = 217, bf16), and #1/#2
+at the text tower's ``text K=100 LoRA`` shape (100 class rows x 77 tokens x
+512, 8 heads, LoRA r=4, the causal (77, 77) mask: lora-clip with LoRA on
+both towers), on one GPU, beside the library calls (LN + ``F.linear`` +
+SDPA + ``F.linear``; SDPA on the fp32-upcast q, k, v):
 
     python3 tools/torch_chain_time.py [--root DIR] [--label NAME]
 
@@ -14,7 +16,9 @@ events, device-busy ms from torch.profiler (host gaps left out), the host
 ms inside each call into the kernel library, and every launch of the #1
 and #3 chains in order by device ms; for the backward, events and
 device-busy ms, with the device ms of each attention-backward kernel. The
-backward reads the forward's kept intermediates, as a train step does.
+text case gives both its chains launch by launch (``text_chain_by_launch``)
+and each chain's device ms beside the library call's forward and backward.
+The backward reads the forward's kept intermediates, as a train step does.
 ``--root`` is the checkout whose
 ``lifelong_clip_tpu_torch`` is imported (its kernels are built there at
 first use), so two trees are compared by running this once on each in one
@@ -102,6 +106,30 @@ def main():
     def flash_lib():
         return cs.library_flash(*fwt, heads, None)
 
+    # #1/#2 at the text tower's shape: causal, LoRA r=4, dx and LoRA grads
+    tx, tblk, tlora, tgy, tmask = kc.make_inputs(100, 77, 512, 8, 4, True, 16)
+    tfargs = (tblk["ln_scale"], tblk["ln_bias"], tblk["w_qkv"],
+              tblk["b_qkv"], tblk["w_out"], tblk["b_out"], 8, s, tmask, tlora)
+    tbargs = (*tfargs[:5], 8, s, tmask, tlora, False)
+    tll = {f"{k}_t": tlora[k].T.contiguous() for k in tlora}
+    tlb = cs.library_weights(tblk)
+    tsaved = fba._keep_for_backward(
+        fba._cuda_forward(tx, *tfargs, keep=True)[1], False)
+    twrt = [tx.detach().clone().requires_grad_(True)] + [
+        a.requires_grad_(True) for a in tll.values()]
+
+    def tfwd():
+        return fba._cuda_forward(tx, *tfargs)
+
+    def tbwd():
+        return fba._cuda_backward(tx, tgy, *tbargs, saved=tsaved)
+
+    def tlib():
+        return cs.library_block(twrt[0], tlb, tll, s, tmask, 8)
+
+    def tlib_fwd_bwd():
+        torch.autograd.grad(tlib(), twrt, tgy)
+
     def attn_split(fn):
         names = cs.device_split(fn)[1]
         return {cs.kernel_short(k): v for k, v in names.items()
@@ -121,11 +149,22 @@ def main():
                 "prefix_device_ms": cs.device_ms(pfwd, iters=10),
                 "prefix_bwd_device_ms": cs.device_ms(pbwd),
                 "flash_device_ms": cs.device_ms(flash, iters=10),
-                "flash_library_device_ms": cs.device_ms(flash_lib, iters=10)})
+                "flash_library_device_ms": cs.device_ms(flash_lib, iters=10),
+                "text_device_ms": cs.device_ms(tfwd, iters=10),
+                "text_bwd_device_ms": cs.device_ms(tbwd, iters=10),
+                "text_library_device_ms": cs.device_ms(tlib, iters=10)})
+            with torch.enable_grad():
+                both = cs.device_ms(tlib_fwd_bwd, iters=10)
+            runs[-1]["text_library_bwd_device_ms"] = (
+                None if both is None or runs[-1]["text_library_device_ms"]
+                is None else both - runs[-1]["text_library_device_ms"])
         host_calls = cs.launch_breakdown(fwd, bwd)["host_fwd"]
-        split = {"bwd": attn_split(bwd), "prefix_bwd": attn_split(pbwd)}
+        split = {"bwd": attn_split(bwd), "prefix_bwd": attn_split(pbwd),
+                 "text_bwd": attn_split(tbwd)}
         chains = {"fwd": cs.device_sequence(fwd),
                   "prefix_fwd": cs.device_sequence(pfwd)}
+        text_chains = {"fwd": cs.device_sequence(tfwd),
+                       "bwd": cs.device_sequence(tbwd)}
     median = {}
     for k in runs[0]:
         vals = [r[k] for r in runs if r[k] is not None]
@@ -135,6 +174,7 @@ def main():
                       "median": median,
                       "attention_bwd_device_ms": split,
                       "forward_chain_by_launch": chains,
+                      "text_chain_by_launch": text_chains,
                       "host_ms_per_call": host_calls, "runs": runs}))
     return 0
 

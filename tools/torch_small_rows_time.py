@@ -18,8 +18,9 @@ of both chains in order by device ms. ``--gates`` adds the ER and
 Finetuning learning gates of ``chip_smoke.py`` (device ms a step, idle
 share, kernel events a step); ``--others`` the rows that share these
 kernels without being the small batches' (#1/#2 with LoRA at 64 rows,
-ViT-L/14, L2P's K1, ProtoCLIP's K3 text prefix; #3/#4 at the mvp shape and
-ProtoCLIP's K2), to hold them against another tree. ``--root`` is the
+ViT-L/14, L2P's K1, ProtoCLIP's K3 text prefix, the text tower's causal
+K=20 and K=64 class rows; #3/#4 at the mvp shape and ProtoCLIP's K2), to
+hold them against another tree. ``--root`` is the
 checkout whose ``lifelong_clip_tpu_torch`` and ``chip_smoke.py`` are used
 (its kernels are
 built there at first use), so a parent and a change are compared by running
@@ -48,7 +49,9 @@ CASES = ((8, False, 40), (8, True, 41), (16, False, 42), (16, True, 43),
 OTHERS = (("vision, LoRA r=4", 64, 197, 768, 12, 4, False, 0),
           ("ViT-L/14 vision", 64, 257, 1024, 16, 4, False, 12),
           ("L2P prompted, T = 222", 64, 222, 768, 12, 0, False, 19),
-          ("ProtoCLIP text prefix, T = 25", 64, 25, 512, 8, 0, True, 20))
+          ("ProtoCLIP text prefix, T = 25", 64, 25, 512, 8, 0, True, 20),
+          ("text K=20", 20, 77, 512, 8, 0, True, 1),
+          ("text K=64", 64, 77, 512, 8, 0, True, 2))
 PREFIX_OTHERS = (("mvp prefix, 5 of 20 live", 5, 4, (64, 197, 768, 12, 20)),
                  ("ProtoCLIP image, P = 4, 4 live", 4, 21,
                   (64, 197, 768, 12, 4)))
