@@ -330,8 +330,11 @@ def device_ms(fn, iters=5, warmup=1):
 def device_sequence(fn, iters=5, warmup=1):
     """Every kernel one call of ``fn`` launches, in launch order, as [label,
     device ms] (torch.profiler, mean over ``iters`` calls); the port's
-    GEMMs labelled by M, N, K in the order ``fn`` calls them. None where the
-    profiler saw no device time or the calls launched different kernels."""
+    GEMMs labelled by M, N, K in the order ``fn`` calls them, ``+ LoRA r=``
+    where the launch forms the LoRA products too (``llc_gemm_lora``), and
+    ``gemm rank-r tile`` where it runs on the mma.sync tiles
+    (``gemm_kernel``). None where the profiler saw no device time or the
+    calls launched different kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from lifelong_clip_tpu_torch.ops import _kernels
@@ -339,7 +342,9 @@ def device_sequence(fn, iters=5, warmup=1):
 
     def tagged(name, *a):
         if name == "llc_gemm":
-            gemms.append(f"gemm M={a[1]} N={a[2]} K={a[3]}")
+            gemms.append(f"M={a[1]} N={a[2]} K={a[3]}")
+        elif name == "llc_gemm_lora":
+            gemms.append(f"M={a[1]} N={a[2]} K={a[3]} + LoRA r={a[14]}")
         return orig(name, *a)
 
     _kernels.call = tagged
@@ -365,7 +370,8 @@ def device_sequence(fn, iters=5, warmup=1):
     if any(kernel_short(e.name) != names[i % n] for i, e in enumerate(kern)):
         return None
     tags = iter(gemms)
-    return [[next(tags, nm) if nm.startswith("gemm") else nm,
+    return [[("gemm rank-r tile " if nm == "gemm_kernel" else "gemm ")
+             + next(tags, "") if nm.startswith("gemm") else nm,
              sum(kern[c * n + i].time_range.elapsed_us()
                  for c in range(iters)) / iters / 1e3]
             for i, nm in enumerate(names)]
@@ -583,6 +589,17 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
            "lora_r": lora_r, "masked": masked, "weight_grads": weight_grads,
            "live_pairs_per_row": pairs, "tile_liveness": live_tiles,
            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
+    if lora_r:
+        # the LoRA grads come from fixed-order partials (no float atomics):
+        # two runs on the same inputs agree bit for bit
+        one, two = (kc.block_outputs(x, blk, lora, s, gy, mask, heads,
+                                     weight_grads=weight_grads)
+                    for _ in range(2))
+        res["lora_grads_bitwise_repeatable"] = all(
+            kc.same_bits(one[f"d{k}"], two[f"d{k}"]) for k in lora)
+        log(f"{label}: LoRA grads bit for bit over two runs: "
+            f"{res['lora_grads_bitwise_repeatable']}")
+        assert res["lora_grads_bitwise_repeatable"], label
     fl, by = block_cost(b, t, d, heads, lora_r, weight_grads, False,
                         pairs=pairs)
     res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(fl, by)
@@ -611,12 +628,56 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     # intermediates
     kept = fba._keep_for_backward(fba._cuda_forward(x, *args, keep=True)[1],
                                   weight_grads)
-    return time_case(
+    res = time_case(
         label, res, lambda: fba._cuda_forward(x, *args),
         lambda: fba.fused_ln_attention_block_reference(x, *args),
         lambda: fba._cuda_backward(x, gy, *bargs, saved=kept),
         lambda: fba.fused_ln_attention_block_reference_bwd(x, gy, *bargs),
         lambda xg, *_: library_block(xg, lb, ll, s, mask, heads), wrt, gy)
+    if 0 < lora_r <= fba.FOLD_RMAX and d % fba.FOLD_DMULT == 0:
+        assert_lora_folded(label, res, lambda: fba._cuda_forward(x, *args),
+                           lambda: fba._cuda_backward(x, gy, *bargs,
+                                                      saved=kept))
+    return res
+
+
+def kernel_calls(fn):
+    """The kernel library's entry points one call of ``fn`` goes through,
+    in order, with their arguments."""
+    from lifelong_clip_tpu_torch.ops import _kernels
+    orig, calls = _kernels.call, []
+
+    def record(name, *a):
+        calls.append((name, a))
+        return orig(name, *a)
+
+    _kernels.call = record
+    try:
+        fn()
+    finally:
+        _kernels.call = orig
+    return calls
+
+
+def assert_lora_folded(label, res, fwd, bwd):
+    """#1's and #2's LoRA chains form the rank-r products inside the GEMMs
+    that stream their operands: no GEMM on the rank-r tiles (``llc_gemm``
+    with M or N <= 16, ``gemm_kernel``) and none split over K (its sum,
+    ``splitk_reduce_kernel``) in either chain, by the entry points each
+    chain calls and, where the profiler saw them, by its kernels."""
+    calls = kernel_calls(fwd) + kernel_calls(bwd)
+    bad = [f"llc_gemm M={a[1]} N={a[2]} splits={a[25]}"
+           for name, a in calls
+           if name == "llc_gemm" and (min(a[1], a[2]) <= 16 or a[25] > 1)]
+    names = [nm for chain in (res["forward_chain_split"], res["chain_split"])
+             for nm, _ in chain or ()]
+    bad += [nm for nm in names
+            if "rank-r tile" in nm or nm == "splitk_reduce_kernel"]
+    assert not bad, (label, bad)
+    log(f"{label}: LoRA folded: no rank-r tile and no split-K sum in "
+        f"{len(calls)} entry points ({', '.join(n for n, _ in calls)})"
+        + (f", {len(names)} kernels" if names else
+           ", kernels not seen by the profiler"))
 
 
 LIBRARY_WEIGHTS = ("ln_scale", "ln_bias", "w_qkv_t", "b_qkv", "w_out_t",

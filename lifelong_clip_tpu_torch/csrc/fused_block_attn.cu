@@ -20,10 +20,28 @@
 //
 // Design:
 //   * The TPU kernel kept h, qkv, scores and ctx in VMEM for one group of
-//     batch rows. Here the op is a chain of kernels (forward: LN, the LoRA
-//     factor z = h @ A, the qkv GEMM, attention, z2, the out GEMM) and those
+//     batch rows. Here the op is a chain of kernels (forward: LN, the qkv
+//     GEMM, attention, the out GEMM; backward: the dctx GEMM, attention,
+//     the dh GEMM, LN, one launch of fixed-order sums) and those
 //     intermediates (h16, qkv16, ctx16, dctx16, dqkv16, dh) go through
 //     device memory: about (2 + 6 + 2) * M * D bytes extra per forward.
+//   * The rank-r LoRA products (r <= 8, D a multiple of 128) are folded
+//     into the GEMMs that stream their operands, where the TPU kernel
+//     computed them in its body (_kernel:76-84, :117-126; _bwd_kernel:
+//     355-374 and after :417): z = h A_in and z2 = ctx A_out, dz2 = s g
+//     B_out^T and dz = s dqkv B_in^T are a narrow second wgmma (64 x 8)
+//     on each A stage of the qkv, out, dctx and dh products, against F's
+//     64 x 8 tile that TMA loads beside it (the LN forward writes A_in^T
+//     and A_out^T for the forward's), each rounded to bf16 before the
+//     epilogue multiplies it by the other factor, as JAX rounds it. The
+//     four row contractions are fixed-order partials, one a 64-row block:
+//     dB_out = s z2^T g and dB_in = s z^T dqkv from the dctx / dh tiles'
+//     own A stages (each k-step's by one column tile of the row block, zin
+//     loaded a tile ahead), dA_out = ctx^T dz2 and dA_in = h^T dz from the
+//     tile's xa columns, which the ring loads after the tile's last
+//     k-step; partial_sums_kernel adds them with the bias and LN partials.
+//     No launch on the rank-r tiles and no split-K sum is left in the
+//     chains; each rank-r launch had run at 2-13x its bytes (PERF.md).
 //   * The projections, ~60% of the forward chain, are what bounds it by
 //     operations, so they run on the tensor cores' full-rate path: a Hopper
 //     GEMM (gemm_wgmma_kernel) whose consumer warpgroups run wgmma m64n128k16
@@ -43,9 +61,9 @@
 //     (contractions over all B*T rows) writes fp32 partials that a second
 //     pass sums in a fixed order: no atomics, results independent of launch
 //     order, as the TPU kernel's sequential grid. The mma.sync tiles (m16n8k16, 3-stage cp.async)
-//     stay for the rank-r LoRA shapes (N <= 16: 64x16, M <= 16: 16x128);
-//     any other shape needs operands TMA can read, which every caller's
-//     are. TMA maps and shared-memory limits are set once and reused, so a
+//     stay for the unfolded road's rank-r LoRA shapes (N <= 16: 64x16, M
+//     <= 16: 16x128); any other shape needs operands TMA can read, which
+//     every caller's are. TMA maps and shared-memory limits are set once and reused, so a
 //     launch costs the host little beyond the launch itself.
 //   * Attention forward (attn_fwd_kernel, S = P + T <= 256 keys): one block
 //     per (head, batch row) loads the head's K and V once, in 64-row
@@ -115,13 +133,11 @@
 //     the unsplit road's bit for bit; and the dh product takes 128 x 64
 //     tiles where 128 x 128 ones would run a second, mostly empty round
 //     (150 tiles at 16 rows) and its long K pays for the smaller tiles.
-//   * LN (warp per row) and the LoRA factor z = h @ A (the
-//     64x16 tile, rounded to bf16 as _kernel:76-84 and :117-126 round it).
-//     The prefix rows' keys and values (pk @ W_k + b_k, pv @ W_v + b_v, bias
-//     added before the one bf16 rounding as _prefix_kernel:553-562) are one
-//     more launch of the GEMM into a (B*P, 2D) buffer: N = 2D over W_qkv's
-//     adjacent K and V columns where pk and pv are one tensor, else a
-//     grouped launch over the two.
+//   * LN (warp per row). The prefix rows' keys and values (pk @ W_k +
+//     b_k, pv @ W_v + b_v, bias added before the one bf16 rounding as
+//     _prefix_kernel:553-562) are one more launch of the GEMM into a (B*P,
+//     2D) buffer: N = 2D over W_qkv's adjacent K and V columns where pk
+//     and pv are one tensor, else a grouped launch over the two.
 //   * The ragged edge (T = 197 or 77, P = 20, not multiples of 16) is masked
 //     in the kernels: padded keys get probability 0, padded queries are not
 //     stored. A key the mask kills (-inf) gets p = 0 and dk = dv = 0 exactly:
@@ -175,7 +191,16 @@ template <typename T, typename G>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_fwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
               const G* __restrict__ beta, bf16* __restrict__ h, int M,
-              int D, float eps) {
+              int D, float eps, const bf16* __restrict__ fa,
+              const bf16* __restrict__ fb, bf16* __restrict__ ft, int R) {
+  // with the LoRA fold (ft not null): the forward's LoRA factors A_in and
+  // A_out (D x R) transposed into ft (2 x R x D), the K-contiguous F the
+  // qkv and out GEMMs read by TMA, over the grid before its rows
+  for (int i = blockIdx.x * LN_THREADS + threadIdx.x; ft && i < 2 * R * D;
+       i += gridDim.x * LN_THREADS) {
+    const int j = i / (R * D), n = i / D % R, k = i % D;
+    ft[i] = (j ? fb : fa)[(size_t)k * R + n];
+  }
   const int lane = threadIdx.x & 31;
   const size_t row = (size_t)blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
   if (row >= (size_t)M) return;
@@ -308,15 +333,18 @@ __global__ void cast_bf16_kernel(const T* __restrict__ x, bf16* __restrict__ y,
 
 // The bias and LN grads of the backward with weight grads, from the
 // partials the kernels that make the rows wrote (the attention backward's
-// per 16-row group, the LN backward's per block): segment s sums
-// part[r * n + c] over its rows r in a fixed order into out[c]. A block
+// per 16-row group, the LN backward's per block), and the LoRA grads from
+// the folded GEMMs' partials (per 64-row block): segment s sums
+// part[r * n + c] over its rows r in a fixed order into out[c], times its
+// scale (the LoRA scale s for dB, 1 for the rest). A block
 // takes 32 columns of one segment; its 8 row lanes take every 8th row in
 // order, then lane 0 adds the 8 in order. One launch for every segment.
-constexpr int SUM_SEGS = 8;
+constexpr int SUM_SEGS = 12;
 struct SumSegs {
   const float* part[SUM_SEGS];
   float* out[SUM_SEGS];
   int rows[SUM_SEGS], n[SUM_SEGS];
+  float scale[SUM_SEGS];
   int count;
 };
 
@@ -340,7 +368,7 @@ partial_sums_kernel(SumSegs sg) {
     float t = 0.f;
 #pragma unroll
     for (int w = 0; w < 8; ++w) t += red[w][cx];
-    sg.out[si][c] = t;
+    sg.out[si][c] = sg.scale[si] * t;
   }
 }
 
@@ -425,6 +453,33 @@ struct GemmArgs {
   // group's
   int groups;
   long long gm, gn;
+  // the rank-r LoRA fold (gemm_wgmma_kernel<..., FOLD = true>), where a
+  // launch forms the LoRA products on the operand tiles it already streams:
+  //   * Z = bf16(zalpha * A @ F), F (K x R) at fz[k + n * sfn] (K
+  //     contiguous: TMA loads its 64 x 8 tile beside each A stage), a
+  //     narrow second product on each A stage; the epilogue's LoRA term is
+  //     lscale * Z @ L (lb). zout (R x ldz, Z transposed), or null: Z for
+  //     the backward, written by each row block's first column tile;
+  //   * pb, or null: the B-type partials pb[blk][r][k] = the sum over the
+  //     64 rows of block blk of zin[r][m] * A[m][k] (zin R x ldz, as zout
+  //     writes it, loaded by TMA a tile ahead), each k-step's by one
+  //     column tile of the row block;
+  //   * pa, or null: the A-type partials pa[blk][n][r] = the sum over those
+  //     rows of xa[m][n] * Z[m][r] (xa M x N, row stride ldx), the tile's
+  //     own columns, from an xa tile that the ring loads after the tile's
+  //     last k-step.
+  // The partials' blocks are fixed, so partial_sums_kernel adds them in a
+  // fixed order: no atomics.
+  const bf16* fz;
+  long long sfn;
+  float zalpha;
+  bf16* zout;
+  const bf16* zin;
+  long long ldz;
+  float* pb;
+  const bf16* xa;
+  long long ldx;
+  float* pa;
 };
 
 template <int BM, int BN, bool AT, bool BT>
@@ -799,18 +854,29 @@ constexpr int WG_BM = 128, WG_BK = 64, WG_THREADS = 384;
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;   // 16 KB
 constexpr int WG_BOX = 8192;                    // one 64 x 64 bf16 box, 128B rows
 
-template <int BN, bool STAGE>
+// The fold's narrow products are 8 wide (FOLD_RMAX ranks; the tensor
+// work of a 64 x 8 product is a sixteenth of the 64 x 128 one beside it),
+// their B tiles 8 rows (ranks, zero past R) of 64 K-contiguous bf16,
+// 128B-swizzled: the F tile of a ring stage, and the Z tile of a consumer
+// warpgroup's 64 rows for the partials.
+constexpr int FOLD_RMAX = 8;
+constexpr int WG_F_BYTES = FOLD_RMAX * 128;
+
+template <int BN, bool STAGE, bool FOLD = false>
 struct WgTile {
   // the staging tile takes the room of one ring stage
   static constexpr int STAGES = BN == 256 ? 4 : (STAGE ? 5 : 6);
   static constexpr int STAGE_BYTES = WG_A_BYTES + BN * WG_BK * 2;
   static constexpr int OUT = STAGE ? WG_BM * BN * 2 : 0;   // bf16 staging
-  // the ring, the staging tile, the LoRA factors and the bias of the tile
-  // (fp32), the barriers, alignment
+  static constexpr int FOLD_BYTES = FOLD ? (STAGES + 2) * WG_F_BYTES : 0;
+  // the ring, the staging tile, the fold's tiles, the LoRA factors and the
+  // bias of the tile (fp32), the barriers, alignment
   static constexpr int LORA = (WG_BM + BN) * LORA_RMAX * 4;
   static constexpr int BIAS = BN * 4;
-  static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + OUT + LORA +
-                                 BIAS + (2 * STAGES + 1) * 8 + 1024;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + OUT +
+                                 FOLD_BYTES + LORA + BIAS +
+                                 (2 * STAGES + 3) * 8 + 1024;
+  static_assert(SMEM <= 232448, "a block's shared memory");
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -931,6 +997,41 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x 8, fp32) = A (64 x 16) . B (16 x 8) (+ d where acc): the fold's
+// narrow products (Z, and the partials with A read M-major: TA = 1). A
+// thread holds rows g and g + 8 of its warp's 16, columns 2t and 2t + 1.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
+                                               uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// A copy of accumulators that a wgmma wrote, read unconditionally (volatile:
+// the compiler does not sink the reads into the stores' per-thread
+// branches, which would make it serialize every wgmma of the kernel).
+template <int N>
+__device__ __forceinline__ void wg_read(float (&v)[N], const float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("mov.b32 %0, %1;" : "=f"(v[i]) : "f"(d[i]));
+}
+
+// The fold's modes (gemm_wgmma_kernel's FOLD): none; Z alone (the
+// forward's qkv and out products); Z and both kinds of partials (the
+// backward's dctx and dh products).
+enum { FOLD_NONE = 0, FOLD_Z = 1, FOLD_GRADS = 2 };
+
+// Byte offset of element (row n, column k) of a fold tile (WG_F_BYTES: 128-
+// byte rows of 64 bf16 in TMA's 128B swizzle, the 16-byte chunk XORed with
+// n % 8), as wgmma reads a K-major B tile and TMA writes it.
+__device__ __forceinline__ int fold_offset(int n, int k) {
+  return n * 128 + ((((k >> 3) ^ n) & 7) << 4) + ((k & 7) << 1);
+}
+
 // One k16 step of a consumer's 64 x HN slab (HN 128 or 64).
 template <int HN, int TA, int TB>
 __device__ __forceinline__ void wgmma_k16(float (&d)[HN / 2], uint64_t da,
@@ -949,26 +1050,38 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[HN / 2], uint64_t da,
 // tile's main loop, and waits only until TMA has read the staging tile
 // before it loads the next residual into it. Without STAGE the epilogue
 // writes from the accumulators (gemm_epilogue).
-template <typename OutT, int BN, bool AT, bool BT, bool STAGE>
+// KR (FOLD_GRADS): K / N of the product (dctx 1, dh 3), so that each
+// column tile's share of a row block's k-steps is KR * BN / 64 of them.
+template <typename OutT, int BN, bool AT, bool BT, bool STAGE, int FOLD = FOLD_NONE,
+          int KR = 0>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ CUtensorMap tma_b,
                   const __grid_constant__ CUtensorMap tma_c,
-                  const __grid_constant__ CUtensorMap tma_r, GemmArgs p) {
-  using TL = WgTile<BN, STAGE>;
+                  const __grid_constant__ CUtensorMap tma_r,
+                  const __grid_constant__ CUtensorMap tma_f,
+                  const __grid_constant__ CUtensorMap tma_z,
+                  const __grid_constant__ CUtensorMap tma_x, GemmArgs p) {
+  using TL = WgTile<BN, STAGE, FOLD != FOLD_NONE>;
   constexpr int STAGES = TL::STAGES;
   // a consumer's 64 x BN slab as NH wgmma products of 64 x HN each
   constexpr int HN = BN < 128 ? BN : 128, NH = BN / HN;
+  static_assert(!FOLD || (!AT && BN <= 128), "the fold reads K-major A tiles");
   extern __shared__ __align__(1024) unsigned char wsm[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on it
   unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
   unsigned char* stage = base + STAGES * TL::STAGE_BYTES;
-  float* zs = reinterpret_cast<float*>(stage + TL::OUT);
+  // the fold's F tile of each ring stage, then the Z tiles of the two
+  // consumer warpgroups
+  unsigned char* fsm = stage + TL::OUT;
+  unsigned char* ztm = fsm + STAGES * WG_F_BYTES;
+  float* zs = reinterpret_cast<float*>(stage + TL::OUT + TL::FOLD_BYTES);
   float* ls = zs + WG_BM * LORA_RMAX;
   float* bsm = ls + LORA_RMAX * BN;
   uint64_t* full = reinterpret_cast<uint64_t*>(bsm + BN);
   uint64_t* empty = full + STAGES;
   uint64_t* rbar = empty + STAGES;
+  uint64_t* zbar = rbar + 1;   // the fold: zin's tile of each warpgroup
   // persistent: block b takes tiles b, b + gridDim.x, ...; n fastest, then
   // m, then the group, then the split of K, so the tiles in flight share
   // their A rows
@@ -981,6 +1094,10 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       mbar_init(empty + s, 2 * 128);   // every consumer thread arrives
     }
     mbar_init(rbar, 1);
+    if (FOLD == FOLD_GRADS) {
+      mbar_init(zbar, 1);
+      mbar_init(zbar + 1, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -1000,7 +1117,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
           if (it >= STAGES) mbar_wait(empty + s, (it / STAGES - 1) & 1);
           unsigned char* As = base + s * TL::STAGE_BYTES;
           unsigned char* Bs = As + WG_A_BYTES;
-          mbar_expect_tx(full + s, TL::STAGE_BYTES);
+          mbar_expect_tx(full + s, TL::STAGE_BYTES + (FOLD ? WG_F_BYTES : 0));
           if (AT) {   // M contiguous: two 64 (M) x 64 (K) boxes
             tma_load(As, &tma_a, full + s, am, k);
             tma_load(As + WG_BOX, &tma_a, full + s, am + 64, k);
@@ -1014,6 +1131,18 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
             for (int j = 0; j < BN / 64; ++j)
               tma_load(Bs + j * WG_BOX, &tma_b, full + s, bn + 64 * j, k);
           }
+          // the fold: F's 64 (K) x 8 (rank) tile, zeros past R and K
+          if (FOLD) tma_load(fsm + s * WG_F_BYTES, &tma_f, full + s, k, 0);
+        }
+        if (FOLD == FOLD_GRADS) {   // one more step: the tile's xa rows and columns
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty + s, (it / STAGES - 1) & 1);
+          unsigned char* Xs = base + s * TL::STAGE_BYTES;
+          mbar_expect_tx(full + s, WG_BM * BN * 2);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(Xs + j * 16384, &tma_x, full + s, n0 + 64 * j, m0);
+          ++it;
         }
       }
     }
@@ -1022,8 +1151,19 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     const int c = wg - 1;
     const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
     const int mm = 64 * c + 16 * w4 + (lane >> 2);
-    const bool lora_smem = p.lz && p.R <= LORA_RMAX;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const bool lora_smem = (FOLD || p.lz) && p.R <= LORA_RMAX;
     const bool leader = threadIdx.x == 128;   // issues the staging tile's TMA
+    // the fold: this warpgroup's Z tile (zin's rows for the B-type
+    // partials, then the tile's Z for the A-type ones) and the thread that
+    // loads zin into it, a tile ahead
+    unsigned char* zt = ztm + c * WG_F_BYTES;
+    const bool zlead = (threadIdx.x & 127) == 0;
+    if (FOLD == FOLD_GRADS && zlead) {
+      mbar_expect_tx(zbar + c, WG_F_BYTES);
+      tma_load(zt, &tma_z, zbar + c,
+               (int)blockIdx.x / tiles_n % tiles_m * WG_BM + 64 * c, 0);
+    }
     int it = 0, tl = 0;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x, ++tl) {
       const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * WG_BM;
@@ -1043,11 +1183,12 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       }
       // the LoRA factors and the bias of this tile into shared memory as
       // fp32 while the ring fills (the epilogue reads each many times, the
-      // bias in its own dtype); rows and columns past M and N stage as zeros
+      // bias in its own dtype); rows and columns past M and N stage as zeros.
+      // With the fold, Z comes from the tile's own product.
       if (lora_smem || p.bias) {
         asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the last epilogue is done
         const int tc = threadIdx.x - 128;
-        for (int i = tc; lora_smem && i < WG_BM * p.R; i += 256) {
+        for (int i = tc; !FOLD && lora_smem && i < WG_BM * p.R; i += 256) {
           const int row = i / p.R, r = i % p.R, m = m0 + row;
           zs[row * LORA_RMAX + r] = m < p.M ? p.lscale * __bfloat162float(
               p.lz[(size_t)m * p.szm + (size_t)r * p.szr]) : 0.f;
@@ -1066,13 +1207,33 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       for (int h = 0; h < NH; ++h)
 #pragma unroll
         for (int i = 0; i < HN / 2; ++i) acc[h][i] = 0.f;
-      for (int k = kbeg; k < kend; k += WG_BK, ++it) {
+      // the fold: Z's accumulators, and the B-type partials of each k-step
+      // of this tile's share: CH steps from c0, the row block's k-steps by
+      // column tile (each step's own accumulators, read once every product
+      // has retired: an accumulator read while any wgmma is in flight, or
+      // a wgmma under a branch, makes the compiler serialize them all)
+      constexpr int CH = FOLD == FOLD_GRADS ? KR * BN / WG_BK : 1;
+      float zacc[4], pacc[CH][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) zacc[i] = 0.f;
+      const int c0 = FOLD == FOLD_GRADS ? n0 / BN * CH * WG_BK : kend;
+      if constexpr (FOLD == FOLD_GRADS) mbar_wait(zbar + c, tl & 1);   // zin's rows
+      const int blk = (m0 / WG_BM) * 2 + c;   // the partials' 64-row block
+      // One k-step at k: the product (and with the fold Z's) on its ring
+      // stage; with WP also this step's B-type partials into pn (its 64
+      // columns of A against zin over the warpgroup's 64 rows, A read
+      // M-major; the first product overwrites pn).
+      auto kstep = [&](int k, auto wp, float (&pn)[4]) {
+        constexpr bool WP = decltype(wp)::value;
         const int s = it % STAGES;
         mbar_wait(full + s, (it / STAGES) & 1);
         const unsigned char* As = base + s * TL::STAGE_BYTES + c * WG_BOX;
         const unsigned char* Bs = base + s * TL::STAGE_BYTES + WG_A_BYTES;
+        const unsigned char* Fs = fsm + s * WG_F_BYTES;
 #pragma unroll
         for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
+        if constexpr (FOLD != FOLD_NONE) wg_reg_fence(zacc);
+        if constexpr (WP) wg_reg_fence(pn);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk) {
@@ -1085,18 +1246,118 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                                    : wg_desc(Bs + h * 16384 + kk * 2048, WG_BOX, 1024);
             wgmma_k16<HN, AT ? 1 : 0, BT ? 0 : 1>(acc[h], da, db);
           }
+          if constexpr (FOLD != FOLD_NONE)
+            wgmma_m64n8k16<0, 0>(zacc, da, wg_desc(Fs + kk * 32, 16, 1024));
+        }
+        if constexpr (WP) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)   // the first overwrites pn
+            wgmma_m64n8k16<1, 0>(pn, wg_desc(As + kk * 2048, WG_BOX, 1024),
+                                  wg_desc(zt + kk * 32, 16, 1024), kk > 0);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
+        if constexpr (FOLD != FOLD_NONE) wg_reg_fence(zacc);
+        if constexpr (WP) wg_reg_fence(pn);
         // the previous k-tile's products have retired: hand its stage back
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         if (k > kbeg) mbar_arrive(empty + (it - 1) % STAGES);
+        ++it;
+      };
+      const std::false_type plain{};
+      const std::true_type with_p{};
+      int k = kbeg;
+      for (; k < c0; k += WG_BK) kstep(k, plain, zacc);
+      if constexpr (FOLD == FOLD_GRADS) {
+#pragma unroll
+        for (int j = 0; j < CH; ++j) kstep(k + j * WG_BK, with_p, pacc[j]);
+        k += CH * WG_BK;
       }
+      for (; k < kend; k += WG_BK) kstep(k, plain, zacc);
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
       for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
       if (kend > kbeg) mbar_arrive(empty + (it - 1) % STAGES);   // the last one
+      if constexpr (FOLD == FOLD_GRADS) {
+        // the B-type partials, P[c0 + 64 j + i][r] into pb[blk][r][...]
+        float* pb = p.pb + (size_t)blk * p.R * p.K;
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          float v[4];
+          wg_read(v, pacc[j]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 2 * t4 + (i & 1);
+            const int kc = c0 + j * WG_BK + 16 * w4 + g8 + 8 * (i >> 1);
+            if (r < p.R && kc < p.K) pb[(size_t)r * p.K + kc] = v[i];
+          }
+        }
+      }
+      if constexpr (FOLD != FOLD_NONE) {
+        // Z = bf16(zalpha * A @ F) of the warp's rows: the epilogue's LoRA
+        // term (lscale * Z, as the staged factors), the backward's copy
+        // (zout, transposed) and the A-type partials' B tile
+        float zv[4];
+        wg_read(zv, zacc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 2 * t4 + (i & 1);
+          const int row = mm + 8 * (i >> 1);
+          const bf16 zb = __float2bfloat16(p.zalpha * zv[i]);
+          zs[row * LORA_RMAX + r] = p.lscale * __bfloat162float(zb);
+          if (p.zout && n0 == 0 && r < p.R && m0 + row < p.M)
+            p.zout[(size_t)r * p.ldz + m0 + row] = zb;
+          if (FOLD == FOLD_GRADS)
+            *reinterpret_cast<bf16*>(zt + fold_offset(r, row - 64 * c)) = zb;
+        }
+        __syncwarp();
+      }
+      if constexpr (FOLD == FOLD_GRADS) {
+        // the A-type partials: the tile's own columns of xa against Z over
+        // the warpgroup's rows, from the xa tile the ring loaded after the
+        // last k-step
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+        const int s = it % STAGES;
+        mbar_wait(full + s, (it / STAGES) & 1);
+        const unsigned char* Xs = base + s * TL::STAGE_BYTES + c * WG_BOX;
+        float pa[BN / 64][4];
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) wg_reg_fence(pa[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)   // the first overwrites pa[j]
+            wgmma_m64n8k16<1, 0>(pa[j],
+                                  wg_desc(Xs + j * 16384 + kk * 2048, WG_BOX, 1024),
+                                  wg_desc(zt + kk * 32, 16, 1024), kk > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) wg_reg_fence(pa[j]);
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        float v[BN / 64][4];
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) wg_read(v[j], pa[j]);
+        mbar_arrive(empty + s);
+        ++it;
+        // the Z tile is free: zin's rows of this warpgroup's next tile
+        if (zlead && t + (int)gridDim.x < ntiles) {
+          mbar_expect_tx(zbar + c, WG_F_BYTES);
+          tma_load(zt, &tma_z, zbar + c,
+                   (t + (int)gridDim.x) / tiles_n % tiles_m * WG_BM + 64 * c, 0);
+        }
+        float* pab = p.pa + (size_t)blk * p.N * p.R;
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 2 * t4 + (i & 1);
+            const int n = n0 + 64 * j + 16 * w4 + g8 + 8 * (i >> 1);
+            if (r < p.R && n < p.N) pab[(size_t)n * p.R + r] = v[j][i];
+          }
+      }
       if constexpr (STAGE) {
         // every consumer is past the last tile's staging writes and the
         // leader past its store's reads; the residual has landed
@@ -3157,11 +3418,12 @@ static int make_tma(CUtensorMap* map, const void* ptr, long long inner,
   return 0;
 }
 
-template <typename OutT, int BN, bool AT, bool BT, bool STAGE>
+template <typename OutT, int BN, bool AT, bool BT, bool STAGE, int FOLD = FOLD_NONE,
+          int KR = 0>
 static int launch_wgmma_tile(const GemmArgs& p, int splits,
                              const CUtensorMap& tc, const CUtensorMap& tr,
                              cudaStream_t s) {
-  using TL = WgTile<BN, STAGE>;
+  using TL = WgTile<BN, STAGE, FOLD != FOLD_NONE>;
   // the maps span every group: A rows M + (groups - 1) gm, B columns
   // N + (groups - 1) gn
   const long long ma = p.M + (p.groups - 1) * p.gm;
@@ -3173,14 +3435,23 @@ static int launch_wgmma_tile(const GemmArgs& p, int splits,
   e = BT ? make_tma(&tb, p.B, p.K, nb, p.sbn, 64, BN)
          : make_tma(&tb, p.B, nb, p.K, p.sbk, 64, 64);
   if (e) return e;
-  auto kern = gemm_wgmma_kernel<OutT, BN, AT, BT, STAGE>;
+  // the fold reads by TMA F's tiles (64 x 8, zeros past R), zin's (64 rows
+  // x 8) and xa's (128 x 64 boxes, as the residual)
+  CUtensorMap tf = {}, tz = {}, tx = {};
+  if (FOLD) e = make_tma(&tf, p.fz, p.K, p.R, p.sfn, 64, FOLD_RMAX);
+  if (FOLD == FOLD_GRADS && !e) {
+    e = make_tma(&tz, p.zin, p.M, p.R, p.ldz, 64, FOLD_RMAX);
+    if (!e) e = make_tma(&tx, p.xa, p.N, p.M, p.ldx, 64, WG_BM);
+  }
+  if (e) return e;
+  auto kern = gemm_wgmma_kernel<OutT, BN, AT, BT, STAGE, FOLD, KR>;
   raise_smem(kern, TL::SMEM);
   // persistent: one block an SM, or one a tile where there are fewer
   const int sms = sm_count();
   const long long ntiles = (long long)((p.N + BN - 1) / BN) *
                            ((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
   kern<<<(int)(ntiles < sms ? ntiles : sms), WG_THREADS, TL::SMEM, s>>>(
-      ta, tb, tc, tr, p);
+      ta, tb, tc, tr, tf, tz, tx, p);
   return (int)cudaGetLastError();
 }
 
@@ -3212,6 +3483,14 @@ static int launch_wgmma(const GemmArgs& p, bool at, bool bt, int splits,
             : launch_wgmma_epi<OutT, BN, false, false>(p, splits, s);
 }
 
+// Whether an fp32-out product takes 128 x 64 tiles (launch_gemm says why).
+static bool narrow_tiles(const GemmArgs& p, long long tiles_m, long long sms) {
+  const long long t128 = (p.N + 127) / 128 * tiles_m, t64 = (p.N + 63) / 64 * tiles_m;
+  const long long ks = (p.k_per_split + WG_BK - 1) / WG_BK;
+  return t128 > sms && t128 < 2 * sms &&
+         (t64 + sms - 1) / sms * (11 * ks + 120) < (t128 + sms - 1) / sms * (20 * ks + 120);
+}
+
 // Tile by problem shape: the mma.sync 64x16 tile for N <= 16 and 16x128 for
 // M <= 16 (the rank-r LoRA shapes); else the wgmma tile (for fp32 output
 // 128 x 64 where 128 x 128 tiles would take a second, mostly empty round
@@ -3241,14 +3520,50 @@ static int launch_gemm(const GemmArgs& p, bool at, bool bt, bool tma,
     // epilogue, so only a long K pays (on an H100 at 16 rows: dh, K = 2304,
     // 35.6 -> 32.1 us; the bf16 out and dctx products, K = 768, ran 0.4 us
     // slower and keep 128 x 128; PERF.md)
-    const long long t128 = (p.N + 127) / 128 * tiles_m, t64 = (p.N + 63) / 64 * tiles_m;
-    const long long ks = (p.k_per_split + WG_BK - 1) / WG_BK;
-    if (!at && t128 > sms && t128 < 2 * sms &&
-        (t64 + sms - 1) / sms * (11 * ks + 120) < (t128 + sms - 1) / sms * (20 * ks + 120))
+    if (!at && narrow_tiles(p, tiles_m, sms))
       return bt ? launch_wgmma_epi<OutT, 64, false, true>(p, splits, s)
                 : launch_wgmma_epi<OutT, 64, false, false>(p, splits, s);
   }
   return launch_wgmma<OutT, 128>(p, at, bt, splits, s);
+}
+
+// The fold's launches (GemmArgs): the forward's qkv and out products (Z
+// alone: NN; bf16 out with the staged epilogue, or fp32 out, the out
+// product of an fp32 x) and the backward's dctx (bf16 out, NT, staged) and
+// dh (fp32 out, NT; 128 x 64 tiles by the rule above,
+// never 128 x 256) with both kinds of partials (K = N or 3N, N a multiple
+// of 128). Other layouts, split-K, groups and R > FOLD_RMAX are refused: no
+// caller has them (the chains keep the unfolded road for R > FOLD_RMAX and
+// D not a multiple of 128).
+template <typename OutT>
+static int launch_gemm_fold(const GemmArgs& p, bool at, bool bt, bool tma,
+                            cudaStream_t s) {
+  const bool grads = p.pb || p.pa;
+  // the grads' partials: K = N (dctx) or 3N (dh), N a multiple of 128
+  if (at || !tma || p.groups != 1 || p.R < 1 || p.R > FOLD_RMAX || !p.fz ||
+      (grads && (!p.pb || !p.pa || p.N % WG_BM ||
+                 p.K != (sizeof(OutT) == 2 ? 1 : 3) * p.N)))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(OutT) == 2) {
+    CUtensorMap tc = {}, tr = {};
+    if (make_tma(&tc, p.out, p.N, p.M, p.ldo, 64, WG_BM) ||
+        (p.resid && make_tma(&tr, p.resid, p.N, p.M, p.ldr, 64, WG_BM)))
+      return (int)cudaErrorInvalidValue;
+    if (!grads && !bt)   // the forward's qkv and out products
+      return launch_wgmma_tile<bf16, 128, false, false, true, FOLD_Z>(p, 1, tc, tr, s);
+    if (grads && bt)     // dctx
+      return launch_wgmma_tile<bf16, 128, false, true, true, FOLD_GRADS, 1>(p, 1, tc, tr, s);
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const CUtensorMap none = {};
+    if (!grads && !bt)   // the out product of an fp32 x (its residual)
+      return launch_wgmma_tile<float, 128, false, false, false, FOLD_Z>(p, 1, none, none, s);
+    if (!grads || !bt || p.resid) return (int)cudaErrorInvalidValue;
+    // dh
+    if (narrow_tiles(p, (p.M + WG_BM - 1) / WG_BM, sm_count()))
+      return launch_wgmma_tile<float, 64, false, true, false, FOLD_GRADS, 3>(p, 1, none, none, s);
+    return launch_wgmma_tile<float, 128, false, true, false, FOLD_GRADS, 3>(p, 1, none, none, s);
+  }
 }
 
 extern "C" {
@@ -3257,15 +3572,18 @@ const char* llc_error_string(int e) { return cudaGetErrorString((cudaError_t)e);
 
 static int ln_blocks(int M) { return (M + LN_ROWS - 1) / LN_ROWS; }
 
-// gdt: the dtype of gamma and beta (DT_F32 or DT_BF16).
+// gdt: the dtype of gamma and beta (DT_F32 or DT_BF16). ft: null, or the
+// LoRA fold's (2, R, D) buffer for A_in^T and A_out^T (fa, fb: D x R).
 int llc_ln_fwd(int dt, int gdt, const void* x, const void* gamma,
                const void* beta, void* h, int M, int D, float eps,
+               const void* fa, const void* fb, void* ft, int R,
                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D > 32 * LN_MAXK) return (int)cudaErrorInvalidValue;
 #define LLC_LN_FWD(T, G)                                                     \
   ln_fwd_kernel<T, G><<<ln_blocks(M), LN_THREADS, 0, s>>>(                   \
-      (const T*)x, (const G*)gamma, (const G*)beta, (bf16*)h, M, D, eps)
+      (const T*)x, (const G*)gamma, (const G*)beta, (bf16*)h, M, D, eps,     \
+      (const bf16*)fa, (const bf16*)fb, (bf16*)ft, R)
   if (dt == DT_BF16) {
     if (gdt == DT_BF16) LLC_LN_FWD(bf16, bf16); else LLC_LN_FWD(bf16, float);
   } else {
@@ -3334,9 +3652,11 @@ int llc_cast_bf16(int dt, const void* x, void* y, long long n, void* stream) {
 }
 
 // The column sums of ``count`` <= SUM_SEGS segments of partials in one
-// launch: desc holds, for each, (part, out, rows, n) as four 64-bit words;
-// out[c] = the sum over r < rows of part[r * n + c] in a fixed order.
-int llc_partial_sums(int count, const long long* desc, void* stream) {
+// launch: desc holds, for each, (part, out, rows, n) as four 64-bit words,
+// scale its factor; out[c] = scale * the sum over r < rows of part[r * n +
+// c] in a fixed order.
+int llc_partial_sums(int count, const long long* desc, const float* scale,
+                     void* stream) {
   if (count < 1 || count > SUM_SEGS) return (int)cudaErrorInvalidValue;
   SumSegs sg = {};
   sg.count = count;
@@ -3346,6 +3666,7 @@ int llc_partial_sums(int count, const long long* desc, void* stream) {
     sg.out[i] = reinterpret_cast<float*>(desc[4 * i + 1]);
     sg.rows[i] = (int)desc[4 * i + 2];
     sg.n[i] = (int)desc[4 * i + 3];
+    sg.scale[i] = scale[i];
     tiles += (sg.n[i] + 31) / 32;
   }
   partial_sums_kernel<<<tiles, 256, 0, (cudaStream_t)stream>>>(sg);
@@ -3367,7 +3688,7 @@ int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
              long long ldo, int splits, float* ws, int groups, long long gm,
              long long gn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  GemmArgs p;
+  GemmArgs p = {};
   p.M = M; p.N = N; p.K = K;
   p.groups = groups < 1 ? 1 : groups; p.gm = gm; p.gn = gn;
   if (p.groups > 1 && (splits > 1 || lz || resid))
@@ -3410,6 +3731,50 @@ int llc_gemm(int out_dt, int M, int N, int K, const void* A, long long sam,
   }
   if (out_dt == DT_BF16) return launch_gemm<bf16>(p, at, bt, tma, 1, s);
   return launch_gemm<float>(p, at, bt, tma, 1, s);
+}
+
+// The fold (GemmArgs): out = bias + A @ B + lscale * Z @ L (+ resid), Z =
+// bf16(zalpha * A @ F) formed in the same launch (F K-contiguous, rows sfn
+// apart; zout: Z transposed, R rows ldz apart, or null), with the B-type
+// partials pb (of zin, laid out as zout) and A-type partials pa (of xa)
+// where not null; pb / pa hold ceil(M / 128) * 2 blocks of R * K / N * R
+// floats. Layouts and alignment as llc_gemm's TMA road; launch_gemm_fold
+// says which shapes are taken.
+int llc_gemm_lora(int out_dt, int M, int N, int K, const void* A,
+                  long long sam, long long sak, const void* B, long long sbk,
+                  long long sbn, const void* bias, int bias_dt, const void* fz,
+                  long long sfn, int R, float zalpha, float lscale,
+                  const void* lb, long long slr, long long sln, void* zout,
+                  const void* zin, long long ldz, float* pb, const void* xa,
+                  long long ldx, float* pa, const void* resid, long long ldr,
+                  void* out, long long ldo, void* stream) {
+  GemmArgs p = {};
+  p.M = M; p.N = N; p.K = K;
+  p.groups = 1;
+  p.A = (const bf16*)A; p.sam = sam; p.sak = sak;
+  p.B = (const bf16*)B; p.sbk = sbk; p.sbn = sbn;
+  p.alpha = 1.f; p.bias = bias; p.bias_bf16 = bias_dt == DT_BF16;
+  p.lb = (const bf16*)lb; p.slr = slr; p.sln = sln; p.R = R; p.lscale = lscale;
+  p.resid = resid; p.ldr = ldr; p.out = out; p.ldo = ldo;
+  p.fz = (const bf16*)fz; p.sfn = sfn; p.zalpha = zalpha;
+  p.zout = (bf16*)zout; p.zin = (const bf16*)zin; p.ldz = ldz; p.pb = pb;
+  p.xa = (const bf16*)xa; p.ldx = ldx; p.pa = pa;
+  p.o_vec = ((uintptr_t)out % 8) == 0 && ldo % 2 == 0;
+  p.r_vec = ((uintptr_t)resid % 8) == 0 && ldr % 2 == 0;
+  p.k_per_split = (K + GBK - 1) / GBK * GBK;
+  p.splits = 1;
+  const bool at = sam == 1 && sak != 1;
+  const bool bt = sbk == 1 && sbn != 1;
+  const bool tma =
+      ((uintptr_t)A % 16) == 0 && ((uintptr_t)B % 16) == 0 &&
+      (at ? sak % 8 == 0 : (sak == 1 && sam % 8 == 0)) &&
+      (bt ? sbn % 8 == 0 : (sbn == 1 && sbk % 8 == 0)) &&
+      ((uintptr_t)fz % 16) == 0 && sfn % 8 == 0 &&
+      (!zout || ldz >= M) && (!pb || (((uintptr_t)zin % 16) == 0 && ldz % 8 == 0)) &&
+      (!pa || (((uintptr_t)xa % 16) == 0 && ldx % 8 == 0));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (out_dt == DT_BF16) return launch_gemm_fold<bf16>(p, at, bt, tma, s);
+  return launch_gemm_fold<float>(p, at, bt, tma, s);
 }
 
 // mask: null or a (T, T) fp32 matrix; tmap: null (every block) or that

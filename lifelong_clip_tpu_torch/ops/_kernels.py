@@ -34,13 +34,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _SIGNATURES = {
-    "llc_ln_fwd": [_I, _I, _VP, _VP, _VP, _VP, _I, _I, _F, _VP],
+    "llc_ln_fwd": [_I, _I, _VP, _VP, _VP, _VP, _I, _I, _F, _VP, _VP, _VP, _I,
+                   _VP],
     "llc_ln_bwd": [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _VP],
     "llc_cast_bf16": [_I, _VP, _VP, _LL, _VP],
-    "llc_partial_sums": [_I, _VP, _VP],
+    "llc_partial_sums": [_I, _VP, _VP, _VP],
     "llc_gemm": [_I, _I, _I, _I, _VP, _LL, _LL, _VP, _LL, _LL, _F, _VP, _I,
                  _VP, _LL, _LL, _VP, _LL, _LL, _I, _F, _VP, _LL, _VP, _LL, _I,
                  _VP, _I, _LL, _LL, _VP],
+    "llc_gemm_lora": [_I, _I, _I, _I, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _I,
+                      _VP, _LL, _I, _F, _F, _VP, _LL, _LL, _VP, _VP, _LL,
+                      _VP, _VP, _LL, _VP, _VP, _LL, _VP, _LL, _VP],
     "llc_attn_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
     "llc_attn_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
                      _VP],

@@ -19,6 +19,14 @@ Kernels and the TPU kernels they replace:
 * backward: the same source (LN backward, GEMMs, attention backward, column
   sums), replacing ``_bwd_kernel`` (``:258``, Pallas call at ``:478``).
 
+With LoRA of rank <= ``FOLD_RMAX`` and D a multiple of ``FOLD_DMULT`` the
+rank-r products go into the GEMMs that stream their operands
+(``_gemm_lora``), as the TPU kernels compute them in their bodies: z and
+z2 in the qkv and out products, dz2 and dz in the dctx and dh products,
+which also write the LoRA grads' fixed-order partials; the chains then have
+no launch of their own for any LoRA term. Other ranks and widths take the
+unfolded road (a launch for each rank-r product).
+
 ``fused_prefix_attention_block`` is the counterpart of the JAX op of that
 name (``:652-696``): the same half block without LoRA, whose keys come from
 [pk; LN(x)] and values from [pv; LN(x)] under an additive (T, P + T) mask.
@@ -333,6 +341,88 @@ def _gemm(out, a, a_strides, b, b_strides, m, n, k, *, alpha=1.0, bias=None,
     return out
 
 
+# the LoRA ranks the folded GEMMs take (``FOLD_RMAX`` in the source: their
+# narrow products are 8 wide), and the widths (each column tile of their
+# backward takes a fixed share of the k-steps); another rank or width keeps
+# the rank-r launches of the unfolded road
+FOLD_RMAX, FOLD_DMULT = 8, 128
+
+
+def _gemm_lora(out, a, a_strides, b, b_strides, m, n, k, ft, r, *, zalpha,
+               lscale, lb, bias=None, zout=None, zin=None, pb=None, xa=None,
+               pa=None, resid=None):
+    """out (m, n) = bias + A @ B + lscale * Z @ L (+ resid) on the card in
+    one launch, Z = bf16(zalpha * A @ F) formed on the A tiles the product
+    streams (``llc_gemm_lora``). ``ft``: F^T (r, k) bf16, its rows
+    contiguous (TMA reads it beside each A tile); ``lb``: (tensor, stride,
+    stride) of L (r x n). ``zout`` (r, ``_z_cols(m)``) bf16: Z^T for the
+    backward. ``pb`` / ``pa``: fp32 partials, one a 64-row block
+    (``_lora_blocks``), of zin^T @ A (r x k; ``zin`` as ``zout``) and xa^T
+    @ Z (n x r, ``xa`` (m, n) bf16), which ``_sum_partials`` adds in a
+    fixed order."""
+    assert out.dim() == 2 and out.stride(1) == 1 and ft.stride(1) == 1
+    lbt, slr, sln = lb
+    zt = zout if zout is not None else zin
+    _kernels.call(
+        "llc_gemm_lora", _DT[out.dtype], m, n, k, a.data_ptr(), a_strides[0],
+        a_strides[1], b.data_ptr(), b_strides[0], b_strides[1], _ptr(bias),
+        _DT[bias.dtype] if bias is not None else 0, ft.data_ptr(),
+        ft.stride(0), r, zalpha, lscale, lbt.data_ptr(), slr, sln,
+        _ptr(zout), _ptr(zin), zt.stride(0) if zt is not None else 0,
+        _ptr(pb), _ptr(xa), xa.stride(0) if xa is not None else 0, _ptr(pa),
+        _ptr(resid), resid.stride(0) if resid is not None else 0,
+        out.data_ptr(), out.stride(0), _stream(out))
+    return out
+
+
+def _lora_blocks(m: int) -> int:
+    """The folded GEMMs' partial blocks: 64 rows each, two a 128-row tile."""
+    return 2 * -(-m // 128)
+
+
+def _z_cols(m: int) -> int:
+    """The row stride of a folded GEMM's Z^T (r, m): m rounded up to 8
+    elements, the 16 bytes TMA steps rows by."""
+    return -(-m // 8) * 8
+
+
+def _lora_partials(pp):
+    """The folded chain's LoRA grads, fp32 views of one buffer, the fp32
+    partials the dctx and dh products write for them (``_gemm_lora``: one
+    a 64-row block, their rows one after another), and the segments of the
+    sums (``_sum_partials``) that give the grads: dB_out (r, D), dA_out (D,
+    r), dB_in (r, 3D), dA_in (D, r), dB times the LoRA scale."""
+    r, d, nb = pp.r, pp.d, _lora_blocks(pp.m)
+    shapes = {"b_out": (r, d), "a_out": (d, r), "b_in": (r, 3 * d),
+              "a_in": (d, r)}
+    f32 = dict(dtype=torch.float32, device=pp.x.device)
+    part = torch.empty(nb * r * 6 * d, **f32)
+    sums = torch.empty(r * 6 * d, **f32)
+    grads, parts, segs, off = {}, {}, [], 0
+    for key, (rows, cols) in shapes.items():
+        n = rows * cols
+        grads[key] = sums[off:off + n].view(rows, cols)
+        parts[key] = part[nb * off:nb * (off + n)]
+        segs.append((parts[key], nb, n, grads[key],
+                     pp.s if key.startswith("b") else 1.0))
+        off += n
+    return grads, parts, segs
+
+
+def _sum_partials(pp, segs):
+    """One launch of the fixed-order sums (``llc_partial_sums``): each of
+    ``segs`` (part, rows, n, out, scale) puts scale * the sum over the rows
+    of the (rows, n) fp32 partials ``part`` into the n floats of ``out``."""
+    desc, scales = [], []
+    for part, rows, n, out, scale in segs:
+        desc += [part.data_ptr(), out.data_ptr(), rows, n]
+        scales.append(scale)
+    arr = (ctypes.c_longlong * len(desc))(*desc)
+    sc = (ctypes.c_float * len(scales))(*scales)
+    _kernels.call("llc_partial_sums", len(segs), ctypes.addressof(arr),
+                  ctypes.addressof(sc), pp.stream)
+
+
 def _check_cuda(x, n_heads, op="fused_ln_attention_block"):
     """Raise on what the kernels do not take: head dims other than 16, 32 or
     64, and D > 1024 (the LN kernels hold a row in one warp's registers).
@@ -411,6 +501,8 @@ class _Prepared:
             a.detach().contiguous() for a in lt)
         self.s = float(lora_scaling)
         self.r = self.lora[0].shape[1] if self.lora is not None else 0
+        # the LoRA products inside the GEMMs that stream their operands
+        self.fold = 0 < self.r <= FOLD_RMAX and d % FOLD_DMULT == 0
         self.stream = _stream(x)
 
 
@@ -462,22 +554,29 @@ def _bias_workspace(pp: _Prepared, s_len):
     return ws[:6 * d], ws[6 * d:6 * d + attn], ws[6 * d + attn:]
 
 
+def _bias_segs(pp: _Prepared, s_len, sums, attn_part, ln_part):
+    """The sums (``_sum_partials``) of dbqkv, dls, dlb and dbout from the
+    partials (``_bias_workspace``) into ``sums``, and those grads as views
+    of ``sums``."""
+    d = pp.d
+    nq, nk, nl = _bias_rows(pp, s_len)
+    parts = ((attn_part, 0, nq, d), (attn_part, nq * d, nk, 2 * d),
+             (ln_part, 0, nl, d), (ln_part, nl * d, nl, d),
+             (ln_part, 2 * nl * d, nl, d))
+    segs, out = [], 0
+    for buf, off, rows, n in parts:
+        segs.append((buf[off:], rows, n, sums[out:], 1.0))
+        out += n
+    return segs, (sums[:3 * d], sums[3 * d:4 * d], sums[4 * d:5 * d],
+                  sums[5 * d:])
+
+
 def _bias_sums(pp: _Prepared, s_len, sums, attn_part, ln_part):
     """dbqkv, dls, dlb and dbout from the partials (``_bias_workspace``), in
     one launch of the fixed-order sums; views of ``sums``."""
-    d = pp.d
-    nq, nk, nl = _bias_rows(pp, s_len)
-    segs = ((attn_part, 0, nq, d), (attn_part, nq * d, nk, 2 * d),
-            (ln_part, 0, nl, d), (ln_part, nl * d, nl, d),
-            (ln_part, 2 * nl * d, nl, d))
-    desc, out = [], 0
-    for buf, off, rows, n in segs:
-        desc += [buf.data_ptr() + 4 * off, sums.data_ptr() + 4 * out, rows, n]
-        out += n
-    arr = (ctypes.c_longlong * len(desc))(*desc)
-    _kernels.call("llc_partial_sums", len(segs), ctypes.addressof(arr),
-                  pp.stream)
-    return sums[:3 * d], sums[3 * d:4 * d], sums[4 * d:5 * d], sums[5 * d:]
+    segs, grads = _bias_segs(pp, s_len, sums, attn_part, ln_part)
+    _sum_partials(pp, segs)
+    return grads
 
 
 def _cuda_ln_qkv(pp: _Prepared):
@@ -485,9 +584,23 @@ def _cuda_ln_qkv(pp: _Prepared):
     m, d, r = pp.m, pp.d, pp.r
     dev = pp.x.device
     h16 = torch.empty(m, d, dtype=_BF, device=dev)
+    # with the fold the LN kernel also writes A_in^T and A_out^T (pp.ft),
+    # the F tiles of the qkv and out products
+    pp.ft = torch.empty(2, r, d, dtype=_BF, device=dev) if pp.fold else None
     _kernels.call("llc_ln_fwd", _DT[pp.x.dtype], _DT[pp.gamma.dtype],
                   pp.x.data_ptr(), pp.gamma.data_ptr(), pp.beta.data_ptr(),
-                  h16.data_ptr(), m, d, EPS, pp.stream)
+                  h16.data_ptr(), m, d, EPS,
+                  *((pp.lora[0].data_ptr(), pp.lora[2].data_ptr(),
+                     pp.ft.data_ptr(), r) if pp.fold else (None, None, None,
+                                                           0)), pp.stream)
+    if pp.fold:   # z = h16 @ A_in on the qkv product's own A tiles
+        z16 = torch.empty(r, _z_cols(m), dtype=_BF, device=dev)
+        qkv16 = _gemm_lora(torch.empty(m, 3 * d, dtype=_BF, device=dev), h16,
+                           (d, 1), pp.w_qkv, (3 * d, 1), m, 3 * d, d,
+                           pp.ft[0], r, zalpha=1.0, lscale=pp.s,
+                           lb=(pp.lora[1], 3 * d, 1), bias=pp.b_qkv,
+                           zout=z16)
+        return h16, z16, qkv16
     z16 = None
     if pp.lora is not None:
         z16 = _gemm(torch.empty(m, r, dtype=_BF, device=dev), h16, (d, 1),
@@ -515,16 +628,24 @@ def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
     _kernels.call("llc_attn_fwd", qkv16.data_ptr(), _ptr(pp.mask),
                   _ptr(pp.tmap), ctx16.data_ptr(), pp.b, pp.t, d, n_heads,
                   (d // n_heads) ** -0.5, pp.stream)
-    z2 = None
-    if pp.lora is not None:
-        z2 = _gemm(torch.empty(m, r, dtype=_BF, device=x.device), ctx16,
-                   (d, 1), pp.lora[2], (r, 1), m, r, d)
-    saved = (h16, z16, qkv16, ctx16, z2)
     x2 = pp.x.view(m, d)
-    y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m, d, d,
-              bias=pp.b_out, lz=(z2, r, 1) if z2 is not None else None,
-              lb=(pp.lora[3], d, 1) if z2 is not None else None,
-              lscale=pp.s, resid=x2)
+    z2 = None
+    if pp.fold:   # z2 = ctx16 @ A_out on the out product's own A tiles
+        z2 = torch.empty(r, _z_cols(m), dtype=_BF, device=x.device)
+        y = _gemm_lora(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1),
+                       m, d, d, pp.ft[1], r, zalpha=1.0,
+                       lscale=pp.s, lb=(pp.lora[3], d, 1), bias=pp.b_out,
+                       zout=z2, resid=x2)
+    else:
+        if pp.lora is not None:
+            z2 = _gemm(torch.empty(m, r, dtype=_BF, device=x.device), ctx16,
+                       (d, 1), pp.lora[2], (r, 1), m, r, d)
+        y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m,
+                  d, d, bias=pp.b_out,
+                  lz=(z2, r, 1) if z2 is not None else None,
+                  lb=(pp.lora[3], d, 1) if z2 is not None else None,
+                  lscale=pp.s, resid=x2)
+    saved = (h16, z16, qkv16, ctx16, z2)
     LAUNCHES["fused_ln_attention_fwd"] += 1
     y = y.view(pp.b, pp.t, d)
     return (y, saved) if keep else y
@@ -539,7 +660,10 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     dwqkv, dbqkv, dwout, dbout) are None without ``weight_grads`` (the op
     gives exact zeros to a primal that needs a grad); with it the bias and
     LN grads come from the partials the attention and LN backward write,
-    summed in one launch. ``tile_map`` as the forward's."""
+    summed in one launch. With LoRA (rank <= ``FOLD_RMAX``) the dctx and
+    dh products form dz2 / dz and the LoRA grads' partials on the tiles
+    they stream (``_gemm_lora``), which that launch sums too. ``tile_map``
+    as the forward's."""
     _check_cuda(x, n_heads)
     pp = _Prepared(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, None, mask,
                    lora, lora_scaling, tile_map)
@@ -555,21 +679,33 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
         sums, attn_part, ln_part = _bias_workspace(pp, pp.t)
         dwout = _gemm(torch.empty(d, d, **f32), ctx16, (1, d), g16, (d, 1),
                       d, d, m, splits=-2)
-    dlora = None
-    dz2 = None
-    if pp.lora is not None:
-        _, b_in, _, b_out_l = pp.lora
-        dz2 = _gemm(torch.empty(m, r, dtype=_BF, device=dev), g16, (d, 1),
-                    b_out_l, (1, d), m, r, d, alpha=s)
-        dbout_l = _gemm(torch.empty(r, d, **f32), z2, (1, r), g16, (d, 1),
-                        r, d, m, alpha=s, splits=-1)
-        daout = _gemm(torch.empty(d, r, **f32), ctx16, (1, d), dz2, (r, 1),
-                      d, r, m, splits=-1)
-    dctx16 = _gemm(torch.empty(m, d, dtype=_BF, device=dev), g16, (d, 1),
-                   pp.w_out, (1, d), m, d, d,
-                   lz=(dz2, r, 1) if dz2 is not None else None,
-                   lb=(pp.lora[2], 1, r) if dz2 is not None else None,
-                   lscale=1.0)
+    dlora, segs = None, []
+    if pp.fold:
+        a_in, b_in, a_out, b_out_l = pp.lora
+        dlora, part, segs = _lora_partials(pp)
+        # dctx = g16 W_out^T + dz2 A_out^T, dz2 = bf16(s g16 B_out^T) formed
+        # on g16's tiles; dB_out's partials of z2^T g16 and dA_out's of
+        # ctx16^T dz2
+        dctx16 = _gemm_lora(torch.empty(m, d, dtype=_BF, device=dev), g16,
+                            (d, 1), pp.w_out, (1, d), m, d, d,
+                            b_out_l, r, zalpha=s, lscale=1.0,
+                            lb=(a_out, 1, r), zin=z2, pb=part["b_out"],
+                            xa=ctx16, pa=part["a_out"])
+    else:
+        dz2 = None
+        if pp.lora is not None:
+            _, b_in, _, b_out_l = pp.lora
+            dz2 = _gemm(torch.empty(m, r, dtype=_BF, device=dev), g16, (d, 1),
+                        b_out_l, (1, d), m, r, d, alpha=s)
+            dbout_l = _gemm(torch.empty(r, d, **f32), z2, (1, r), g16, (d, 1),
+                            r, d, m, alpha=s, splits=-1)
+            daout = _gemm(torch.empty(d, r, **f32), ctx16, (1, d), dz2,
+                          (r, 1), d, r, m, splits=-1)
+        dctx16 = _gemm(torch.empty(m, d, dtype=_BF, device=dev), g16, (d, 1),
+                       pp.w_out, (1, d), m, d, d,
+                       lz=(dz2, r, 1) if dz2 is not None else None,
+                       lb=(pp.lora[2], 1, r) if dz2 is not None else None,
+                       lscale=1.0)
 
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
     stats = _stats(pp, n_heads)
@@ -579,28 +715,42 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
                   stats.data_ptr(), pp.b, pp.t, d, n_heads,
                   (d // n_heads) ** -0.5, pp.stream)
 
-    dz = None
-    if pp.lora is not None:
-        dz = _gemm(torch.empty(m, r, dtype=_BF, device=dev), dqkv16,
-                   (3 * d, 1), b_in, (1, 3 * d), m, r, 3 * d, alpha=s)
-        dain = _gemm(torch.empty(d, r, **f32), h16, (1, d), dz, (r, 1),
-                     d, r, m, splits=-1)
-        dbin = _gemm(torch.empty(r, 3 * d, **f32), z16, (1, r), dqkv16,
-                     (3 * d, 1), r, 3 * d, m, alpha=s, splits=-1)
-        dlora = {"a_in": dain, "b_in": dbin, "a_out": daout, "b_out": dbout_l}
-    dh = _gemm(torch.empty(m, d, **f32), dqkv16, (3 * d, 1), pp.w_qkv,
-               (1, 3 * d), m, d, 3 * d,
-               lz=(dz, r, 1) if dz is not None else None,
-               lb=(pp.lora[0], 1, r) if dz is not None else None, lscale=1.0)
+    if pp.fold:
+        # dh = dqkv16 W_qkv^T + dz A_in^T, dz = bf16(s dqkv16 B_in^T) formed
+        # on dqkv16's tiles; dB_in's partials of z16^T dqkv16 and dA_in's of
+        # h16^T dz
+        dh = _gemm_lora(torch.empty(m, d, **f32), dqkv16, (3 * d, 1),
+                        pp.w_qkv, (1, 3 * d), m, d, 3 * d, b_in, r,
+                        zalpha=s, lscale=1.0, lb=(a_in, 1, r), zin=z16,
+                        pb=part["b_in"], xa=h16, pa=part["a_in"])
+    else:
+        dz = None
+        if pp.lora is not None:
+            dz = _gemm(torch.empty(m, r, dtype=_BF, device=dev), dqkv16,
+                       (3 * d, 1), b_in, (1, 3 * d), m, r, 3 * d, alpha=s)
+            dain = _gemm(torch.empty(d, r, **f32), h16, (1, d), dz, (r, 1),
+                         d, r, m, splits=-1)
+            dbin = _gemm(torch.empty(r, 3 * d, **f32), z16, (1, r), dqkv16,
+                         (3 * d, 1), r, 3 * d, m, alpha=s, splits=-1)
+            dlora = {"a_in": dain, "b_in": dbin, "a_out": daout,
+                     "b_out": dbout_l}
+        dh = _gemm(torch.empty(m, d, **f32), dqkv16, (3 * d, 1), pp.w_qkv,
+                   (1, 3 * d), m, d, 3 * d,
+                   lz=(dz, r, 1) if dz is not None else None,
+                   lb=(pp.lora[0], 1, r) if dz is not None else None,
+                   lscale=1.0)
     if weight_grads:
         dwqkv = _gemm(torch.empty(d, 3 * d, **f32), h16, (1, d), dqkv16,
                       (3 * d, 1), d, 3 * d, m, splits=-2)
 
     dx = _ln_backward(pp, dh, g2, ln_part)
     if weight_grads:
-        dbqkv, dls, dlb, dbout = _bias_sums(pp, pp.t, sums, attn_part,
-                                            ln_part)
+        bias_segs, (dbqkv, dls, dlb, dbout) = _bias_segs(
+            pp, pp.t, sums, attn_part, ln_part)
+        segs += bias_segs
         grads = (dls, dlb, dwqkv, dbqkv, dwout, dbout)
+    if segs:   # the LoRA and bias grads' sums: one launch
+        _sum_partials(pp, segs)
     LAUNCHES["fused_ln_attention_bwd"] += 1
     return (dx, *grads), dlora
 

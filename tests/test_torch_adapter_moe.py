@@ -11,6 +11,8 @@ road (the kernel op's plain version on the CPU) is held against JAX's
 "pallas" road in interpret mode, and "unfused" against "xla".
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 
 import jax

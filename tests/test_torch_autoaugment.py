@@ -12,6 +12,8 @@ other way where the two fp32 values straddle a rounding boundary, so there
 a bounded share of elements may differ by at most a few levels.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,8 @@ three row blocks and a partial fourth holds to the JAX package's
 ``fused_ln_attention_block`` (its Pallas kernels in interpret mode).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import functools
 
 import jax

@@ -6,6 +6,8 @@ and the trainers' steps on images the prefetcher hands over as tensors. On
 the CPU the port's arithmetic is deterministic, so a resumed step equals
 the uninterrupted one bit for bit."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import os
 
 import numpy as np

@@ -6,6 +6,8 @@ held against JAX's ``"pallas"`` road in interpret mode, and ``"unfused"``
 against ``"xla"``.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

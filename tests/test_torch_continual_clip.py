@@ -6,6 +6,8 @@ predictions, accuracies and zero-shot accuracy. The port's "fused" road
 (the kernel op's plain version on the CPU) is held against JAX's "pallas"
 road in interpret mode, in fp32."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 import os
 

@@ -5,6 +5,8 @@ architecture, the same tower outputs, from a plain ``torch.save`` file and
 from a TorchScript archive; and ``build_clip``'s choice between the file and
 a seeded init."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 import math
 import os

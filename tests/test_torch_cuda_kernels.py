@@ -8,6 +8,8 @@ without one. On the card, without JAX (this file imports torch only):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import threading
 
 import pytest
@@ -62,7 +64,17 @@ CASES = [(2, 13, 128, 2, 4, False, False), (3, 77, 256, 4, 0, True, True),
          # the attention kernels split each (head, batch row) over blocks
          (8, 197, 768, 12, 0, False, True),
          (1, 197, 768, 12, 0, False, False),
-         (3, 197, 768, 12, 0, False, False)]
+         (3, 197, 768, 12, 0, False, False),
+         # LoRA r=4 at the 16 rows of a pipeline microbatch (with and
+         # without the weight grads) and the 32 of a --mesh 2x1 rank, where
+         # the folded GEMMs' row blocks are few; r = 8 fills the folded
+         # products' width, r = 24 keeps the unfolded road (above
+         # FOLD_RMAX)
+         (16, 197, 768, 12, 4, False, False),
+         (16, 197, 768, 12, 4, False, True),
+         (32, 197, 768, 12, 4, False, False),
+         (2, 13, 128, 2, 8, False, True),
+         (2, 13, 128, 2, 24, False, True)]
 
 
 @pytest.mark.parametrize("b,t,d,heads,r,causal,wg", CASES)
@@ -75,7 +87,8 @@ def test_kernels_match_plain_versions(cuda, b, t, d, heads, r, causal, wg):
     kc.check_case(x, blk, lora, gy, mask, heads, 0.25 if r else 0.0, wg)
 
 
-@pytest.mark.parametrize("b,d,heads,r", [(4, 192, 3, 4), (16, 768, 12, 0)])
+@pytest.mark.parametrize("b,d,heads,r", [(4, 192, 3, 4), (16, 768, 12, 0),
+                                         (16, 768, 12, 4)])
 def test_backward_is_deterministic(cuda, b, d, heads, r):
     """No float atomics: two backward passes on the same inputs, reading
     the forward's kept intermediates as a train step does, agree bit for
@@ -93,6 +106,18 @@ def test_backward_is_deterministic(cuda, b, d, heads, r):
         assert kc.same_bits(one, two)
     for k in (LORA_KEYS if r else ()):
         assert torch.equal(first[1][k], second[1][k]), k
+
+
+@pytest.mark.parametrize("wg", [False, True])
+def test_fp32_rows_take_the_folded_lora(cuda, wg):
+    """An fp32 x (the pipeline phase's fp32 stages) takes the folded LoRA
+    road too, its out product writing fp32 y beside its residual."""
+    x, blk, lora, gy, _ = kc.make_inputs(4, 197, 768, 12, 4, False, 3,
+                                         device=cuda)
+    x, gy = x.float(), gy.float()
+    assert fba._Prepared(x, *[blk[k] for k in kc.BLOCK_KEYS], None, lora,
+                         0.25).fold
+    kc.check_case(x, blk, lora, gy, None, 12, 0.25, wg)
 
 
 def test_backward_in_a_fresh_host_thread(cuda):
@@ -602,6 +627,106 @@ def test_gemm_matches_fp32_matmul(cuda, layout, out_dt, m, n, k, terms,
     excess = ((got - want).abs()
               - kc.ULP * torch.maximum(got.abs(), want.abs())).clamp(min=0)
     assert float(excess.max()) <= tol, (float(excess.max()), tol)
+
+
+# the folded LoRA GEMM (``llc_gemm_lora`` through ``_gemm_lora``): (out
+# dtype, M, N, K, terms) as the chains launch it: the forward's qkv (NN,
+# bias, z out) and out products (NN, bias, residual, z2 out; fp32 out for
+# an fp32 x), the
+# backward's dctx (NT, bf16) and dh (NT, fp32; 128 x 64 tiles at 16 batch
+# rows) with both kinds of partials; ragged M
+GEMM_LORA_CASES = [
+    ("bf16", "NN", 12608, 2304, 768, "bias"),
+    ("bf16", "NN", 12608, 768, 768, "bias,resid"),
+    ("f32", "NN", 3152, 768, 768, "bias,resid"),
+    ("bf16", "NT", 12608, 768, 768, "partials"),
+    ("f32", "NT", 12608, 768, 2304, "partials"),
+    ("f32", "NT", 3152, 768, 2304, "partials"),
+    ("bf16", "NT", 1000, 768, 768, "partials"),
+]
+
+
+@pytest.mark.parametrize("out_dt,layout,m,n,k,terms", GEMM_LORA_CASES)
+def test_gemm_lora_matches_fp32_matmul(cuda, out_dt, layout, m, n, k, terms):
+    """Z = bf16(zalpha * A @ F) formed in the launch, out = bias + A @ B +
+    lscale * Z @ L (+ residual) and the partials of zin^T @ A and xa^T @ Z,
+    summed by ``_sum_partials``, against fp32 ``torch.matmul`` of the same
+    operands: Z within one bf16 ulp and 1e-2 of its max, out as
+    ``test_gemm_matches_fp32_matmul``, the sums within 1e-4 of their max
+    (fp32 sums in another order), the LoRA term >= ``kc.MARGIN`` x the
+    tolerance; two launches agree bit for bit."""
+    import types
+    bf, r = torch.bfloat16, 4
+    g = torch.Generator(device=cuda).manual_seed(m + n + k + 1)
+    scale = k ** 0.5
+
+    def rnd(*shape, std=1.0):
+        return (std * torch.randn(*shape, generator=g, device=cuda)).to(bf)
+
+    a, b, f, lb = rnd(m, k), rnd(k, n), rnd(k, r), rnd(r, n)
+    zc = fba._z_cols(m)   # Z and zin go in transposed, rows zc apart
+    b_arg = (b.t().contiguous(), (1, k)) if layout == "NT" else (b, (n, 1))
+    odt = bf if out_dt == "bf16" else torch.float32
+    zalpha, lscale = 1 / scale, scale / 2
+    kw = {}
+    if "bias" in terms:
+        kw["bias"] = scale * torch.randn(n, generator=g, device=cuda)
+    if "resid" in terms:
+        kw["resid"] = rnd(m, n, std=scale).to(odt)
+    nb = fba._lora_blocks(m)
+    zin = rnd(m, r)
+    if "partials" in terms:
+        zin_t = torch.zeros(r, zc, dtype=bf, device=cuda)
+        zin_t[:, :m] = zin.t()
+        kw.update(zin=zin_t, xa=rnd(m, n),
+                  pb=torch.empty(nb * r * k, device=cuda),
+                  pa=torch.empty(nb * n * r, device=cuda))
+
+    def launch():
+        out = torch.empty(m, n, dtype=odt, device=cuda)
+        z_t = torch.empty(r, zc, dtype=bf, device=cuda)
+        fba._gemm_lora(out, a, (k, 1), *b_arg, m, n, k, f.t().contiguous(),
+                       r, zalpha=zalpha, lscale=lscale, lb=(lb, n, 1),
+                       zout=z_t, **kw)
+        z = z_t[:, :m].t()
+        sums = {}
+        if "partials" in terms:
+            sums = {"b": torch.empty(r * k, device=cuda),
+                    "a": torch.empty(n * r, device=cuda)}
+            pp = types.SimpleNamespace(
+                stream=torch.cuda.current_stream().cuda_stream)
+            fba._sum_partials(pp, [(kw["pb"], nb, r * k, sums["b"], 0.5),
+                                   (kw["pa"], nb, n * r, sums["a"], 1.0)])
+        torch.cuda.synchronize()
+        return out, z, sums
+
+    out, z, sums = launch()
+    z_want = zalpha * (a.float() @ f.float())
+    excess = ((z.float() - z_want).abs()
+              - kc.ULP * z_want.abs()).clamp(min=0)
+    assert float(excess.max()) <= 1e-2 * float(z_want.abs().max())
+    lora = lscale * (z.float() @ lb.float())
+    want = a.float() @ b.float() + lora
+    for term in ("bias", "resid"):
+        if term in kw:
+            want = want + kw[term].float()
+    tol = 1e-2 * float(want.abs().max())
+    floor = kc.MARGIN * (tol + kc.ULP * float(want.square().mean().sqrt()))
+    assert float(lora.abs().max()) >= floor
+    got = out.float()
+    excess = ((got - want).abs()
+              - kc.ULP * torch.maximum(got.abs(), want.abs())).clamp(min=0)
+    assert float(excess.max()) <= tol, (float(excess.max()), tol)
+    if sums:
+        for got_s, want_s in (
+                (sums["b"].view(r, k), 0.5 * zin.float().T @ a.float()),
+                (sums["a"].view(n, r), kw["xa"].float().T @ z.float())):
+            err = float((got_s - want_s).abs().max())
+            assert err <= 1e-4 * float(want_s.abs().max()), err
+    again = launch()
+    assert kc.same_bits(out, again[0]) and kc.same_bits(z, again[1])
+    for key in sums:
+        assert kc.same_bits(sums[key], again[2][key]), key
 
 
 def test_gemm_refuses_strides_tma_cannot_read(cuda):

@@ -1,6 +1,8 @@
 """The port's engine (train step, eval step, text features, preprocessing)
 against the JAX package's on the same weights and inputs."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 
 import jax

@@ -14,6 +14,8 @@ epochs and schedule) runs on both packages' code with the same inputs.
 Each JAX reference is jitted once and shared.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 import functools
 import os

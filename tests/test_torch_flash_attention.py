@@ -8,6 +8,8 @@ fp32 and round once to bf16, so what differs is a flipped rounding, one
 bf16 ulp of the element, at most 2**-7 of the output's scale.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

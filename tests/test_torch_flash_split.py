@@ -14,6 +14,8 @@ within ``FLASH_REL`` of each grad's max beyond one bf16 ulp, the tolerance
 versions stay exact fp32; the emulation lives here only.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,8 @@
 """The port's fused LN-attention op (plain versions, CPU) against the JAX
 package's Pallas kernels run in interpret mode, and against autograd."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import functools
 
 import jax

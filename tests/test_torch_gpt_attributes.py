@@ -1,6 +1,8 @@
 """The port's attribute cache (``data/gpt_attributes.py``) against the JAX
 package's, on the same tiny tower and a JSON cache the test writes."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import json
 
 import jax

@@ -7,6 +7,8 @@ optimizer on the wrong tree, a broken label remap, a dead replay memory or
 prompt pool) lands at the 1/8 chance and fails both floors. ``-s`` prints
 each case's accuracies beside JAX's."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_learning_gates as lg

@@ -6,6 +6,8 @@ kills learning in the prompt paths (mvp's mask, AFS or GSF; MaPLe's
 compound prompts) lands at the 1/8 chance. ``-s`` prints each case's
 accuracies beside JAX's."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_learning_gates as lg

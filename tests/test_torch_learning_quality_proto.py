@@ -5,6 +5,8 @@ above the floors of ``tests/test_learning_quality.py``
 tiny knobs and starting trees). ``-s`` prints the accuracies beside
 JAX's."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_learning_gates as lg

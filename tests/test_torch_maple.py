@@ -11,6 +11,8 @@ mode (both round q/k/v, p and ctx to bf16 at the same points: 2e-3 of scale
 for values, 1e-2 for grads, as ``test_torch_clip.py``).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import functools
 import os
 

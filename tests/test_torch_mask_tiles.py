@@ -11,6 +11,8 @@ is +0.0 or -inf. No JAX here: the map has no counterpart in the JAX
 package.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

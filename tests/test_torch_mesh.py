@@ -9,6 +9,8 @@ step (fp32, SGD at lr 0.1: the ranks' grads average in one all-reduce, so
 only the summation order differs); counters and eval counts exactly.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import os
 import socket
 import sys

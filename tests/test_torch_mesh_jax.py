@@ -8,6 +8,8 @@ updated trainable leaves at rtol 1e-5 / atol 1e-6 (fp32, SGD at lr 0.1),
 the selection counters exactly.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import os
 import sys
 

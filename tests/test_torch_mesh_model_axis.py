@@ -10,6 +10,8 @@ bf16 the model axis's loss and grads within twice the bf16 1-process
 step's distance from the fp32 step.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import os
 import sys
 

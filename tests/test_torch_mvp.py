@@ -9,6 +9,8 @@ its ``"fused"`` road (the kernel ops' plain versions on the CPU) against
 JAX's ``"pallas"`` road with the Pallas kernels in interpret mode.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import functools
 import os
 

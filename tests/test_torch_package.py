@@ -1,6 +1,8 @@
 """Package-level checks of the PyTorch port: no JAX anywhere in it, the CLI
 end to end on the CPU, and the refusal of what is not ported (a mesh)."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import ast
 import os
 

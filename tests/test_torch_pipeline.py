@@ -13,6 +13,8 @@ microbatches' grad sums reorder the adds); the one-stage fallback at atol
 the CPU computes: bit for bit.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import os
 import sys
 

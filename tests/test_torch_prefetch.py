@@ -4,6 +4,8 @@ content, error propagation and lookahead bound on the CPU (as
 it leaves on the device, and its upload through pinned memory on the card
 (marker ``cuda``)."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import threading
 import time
 

@@ -1,6 +1,8 @@
 """The port's KV-prefix attention op (plain versions, CPU) against the JAX
 package's Pallas kernels #3/#4 run in interpret mode, and against autograd."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import functools
 
 import jax

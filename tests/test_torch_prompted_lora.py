@@ -9,6 +9,8 @@ summation order only (fp32 tolerance 1e-4 of each output's scale, as the
 towers' unfused road in ``test_torch_clip.py``).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import functools
 
 import jax

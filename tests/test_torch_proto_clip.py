@@ -12,6 +12,8 @@ displacement, the stage-2 draws) are numpy on both sides and held bit for
 bit. Each JAX reference is jitted once and shared.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 import functools
 import os

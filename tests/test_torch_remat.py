@@ -12,6 +12,8 @@ deterministic, so remat'd and plain steps agree bit for bit. Torch only, on
 the ``debug-tiny`` tower.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import logging
 
 import numpy as np

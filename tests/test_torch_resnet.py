@@ -5,6 +5,8 @@ the 2 x 2 attention-pool grid of ``tests/test_resnet.py``) whose weights
 and BatchNorm statistics come from a numpy seed; and continual-clip from a
 tiny RN checkpoint through the CLI."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 import os
 

@@ -4,6 +4,8 @@ card (``ops/kernel_check.py``) sees faults in the weight grads' folded
 sums, and one batch row without LoRA, with the weight grads, matches the
 JAX op's Pallas kernels in interpret mode."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import functools
 
 import jax

@@ -3,6 +3,8 @@ lora-clip train step whose text tower runs forward and backward every step,
 against the JAX package's on the same weights and inputs; and the text
 tower's remat."""
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 
 import jax

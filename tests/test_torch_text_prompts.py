@@ -16,6 +16,8 @@ time grows with it, and 13 query rows still leave part of a 16-row tile
 empty, as 77 do.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import dataclasses
 
 import jax

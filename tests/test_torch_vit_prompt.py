@@ -12,6 +12,8 @@ CPU) against JAX's ``"pallas"`` road with the Pallas kernels in interpret
 mode, in fp32 and in bf16. Each JAX reference is jitted once and shared.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import contextlib
 import dataclasses
 import functools

@@ -17,6 +17,8 @@ road against JAX's Pallas road, which rounds the same way. lr 1e-2 moves
 the accuracy between eval points.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_whole_run as wr

@@ -11,6 +11,8 @@ road's bf16 roundings dualprompt flips a near tie that costs an eval point
 between eval points.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_whole_run as wr

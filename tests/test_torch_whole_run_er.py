@@ -14,6 +14,8 @@ qkv, p and ctx to bf16 as the kernels do) under the frozen tower, where the
 features' roundings keep every bound.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_whole_run as wr

@@ -14,6 +14,8 @@ trains through the kernels' bf16 roundings, and its head's logits (within
 point 1/64 of accuracy against JAX's fp32 road.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_whole_run as wr

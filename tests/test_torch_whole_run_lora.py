@@ -13,6 +13,8 @@ step-0 bound (both: 8.0e-4 against rtol 1e-4). lr 1e-2 moves the accuracy
 between eval points.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_whole_run as wr

@@ -13,6 +13,8 @@ losses drift from 1e-7 to 7e-3 over the 48 steps on both roads' fp32
 arithmetic, at 5e-3 and 1e-3 they stay within 3e-5.
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_whole_run as wr

@@ -19,6 +19,8 @@ accuracy between eval points (mvp 5e-3; mvp's accuracy bound is 0.02, as
 ``tests/test_whole_run_parity.py:1133``).
 """
 
+import torch_threads  # noqa: F401  (the worker's share of the cores)
+
 import pytest
 
 import torch_whole_run as wr

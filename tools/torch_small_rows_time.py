@@ -17,9 +17,11 @@ autograd), their bounds, the attention backward's kernels, and every launch
 of both chains in order by device ms. ``--gates`` adds the ER and
 Finetuning learning gates of ``chip_smoke.py`` (device ms a step, idle
 share, kernel events a step); ``--others`` the rows that share these
-kernels without being the small batches' (#1/#2 with LoRA at 64 rows,
-ViT-L/14, L2P's K1, ProtoCLIP's K3 text prefix, the text tower's causal
-K=20 and K=64 class rows; #3/#4 at the mvp shape and ProtoCLIP's K2), to
+kernels without being the small batches' (#1/#2 with LoRA r=4 at 64 rows,
+at the 32 rows of a ``--mesh 2x1`` rank and the 16 of a pipeline
+microbatch, ViT-L/14 at 64 rows and at a 16-row microbatch, L2P's K1,
+ProtoCLIP's K3 text prefix, the text tower's causal K=20 and K=64 class
+rows; #3/#4 at the mvp shape and ProtoCLIP's K2), to
 hold them against another tree. ``--root`` is the
 checkout whose ``lifelong_clip_tpu_torch`` and ``chip_smoke.py`` are used
 (its kernels are
@@ -47,7 +49,13 @@ CASES = ((8, False, 40), (8, True, 41), (16, False, 42), (16, True, 43),
 # #1/#2 (label, B, T, D, heads, LoRA r, causal, seed) and #3/#4 (label,
 # live slots, seed, shape) cases as chip_smoke.py runs them
 OTHERS = (("vision, LoRA r=4", 64, 197, 768, 12, 4, False, 0),
+          ("per rank of 2x1: lora-clip, 32 rows", 32, 197, 768, 12, 4,
+           False, 27),
+          ("pipeline microbatch: ViT-B/16, 16 rows", 16, 197, 768, 12, 4,
+           False, 30),
           ("ViT-L/14 vision", 64, 257, 1024, 16, 4, False, 12),
+          ("pipeline microbatch: ViT-L/14, 16 rows", 16, 257, 1024, 16, 4,
+           False, 31),
           ("L2P prompted, T = 222", 64, 222, 768, 12, 0, False, 19),
           ("ProtoCLIP text prefix, T = 25", 64, 25, 512, 8, 0, True, 20),
           ("text K=20", 20, 77, 512, 8, 0, True, 1),
