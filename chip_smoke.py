@@ -400,16 +400,16 @@ def block_cost(b, t, d, heads, r, weight_grads, backward, es=2, pairs=None):
     step runs it: given x, the output grad and the forward's kept qkv16
     (with LoRA or weight_grads also h16 and ctx16, with LoRA z16 and z2), it
     recomputes none of the forward."""
-    m, dh = b * t, d // heads
-    pairs = t * t if pairs is None else pairs
-    attn = 2 * b * heads * pairs * dh            # one (live pairs) x dh product
+    m = b * t
+    # the attention's products: s and p v; s, dp, dv, dq and dk
+    attn = attention_cost(b, t, d, heads, backward, pairs=pairs)[0]
     w_bytes = 4 * d * d * 2 + 5 * d * 4 + (2 * d * r + 4 * d * r) * 2
     if not backward:
         lora_fwd = 2 * m * r * (d + 3 * d + d + d)
-        flops = 2 * m * d * 3 * d + 2 * attn + 2 * m * d * d + lora_fwd
+        flops = 2 * m * d * 3 * d + attn + 2 * m * d * d + lora_fwd
         return flops, 2 * m * d * es + w_bytes
     flops = (2 * m * d * d                         # dctx
-             + 5 * attn                            # s, dp, dv, dq, dk
+             + attn                                # s, dp, dv, dq, dk
              + 2 * m * 3 * d * d)                  # dh
     kept = 3 * m * d * 2                           # qkv16
     if r:   # dz2, dB_out, dA_out, dctx += , dz, dA_in, dB_in, dh +=
@@ -546,25 +546,58 @@ def launch_breakdown(run_fwd, run_bwd, reps=3):
     return out
 
 
-def attention_cost(b, t, s, d, heads, pairs=None):
-    """(flops, bytes) of the chains' attention backward alone (dq and dk/dv
-    kernels): the 5 T x S x dh products (scores, dp, dv, dq, dk) of every
-    (batch row, head), over ``pairs`` live (query, key) pairs where a mask
-    kills the rest, qkv16, dctx16 and dqkv16 read or written once, and
-    (with weight_grads off) nothing else."""
-    dh = d // heads
-    flops = 5 * 2 * b * heads * (t * s if pairs is None else pairs) * dh
-    return flops, (2 * (t + 2 * s) + t) * b * d * 2
+def attention_cost(b, t, d, heads, backward, pairs=None, keys=None):
+    """(flops, bytes) of the chains' attention alone: the forward's 2
+    products (scores, p v) or the backward's 5 (scores, dp, dv, dq, dk) of
+    2 x (live pairs) x dh each, for every (batch row, head), over ``pairs``
+    live (query, key) pairs where a mask kills the rest (default every one
+    of T x ``keys``; ``keys`` default T); bytes: q, k and v read once and
+    ctx16 written (forward), or q, k, v and dctx16 read and dq, dk and dv
+    written (backward), bf16, nothing else (weight_grads off)."""
+    dh, s = d // heads, t if keys is None else keys
+    pairs = t * s if pairs is None else pairs
+    flops = (5 if backward else 2) * 2 * b * heads * pairs * dh
+    rows = (2 * (t + 2 * s) + t) if backward else (2 * t + 2 * s)
+    return flops, rows * b * d * 2
+
+
+def wgmma_road(fba, t, d, heads, mask):
+    """Whether #1/#2 take the warpgroup-MMA attention kernels (no mask, head
+    dim 64, up to 256 keys); False for a tree that has none."""
+    return (hasattr(fba, "WGMMA_DH") and mask is None
+            and d // heads == fba.WGMMA_DH and t <= fba.WGMMA_TMAX)
+
+
+def assert_wgmma_road(label, res):
+    """#1's and #2's attention on the warpgroup-MMA road: one launch of
+    attn_fwd_wgmma_kernel in the forward chain, one of attn_bwd_wgmma_kernel
+    in the backward chain, and none of the mma.sync kernels, by the kernels
+    the profiler saw in each chain."""
+    fwd = [nm for nm, _ in res.get("forward_chain_split") or ()]
+    bwd = [nm for nm, _ in res.get("chain_split") or ()]
+    if not fwd or not bwd:
+        log(f"{label}: the chains' kernels not seen by the profiler")
+        return
+    old = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
+    assert fwd.count("attn_fwd_wgmma_kernel") == 1, (label, fwd)
+    assert bwd.count("attn_bwd_wgmma_kernel") == 1, (label, bwd)
+    assert not any(nm in old for nm in fwd + bwd), (label, fwd, bwd)
 
 
 def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
-                time_it=True):
+                time_it=True, library_parts=False):
+    """#1/#2 at one shape: checked against the plain versions, and with
+    ``time_it`` timed beside them and the library yardstick (with
+    ``library_parts`` the yardstick's forward and backward launch by
+    launch too)."""
     import torch
     from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
     from lifelong_clip_tpu_torch.ops import kernel_check as kc
     x, blk, lora, gy, mask = kc.make_inputs(b, t, d, heads, lora_r, masked,
                                             seed)
     s = 0.25 if lora_r else 0.0
+    road = wgmma_road(fba, t, d, heads, mask)
+    before = dict(fba.LAUNCHES)
     # the (query, key) pairs the causal mask leaves live, and what its tile
     # map leaves the kernels
     pairs = None if mask is None else int((~torch.isneginf(mask)).sum())
@@ -589,17 +622,27 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
            "lora_r": lora_r, "masked": masked, "weight_grads": weight_grads,
            "live_pairs_per_row": pairs, "tile_liveness": live_tiles,
            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
-    if lora_r:
-        # the LoRA grads come from fixed-order partials (no float atomics):
-        # two runs on the same inputs agree bit for bit
+    if hasattr(fba, "WGMMA_DH"):
+        # the op's launches of the warpgroup-MMA attention: one a chain on
+        # its road, none off it
+        ran = [fba.LAUNCHES[k] - before[k]
+               for k in ("attn_fwd_wgmma", "attn_bwd_wgmma")]
+        res["wgmma_road"], res["wgmma_launches"] = road, ran
+        assert all(n > 0 for n in ran) if road else ran == [0, 0], (label,
+                                                                    ran)
+    if lora_r or road:
+        # no float atomics (the LoRA grads from fixed-order partials; the
+        # warpgroup-MMA attention's sums in a fixed order): two runs on the
+        # same inputs agree bit for bit, every output on that road
         one, two = (kc.block_outputs(x, blk, lora, s, gy, mask, heads,
                                      weight_grads=weight_grads)
                     for _ in range(2))
-        res["lora_grads_bitwise_repeatable"] = all(
-            kc.same_bits(one[f"d{k}"], two[f"d{k}"]) for k in lora)
-        log(f"{label}: LoRA grads bit for bit over two runs: "
-            f"{res['lora_grads_bitwise_repeatable']}")
-        assert res["lora_grads_bitwise_repeatable"], label
+        keys = list(one) if road else [f"d{k}" for k in lora]
+        res["bitwise_repeatable"] = {k: kc.same_bits(one[k], two[k])
+                                     for k in keys}
+        log(f"{label}: bit for bit over two runs: "
+            f"{json.dumps(res['bitwise_repeatable'])}")
+        assert all(res["bitwise_repeatable"].values()), label
     fl, by = block_cost(b, t, d, heads, lora_r, weight_grads, False,
                         pairs=pairs)
     res["fwd_bound_ms"], res["fwd_bound_by"] = bound_ms(fl, by)
@@ -622,8 +665,10 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
         lb = {k: v.detach().clone().requires_grad_(k in LIBRARY_WEIGHTS)
               for k, v in lb.items()}
         wrt += [lb[k] for k in LIBRARY_WEIGHTS]
-    fl, by = attention_cost(b, t, t, d, heads, pairs=pairs)
-    res["attn_bwd_bound_ms"] = bound_ms(fl, by)[0]
+    res["attn_fwd_bound_ms"] = bound_ms(
+        *attention_cost(b, t, d, heads, False, pairs=pairs))[0]
+    res["attn_bwd_bound_ms"] = bound_ms(
+        *attention_cost(b, t, d, heads, True, pairs=pairs))[0]
     # the backward as a train step runs it: reading the forward's kept
     # intermediates
     kept = fba._keep_for_backward(fba._cuda_forward(x, *args, keep=True)[1],
@@ -633,7 +678,10 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
         lambda: fba.fused_ln_attention_block_reference(x, *args),
         lambda: fba._cuda_backward(x, gy, *bargs, saved=kept),
         lambda: fba.fused_ln_attention_block_reference_bwd(x, gy, *bargs),
-        lambda xg, *_: library_block(xg, lb, ll, s, mask, heads), wrt, gy)
+        lambda xg, *_: library_block(xg, lb, ll, s, mask, heads), wrt, gy,
+        library_parts)
+    if road:
+        assert_wgmma_road(label, res)
     if 0 < lora_r <= fba.FOLD_RMAX and d % fba.FOLD_DMULT == 0:
         assert_lora_folded(label, res, lambda: fba._cuda_forward(x, *args),
                            lambda: fba._cuda_backward(x, gy, *bargs,
@@ -690,19 +738,25 @@ def library_weights(blk):
                 w_out_t=blk["w_out"].T.contiguous())
 
 
-def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
+def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy,
+              library_parts=False):
     """Time a case's kernel chains, their plain versions and the library
     yardstick (``library(*wrt)``; its backward is autograd of it w.r.t.
     ``wrt`` minus its forward) by CUDA events and, for the chains and the
-    yardstick, by device-busy time; break the chains down by launch, log
-    and return ``res`` with the times."""
+    yardstick, by device-busy time; break the chains down by launch (with
+    ``library_parts`` the yardstick's too), log and return ``res`` with the
+    times."""
     import torch
     with torch.no_grad():
         res["fwd_host_ms"] = host_ms(fwd)
         res["fwd_ms"] = timed(fwd)
         res["fwd_plain_ms"] = timed(plain_fwd, iters=3)
         res["fwd_library_ms"] = timed(lambda: library(*wrt))
-        res["fwd_device_ms"] = device_ms(fwd)
+        res["fwd_device_ms"], names = device_split(fwd)
+        # the forward's attention kernel by device ms a call
+        res["fwd_attention_device_ms"] = {
+            kernel_short(k): v for k, v in names.items()
+            if "attn_fwd" in k or "flash_fwd" in k}
         res["fwd_library_device_ms"] = device_ms(lambda: library(*wrt))
         # every launch of the forward chain, in order, by device ms a call
         res["forward_chain_split"] = device_sequence(fwd)
@@ -728,6 +782,19 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
     both, lib_fwd = device_ms(lib_fwd_bwd), res["fwd_library_device_ms"]
     res["bwd_library_device_ms"] = None if both is None or lib_fwd is None \
         else max(both - lib_fwd, 0.0)
+    if library_parts:
+        # the yardstick launch by launch: its forward, and its backward
+        # alone (autograd over one kept forward graph)
+        with torch.no_grad():
+            res["library_forward_by_launch"] = device_sequence(
+                lambda: library(*wrt))
+        out = library(*wrt)
+        res["library_backward_by_launch"] = device_sequence(
+            lambda: torch.autograd.grad(out, wrt, gy, retain_graph=True))
+        del out
+        log(f"{label}: library forward by launch, device ms "
+            f"{json.dumps(res['library_forward_by_launch'])}; backward "
+            f"{json.dumps(res['library_backward_by_launch'])}")
     res["breakdown"] = launch_breakdown(fwd, bwd)
     log(f"{label}: per-launch device ms {json.dumps(res['breakdown'])}")
     log(f"{label}: fwd {res['fwd_ms']:.3f} ms (host {res['fwd_host_ms']:.3f}, "
@@ -739,8 +806,11 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy):
         f"{fmt(res['fwd_device_ms'])} (library "
         f"{fmt(res['fwd_library_device_ms'])}), bwd "
         f"{fmt(res['bwd_device_ms'])} (library "
-        f"{fmt(res['bwd_library_device_ms'])}); attention backward device ms "
-        f"{json.dumps(res['bwd_attention_device_ms'])}"
+        f"{fmt(res['bwd_library_device_ms'])}); attention device ms "
+        f"forward {json.dumps(res['fwd_attention_device_ms'])}"
+        + (f" (bound {res['attn_fwd_bound_ms']:.4f})"
+           if "attn_fwd_bound_ms" in res else "")
+        + f", backward {json.dumps(res['bwd_attention_device_ms'])}"
         + (f" (bound {res['attn_bwd_bound_ms']:.4f})"
            if "attn_bwd_bound_ms" in res else ""))
     return res
@@ -791,8 +861,10 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
         return res
 
     lb = library_weights(blk)
-    fl, by = attention_cost(b, t, live + t, d, heads, pairs=pairs)
-    res["attn_bwd_bound_ms"] = bound_ms(fl, by)[0]
+    res["attn_fwd_bound_ms"] = bound_ms(*attention_cost(
+        b, t, d, heads, False, pairs=pairs, keys=live + t))[0]
+    res["attn_bwd_bound_ms"] = bound_ms(*attention_cost(
+        b, t, d, heads, True, pairs=pairs, keys=live + t))[0]
     kept = fba._keep_for_prefix_backward(
         fba._cuda_prefix_forward(x, *args, keep=True)[1], weight_grads)
     return time_case(
@@ -4567,7 +4639,8 @@ def main():
             "library_device_ms": v[f"{pre}_library_device_ms"],
             "shape": shape,
             "cases": [{k: c[k] for k in c if k.startswith(pre) or k in
-                       ("label", "shape", "attn_bwd_bound_ms")}
+                       ("label", "shape", "attn_fwd_bound_ms",
+                        "attn_bwd_bound_ms")}
                       for c in case_list]})
     # the tile maps, each op's own: one a pass of #1/#2 under the text
     # tower's causal mask, one each prefix chain under a 2-D mask builds
@@ -4575,6 +4648,26 @@ def main():
     kernels[0]["tile_map_launches"] = runs["block_tile_map"]
     kernels[2]["tile_map_launches"] = runs["prefix_tile_map"]
     assert runs["block_tile_map"] > 0 and runs["prefix_tile_map"] > 0, runs
+    # #1's and #2's attention on the road with no mask at head dim 64 (every
+    # ViT tower's blocks): the warpgroup-MMA kernels, one launch a chain
+    # there, on each of these main paths (er's tower is frozen: forward only)
+    wg_src = "lifelong_clip_tpu_torch/csrc/attn_wgmma.cu"
+    for k, key, kern in ((kernels[0], "attn_fwd_wgmma", "attn_fwd_wgmma_kernel"),
+                         (kernels[1], "attn_bwd_wgmma", "attn_bwd_wgmma_kernel")):
+        k["attention_kernel"] = {"name": kern, "source": wg_src,
+                                 "launches": runs[key]}
+    wg_paths = {"lora-clip": (launches, True),
+                "adapter-clip": (adapter_launches, True),
+                "er": (er_runs["er"][0], False),
+                "Finetuning": (er_runs["Finetuning"][0], True),
+                "l2p": (prompt_runs["l2p"][0], True)}
+    wg_counts = {p: [got["attn_fwd_wgmma"], got["attn_bwd_wgmma"]]
+                 for p, (got, _) in wg_paths.items()}
+    log(json.dumps({"wgmma_attention_launches_by_path": wg_counts,
+                    "card": card}))
+    assert all(n[0] > 0 and (n[1] > 0 or not trains)
+               for (n, (_, trains)) in zip(wg_counts.values(),
+                                           wg_paths.values())), wg_counts
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     log(json.dumps({"lora_clip_main_path": lora_run,

@@ -65,6 +65,10 @@
 //     <= 16: 16x128); any other shape needs operands TMA can read, which
 //     every caller's are. TMA maps and shared-memory limits are set once and reused, so a
 //     launch costs the host little beyond the launch itself.
+//   * Attention with no mask at head dim 64 and T <= 256 (every ViT tower's
+//     blocks): the warpgroup-MMA kernels of attn_wgmma.cu (launch_attn),
+//     the values of the mma.sync kernels below bit for bit. The other roads
+//     (a mask, a KV prefix, head dims 16 and 32, past 256 keys) run these:
 //   * Attention forward (attn_fwd_kernel, S = P + T <= 256 keys): one block
 //     per (head, batch row) loads the head's K and V once, in 64-row
 //     cp.async chunks whose arrival the first q k^T products follow, and 4
@@ -157,6 +161,7 @@
 #include <type_traits>
 #include <vector>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -879,146 +884,6 @@ struct WgTile {
   static_assert(SMEM <= 232448, "a block's shared memory");
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA tile load (c0 the inner coordinate), counted by ``bar``.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// One 2-D TMA tile store from shared memory (c0 the inner coordinate);
-// elements past the map's bounds are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Matrix descriptor of a 128B-swizzled tile: start address, leading and
-// stride byte offsets (K-major: LBO unused, SBO = 1024, the 8-row group;
-// MN-major: LBO = the next 64-wide MN block, SBO = 1024, the next 8 K rows).
-__device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo,
-                                            unsigned sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-// Keeps the compiler from moving accumulator accesses across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void wg_reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, fp32) += A (64 x 16) . B (16 x 128); TA / TB: A M-major / B
-// N-major (the transposes wgmma takes for bf16).
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// d (64 x 64, fp32) += A (64 x 16) . B (16 x 64): the 128 x 64 tile's.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// d (64 x 8, fp32) = A (64 x 16) . B (16 x 8) (+ d where acc): the fold's
-// narrow products (Z, and the partials with A read M-major: TA = 1). A
-// thread holds rows g and g + 8 of its warp's 16, columns 2t and 2t + 1.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
-                                               uint64_t db, int acc = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// A copy of accumulators that a wgmma wrote, read unconditionally (volatile:
-// the compiler does not sink the reads into the stores' per-thread
-// branches, which would make it serialize every wgmma of the kernel).
-template <int N>
-__device__ __forceinline__ void wg_read(float (&v)[N], const float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("mov.b32 %0, %1;" : "=f"(v[i]) : "f"(d[i]));
-}
 
 // The fold's modes (gemm_wgmma_kernel's FOLD): none; Z alone (the
 // forward's qkv and out products); Z and both kinds of partials (the
@@ -1455,7 +1320,6 @@ __device__ __forceinline__ void stage_mask_row(float* Ms, const float* mask,
     for (int j = tid; j < Sp; j += nthreads) Ms[j] = j < S ? mask[j] : 0.f;
 }
 
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <bool ROW>
 __device__ __forceinline__ float mask_at(const float* mask, const float* Ms,
@@ -2058,14 +1922,6 @@ __device__ __forceinline__ void cp_async_wait_dyn(int n) {
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // acc (16 x 64 keys) += a . B^T: a the warp's 16-row fragments over the head
 // dim, B the 64 rows of a [key][dim] tile (16-key chunks at or past nlive,
@@ -2333,21 +2189,6 @@ attn_fwd_tiled_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ kvp
 // ---------------------------------------------------------------------------
 constexpr int DQ_PAIRS = 2, DQ_THREADS = 64 * DQ_PAIRS;
 
-// The weight grads' bias sums, folded into the kernels that make the rows:
-// (c0, c1) is the lane's rows g and g + 8 of a 16-row group, summed, in two
-// neighbouring columns of the MMA C layout; the 8 lanes of a column pair add
-// theirs in a fixed butterfly order and lane t4 < 4 stores the group's two
-// column sums (fp32, over the unrounded values, as _bwd_kernel:414 sums
-// dqkv) at dst. Warp-wide.
-__device__ __forceinline__ void group_colsum(float* dst, float c0, float c1,
-                                             int lane) {
-#pragma unroll
-  for (int o = 4; o < 32; o <<= 1) {
-    c0 += __shfl_xor_sync(0xffffffffu, c0, o);
-    c1 += __shfl_xor_sync(0xffffffffu, c1, o);
-  }
-  if (lane < 4) *reinterpret_cast<float2*>(dst) = make_float2(c0, c1);
-}
 
 template <int DH, int MAXNT, bool PRE, bool ROW>   // MAXNT: 8-key tiles a row holds
 __global__ void __launch_bounds__(DQ_THREADS)
@@ -3313,12 +3154,21 @@ static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
 // to 256 the register roads (the backward's rows of <= 128 or <= 256 keys;
 // the forward's also <= 208, ViT-B/16's 197 or 200 tokens, whose half rows
 // take 56 registers a thread where 256 keys take 64), above it the tiled
-// roads, which have no key limit. ROW: a key-mask row (mask_rs 0).
+// roads, which have no key limit. ROW: a key-mask row (mask_rs 0). With no
+// mask at head dim 64 (every ViT tower) up to 256 keys take the
+// warpgroup-MMA kernels of attn_wgmma.cu, and the register roads are not
+// built for it.
 template <bool BWD, bool PRE, bool ROW>
 static int launch_attn(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
   if (a.T < 1 || a.H <= 0 || a.D % a.H) return (int)cudaErrorInvalidValue;
   const bool tiled = Sp > 256, wide = Sp > 128;
+  if constexpr (!PRE && !ROW) {
+    if (attn_wgmma_road(a.T, a.D / a.H))
+      return BWD ? attn_wgmma_bwd(a.qkv, a.dctx, a.dqkv16, a.bpart, a.B, a.T,
+                                  a.D, a.scale, s)
+                 : attn_wgmma_fwd(a.qkv, a.ctx, a.B, a.T, a.D, a.scale, s);
+  }
 #define LLC_ATTN(DHV)                                                        \
   if constexpr (BWD)                                                         \
     return tiled ? launch_attn_bwd_nt<DHV, 0, PRE, ROW>(a, s)                \
@@ -3331,7 +3181,14 @@ static int launch_attn(const AttnArgs& a, cudaStream_t s) {
   switch (a.D / a.H) {
     case 16: { LLC_ATTN(16) }
     case 32: { LLC_ATTN(32) }
-    case 64: { LLC_ATTN(64) }
+    case 64: {
+      if constexpr (PRE || ROW) {
+        LLC_ATTN(64)
+      } else {   // past 256 keys (ViT-L/14's 257 tokens): the tiled roads
+        if constexpr (BWD) return launch_attn_bwd_nt<64, 0, PRE, ROW>(a, s);
+        return launch_attn_fwd_tiled<64, PRE, ROW>(a, s);
+      }
+    }
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LLC_ATTN
@@ -3366,7 +3223,7 @@ constexpr int TMA_SLOTS = 1024;
 struct TmaSlot {
   CUtensorMap map;
   const void* ptr;
-  long long inner, outer, ld;
+  long long inner, outer, ld, batches, batch_ld;
   int box_inner, box_outer;
 };
 static TmaSlot tma_slots[TMA_SLOTS];
@@ -3374,20 +3231,25 @@ static std::mutex tma_mutex;
 
 // A 2-D bf16 TMA map over ``outer`` rows of ``inner`` elements, ``ld``
 // elements apart, read in inner x outer boxes into 128B-swizzled tiles;
-// out-of-bounds elements read as zero.
-static int make_tma(CUtensorMap* map, const void* ptr, long long inner,
-                    long long outer, long long ld, int box_inner,
-                    int box_outer) {
-  const uint64_t key[6] = {(uint64_t)(uintptr_t)ptr, (uint64_t)inner,
+// out-of-bounds elements read as zero. With ``batch_ld`` > 0 a 3-D map of
+// ``batches`` such row blocks, ``batch_ld`` elements apart (the attention
+// kernels' rows of one batch row: rows past a block's own read as zero, not
+// as the next block's; their boxes take one block).
+int make_tma(CUtensorMap* map, const void* ptr, long long inner,
+             long long outer, long long ld, int box_inner, int box_outer,
+             long long batches, long long batch_ld) {
+  const uint64_t key[8] = {(uint64_t)(uintptr_t)ptr, (uint64_t)inner,
                            (uint64_t)outer, (uint64_t)ld,
-                           (uint64_t)box_inner, (uint64_t)box_outer};
+                           (uint64_t)box_inner, (uint64_t)box_outer,
+                           (uint64_t)batches, (uint64_t)batch_ld};
   uint64_t h = 0xcbf29ce484222325ull;   // FNV-1a over the key's words
-  for (int i = 0; i < 6; ++i) h = (h ^ key[i]) * 0x100000001b3ull;
+  for (int i = 0; i < 8; ++i) h = (h ^ key[i]) * 0x100000001b3ull;
   TmaSlot& slot = tma_slots[(h ^ (h >> 29)) % TMA_SLOTS];
   std::lock_guard<std::mutex> lock(tma_mutex);
   if (slot.ptr == ptr && slot.inner == inner && slot.outer == outer &&
       slot.ld == ld && slot.box_inner == box_inner &&
-      slot.box_outer == box_outer) {
+      slot.box_outer == box_outer && slot.batches == batches &&
+      slot.batch_ld == batch_ld) {
     *map = slot.map;
     return 0;
   }
@@ -3402,12 +3264,13 @@ static int make_tma(CUtensorMap* map, const void* ptr, long long inner,
         cudaFree(nullptr) != cudaSuccess)
       return (int)cudaErrorInvalidValue;
   }
-  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  cuuint32_t estr[2] = {1, 1};
+  const cuuint32_t rank = batch_ld > 0 ? 3 : 2;
+  cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)batches};
+  cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)batch_ld * 2};
+  cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
+  cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -3415,6 +3278,7 @@ static int make_tma(CUtensorMap* map, const void* ptr, long long inner,
   slot.map = *map;
   slot.ptr = ptr; slot.inner = inner; slot.outer = outer; slot.ld = ld;
   slot.box_inner = box_inner; slot.box_outer = box_outer;
+  slot.batches = batches; slot.batch_ld = batch_ld;
   return 0;
 }
 
@@ -3794,7 +3658,9 @@ int llc_attn_fwd(const void* qkv, const float* mask, const void* tmap,
 }
 
 // stats: B * H * ceil16(T) float4s of workspace (row max, 1 / row sum,
-// delta; 16-byte aligned). bpart: null, or the bias partials (AttnArgs),
+// delta; 16-byte aligned), null where the road takes the warpgroup-MMA
+// kernels (attn_wgmma_road: they keep it in shared memory). bpart: null, or
+// the bias partials (AttnArgs),
 // (B * ceil(T/16) * D + B * ceil(S/16) * 2D) floats. mask and tmap as
 // llc_attn_fwd's.
 int llc_attn_bwd(const void* qkv, const void* dctx, const float* mask,

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``lifelong_clip_tpu_torch/csrc/`` (the fused LN-attention
-block and its KV-prefix variant, and attention on projected q, k, v, each
-forward and backward; ``mma.cuh`` holds the primitives both include) have a
-plain C interface. At first use one ``nvcc``
+block and its KV-prefix variant, the block's warpgroup-MMA attention on its
+road with no mask, and attention on projected q, k, v, each forward and
+backward; ``mma.cuh`` and ``hopper.cuh`` hold the primitives they include)
+have a plain C interface. At first use one ``nvcc``
 per source, all started together, compiles them for ``sm_90a``, and one more
 links them into a shared library under ``csrc/build/`` (listed in
 ``.gitignore``), which ``ctypes`` loads. The library name carries a hash of
@@ -26,8 +27,8 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("fused_block_attn.cu", "flash_attention.cu")
-HEADERS = ("mma.cuh",)
+SOURCES = ("fused_block_attn.cu", "attn_wgmma.cu", "flash_attention.cu")
+HEADERS = ("mma.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

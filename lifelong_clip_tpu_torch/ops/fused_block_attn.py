@@ -87,10 +87,13 @@ _DT = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel chain: one per op call on a CUDA tensor; and of
 # the tile-map kernel: one per prefix chain under a (T, P + T) mask
 # (prefix_tile_map), one per (T, T) mask tensor of the block op
-# (block_tile_map, ``_tile_map``)
+# (block_tile_map, ``_tile_map``); and of the block chains' warpgroup-MMA
+# attention kernels (``_wgmma_road``): one per forward or backward chain
+# on that road (attn_fwd_wgmma, attn_bwd_wgmma)
 LAUNCHES = {"fused_ln_attention_fwd": 0, "fused_ln_attention_bwd": 0,
             "fused_prefix_attention_fwd": 0, "fused_prefix_attention_bwd": 0,
-            "prefix_tile_map": 0, "block_tile_map": 0}
+            "prefix_tile_map": 0, "block_tile_map": 0, "attn_fwd_wgmma": 0,
+            "attn_bwd_wgmma": 0}
 
 
 def reset_launches() -> None:
@@ -518,10 +521,22 @@ def _grad_rows(pp: _Prepared, g):
     return g2, g16
 
 
+# The block chains' road with no mask at head dim 64 and up to 256 keys
+# (every ViT tower's blocks): the attention runs on the warpgroup-MMA
+# kernels of csrc/attn_wgmma.cu (``attn_wgmma_road`` there), which keep the
+# row statistics in shared memory.
+WGMMA_DH, WGMMA_TMAX = 64, 256
+
+
+def _wgmma_road(pp: _Prepared, n_heads) -> bool:
+    return (pp.mask is None and pp.d // n_heads == WGMMA_DH
+            and pp.t <= WGMMA_TMAX)
+
+
 def _stats(pp: _Prepared, n_heads):
-    """Workspace of the attention backward: a float4 (row max, 1 / row sum,
-    delta, 0) for each query row of each (batch row, head), T rounded up to
-    16."""
+    """Workspace of the mma.sync attention backward: a float4 (row max, 1 /
+    row sum, delta, 0) for each query row of each (batch row, head), T
+    rounded up to 16 (the warpgroup-MMA road reads none)."""
     return torch.empty(pp.b * n_heads * -(-pp.t // 16) * 16 * 4,
                        dtype=torch.float32, device=pp.x.device)
 
@@ -647,6 +662,7 @@ def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
                   lscale=pp.s, resid=x2)
     saved = (h16, z16, qkv16, ctx16, z2)
     LAUNCHES["fused_ln_attention_fwd"] += 1
+    LAUNCHES["attn_fwd_wgmma"] += _wgmma_road(pp, n_heads)
     y = y.view(pp.b, pp.t, d)
     return (y, saved) if keep else y
 
@@ -708,11 +724,10 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
                        lscale=1.0)
 
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
-    stats = _stats(pp, n_heads)
+    stats = None if _wgmma_road(pp, n_heads) else _stats(pp, n_heads)
     _kernels.call("llc_attn_bwd", qkv16.data_ptr(), dctx16.data_ptr(),
                   _ptr(pp.mask), _ptr(pp.tmap), dqkv16.data_ptr(),
-                  _ptr(attn_part),
-                  stats.data_ptr(), pp.b, pp.t, d, n_heads,
+                  _ptr(attn_part), _ptr(stats), pp.b, pp.t, d, n_heads,
                   (d // n_heads) ** -0.5, pp.stream)
 
     if pp.fold:
@@ -752,6 +767,7 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     if segs:   # the LoRA and bias grads' sums: one launch
         _sum_partials(pp, segs)
     LAUNCHES["fused_ln_attention_bwd"] += 1
+    LAUNCHES["attn_bwd_wgmma"] += _wgmma_road(pp, n_heads)
     return (dx, *grads), dlora
 
 

@@ -87,15 +87,19 @@ def test_kernels_match_plain_versions(cuda, b, t, d, heads, r, causal, wg):
     kc.check_case(x, blk, lora, gy, mask, heads, 0.25 if r else 0.0, wg)
 
 
-@pytest.mark.parametrize("b,d,heads,r", [(4, 192, 3, 4), (16, 768, 12, 0),
-                                         (16, 768, 12, 4)])
-def test_backward_is_deterministic(cuda, b, d, heads, r):
+@pytest.mark.parametrize("b,t,d,heads,r", [
+    (4, 197, 192, 3, 4), (16, 197, 768, 12, 0), (16, 197, 768, 12, 4),
+    # the warpgroup-MMA attention's other shapes: 8 rows, L2P's T = 222,
+    # a half row of 64 keys (T = 64) and key tiles past T (T = 129)
+    (8, 197, 768, 12, 0), (4, 222, 192, 3, 0), (4, 64, 128, 2, 4),
+    (4, 129, 128, 2, 0)])
+def test_backward_is_deterministic(cuda, b, t, d, heads, r):
     """No float atomics: two backward passes on the same inputs, reading
     the forward's kept intermediates as a train step does, agree bit for
     bit, the row contractions and the bias and LN sums included; also at
-    Finetuning's 16 rows, where the attention kernels split each (head,
-    batch row) over blocks."""
-    x, blk, lora, gy = _inputs(cuda, b, 197, d, r, seed=1)
+    Finetuning's 16 rows and ER's 8. Each of these shapes (no mask, head
+    dim 64) takes the warpgroup-MMA attention."""
+    x, blk, lora, gy = _inputs(cuda, b, t, d, r, seed=1)
     s = 0.25 if r else 0.0
     _, saved = fba._cuda_forward(x, *blk, heads, s, None, lora, keep=True)
     bargs = (*blk[:5], heads, s, None, lora, True)
@@ -145,16 +149,65 @@ def test_backward_in_a_fresh_host_thread(cuda):
     assert all(torch.isfinite(g).all() for g in out["grads"][0])
 
 
-def test_rows_do_not_depend_on_the_batch(cuda):
-    """The rows of a 16-row batch, whose attention kernels split each
-    (head, batch row) over blocks, give ctx, y and dx bit for bit equal to
-    the same rows inside a 64-row batch, which does not split: each row's
-    arithmetic is the same on both roads."""
-    x, blk, _, gy, _ = kc.make_inputs(64, 197, 768, 12, 0, False, 9,
+@pytest.mark.parametrize("t", [197, 222])
+def test_rows_do_not_depend_on_the_batch(cuda, t):
+    """The rows of a 1-, 8- and 16-row batch give ctx, y and dx bit for
+    bit equal to the same rows inside a 64-row batch: each row's
+    arithmetic is the same whatever the grid (the warpgroup-MMA attention
+    at ViT-B/16's T = 197 and L2P's 222)."""
+    x, blk, _, gy, _ = kc.make_inputs(64, t, 768, 12, 0, False, 9,
                                       device=cuda)
-    got = [kc.batch_rows(x[:n], blk, gy[:n], 12) for n in (16, 64)]
-    for key in got[0]:
-        assert kc.same_bits(got[0][key], got[1][key][:got[0][key].shape[0]]), key
+    whole = kc.batch_rows(x, blk, gy, 12)
+    for n in (1, 8, 16):
+        part = kc.batch_rows(x[:n], blk, gy[:n], 12)
+        for key in part:
+            assert kc.same_bits(part[key], whole[key][:n]), (n, key)
+
+
+# The warpgroup-MMA attention of #1/#2 (no mask, head dim 64, up to 256
+# keys): T on and off a 16-key block and a 64-row tile, half rows of 64 keys
+# (T <= 128) and of 128, ViT-B/16's 197, L2P's 222 and the widest 256, each
+# with LoRA r = 0 and dx only and with r = 4 and the weight grads; then 1
+# to 64 batch rows at ViT-B/16's widths. (b, t, d, heads, r, weight_grads)
+WGMMA_T = (1, 15, 16, 17, 63, 64, 65, 197, 222, 256)
+WGMMA_CASES = ([(3, t, 128, 2, 0, False) for t in WGMMA_T]
+               + [(3, t, 128, 2, 4, True) for t in WGMMA_T]
+               + [(1, 197, 768, 12, 0, True), (3, 197, 768, 12, 4, False),
+                  (8, 197, 768, 12, 0, True), (16, 197, 768, 12, 4, True),
+                  (64, 197, 768, 12, 0, False)])
+
+
+@pytest.mark.parametrize("b,t,d,heads,r,wg", WGMMA_CASES)
+def test_wgmma_attention_matches_plain_versions(cuda, b, t, d, heads, r, wg):
+    """Through the op's autograd Function, with the tolerances of
+    ``ops/kernel_check.py``; the chains launched the warpgroup-MMA
+    attention, forward and backward."""
+    x, blk, lora, gy, _ = kc.make_inputs(b, t, d, heads, r, False, 7,
+                                         device=cuda)
+    fba.reset_launches()
+    kc.check_case(x, blk, lora, gy, None, heads, 0.25 if r else 0.0, wg)
+    assert fba.LAUNCHES["attn_fwd_wgmma"] == 1, fba.LAUNCHES
+    assert fba.LAUNCHES["attn_bwd_wgmma"] == 1, fba.LAUNCHES
+
+
+@pytest.mark.parametrize("b,t", [(3, 17), (3, 64), (3, 129), (8, 197),
+                                 (4, 222)])
+def test_wgmma_attention_matches_the_masked_road(cuda, b, t):
+    """Attention alone: the warpgroup-MMA kernels (no mask) against the
+    mma.sync kernels the masked road keeps, fed an all-zero (T, T) mask,
+    which adds nothing: ctx16 within one bf16 ulp plus ``REL_FWD`` of its
+    max, dx and the weight grads within one ulp plus ``REL_BWD`` (the two
+    roads sum in other orders)."""
+    x, blk, _, gy, _ = kc.make_inputs(b, t, 128, 2, 0, False, 8,
+                                      device=cuda)
+    zero = torch.zeros(t, t, device=cuda)
+    got, want = (kc.block_outputs(x, blk, None, 0.0, gy, m, 2,
+                                  weight_grads=True) for m in (None, zero))
+    for key in got:
+        a, w = got[key].float(), want[key].float()
+        rel = kc.REL_FWD if key in ("ctx16", "y") else kc.REL_BWD
+        excess = ((a - w).abs() - kc.ULP * torch.maximum(a.abs(), w.abs()))
+        assert float(excess.max()) <= rel * float(w.abs().max()), key
 
 
 # (b, t, d, heads, lora r, weight_grads) under the causal (T, T) mask: the
@@ -230,7 +283,9 @@ def test_op_launches_kernels_and_counts_them(cuda):
                             "fused_prefix_attention_fwd": 0,
                             "fused_prefix_attention_bwd": 0,
                             "prefix_tile_map": 0,
-                            "block_tile_map": 0}
+                            "block_tile_map": 0,
+                            "attn_fwd_wgmma": 1,
+                            "attn_bwd_wgmma": 1}
     for k in LORA_KEYS:   # bf16 primals get bf16 grads
         assert lora[k].grad.dtype == torch.bfloat16, k
 

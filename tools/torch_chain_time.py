@@ -18,7 +18,11 @@ and #3 chains in order by device ms; for the backward, events and
 device-busy ms, with the device ms of each attention-backward kernel. The
 text case gives both its chains launch by launch (``text_chain_by_launch``)
 and each chain's device ms beside the library call's forward and backward.
-The backward reads the forward's kept intermediates, as a train step does.
+The vision case also gives the library call's forward and backward launch
+by launch (``library_chain_by_launch``), its attention kernels' device ms
+(``attention_device_ms``) and the attention's own bound
+(``attention_bound_ms``). The backward reads the forward's kept
+intermediates, as a train step does.
 ``--root`` is the checkout whose
 ``lifelong_clip_tpu_torch`` is imported (its kernels are built there at
 first use), so two trees are compared by running this once on each in one
@@ -80,6 +84,15 @@ def main():
     def lib():
         return cs.library_block(x, lb, ll, s, mask, heads)
 
+    # the library call's backward alone: autograd over one kept forward
+    wrt = [x.detach().clone().requires_grad_(True)] + [
+        a.detach().clone().requires_grad_(True) for a in ll.values()]
+    lib_out = cs.library_block(wrt[0], lb, dict(zip(ll, wrt[1:])), s, mask,
+                               heads)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, wrt, gy, retain_graph=True)
+
     # the prefix chains at the mvp-clip shape
     px, pk, pv, pblk, pgy, pmask = kc.make_prefix_inputs(64, 197, 768, heads,
                                                          20, 5, 4)
@@ -130,10 +143,10 @@ def main():
     def tlib_fwd_bwd():
         torch.autograd.grad(tlib(), twrt, tgy)
 
-    def attn_split(fn):
+    def attn_split(fn, kind="attn_bwd"):
         names = cs.device_split(fn)[1]
         return {cs.kernel_short(k): v for k, v in names.items()
-                if "attn_bwd" in k}
+                if kind in k}
 
     runs = []
     with torch.no_grad():
@@ -159,12 +172,17 @@ def main():
                 None if both is None or runs[-1]["text_library_device_ms"]
                 is None else both - runs[-1]["text_library_device_ms"])
         host_calls = cs.launch_breakdown(fwd, bwd)["host_fwd"]
-        split = {"bwd": attn_split(bwd), "prefix_bwd": attn_split(pbwd),
+        split = {"fwd": attn_split(fwd, "attn_fwd"), "bwd": attn_split(bwd),
+                 "prefix_bwd": attn_split(pbwd),
                  "text_bwd": attn_split(tbwd)}
+        library_chains = {"fwd": cs.device_sequence(lib)}
         chains = {"fwd": cs.device_sequence(fwd),
                   "prefix_fwd": cs.device_sequence(pfwd)}
         text_chains = {"fwd": cs.device_sequence(tfwd),
                        "bwd": cs.device_sequence(tbwd)}
+    library_chains["bwd"] = cs.device_sequence(lib_bwd)
+    bounds = {k: cs.bound_ms(*cs.attention_cost(64, 197, 768, heads, bwd_))[0]
+              for k, bwd_ in (("fwd", False), ("bwd", True))}
     median = {}
     for k in runs[0]:
         vals = [r[k] for r in runs if r[k] is not None]
@@ -172,7 +190,9 @@ def main():
     print(cs.card_line())
     print(json.dumps({"label": args.label, "root": os.path.relpath(root, HERE),
                       "median": median,
-                      "attention_bwd_device_ms": split,
+                      "attention_device_ms": split,
+                      "attention_bound_ms": bounds,
+                      "library_chain_by_launch": library_chains,
                       "forward_chain_by_launch": chains,
                       "text_chain_by_launch": text_chains,
                       "host_ms_per_call": host_calls, "runs": runs}))

@@ -8,13 +8,15 @@ script:
         [--gates] [--others] [--out FILE]
 
 ViT-B/16's vision block (T = 197, D = 768, 12 heads, bf16, no LoRA, no
-mask) at 8, 16, 64 and 128 rows, the backward with and without the weight
-grads (Finetuning's whole-tower step, and its 8 rows a rank under ``--mesh
-2x1``). For each: the checks against the plain versions, the forward and
-backward chains' CUDA-event and device-busy ms beside the plain version and
-the library yardstick (LN + ``F.linear`` + SDPA + ``F.linear``, backward by
-autograd), their bounds, the attention backward's kernels, and every launch
-of both chains in order by device ms. ``--gates`` adds the ER and
+mask) at 8, 16, 64, 128 and 256 rows (CLIB's miss recompute), the
+backward with and without the weight grads (Finetuning's whole-tower step,
+and its 8 rows a rank under ``--mesh 2x1``). For each: the checks against
+the plain versions, the forward and backward chains' CUDA-event and
+device-busy ms beside the plain version and the library yardstick (LN +
+``F.linear`` + SDPA + ``F.linear``, backward by autograd), their bounds
+and the attention's own, the attention kernels of both chains, and every
+launch of both chains and of the yardstick's forward and backward in order
+by device ms. ``--gates`` adds the ER and
 Finetuning learning gates of ``chip_smoke.py`` (device ms a step, idle
 share, kernel events a step); ``--others`` the rows that share these
 kernels without being the small batches' (#1/#2 with LoRA r=4 at 64 rows,
@@ -23,10 +25,10 @@ microbatch, ViT-L/14 at 64 rows and at a 16-row microbatch, L2P's K1,
 ProtoCLIP's K3 text prefix, the text tower's causal K=20 and K=64 class
 rows; #3/#4 at the mvp shape and ProtoCLIP's K2), to
 hold them against another tree. ``--root`` is the
-checkout whose ``lifelong_clip_tpu_torch`` and ``chip_smoke.py`` are used
-(its kernels are
-built there at first use), so a parent and a change are compared by running
-this on each in one run on the card (parent, change, change, parent).
+checkout whose ``lifelong_clip_tpu_torch`` is timed (its kernels are built
+there at first use; the cases and timing helpers come from this repo's
+``chip_smoke.py``), so a parent and a change are compared by running this
+on each in one run on the card (parent, change, change, parent).
 Prints the card's name and power limit, the build time and one JSON line
 (also written to ``--out``).
 """
@@ -45,7 +47,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (rows, weight_grads, seed): the ER family's rows (16; 8 a rank of --mesh
 # 2x1), the adapter family's 64 and the eval batch of 128
 CASES = ((8, False, 40), (8, True, 41), (16, False, 42), (16, True, 43),
-         (64, False, 44), (64, True, 45), (128, False, 46))
+         (64, False, 44), (64, True, 45), (128, False, 46), (256, False, 47))
 # #1/#2 (label, B, T, D, heads, LoRA r, causal, seed) and #3/#4 (label,
 # live slots, seed, shape) cases as chip_smoke.py runs them
 OTHERS = (("vision, LoRA r=4", 64, 197, 768, 12, 4, False, 0),
@@ -66,9 +68,11 @@ PREFIX_OTHERS = (("mvp prefix, 5 of 20 live", 5, 4, (64, 197, 768, 12, 20)),
 KEEP = ("label", "fwd_ms", "fwd_device_ms", "fwd_library_ms",
         "fwd_library_device_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms",
         "bwd_device_ms", "bwd_library_ms", "bwd_library_device_ms",
-        "bwd_plain_ms", "bwd_bound_ms", "bwd_attention_device_ms",
+        "bwd_plain_ms", "bwd_bound_ms", "fwd_attention_device_ms",
+        "bwd_attention_device_ms", "attn_fwd_bound_ms", "attn_bwd_bound_ms",
         "fwd_max_abs_err", "bwd_max_abs_err", "forward_chain_split",
-        "chain_split")
+        "chain_split", "library_forward_by_launch",
+        "library_backward_by_launch")
 
 
 def main():
@@ -89,7 +93,7 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from lifelong_clip_tpu_torch.ops import _kernels
@@ -107,12 +111,13 @@ def main():
             label = f"{rows} x 197 x 768, r = 0" + (
                 ", weight_grads" if wg else "")
             res = cs.kernel_case(label, rows, 197, 768, 12, 0, False, wg,
-                                 seed)
+                                 seed, library_parts=True)
             cases.append({k: res.get(k) for k in KEEP})
             torch.cuda.synchronize()
         for label, b, t, d, h, r, causal, seed in (
                 OTHERS if args.others else ()):
-            res = cs.kernel_case(label, b, t, d, h, r, causal, False, seed)
+            res = cs.kernel_case(label, b, t, d, h, r, causal, False, seed,
+                                 library_parts=True)
             cases.append({k: res.get(k) for k in KEEP})
             torch.cuda.synchronize()
         for label, live, seed, shape in PREFIX_OTHERS if args.others else ():
@@ -138,7 +143,9 @@ def main():
               f"{c['fwd_bound_ms']:.4f}), bwd device "
               f"{cs.fmt(c['bwd_device_ms'])} (library "
               f"{cs.fmt(c['bwd_library_device_ms'])}, bound "
-              f"{c['bwd_bound_ms']:.4f})", flush=True)
+              f"{c['bwd_bound_ms']:.4f}); attention fwd "
+              f"{json.dumps(c['fwd_attention_device_ms'])}, bwd "
+              f"{json.dumps(c['bwd_attention_device_ms'])}", flush=True)
     line = json.dumps({"label": args.label,
                        "root": os.path.relpath(root, HERE), "card": card,
                        "cases": cases, "gates": gates})
