@@ -568,6 +568,17 @@ def wgmma_road(fba, t, d, heads, mask):
             and d // heads == fba.WGMMA_DH and t <= fba.WGMMA_TMAX)
 
 
+def prefix_wgmma_road(fba, p, t, d, heads, mask):
+    """Whether #3/#4 take the warpgroup-MMA attention kernels (a key-mask
+    row, head dim 64, P + T <= 256 keys); False for a tree that has none."""
+    if not hasattr(fba, "prefix_wgmma_road"):
+        return False
+    kind = None if mask is None else (
+        "matrix" if fba._prefix_mask_arg(mask, t, p + t, mask.device)[1]
+        else "row")
+    return fba.prefix_wgmma_road(p, t, d // heads, kind)
+
+
 def assert_wgmma_road(label, res):
     """#1's and #2's attention on the warpgroup-MMA road: one launch of
     attn_fwd_wgmma_kernel in the forward chain, one of attn_bwd_wgmma_kernel
@@ -838,6 +849,8 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
     args = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS], heads, mask)
     bargs = (pk, pv, *[blk[k] for k in kc.BLOCK_KEYS[:5]], heads, mask,
              weight_grads)
+    road = prefix_wgmma_road(fba, p, t, d, heads, mask)
+    before = dict(fba.LAUNCHES)
     checks = kc.check_prefix_case(x, pk, pv, blk, gy, mask, heads,
                                   weight_grads)
     torch.cuda.synchronize()
@@ -853,6 +866,26 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
            "live_pairs_per_row": pairs, "tile_liveness": live_tiles,
            "fwd_max_abs_err": errs["y"],
            "bwd_max_abs_err": max(v for k, v in errs.items() if k != "y")}
+    if hasattr(fba, "prefix_wgmma_road"):
+        # the op's launches of the warpgroup-MMA attention: one a chain on
+        # its road (a key-mask row), none off it
+        ran = [fba.LAUNCHES[k] - before[k]
+               for k in ("attn_prefix_fwd_wgmma", "attn_prefix_bwd_wgmma")]
+        res["wgmma_road"], res["wgmma_launches"] = road, ran
+        assert all(n > 0 for n in ran) if road else ran == [0, 0], (label,
+                                                                    ran)
+    if road:
+        # the warpgroup-MMA attention's sums in a fixed order: two runs on
+        # the same inputs agree bit for bit (ctx16, dqkv16, dkvp16 and the
+        # weight grads' bias partials)
+        one, two = (kc.prefix_attention_outputs(x, pk, pv, blk, gy, mask,
+                                                heads) for _ in range(2))
+        res["bitwise_repeatable"] = {k: kc.same_bits(one[k], two[k])
+                                     for k in one}
+        log(f"{label}: bit for bit over two runs: "
+            f"{json.dumps(res['bitwise_repeatable'])}")
+        assert all(res["bitwise_repeatable"].values()), label
+        del one, two
     for pre, bwd in (("fwd", False), ("bwd", True)):
         fl, by = prefix_cost(b, t, d, heads, p, live, weight_grads, bwd,
                              pairs=pairs, mask_bytes=mask.numel() * 4)
@@ -867,13 +900,16 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
         b, t, d, heads, True, pairs=pairs, keys=live + t))[0]
     kept = fba._keep_for_prefix_backward(
         fba._cuda_prefix_forward(x, *args, keep=True)[1], weight_grads)
-    return time_case(
+    res = time_case(
         label, res, lambda: fba._cuda_prefix_forward(x, *args),
         lambda: fba.fused_prefix_attention_block_reference(x, *args),
         lambda: fba._cuda_prefix_backward(x, gy, *bargs, saved=kept),
         lambda: fba.fused_prefix_attention_block_reference_bwd(x, gy, *bargs),
         lambda *a: library_prefix_block(*a, lb, mask, heads),
         [a.detach().clone().requires_grad_(True) for a in (x, pk, pv)], gy)
+    if road:
+        assert_wgmma_road(label, res)
+    return res
 
 
 def text_prompt_prefix_case():
@@ -1009,7 +1045,8 @@ def batch_invariance_phase():
     against the same rows inside a 64-row batch (unsplit), and the text
     tower's 20 and 64 class rows (causal, LoRA r=4, under the mask's tile
     map) against the same rows inside its 100: ctx, y and dx of the #1/#2
-    chains bit for bit (a difference raises)."""
+    chains bit for bit (a difference raises); then 1, 8 and 16 rows of
+    the KV-prefix attention at mvp-clip's shape against its 64."""
     import torch
     from lifelong_clip_tpu_torch.ops import kernel_check as kc
     out = []
@@ -1033,6 +1070,24 @@ def batch_invariance_phase():
             assert not differ, \
                 f"{label}, {n} of {b} rows: the batch changed {differ}"
             out.append(res)
+    # #3/#4's attention at mvp-clip's shape (P = 20, 5 live; the
+    # warpgroup-MMA kernels under the key row): ctx16, the tokens' dqkv16
+    # and the prefix rows' dkvp16
+    b, t, d, heads, p = MVP_SHAPE
+    x, pk, pv, blk, gy, row = kc.make_prefix_inputs(b, t, d, heads, p, 5, 37)
+    whole = kc.prefix_attention_outputs(x, pk, pv, blk, gy, row, heads)
+    for n in (1, 8, 16):
+        part = kc.prefix_attention_outputs(x[:n], pk[:n], pv[:n], blk, gy[:n],
+                                           row, heads)
+        torch.cuda.synchronize()
+        differ = [k for k, rows in (("ctx16", t), ("dqkv16", t),
+                                    ("dkvp16", p))
+                  if not kc.same_bits(part[k], whole[k][:n * rows])]
+        res = {"block": "mvp prefix, P = 20, 5 live", "rows": n, "of": b,
+               "bitwise_equal": not differ, "differ": differ}
+        log(f"batch invariance: {json.dumps(res)}")
+        assert not differ, f"mvp prefix, {n} of {b} rows: {differ}"
+        out.append(res)
     return out
 
 
@@ -1511,11 +1566,24 @@ def capture_trainers(cls):
     return made, restore
 
 
+# of those, #3's and #4's attention on the warpgroup-MMA kernels (every
+# prompted layer passes a key-mask row; ProtoCLIP's suffix pass, under its
+# 2-D mask, keeps the mma.sync kernels); none on the other paths
+PREFIX_WGMMA_STEP = {"dualprompt": (12, 12), "mvp": (12, 12),
+                     "adapter-clip-proto_prompt": (12, 12)}
+
+
 def per_step_launches(method, launches, steps):
     want = {k: n * steps for k, n in zip(STEP_KEYS, STEP_LAUNCHES[method])}
     got = {k: launches[k] for k in STEP_KEYS}
     assert got == want and launches["flash_attention_fwd"] == 0, (
         f"{method}: {steps} train steps launched {launches}, want {want}")
+    if "attn_prefix_fwd_wgmma" in launches:
+        keys = ("attn_prefix_fwd_wgmma", "attn_prefix_bwd_wgmma")
+        want = [n * steps for n in PREFIX_WGMMA_STEP.get(method, (0, 0))]
+        assert [launches[k] for k in keys] == want, (
+            f"{method}: {steps} train steps launched {launches}, want "
+            f"{dict(zip(keys, want))}")
 
 
 def vit_prompt_main_path_phase(method):
@@ -4668,6 +4736,25 @@ def main():
     assert all(n[0] > 0 and (n[1] > 0 or not trains)
                for (n, (_, trains)) in zip(wg_counts.values(),
                                            wg_paths.values())), wg_counts
+    # #3's and #4's attention under a key-mask row at head dim 64 (the
+    # prompted passes): the warpgroup-MMA kernels' prefix instances, one
+    # launch a chain there, forward and backward on each of these paths
+    for k, key, kern in ((kernels[2], "attn_prefix_fwd_wgmma",
+                          "attn_fwd_wgmma_kernel"),
+                         (kernels[3], "attn_prefix_bwd_wgmma",
+                          "attn_bwd_wgmma_kernel")):
+        k["attention_kernel"] = {"name": kern, "instance": "PRE (key row)",
+                                 "source": wg_src, "launches": runs[key]}
+    pre_paths = {"mvp-clip": mvp_launches,
+                 "dualprompt": prompt_runs["dualprompt"][0],
+                 "mvp": prompt_runs["mvp"][0],
+                 "ProtoCLIP": prompt_runs["ProtoCLIP"][0]}
+    pre_counts = {p: [got["attn_prefix_fwd_wgmma"],
+                      got["attn_prefix_bwd_wgmma"]]
+                  for p, got in pre_paths.items()}
+    log(json.dumps({"prefix_wgmma_attention_launches_by_path": pre_counts,
+                    "card": card}))
+    assert all(f > 0 and b > 0 for f, b in pre_counts.values()), pre_counts
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     log(json.dumps({"lora_clip_main_path": lora_run,

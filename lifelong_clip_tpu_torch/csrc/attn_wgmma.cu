@@ -1,17 +1,23 @@
 // Hand-written Hopper (sm_90a) attention of the fused LN-attention block
 // (#1 and #2, fused_block_attn.cu) on its road with no mask at head dim 64
 // and up to 256 keys: the vision tower of every ViT the registry builds
-// (ViT-B/16's 197 tokens, L2P's 222), at every batch size the methods run.
+// (ViT-B/16's 197 tokens, L2P's 222), at every batch size the methods run;
+// and of the KV-prefix block (#3 and #4) under a key-mask row at head dim
+// 64 and up to 256 keys S = P + T: the prompted passes of mvp-clip,
+// DualPrompt and MVP (P = 20, S = 217) and ProtoCLIP's CoPL image pass (P =
+// 4, S = 201).
 //
-// Replaces, on that road, the attention of the TPU kernels of
+// Replaces, on those roads, the attention of the TPU kernels of
 // lifelong_clip_tpu/ops/fused_block_attn.py:
 //   * _kernel:93-108 (softmax(q k^T * scale) v per head; pallas_call :161)
 //   * _bwd_kernel:331 (head_probs) and :380-404 (dv = p16^T dctx; ds = p
 //     (dp - rowsum(dp p)) rounded to bf16 once; dq = ds16 k * scale; dk =
 //     ds16^T q * scale; pallas_call :478)
+//   * _prefix_kernel:573 (s * scale + mask over [prefix; token] keys;
+//     pallas_call :631) and _prefix_bwd_kernel:766 (pallas_call :897)
 // which the port had run on mma.sync (attn_fwd_kernel, attn_bwd_dq_kernel,
-// attn_bwd_dkv_kernel in fused_block_attn.cu; the masked and KV-prefix
-// roads, head dims 16 and 32 and rows past 256 keys keep those).
+// attn_bwd_dkv_kernel in fused_block_attn.cu; a 2-D mask, a KV prefix with
+// no mask, head dims 16 and 32 and rows past 256 keys keep those).
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): bytes. At ViT-B/16's
 // vision shape (64 x 197 x 768, 12 heads) the forward reads qkv16 and
@@ -65,6 +71,24 @@
 //   * Weight grads: each 16-row group's fp32 column sums of dq, dk and dv
 //     (group_colsum) go to the bias partials as the mma.sync kernels wrote
 //     them.
+//   * KV prefix (PRE): key j is row j of the K and V buffers, as in the
+//     mma.sync kernels (load_kv): rows 0..P-1 the prefix keys of kvp (B*P,
+//     2D: K | V), rows P..S-1 the tokens. The halves and their windows come
+//     from S (wa_win(S), h0 = ceil(n/2) of n = ceil(S/16) blocks), the key
+//     row enters as s * scale + mask[j] (base 2: fmaf(s, sl2, log2(e) *
+//     mask[j])), as the ROW instances add it, and the sums keep their order:
+//     ctx16, dqkv16, dkvp16 and the partials are the mma.sync kernels' bit
+//     for bit. A TMA box must start on the swizzle's 8-row atom, and token
+//     0 sits at row P (mid-atom at P = 20 and 4): the threads copy the
+//     first R0 = 8 ceil(P/8) rows (the prefix keys and the first R0 - P
+//     tokens) with the swizzle's XOR applied, TMA brings the whole token
+//     boxes that fit the buffer from token R0 - P onto row R0, and the
+//     threads copy the rows after the last box (the last tokens, then
+//     zeros); no gap re-groups the 16-key blocks, and the buffers are the
+//     road's with no prefix (the forward keeps its three blocks an SM).
+//     The backward writes a prefix key's dk / dv to dkvp16 and a
+//     token's to dqkv16; the key groups' partials span all S keys
+//     (_bias_rows(pp, P + T)).
 // ---------------------------------------------------------------------------
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -171,40 +195,115 @@ __device__ __forceinline__ void wa_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-template <int WIN>
+// KV prefix (PRE): the rows of the K and V buffers (NR of them) that no
+// TMA box writes, [0, R0) and [TB, NR): key r of row r is prefix key r of
+// kvp (r < P), token r - P of qkv (r - P < T) or zero, copied by the
+// threads into the 128B swizzle TMA writes (chunk c of row r at chunk c ^
+// (r % 8)). And the key-mask row, log2(e)-scaled (ml[j] = log2(e) *
+// mask[j], the ROW kernels' product), for the S keys. Each thread issues
+// WA_PRE_U chunks' loads before it stores any, so their latency is paid
+// once (a load, then its store, chunk after chunk, had cost the forward a
+// fifth of its time).
+constexpr int WA_PRE_U = 4;
+
+__device__ __forceinline__ void wa_prefix_rows(
+    unsigned char* Ks, unsigned char* Vs, float* ml, const bf16* qkv,
+    const bf16* kvp, const float* mask, int b, int T, int P, int D, int col,
+    int R0, int TB, int NR, int tid, int nthreads) {
+  const int S = P + T, nc = (R0 + NR - TB) * 8;   // 16-byte chunks to copy
+  for (int i0 = 0; i0 < max(nc, S); i0 += WA_PRE_U * nthreads) {
+    uint4 k[WA_PRE_U], v[WA_PRE_U];
+    float m[WA_PRE_U];
+#pragma unroll
+    for (int u = 0; u < WA_PRE_U; ++u) {
+      const int i = i0 + u * nthreads + tid, c = i & 7;
+      const int r = i < R0 * 8 ? i >> 3 : TB + ((i - R0 * 8) >> 3);
+      const bf16* src = nullptr;   // K; V is D columns on
+      if (i < nc) {
+        if (r < P)
+          src = kvp + ((size_t)b * P + r) * 2 * D + col + 8 * c;
+        else if (r - P < T)
+          src = qkv + ((size_t)b * T + r - P) * 3 * D + D + col + 8 * c;
+      }
+      k[u] = v[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (src) {
+        k[u] = *reinterpret_cast<const uint4*>(src);
+        v[u] = *reinterpret_cast<const uint4*>(src + D);
+      }
+      m[u] = i < S ? mask[i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < WA_PRE_U; ++u) {
+      const int i = i0 + u * nthreads + tid, c = i & 7;
+      const int r = i < R0 * 8 ? i >> 3 : TB + ((i - R0 * 8) >> 3);
+      if (i < nc) {
+        const int o = r * 128 + ((c ^ (r & 7)) << 4);
+        *reinterpret_cast<uint4*>(Ks + o) = k[u];
+        *reinterpret_cast<uint4*>(Vs + o) = v[u];
+      }
+      if (i < S) ml[i] = LOG2E * m[u];
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The rows of the K and V buffers before the first token box (PRE: R0 = 8
+// ceil(P/8), else 0), and the token boxes: T tokens from token R0 - P on,
+// 64 a box, as many whole boxes as the NR rows of the buffers hold after
+// R0.
+__device__ __forceinline__ int wa_r0(bool pre, int P) { return pre ? (P + 7) & ~7 : 0; }
+__device__ __forceinline__ int wa_boxes(int T, int tok0, int R0, int NR) {
+  const int n = T > tok0 ? (T - tok0 + WA_TILE - 1) / WA_TILE : 0;
+  return min(n, (NR - R0) / WA_TILE);
+}
+
+template <int WIN, bool PRE>
 __global__ void __launch_bounds__(WA_FWD_THREADS, 2)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
-                      bf16* __restrict__ ctx, int T, int D, float scale) {
+                      const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
+                      const float* __restrict__ mask, bf16* __restrict__ ctx,
+                      int T, int P, int D, float scale) {
   constexpr int NT = wa_tiles(WIN), NJ = WIN / 8, NK = WIN / 16;
   extern __shared__ __align__(1024) unsigned char wa_smem[];
   unsigned char* Qs = wa_base(wa_smem);
   unsigned char* Ks = Qs + WA_BOX;
   unsigned char* Vs = Ks + NT * WA_BOX;
   uint64_t* bar = reinterpret_cast<uint64_t*>(Vs + NT * WA_BOX);  // Q + K, V
+  float* ml = reinterpret_cast<float*>(bar + 2);   // PRE: the key-mask row
   const int qt = blockIdx.x, hd = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int nkt = (T + WA_TILE - 1) / WA_TILE;   // key tiles that hold keys
+  if constexpr (!PRE) P = 0;
+  const int S = P + T, col = hd * WA_DH;
+  const int R0 = wa_r0(PRE, P), tok0 = R0 - P;
+  // the token boxes of K (and of V), rows [R0, TB)
+  const int nkt = wa_boxes(T, tok0, R0, NT * WA_TILE), TB = R0 + nkt * WA_TILE;
+  // the loads in flight first (the query tile and K on bar 0, V on bar 1),
+  // then the rows they do not write (generic stores: disjoint from the
+  // boxes, fenced for wgmma before the barrier)
   if (tid == 0) {
     mbar_init(bar, 1);
     mbar_init(bar + 1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  wa_zero_tiles(Ks, Vs, nkt, NT, tid, WA_FWD_THREADS);
-  __syncthreads();
-  if (tid == 0) {
-    const int col = hd * WA_DH;
     mbar_expect_tx(bar, (1 + nkt) * WA_BOX);
     tma_load3(Qs, &tm_qkv, bar, col, qt * WA_TILE, b);
     for (int t = 0; t < nkt; ++t)
-      tma_load3(Ks + t * WA_BOX, &tm_qkv, bar, D + col, t * WA_TILE, b);
+      tma_load3(Ks + R0 * 128 + t * WA_BOX, &tm_qkv, bar, D + col,
+                tok0 + t * WA_TILE, b);
     mbar_expect_tx(bar + 1, nkt * WA_BOX);
     for (int t = 0; t < nkt; ++t)
-      tma_load3(Vs + t * WA_BOX, &tm_qkv, bar + 1, 2 * D + col, t * WA_TILE, b);
+      tma_load3(Vs + R0 * 128 + t * WA_BOX, &tm_qkv, bar + 1, 2 * D + col,
+                tok0 + t * WA_TILE, b);
   }
-  // the halves: keys [0, lim0) and [kb1, T)
-  const int npair = (T + 15) / 16, kb1 = 16 * ((npair + 1) / 2);
-  const int lim0 = min(kb1, T);
+  if constexpr (PRE)
+    wa_prefix_rows(Ks, Vs, ml, qkv, kvp, mask, b, T, P, D, col, R0, TB,
+                   NT * WA_TILE, tid, WA_FWD_THREADS);
+  else
+    wa_zero_tiles(Ks, Vs, nkt, NT, tid, WA_FWD_THREADS);
+  __syncthreads();
+  // the halves: keys [0, lim0) and [kb1, S)
+  const int npair = (S + 15) / 16, kb1 = 16 * ((npair + 1) / 2);
+  const int lim0 = min(kb1, S);
   float sa[WIN / 2], sb[WIN / 2];
   wa_zero(sa);
   wa_zero(sb);
@@ -218,8 +317,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
   wg_reg_fence(sa);
   wg_reg_fence(sb);
 
-  // scores in base 2 (s scale log2(e), so exp2 gives exp(s - max)); keys
-  // past a half's own are -inf; the row max over both halves
+  // scores in base 2 (s scale log2(e), so exp2 gives exp(s - max)), plus
+  // the key row's log2(e) mask (PRE); keys past a half's own are -inf; the
+  // row max over both halves
   const float sl2 = scale * LOG2E;
   float ma = -INFINITY, mb = -INFINITY;
 #pragma unroll
@@ -227,11 +327,12 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int k = 8 * j + 2 * t4 + e;
-      const bool l0 = k < lim0, l1 = kb1 + k < T;
-      sa[4 * j + e] = l0 ? fmaf(sa[4 * j + e], sl2, 0.f) : -INFINITY;
-      sa[4 * j + 2 + e] = l0 ? fmaf(sa[4 * j + 2 + e], sl2, 0.f) : -INFINITY;
-      sb[4 * j + e] = l1 ? fmaf(sb[4 * j + e], sl2, 0.f) : -INFINITY;
-      sb[4 * j + 2 + e] = l1 ? fmaf(sb[4 * j + 2 + e], sl2, 0.f) : -INFINITY;
+      const bool l0 = k < lim0, l1 = kb1 + k < S;
+      const float m0 = PRE ? ml[k] : 0.f, m1 = PRE ? ml[kb1 + k] : 0.f;
+      sa[4 * j + e] = l0 ? fmaf(sa[4 * j + e], sl2, m0) : -INFINITY;
+      sa[4 * j + 2 + e] = l0 ? fmaf(sa[4 * j + 2 + e], sl2, m0) : -INFINITY;
+      sb[4 * j + e] = l1 ? fmaf(sb[4 * j + e], sl2, m1) : -INFINITY;
+      sb[4 * j + 2 + e] = l1 ? fmaf(sb[4 * j + 2 + e], sl2, m1) : -INFINITY;
       ma = fmaxf(ma, fmaxf(sa[4 * j + e], sb[4 * j + e]));
       mb = fmaxf(mb, fmaxf(sa[4 * j + 2 + e], sb[4 * j + 2 + e]));
     }
@@ -322,9 +423,10 @@ __device__ __forceinline__ void wa_frags(unsigned (&a)[4][4],
 // their K and V rows as register fragments, so only Q and dctx stream from
 // shared memory): s^T = K Q^T and dp^T = V dctx^T by wgmma; p^T = exp2(s^T scale log2(e) - max) *
 // (1 / sum) and ds^T = p^T (dp^T - delta) for keys (ja, jb) x queries 8 j +
-// 2 t4 + e of the step (stc: their statistics; p = 0 past T), without a
-// division; then dv += p16^T dctx and dk += ds16^T q by wgmma from
-// registers, the step's k16 blocks of queries in order.
+// 2 t4 + e of the step (stc: their statistics; p = 0 past the S keys;
+// mka, mkb: the keys' log2(e) mask), without a division; then dv += p16^T
+// dctx and dk += ds16^T q by wgmma from registers, the step's k16 blocks
+// of queries in order.
 template <int NQ>
 __device__ __forceinline__ void wa_kv_step(float (&dk)[32], float (&dv)[32],
                                            const unsigned (&ka)[4][4],
@@ -332,7 +434,8 @@ __device__ __forceinline__ void wa_kv_step(float (&dk)[32], float (&dv)[32],
                                            const unsigned char* Qc,
                                            const unsigned char* Gc,
                                            const float4* stc, int ja, int jb,
-                                           int T, float sl2, int t4) {
+                                           int S, float mka, float mkb,
+                                           float sl2, int t4) {
   constexpr int NR = NQ / 2, NKQ = NQ / 16;
   float sT[NR], dT[NR];
   wa_zero(sT);
@@ -364,8 +467,8 @@ __device__ __forceinline__ void wa_kv_step(float (&dk)[32], float (&dv)[32],
 #pragma unroll
       for (int w = 0; w < 2; ++w) {
         const int i = 4 * j + 2 * w + e;
-        const float pv = (w ? jb : ja) < T
-            ? exp2f(fmaf(sT[i], sl2, 0.f) - q.x) * q.y : 0.f;
+        const float pv = (w ? jb : ja) < S
+            ? exp2f(fmaf(sT[i], sl2, w ? mkb : mka) - q.x) * q.y : 0.f;
         sT[i] = pv;
         dT[i] = pv * (dT[i] - q.z);
       }
@@ -390,12 +493,15 @@ __device__ __forceinline__ void wa_kv_step(float (&dk)[32], float (&dv)[32],
   wg_reg_fence(dv);
 }
 
-template <int WIN>
+template <int WIN, bool PRE>
 __global__ void __launch_bounds__(WA_BWD_THREADS, 1)
 attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
                       const __grid_constant__ CUtensorMap tm_g,
-                      bf16* __restrict__ dqkv16, float* __restrict__ qpart,
-                      float* __restrict__ kvpart, int T, int D, float scale) {
+                      const bf16* __restrict__ qkv, const bf16* __restrict__ kvp,
+                      const float* __restrict__ mask,
+                      bf16* __restrict__ dqkv16, bf16* __restrict__ dkvp16,
+                      float* __restrict__ qpart, float* __restrict__ kvpart,
+                      int T, int P, int D, float scale) {
   constexpr int NT = wa_tiles(WIN), NJ = WIN / 8, NK = WIN / 16;
   extern __shared__ __align__(1024) unsigned char wa_smem[];
   unsigned char* Qs = wa_base(wa_smem);
@@ -406,22 +512,27 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
   float* red = reinterpret_cast<float*>(st + NT * WA_TILE);   // [3][2][64]
   float* dqx = red + 3 * 2 * WA_TILE;            // the halves' dq partials
   uint64_t* bar = reinterpret_cast<uint64_t*>(dqx + 32 * 128);
+  float* ml = reinterpret_cast<float*>(bar + 1 + NT);   // PRE: the key row
   const int hd = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
   const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int nq = (T + WA_TILE - 1) / WA_TILE;    // query tiles = key tiles
+  if constexpr (!PRE) P = 0;
+  const int S = P + T, col = hd * WA_DH;
+  const int nq = (T + WA_TILE - 1) / WA_TILE;    // query tiles
+  const int R0 = wa_r0(PRE, P), tok0 = R0 - P;
+  // the token boxes of K (and V), rows [R0, TB)
+  const int nkb = wa_boxes(T, tok0, R0, NT * WA_TILE), TB = R0 + nkb * WA_TILE;
+  // the loads in flight first (K and V whole on bar 0, then Q and dctx a
+  // tile at a time), then the rows they do not write (as the forward's)
   if (tid == 0) {
     for (int i = 0; i <= nq; ++i) mbar_init(bar + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  wa_zero_tiles(Ks, Vs, nq, NT, tid, WA_BWD_THREADS);
-  __syncthreads();
-  if (tid == 0) {   // K and V whole (bar 0), then Q and dctx a tile at a time
-    const int col = hd * WA_DH;
-    mbar_expect_tx(bar, 2 * nq * WA_BOX);
-    for (int t = 0; t < nq; ++t) {
-      tma_load3(Ks + t * WA_BOX, &tm_qkv, bar, D + col, t * WA_TILE, b);
-      tma_load3(Vs + t * WA_BOX, &tm_qkv, bar, 2 * D + col, t * WA_TILE, b);
+    mbar_expect_tx(bar, 2 * nkb * WA_BOX);
+    for (int t = 0; t < nkb; ++t) {
+      tma_load3(Ks + R0 * 128 + t * WA_BOX, &tm_qkv, bar, D + col,
+                tok0 + t * WA_TILE, b);
+      tma_load3(Vs + R0 * 128 + t * WA_BOX, &tm_qkv, bar, 2 * D + col,
+                tok0 + t * WA_TILE, b);
     }
     for (int t = 0; t < nq; ++t) {
       mbar_expect_tx(bar + 1 + t, 2 * WA_BOX);
@@ -429,9 +540,16 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
       tma_load3(Gs + t * WA_BOX, &tm_g, bar + 1 + t, col, t * WA_TILE, b);
     }
   }
+  if constexpr (PRE)
+    wa_prefix_rows(Ks, Vs, ml, qkv, kvp, mask, b, T, P, D, col, R0, TB,
+                   NT * WA_TILE, tid, WA_BWD_THREADS);
+  else
+    wa_zero_tiles(Ks, Vs, nkb, NT, tid, WA_BWD_THREADS);
+  __syncthreads();
   // this warpgroup's half of the keys: [kb, lim), its window [kb, kb + WIN)
-  const int npair = (T + 15) / 16, kb1 = 16 * ((npair + 1) / 2);
-  const int kb = wg ? kb1 : 0, lim = wg ? T : min(kb1, T);
+  const int npair = (S + 15) / 16, kb1 = 16 * ((npair + 1) / 2);
+  const int kb = wg ? kb1 : 0, lim = wg ? S : min(kb1, S);
+  const int nqg = (T + 15) / 16;                 // 16-query groups
   const float sl2 = scale * LOG2E;
   const size_t rs = 3 * (size_t)D;
   const int ra = 16 * warp + g;   // the thread's rows ra, ra + 8 of a tile
@@ -453,16 +571,18 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
     wa_commit_wait();
     wg_reg_fence(s);
     wg_reg_fence(dp);
-    // scale in base 2, -inf past the half's keys; this half's row max,
-    // then both halves'
+    // scale in base 2, plus the key row's log2(e) mask (PRE), -inf past
+    // the half's keys; this half's row max, then both halves'
     float ma = -INFINITY, mb = -INFINITY;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool on = kb + 8 * j + 2 * t4 + e < lim;
-        s[4 * j + e] = on ? fmaf(s[4 * j + e], sl2, 0.f) : -INFINITY;
-        s[4 * j + 2 + e] = on ? fmaf(s[4 * j + 2 + e], sl2, 0.f) : -INFINITY;
+        const int k = kb + 8 * j + 2 * t4 + e;
+        const bool on = k < lim;
+        const float mk = PRE ? ml[k] : 0.f;
+        s[4 * j + e] = on ? fmaf(s[4 * j + e], sl2, mk) : -INFINITY;
+        s[4 * j + 2 + e] = on ? fmaf(s[4 * j + 2 + e], sl2, mk) : -INFINITY;
         ma = fmaxf(ma, s[4 * j + e]);
         mb = fmaxf(mb, s[4 * j + 2 + e]);
       }
@@ -552,8 +672,8 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
         c0 += v0;
         c1 += v1;
       }
-      if (qpart && grp < npair)
-        group_colsum(qpart + ((size_t)b * npair + grp) * D + c, c0, c1, lane);
+      if (qpart && grp < nqg)
+        group_colsum(qpart + ((size_t)b * nqg + grp) * D + c, c0, c1, lane);
     }
     if (wg == 0 && t4 == 0) {   // a query past T: p = 0 in phase 2
       st[ia] = ia < T ? make_float4(ma, ila, dla, 0.f)
@@ -568,20 +688,23 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
   // 64-query tiles, then the 16-query blocks past the last whole tile (at
   // T = 197 one block, not a tile of 64 mostly past T)
   const int nfull = T / WA_TILE, n16 = (T + 15) / 16;
-  for (int kt = wg; kt < nq; kt += 2) {
+  const int nkt = (S + WA_TILE - 1) / WA_TILE;   // key tiles
+  for (int kt = wg; kt < nkt; kt += 2) {
     float dk[32], dv[32];
     wa_zero(dk);
     wa_zero(dv);
     const int ja = kt * WA_TILE + ra, jb = ja + 8;   // the thread's keys
+    const float mka = PRE && ja < S ? ml[ja] : 0.f;
+    const float mkb = PRE && jb < S ? ml[jb] : 0.f;
     unsigned ka[4][4], va[4][4];
     wa_frags(ka, Ks + kt * WA_BOX, warp, lane);
     wa_frags(va, Vs + kt * WA_BOX, warp, lane);
     for (int c = 0; c < nfull; ++c)
       wa_kv_step<64>(dk, dv, ka, va, Qs + c * WA_BOX, Gs + c * WA_BOX,
-                     st + c * WA_TILE, ja, jb, T, sl2, t4);
+                     st + c * WA_TILE, ja, jb, S, mka, mkb, sl2, t4);
     for (int q = 4 * nfull; q < n16; ++q)
       wa_kv_step<16>(dk, dv, ka, va, Qs + q * 2048, Gs + q * 2048, st + 16 * q,
-                     ja, jb, T, sl2, t4);
+                     ja, jb, S, mka, mkb, sl2, t4);
     float kv[32], vv[32];
     wg_read(kv, dk);
     wg_read(vv, dv);
@@ -593,19 +716,23 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int key = h ? jb : ja, x = 4 * j + 2 * h;
-        if (key >= T) continue;
+        if (key >= S) continue;
         const float k0v = kv[x] * scale, k1v = kv[x + 1] * scale;
         const float w0 = vv[x], w1 = vv[x + 1];
-        const size_t o = ((size_t)b * T + key) * rs + D + c;
-        *reinterpret_cast<unsigned*>(dqkv16 + o) = pack_bf16(k0v, k1v);
-        *reinterpret_cast<unsigned*>(dqkv16 + o + D) = pack_bf16(w0, w1);
+        // a prefix key: (B*P, 2D), dK at 0, dV at D; a token key: (B*T,
+        // 3D), dK at D, dV at 2D
+        bf16* o16 = PRE && key < P
+            ? dkvp16 + ((size_t)b * P + key) * 2 * D + c
+            : dqkv16 + ((size_t)b * T + key - P) * rs + D + c;
+        *reinterpret_cast<unsigned*>(o16) = pack_bf16(k0v, k1v);
+        *reinterpret_cast<unsigned*>(o16 + D) = pack_bf16(w0, w1);
         ck0 += k0v;
         ck1 += k1v;
         cv0 += w0;
         cv1 += w1;
       }
-      // the key group's sums of dk and dv: row b * npair + grp of (B *
-      // npair, 2D)
+      // the key group's sums of dk and dv, prefix and token keys alike:
+      // row b * npair + grp of (B * ceil(S/16), 2D)
       if (kvpart && grp < npair) {
         float* row = kvpart + ((size_t)b * npair + grp) * 2 * D + c;
         group_colsum(row, ck0, ck1, lane);
@@ -617,54 +744,93 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
 
 // Shared memory: the query tile, K and V (forward); Q, K, V, dctx, the
 // statistics, the halves' exchange and the second half's dq (backward);
-// the barriers; 1024 bytes to align the tiles to the swizzle's period.
-static size_t wa_fwd_smem(int win) {
-  return (size_t)WA_BOX * (1 + 2 * wa_tiles(win)) + 2 * 8 + 1024;
+// the barriers; with a prefix (pre) the key row (256 floats; at WIN = 112
+// the forward still fits three blocks an SM); 1024 bytes to align the
+// tiles to the swizzle's period.
+static size_t wa_fwd_smem(int win, bool pre) {
+  return (size_t)WA_BOX * (1 + 2 * wa_tiles(win)) + 2 * 8 +
+         (pre ? 256 * 4 : 0) + 1024;
 }
 
-static size_t wa_bwd_smem(int win) {
+static size_t wa_bwd_smem(int win, bool pre) {
   const int nt = wa_tiles(win);
   return (size_t)4 * nt * WA_BOX + (size_t)nt * WA_TILE * sizeof(float4) +
          3 * 2 * WA_TILE * sizeof(float) + 32 * 128 * sizeof(float) +
-         (1 + nt) * 8 + 1024;
+         (1 + nt) * 8 + (pre ? 256 * 4 : 0) + 1024;
 }
 
-int attn_wgmma_fwd(const bf16* qkv, bf16* ctx, int B, int T, int D,
-                   float scale, cudaStream_t s) {
-  if (!attn_wgmma_road(T, WA_DH) || B < 1 || D % WA_DH)
+// The forward over S = P + T keys (P = 0: no prefix, no mask).
+template <bool PRE>
+static int wa_fwd(const bf16* qkv, const bf16* kvp, const float* mask,
+                  bf16* ctx, int B, int T, int P, int D, float scale,
+                  cudaStream_t s) {
+  if (!attn_wgmma_road(P + T, WA_DH) || T < 1 || B < 1 || D % WA_DH ||
+      (PRE && (P < 1 || !kvp || !mask)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm;
   int e = make_tma(&tm, qkv, 3LL * D, T, 3LL * D, WA_DH, WA_TILE, B,
                    3LL * D * T);
   if (e) return e;
-  const int win = wa_win(T);
-  auto kern = win == 128 ? attn_fwd_wgmma_kernel<128>
-            : win == 112 ? attn_fwd_wgmma_kernel<112> : attn_fwd_wgmma_kernel<64>;
-  const size_t smem = wa_fwd_smem(win);
+  const int win = wa_win(P + T);
+  auto kern = win == 128 ? attn_fwd_wgmma_kernel<128, PRE>
+            : win == 112 ? attn_fwd_wgmma_kernel<112, PRE>
+                         : attn_fwd_wgmma_kernel<64, PRE>;
+  const size_t smem = wa_fwd_smem(win, PRE);
   raise_smem(kern, smem);
   kern<<<dim3((T + WA_TILE - 1) / WA_TILE, D / WA_DH, B), WA_FWD_THREADS, smem,
-         s>>>(tm, ctx, T, D, scale);
+         s>>>(tm, qkv, kvp, mask, ctx, T, P, D, scale);
   return (int)cudaGetLastError();
 }
 
-int attn_wgmma_bwd(const bf16* qkv, const bf16* dctx, bf16* dqkv16,
-                   float* bpart, int B, int T, int D, float scale,
-                   cudaStream_t s) {
-  if (!attn_wgmma_road(T, WA_DH) || B < 1 || D % WA_DH)
+// The backward: dq and the tokens' dk / dv into dqkv16, the prefix keys'
+// into dkvp16 (PRE); bpart: dq's partials (B * ceil(T/16) rows of D), then
+// dk | dv's (B * ceil(S/16) rows of 2D), or null.
+template <bool PRE>
+static int wa_bwd(const bf16* qkv, const bf16* kvp, const bf16* dctx,
+                  const float* mask, bf16* dqkv16, bf16* dkvp16, float* bpart,
+                  int B, int T, int P, int D, float scale, cudaStream_t s) {
+  if (!attn_wgmma_road(P + T, WA_DH) || T < 1 || B < 1 || D % WA_DH ||
+      (PRE && (P < 1 || !kvp || !mask || !dkvp16)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tg;
   int e = make_tma(&tq, qkv, 3LL * D, T, 3LL * D, WA_DH, WA_TILE, B,
                    3LL * D * T);
   if (!e) e = make_tma(&tg, dctx, D, T, D, WA_DH, WA_TILE, B, (long long)D * T);
   if (e) return e;
-  const int win = wa_win(T);
-  auto kern = win == 128 ? attn_bwd_wgmma_kernel<128>
-            : win == 112 ? attn_bwd_wgmma_kernel<112> : attn_bwd_wgmma_kernel<64>;
-  const size_t smem = wa_bwd_smem(win);
+  const int win = wa_win(P + T);
+  auto kern = win == 128 ? attn_bwd_wgmma_kernel<128, PRE>
+            : win == 112 ? attn_bwd_wgmma_kernel<112, PRE>
+                         : attn_bwd_wgmma_kernel<64, PRE>;
+  const size_t smem = wa_bwd_smem(win, PRE);
   raise_smem(kern, smem);
-  // bpart: dq's partials (B * ceil(T/16) rows of D), then dk | dv's
   float* kvpart = bpart ? bpart + (size_t)B * ((T + 15) / 16) * D : nullptr;
   kern<<<dim3(D / WA_DH, B), WA_BWD_THREADS, smem, s>>>(
-      tq, tg, dqkv16, bpart, kvpart, T, D, scale);
+      tq, tg, qkv, kvp, mask, dqkv16, dkvp16, bpart, kvpart, T, P, D, scale);
   return (int)cudaGetLastError();
+}
+
+int attn_wgmma_fwd(const bf16* qkv, bf16* ctx, int B, int T, int D,
+                   float scale, cudaStream_t s) {
+  return wa_fwd<false>(qkv, nullptr, nullptr, ctx, B, T, 0, D, scale, s);
+}
+
+int attn_wgmma_bwd(const bf16* qkv, const bf16* dctx, bf16* dqkv16,
+                   float* bpart, int B, int T, int D, float scale,
+                   cudaStream_t s) {
+  return wa_bwd<false>(qkv, nullptr, dctx, nullptr, dqkv16, nullptr, bpart, B,
+                       T, 0, D, scale, s);
+}
+
+int attn_wgmma_prefix_fwd(const bf16* qkv, const bf16* kvp, const float* mask,
+                          bf16* ctx, int B, int T, int P, int D, float scale,
+                          cudaStream_t s) {
+  return wa_fwd<true>(qkv, kvp, mask, ctx, B, T, P, D, scale, s);
+}
+
+int attn_wgmma_prefix_bwd(const bf16* qkv, const bf16* kvp, const bf16* dctx,
+                          const float* mask, bf16* dqkv16, bf16* dkvp16,
+                          float* bpart, int B, int T, int P, int D,
+                          float scale, cudaStream_t s) {
+  return wa_bwd<true>(qkv, kvp, dctx, mask, dqkv16, dkvp16, bpart, B, T, P, D,
+                      scale, s);
 }

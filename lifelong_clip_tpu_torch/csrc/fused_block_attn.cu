@@ -65,10 +65,13 @@
 //     <= 16: 16x128); any other shape needs operands TMA can read, which
 //     every caller's are. TMA maps and shared-memory limits are set once and reused, so a
 //     launch costs the host little beyond the launch itself.
-//   * Attention with no mask at head dim 64 and T <= 256 (every ViT tower's
-//     blocks): the warpgroup-MMA kernels of attn_wgmma.cu (launch_attn),
-//     the values of the mma.sync kernels below bit for bit. The other roads
-//     (a mask, a KV prefix, head dims 16 and 32, past 256 keys) run these:
+//   * Attention at head dim 64 and up to 256 keys with no mask (every ViT
+//     tower's blocks) or, with a KV prefix, under a key-mask row (the
+//     prompted passes of mvp-clip, DualPrompt, MVP and ProtoCLIP's image
+//     pass): the warpgroup-MMA kernels of attn_wgmma.cu (launch_attn), the
+//     values of the mma.sync kernels below bit for bit. The other roads (a
+//     2-D mask, a KV prefix with no mask, head dims 16 and 32, past 256
+//     keys) run these:
 //   * Attention forward (attn_fwd_kernel, S = P + T <= 256 keys): one block
 //     per (head, batch row) loads the head's K and V once, in 64-row
 //     cp.async chunks whose arrival the first q k^T products follow, and 4
@@ -3154,10 +3157,10 @@ static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
 // to 256 the register roads (the backward's rows of <= 128 or <= 256 keys;
 // the forward's also <= 208, ViT-B/16's 197 or 200 tokens, whose half rows
 // take 56 registers a thread where 256 keys take 64), above it the tiled
-// roads, which have no key limit. ROW: a key-mask row (mask_rs 0). With no
-// mask at head dim 64 (every ViT tower) up to 256 keys take the
-// warpgroup-MMA kernels of attn_wgmma.cu, and the register roads are not
-// built for it.
+// roads, which have no key limit. ROW: a key-mask row (mask_rs 0). At head
+// dim 64 up to 256 keys, with no mask (every ViT tower) or with a prefix
+// under a key-mask row (ROW), the warpgroup-MMA kernels of attn_wgmma.cu
+// take the rows, and the register roads are not built for them.
 template <bool BWD, bool PRE, bool ROW>
 static int launch_attn(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
@@ -3168,6 +3171,14 @@ static int launch_attn(const AttnArgs& a, cudaStream_t s) {
       return BWD ? attn_wgmma_bwd(a.qkv, a.dctx, a.dqkv16, a.bpart, a.B, a.T,
                                   a.D, a.scale, s)
                  : attn_wgmma_fwd(a.qkv, a.ctx, a.B, a.T, a.D, a.scale, s);
+  }
+  if constexpr (PRE && ROW) {
+    if (attn_wgmma_road(a.P + a.T, a.D / a.H))
+      return BWD ? attn_wgmma_prefix_bwd(a.qkv, a.kvp, a.dctx, a.mask,
+                                         a.dqkv16, a.dkvp16, a.bpart, a.B,
+                                         a.T, a.P, a.D, a.scale, s)
+                 : attn_wgmma_prefix_fwd(a.qkv, a.kvp, a.mask, a.ctx, a.B,
+                                         a.T, a.P, a.D, a.scale, s);
   }
 #define LLC_ATTN(DHV)                                                        \
   if constexpr (BWD)                                                         \
@@ -3182,9 +3193,10 @@ static int launch_attn(const AttnArgs& a, cudaStream_t s) {
     case 16: { LLC_ATTN(16) }
     case 32: { LLC_ATTN(32) }
     case 64: {
-      if constexpr (PRE || ROW) {
+      if constexpr (PRE && !ROW) {
         LLC_ATTN(64)
-      } else {   // past 256 keys (ViT-L/14's 257 tokens): the tiled roads
+      } else {   // past 256 keys (ViT-L/14's 257 tokens; a prefix with S =
+                 // P + T > 256 under a key row): the tiled roads
         if constexpr (BWD) return launch_attn_bwd_nt<64, 0, PRE, ROW>(a, s);
         return launch_attn_fwd_tiled<64, PRE, ROW>(a, s);
       }

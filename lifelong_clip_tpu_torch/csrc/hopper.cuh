@@ -276,11 +276,22 @@ int make_tma(CUtensorMap* map, const void* ptr, long long inner,
 
 // The warpgroup-MMA attention of the fused block (attn_wgmma.cu): the road
 // with no mask at head dim 64 and up to 256 keys, which every ViT tower's
-// blocks take. qkv (B*T, 3D), ctx and dctx (B*T, D), dqkv16 (B*T, 3D), all
-// bf16; bpart as llc_attn_bwd's. Each returns cudaGetLastError() as an int.
-inline bool attn_wgmma_road(int T, int dh) { return dh == 64 && T >= 1 && T <= 256; }
+// blocks take, and the KV-prefix block's under a key-mask row with S = P + T
+// <= 256 keys (the prompted passes of mvp-clip, DualPrompt, MVP and
+// ProtoCLIP's image pass). qkv (B*T, 3D), ctx and dctx (B*T, D), dqkv16
+// (B*T, 3D), kvp and dkvp16 (B*P, 2D: K | V), all bf16; mask (P + T,) fp32;
+// bpart as llc_attn_bwd's. Each returns cudaGetLastError() as an int.
+inline bool attn_wgmma_road(int S, int dh) { return dh == 64 && S >= 1 && S <= 256; }
 int attn_wgmma_fwd(const __nv_bfloat16* qkv, __nv_bfloat16* ctx, int B, int T,
                    int D, float scale, cudaStream_t s);
 int attn_wgmma_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dctx,
                    __nv_bfloat16* dqkv16, float* bpart, int B, int T, int D,
                    float scale, cudaStream_t s);
+int attn_wgmma_prefix_fwd(const __nv_bfloat16* qkv, const __nv_bfloat16* kvp,
+                          const float* mask, __nv_bfloat16* ctx, int B, int T,
+                          int P, int D, float scale, cudaStream_t s);
+int attn_wgmma_prefix_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* kvp,
+                          const __nv_bfloat16* dctx, const float* mask,
+                          __nv_bfloat16* dqkv16, __nv_bfloat16* dkvp16,
+                          float* bpart, int B, int T, int P, int D,
+                          float scale, cudaStream_t s);

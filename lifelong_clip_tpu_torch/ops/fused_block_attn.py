@@ -33,16 +33,18 @@ name (``:652-696``): the same half block without LoRA, whose keys come from
 Its forward replaces ``_prefix_kernel`` (``:524``, Pallas call at ``:631``)
 and its backward ``_prefix_bwd_kernel`` (``:699``, Pallas call at ``:897``),
 with the same kernel chain: a prefix K/V GEMM beside the token qkv GEMM, and
-attention kernels that read their keys from both. Under a (T, P + T) mask
-(ProtoCLIP's block-diagonal suffix mask) each chain first builds the mask's
-tile map on the card (``mask_tile_map``: one byte per 16 query rows x 16
-keys, 0 where every entry is -inf) and the attention kernels skip the
-blocks it marks dead; those hold p = 0 exactly, so the values are those of
-the full sweep bit for bit. The block op does the same under a (T, T) mask
-(the text tower's causal mask: 15 of 25 blocks live at T = 77), its map
-built once per mask tensor (``_tile_map``: the blocks of a tower pass share
-one). The map's kernel replaces no TPU kernel: the TPU kernels compute
-every tile.
+attention kernels that read their keys from both (under a (P + T,) key-mask
+row at head dim 64 and P + T <= 256, the prompted passes' road, the
+warpgroup-MMA kernels of ``csrc/attn_wgmma.cu``; ``prefix_wgmma_road``).
+Under a (T, P + T) mask (ProtoCLIP's block-diagonal suffix mask) each
+chain first builds the mask's tile map on the card (``mask_tile_map``: one
+byte per 16 query rows x 16 keys, 0 where every entry is -inf) and the
+attention kernels skip the blocks it marks dead; those hold p = 0 exactly,
+so the values are those of the full sweep bit for bit. The block op does
+the same under a (T, T) mask (the text tower's causal mask: 15 of 25
+blocks live at T = 77), its map built once per mask tensor (``_tile_map``:
+the blocks of a tower pass share one). The map's kernel replaces no TPU
+kernel: the TPU kernels compute every tile.
 
 Bound on one H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at the ViT-B/16 vision
 block, bs=64: forward ~67.1 GFLOP (~68 us, compute-bound); backward with
@@ -87,13 +89,16 @@ _DT = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel chain: one per op call on a CUDA tensor; and of
 # the tile-map kernel: one per prefix chain under a (T, P + T) mask
 # (prefix_tile_map), one per (T, T) mask tensor of the block op
-# (block_tile_map, ``_tile_map``); and of the block chains' warpgroup-MMA
-# attention kernels (``_wgmma_road``): one per forward or backward chain
-# on that road (attn_fwd_wgmma, attn_bwd_wgmma)
+# (block_tile_map, ``_tile_map``); and of the warpgroup-MMA attention
+# kernels: one per forward or backward chain on their road, the block
+# chains' (``_wgmma_road``: attn_fwd_wgmma, attn_bwd_wgmma) and the prefix
+# chains' (``prefix_wgmma_road``: attn_prefix_fwd_wgmma,
+# attn_prefix_bwd_wgmma)
 LAUNCHES = {"fused_ln_attention_fwd": 0, "fused_ln_attention_bwd": 0,
             "fused_prefix_attention_fwd": 0, "fused_prefix_attention_bwd": 0,
             "prefix_tile_map": 0, "block_tile_map": 0, "attn_fwd_wgmma": 0,
-            "attn_bwd_wgmma": 0}
+            "attn_bwd_wgmma": 0, "attn_prefix_fwd_wgmma": 0,
+            "attn_prefix_bwd_wgmma": 0}
 
 
 def reset_launches() -> None:
@@ -531,6 +536,24 @@ WGMMA_DH, WGMMA_TMAX = 64, 256
 def _wgmma_road(pp: _Prepared, n_heads) -> bool:
     return (pp.mask is None and pp.d // n_heads == WGMMA_DH
             and pp.t <= WGMMA_TMAX)
+
+
+def prefix_wgmma_road(p: int, t: int, dh: int, mask_kind) -> bool:
+    """Whether the KV-prefix chains' attention (P prefix keys, T tokens,
+    head dim ``dh``) takes the warpgroup-MMA kernels of csrc/attn_wgmma.cu
+    (``launch_attn``'s PRE and ROW instances there): under a key-mask row
+    (``mask_kind`` "row": one (P + T,) row for every query, as mvp-clip,
+    DualPrompt, MVP and ProtoCLIP's image pass pass it) at head dim 64 and
+    S = P + T <= 256. A (T, P + T) matrix ("matrix"), no mask (None; the
+    mma.sync kernels interleave that road's key blocks, an order of sums
+    the half-row windows do not give), other head dims and longer rows
+    keep the mma.sync kernels."""
+    return mask_kind == "row" and dh == WGMMA_DH and 1 <= p + t <= WGMMA_TMAX
+
+
+def _prefix_road(pp, n_heads) -> bool:
+    kind = None if pp.mask is None else ("matrix" if pp.mask_rs else "row")
+    return prefix_wgmma_road(pp.p, pp.t, pp.d // n_heads, kind)
 
 
 def _stats(pp: _Prepared, n_heads):
@@ -1159,6 +1182,7 @@ def _cuda_prefix_forward(x, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
                   ctx16.data_ptr(),
                   pp.b, pp.t, pp.p, d, n_heads, (d // n_heads) ** -0.5,
                   pp.stream)
+    LAUNCHES["attn_prefix_fwd_wgmma"] += _prefix_road(pp, n_heads)
     saved = (h16, qkv16, kvp16, ctx16)
     x2 = pp.x.view(m, d)
     y = _gemm(torch.empty_like(x2), ctx16, (d, 1), pp.w_out, (d, 1), m, d, d,
@@ -1175,12 +1199,14 @@ def _prefix_attention_bwd(pp, qkv16, kvp16, dctx16, n_heads, attn_part=None):
     m, d, bp, dev = pp.m, pp.d, pp.b * pp.p, pp.x.device
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
     dkvp16 = torch.empty(bp, 2 * d, dtype=_BF, device=dev)
-    stats = _stats(pp, n_heads)
+    road = _prefix_road(pp, n_heads)
+    stats = None if road else _stats(pp, n_heads)
     _kernels.call("llc_attn_prefix_bwd", qkv16.data_ptr(), kvp16.data_ptr(),
                   dctx16.data_ptr(), _ptr(pp.mask), pp.mask_rs,
                   _ptr(pp.tmap), dqkv16.data_ptr(), dkvp16.data_ptr(),
-                  _ptr(attn_part), stats.data_ptr(), pp.b, pp.t, pp.p, d,
+                  _ptr(attn_part), _ptr(stats), pp.b, pp.t, pp.p, d,
                   n_heads, (d // n_heads) ** -0.5, pp.stream)
+    LAUNCHES["attn_prefix_bwd_wgmma"] += road
     return dqkv16, dkvp16
 
 

@@ -285,7 +285,9 @@ def test_op_launches_kernels_and_counts_them(cuda):
                             "prefix_tile_map": 0,
                             "block_tile_map": 0,
                             "attn_fwd_wgmma": 1,
-                            "attn_bwd_wgmma": 1}
+                            "attn_bwd_wgmma": 1,
+                            "attn_prefix_fwd_wgmma": 0,
+                            "attn_prefix_bwd_wgmma": 0}
     for k in LORA_KEYS:   # bf16 primals get bf16 grads
         assert lora[k].grad.dtype == torch.bfloat16, k
 
@@ -494,6 +496,84 @@ def test_prefix_backward_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
+# The warpgroup-MMA attention of #3/#4 (a key-mask row, head dim 64, S = P +
+# T <= 256): P on and off the 8-row atom (1, 3, 4, 8, 9, 20, 56), T on and
+# off a 16-key block and a 64-row tile, fewer tokens than the first atom's
+# rows after the prefix (P = 1, T = 3), half rows of 64, 112 and 128 keys,
+# the widest S = 256, mvp-clip's P = 20 at ViT-B/16's widths and ProtoCLIP's
+# K2 (P = 4), with and without the weight grads; no slot live. (b, t, d,
+# heads, P, live slots, weight_grads)
+PREFIX_WGMMA_CASES = [
+    (2, 3, 128, 2, 1, 1, True), (2, 13, 128, 2, 3, 2, False),
+    (2, 60, 128, 2, 4, 4, True), (3, 64, 128, 2, 8, 5, True),
+    (2, 119, 128, 2, 9, 0, False), (2, 108, 128, 2, 20, 20, True),
+    (2, 150, 128, 2, 9, 7, False), (2, 200, 128, 2, 56, 30, True),
+    (2, 255, 128, 2, 1, 1, False), (3, 197, 768, 12, 20, 5, True),
+    (4, 197, 768, 12, 4, 4, False), (2, 197, 768, 12, 4, 0, True)]
+
+
+@pytest.mark.parametrize("b,t,d,heads,p,live,wg", PREFIX_WGMMA_CASES)
+def test_prefix_wgmma_attention_matches_plain_versions(cuda, b, t, d, heads,
+                                                       p, live, wg):
+    """Through the op's autograd Function, with the tolerances of
+    ``ops/kernel_check.py`` (dead slots' grads exactly zero); both chains
+    launched the warpgroup-MMA attention, as ``prefix_wgmma_road`` says."""
+    assert fba.prefix_wgmma_road(p, t, d // heads, "row")
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(b, t, d, heads, p, live,
+                                                     11, device=cuda)
+    fba.reset_launches()
+    kc.check_prefix_case(x, pk, pv, blk, gy, mask, heads, wg)
+    assert fba.LAUNCHES["attn_prefix_fwd_wgmma"] == 1, fba.LAUNCHES
+    assert fba.LAUNCHES["attn_prefix_bwd_wgmma"] == 1, fba.LAUNCHES
+
+
+@pytest.mark.parametrize("b,t,p", [(3, 17, 3), (2, 197, 20), (2, 200, 56)])
+def test_prefix_wgmma_attention_matches_the_matrix_road(cuda, b, t, p):
+    """Attention alone: the warpgroup-MMA kernels (a key row) against the
+    mma.sync kernels a 2-D mask keeps, fed the same row broadcast to (T, P
+    + T): ctx16, dqkv16, dkvp16 and the bias partials within one bf16 ulp
+    plus ``REL_FWD`` / ``REL_BWD`` of each output's max (the two roads sum
+    in other orders)."""
+    x, pk, pv, blk, gy, row = kc.make_prefix_inputs(b, t, 128, 2, p, p - 1,
+                                                    12, device=cuda)
+    full = row.expand(t, p + t).contiguous()
+    assert fba._prefix_mask_arg(full, t, p + t, cuda)[1] == p + t
+    fba.reset_launches()
+    got = kc.prefix_attention_outputs(x, pk, pv, blk, gy, row, 2)
+    want = kc.prefix_attention_outputs(x, pk, pv, blk, gy, full, 2)
+    assert fba.LAUNCHES["attn_prefix_fwd_wgmma"] == 1, fba.LAUNCHES
+    for key in got:
+        a, w = got[key].float(), want[key].float()
+        rel = kc.REL_FWD if key == "ctx16" else kc.REL_BWD
+        excess = ((a - w).abs() - kc.ULP * torch.maximum(a.abs(), w.abs()))
+        assert float(excess.max()) <= rel * float(w.abs().max()), key
+
+
+def test_prefix_wgmma_backward_is_deterministic(cuda):
+    """No atomics: two runs of the attention at mvp-clip's P = 20 (5 live)
+    with the weight grads' partials agree bit for bit, every output."""
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(8, 197, 768, 12, 20, 5,
+                                                     13, device=cuda)
+    one, two = (kc.prefix_attention_outputs(x, pk, pv, blk, gy, mask, 12)
+                for _ in range(2))
+    for key in one:
+        assert kc.same_bits(one[key], two[key]), key
+
+
+def test_prefix_wgmma_rows_do_not_depend_on_the_batch(cuda):
+    """The rows of a 1-, 8- and 16-row batch give ctx16, the tokens' dqkv16
+    and the prefix rows' dkvp16 bit for bit equal to the same rows inside a
+    64-row batch at mvp-clip's shape (P = 20, 5 live)."""
+    x, pk, pv, blk, gy, mask = kc.make_prefix_inputs(64, 197, 768, 12, 20, 5,
+                                                     14, device=cuda)
+    whole = kc.prefix_attention_outputs(x, pk, pv, blk, gy, mask, 12)
+    for n in (1, 8, 16):
+        part = kc.prefix_attention_outputs(x[:n], pk[:n], pv[:n], blk, gy[:n],
+                                           mask, 12)
+        for key, rows in (("ctx16", 197), ("dqkv16", 197), ("dkvp16", 20)):
+            assert kc.same_bits(part[key], whole[key][:n * rows]), (n, key)
+
+
 def test_prefix_op_launches_kernels_and_counts_them(cuda):
     """One tensor as pk and pv (mvp-clip): both grads reach it."""
     x, pk, _, blk, gy, mask = kc.make_prefix_inputs(2, 13, 128, 2, 5, 2, 2,
@@ -505,6 +585,9 @@ def test_prefix_op_launches_kernels_and_counts_them(cuda):
     y.backward(gy)
     assert fba.LAUNCHES["fused_prefix_attention_fwd"] == 1
     assert fba.LAUNCHES["fused_prefix_attention_bwd"] == 1
+    # head dim 64, S = 18 keys under a key row: the warpgroup-MMA attention
+    assert fba.LAUNCHES["attn_prefix_fwd_wgmma"] == 1
+    assert fba.LAUNCHES["attn_prefix_bwd_wgmma"] == 1
     assert pk.grad.dtype == torch.bfloat16
     assert float(pk.grad[:, :2].abs().max()) > 0
     assert float(pk.grad[:, 2:].abs().max()) == 0.0

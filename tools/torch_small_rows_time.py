@@ -5,7 +5,7 @@ calls, as ``chip_smoke.py``'s kernel phase does, without the rest of that
 script:
 
     python3 tools/torch_small_rows_time.py [--root DIR] [--label NAME]
-        [--gates] [--others] [--out FILE]
+        [--gates] [--others] [--prefix] [--out FILE]
 
 ViT-B/16's vision block (T = 197, D = 768, 12 heads, bf16, no LoRA, no
 mask) at 8, 16, 64, 128 and 256 rows (CLIB's miss recompute), the
@@ -24,7 +24,10 @@ at the 32 rows of a ``--mesh 2x1`` rank and the 16 of a pipeline
 microbatch, ViT-L/14 at 64 rows and at a 16-row microbatch, L2P's K1,
 ProtoCLIP's K3 text prefix, the text tower's causal K=20 and K=64 class
 rows; #3/#4 at the mvp shape and ProtoCLIP's K2), to
-hold them against another tree. ``--root`` is the
+hold them against another tree; ``--prefix`` every #3/#4 row (the mvp
+shape, K2, mvp-clip's 32 rows a ``--mesh 2x1`` rank, ProtoCLIP's suffix K4
+and its main path's shape, the text prompts) without the #1/#2 rows.
+``--root`` is the
 checkout whose ``lifelong_clip_tpu_torch`` is timed (its kernels are built
 there at first use; the cases and timing helpers come from this repo's
 ``chip_smoke.py``), so a parent and a change are compared by running this
@@ -65,6 +68,11 @@ OTHERS = (("vision, LoRA r=4", 64, 197, 768, 12, 4, False, 0),
 PREFIX_OTHERS = (("mvp prefix, 5 of 20 live", 5, 4, (64, 197, 768, 12, 20)),
                  ("ProtoCLIP image, P = 4, 4 live", 4, 21,
                   (64, 197, 768, 12, 4)))
+# every #3/#4 row (--prefix): those, mvp-clip's rank of --mesh 2x1, and
+# (in main) ProtoCLIP's suffix K4 and main shape and the text prompts
+PREFIX_ALL = PREFIX_OTHERS + (
+    ("per rank of 2x1: mvp prefix, 32 rows, 5 of 20 live", 5, 29,
+     (32, 197, 768, 12, 20)),)
 KEEP = ("label", "fwd_ms", "fwd_device_ms", "fwd_library_ms",
         "fwd_library_device_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms",
         "bwd_device_ms", "bwd_library_ms", "bwd_library_device_ms",
@@ -84,6 +92,8 @@ def main():
                     help="also run the ER and Finetuning learning gates")
     ap.add_argument("--others", action="store_true",
                     help="also time the rows that share the kernels")
+    ap.add_argument("--prefix", action="store_true",
+                    help="time every #3/#4 row and no #1/#2 row")
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args()
     import torch
@@ -107,7 +117,24 @@ def main():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     cases, gates = [], {}
     with contextlib.redirect_stdout(io.StringIO()):
-        for rows, wg, seed in CASES:
+        if args.prefix:
+            for label, live, seed, shape in PREFIX_ALL:
+                res = cs.prefix_kernel_case(label, live, False, seed,
+                                            shape=shape)
+                cases.append({k: res.get(k) for k in KEEP})
+                torch.cuda.synchronize()
+            from lifelong_clip_tpu_torch.models.proto_clip import \
+                suffix_mask
+            more = [cs.prefix_kernel_case(
+                "ProtoCLIP suffix, C x S = 64 x 8, lp = 25", 25, False, 23,
+                shape=(64, 512, 512, 8, 25), shared=True,
+                mask=suffix_mask(64, 8, 25, device="cuda"))]
+            more += [r for r in cs.proto_main_suffix_cases()
+                     if "fwd_ms" in r]
+            more.append(cs.text_prompt_prefix_case())
+            cases += [{k: r.get(k) for k in KEEP} for r in more]
+            torch.cuda.synchronize()
+        for rows, wg, seed in () if args.prefix else CASES:
             label = f"{rows} x 197 x 768, r = 0" + (
                 ", weight_grads" if wg else "")
             res = cs.kernel_case(label, rows, 197, 768, 12, 0, False, wg,
