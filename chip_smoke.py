@@ -77,7 +77,8 @@
    tasks, LoRA on both towers, every class visible, the default
    ``--transforms``, the batch prefetcher: 24 fused block forwards and
    backwards a step), lora-clip on ViT-L/14 (random weights; kernels #1/#2
-   past 256 keys; no augmentation), mvp-clip (online_iter 3, --use_mask
+   past 256 keys, their attention on the long warpgroup-MMA road; no
+   augmentation), mvp-clip (online_iter 3, --use_mask
    --use_contrastiv) and MaPLe (online_iter 3, AdamW, lr 5e-4,
    ``scripts/maple.sh``) with the default ``--transforms``; the kernels'
    launch counters must grow in every pass (MaPLe train: 12 vision and 12
@@ -114,9 +115,9 @@
    (``vit_base_patch16_224``, bs 64, online_iter 3, Adam 5e-3; mvp with
    mask, contrastive, AFS and GSF) and ProtoCLIP
    (``adapter-clip-proto_prompt``, ViT-B/16, bs 64, online_iter 3) over two
-   tasks: its stage 1, task-end sweeps, drift, CoPL advance, stage 2 and
-   the cached eval; every train step's launches exactly as
-   ``STEP_LAUNCHES``. Then the ER family through ``main``: er,
+   tasks: its stage 1, task-end sweeps, drift, CoPL advance, stage 2 (one
+   epoch of its five) and the cached eval; every train step's launches
+   exactly as ``STEP_LAUNCHES``. Then the ER family through ``main``: er,
    Finetuning, lwf and ewc++ as ``scripts/er.sh`` sets them (ViT-B/16, bs
    16 = 8 stream + 8 memory samples, memory 500, AdamW 3e-4, CutMix and
    AutoAugment, 5 tasks), clib as ``scripts/clib.sh synthetic-20`` sets it,
@@ -201,7 +202,9 @@
    its last vision block scaled): the sign flip must read at least five
    times the multiple, half the rows halved must fail the check.
 
-Any failure raises and exits non-zero. The line before the last is the
+Any failure raises and exits non-zero. Two lines before the last, the
+script's wall seconds, each phase's (``phase_wall_s``, by ``clocked``) and
+each kernel case's. The line before the last is the
 ``kernels`` JSON object (six kernels; each one's launches summed over
 every main path of 5 and the sound steps of 9 and 10; the whole runs of 11
 add none); the last line is
@@ -210,6 +213,7 @@ add none); the last line is
 
 import contextlib
 import datetime
+import functools
 import json
 import math
 import os
@@ -240,6 +244,35 @@ AUG_RANGE = "augmentation"           # torch.profiler range of the pipeline
 
 def log(msg):
     print(msg, flush=True)
+
+
+# where the script's wall time goes: each clocked phase's seconds summed
+# over its outermost calls, and each kernel case's by its label
+PHASE_WALL_S = {}
+CASE_WALL_S = {}
+_CLOCK_DEPTH = [0]
+
+
+def clocked(fn):
+    """Add the wall seconds of each outermost call of ``fn`` to
+    ``PHASE_WALL_S`` under its name and, for a ``*_case`` function, to
+    ``CASE_WALL_S`` under the label it is called with."""
+    @functools.wraps(fn)
+    def run(*a, **k):
+        _CLOCK_DEPTH[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            _CLOCK_DEPTH[0] -= 1
+            if not _CLOCK_DEPTH[0]:
+                dt = time.perf_counter() - t0
+                name = fn.__name__
+                PHASE_WALL_S[name] = PHASE_WALL_S.get(name, 0.0) + dt
+                if name.endswith("_case"):
+                    label = k.get("label", a[0] if a else name)
+                    CASE_WALL_S[label] = CASE_WALL_S.get(label, 0.0) + dt
+    return run
 
 
 def card_line():
@@ -561,11 +594,31 @@ def attention_cost(b, t, d, heads, backward, pairs=None, keys=None):
     return flops, rows * b * d * 2
 
 
+# The launch counters of #1/#2's warpgroup-MMA attention, forward and
+# backward, by road (``fba.attention_road``)
+WGMMA_ROAD_KEYS = {"wgmma": ("attn_fwd_wgmma", "attn_bwd_wgmma"),
+                   "wgmma_long": ("attn_fwd_wgmma_long",
+                                  "attn_bwd_wgmma_long")}
+WGMMA_ROAD_KERNELS = {"wgmma": ("attn_fwd_wgmma_kernel",
+                                "attn_bwd_wgmma_kernel"),
+                      "wgmma_long": ("attn_fwd_wgmma_long_kernel",
+                                     "attn_bwd_wgmma_long_kernel")}
+
+
 def wgmma_road(fba, t, d, heads, mask):
-    """Whether #1/#2 take the warpgroup-MMA attention kernels (no mask, head
-    dim 64, up to 256 keys); False for a tree that has none."""
-    return (hasattr(fba, "WGMMA_DH") and mask is None
-            and d // heads == fba.WGMMA_DH and t <= fba.WGMMA_TMAX)
+    """The warpgroup-MMA attention road #1/#2 take: "wgmma" (no mask, head
+    dim 64, up to 256 keys), "wgmma_long" (the same past 256 keys up to
+    ``fba.WGMMA_LONG_TMAX``) or None (the mma.sync kernels; a tree that has
+    neither road)."""
+    if hasattr(fba, "attention_road"):
+        road = fba.attention_road(t, d // heads,
+                                  None if mask is None else "matrix")
+        return None if road == "mma_sync" else road
+    # a tree from before the long road: the parent that
+    # tools/torch_small_rows_time.py times with this script's cases
+    short = (hasattr(fba, "WGMMA_DH") and mask is None
+             and d // heads == fba.WGMMA_DH and t <= fba.WGMMA_TMAX)
+    return "wgmma" if short else None
 
 
 def prefix_wgmma_road(fba, p, t, d, heads, mask):
@@ -579,22 +632,42 @@ def prefix_wgmma_road(fba, p, t, d, heads, mask):
     return fba.prefix_wgmma_road(p, t, d // heads, kind)
 
 
-def assert_wgmma_road(label, res):
-    """#1's and #2's attention on the warpgroup-MMA road: one launch of
-    attn_fwd_wgmma_kernel in the forward chain, one of attn_bwd_wgmma_kernel
-    in the backward chain, and none of the mma.sync kernels, by the kernels
-    the profiler saw in each chain."""
-    fwd = [nm for nm, _ in res.get("forward_chain_split") or ()]
-    bwd = [nm for nm, _ in res.get("chain_split") or ()]
-    if not fwd or not bwd:
+def assert_wgmma_road(label, res, road, fwd, bwd, tries=3):
+    """#1's and #2's attention on the warpgroup-MMA road ``road``: one
+    launch of its forward kernel (attn_fwd_wgmma_kernel, or
+    attn_fwd_wgmma_long_kernel past 256 keys) in the forward chain, one of
+    its backward kernel in the backward chain, and none of the mma.sync
+    kernels (the register roads' and the tiled roads'), by the kernels the
+    profiler saw in each chain (``fwd`` and ``bwd`` run it again, up to
+    ``tries`` windows in all, where a window saw no chain; past 256 keys a
+    chain never seen fails)."""
+    import torch
+    for _ in range(tries - 1):
+        if res.get("forward_chain_split") and res.get("chain_split"):
+            break
+        log(f"{label}: the chains' kernels not seen by the profiler; "
+            f"another window")
+        with torch.no_grad():
+            res["forward_chain_split"] = (res.get("forward_chain_split")
+                                          or device_sequence(fwd))
+        res["chain_split"] = res.get("chain_split") or device_sequence(bwd)
+    fwd_names = [nm for nm, _ in res.get("forward_chain_split") or ()]
+    bwd_names = [nm for nm, _ in res.get("chain_split") or ()]
+    if not fwd_names or not bwd_names:
+        assert road != "wgmma_long", \
+            f"{label}: the chains' kernels not seen in {tries} windows"
         log(f"{label}: the chains' kernels not seen by the profiler")
         return
-    old = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
-    assert fwd.count("attn_fwd_wgmma_kernel") == 1, (label, fwd)
-    assert bwd.count("attn_bwd_wgmma_kernel") == 1, (label, bwd)
-    assert not any(nm in old for nm in fwd + bwd), (label, fwd, bwd)
+    old = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
+           "attn_fwd_tiled_kernel", "attn_bwd_dq_tiled_kernel")
+    fk, bk = WGMMA_ROAD_KERNELS[road]
+    assert fwd_names.count(fk) == 1, (label, fwd_names)
+    assert bwd_names.count(bk) == 1, (label, bwd_names)
+    assert not any(nm in old for nm in fwd_names + bwd_names), \
+        (label, fwd_names, bwd_names)
 
 
+@clocked
 def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
                 time_it=True, library_parts=False):
     """#1/#2 at one shape: checked against the plain versions, and with
@@ -635,12 +708,14 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
     if hasattr(fba, "WGMMA_DH"):
         # the op's launches of the warpgroup-MMA attention: one a chain on
-        # its road, none off it
-        ran = [fba.LAUNCHES[k] - before[k]
-               for k in ("attn_fwd_wgmma", "attn_bwd_wgmma")]
+        # its road, none on the other road or off both
+        ran = {k: fba.LAUNCHES[k] - before[k]
+               for keys in WGMMA_ROAD_KEYS.values() for k in keys
+               if k in fba.LAUNCHES}
         res["wgmma_road"], res["wgmma_launches"] = road, ran
-        assert all(n > 0 for n in ran) if road else ran == [0, 0], (label,
-                                                                    ran)
+        want = WGMMA_ROAD_KEYS.get(road, ())
+        assert all((n > 0) == (k in want) for k, n in ran.items()), (label,
+                                                                     ran)
     if lora_r or road:
         # no float atomics (the LoRA grads from fixed-order partials; the
         # warpgroup-MMA attention's sums in a fixed order): two runs on the
@@ -684,19 +759,23 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
     # intermediates
     kept = fba._keep_for_backward(fba._cuda_forward(x, *args, keep=True)[1],
                                   weight_grads)
+
+    def fwd():
+        return fba._cuda_forward(x, *args)
+
+    def bwd():
+        return fba._cuda_backward(x, gy, *bargs, saved=kept)
+
     res = time_case(
-        label, res, lambda: fba._cuda_forward(x, *args),
-        lambda: fba.fused_ln_attention_block_reference(x, *args),
-        lambda: fba._cuda_backward(x, gy, *bargs, saved=kept),
+        label, res, fwd,
+        lambda: fba.fused_ln_attention_block_reference(x, *args), bwd,
         lambda: fba.fused_ln_attention_block_reference_bwd(x, gy, *bargs),
         lambda xg, *_: library_block(xg, lb, ll, s, mask, heads), wrt, gy,
         library_parts)
     if road:
-        assert_wgmma_road(label, res)
+        assert_wgmma_road(label, res, road, fwd, bwd)
     if 0 < lora_r <= fba.FOLD_RMAX and d % fba.FOLD_DMULT == 0:
-        assert_lora_folded(label, res, lambda: fba._cuda_forward(x, *args),
-                           lambda: fba._cuda_backward(x, gy, *bargs,
-                                                      saved=kept))
+        assert_lora_folded(label, res, fwd, bwd)
     return res
 
 
@@ -827,6 +906,7 @@ def time_case(label, res, fwd, plain_fwd, bwd, plain_bwd, library, wrt, gy,
     return res
 
 
+@clocked
 def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
                        shape=MVP_SHAPE, shared=False, mask=None):
     """The KV-prefix block at ``shape`` (B, T, D, heads, P; the mvp-clip
@@ -900,18 +980,26 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
         b, t, d, heads, True, pairs=pairs, keys=live + t))[0]
     kept = fba._keep_for_prefix_backward(
         fba._cuda_prefix_forward(x, *args, keep=True)[1], weight_grads)
+
+    def fwd():
+        return fba._cuda_prefix_forward(x, *args)
+
+    def bwd():
+        return fba._cuda_prefix_backward(x, gy, *bargs, saved=kept)
+
     res = time_case(
-        label, res, lambda: fba._cuda_prefix_forward(x, *args),
-        lambda: fba.fused_prefix_attention_block_reference(x, *args),
-        lambda: fba._cuda_prefix_backward(x, gy, *bargs, saved=kept),
+        label, res, fwd,
+        lambda: fba.fused_prefix_attention_block_reference(x, *args), bwd,
         lambda: fba.fused_prefix_attention_block_reference_bwd(x, gy, *bargs),
         lambda *a: library_prefix_block(*a, lb, mask, heads),
         [a.detach().clone().requires_grad_(True) for a in (x, pk, pv)], gy)
     if road:
-        assert_wgmma_road(label, res)
+        # the key-row instances of the short road's kernels
+        assert_wgmma_road(label, res, "wgmma", fwd, bwd)
     return res
 
 
+@clocked
 def text_prompt_prefix_case():
     """#3/#4 at the shape the text prompt path (``text_prompt_phase``)
     gives them without LoRA: K = 100 class rows x 77 tokens, 512 wide, 8
@@ -925,6 +1013,7 @@ def text_prompt_prefix_case():
         mask=causal_mask(77, prefix=TP_SLOTS, device="cuda"))
 
 
+@clocked
 def proto_main_suffix_cases():
     """ProtoCLIP's suffix pass at the shapes its main path (``PROTO_ARGV``:
     synthetic-20, 20 class slots, S = 8, lp = 25) gives #3/#4: stage 1's and
@@ -961,6 +1050,7 @@ def tile_liveness(mask, t, p):
             "dkv_steps_32": [sum(steps), len(steps)]}
 
 
+@clocked
 def tile_map_phase():
     """ProtoCLIP's suffix pass at K4 (64 x 512 x 512) and at its main path's
     shape (64 x 160 x 512), the inputs of the kernel phase's cases: the
@@ -1039,10 +1129,12 @@ def tile_map_phase():
     return out
 
 
+@clocked
 def batch_invariance_phase():
     """The rows of the ER family's small batches (8 and 16 rows, where the
     attention kernels split each (head, batch row) over blocks, and one)
-    against the same rows inside a 64-row batch (unsplit), and the text
+    against the same rows inside a 64-row batch (unsplit), the same for
+    ViT-L/14's vision block (the long warpgroup-MMA road), and the text
     tower's 20 and 64 class rows (causal, LoRA r=4, under the mask's tile
     map) against the same rows inside its 100: ctx, y and dx of the #1/#2
     chains bit for bit (a difference raises); then 1, 8 and 16 rows of
@@ -1052,8 +1144,11 @@ def batch_invariance_phase():
     out = []
     for label, shape, r, causal, parts, seed in (
             ("vision", (64, 197, 768, 12), 0, False, (1, 8, 16), 32),
+            ("ViT-L/14 vision", (64, 257, 1024, 16), 0, False, (1, 8, 16),
+             38),
             ("text, causal, LoRA r=4", (100, 77, 512, 8), 4, True, (20, 64),
              36)):
+        t0 = time.perf_counter()
         b, t, d, heads = shape
         x, blk, lora, gy, mask = kc.make_inputs(b, t, d, heads, r, causal,
                                                 seed)
@@ -1070,6 +1165,7 @@ def batch_invariance_phase():
             assert not differ, \
                 f"{label}, {n} of {b} rows: the batch changed {differ}"
             out.append(res)
+        CASE_WALL_S[f"batch invariance: {label}"] = time.perf_counter() - t0
     # #3/#4's attention at mvp-clip's shape (P = 20, 5 live; the
     # warpgroup-MMA kernels under the key row): ctx16, the tokens' dqkv16
     # and the prefix rows' dkvp16
@@ -1140,6 +1236,7 @@ def library_flash(q, k, v, heads, mask):
     return out.transpose(1, 2).reshape(b, t, d)
 
 
+@clocked
 def flash_kernel_case(label, b, t, s, d, heads, mask, seed):
     """The flash op at one shape: checked through its autograd Function
     against the plain versions, timed beside them and beside SDPA on the
@@ -1192,6 +1289,7 @@ GEMM_SHAPES = (("qkv NN bf16 + bias", 12608, 2304, 768, *_OUT, "bias"),
                ("dh NT fp32", 12608, 768, 2304, "NT", "f32", ""))
 
 
+@clocked
 def gemm_phase():
     """The port's GEMM (``llc_gemm``: wgmma fed by TMA, the tile the
     launcher picks by shape) at ``GEMM_SHAPES`` with their epilogue terms,
@@ -1377,6 +1475,7 @@ LORA_SCRIPT_ARGV = ["--method", "lora-clip", "--model_name", "ViT-B/16",
                     "--visible_classes", "all"]
 
 
+@clocked
 def main_path_phase(record=None):
     """lora-clip on ViT-B/16 through ``main`` with ``scripts/lora_clip.sh``'s
     flags: LoRA on both towers (``--peft_encoder both``), every exposed
@@ -1406,10 +1505,12 @@ def main_path_phase(record=None):
                       "per_pass": per_pass}
 
 
+@clocked
 def vit_l14_main_path_phase():
     """lora-clip on ViT-L/14 (T = 257 tokens, width 1024, 16 heads; random
     weights from the seed) through ``main``: kernels #1 and #2 past 256
-    keys, on their tiled roads."""
+    keys, their vision tower's attention on the long warpgroup-MMA road
+    (the text tower's causal blocks on the masked road)."""
     from lifelong_clip_tpu_torch.methods import adapter_clip
     launches, per_pass, _, wall = run_main_path(
         "lora-clip ViT-L/14", adapter_clip,
@@ -1423,6 +1524,9 @@ def vit_l14_main_path_phase():
     assert tr["fused_ln_attention_fwd"] > 0 and \
         tr["fused_ln_attention_bwd"] > 0 and tr["flash_attention_fwd"] == 0, \
         f"train pass launches {tr}"
+    long_keys = WGMMA_ROAD_KEYS["wgmma_long"]
+    assert all(tr.get(k, 0) > 0 for k in long_keys) and \
+        ev.get(long_keys[0], 0) > 0, f"long road launches {tr} {ev}"
     assert ev["fused_ln_attention_fwd"] > 0, f"eval pass launches {ev}"
     assert tx["fused_ln_attention_fwd"] > 0, f"text pass launches {tx}"
     return launches, {"wall_s": wall, "per_pass": per_pass}
@@ -1434,6 +1538,7 @@ MVP_CLIP_ARGV = ["--method", "mvp-clip", "--model_name", "ViT-B/16",
                  "--eval_period", "640"]
 
 
+@clocked
 def mvp_main_path_phase(record=None):
     """mvp-clip on ViT-B/16 through ``main`` (``scripts/mvp_clip.sh``'s
     method flags, the default ``--transforms``): the prompted pass runs
@@ -1463,6 +1568,7 @@ def mvp_main_path_phase(record=None):
                       "count": torch.stack(counts)[-1].tolist()}
 
 
+@clocked
 def maple_main_path_phase():
     """MaPLe on ViT-B/16 through ``main`` (``scripts/maple.sh``, the
     default ``--transforms``): kernels #1 and #2 in the vision tower (T =
@@ -1496,6 +1602,7 @@ ADAPTER_ARGV = ["--dataset", "synthetic-20", "--n_tasks", "2", "--n", "50",
                 "--peft_encoder", "image", "--visible_classes", "all"]
 
 
+@clocked
 def adapter_main_path_phase(method):
     """adapter-clip or moe-clip on ViT-B/16 through ``main`` with
     ``scripts/adapter_clip.sh``'s flags (image tower, every class visible,
@@ -1586,6 +1693,7 @@ def per_step_launches(method, launches, steps):
             f"{dict(zip(keys, want))}")
 
 
+@clocked
 def vit_prompt_main_path_phase(method):
     """l2p, dualprompt or mvp through ``main`` as ``scripts/{method}.sh``
     sets it for cifar100 (``vit_base_patch16_224``: exact GELU, no ln_pre;
@@ -1634,12 +1742,14 @@ PROTO_ARGV = ["--method", "adapter-clip-proto_prompt", "--model_name",
               "--eval_period", "1000"]
 
 
+@clocked
 def proto_main_path_phase():
     """ProtoCLIP through ``main`` on ViT-B/16 (random weights), two tasks:
     stage 1 (launches exactly as ``STEP_LAUNCHES``), the task-end feature
     sweeps, the drift displacement of task 0's prototypes, the CoPL advance,
-    stage 2 after task 2 (its text passes on #1-#4), and the eval through
-    the 90-combination text cache."""
+    stage 2 after task 2 (its text passes on #1-#4; one epoch in place of
+    ``--ca_epochs``' five), and the eval through the 90-combination text
+    cache."""
     import numpy as np
     from lifelong_clip_tpu_torch.methods import proto_clip
     cls = proto_clip.Trainer_ProtoCLIP
@@ -1649,7 +1759,7 @@ def proto_main_path_phase():
             "ProtoCLIP", cls,
             {"train": "stage1_step", "stage2": "_stage2", "eval": "predict",
              "cache": "prepare_eval", "sweep": "extract_plain"},
-            PROTO_ARGV, lambda st: float(st["loss"]))
+            PROTO_ARGV + ["--ca_epochs", "1"], lambda st: float(st["loss"]))
     finally:
         restore()
     steps = len(outs)
@@ -1885,6 +1995,7 @@ def check_loaded(params, sd, cfg):
     return len(leaves)
 
 
+@clocked
 def write_pretrained(tmp, model="ViT-B/16", device="cuda"):
     """An OpenAI-layout checkpoint of ``model``'s sizes written with
     ``torch.save`` from seed 5 (``openai_state_dict``), read back by
@@ -1921,6 +2032,7 @@ def write_pretrained(tmp, model="ViT-B/16", device="cuda"):
     return path, mb, t1 - t0, t2 - t1
 
 
+@clocked
 def continual_main_path_phase(ckpt):
     """continual-clip through ``main`` as ``scripts/continual_clip.sh`` sets
     it (5 tasks, test_batchsize 128), from the OpenAI-layout checkpoint at
@@ -1950,6 +2062,7 @@ def continual_main_path_phase(ckpt):
                       "zero_shot_fused_fwd": zero_shot}
 
 
+@clocked
 def continual_eval_phase(card, ckpt, bs=128, iters=10, model="ViT-B/16"):
     """continual-clip's eval on the card (``scripts/continual_clip.sh``'s
     test_batchsize 128; ``model`` from the checkpoint at ``ckpt``): the eval
@@ -2047,6 +2160,7 @@ STEP_LAUNCHES.update({"er": (12, 0, 0, 0), "Finetuning": (12, 12, 0, 0),
                       "clib": (12, 0, 0, 0), "rm": (12, 0, 0, 0)})
 
 
+@clocked
 def er_family_main_path_phase(method, record=None):
     """``method`` of the ER family through ``main`` on ViT-B/16 (random
     weights) with ``ER_FAMILY_ARGV``'s flags: every train step's launches
@@ -2102,6 +2216,7 @@ def er_family_main_path_phase(method, record=None):
     return launches, info
 
 
+@clocked
 def rn_continual_main_path_phase(ckpt):
     """continual-clip through ``main`` as ``scripts/continual_clip.sh`` sets
     it, from the OpenAI RN50-layout checkpoint at ``ckpt`` (the ModifiedResNet
@@ -2155,6 +2270,7 @@ ER_GATES = {
              "AdamW lr 5e-3, weight decay 1e-4, AutoAugment)")}
 
 
+@clocked
 def er_family_gate(card, method):
     """The learning gate of ``method``'s train step (``ER_GATES``) on one
     batch of the synthetic set's class-structured images, with the launch
@@ -2303,6 +2419,7 @@ GATE_PEFT = {"lora": "LoRA r=4", "adapter": "adapters of 64",
              "moe": "MoE of 2 adapters of 64, top 2, gate noise"}
 
 
+@clocked
 def learning_gate(card, model="ViT-B/16", method="lora"):
     """The lora-clip, adapter-clip or moe-clip gate (``lora_setup``). The
     launch counters are set to 0 just before the text pass and the gate and
@@ -2370,6 +2487,7 @@ def lora_both_setup(n_cls=100, bs=64):
     return cfg, state, lambda: step(state, batch)["loss"]
 
 
+@clocked
 def lora_both_gate(card):
     """The both-tower gate (``lora_both_setup``), with the launch counters
     set to 0 just before it and read just after: every step runs the fused
@@ -2437,6 +2555,7 @@ def mvp_setup(lr=MVP_GATE_LR, remat=False):
     return state, one_step
 
 
+@clocked
 def mvp_learning_gate(card, lr=MVP_GATE_LR):
     """mvp-clip's gate (``mvp_setup``): 22 steps must lower the loss by more
     than 0.02."""
@@ -2555,6 +2674,7 @@ GATE_MODELS = {
                                  f"lp = 25), AdamW 5e-4, AutoAugment"}
 
 
+@clocked
 def prompt_gate(card, method, device="cuda"):
     """The learning gate of ``method``'s train step (``prompt_trainer``) on
     one batch of 64, with the launch counters set to 0 just before and read
@@ -2615,6 +2735,7 @@ def host_step_ms(run_step, steps=5):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
+@clocked
 def remat_phase(card):
     """The lora-clip and mvp-clip gate steps (``lora_setup``,
     ``mvp_setup``) without remat and with it, each from the same seeds on
@@ -2700,6 +2821,7 @@ def maple_setup(lr=5e-4):
     return state, step, batch
 
 
+@clocked
 def maple_learning_gate(card, lr=5e-4):
     state, step, batch = maple_setup(lr)
     return gate_loop("maple", lambda: step(state, batch)["loss"], 64, card,
@@ -2762,6 +2884,7 @@ def prompted_lora_setup(lr=5e-4, loss="ce_on_probs"):
     return cfg, state, step, batch, forward
 
 
+@clocked
 def prompted_lora_phase(steps=3):
     """The flash kernels' path: ``steps`` prompted-LoRA train steps and one
     eval forward, with the launch counters set to 0 just before and read
@@ -2804,6 +2927,7 @@ def prompted_lora_phase(steps=3):
                       "per_step": per_step}
 
 
+@clocked
 def prompted_lora_gate(card):
     """22 prompted-LoRA steps on one batch, with plain cross entropy as the
     lora-clip gate has it: CE on softmaxed probabilities keeps the loss
@@ -2890,6 +3014,7 @@ def text_prompt_setup(tower, lora_r, impl, bf16):
     return trainable, step, forward
 
 
+@clocked
 def text_prompt_phase(card):
     """Each of ``TP_VARIANTS`` trained WHOLE_RUN_STEPS steps
     (``text_prompt_setup``) on each road of ``TP_ROADS`` from the same
@@ -3028,6 +3153,7 @@ AUG_EXACT = ("Invert", "Posterize", "Solarize", "Equalize", "Identity",
              "TranslateX", "TranslateY")
 
 
+@clocked
 def augmentation_phase(card, bs=64):
     """The train pipeline alone (AutoAugment, resize + pad + crop, flip,
     normalize; bf16 out as the step) at bs 64 on uint8 images, timed with
@@ -3116,6 +3242,7 @@ def same_tree(a, b):
     return a == b
 
 
+@clocked
 def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV, owner=None,
                      attr="make_train_step"):
     """Checkpoint/resume on the card through ``main``, by default with
@@ -3621,6 +3748,7 @@ def mesh_checks(res, witness, launched):
     return checks
 
 
+@clocked
 def mesh_phase(card, device="cuda:0", mesh_cases=None):
     """Data parallelism (lora-clip, mvp-clip, Finetuning: 3 steps under
     --mesh 2x1), tensor parallelism (lora-clip) and expert parallelism
@@ -3777,8 +3905,8 @@ PP_LR = 5e-4            # bench.py's AdamW
 PP_TIMED = 2            # timed steps after the checked one
 PP_FAULT = "permute backward dropped"
 # (label, model, compute dtype, planted fault), each under --mesh 1x2: two
-# stages of 6 layers on ViT-B/16, of 12 on ViT-L/14 (T = 257, the tiled
-# road), as JAX's pipeline docstring names it
+# stages of 6 layers on ViT-B/16, of 12 on ViT-L/14 (T = 257, the long
+# warpgroup-MMA road), as JAX's pipeline docstring names it
 PP_CASES = (("ViT-B/16 fp32", "ViT-B/16", "fp32", None),
             ("ViT-B/16 bf16", "ViT-B/16", "bf16", None),
             ("ViT-L/14 bf16", "ViT-L/14", "bf16", None),
@@ -4044,6 +4172,7 @@ def pp_checks(res, witness, launched):
     return checks
 
 
+@clocked
 def pipeline_phase(card, device="cuda:0", cases=None):
     """Pipeline parallelism (``parallel/pipeline.py``): lora-clip's step
     (``pp_setup``) with its vision tower in two stages, two ranks in a
@@ -4297,6 +4426,7 @@ def ratios(dist, lib):
     return {k: dist[k] / lib[k] if lib[k] > 0 else math.inf for k in dist}
 
 
+@clocked
 def whole_run_phase(card, kernel_runs=None):
     """Each path of ``WHOLE_RUN_PATHS`` run three times through ``main``
     with the same seed and augmentation draws: the kernel road (bf16; the
@@ -4450,7 +4580,8 @@ def main():
     t0 = t_start = time.perf_counter()
     path = _kernels.build()
     _kernels.library()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s: "
+    PHASE_WALL_S["build"] = time.perf_counter() - t0
+    log(f"kernels built in {PHASE_WALL_S['build']:.1f} s: "
         f"{os.path.relpath(path, REPO)} (register report beside it)")
     annotate_augmentation()
 
@@ -4477,7 +4608,8 @@ def main():
                              False, False, 18))
     cases.append(kernel_case("vision weight_grads", 64, 197, 768, 12, 4,
                              False, True, 3, time_it=False))
-    # past 256 keys (the tiled roads): ViT-L/14's vision block, T = 512
+    # past 256 keys: ViT-L/14's vision block (the long warpgroup-MMA
+    # road), T = 512 (past its 384 keys: the mma.sync tiled roads)
     cases.append(kernel_case("ViT-L/14 vision", 64, 257, 1024, 16, 4, False,
                              False, 12))
     cases.append(kernel_case("T = 512 weight_grads", 8, 512, 768, 12, 4,
@@ -4513,7 +4645,7 @@ def main():
     cases.append(kernel_case("one row, no LoRA", 1, 197, 768, 12, 0, False,
                              False, 34))
     # the pipeline phase's microbatch of 16 rows on each stage (LoRA r=4):
-    # ViT-B/16 and ViT-L/14 (T = 257, the tiled road)
+    # ViT-B/16 and ViT-L/14 (T = 257, the long warpgroup-MMA road)
     cases.append(kernel_case("pipeline microbatch: ViT-B/16, 16 rows", 16,
                              197, 768, 12, 4, False, False, 30))
     cases.append(kernel_case("pipeline microbatch: ViT-L/14, 16 rows", 16,
@@ -4641,10 +4773,10 @@ def main():
                                 owner=vpm._PromptPoolTrainer,
                                 attr="train_step")
     torch.cuda.synchronize()
-    # two stage-2 epochs in place of five: the three runs' stage 2 is most
-    # of this phase's time, and the resume it checks is the same
+    # one stage-2 epoch in place of five: the runs' stage 2 is most of
+    # this phase's time, and the resume it checks is the same
     proto_ckpt = checkpoint_phase("ProtoCLIP", PROTO_ARGV + ["--ca_epochs",
-                                                             "2"],
+                                                             "1"],
                                   owner=proto_clip.Trainer_ProtoCLIP,
                                   attr="stage1_step")
     torch.cuda.synchronize()
@@ -4719,23 +4851,26 @@ def main():
     # #1's and #2's attention on the road with no mask at head dim 64 (every
     # ViT tower's blocks): the warpgroup-MMA kernels, one launch a chain
     # there, on each of these main paths (er's tower is frozen: forward only)
+    # (and past 256 keys, ViT-L/14's vision tower: the long kernels)
     wg_src = "lifelong_clip_tpu_torch/csrc/attn_wgmma.cu"
-    for k, key, kern in ((kernels[0], "attn_fwd_wgmma", "attn_fwd_wgmma_kernel"),
-                         (kernels[1], "attn_bwd_wgmma", "attn_bwd_wgmma_kernel")):
-        k["attention_kernel"] = {"name": kern, "source": wg_src,
-                                 "launches": runs[key]}
-    wg_paths = {"lora-clip": (launches, True),
-                "adapter-clip": (adapter_launches, True),
-                "er": (er_runs["er"][0], False),
-                "Finetuning": (er_runs["Finetuning"][0], True),
-                "l2p": (prompt_runs["l2p"][0], True)}
-    wg_counts = {p: [got["attn_fwd_wgmma"], got["attn_bwd_wgmma"]]
-                 for p, (got, _) in wg_paths.items()}
+    for i, k in enumerate(kernels[:2]):
+        for entry, road in (("attention_kernel", "wgmma"),
+                            ("attention_kernel_long", "wgmma_long")):
+            k[entry] = {"name": WGMMA_ROAD_KERNELS[road][i], "source": wg_src,
+                        "launches": runs[WGMMA_ROAD_KEYS[road][i]]}
+    wg_paths = {"lora-clip": (launches, True, "wgmma"),
+                "lora-clip ViT-L/14": (l14_launches, True, "wgmma_long"),
+                "adapter-clip": (adapter_launches, True, "wgmma"),
+                "er": (er_runs["er"][0], False, "wgmma"),
+                "Finetuning": (er_runs["Finetuning"][0], True, "wgmma"),
+                "l2p": (prompt_runs["l2p"][0], True, "wgmma")}
+    wg_counts = {p: [got[k] for k in WGMMA_ROAD_KEYS[road]]
+                 for p, (got, _, road) in wg_paths.items()}
     log(json.dumps({"wgmma_attention_launches_by_path": wg_counts,
                     "card": card}))
     assert all(n[0] > 0 and (n[1] > 0 or not trains)
-               for (n, (_, trains)) in zip(wg_counts.values(),
-                                           wg_paths.values())), wg_counts
+               for (n, (_, trains, _)) in zip(wg_counts.values(),
+                                              wg_paths.values())), wg_counts
     # #3's and #4's attention under a key-mask row at head dim 64 (the
     # prompted passes): the warpgroup-MMA kernels' prefix instances, one
     # launch a chain there, forward and backward on each of these paths
@@ -4808,9 +4943,12 @@ def main():
     log(json.dumps({"batch_invariance": invariance, "card": card}))
     log(json.dumps({"gemm": gemms, "card": card}))
     log(json.dumps(whole_run))
-    log(json.dumps({"chip_smoke_wall_s": time.perf_counter() - t_start,
+    wall = time.perf_counter() - t_start
+    log(json.dumps({"chip_smoke_wall_s": wall,
                     "whole_run_phase_wall_s": whole_run["wall_s"],
-                    "card": card}))
+                    "phase_wall_s": PHASE_WALL_S,
+                    "outside_the_phases_s": wall - sum(PHASE_WALL_S.values()),
+                    "case_wall_s": CASE_WALL_S, "card": card}))
     log(json.dumps({"kernels": kernels, "card": card}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

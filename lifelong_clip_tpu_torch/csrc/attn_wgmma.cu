@@ -1,11 +1,12 @@
 // Hand-written Hopper (sm_90a) attention of the fused LN-attention block
 // (#1 and #2, fused_block_attn.cu) on its road with no mask at head dim 64
 // and up to 256 keys: the vision tower of every ViT the registry builds
-// (ViT-B/16's 197 tokens, L2P's 222), at every batch size the methods run;
-// and of the KV-prefix block (#3 and #4) under a key-mask row at head dim
-// 64 and up to 256 keys S = P + T: the prompted passes of mvp-clip,
-// DualPrompt and MVP (P = 20, S = 217) and ProtoCLIP's CoPL image pass (P =
-// 4, S = 201).
+// (ViT-B/16's 197 tokens, L2P's 222), at every batch size the methods run,
+// and past 256 keys up to ATTN_WGMMA_LONG_TMAX (ViT-L/14's 257: the long
+// kernels below); and of the KV-prefix block (#3 and #4) under a key-mask
+// row at head dim 64 and up to 256 keys S = P + T: the prompted passes of
+// mvp-clip, DualPrompt and MVP (P = 20, S = 217) and ProtoCLIP's CoPL image
+// pass (P = 4, S = 201).
 //
 // Replaces, on those roads, the attention of the TPU kernels of
 // lifelong_clip_tpu/ops/fused_block_attn.py:
@@ -17,7 +18,10 @@
 //     pallas_call :631) and _prefix_bwd_kernel:766 (pallas_call :897)
 // which the port had run on mma.sync (attn_fwd_kernel, attn_bwd_dq_kernel,
 // attn_bwd_dkv_kernel in fused_block_attn.cu; a 2-D mask, a KV prefix with
-// no mask, head dims 16 and 32 and rows past 256 keys keep those).
+// no mask, head dims 16 and 32, a prefix past 256 keys and rows with no
+// mask past ATTN_WGMMA_LONG_TMAX keep those; the long kernels replace
+// attn_fwd_tiled_kernel, attn_bwd_dq_tiled_kernel and attn_bwd_dkv_kernel
+// on their rows).
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): bytes. At ViT-B/16's
 // vision shape (64 x 197 x 768, 12 heads) the forward reads qkv16 and
@@ -117,7 +121,8 @@ __host__ __device__ constexpr int wa_win(int T) {
 __host__ __device__ constexpr int wa_tiles(int win) { return (2 * win + 63) / 64; }
 
 // s (64 x WIN, fp32) += A (64 x 64) . B^T (B: WIN rows of 64), both
-// K-major 128B-swizzled tiles in shared memory.
+// K-major 128B-swizzled tiles in shared memory (WIN 16, 32 or 48: the last
+// key tile's live chunks past 256 keys).
 template <int WIN>
 __device__ __forceinline__ void wa_scores(float (&s)[WIN / 2],
                                           const unsigned char* A,
@@ -128,6 +133,9 @@ __device__ __forceinline__ void wa_scores(float (&s)[WIN / 2],
     const uint64_t db = wg_desc(B + kk * 32, 16, 1024);
     if constexpr (WIN == 128) wgmma_m64n128k16<0, 0>(s, da, db);
     else if constexpr (WIN == 112) wgmma_m64n112k16<0, 0>(s, da, db);
+    else if constexpr (WIN == 48) wgmma_m64n48k16<0, 0>(s, da, db);
+    else if constexpr (WIN == 32) wgmma_m64n32k16<0, 0>(s, da, db);
+    else if constexpr (WIN == 16) wgmma_m64n16k16<0, 0>(s, da, db);
     else wgmma_m64n64k16<0, 0>(s, da, db);
   }
 }
@@ -742,6 +750,445 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Past 256 keys with no mask at head dim 64 (attn_wgmma_long_road, up to
+// ATTN_WGMMA_LONG_TMAX keys: ViT-L/14's 257 tokens, at the train step's 64
+// rows and the pipeline stage's 16-row microbatch). The half-row windows
+// above stop at 128 keys a half (a 257th key needs 144-key windows: more
+// registers than the backward has, and another order of sums), so these
+// kernels keep the order of the mma.sync tiled road they replace there
+// (attn_fwd_tiled_kernel, attn_bwd_dq_tiled_kernel, attn_bwd_dkv_kernel in
+// fused_block_attn.cu, which stream K and V from device memory twice a
+// kernel and read Q, K, V and dctx again in the dk/dv kernel). A 64-query
+// wgmma tile of 128 threads has that road's geometry, 4 warps x 16 rows,
+// and the m64nN accumulator gives each thread the m16n8k16 fragments, so
+// the sums run as that road's, tile by tile:
+//   * Forward (attn_fwd_wgmma_long_kernel): a block of two warpgroups, a
+//     64-query tile each, holds the (batch row, head)'s K and V whole (by
+//     TMA, once). Pass 1 over the 64-key tiles in order: the running row
+//     max and the row sum brought to each new max (l *= exp2(m - m_new));
+//     pass 2 recomputes the scores, p = exp2(s - m) (1 / l) in fp32, rounded
+//     once to bf16, and o += p16 v tile by tile (p the register A operand).
+//   * Backward (attn_bwd_wgmma_long_kernel): a block of two warpgroups a
+//     (head, batch row) holds Q, K, V and dctx whole. Phase 1: the query
+//     tiles go to the warpgroups in turn; each runs over every key tile in
+//     attn_bwd_dq_tiled_kernel's order (the row max, l and t = sum(dp e)
+//     brought to each new max, delta = t / l; then ds16 = bf16(p (dp -
+//     delta)) and dq += ds16 k tile by tile) and leaves each query's (max,
+//     1 / l, delta) in shared memory, announced on the tile's barrier.
+//     Phase 2: the key tiles (the warpgroup with fewer query tiles first),
+//     each over the queries in attn_bwd_dkv_kernel's order (wa_kv_step),
+//     a query tile's statistics awaited on its barrier, so one warpgroup's
+//     phase 2 overlaps the other's last query tile. No atomics.
+//   * The last key tile: its live 16-key chunks only (LASTN keys: an
+//     m64nLASTN product for the scores, LASTN / 16 k16 steps of p v and ds
+//     k), as the tiled road skips the chunks at or past S - k0.
+// Bound on an H100 SXM: bytes. At ViT-L/14's shape (64 x 257 x 1024, 16
+// heads) the forward reads qkv16 and writes ctx16 (135 MB, 0.0402 ms) for
+// 4.3 GFLOP; the backward reads qkv16 and dctx16 and writes dqkv16 (236 MB,
+// 0.0704 ms) for 10.8 GFLOP (chip_smoke.attention_cost).
+// ---------------------------------------------------------------------------
+constexpr int WL_FWD_THREADS = 256;   // two warpgroups, a query tile each
+
+// The live keys of the last 64-key tile, rounded up to 16: the width of its
+// products (16, 32, 48 or 64).
+__host__ __device__ constexpr int wl_lastn(int T) {
+  return (T - (T - 1) / WA_TILE * WA_TILE + 15) / 16 * 16;
+}
+
+// s (64 x N) = scale log2(e) q k^T for N keys of the 64-key tile at k0
+// (fmaf(s, sl2, 0): the tiled road's with no mask); in the last tile
+// (EDGE) -inf past the S keys, which no other tile holds.
+template <int N, bool EDGE>
+__device__ __forceinline__ void wl_scale(float (&s)[N / 2], int k0, int S,
+                                         float sl2, int t4) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + 8 * j + 2 * t4 + (e & 1);
+      s[4 * j + e] = !EDGE || k < S ? fmaf(s[4 * j + e], sl2, 0.f)
+                                    : -INFINITY;
+    }
+}
+
+template <int N, bool EDGE>
+__device__ __forceinline__ void wl_scores(float (&s)[N / 2],
+                                          const unsigned char* Qt,
+                                          const unsigned char* Kt, int k0,
+                                          int S, float sl2, int t4) {
+  wa_zero(s);
+  wg_reg_fence(s);
+  wa_fence();
+  wa_scores<N>(s, Qt, Kt);
+  wa_commit_wait();
+  wg_reg_fence(s);
+  wl_scale<N, EDGE>(s, k0, S, sl2, t4);
+}
+
+// The forward's pass 1 over N keys of a tile: the row max m and the row sum
+// l (this thread's columns) brought to the new max, as attn_fwd_tiled's
+// (every row has key 0, so the new max is finite and l *= exp2(-inf) = 0
+// at the first tile).
+template <int N, bool EDGE>
+__device__ __forceinline__ void wl_fwd_stats(float (&m)[2], float (&l)[2],
+                                             const unsigned char* Qt,
+                                             const unsigned char* Kt, int k0,
+                                             int S, float sl2, int t4) {
+  float s[N / 2];
+  wl_scores<N, EDGE>(s, Qt, Kt, k0, S, sl2, t4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float cm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      cm = fmaxf(cm, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    const float mn = fmaxf(m[h], quad_max(cm));
+    l[h] *= exp2f(m[h] - mn);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      l[h] += exp2f(s[4 * j + 2 * h] - mn) + exp2f(s[4 * j + 2 * h + 1] - mn);
+    m[h] = mn;
+  }
+}
+
+// The forward's pass 2 over N keys of a tile: p = exp2(s - m) (1 / l) in
+// fp32, rounded to bf16 as the A fragments, o += p16 v.
+template <int N, bool EDGE>
+__device__ __forceinline__ void wl_fwd_pv(float (&o)[32], const float (&m)[2],
+                                          const float (&il)[2],
+                                          const unsigned char* Qt,
+                                          const unsigned char* Kt,
+                                          const unsigned char* Vt, int k0,
+                                          int S, float sl2, int t4) {
+  float s[N / 2];
+  wl_scores<N, EDGE>(s, Qt, Kt, k0, S, sl2, t4);
+  unsigned p[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = 8 * kk + 2 * x, h = x & 1;
+      p[kk][x] = pack_bf16(exp2f(s[i] - m[h]) * il[h],
+                           exp2f(s[i + 1] - m[h]) * il[h]);
+    }
+  wg_reg_fence(o);
+  wg_reg_fence_a(p);
+  wa_fence();
+  wa_rs<N / 16>(o, p, Vt);
+  wa_commit_wait();
+  wg_reg_fence(o);
+}
+
+template <int LASTN>
+__global__ void __launch_bounds__(WL_FWD_THREADS, 2)
+attn_fwd_wgmma_long_kernel(const __grid_constant__ CUtensorMap tm_qkv,
+                           bf16* __restrict__ ctx, int T, int D, float scale) {
+  extern __shared__ __align__(1024) unsigned char wa_smem[];
+  const int nt = (T + WA_TILE - 1) / WA_TILE;      // key (and query) tiles
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int hd = blockIdx.y, b = blockIdx.z, col = hd * WA_DH;
+  const int q0 = 2 * blockIdx.x, nqb = min(2, nt - q0);   // its query tiles
+  unsigned char* Qs = wa_base(wa_smem);            // 2 tiles
+  unsigned char* Ks = Qs + 2 * WA_BOX;
+  unsigned char* Vs = Ks + nt * WA_BOX;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Vs + nt * WA_BOX);   // Q + K, V
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, (nqb + nt) * WA_BOX);
+    for (int i = 0; i < nqb; ++i)
+      tma_load3(Qs + i * WA_BOX, &tm_qkv, bar, col, (q0 + i) * WA_TILE, b);
+    for (int t = 0; t < nt; ++t)
+      tma_load3(Ks + t * WA_BOX, &tm_qkv, bar, D + col, t * WA_TILE, b);
+    mbar_expect_tx(bar + 1, nt * WA_BOX);
+    for (int t = 0; t < nt; ++t)
+      tma_load3(Vs + t * WA_BOX, &tm_qkv, bar + 1, 2 * D + col, t * WA_TILE,
+                b);
+  }
+  __syncthreads();
+  if (wg >= nqb) return;   // the last block of an odd count: one tile
+  const int qt = q0 + wg;
+  const unsigned char* Qt = Qs + wg * WA_BOX;
+  const float sl2 = scale * LOG2E;
+  const int kl = (nt - 1) * WA_TILE;               // the last key tile
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  wa_wait(bar);
+  for (int kt = 0; kt + 1 < nt; ++kt)
+    wl_fwd_stats<64, false>(m, l, Qt, Ks + kt * WA_BOX, kt * WA_TILE, T, sl2,
+                            t4);
+  wl_fwd_stats<LASTN, true>(m, l, Qt, Ks + kl * 128, kl, T, sl2, t4);
+  float il[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) il[h] = 1.f / quad_sum(l[h]);
+  float o[32];
+  wa_zero(o);
+  wa_wait(bar + 1);
+  for (int kt = 0; kt + 1 < nt; ++kt)
+    wl_fwd_pv<64, false>(o, m, il, Qt, Ks + kt * WA_BOX, Vs + kt * WA_BOX,
+                         kt * WA_TILE, T, sl2, t4);
+  wl_fwd_pv<LASTN, true>(o, m, il, Qt, Ks + kl * 128, Vs + kl * 128, kl, T,
+                         sl2, t4);
+  float v[32];
+  wg_read(v, o);
+  const int ia = qt * WA_TILE + 16 * warp + g, ib = ia + 8;
+#pragma unroll
+  for (int j = 0; j < WA_DH / 8; ++j) {
+    const int c = col + 8 * j + 2 * t4;
+    if (ia < T)
+      *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ia) * D + c) =
+          pack_bf16(v[4 * j], v[4 * j + 1]);
+    if (ib < T)
+      *reinterpret_cast<unsigned*>(ctx + ((size_t)b * T + ib) * D + c) =
+          pack_bf16(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// s = q k^T (scaled as wl_scale) and dp = dctx v^T for N keys of a tile.
+template <int N, bool EDGE>
+__device__ __forceinline__ void wl_products(float (&s)[N / 2],
+                                            float (&dp)[N / 2],
+                                            const unsigned char* Qt,
+                                            const unsigned char* Gt,
+                                            const unsigned char* Kt,
+                                            const unsigned char* Vt, int k0,
+                                            int S, float sl2, int t4) {
+  wa_zero(s);
+  wa_zero(dp);
+  wg_reg_fence(s);
+  wg_reg_fence(dp);
+  wa_fence();
+  wa_scores<N>(s, Qt, Kt);
+  wa_scores<N>(dp, Gt, Vt);
+  wa_commit_wait();
+  wg_reg_fence(s);
+  wg_reg_fence(dp);
+  wl_scale<N, EDGE>(s, k0, S, sl2, t4);
+}
+
+// The backward's phase 1, pass 1 over N keys of a tile: the row max m, l
+// and t = sum(dp e) brought to the new max, as attn_bwd_dq_tiled's.
+template <int N, bool EDGE>
+__device__ __forceinline__ void wl_bwd_stats(float (&m)[2], float (&l)[2],
+                                             float (&t)[2],
+                                             const unsigned char* Qt,
+                                             const unsigned char* Gt,
+                                             const unsigned char* Kt,
+                                             const unsigned char* Vt, int k0,
+                                             int S, float sl2, int t4) {
+  float s[N / 2], dp[N / 2];
+  wl_products<N, EDGE>(s, dp, Qt, Gt, Kt, Vt, k0, S, sl2, t4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float cm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      cm = fmaxf(cm, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    const float mn = fmaxf(m[h], quad_max(cm));
+    const float f = exp2f(m[h] - mn);   // 0 at the first tile
+    l[h] *= f;
+    t[h] *= f;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ev = exp2f(s[4 * j + 2 * h + e] - mn);
+        l[h] += ev;
+        t[h] = fmaf(dp[4 * j + 2 * h + e], ev, t[h]);
+      }
+    m[h] = mn;
+  }
+}
+
+// The backward's phase 1, pass 2 over N keys of a tile: ds16 = bf16(p (dp -
+// delta)), p = exp2(s - m) (1 / l) in fp32, as the A fragments of dq +=
+// ds16 k.
+template <int N, bool EDGE>
+__device__ __forceinline__ void wl_bwd_dq(float (&dq)[32], const float (&m)[2],
+                                          const float (&il)[2],
+                                          const float (&dl)[2],
+                                          const unsigned char* Qt,
+                                          const unsigned char* Gt,
+                                          const unsigned char* Kt,
+                                          const unsigned char* Vt, int k0,
+                                          int S, float sl2, int t4) {
+  float s[N / 2], dp[N / 2];
+  wl_products<N, EDGE>(s, dp, Qt, Gt, Kt, Vt, k0, S, sl2, t4);
+  unsigned ds[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = 8 * kk + 2 * x, h = x & 1;
+      const float p0 = exp2f(s[i] - m[h]) * il[h] * (dp[i] - dl[h]);
+      const float p1 = exp2f(s[i + 1] - m[h]) * il[h] * (dp[i + 1] - dl[h]);
+      ds[kk][x] = pack_bf16(p0, p1);
+    }
+  wg_reg_fence(dq);
+  wg_reg_fence_a(ds);
+  wa_fence();
+  wa_rs<N / 16>(dq, ds, Kt);
+  wa_commit_wait();
+  wg_reg_fence(dq);
+}
+
+template <int LASTN>
+__global__ void __launch_bounds__(WA_BWD_THREADS, 1)
+attn_bwd_wgmma_long_kernel(const __grid_constant__ CUtensorMap tm_qkv,
+                           const __grid_constant__ CUtensorMap tm_g,
+                           bf16* __restrict__ dqkv16,
+                           float* __restrict__ qpart,
+                           float* __restrict__ kvpart, int T, int D,
+                           float scale) {
+  extern __shared__ __align__(1024) unsigned char wa_smem[];
+  const int nt = (T + WA_TILE - 1) / WA_TILE;      // query (and key) tiles
+  unsigned char* Qs = wa_base(wa_smem);
+  unsigned char* Ks = Qs + nt * WA_BOX;
+  unsigned char* Vs = Ks + nt * WA_BOX;
+  unsigned char* Gs = Vs + nt * WA_BOX;            // dctx
+  float4* st = reinterpret_cast<float4*>(Gs + nt * WA_BOX);   // per query
+  // bar[0]: K and V; bar[1 + i]: query tile i's Q and dctx; bar[1 + nt +
+  // i]: its statistics, arrived at by the 128 threads of its warpgroup
+  uint64_t* bar = reinterpret_cast<uint64_t*>(st + nt * WA_TILE);
+  const int hd = blockIdx.x, b = blockIdx.y, col = hd * WA_DH;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  if (tid == 0) {
+    for (int i = 0; i <= nt; ++i) mbar_init(bar + i, 1);
+    for (int i = 0; i < nt; ++i) mbar_init(bar + 1 + nt + i, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, 2 * nt * WA_BOX);
+    for (int t = 0; t < nt; ++t) {
+      tma_load3(Ks + t * WA_BOX, &tm_qkv, bar, D + col, t * WA_TILE, b);
+      tma_load3(Vs + t * WA_BOX, &tm_qkv, bar, 2 * D + col, t * WA_TILE, b);
+    }
+    for (int t = 0; t < nt; ++t) {
+      mbar_expect_tx(bar + 1 + t, 2 * WA_BOX);
+      tma_load3(Qs + t * WA_BOX, &tm_qkv, bar + 1 + t, col, t * WA_TILE, b);
+      tma_load3(Gs + t * WA_BOX, &tm_g, bar + 1 + t, col, t * WA_TILE, b);
+    }
+  }
+  __syncthreads();
+  const int nqg = (T + 15) / 16;                   // 16-row groups
+  const int kl = (nt - 1) * WA_TILE;               // the last key tile
+  const float sl2 = scale * LOG2E;
+  const size_t rs = 3 * (size_t)D;
+  const int ra = 16 * warp + g;   // the thread's rows ra, ra + 8 of a tile
+  wa_wait(bar);
+
+  // phase 1: dq and the row statistics, the query tiles in turn
+  for (int qt = wg; qt < nt; qt += 2) {
+    wa_wait(bar + 1 + qt);
+    const unsigned char* Qt = Qs + qt * WA_BOX;
+    const unsigned char* Gt = Gs + qt * WA_BOX;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+    for (int kt = 0; kt + 1 < nt; ++kt)
+      wl_bwd_stats<64, false>(m, l, t, Qt, Gt, Ks + kt * WA_BOX,
+                              Vs + kt * WA_BOX, kt * WA_TILE, T, sl2, t4);
+    wl_bwd_stats<LASTN, true>(m, l, t, Qt, Gt, Ks + kl * 128, Vs + kl * 128,
+                              kl, T, sl2, t4);
+    float il[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      il[h] = 1.f / quad_sum(l[h]);
+      dl[h] = quad_sum(t[h]) * il[h];
+    }
+    float dq[32];
+    wa_zero(dq);
+    for (int kt = 0; kt + 1 < nt; ++kt)
+      wl_bwd_dq<64, false>(dq, m, il, dl, Qt, Gt, Ks + kt * WA_BOX,
+                           Vs + kt * WA_BOX, kt * WA_TILE, T, sl2, t4);
+    wl_bwd_dq<LASTN, true>(dq, m, il, dl, Qt, Gt, Ks + kl * 128,
+                           Vs + kl * 128, kl, T, sl2, t4);
+    float v[32];
+    wg_read(v, dq);
+    const int ia = qt * WA_TILE + ra, ib = ia + 8, grp = qt * 4 + warp;
+#pragma unroll
+    for (int j = 0; j < WA_DH / 8; ++j) {
+      const int c = col + 8 * j + 2 * t4;
+      float c0 = 0.f, c1 = 0.f;   // the group's column sums (qpart)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = h ? ib : ia;
+        if (i >= T) continue;
+        const float v0 = v[4 * j + 2 * h] * scale;
+        const float v1 = v[4 * j + 2 * h + 1] * scale;
+        *reinterpret_cast<unsigned*>(dqkv16 + ((size_t)b * T + i) * rs + c) =
+            pack_bf16(v0, v1);
+        c0 += v0;
+        c1 += v1;
+      }
+      if (qpart && grp < nqg)
+        group_colsum(qpart + ((size_t)b * nqg + grp) * D + c, c0, c1, lane);
+    }
+    if (t4 == 0) {   // a query past T: p = 0 in phase 2
+      st[ia] = ia < T ? make_float4(m[0], il[0], dl[0], 0.f)
+                      : make_float4(INFINITY, 0.f, 0.f, 0.f);
+      st[ib] = ib < T ? make_float4(m[1], il[1], dl[1], 0.f)
+                      : make_float4(INFINITY, 0.f, 0.f, 0.f);
+    }
+    mbar_arrive(bar + 1 + nt + qt);
+  }
+
+  // phase 2: dk and dv, key tile by key tile, the queries in order: whole
+  // 64-query tiles, then the 16-query blocks past the last whole tile;
+  // each query tile's Q and dctx (loaded) and statistics (phase 1) awaited
+  const int nfull = T / WA_TILE, n16 = (T + 15) / 16;
+  for (int kt = wg ^ (nt & 1); kt < nt; kt += 2) {
+    float dk[32], dv[32];
+    wa_zero(dk);
+    wa_zero(dv);
+    const int ja = kt * WA_TILE + ra, jb = ja + 8;   // the thread's keys
+    unsigned ka[4][4], va[4][4];
+    wa_frags(ka, Ks + kt * WA_BOX, warp, lane);
+    wa_frags(va, Vs + kt * WA_BOX, warp, lane);
+    for (int c = 0; c < nfull; ++c) {
+      wa_wait(bar + 1 + c);
+      wa_wait(bar + 1 + nt + c);
+      wa_kv_step<64>(dk, dv, ka, va, Qs + c * WA_BOX, Gs + c * WA_BOX,
+                     st + c * WA_TILE, ja, jb, T, 0.f, 0.f, sl2, t4);
+    }
+    for (int q = 4 * nfull; q < n16; ++q) {
+      wa_wait(bar + 1 + q / 4);
+      wa_wait(bar + 1 + nt + q / 4);
+      wa_kv_step<16>(dk, dv, ka, va, Qs + q * 2048, Gs + q * 2048, st + 16 * q,
+                     ja, jb, T, 0.f, 0.f, sl2, t4);
+    }
+    float kv[32], vv[32];
+    wg_read(kv, dk);
+    wg_read(vv, dv);
+    const int grp = kt * 4 + warp;
+#pragma unroll
+    for (int j = 0; j < WA_DH / 8; ++j) {
+      const int c = col + 8 * j + 2 * t4;
+      float ck0 = 0.f, ck1 = 0.f, cv0 = 0.f, cv1 = 0.f;   // column sums
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = h ? jb : ja, x = 4 * j + 2 * h;
+        if (key >= T) continue;
+        const float k0v = kv[x] * scale, k1v = kv[x + 1] * scale;
+        const float w0 = vv[x], w1 = vv[x + 1];
+        bf16* o16 = dqkv16 + ((size_t)b * T + key) * rs + D + c;
+        *reinterpret_cast<unsigned*>(o16) = pack_bf16(k0v, k1v);
+        *reinterpret_cast<unsigned*>(o16 + D) = pack_bf16(w0, w1);
+        ck0 += k0v;
+        ck1 += k1v;
+        cv0 += w0;
+        cv1 += w1;
+      }
+      // the key group's sums of dk and dv: row b * ceil(T/16) + grp of
+      // (B * ceil(T/16), 2D)
+      if (kvpart && grp < nqg) {
+        float* row = kvpart + ((size_t)b * nqg + grp) * 2 * D + c;
+        group_colsum(row, ck0, ck1, lane);
+        group_colsum(row + D, cv0, cv1, lane);
+      }
+    }
+  }
+}
+
 // Shared memory: the query tile, K and V (forward); Q, K, V, dctx, the
 // statistics, the halves' exchange and the second half's dq (backward);
 // the barriers; with a prefix (pre) the key row (256 floats; at WIN = 112
@@ -833,4 +1280,62 @@ int attn_wgmma_prefix_bwd(const bf16* qkv, const bf16* kvp, const bf16* dctx,
                           float scale, cudaStream_t s) {
   return wa_bwd<true>(qkv, kvp, dctx, mask, dqkv16, dkvp16, bpart, B, T, P, D,
                       scale, s);
+}
+
+// The long road's shared memory: two query tiles and K and V whole
+// (forward: two blocks an SM up to 320 keys, one at 321-384); Q, K, V and
+// dctx whole and the statistics (backward); the barriers; 1024 bytes to
+// align the tiles to the swizzle's period.
+static size_t wl_fwd_smem(int nt) {
+  return (size_t)WA_BOX * (2 + 2 * nt) + 2 * 8 + 1024;
+}
+
+static size_t wl_bwd_smem(int nt) {
+  return (size_t)4 * nt * WA_BOX + (size_t)nt * WA_TILE * sizeof(float4) +
+         (1 + 2 * (size_t)nt) * 8 + 1024;
+}
+
+int attn_wgmma_long_fwd(const bf16* qkv, bf16* ctx, int B, int T, int D,
+                        float scale, cudaStream_t s) {
+  if (!attn_wgmma_long_road(T, WA_DH) || B < 1 || D % WA_DH)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm;
+  const int e = make_tma(&tm, qkv, 3LL * D, T, 3LL * D, WA_DH, WA_TILE, B,
+                         3LL * D * T);
+  if (e) return e;
+  const int lastn = wl_lastn(T), nt = (T + WA_TILE - 1) / WA_TILE;
+  auto kern = lastn == 16 ? attn_fwd_wgmma_long_kernel<16>
+            : lastn == 32 ? attn_fwd_wgmma_long_kernel<32>
+            : lastn == 48 ? attn_fwd_wgmma_long_kernel<48>
+                          : attn_fwd_wgmma_long_kernel<64>;
+  const size_t smem = wl_fwd_smem(nt);
+  raise_smem(kern, smem);
+  kern<<<dim3((nt + 1) / 2, D / WA_DH, B), WL_FWD_THREADS, smem, s>>>(
+      tm, ctx, T, D, scale);
+  return (int)cudaGetLastError();
+}
+
+int attn_wgmma_long_bwd(const bf16* qkv, const bf16* dctx, bf16* dqkv16,
+                        float* bpart, int B, int T, int D, float scale,
+                        cudaStream_t s) {
+  if (!attn_wgmma_long_road(T, WA_DH) || B < 1 || D % WA_DH)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tg;
+  int e = make_tma(&tq, qkv, 3LL * D, T, 3LL * D, WA_DH, WA_TILE, B,
+                   3LL * D * T);
+  if (!e) e = make_tma(&tg, dctx, D, T, D, WA_DH, WA_TILE, B, (long long)D * T);
+  if (e) return e;
+  const int lastn = wl_lastn(T), nt = (T + WA_TILE - 1) / WA_TILE;
+  auto kern = lastn == 16 ? attn_bwd_wgmma_long_kernel<16>
+            : lastn == 32 ? attn_bwd_wgmma_long_kernel<32>
+            : lastn == 48 ? attn_bwd_wgmma_long_kernel<48>
+                          : attn_bwd_wgmma_long_kernel<64>;
+  const size_t smem = wl_bwd_smem(nt);
+  raise_smem(kern, smem);
+  // bpart: dq's partials (B * ceil(T/16) rows of D), then dk | dv's (as
+  // many rows of 2D), or null
+  float* kvpart = bpart ? bpart + (size_t)B * ((T + 15) / 16) * D : nullptr;
+  kern<<<dim3(D / WA_DH, B), WA_BWD_THREADS, smem, s>>>(tq, tg, dqkv16, bpart,
+                                                        kvpart, T, D, scale);
+  return (int)cudaGetLastError();
 }

@@ -3160,7 +3160,9 @@ static int launch_attn_bwd_nt(const AttnArgs& a, cudaStream_t s) {
 // roads, which have no key limit. ROW: a key-mask row (mask_rs 0). At head
 // dim 64 up to 256 keys, with no mask (every ViT tower) or with a prefix
 // under a key-mask row (ROW), the warpgroup-MMA kernels of attn_wgmma.cu
-// take the rows, and the register roads are not built for them.
+// take the rows, and the register roads are not built for them; with no
+// mask past 256 keys up to ATTN_WGMMA_LONG_TMAX (ViT-L/14's 257 tokens)
+// its long kernels, and the tiled roads only past that.
 template <bool BWD, bool PRE, bool ROW>
 static int launch_attn(const AttnArgs& a, cudaStream_t s) {
   const int Sp = (a.P + a.T + 15) / 16 * 16;
@@ -3171,6 +3173,11 @@ static int launch_attn(const AttnArgs& a, cudaStream_t s) {
       return BWD ? attn_wgmma_bwd(a.qkv, a.dctx, a.dqkv16, a.bpart, a.B, a.T,
                                   a.D, a.scale, s)
                  : attn_wgmma_fwd(a.qkv, a.ctx, a.B, a.T, a.D, a.scale, s);
+    if (attn_wgmma_long_road(a.T, a.D / a.H))
+      return BWD ? attn_wgmma_long_bwd(a.qkv, a.dctx, a.dqkv16, a.bpart, a.B,
+                                       a.T, a.D, a.scale, s)
+                 : attn_wgmma_long_fwd(a.qkv, a.ctx, a.B, a.T, a.D, a.scale,
+                                       s);
   }
   if constexpr (PRE && ROW) {
     if (attn_wgmma_road(a.P + a.T, a.D / a.H))
@@ -3195,8 +3202,8 @@ static int launch_attn(const AttnArgs& a, cudaStream_t s) {
     case 64: {
       if constexpr (PRE && !ROW) {
         LLC_ATTN(64)
-      } else {   // past 256 keys (ViT-L/14's 257 tokens; a prefix with S =
-                 // P + T > 256 under a key row): the tiled roads
+      } else {   // past ATTN_WGMMA_LONG_TMAX keys with no mask; a prefix
+                 // with S = P + T > 256 under a key row: the tiled roads
         if constexpr (BWD) return launch_attn_bwd_nt<64, 0, PRE, ROW>(a, s);
         return launch_attn_fwd_tiled<64, PRE, ROW>(a, s);
       }
@@ -3671,7 +3678,8 @@ int llc_attn_fwd(const void* qkv, const float* mask, const void* tmap,
 
 // stats: B * H * ceil16(T) float4s of workspace (row max, 1 / row sum,
 // delta; 16-byte aligned), null where the road takes the warpgroup-MMA
-// kernels (attn_wgmma_road: they keep it in shared memory). bpart: null, or
+// kernels (attn_wgmma_road, attn_wgmma_long_road: they keep it in shared
+// memory). bpart: null, or
 // the bias partials (AttnArgs),
 // (B * ceil(T/16) * D + B * ceil(S/16) * 2D) floats. mask and tmap as
 // llc_attn_fwd's.

@@ -172,6 +172,53 @@ __device__ __forceinline__ void wgmma_m64n112k16(float (&d)[56], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x N, fp32) += A (64 x 16) . B (16 x N) for N = 16, 32 and 48:
+// the scores of the last 64-key tile past 256 keys, its live 16-key
+// chunks only.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // d (64 x 8, fp32) = A (64 x 16) . B (16 x 8) (+ d where acc): the fold's
 // narrow products (Z, and the partials with A read M-major: TA = 1). A
 // thread holds rows g and g + 8 of its warp's 16, columns 2t and 2t + 1.
@@ -287,6 +334,21 @@ int attn_wgmma_fwd(const __nv_bfloat16* qkv, __nv_bfloat16* ctx, int B, int T,
 int attn_wgmma_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dctx,
                    __nv_bfloat16* dqkv16, float* bpart, int B, int T, int D,
                    float scale, cudaStream_t s);
+// The road with no mask at head dim 64 past 256 keys, up to
+// ATTN_WGMMA_LONG_TMAX (ViT-L/14's 257 tokens): the long kernels of
+// attn_wgmma.cu, which keep the mma.sync tiled road's order of sums. The
+// bound is the backward's shared memory: Q, K, V and dctx whole, 6 tiles
+// of 64 rows each (192 KB of the 227 KB a block may hold). Longer rows, a
+// mask and a KV prefix past 256 keys keep the mma.sync tiled kernels.
+constexpr int ATTN_WGMMA_LONG_TMAX = 384;
+inline bool attn_wgmma_long_road(int T, int dh) {
+  return dh == 64 && T > 256 && T <= ATTN_WGMMA_LONG_TMAX;
+}
+int attn_wgmma_long_fwd(const __nv_bfloat16* qkv, __nv_bfloat16* ctx, int B,
+                        int T, int D, float scale, cudaStream_t s);
+int attn_wgmma_long_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dctx,
+                        __nv_bfloat16* dqkv16, float* bpart, int B, int T,
+                        int D, float scale, cudaStream_t s);
 int attn_wgmma_prefix_fwd(const __nv_bfloat16* qkv, const __nv_bfloat16* kvp,
                           const float* mask, __nv_bfloat16* ctx, int B, int T,
                           int P, int D, float scale, cudaStream_t s);

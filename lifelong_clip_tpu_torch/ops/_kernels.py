@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
@@ -88,7 +89,8 @@ def build() -> str:
     """Compile each source (in parallel) and link them; returns the library
     path. A no-op when the library for these sources already exists. The
     compiler's register / shared-memory / spill report lands beside the
-    library as ``<library>.ptxas.txt``."""
+    library as ``<library>.ptxas.txt``, each source's under its compile
+    seconds."""
     out = library_path()
     if os.path.exists(out):
         return out
@@ -97,13 +99,27 @@ def build() -> str:
     nvcc = _nvcc()
     try:
         objs = [os.path.join(tmp, f"{i}.o") for i in range(len(SOURCES))]
+        t0 = time.perf_counter()
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c",
                                    os.path.join(CSRC, src), "-o", obj],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(SOURCES, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        report = "".join(f"== {src}\n{log}" for src, log in zip(SOURCES, logs))
+        # each source's compile seconds (the build waits for the longest)
+        logs, secs = [""] * len(procs), [0.0] * len(procs)
+
+        def wait(i):
+            logs[i] = procs[i].communicate()[0]
+            secs[i] = time.perf_counter() - t0
+
+        waits = [threading.Thread(target=wait, args=(i,))
+                 for i in range(len(procs))]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        report = "".join(f"== {src} ({sec:.1f} s)\n{log}"
+                         for src, sec, log in zip(SOURCES, secs, logs))
         if any(p.returncode != 0 for p in procs):
             raise RuntimeError(f"nvcc failed:\n{report}")
         part = os.path.join(tmp, "lib.so")

@@ -91,13 +91,15 @@ _DT = {torch.float32: 0, torch.bfloat16: 1}
 # (prefix_tile_map), one per (T, T) mask tensor of the block op
 # (block_tile_map, ``_tile_map``); and of the warpgroup-MMA attention
 # kernels: one per forward or backward chain on their road, the block
-# chains' (``_wgmma_road``: attn_fwd_wgmma, attn_bwd_wgmma) and the prefix
+# chains' (``attention_road``: attn_fwd_wgmma, attn_bwd_wgmma up to 256
+# keys, attn_fwd_wgmma_long, attn_bwd_wgmma_long past them) and the prefix
 # chains' (``prefix_wgmma_road``: attn_prefix_fwd_wgmma,
 # attn_prefix_bwd_wgmma)
 LAUNCHES = {"fused_ln_attention_fwd": 0, "fused_ln_attention_bwd": 0,
             "fused_prefix_attention_fwd": 0, "fused_prefix_attention_bwd": 0,
             "prefix_tile_map": 0, "block_tile_map": 0, "attn_fwd_wgmma": 0,
-            "attn_bwd_wgmma": 0, "attn_prefix_fwd_wgmma": 0,
+            "attn_bwd_wgmma": 0, "attn_fwd_wgmma_long": 0,
+            "attn_bwd_wgmma_long": 0, "attn_prefix_fwd_wgmma": 0,
             "attn_prefix_bwd_wgmma": 0}
 
 
@@ -529,13 +531,32 @@ def _grad_rows(pp: _Prepared, g):
 # The block chains' road with no mask at head dim 64 and up to 256 keys
 # (every ViT tower's blocks): the attention runs on the warpgroup-MMA
 # kernels of csrc/attn_wgmma.cu (``attn_wgmma_road`` there), which keep the
-# row statistics in shared memory.
-WGMMA_DH, WGMMA_TMAX = 64, 256
+# row statistics in shared memory; past 256 keys up to WGMMA_LONG_TMAX
+# (ViT-L/14's 257 tokens) on that file's long kernels
+# (``attn_wgmma_long_road``, ``ATTN_WGMMA_LONG_TMAX``: the backward holds
+# Q, K, V and dctx whole, 6 tiles of 64 rows each), which keep the mma.sync
+# tiled road's order of sums.
+WGMMA_DH, WGMMA_TMAX, WGMMA_LONG_TMAX = 64, 256, 384
 
 
-def _wgmma_road(pp: _Prepared, n_heads) -> bool:
-    return (pp.mask is None and pp.d // n_heads == WGMMA_DH
-            and pp.t <= WGMMA_TMAX)
+def attention_road(t: int, dh: int, mask_kind=None) -> str:
+    """The kernels #1/#2's attention takes at ``t`` tokens and head dim
+    ``dh``, with no mask (``mask_kind`` None) or a (T, T) mask ("matrix"):
+    "wgmma" (``attn_wgmma_road``: no mask, head dim 64, up to 256 keys),
+    "wgmma_long" (``attn_wgmma_long_road``: no mask, head dim 64, 257 up
+    to ``WGMMA_LONG_TMAX`` keys) or "mma_sync" (a mask, head dims 16 and
+    32, longer rows)."""
+    if mask_kind is None and dh == WGMMA_DH:
+        if 1 <= t <= WGMMA_TMAX:
+            return "wgmma"
+        if t <= WGMMA_LONG_TMAX:
+            return "wgmma_long"
+    return "mma_sync"
+
+
+def _road(pp: _Prepared, n_heads) -> str:
+    return attention_road(pp.t, pp.d // n_heads,
+                          None if pp.mask is None else "matrix")
 
 
 def prefix_wgmma_road(p: int, t: int, dh: int, mask_kind) -> bool:
@@ -559,7 +580,7 @@ def _prefix_road(pp, n_heads) -> bool:
 def _stats(pp: _Prepared, n_heads):
     """Workspace of the mma.sync attention backward: a float4 (row max, 1 /
     row sum, delta, 0) for each query row of each (batch row, head), T
-    rounded up to 16 (the warpgroup-MMA road reads none)."""
+    rounded up to 16 (the warpgroup-MMA roads read none)."""
     return torch.empty(pp.b * n_heads * -(-pp.t // 16) * 16 * 4,
                        dtype=torch.float32, device=pp.x.device)
 
@@ -685,7 +706,9 @@ def _cuda_forward(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, n_heads,
                   lscale=pp.s, resid=x2)
     saved = (h16, z16, qkv16, ctx16, z2)
     LAUNCHES["fused_ln_attention_fwd"] += 1
-    LAUNCHES["attn_fwd_wgmma"] += _wgmma_road(pp, n_heads)
+    road = _road(pp, n_heads)
+    LAUNCHES["attn_fwd_wgmma"] += road == "wgmma"
+    LAUNCHES["attn_fwd_wgmma_long"] += road == "wgmma_long"
     y = y.view(pp.b, pp.t, d)
     return (y, saved) if keep else y
 
@@ -747,7 +770,8 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
                        lscale=1.0)
 
     dqkv16 = torch.empty(m, 3 * d, dtype=_BF, device=dev)
-    stats = None if _wgmma_road(pp, n_heads) else _stats(pp, n_heads)
+    road = _road(pp, n_heads)
+    stats = _stats(pp, n_heads) if road == "mma_sync" else None
     _kernels.call("llc_attn_bwd", qkv16.data_ptr(), dctx16.data_ptr(),
                   _ptr(pp.mask), _ptr(pp.tmap), dqkv16.data_ptr(),
                   _ptr(attn_part), _ptr(stats), pp.b, pp.t, d, n_heads,
@@ -790,7 +814,8 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     if segs:   # the LoRA and bias grads' sums: one launch
         _sum_partials(pp, segs)
     LAUNCHES["fused_ln_attention_bwd"] += 1
-    LAUNCHES["attn_bwd_wgmma"] += _wgmma_road(pp, n_heads)
+    LAUNCHES["attn_bwd_wgmma"] += road == "wgmma"
+    LAUNCHES["attn_bwd_wgmma_long"] += road == "wgmma_long"
     return (dx, *grads), dlora
 
 

@@ -210,6 +210,75 @@ def test_wgmma_attention_matches_the_masked_road(cuda, b, t):
         assert float(excess.max()) <= rel * float(w.abs().max()), key
 
 
+# The long road of #1/#2's warpgroup-MMA attention (no mask, head dim 64,
+# 257 up to ``fba.WGMMA_LONG_TMAX`` keys): one live key in the last 64-key
+# tile (ViT-L/14's 257), its products 16, 32, 48 and 64 keys wide (T = 271,
+# 272, 273, 300, 319), a whole fifth tile (320) and the longest row, each
+# with LoRA r = 0 and dx only and with r = 4 and the weight grads; then
+# ViT-L/14's widths. (b, t, d, heads, r, weight_grads)
+LONG_WGMMA_T = (257, 271, 272, 273, 300, 319, 320, fba.WGMMA_LONG_TMAX)
+LONG_WGMMA_CASES = ([(3, t, 128, 2, 0, False) for t in LONG_WGMMA_T]
+                    + [(3, t, 128, 2, 4, True) for t in LONG_WGMMA_T]
+                    + [(2, 257, 1024, 16, 4, False)])
+
+
+@pytest.mark.parametrize("b,t,d,heads,r,wg", LONG_WGMMA_CASES)
+def test_long_wgmma_attention_matches_plain_versions(cuda, b, t, d, heads, r,
+                                                     wg):
+    """Through the op's autograd Function, with the tolerances of
+    ``ops/kernel_check.py``; each chain launched the long kernels once and
+    the road up to 256 keys not at all."""
+    x, blk, lora, gy, _ = kc.make_inputs(b, t, d, heads, r, False, 17,
+                                         device=cuda)
+    assert fba.attention_road(t, d // heads) == "wgmma_long"
+    fba.reset_launches()
+    kc.check_case(x, blk, lora, gy, None, heads, 0.25 if r else 0.0, wg)
+    assert fba.LAUNCHES["attn_fwd_wgmma_long"] == 1, fba.LAUNCHES
+    assert fba.LAUNCHES["attn_bwd_wgmma_long"] == 1, fba.LAUNCHES
+    assert fba.LAUNCHES["attn_fwd_wgmma"] == 0, fba.LAUNCHES
+    assert fba.LAUNCHES["attn_bwd_wgmma"] == 0, fba.LAUNCHES
+
+
+@pytest.mark.parametrize("t", [257, 300])
+def test_long_wgmma_backward_is_bit_repeatable(cuda, t):
+    """No atomics: two runs of the block on the same inputs, the weight
+    grads' partials and LoRA included, agree bit for bit, every output."""
+    x, blk, lora, gy, _ = kc.make_inputs(3, t, 256, 4, 4, False, 18,
+                                         device=cuda)
+    one, two = (kc.block_outputs(x, blk, lora, 0.25, gy, None, 4,
+                                 weight_grads=True) for _ in range(2))
+    for key in one:
+        assert kc.same_bits(one[key], two[key]), key
+
+
+def test_long_wgmma_rows_do_not_depend_on_the_batch(cuda):
+    """ViT-L/14's rows (T = 257, D = 1024, 16 heads): those of a 1-, 8- and
+    16-row batch give ctx, y and dx bit for bit equal to the same rows
+    inside a 64-row batch."""
+    x, blk, _, gy, _ = kc.make_inputs(64, 257, 1024, 16, 0, False, 19,
+                                      device=cuda)
+    whole = kc.batch_rows(x, blk, gy, 16)
+    for n in (1, 8, 16):
+        part = kc.batch_rows(x[:n], blk, gy[:n], 16)
+        for key in part:
+            assert kc.same_bits(part[key], whole[key][:n]), (n, key)
+
+
+@pytest.mark.parametrize("t", [257, 300])
+def test_long_wgmma_matches_the_masked_road(cuda, t):
+    """Attention alone: the long kernels (no mask) against the mma.sync
+    tiled kernels the masked road keeps, fed an all-zero (T, T) mask, which
+    adds nothing. The long kernels keep the tiled road's order of sums, so
+    ctx16, y, dx and the weight grads are equal bit for bit."""
+    x, blk, _, gy, _ = kc.make_inputs(2, t, 128, 2, 0, False, 20,
+                                      device=cuda)
+    zero = torch.zeros(t, t, device=cuda)
+    got, want = (kc.block_outputs(x, blk, None, 0.0, gy, m, 2,
+                                  weight_grads=True) for m in (None, zero))
+    for key in got:
+        assert kc.same_bits(got[key], want[key]), key
+
+
 # (b, t, d, heads, lora r, weight_grads) under the causal (T, T) mask: the
 # text tower's shape (lora-clip with LoRA on both towers, 100 class rows
 # cut to 6), ProtoCLIP's K3 text prefix (T = 25, narrowed), one row block
@@ -286,6 +355,8 @@ def test_op_launches_kernels_and_counts_them(cuda):
                             "block_tile_map": 0,
                             "attn_fwd_wgmma": 1,
                             "attn_bwd_wgmma": 1,
+                            "attn_fwd_wgmma_long": 0,
+                            "attn_bwd_wgmma_long": 0,
                             "attn_prefix_fwd_wgmma": 0,
                             "attn_prefix_bwd_wgmma": 0}
     for k in LORA_KEYS:   # bf16 primals get bf16 grads

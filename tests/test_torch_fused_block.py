@@ -125,13 +125,15 @@ def test_backward_matches_jax_kernel(t, masked, weight_grads):
 
 
 T_LONG = 257   # ViT-L/14's token count: past the 256 keys a register row holds
+T_FIFTH = 320  # a whole fifth 64-key tile (the card's long road: every tile full)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_ref_long():
-    """The JAX op in interpret mode at T = 257 (one batch row, LoRA, no
-    mask), jitted once: its output and the vjp of g with weight_grads=True."""
-    x, blk, lora, g = _inputs(T_LONG, seed=3, b=1)
+def _jax_ref_long(t=T_LONG):
+    """The JAX op in interpret mode at ``t`` tokens (one batch row, LoRA,
+    no mask), jitted once a T: its output and the vjp of g with
+    weight_grads=True."""
+    x, blk, lora, g = _inputs(t, seed=3, b=1)
     fn, args = _jax_call(x, blk, lora, False)
 
     def fwd_bwd(g, *args):
@@ -143,13 +145,9 @@ def _jax_ref_long():
     return np.asarray(y), jax.tree.map(np.asarray, grads)
 
 
-@pytest.mark.parametrize("direction", ["forward", "backward"])
-def test_past_256_keys_matches_jax_kernel(direction):
-    """T = 257 keys (ViT-L/14), which the card takes on its tiled roads:
-    the op's output, and every grad with weight_grads, against the JAX
-    kernels, at the tolerances of the tests above."""
-    x, blk, lora, g = _inputs(T_LONG, seed=3, b=1)
-    y_ref, (jdx, jargs, jlora) = _jax_ref_long()
+def _check_long(t, direction):
+    x, blk, lora, g = _inputs(t, seed=3, b=1)
+    y_ref, (jdx, jargs, jlora) = _jax_ref_long(t)
     tx, ta, tl, _ = _torch_args(x, blk, lora, False,
                                 grad=direction == "backward")
     y = fused_ln_attention_block(tx, *ta, H, S, None, tl, True)
@@ -164,6 +162,22 @@ def test_past_256_keys_matches_jax_kernel(direction):
         scale = max(float(np.abs(want).max()), 1e-6)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-2,
                                    atol=1e-2 * scale)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_past_256_keys_matches_jax_kernel(direction):
+    """T = 257 keys (ViT-L/14), which the card takes on its long
+    warpgroup-MMA road (one live key in the last 64-key tile): the op's
+    output, and every grad with weight_grads, against the JAX kernels, at
+    the tolerances of the tests above."""
+    _check_long(T_LONG, direction)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_a_whole_fifth_key_tile_matches_jax_kernel(direction):
+    """T = 320 keys, five whole 64-key tiles on the card's long road: as
+    the T = 257 case."""
+    _check_long(T_FIFTH, direction)
 
 
 def test_card_shape_check_takes_any_key_count():

@@ -10,7 +10,8 @@ The attention of the fused LN-attention chains (``llc_attn_fwd`` and
 ``llc_attn_bwd``, no mask, the weight grads' bias partials where a row
 takes them) on seeded bf16 qkv16 and dctx16 at the rows #1/#2 run with no
 mask (ViT-B/16 at 1, 8, 16, 32, 64, 128 and 256 batch rows, L2P's K1 at
-T = 222, ViT-L/14 at 16 and 64 rows, and narrow T off and on a tile), on
+T = 222, ViT-L/14 at 16 and 64 rows, and narrow T off and on a tile, past
+256 keys at 300 and 384), on
 one GPU: CUDA-event ms a call and every kernel by device ms (torch
 profiler), beside the attention's own bound (``chip_smoke.attention_cost``
 at 3.35 TB/s and 989 TFLOP/s) and the library's parts, which the port
@@ -57,7 +58,9 @@ ROWS = (("vision 64 x 197", 64, 197, 768, 12, False, 0),
         ("ViT-L/14 microbatch, 16 rows", 16, 257, 1024, 16, False, 10),
         ("T = 64, weight_grads", 8, 64, 256, 4, True, 11),
         ("T = 17", 8, 17, 256, 4, False, 12),
-        ("T = 129, weight_grads", 8, 129, 256, 4, True, 13))
+        ("T = 129, weight_grads", 8, 129, 256, 4, True, 13),
+        ("T = 300, weight_grads", 8, 300, 256, 4, True, 14),
+        ("T = 384", 8, 384, 256, 4, False, 15))
 # (label, B, T, D, heads, P, live slots, weight_grads, seed)
 PREFIX_ROWS = (
     ("mvp prefix 64 x 197, P = 20, 5 live", 64, 197, 768, 12, 20, 5, False,
