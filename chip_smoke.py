@@ -608,24 +608,15 @@ WGMMA_ROAD_KERNELS = {"wgmma": ("attn_fwd_wgmma_kernel",
 def wgmma_road(fba, t, d, heads, mask):
     """The warpgroup-MMA attention road #1/#2 take: "wgmma" (no mask, head
     dim 64, up to 256 keys), "wgmma_long" (the same past 256 keys up to
-    ``fba.WGMMA_LONG_TMAX``) or None (the mma.sync kernels; a tree that has
-    neither road)."""
-    if hasattr(fba, "attention_road"):
-        road = fba.attention_road(t, d // heads,
-                                  None if mask is None else "matrix")
-        return None if road == "mma_sync" else road
-    # a tree from before the long road: the parent that
-    # tools/torch_small_rows_time.py times with this script's cases
-    short = (hasattr(fba, "WGMMA_DH") and mask is None
-             and d // heads == fba.WGMMA_DH and t <= fba.WGMMA_TMAX)
-    return "wgmma" if short else None
+    ``fba.WGMMA_LONG_TMAX``) or None (the mma.sync kernels)."""
+    road = fba.attention_road(t, d // heads,
+                              None if mask is None else "matrix")
+    return None if road == "mma_sync" else road
 
 
 def prefix_wgmma_road(fba, p, t, d, heads, mask):
     """Whether #3/#4 take the warpgroup-MMA attention kernels (a key-mask
-    row, head dim 64, P + T <= 256 keys); False for a tree that has none."""
-    if not hasattr(fba, "prefix_wgmma_road"):
-        return False
+    row, head dim 64, P + T <= 256 keys)."""
     kind = None if mask is None else (
         "matrix" if fba._prefix_mask_arg(mask, t, p + t, mask.device)[1]
         else "row")
@@ -706,16 +697,13 @@ def kernel_case(label, b, t, d, heads, lora_r, masked, weight_grads, seed,
            "lora_r": lora_r, "masked": masked, "weight_grads": weight_grads,
            "live_pairs_per_row": pairs, "tile_liveness": live_tiles,
            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
-    if hasattr(fba, "WGMMA_DH"):
-        # the op's launches of the warpgroup-MMA attention: one a chain on
-        # its road, none on the other road or off both
-        ran = {k: fba.LAUNCHES[k] - before[k]
-               for keys in WGMMA_ROAD_KEYS.values() for k in keys
-               if k in fba.LAUNCHES}
-        res["wgmma_road"], res["wgmma_launches"] = road, ran
-        want = WGMMA_ROAD_KEYS.get(road, ())
-        assert all((n > 0) == (k in want) for k, n in ran.items()), (label,
-                                                                     ran)
+    # the op's launches of the warpgroup-MMA attention: one a chain on its
+    # road, none on the other road or off both
+    ran = {k: fba.LAUNCHES[k] - before[k]
+           for keys in WGMMA_ROAD_KEYS.values() for k in keys}
+    res["wgmma_road"], res["wgmma_launches"] = road, ran
+    want = WGMMA_ROAD_KEYS.get(road, ())
+    assert all((n > 0) == (k in want) for k, n in ran.items()), (label, ran)
     if lora_r or road:
         # no float atomics (the LoRA grads from fixed-order partials; the
         # warpgroup-MMA attention's sums in a fixed order): two runs on the
@@ -946,14 +934,12 @@ def prefix_kernel_case(label, live, weight_grads, seed, time_it=True,
            "live_pairs_per_row": pairs, "tile_liveness": live_tiles,
            "fwd_max_abs_err": errs["y"],
            "bwd_max_abs_err": max(v for k, v in errs.items() if k != "y")}
-    if hasattr(fba, "prefix_wgmma_road"):
-        # the op's launches of the warpgroup-MMA attention: one a chain on
-        # its road (a key-mask row), none off it
-        ran = [fba.LAUNCHES[k] - before[k]
-               for k in ("attn_prefix_fwd_wgmma", "attn_prefix_bwd_wgmma")]
-        res["wgmma_road"], res["wgmma_launches"] = road, ran
-        assert all(n > 0 for n in ran) if road else ran == [0, 0], (label,
-                                                                    ran)
+    # the op's launches of the warpgroup-MMA attention: one a chain on its
+    # road (a key-mask row), none off it
+    ran = [fba.LAUNCHES[k] - before[k]
+           for k in ("attn_prefix_fwd_wgmma", "attn_prefix_bwd_wgmma")]
+    res["wgmma_road"], res["wgmma_launches"] = road, ran
+    assert all(n > 0 for n in ran) if road else ran == [0, 0], (label, ran)
     if road:
         # the warpgroup-MMA attention's sums in a fixed order: two runs on
         # the same inputs agree bit for bit (ctx16, dqkv16, dkvp16 and the
@@ -1334,6 +1320,72 @@ def gemm_phase():
         log(f"gemm {json.dumps(row)}")
         rows.append(row)
     return rows
+
+
+# (label, B, T, D, heads, LoRA r, weight grads, prefix slots): the chains
+# whose launches schedule_check reads
+SCHEDULE_ROWS = (("FT, no LoRA, weight_grads", 16, 197, 768, 12, 0, True, 0),
+                 ("vision", 64, 197, 768, 12, 4, False, 0),
+                 ("ViT-L/14 vision", 64, 257, 1024, 16, 4, False, 0),
+                 ("mvp prefix, 5 of 20 live", 64, 197, 768, 12, 0, False, 20))
+
+
+@clocked
+def schedule_check(tries=3):
+    """The chains' products on the ping-pong GEMM and their LN backward on
+    the bulk-copy kernel: in one forward and backward of each
+    ``SCHEDULE_ROWS`` chain, every launch through ``llc_gemm`` /
+    ``llc_gemm_lora`` on the wgmma tiles (neither M nor N <= 16) runs
+    ``gemm_pingpong_kernel`` and every ``llc_ln_bwd`` runs
+    ``ln_bwd_bulk_kernel``, by the kernels the profiler saw (up to
+    ``tries`` windows where one lost events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lifelong_clip_tpu_torch.ops import fused_block_attn as fba
+    from lifelong_clip_tpu_torch.ops import kernel_check as kc
+    out = []
+    for label, b, t, d, heads, r, wg, p in SCHEDULE_ROWS:
+        if p:
+            x, pk, pv, blk, gy, row = kc.make_prefix_inputs(b, t, d, heads,
+                                                            p, 5, 40)
+            wb = [blk[k] for k in kc.BLOCK_KEYS]
+
+            def fn():
+                _, saved = fba._prefix_forward(x, pk, pv, *wb, heads, row,
+                                               keep=wg)
+                fba._prefix_backward(x, gy, pk, pv, *wb[:5], heads, row, wg,
+                                     saved=saved)
+        else:
+            x, blk, lora, gy, _ = kc.make_inputs(b, t, d, heads, r, False, 41)
+
+            def fn():
+                kc.block_outputs(x, blk, lora, 0.25 if r else 0.0, gy, None,
+                                 heads, weight_grads=wg)
+        calls = kernel_calls(fn)
+        gemms = sum(1 for name, a in calls
+                    if name in ("llc_gemm", "llc_gemm_lora")
+                    and a[1] > 16 and a[2] > 16)
+        lns = sum(1 for name, _ in calls if name == "llc_ln_bwd")
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [kernel_short(e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            seen = {"gemm_pingpong_kernel": names.count("gemm_pingpong_kernel"),
+                    "ln_bwd_bulk_kernel": names.count("ln_bwd_bulk_kernel")}
+            if seen == {"gemm_pingpong_kernel": gemms,
+                        "ln_bwd_bulk_kernel": lns}:
+                break
+        row_out = {"label": label, "gemm_launches": gemms,
+                   "ln_bwd_launches": lns, "seen": seen}
+        log(f"schedule {json.dumps(row_out)}")
+        assert seen == {"gemm_pingpong_kernel": gemms,
+                        "ln_bwd_bulk_kernel": lns} and gemms and lns, row_out
+        out.append(row_out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3353,16 +3405,18 @@ def checkpoint_phase(label="lora-clip", argv=LORA_SCRIPT_ARGV, owner=None,
     return out
 
 
-PORT_KERNELS = ("gemm_kernel", "gemm_wgmma_kernel", "attn_fwd_kernel",
+PORT_KERNELS = ("gemm_kernel", "gemm_pingpong_kernel", "attn_fwd_kernel",
                 "attn_fwd_tiled_kernel", "attn_bwd_dq_tiled_kernel",
                 "attn_bwd_dq_tiled_map_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel", "ln_fwd_kernel",
-                "ln_bwd_kernel", "ln_partials_kernel", "cast_bf16_kernel",
+                "ln_bwd_bulk_kernel", "ln_partials_kernel", "cast_bf16_kernel",
                 "partial_sums_kernel", "splitk_reduce_kernel",
                 "mask_tile_map_kernel", "flash_fwd_kernel",
                 "flash_fwd_tc_kernel", "flash_fwd_tc_tiled_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+                "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                "attn_fwd_wgmma_kernel", "attn_bwd_wgmma_kernel",
+                "attn_fwd_wgmma_long_kernel", "attn_bwd_wgmma_long_kernel")
 
 
 # -- the mesh phase: 2 ranks sharing one card ---------------------------------
@@ -4696,6 +4750,8 @@ def main():
     torch.cuda.synchronize()
     gemms = gemm_phase()
     torch.cuda.synchronize()
+    schedule = schedule_check()
+    torch.cuda.synchronize()
 
     aug = augmentation_phase(card)
     torch.cuda.synchronize()
@@ -4941,7 +4997,7 @@ def main():
     log(json.dumps(pipeline))
     log(json.dumps({"tile_map_phase": tile_maps, "card": card}))
     log(json.dumps({"batch_invariance": invariance, "card": card}))
-    log(json.dumps({"gemm": gemms, "card": card}))
+    log(json.dumps({"gemm": gemms, "schedule": schedule, "card": card}))
     log(json.dumps(whole_run))
     wall = time.perf_counter() - t_start
     log(json.dumps({"chip_smoke_wall_s": wall,

@@ -44,27 +44,29 @@
 //     chains; each rank-r launch had run at 2-13x its bytes (PERF.md).
 //   * The projections, ~60% of the forward chain, are what bounds it by
 //     operations, so they run on the tensor cores' full-rate path: a Hopper
-//     GEMM (gemm_wgmma_kernel) whose consumer warpgroups run wgmma m64n128k16
-//     with both operands in shared memory, fed by TMA through a ring of
-//     128B-swizzled tiles that a producer warp keeps in flight (mbarriers),
-//     persistent over the output tiles so one tile's loads overlap the last
-//     one's epilogue. bf16 wgmma reads K-major and MN-major tiles alike, so
-//     NN, NT and TN (the operands' strides) need no transposing copy. The
-//     epilogue keeps the TPU kernel's order (alpha * acc + bias + lscale *
-//     z16 @ L, then + residual, one rounding), the tile's LoRA factors
-//     staged in shared memory. For bf16 output (every forward projection)
-//     it is staged too: the residual tile comes in by TMA while the tile's
-//     products run, the rounded tile goes out by TMA in whole rows, and
-//     the store overlaps the next tile's products; written from the
-//     accumulators, two bf16 at a time, the residual and the stores had
-//     cost the out projection more than its products. Split-K
+//     GEMM (gemm_pingpong_kernel) on a warp-specialized ping-pong schedule:
+//     a producer warpgroup keeps a ring of 128B-swizzled tiles in flight by
+//     TMA (mbarriers), and two consumer warpgroups each own whole 128-row
+//     output tiles (wgmma m64n128k16, both operands in shared memory), their
+//     main loops in turn, so one tile's epilogue runs under the other
+//     consumer's products; persistent over the output tiles. bf16 wgmma
+//     reads K-major and MN-major tiles alike, so NN, NT and TN (the
+//     operands' strides) need no transposing copy. The epilogue keeps the
+//     TPU kernel's order (alpha * acc + bias + lscale * z16 @ L, then +
+//     residual, one rounding), the tile's LoRA factors and bias staged in
+//     shared memory. For bf16 output (every forward projection) it is
+//     staged too: the residual tile comes in by TMA while the tile's
+//     products run, the rounded tile goes out by TMA in whole rows; written
+//     from the accumulators, two bf16 at a time, the residual and the
+//     stores had cost the out projection more than its products. Split-K
 //     (contractions over all B*T rows) writes fp32 partials that a second
 //     pass sums in a fixed order: no atomics, results independent of launch
-//     order, as the TPU kernel's sequential grid. The mma.sync tiles (m16n8k16, 3-stage cp.async)
-//     stay for the unfolded road's rank-r LoRA shapes (N <= 16: 64x16, M
-//     <= 16: 16x128); any other shape needs operands TMA can read, which
-//     every caller's are. TMA maps and shared-memory limits are set once and reused, so a
-//     launch costs the host little beyond the launch itself.
+//     order, as the TPU kernel's sequential grid. The mma.sync tiles
+//     (m16n8k16, 3-stage cp.async) stay for the unfolded road's rank-r LoRA
+//     shapes (N <= 16: 64x16, M <= 16: 16x128); any other shape needs
+//     operands TMA can read, which every caller's are. TMA maps and
+//     shared-memory limits are set once and reused, so a launch costs the
+//     host little beyond the launch itself.
 //   * Attention at head dim 64 and up to 256 keys with no mask (every ViT
 //     tower's blocks) or, with a KV prefix, under a key-mask row (the
 //     prompted passes of mvp-clip, DualPrompt, MVP and ProtoCLIP's image
@@ -140,8 +142,10 @@
 //     the unsplit road's bit for bit; and the dh product takes 128 x 64
 //     tiles where 128 x 128 ones would run a second, mostly empty round
 //     (150 tiles at 16 rows) and its long K pays for the smaller tiles.
-//   * LN (warp per row). The prefix rows' keys and values (pk @ W_k +
-//     b_k, pv @ W_v + b_v, bias added before the one bf16 rounding as
+//   * LN: the forward a warp a row; the backward whole rows by bulk async
+//     copy into a ring of rows a warp (ln_bwd_bulk_kernel). The prefix
+//     rows' keys and values (pk @ W_k + b_k, pv @ W_v + b_v, bias added
+//     before the one bf16 rounding as
 //     _prefix_kernel:553-562) are one more launch of the GEMM into a (B*P,
 //     2D) buffer: N = 2D over W_qkv's adjacent K and V columns where pk
 //     and pv are one tensor, else a grouped launch over the two.
@@ -240,55 +244,123 @@ ln_fwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
 
 // ---------------------------------------------------------------------------
 // LayerNorm backward plus the residual: dx = g + LN'(x)^T dh. Recomputes the
-// statistics from x; one warp per row as the forward. With STATS (the
-// weight grads) it also writes each row's (mean, rstd) for
-// ln_partials_kernel.
+// statistics from x. With STATS (the weight grads) it also writes each
+// row's (mean, rstd) for ln_partials_kernel.
+// Bound by its bytes (x, dh in fp32, g in, dx out: 10 bytes an element in
+// bf16; ViT-B/16's 12608 rows ~0.029 ms on an H100). Whole rows move by
+// bulk async copy (cp.async.bulk, 1-D TMA): a persistent grid, one block an
+// SM (two where they fit), each warp a ring of LNB_SLOTS rows in shared
+// memory that its lane 0 keeps loading (x, dh and g of a row on the slot's
+// mbarrier), so many rows' bytes are in flight for few registers; gamma is
+// staged once a block as fp32; dx goes out whole by a bulk store from a
+// row buffer of the warp. A warp takes rows w, w + W, ... (W warps in the
+// grid). The arithmetic is the warp-per-row kernel's it replaced, from
+// shared memory: lane l takes elements l + 32k, the same per-lane sums and
+// warp_sum trees, so dx and the statistics are its values bit for bit
+// (that kernel read each element by its own 2- or 4-byte load, re-read
+// gamma for every row, and ran at 2x its bytes).
 // ---------------------------------------------------------------------------
+constexpr int LNB_SLOTS = 2, LNB_WARPS = 8;
+
+// Row ``row`` of x, dh and g into the ring slot ``sl`` (one thread), counted
+// by the slot's mbarrier.
+template <typename T>
+__device__ __forceinline__ void ln_fill(unsigned char* sl, uint64_t* bar,
+                                        const T* x, const float* dh, const T* g,
+                                        long long row, int D) {
+  const unsigned xb = D * sizeof(T), hb = D * 4;
+  mbar_expect_tx(bar, 2 * xb + hb);
+  bulk_load(sl, x + row * D, xb, bar);
+  bulk_load(sl + xb, dh + row * D, hb, bar);
+  bulk_load(sl + xb + hb, g + row * D, xb, bar);
+}
+
 template <typename T, typename G, bool STATS>
-__global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
+__global__ void __launch_bounds__(32 * LNB_WARPS, 2)
+ln_bwd_bulk_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
               const float* __restrict__ dh, const T* __restrict__ g,
               T* __restrict__ dx, float2* __restrict__ stats, int M, int D,
               float eps) {
+  extern __shared__ __align__(16) unsigned char lsm[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
-  if (row >= (size_t)M) return;
-  const T* xr = x + row * D;
-  const float* dhr = dh + row * D;
-  float v[LN_MAXK], dxh[LN_MAXK];
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < LN_MAXK; ++k) {
-    const int i = lane + 32 * k;
-    v[k] = i < D ? to_f(xr[i]) : 0.f;
-    dxh[k] = i < D ? dhr[i] * to_f(gamma[i]) : 0.f;
-    s += v[k];
+  // the slots' mbarriers, gamma (fp32), then each warp's slots (x, dh, g of
+  // a row) and its dx row
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lsm);
+  float* gs = reinterpret_cast<float*>(lsm + LNB_WARPS * LNB_SLOTS * 8);
+  const int xb = D * (int)sizeof(T), hb = D * 4, sb = 2 * xb + hb;
+  unsigned char* ws = reinterpret_cast<unsigned char*>(gs + D) +
+                      (size_t)warp * (LNB_SLOTS * sb + xb);
+  T* dxs = reinterpret_cast<T*>(ws + LNB_SLOTS * sb);
+  uint64_t* bar = bars + warp * LNB_SLOTS;
+  const long long nw = (long long)gridDim.x * warps;
+  const long long w0 = (long long)blockIdx.x * warps + warp;
+  // lane 0 starts its warp's first rows, then the block stages gamma
+  if (lane == 0) {
+    for (int s = 0; s < LNB_SLOTS; ++s) mbar_init(bar + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < LNB_SLOTS; ++s)
+      if (w0 + s * nw < M) ln_fill(ws + s * sb, bar + s, x, dh, g, w0 + s * nw, D);
   }
-  const float mean = warp_sum(s) / D;
-  float q = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) gs[i] = to_f(gamma[i]);
+  __syncthreads();
+  int n = 0;   // the warp's rows so far
+  for (long long row = w0; row < M; row += nw, ++n) {
+    const int slot = n % LNB_SLOTS;
+    mbar_wait(bar + slot, (n / LNB_SLOTS) & 1);
+    const unsigned char* sl = ws + slot * sb;
+    const T* xr = reinterpret_cast<const T*>(sl);
+    const float* dhr = reinterpret_cast<const float*>(sl + xb);
+    const T* gr = reinterpret_cast<const T*>(sl + xb + hb);
+    float v[LN_MAXK], dxh[LN_MAXK];
+    float s = 0.f;
 #pragma unroll
-  for (int k = 0; k < LN_MAXK; ++k) {
-    const float d = lane + 32 * k < D ? v[k] - mean : 0.f;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(q) / D + eps);
-  if (STATS && lane == 0) stats[row] = make_float2(mean, rstd);
-  float s1 = 0.f, s2 = 0.f;
+    for (int k = 0; k < LN_MAXK; ++k) {
+      const int i = lane + 32 * k;
+      v[k] = i < D ? to_f(xr[i]) : 0.f;
+      dxh[k] = i < D ? dhr[i] * gs[i] : 0.f;
+      s += v[k];
+    }
+    const float mean = warp_sum(s) / D;
+    float q = 0.f;
 #pragma unroll
-  for (int k = 0; k < LN_MAXK; ++k) {
-    v[k] = (v[k] - mean) * rstd;   // xhat (unused past D)
-    s1 += dxh[k];
-    s2 += dxh[k] * v[k];
-  }
-  const float m1 = warp_sum(s1) / D;
-  const float m2 = warp_sum(s2) / D;
+    for (int k = 0; k < LN_MAXK; ++k) {
+      const float d = lane + 32 * k < D ? v[k] - mean : 0.f;
+      q += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(q) / D + eps);
+    if (STATS && lane == 0) stats[row] = make_float2(mean, rstd);
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int k = 0; k < LN_MAXK; ++k) {
-    const int i = lane + 32 * k;
-    if (i >= D) continue;
-    const float dxln = rstd * (dxh[k] - m1 - v[k] * m2);
-    dx[row * D + i] = from_f<T>(to_f(g[row * D + i]) + dxln);
+    for (int k = 0; k < LN_MAXK; ++k) {
+      v[k] = (v[k] - mean) * rstd;   // xhat (unused past D)
+      s1 += dxh[k];
+      s2 += dxh[k] * v[k];
+    }
+    const float m1 = warp_sum(s1) / D;
+    const float m2 = warp_sum(s2) / D;
+    // the last row's store has read the dx buffer
+    if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < LN_MAXK; ++k) {
+      const int i = lane + 32 * k;
+      if (i >= D) continue;
+      const float dxln = rstd * (dxh[k] - m1 - v[k] * m2);
+      dxs[i] = from_f<T>(to_f(gr[i]) + dxln);
+    }
+    // every lane is done with the slot and the dx row is written: refill
+    // the slot with the warp's row LNB_SLOTS on, and store the row
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      if (row + LNB_SLOTS * nw < M)
+        ln_fill(ws + slot * sb, bar + slot, x, dh, g, row + LNB_SLOTS * nw, D);
+      bulk_store(dx + row * D, dxs, xb);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
   }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // The LN grads' and the out-projection bias grad's column sums with the
@@ -461,7 +533,7 @@ struct GemmArgs {
   // group's
   int groups;
   long long gm, gn;
-  // the rank-r LoRA fold (gemm_wgmma_kernel<..., FOLD = true>), where a
+  // the rank-r LoRA fold (gemm_pingpong_kernel<..., FOLD = true>), where a
   // launch forms the LoRA products on the operand tiles it already streams:
   //   * Z = bf16(zalpha * A @ F), F (K x R) at fz[k + n * sfn] (K
   //     contiguous: TMA loads its 64 x 8 tile beside each A stage), a
@@ -599,10 +671,11 @@ __device__ __forceinline__ void gemm_store2(const GemmArgs& p, float v0,
 // every store. Interleaved, each load would wait behind the store before it,
 // which may alias it.
 // With zs (not null) the LoRA factors come from shared memory, staged by the
-// caller: zs[r] and zs[8 * LORA_RMAX + r] are lscale * z16 of rows m and
-// m + 8, ls[r * ldl + 8j (+1)] L16 of columns n + 8j (+1). col_off: the
-// group's column offset into bias and out (gn * g).
-constexpr int LORA_RMAX = 16;
+// caller (the folded GEMMs, rank <= FOLD_RMAX): zs[r] and zs[8 * FOLD_RMAX +
+// r] are lscale * z16 of rows m and m + 8, ls[r * ldl + 8j (+1)] L16 of
+// columns n + 8j (+1). col_off: the group's column offset into bias and out
+// (gn * g).
+constexpr int FOLD_RMAX = 8;
 
 // Bias element i in the bias's own dtype (the chain casts nothing first).
 __device__ __forceinline__ float bias_at(const GemmArgs& p, long long i) {
@@ -644,7 +717,7 @@ __device__ __forceinline__ void gemm_epilogue_terms(const GemmArgs& p,
   }
   // + lscale * z16 @ L, one rank at a time
   for (int r = 0; zs && r < p.R; ++r) {
-    const float za = zs[r], zb = zs[8 * LORA_RMAX + r];
+    const float za = zs[r], zb = zs[8 * FOLD_RMAX + r];
     const float* lr = ls + r * ldl;
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
@@ -712,13 +785,14 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& p, float (*c)[4],
   }
 }
 
-// Byte offset of element (row, col) of a 128-row bf16 tile staged as boxes
-// of 64 columns (16 KB each, 128-byte rows), in TMA's 128B swizzle: the
-// 16-byte chunk of a row is XORed with row % 8, so the 8 rows a warp's
-// accumulator layout writes at once fall in 8 different banks' chunks.
+// Byte offset of element (row, col) of a CM-row bf16 tile staged as boxes
+// of 64 columns (CM 128-byte rows each), in TMA's 128B swizzle: the 16-byte
+// chunk of a row is XORed with row % 8, so the 8 rows a warp's accumulator
+// layout writes at once fall in 8 different banks' chunks.
+template <int CM>
 __device__ __forceinline__ int stage_offset(int row, int col) {
   const int cc = col & 63;
-  return (col >> 6) * 16384 + row * 128 +
+  return (col >> 6) * (CM * 128) + row * 128 +
          ((((cc >> 3) ^ row) & 7) << 4) + ((cc & 7) << 1);
 }
 
@@ -727,7 +801,7 @@ __device__ __forceinline__ int stage_offset(int row, int col) {
 // loaded it, and one rounding to bf16 into the same place, from which TMA
 // stores the tile. mr / nc: row and column of c[0][0] in the tile; n its
 // column in the group.
-template <int NI>
+template <int NI, int CM>
 __device__ __forceinline__ void gemm_epilogue_staged(
     const GemmArgs& p, float (*c)[4], int mr, int nc, int n, long long col_off,
     const float* zs, const float* ls, int ldl, unsigned char* stage,
@@ -738,7 +812,7 @@ __device__ __forceinline__ void gemm_epilogue_staged(
 #pragma unroll
     for (int h = 0; h < 2; ++h) {   // rows mr and mr + 8
       unsigned* slot = reinterpret_cast<unsigned*>(
-          stage + stage_offset(mr + 8 * h, nc + 8 * j));
+          stage + stage_offset<CM>(mr + 8 * h, nc + 8 * j));
       float v0 = c[j][2 * h], v1 = c[j][2 * h + 1];
       if (p.resid) {
         const float2 r = __bfloat1622float2(
@@ -836,71 +910,95 @@ gemm_kernel(GemmArgs p) {
 // ---------------------------------------------------------------------------
 // Hopper GEMM, the same contract (layouts by strides, epilogue, split-K
 // partials) for operands TMA can read: a unit stride in one dimension, the
-// other a multiple of 16 bytes, a 16-byte aligned base. Tile 128 x BN x 64
-// (BN 64, 128 or 256), one block of 3 warpgroups:
+// other a multiple of 16 bytes, a 16-byte aligned base. Output tiles 128 x
+// BN (BN 128 or 64 columns), K in steps of 64; one block of 3 warpgroups
+// on a warp-specialized "ping-pong" schedule:
 //   * warpgroup 0 is the producer: one thread keeps a ring of STAGES tiles
 //     in flight, each A and B tile one or a few cp.async.bulk.tensor loads
 //     into 128B-swizzled shared memory, completion counted by the stage's
 //     "full" mbarrier (expect_tx);
-//   * warpgroups 1 and 2 each own 64 rows of the tile and run
-//     wgmma.mma_async m64n128k16 (m64n64k16 for BN 64; fp32 accumulators
-//     in registers, both operands read from shared memory through matrix
-//     descriptors; bf16 wgmma reads K-major or MN-major tiles, so NN, NT
-//     and TN need no transposing copy), keep one group of products in
-//     flight, and release
-//     a stage to the producer through its "empty" mbarrier when its
-//     products have retired;
-//   * the epilogue (gemm_epilogue) runs from the accumulators.
+//   * warpgroups 1 and 2 are the consumers, and each owns whole output
+//     tiles: the block's tiles go to them in turn, in the order the
+//     producer fills the ring. A consumer runs wgmma.mma_async m64n128k16
+//     (m64n64k16 for BN 64; two products of 64 rows a k16 step; fp32
+//     accumulators in registers, both operands read from shared memory
+//     through matrix descriptors; bf16 wgmma reads K-major or MN-major
+//     tiles, so NN, NT and TN need no transposing copy), keeps one group of
+//     products in flight, and releases a stage to the producer through its
+//     "empty" mbarrier when its products have retired;
+//   * the consumers' main loops take turns (the "order" mbarriers: each
+//     waits until the other has issued its tile's last products), so while
+//     one runs its epilogue (bias, LoRA terms, residual, rounding, staging
+//     and store) the other's products keep the tensor cores busy. Each
+//     consumer has its own staging tile, Z tiles, LoRA factors and bias in
+//     shared memory, and its own named barrier;
+//   * a launch whose tiles fill at most one round of the SMs (COOP) runs
+//     both consumers on each tile, 64 rows each: a block there has one
+//     tile, and one consumer alone ran it up to 1.5x slower.
+// The cooperative schedule it replaces (both consumers on every tile)
+// idled the tensor cores through every epilogue (~1/3 of a tile's time at
+// K = 768 by the cost model; on an H100 the qkv product gained 8-11%, as
+// one consumer's k-steps run slower than two consumers', PERF.md); 64-row
+// ping-pong tiles, which read B twice as often from L2, ran the qkv
+// product 1.65x slower; the fold's partials pair 64-row blocks in a
+// 128-row tile. Each output element
+// still sums its k16 steps in order into one fp32 chain with the same wgmma
+// width, and the epilogue adds its terms in the same order, so every value
+// is the cooperative kernel's bit for bit.
 // Persistent: one block an SM walks the output tiles (n fastest, so the
 // tiles in flight share their A rows); the producer's ring runs on across
-// tiles, so a tile's first loads overlap the previous tile's epilogue.
-// setmaxnreg moves registers from the producer to the consumers. TMA fills
-// out-of-bounds rows and columns with zeros, so ragged M, N and K need no
-// masking in the main loop.
+// tiles. setmaxnreg moves registers from the producer to the consumers. TMA
+// fills out-of-bounds rows and columns with zeros, so ragged M, N and K
+// need no masking in the main loop.
 // ---------------------------------------------------------------------------
 constexpr int WG_BM = 128, WG_BK = 64, WG_THREADS = 384;
-constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;   // 16 KB
-constexpr int WG_BOX = 8192;                    // one 64 x 64 bf16 box, 128B rows
+constexpr int WG_BOX = 8192;   // one 64 x 64 bf16 box (or 64 rows of one), 128B rows
 
 // The fold's narrow products are 8 wide (FOLD_RMAX ranks; the tensor
 // work of a 64 x 8 product is a sixteenth of the 64 x 128 one beside it),
 // their B tiles 8 rows (ranks, zero past R) of 64 K-contiguous bf16,
-// 128B-swizzled: the F tile of a ring stage, and the Z tile of a consumer
-// warpgroup's 64 rows for the partials.
-constexpr int FOLD_RMAX = 8;
+// 128B-swizzled: the F tile of a ring stage, and the Z tiles of a
+// consumer's 64-row halves for the partials.
 constexpr int WG_F_BYTES = FOLD_RMAX * 128;
 
-template <int BN, bool STAGE, bool FOLD = false>
-struct WgTile {
-  // the staging tile takes the room of one ring stage
-  static constexpr int STAGES = BN == 256 ? 4 : (STAGE ? 5 : 6);
-  static constexpr int STAGE_BYTES = WG_A_BYTES + BN * WG_BK * 2;
-  static constexpr int OUT = STAGE ? WG_BM * BN * 2 : 0;   // bf16 staging
-  static constexpr int FOLD_BYTES = FOLD ? (STAGES + 2) * WG_F_BYTES : 0;
-  // the ring, the staging tile, the fold's tiles, the LoRA factors and the
-  // bias of the tile (fp32), the barriers, alignment
-  static constexpr int LORA = (WG_BM + BN) * LORA_RMAX * 4;
-  static constexpr int BIAS = BN * 4;
-  static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + OUT +
-                                 FOLD_BYTES + LORA + BIAS +
-                                 (2 * STAGES + 3) * 8 + 1024;
-  static_assert(SMEM <= 232448, "a block's shared memory");
-};
-
-
-// The fold's modes (gemm_wgmma_kernel's FOLD): none; Z alone (the
+// The fold's modes (gemm_pingpong_kernel's FOLD): none; Z alone (the
 // forward's qkv and out products); Z and both kinds of partials (the
 // backward's dctx and dh products).
 enum { FOLD_NONE = 0, FOLD_Z = 1, FOLD_GRADS = 2 };
 
-// Byte offset of element (row n, column k) of a fold tile (WG_F_BYTES: 128-
-// byte rows of 64 bf16 in TMA's 128B swizzle, the 16-byte chunk XORed with
-// n % 8), as wgmma reads a K-major B tile and TMA writes it.
+template <int BN, bool STAGE, int FOLD, bool COOP>
+struct WgTile {
+  static constexpr int CM = WG_BM;
+  static constexpr int A_BYTES = CM * WG_BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * WG_BK * 2;
+  static constexpr int F = FOLD ? WG_F_BYTES : 0;   // a stage's F tile
+  static constexpr int RC = COOP ? 64 : CM;         // a consumer's rows of a tile
+  // a consumer's own: the bf16 staging tile, the Z tiles of its 64-row
+  // halves, lscale * Z of its rows and the LoRA factor L of its columns
+  // (fp32, the fold), the bias of its columns (fp32)
+  static constexpr int OUT = STAGE ? RC * BN * 2 : 0;
+  static constexpr int ZT = FOLD == FOLD_GRADS ? RC / 64 * WG_F_BYTES : 0;
+  static constexpr int LORA = FOLD ? (RC + BN) * FOLD_RMAX * 4 : 0;
+  static constexpr int BIAS = BN * 4;
+  // the full and empty barriers of each stage, then the consumers' order,
+  // residual and zin barriers
+  static constexpr int BARS = (2 * 8 + 6) * 8;
+  static constexpr int FIXED = 2 * (OUT + ZT + LORA + BIAS) + BARS + 1024;
+  // as many stages as the rest of the block's shared memory holds, up to 8
+  static constexpr int FIT = (232448 - FIXED) / (STAGE_BYTES + F);
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr size_t SMEM = (size_t)STAGES * (STAGE_BYTES + F) + FIXED;
+  static_assert(STAGES >= 3 && SMEM <= 232448, "a block's shared memory");
+};
+
+// Byte offset of element (n, k) of a fold tile (WG_F_BYTES: 128-byte rows
+// of 64 bf16 in TMA's 128B swizzle, the 16-byte chunk XORed with n % 8), as
+// wgmma reads a K-major B tile and TMA writes it.
 __device__ __forceinline__ int fold_offset(int n, int k) {
   return n * 128 + ((((k >> 3) ^ n) & 7) << 4) + ((k & 7) << 1);
 }
 
-// One k16 step of a consumer's 64 x HN slab (HN 128 or 64).
+// One k16 step of a 64 x HN slab (HN 128 or 64).
 template <int HN, int TA, int TB>
 __device__ __forceinline__ void wgmma_k16(float (&d)[HN / 2], uint64_t da,
                                           uint64_t db) {
@@ -908,63 +1006,77 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[HN / 2], uint64_t da,
   else wgmma_m64n64k16<TA, TB>(d, da, db);
 }
 
-// STAGE (bf16 out, 128 x 128 tiles, no split-K): the epilogue goes through a
-// 32 KB staging tile in shared memory. The first consumer thread loads the
-// tile's residual into it by TMA (tma_r, counted by ``rbar``) as the tile's
-// main loop starts, so the load overlaps the products; the consumers add
-// the terms and the residual from there and write the bf16 result back in
-// place (conflict-free in the 128B swizzle); then that thread stores the
-// tile by TMA (tma_c) in whole 128-byte rows, which overlaps the next
-// tile's main loop, and waits only until TMA has read the staging tile
-// before it loads the next residual into it. Without STAGE the epilogue
-// writes from the accumulators (gemm_epilogue).
+// The ring stages of tile t (``tiles`` the output tiles of a group and a
+// split): its k-steps, and with the fold's partials one more (its xa tile).
+__device__ __forceinline__ int wg_ring_steps(const GemmArgs& p, int t, int tiles,
+                                             bool xa) {
+  const int kbeg = t / (tiles * p.groups) * p.k_per_split;
+  const int kend = min(p.K, kbeg + p.k_per_split);
+  return (kend > kbeg ? (kend - kbeg + WG_BK - 1) / WG_BK : 0) + (xa ? 1 : 0);
+}
+
+// STAGE (bf16 out, 128-column tiles, no split-K): the epilogue goes through
+// the consumer's staging tile in shared memory. Its first thread (the
+// leader) loads the tile's residual into it by TMA (tma_r, counted by the
+// consumer's ``rbar``) before the tile's main loop, so the load overlaps the
+// products; the consumer adds the terms and the residual from there and
+// writes the bf16 result back in place (conflict-free in the 128B swizzle);
+// then the leader stores the tile by TMA (tma_c) in whole 128-byte rows,
+// which overlaps the other consumer's products, and waits until TMA has
+// read the staging tile only before its next tile's residual load. Without
+// STAGE the epilogue writes from the accumulators (gemm_epilogue).
 // KR (FOLD_GRADS): K / N of the product (dctx 1, dh 3), so that each
 // column tile's share of a row block's k-steps is KR * BN / 64 of them.
-template <typename OutT, int BN, bool AT, bool BT, bool STAGE, int FOLD = FOLD_NONE,
-          int KR = 0>
+// COOP (a launch whose tiles fill at most one round of the SMs, where a
+// block has one tile and ping-pong nothing to overlap): both consumers
+// take every tile of the block, 64 of its 128 rows each, their main loops
+// at once (on an H100 the ping-pong schedule ran such launches up to 1.5x
+// slower: a lone consumer, PERF.md).
+template <typename OutT, int BN, bool AT, bool BT, bool STAGE,
+          int FOLD = FOLD_NONE, int KR = 0, bool COOP = false>
 __global__ void __launch_bounds__(WG_THREADS, 1)
-gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+gemm_pingpong_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ CUtensorMap tma_b,
                   const __grid_constant__ CUtensorMap tma_c,
                   const __grid_constant__ CUtensorMap tma_r,
                   const __grid_constant__ CUtensorMap tma_f,
                   const __grid_constant__ CUtensorMap tma_z,
                   const __grid_constant__ CUtensorMap tma_x, GemmArgs p) {
-  using TL = WgTile<BN, STAGE, FOLD != FOLD_NONE>;
-  constexpr int STAGES = TL::STAGES;
-  // a consumer's 64 x BN slab as NH wgmma products of 64 x HN each
+  using TL = WgTile<BN, STAGE, FOLD, COOP>;
+  constexpr int CM = TL::CM, STAGES = TL::STAGES, RC = TL::RC, MI = RC / 64;
+  // a consumer's RC x BN share of a tile as MI x NH wgmma products of 64 x
+  // HN each
   constexpr int HN = BN < 128 ? BN : 128, NH = BN / HN;
+  static_assert(MI * BN <= 256, "at most 128 accumulators a thread");
   static_assert(!FOLD || (!AT && BN <= 128), "the fold reads K-major A tiles");
   extern __shared__ __align__(1024) unsigned char wsm[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on it
   unsigned char* base = wsm + ((1024 - (smem_u32(wsm) & 1023)) & 1023);
-  unsigned char* stage = base + STAGES * TL::STAGE_BYTES;
-  // the fold's F tile of each ring stage, then the Z tiles of the two
-  // consumer warpgroups
-  unsigned char* fsm = stage + TL::OUT;
-  unsigned char* ztm = fsm + STAGES * WG_F_BYTES;
-  float* zs = reinterpret_cast<float*>(stage + TL::OUT + TL::FOLD_BYTES);
-  float* ls = zs + WG_BM * LORA_RMAX;
-  float* bsm = ls + LORA_RMAX * BN;
-  uint64_t* full = reinterpret_cast<uint64_t*>(bsm + BN);
+  unsigned char* fsm = base + STAGES * TL::STAGE_BYTES;   // the stages' F tiles
+  unsigned char* outs = fsm + STAGES * TL::F;             // the staging tiles
+  unsigned char* ztm = outs + 2 * TL::OUT;                // the Z tiles
+  float* lsm = reinterpret_cast<float*>(ztm + 2 * TL::ZT);
+  float* bsm0 = lsm + 2 * (TL::LORA / 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bsm0 + 2 * BN);
   uint64_t* empty = full + STAGES;
-  uint64_t* rbar = empty + STAGES;
-  uint64_t* zbar = rbar + 1;   // the fold: zin's tile of each warpgroup
+  uint64_t* order = empty + STAGES;   // the consumers' main loops in turn
+  uint64_t* rbar = order + 2;         // each consumer's residual tile
+  uint64_t* zbar = rbar + 2;          // the fold: each consumer's zin rows
   // persistent: block b takes tiles b, b + gridDim.x, ...; n fastest, then
   // m, then the group, then the split of K, so the tiles in flight share
   // their A rows
-  const int tiles_n = (p.N + BN - 1) / BN, tiles_m = (p.M + WG_BM - 1) / WG_BM;
+  const int tiles_n = (p.N + BN - 1) / BN, tiles_m = (p.M + CM - 1) / CM;
   const int ntiles = tiles_n * tiles_m * p.groups * p.splits;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, 2 * 128);   // every consumer thread arrives
+      mbar_init(empty + s, COOP ? 256 : 128);   // every thread of the tile's consumers
     }
-    mbar_init(rbar, 1);
-    if (FOLD == FOLD_GRADS) {
-      mbar_init(zbar, 1);
-      mbar_init(zbar + 1, 1);
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(order + c, 128);
+      mbar_init(rbar + c, 1);
+      mbar_init(zbar + c, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -975,7 +1087,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     if (threadIdx.x == 0) {
       int it = 0;
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * WG_BM;
+        const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * CM;
         const int gi = t / (tiles_n * tiles_m) % p.groups;
         const int am = m0 + (int)(gi * p.gm), bn = n0 + (int)(gi * p.gn);
         const int kbeg = t / (tiles_n * tiles_m * p.groups) * p.k_per_split;
@@ -984,12 +1096,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(empty + s, (it / STAGES - 1) & 1);
           unsigned char* As = base + s * TL::STAGE_BYTES;
-          unsigned char* Bs = As + WG_A_BYTES;
-          mbar_expect_tx(full + s, TL::STAGE_BYTES + (FOLD ? WG_F_BYTES : 0));
-          if (AT) {   // M contiguous: two 64 (M) x 64 (K) boxes
-            tma_load(As, &tma_a, full + s, am, k);
-            tma_load(As + WG_BOX, &tma_a, full + s, am + 64, k);
-          } else {    // K contiguous: one 64 (K) x 128 (M) box
+          unsigned char* Bs = As + TL::A_BYTES;
+          mbar_expect_tx(full + s, TL::STAGE_BYTES + TL::F);
+          if (AT) {   // M contiguous: CM / 64 boxes of 64 (M) x 64 (K)
+#pragma unroll
+            for (int i = 0; i < CM / 64; ++i)
+              tma_load(As + i * WG_BOX, &tma_a, full + s, am + 64 * i, k);
+          } else {    // K contiguous: one 64 (K) x CM (M) box
             tma_load(As, &tma_a, full + s, k, am);
           }
           if (BT) {   // K contiguous: one 64 (K) x BN (N) box
@@ -1006,128 +1119,160 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(empty + s, (it / STAGES - 1) & 1);
           unsigned char* Xs = base + s * TL::STAGE_BYTES;
-          mbar_expect_tx(full + s, WG_BM * BN * 2);
+          mbar_expect_tx(full + s, CM * BN * 2);
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load(Xs + j * 16384, &tma_x, full + s, n0 + 64 * j, m0);
+            tma_load(Xs + j * CM * 128, &tma_x, full + s, n0 + 64 * j, m0);
           ++it;
         }
       }
     }
-  } else {         // consumers: warpgroup c owns rows 64c .. 64c + 63
+  } else {         // consumers: warpgroup 1 + c takes the block's tiles c,
+                   // c + 2, ... (COOP: rows 64c .. 64c + 63 of every tile)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::);
     const int c = wg - 1;
+    const int r0 = COOP ? 64 * c : 0;   // the consumer's first row of a tile
     const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
-    const int mm = 64 * c + 16 * w4 + (lane >> 2);
+    const int mm = 16 * w4 + (lane >> 2);   // the thread's first row of a 64-row half
     const int g8 = lane >> 2, t4 = lane & 3;
-    const bool lora_smem = (FOLD || p.lz) && p.R <= LORA_RMAX;
-    const bool leader = threadIdx.x == 128;   // issues the staging tile's TMA
-    // the fold: this warpgroup's Z tile (zin's rows for the B-type
-    // partials, then the tile's Z for the A-type ones) and the thread that
-    // loads zin into it, a tile ahead
-    unsigned char* zt = ztm + c * WG_F_BYTES;
-    const bool zlead = (threadIdx.x & 127) == 0;
-    if (FOLD == FOLD_GRADS && zlead) {
-      mbar_expect_tx(zbar + c, WG_F_BYTES);
-      tma_load(zt, &tma_z, zbar + c,
-               (int)blockIdx.x / tiles_n % tiles_m * WG_BM + 64 * c, 0);
+    const bool leader = (threadIdx.x & 127) == 0;   // the consumer's TMA thread
+    unsigned char* stg = outs + c * TL::OUT;
+    // the fold: the Z tiles of the consumer's halves (zin's rows for the
+    // B-type partials, then the tile's Z for the A-type ones), loaded a
+    // tile ahead; lscale * Z of the tile's rows and L of its columns
+    unsigned char* zt = ztm + c * TL::ZT;
+    float* zs = lsm + c * (TL::LORA / 4);
+    float* ls = zs + RC * FOLD_RMAX;
+    float* bsm = bsm0 + c * BN;
+    const int step = (COOP ? 1 : 2) * gridDim.x;
+    const int first = blockIdx.x + (COOP ? 0 : c * gridDim.x);
+    const int bar_id = 1 + c;   // the consumer's named barrier
+    if (FOLD == FOLD_GRADS && leader && first < ntiles) {
+      mbar_expect_tx(zbar + c, MI * WG_F_BYTES);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        tma_load(zt + i * WG_F_BYTES, &tma_z, zbar + c,
+                 first / tiles_n % tiles_m * CM + r0 + 64 * i, 0);
     }
-    int it = 0, tl = 0;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x, ++tl) {
-      const int n0 = (t % tiles_n) * BN, m0 = (t / tiles_n % tiles_m) * WG_BM;
+    // the ring position: the other consumer's tiles come between this one's
+    int it = !COOP && c == 1 ? wg_ring_steps(p, blockIdx.x, tiles_n * tiles_m,
+                                             FOLD == FOLD_GRADS) : 0;
+    int tn = 0;   // the consumer's own tiles so far
+    for (int t = first; t < ntiles; t += step, ++tn) {
+      const int n0 = (t % tiles_n) * BN, m0 = t / tiles_n % tiles_m * CM;
       const int gi = t / (tiles_n * tiles_m) % p.groups;
       const long long col_off = gi * p.gn;
       const int zi = t / (tiles_n * tiles_m * p.groups);
       const int kbeg = zi * p.k_per_split;
       const int kend = min(p.K, kbeg + p.k_per_split);
-      // the residual tile into the staging tile, which the last tile's TMA
-      // store has finished reading (the leader waited for it)
-      if (STAGE && leader && p.resid) {
-        mbar_expect_tx(rbar, TL::OUT);
+      // the residual tile into the staging tile, once the last tile's TMA
+      // store has read it
+      if (STAGE && leader) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        if (p.resid) {
+          mbar_expect_tx(rbar + c, TL::OUT);
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load(stage + j * 16384, &tma_r, rbar, n0 + (int)col_off + 64 * j,
-                   m0);
-      }
-      // the LoRA factors and the bias of this tile into shared memory as
-      // fp32 while the ring fills (the epilogue reads each many times, the
-      // bias in its own dtype); rows and columns past M and N stage as zeros.
-      // With the fold, Z comes from the tile's own product.
-      if (lora_smem || p.bias) {
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the last epilogue is done
-        const int tc = threadIdx.x - 128;
-        for (int i = tc; !FOLD && lora_smem && i < WG_BM * p.R; i += 256) {
-          const int row = i / p.R, r = i % p.R, m = m0 + row;
-          zs[row * LORA_RMAX + r] = m < p.M ? p.lscale * __bfloat162float(
-              p.lz[(size_t)m * p.szm + (size_t)r * p.szr]) : 0.f;
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(stg + j * RC * 128, &tma_r, rbar + c,
+                     n0 + (int)col_off + 64 * j, m0 + r0);
         }
-        for (int i = tc; lora_smem && i < p.R * BN; i += 256) {
+      }
+      // the fold's factor L and the bias of this tile into shared memory as
+      // fp32 (the epilogue reads each many times, the bias in its own
+      // dtype); columns past N stage as zeros. Z comes from the tile's own
+      // product.
+      if (FOLD || p.bias) {
+        asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");   // the last epilogue is done
+        const int tc = threadIdx.x & 127;
+        for (int i = tc; FOLD && i < p.R * BN; i += 128) {
           const int r = i / BN, nn = i % BN, n = n0 + nn;
           ls[r * BN + nn] = n < p.N ? __bfloat162float(
               p.lb[(size_t)r * p.slr + (size_t)n * p.sln]) : 0.f;
         }
-        for (int i = tc; p.bias && i < BN; i += 256)
+        for (int i = tc; p.bias && i < BN; i += 128)
           bsm[i] = n0 + i < p.N ? bias_at(p, col_off + n0 + i) : 0.f;
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the consumers only
+        asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
       }
-      float acc[NH][HN / 2];
+      // this tile's main loop comes after the other consumer has issued its
+      // last tile's products
+      if (!COOP && c == 1) mbar_wait(order + 1, tn & 1);
+      else if (!COOP && tn > 0) mbar_wait(order, (tn - 1) & 1);
+      float acc[MI][NH][HN / 2];
 #pragma unroll
-      for (int h = 0; h < NH; ++h)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int i = 0; i < HN / 2; ++i) acc[h][i] = 0.f;
+        for (int h = 0; h < NH; ++h)
+#pragma unroll
+          for (int e = 0; e < HN / 2; ++e) acc[i][h][e] = 0.f;
       // the fold: Z's accumulators, and the B-type partials of each k-step
       // of this tile's share: CH steps from c0, the row block's k-steps by
       // column tile (each step's own accumulators, read once every product
       // has retired: an accumulator read while any wgmma is in flight, or
       // a wgmma under a branch, makes the compiler serialize them all)
       constexpr int CH = FOLD == FOLD_GRADS ? KR * BN / WG_BK : 1;
-      float zacc[4], pacc[CH][4];
+      float zacc[MI][4], pacc[CH][MI][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) zacc[i] = 0.f;
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) zacc[i][e] = 0.f;
       const int c0 = FOLD == FOLD_GRADS ? n0 / BN * CH * WG_BK : kend;
-      if constexpr (FOLD == FOLD_GRADS) mbar_wait(zbar + c, tl & 1);   // zin's rows
-      const int blk = (m0 / WG_BM) * 2 + c;   // the partials' 64-row block
-      // One k-step at k: the product (and with the fold Z's) on its ring
+      if constexpr (FOLD == FOLD_GRADS) mbar_wait(zbar + c, tn & 1);   // zin's rows
+      const int blk = (m0 + r0) / 64;   // the partials' 64-row block of the first half
+      // One k-step at k: the products (and with the fold Z's) on its ring
       // stage; with WP also this step's B-type partials into pn (its 64
-      // columns of A against zin over the warpgroup's 64 rows, A read
-      // M-major; the first product overwrites pn).
-      auto kstep = [&](int k, auto wp, float (&pn)[4]) {
+      // columns of A against zin over each half's 64 rows, A read M-major;
+      // the first product overwrites pn).
+      auto kstep = [&](int k, auto wp, float (*pn)[4]) {
         constexpr bool WP = decltype(wp)::value;
         const int s = it % STAGES;
         mbar_wait(full + s, (it / STAGES) & 1);
-        const unsigned char* As = base + s * TL::STAGE_BYTES + c * WG_BOX;
-        const unsigned char* Bs = base + s * TL::STAGE_BYTES + WG_A_BYTES;
+        const unsigned char* As = base + s * TL::STAGE_BYTES + r0 * 128;
+        const unsigned char* Bs = base + s * TL::STAGE_BYTES + TL::A_BYTES;
         const unsigned char* Fs = fsm + s * WG_F_BYTES;
 #pragma unroll
-        for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
-        if constexpr (FOLD != FOLD_NONE) wg_reg_fence(zacc);
-        if constexpr (WP) wg_reg_fence(pn);
+        for (int i = 0; i < MI; ++i) {
+#pragma unroll
+          for (int h = 0; h < NH; ++h) wg_reg_fence(acc[i][h]);
+          if constexpr (FOLD != FOLD_NONE) wg_reg_fence(zacc[i]);
+          if constexpr (WP) wg_reg_fence(pn[i]);
+        }
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk) {
-          // k16 step: 32 bytes along a K-major row, 16 rows of an MN-major tile
-          const uint64_t da = AT ? wg_desc(As + kk * 2048, WG_BOX, 1024)
-                                 : wg_desc(As + kk * 32, 16, 1024);
 #pragma unroll
-          for (int h = 0; h < NH; ++h) {
-            const uint64_t db = BT ? wg_desc(Bs + h * 16384 + kk * 32, 16, 1024)
-                                   : wg_desc(Bs + h * 16384 + kk * 2048, WG_BOX, 1024);
-            wgmma_k16<HN, AT ? 1 : 0, BT ? 0 : 1>(acc[h], da, db);
+          for (int i = 0; i < MI; ++i) {
+            // k16 step: 32 bytes along a K-major row, 16 rows of an MN-major
+            // tile; half i's 64 rows one box on
+            const uint64_t da = AT ? wg_desc(As + i * WG_BOX + kk * 2048, WG_BOX, 1024)
+                                   : wg_desc(As + i * WG_BOX + kk * 32, 16, 1024);
+#pragma unroll
+            for (int h = 0; h < NH; ++h) {
+              const uint64_t db = BT ? wg_desc(Bs + h * 16384 + kk * 32, 16, 1024)
+                                     : wg_desc(Bs + h * 16384 + kk * 2048, WG_BOX, 1024);
+              wgmma_k16<HN, AT ? 1 : 0, BT ? 0 : 1>(acc[i][h], da, db);
+            }
+            if constexpr (FOLD != FOLD_NONE)
+              wgmma_m64n8k16<0, 0>(zacc[i], da, wg_desc(Fs + kk * 32, 16, 1024));
           }
-          if constexpr (FOLD != FOLD_NONE)
-            wgmma_m64n8k16<0, 0>(zacc, da, wg_desc(Fs + kk * 32, 16, 1024));
         }
         if constexpr (WP) {
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)   // the first overwrites pn
-            wgmma_m64n8k16<1, 0>(pn, wg_desc(As + kk * 2048, WG_BOX, 1024),
-                                  wg_desc(zt + kk * 32, 16, 1024), kk > 0);
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)   // the first overwrites pn
+              wgmma_m64n8k16<1, 0>(pn[i],
+                                    wg_desc(As + i * WG_BOX + kk * 2048, WG_BOX, 1024),
+                                    wg_desc(zt + i * WG_F_BYTES + kk * 32, 16, 1024),
+                                    kk > 0);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
-        if constexpr (FOLD != FOLD_NONE) wg_reg_fence(zacc);
-        if constexpr (WP) wg_reg_fence(pn);
+        for (int i = 0; i < MI; ++i) {
+#pragma unroll
+          for (int h = 0; h < NH; ++h) wg_reg_fence(acc[i][h]);
+          if constexpr (FOLD != FOLD_NONE) wg_reg_fence(zacc[i]);
+          if constexpr (WP) wg_reg_fence(pn[i]);
+        }
         // the previous k-tile's products have retired: hand its stage back
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         if (k > kbeg) mbar_arrive(empty + (it - 1) % STAGES);
@@ -1143,22 +1288,36 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
         k += CH * WG_BK;
       }
       for (; k < kend; k += WG_BK) kstep(k, plain, zacc);
+      // every product of the tile is issued: the other consumer's turn.
+      // With the fold's partials the tile's xa stage, which this consumer
+      // reads only in its epilogue, has landed first: the other consumer
+      // could otherwise reach that stage's next fill while it is pending
+      // and pass its wait on the phase before (mbarrier parity aliases
+      // two phases apart), reading the xa tile as its own.
+      if constexpr (FOLD == FOLD_GRADS)
+        if (!COOP) mbar_wait(full + it % STAGES, (it / STAGES) & 1);
+      if (!COOP) mbar_arrive(order + (1 - c));
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-      for (int h = 0; h < NH; ++h) wg_reg_fence(acc[h]);
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) wg_reg_fence(acc[i][h]);
       if (kend > kbeg) mbar_arrive(empty + (it - 1) % STAGES);   // the last one
       if constexpr (FOLD == FOLD_GRADS) {
-        // the B-type partials, P[c0 + 64 j + i][r] into pb[blk][r][...]
-        float* pb = p.pb + (size_t)blk * p.R * p.K;
+        // the B-type partials, P[c0 + 64 j + i][r] into pb[blk + half][r][...]
 #pragma unroll
-        for (int j = 0; j < CH; ++j) {
-          float v[4];
-          wg_read(v, pacc[j]);
+        for (int i = 0; i < MI; ++i) {
+          float* pb = p.pb + (size_t)(blk + i) * p.R * p.K;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = 2 * t4 + (i & 1);
-            const int kc = c0 + j * WG_BK + 16 * w4 + g8 + 8 * (i >> 1);
-            if (r < p.R && kc < p.K) pb[(size_t)r * p.K + kc] = v[i];
+          for (int j = 0; j < CH; ++j) {
+            float v[4];
+            wg_read(v, pacc[j][i]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 2 * t4 + (e & 1);
+              const int kc = c0 + j * WG_BK + 16 * w4 + g8 + 8 * (e >> 1);
+              if (r < p.R && kc < p.K) pb[(size_t)r * p.K + kc] = v[e];
+            }
           }
         }
       }
@@ -1166,96 +1325,122 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
         // Z = bf16(zalpha * A @ F) of the warp's rows: the epilogue's LoRA
         // term (lscale * Z, as the staged factors), the backward's copy
         // (zout, transposed) and the A-type partials' B tile
-        float zv[4];
-        wg_read(zv, zacc);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 2 * t4 + (i & 1);
-          const int row = mm + 8 * (i >> 1);
-          const bf16 zb = __float2bfloat16(p.zalpha * zv[i]);
-          zs[row * LORA_RMAX + r] = p.lscale * __bfloat162float(zb);
-          if (p.zout && n0 == 0 && r < p.R && m0 + row < p.M)
-            p.zout[(size_t)r * p.ldz + m0 + row] = zb;
-          if (FOLD == FOLD_GRADS)
-            *reinterpret_cast<bf16*>(zt + fold_offset(r, row - 64 * c)) = zb;
+        for (int i = 0; i < MI; ++i) {
+          float zv[4];
+          wg_read(zv, zacc[i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 2 * t4 + (e & 1);
+            const int row = 64 * i + mm + 8 * (e >> 1);
+            const bf16 zb = __float2bfloat16(p.zalpha * zv[e]);
+            zs[row * FOLD_RMAX + r] = p.lscale * __bfloat162float(zb);
+            if (p.zout && n0 == 0 && r < p.R && m0 + r0 + row < p.M)
+              p.zout[(size_t)r * p.ldz + m0 + r0 + row] = zb;
+            if (FOLD == FOLD_GRADS)
+              *reinterpret_cast<bf16*>(zt + i * WG_F_BYTES +
+                                       fold_offset(r, mm + 8 * (e >> 1))) = zb;
+          }
         }
         __syncwarp();
       }
       if constexpr (FOLD == FOLD_GRADS) {
         // the A-type partials: the tile's own columns of xa against Z over
-        // the warpgroup's rows, from the xa tile the ring loaded after the
-        // last k-step
+        // each half's rows, from the xa tile the ring loaded after the last
+        // k-step
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
         const int s = it % STAGES;
         mbar_wait(full + s, (it / STAGES) & 1);
-        const unsigned char* Xs = base + s * TL::STAGE_BYTES + c * WG_BOX;
-        float pa[BN / 64][4];
+        const unsigned char* Xs = base + s * TL::STAGE_BYTES + r0 * 128;
+        float pa[MI][BN / 64][4];
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j) wg_reg_fence(pa[j]);
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) wg_reg_fence(pa[i][j]);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)   // the first overwrites pa[j]
-            wgmma_m64n8k16<1, 0>(pa[j],
-                                  wg_desc(Xs + j * 16384 + kk * 2048, WG_BOX, 1024),
-                                  wg_desc(zt + kk * 32, 16, 1024), kk > 0);
+          for (int j = 0; j < BN / 64; ++j)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)   // the first overwrites pa[i][j]
+              wgmma_m64n8k16<1, 0>(
+                  pa[i][j],
+                  wg_desc(Xs + j * CM * 128 + i * WG_BOX + kk * 2048, WG_BOX, 1024),
+                  wg_desc(zt + i * WG_F_BYTES + kk * 32, 16, 1024), kk > 0);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j) wg_reg_fence(pa[j]);
-        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-        float v[BN / 64][4];
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j) wg_read(v[j], pa[j]);
+          for (int j = 0; j < BN / 64; ++j) wg_reg_fence(pa[i][j]);
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        float v[MI][BN / 64][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) wg_read(v[i][j], pa[i][j]);
         mbar_arrive(empty + s);
         ++it;
-        // the Z tile is free: zin's rows of this warpgroup's next tile
-        if (zlead && t + (int)gridDim.x < ntiles) {
-          mbar_expect_tx(zbar + c, WG_F_BYTES);
-          tma_load(zt, &tma_z, zbar + c,
-                   (t + (int)gridDim.x) / tiles_n % tiles_m * WG_BM + 64 * c, 0);
+        // the Z tiles are free: zin's rows of this consumer's next tile
+        if (leader && t + step < ntiles) {
+          mbar_expect_tx(zbar + c, MI * WG_F_BYTES);
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+            tma_load(zt + i * WG_F_BYTES, &tma_z, zbar + c,
+                     (t + step) / tiles_n % tiles_m * CM + r0 + 64 * i, 0);
         }
-        float* pab = p.pa + (size_t)blk * p.N * p.R;
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
+        for (int i = 0; i < MI; ++i) {
+          float* pab = p.pa + (size_t)(blk + i) * p.N * p.R;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = 2 * t4 + (i & 1);
-            const int n = n0 + 64 * j + 16 * w4 + g8 + 8 * (i >> 1);
-            if (r < p.R && n < p.N) pab[(size_t)n * p.R + r] = v[j][i];
-          }
+          for (int j = 0; j < BN / 64; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 2 * t4 + (e & 1);
+              const int n = n0 + 64 * j + 16 * w4 + g8 + 8 * (e >> 1);
+              if (r < p.R && n < p.N) pab[(size_t)n * p.R + r] = v[i][j][e];
+            }
+        }
       }
       if constexpr (STAGE) {
-        // every consumer is past the last tile's staging writes and the
-        // leader past its store's reads; the residual has landed
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");
-        if (p.resid) mbar_wait(rbar, tl & 1);
-        const int nn = 2 * (lane & 3);
-        gemm_epilogue_staged<HN / 8>(p, reinterpret_cast<float(*)[4]>(acc[0]), mm,
-                                 nn, n0 + nn, col_off,
-                                 lora_smem ? zs + mm * LORA_RMAX : nullptr,
-                                 ls + nn, BN, stage, bsm + nn);
+        // every thread of the consumer is past the leader's wait for the
+        // last store's reads; the residual has landed
+        asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+        if (p.resid) mbar_wait(rbar + c, tn & 1);
+        const int nn = 2 * t4;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          gemm_epilogue_staged<HN / 8, RC>(
+              p, reinterpret_cast<float(*)[4]>(acc[i][0]), 64 * i + mm, nn,
+              n0 + nn, col_off,
+              FOLD ? zs + (64 * i + mm) * FOLD_RMAX : nullptr, ls + nn, BN,
+              stg, bsm + nn);
         // the generic-proxy writes become visible to TMA, then one store
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
         if (leader) {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_store(&tma_c, stage + j * 16384, n0 + (int)col_off + 64 * j, m0);
+            tma_store(&tma_c, stg + j * RC * 128, n0 + (int)col_off + 64 * j,
+                      m0 + r0);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         }
       } else {
 #pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const int nn = HN * h + 2 * (lane & 3);
-          gemm_epilogue<OutT, HN / 8>(p, reinterpret_cast<float(*)[4]>(acc[h]),
-                                  m0 + mm, n0 + nn, zi,
-                                  lora_smem ? zs + mm * LORA_RMAX : nullptr,
-                                  ls + nn, BN, col_off, bsm + nn);
-        }
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int h = 0; h < NH; ++h) {
+            const int nn = HN * h + 2 * t4;
+            gemm_epilogue<OutT, HN / 8>(
+                p, reinterpret_cast<float(*)[4]>(acc[i][h]), m0 + r0 + 64 * i + mm,
+                n0 + nn, zi, FOLD ? zs + (64 * i + mm) * FOLD_RMAX : nullptr,
+                ls + nn, BN, col_off, bsm + nn);
+          }
       }
+      // the other consumer's next tile comes before this one's in the ring
+      if (!COOP && t + (int)gridDim.x < ntiles)
+        it += wg_ring_steps(p, t + gridDim.x, tiles_n * tiles_m, FOLD == FOLD_GRADS);
     }
     // the last tile's store completes before the block exits
     if (STAGE && leader)
@@ -3301,23 +3486,33 @@ int make_tma(CUtensorMap* map, const void* ptr, long long inner,
   return 0;
 }
 
-template <typename OutT, int BN, bool AT, bool BT, bool STAGE, int FOLD = FOLD_NONE,
-          int KR = 0>
-static int launch_wgmma_tile(const GemmArgs& p, int splits,
-                             const CUtensorMap& tc, const CUtensorMap& tr,
+// The staging tile's output and residual maps (``rows`` x 64 boxes).
+static int stage_maps(const GemmArgs& p, long long nc, int rows, CUtensorMap* tc,
+                      CUtensorMap* tr) {
+  if (make_tma(tc, p.out, nc, p.M, p.ldo, 64, rows)) return (int)cudaErrorInvalidValue;
+  if (p.resid && make_tma(tr, p.resid, nc, p.M, p.ldr, 64, rows))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <typename OutT, int BN, bool AT, bool BT, bool STAGE, int FOLD, int KR,
+          bool COOP>
+static int launch_wgmma_tile(const GemmArgs& p, int splits, long long ntiles,
                              cudaStream_t s) {
-  using TL = WgTile<BN, STAGE, FOLD != FOLD_NONE>;
+  using TL = WgTile<BN, STAGE, FOLD, COOP>;
   // the maps span every group: A rows M + (groups - 1) gm, B columns
   // N + (groups - 1) gn
   const long long ma = p.M + (p.groups - 1) * p.gm;
   const long long nb = p.N + (p.groups - 1) * p.gn;
-  CUtensorMap ta, tb;
+  CUtensorMap ta, tb, tc = {}, tr = {};
   int e = AT ? make_tma(&ta, p.A, ma, p.K, p.sak, 64, 64)
              : make_tma(&ta, p.A, p.K, ma, p.sam, 64, WG_BM);
   if (e) return e;
   e = BT ? make_tma(&tb, p.B, p.K, nb, p.sbn, 64, BN)
          : make_tma(&tb, p.B, nb, p.K, p.sbk, 64, 64);
   if (e) return e;
+  // the staging tile's output and residual: a consumer's rows x 64 boxes
+  if (STAGE && stage_maps(p, nb, TL::RC, &tc, &tr)) return (int)cudaErrorInvalidValue;
   // the fold reads by TMA F's tiles (64 x 8, zeros past R), zin's (64 rows
   // x 8) and xa's (128 x 64 boxes, as the residual)
   CUtensorMap tf = {}, tz = {}, tx = {};
@@ -3327,33 +3522,40 @@ static int launch_wgmma_tile(const GemmArgs& p, int splits,
     if (!e) e = make_tma(&tx, p.xa, p.N, p.M, p.ldx, 64, WG_BM);
   }
   if (e) return e;
-  auto kern = gemm_wgmma_kernel<OutT, BN, AT, BT, STAGE, FOLD, KR>;
+  auto kern = gemm_pingpong_kernel<OutT, BN, AT, BT, STAGE, FOLD, KR, COOP>;
   raise_smem(kern, TL::SMEM);
   // persistent: one block an SM, or one a tile where there are fewer
   const int sms = sm_count();
-  const long long ntiles = (long long)((p.N + BN - 1) / BN) *
-                           ((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
   kern<<<(int)(ntiles < sms ? ntiles : sms), WG_THREADS, TL::SMEM, s>>>(
       ta, tb, tc, tr, tf, tz, tx, p);
   return (int)cudaGetLastError();
 }
 
-// The staged epilogue (bf16 out, 128-column tiles, no split-K, the LoRA
-// factors in shared memory, a group's columns whole tiles) where TMA can
-// write the output and read the residual; else the epilogue from the
-// accumulators.
+// The schedule by the launch's tiles: ping-pong, or where they fill at most
+// one round of the SMs (each block a lone tile) both consumers on each tile.
+template <typename OutT, int BN, bool AT, bool BT, bool STAGE, int FOLD = FOLD_NONE,
+          int KR = 0>
+static int launch_wgmma_tile(const GemmArgs& p, int splits, cudaStream_t s) {
+  const long long ntiles = (long long)((p.N + BN - 1) / BN) *
+                           ((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
+  if (ntiles <= sm_count())
+    return launch_wgmma_tile<OutT, BN, AT, BT, STAGE, FOLD, KR, true>(p, splits, ntiles, s);
+  return launch_wgmma_tile<OutT, BN, AT, BT, STAGE, FOLD, KR, false>(p, splits, ntiles, s);
+}
+
+// The staged epilogue (bf16 out, 128-column tiles, no split-K, no unfolded
+// LoRA term, a group's columns whole tiles) where TMA can write the output
+// and read the residual; else the epilogue from the accumulators.
 template <typename OutT, int BN, bool AT, bool BT>
 static int launch_wgmma_epi(const GemmArgs& p, int splits, cudaStream_t s) {
-  CUtensorMap tc = {}, tr = {};
-  const long long nc = p.N + (p.groups - 1) * p.gn;
+  CUtensorMap tc, tr;
   const bool stage =
-      sizeof(OutT) == 2 && BN == 128 && splits == 1 &&
-      (!p.lz || p.R <= LORA_RMAX) && (p.groups == 1 || p.N % BN == 0) &&
-      make_tma(&tc, p.out, nc, p.M, p.ldo, 64, WG_BM) == 0 &&
-      (!p.resid || make_tma(&tr, p.resid, nc, p.M, p.ldr, 64, WG_BM) == 0);
+      sizeof(OutT) == 2 && BN == 128 && splits == 1 && !p.lz &&
+      (p.groups == 1 || p.N % BN == 0) &&
+      stage_maps(p, p.N + (p.groups - 1) * p.gn, WG_BM, &tc, &tr) == 0;
   if constexpr (sizeof(OutT) == 2 && BN == 128)
-    if (stage) return launch_wgmma_tile<OutT, BN, AT, BT, true>(p, splits, tc, tr, s);
-  return launch_wgmma_tile<OutT, BN, AT, BT, false>(p, splits, tc, tr, s);
+    if (stage) return launch_wgmma_tile<OutT, BN, AT, BT, true>(p, splits, s);
+  return launch_wgmma_tile<OutT, BN, AT, BT, false>(p, splits, s);
 }
 
 template <typename OutT, int BN>
@@ -3367,43 +3569,35 @@ static int launch_wgmma(const GemmArgs& p, bool at, bool bt, int splits,
 }
 
 // Whether an fp32-out product takes 128 x 64 tiles (launch_gemm says why).
+// An SM's tiles cost their k-steps (a 128 x 64 step ~0.55 of a 128 x 128
+// one) plus one fill and one last epilogue (~6 steps): the ping-pong
+// schedule runs every other tile's epilogue under the next tile's products.
 static bool narrow_tiles(const GemmArgs& p, long long tiles_m, long long sms) {
   const long long t128 = (p.N + 127) / 128 * tiles_m, t64 = (p.N + 63) / 64 * tiles_m;
   const long long ks = (p.k_per_split + WG_BK - 1) / WG_BK;
   return t128 > sms && t128 < 2 * sms &&
-         (t64 + sms - 1) / sms * (11 * ks + 120) < (t128 + sms - 1) / sms * (20 * ks + 120);
+         (t64 + sms - 1) / sms * 11 * ks + 120 < (t128 + sms - 1) / sms * 20 * ks + 120;
 }
 
 // Tile by problem shape: the mma.sync 64x16 tile for N <= 16 and 16x128 for
-// M <= 16 (the rank-r LoRA shapes); else the wgmma tile (for fp32 output
-// 128 x 64 where 128 x 128 tiles would take a second, mostly empty round
-// and K is long), which needs
+// M <= 16 (the rank-r LoRA shapes); else the wgmma tiles, which need
 // operands TMA can read (``tma``: other strides are refused, as no caller
-// has them): 128 x 128 with the staged epilogue for bf16 output, and for
-// fp32 output 128 x 256 where N >= 2048 and those tiles fill the card's
-// SMs at least once, else 128 x 128 (the faster at the qkv and dh shapes;
-// PERF.md: the qkv GEMM 0.131 ms on 128 x 256 tiles, 0.090 on staged 128 x
-// 128 ones; at the weight grads of 16 batch rows without split-K, dW_qkv's
-// 54 tiles of 128 x 256 would leave 78 SMs idle).
+// has them): 128 x 128, with the staged epilogue for bf16 output, and for
+// fp32 output 128 x 64 where 128 x 128 tiles would take a second, mostly
+// empty round (the dh product at 16 batch rows: 150 tiles on 132 SMs; on an
+// H100, cooperative schedule: 35.6 -> 32.1 us; PERF.md has the ping-pong
+// schedule's). The 128 x 256 tiles of the cooperative schedule (fp32 out, N
+// >= 2048: dW_qkv) are gone: a consumer cannot hold 128 x 256 accumulators,
+// and 128 x 128 ping-pong tiles carry the same wgmma width (PERF.md).
 template <typename OutT>
 static int launch_gemm(const GemmArgs& p, bool at, bool bt, bool tma,
                        int splits, cudaStream_t s) {
   if (p.N <= 16) return launch_gemm_layout<OutT, 4, 1, 1, 2>(p, at, bt, splits, s);
   if (p.M <= 16) return launch_gemm_layout<OutT, 1, 4, 1, 4>(p, at, bt, splits, s);
   if (!tma) return (int)cudaErrorInvalidValue;
-  const long long sms = sm_count();
-  const long long tiles_m = (long long)((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
   if constexpr (sizeof(OutT) == 4) {
-    if (p.N >= 2048 && (p.N + 255) / 256 * tiles_m >= sms)
-      return launch_wgmma<OutT, 256>(p, at, bt, splits, s);
-    // a second round of 128 x 128 tiles that would run mostly empty (the
-    // dh product at 16 batch rows: 150 tiles on 132 SMs): 128 x 64 tiles
-    // where their rounds cost less. A round costs its tiles' k-steps (a 128
-    // x 64 step ~0.55 of a 128 x 128 one) plus ~6 steps of fill and
-    // epilogue, so only a long K pays (on an H100 at 16 rows: dh, K = 2304,
-    // 35.6 -> 32.1 us; the bf16 out and dctx products, K = 768, ran 0.4 us
-    // slower and keep 128 x 128; PERF.md)
-    if (!at && narrow_tiles(p, tiles_m, sms))
+    const long long tiles_m = (long long)((p.M + WG_BM - 1) / WG_BM) * p.groups * splits;
+    if (!at && narrow_tiles(p, tiles_m, sm_count()))
       return bt ? launch_wgmma_epi<OutT, 64, false, true>(p, splits, s)
                 : launch_wgmma_epi<OutT, 64, false, false>(p, splits, s);
   }
@@ -3428,25 +3622,57 @@ static int launch_gemm_fold(const GemmArgs& p, bool at, bool bt, bool tma,
                  p.K != (sizeof(OutT) == 2 ? 1 : 3) * p.N)))
     return (int)cudaErrorInvalidValue;
   if constexpr (sizeof(OutT) == 2) {
-    CUtensorMap tc = {}, tr = {};
-    if (make_tma(&tc, p.out, p.N, p.M, p.ldo, 64, WG_BM) ||
-        (p.resid && make_tma(&tr, p.resid, p.N, p.M, p.ldr, 64, WG_BM)))
-      return (int)cudaErrorInvalidValue;
     if (!grads && !bt)   // the forward's qkv and out products
-      return launch_wgmma_tile<bf16, 128, false, false, true, FOLD_Z>(p, 1, tc, tr, s);
+      return launch_wgmma_tile<bf16, 128, false, false, true, FOLD_Z>(p, 1, s);
     if (grads && bt)     // dctx
-      return launch_wgmma_tile<bf16, 128, false, true, true, FOLD_GRADS, 1>(p, 1, tc, tr, s);
+      return launch_wgmma_tile<bf16, 128, false, true, true, FOLD_GRADS, 1>(p, 1, s);
     return (int)cudaErrorInvalidValue;
   } else {
-    const CUtensorMap none = {};
     if (!grads && !bt)   // the out product of an fp32 x (its residual)
-      return launch_wgmma_tile<float, 128, false, false, false, FOLD_Z>(p, 1, none, none, s);
+      return launch_wgmma_tile<float, 128, false, false, false, FOLD_Z>(p, 1, s);
     if (!grads || !bt || p.resid) return (int)cudaErrorInvalidValue;
     // dh
     if (narrow_tiles(p, (p.M + WG_BM - 1) / WG_BM, sm_count()))
-      return launch_wgmma_tile<float, 64, false, true, false, FOLD_GRADS, 3>(p, 1, none, none, s);
-    return launch_wgmma_tile<float, 128, false, true, false, FOLD_GRADS, 3>(p, 1, none, none, s);
+      return launch_wgmma_tile<float, 64, false, true, false, FOLD_GRADS, 3>(p, 1, s);
+    return launch_wgmma_tile<float, 128, false, true, false, FOLD_GRADS, 3>(p, 1, s);
   }
+}
+
+// The LN backward's launch (ln_bwd_bulk_kernel): as many warps a block (up to
+// LNB_WARPS) as shared memory holds with gamma, their slots and dx rows;
+// as many blocks as the SMs hold at once (shared memory carved out in
+// full), none idle over M rows.
+template <typename T, typename G, bool STATS>
+static int launch_ln_bwd(const void* x, const void* gamma, const float* dh,
+                         const void* g, void* dx, float2* stats, int M, int D,
+                         float eps, cudaStream_t s) {
+  const size_t xb = (size_t)D * sizeof(T), per_warp = LNB_SLOTS * (2 * xb + 4 * D) + xb;
+  const size_t fixed = LNB_WARPS * LNB_SLOTS * 8 + (size_t)D * 4;
+  const long long warps = std::min<long long>(
+      std::min<long long>(LNB_WARPS, (232448 - fixed) / per_warp), M);
+  const size_t smem = fixed + warps * per_warp;
+  auto kern = ln_bwd_bulk_kernel<T, G, STATS>;
+  raise_smem(kern, smem);
+  static std::mutex mu;
+  static std::map<std::pair<const void*, size_t>, int> fits;
+  int per_sm;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    int& n = fits[{reinterpret_cast<const void*>(kern), smem}];
+    if (!n) {
+      cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, (int)(32 * warps),
+                                                        smem) != cudaSuccess || n < 1)
+        n = 1;
+    }
+    per_sm = n;
+  }
+  const long long blocks = std::min<long long>((long long)per_sm * sm_count(),
+                                               (M + warps - 1) / warps);
+  kern<<<(int)blocks, (int)(32 * warps), smem, s>>>(
+      (const T*)x, (const G*)gamma, dh, (const T*)g, (T*)dx, stats, M, D, eps);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -3487,31 +3713,30 @@ static int ln_part_chunks(int M, int D) {
 
 // part: null, or the weight grads' LN workspace: 3 * ln_part_chunks(M, D) *
 // D floats of column-sum partials of dh * xhat, dh and g, then 2 * M floats
-// of row statistics.
+// of row statistics. Whole rows move by bulk copy: D <= 1024, rows of
+// 16-byte multiples and 16-byte aligned x, dh, g and dx, else
+// cudaErrorInvalidValue (every tower's D, 512, 768 or 1024, is).
 int llc_ln_bwd(int dt, int gdt, const void* x, const void* gamma,
                const float* dh, const void* g, void* dx, float* part, int M,
                int D, float eps, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D > 32 * LN_MAXK) return (int)cudaErrorInvalidValue;
+  const size_t xb = (size_t)D * (dt == DT_BF16 ? 2 : 4);
+  if (D < 1 || D > 32 * LN_MAXK || M < 1 || xb % 16 || (D * 4) % 16 ||
+      ((uintptr_t)x | (uintptr_t)dh | (uintptr_t)g | (uintptr_t)dx) % 16)
+    return (int)cudaErrorInvalidValue;
   const int chunks = ln_part_chunks(M, D);
   float2* stats = part ? reinterpret_cast<float2*>(part + (size_t)3 * chunks * D)
                        : nullptr;
+  int e;
 #define LLC_LN_BWD(T, G)                                                     \
-  if (part)                                                                  \
-    ln_bwd_kernel<T, G, true><<<ln_blocks(M), LN_THREADS, 0, s>>>(           \
-        (const T*)x, (const G*)gamma, dh, (const T*)g, (T*)dx, stats, M, D,  \
-        eps);                                                                \
-  else                                                                       \
-    ln_bwd_kernel<T, G, false><<<ln_blocks(M), LN_THREADS, 0, s>>>(          \
-        (const T*)x, (const G*)gamma, dh, (const T*)g, (T*)dx, stats, M, D,  \
-        eps)
+  e = part ? launch_ln_bwd<T, G, true>(x, gamma, dh, g, dx, stats, M, D, eps, s) \
+           : launch_ln_bwd<T, G, false>(x, gamma, dh, g, dx, stats, M, D, eps, s)
   if (dt == DT_BF16) {
     if (gdt == DT_BF16) { LLC_LN_BWD(bf16, bf16); } else { LLC_LN_BWD(bf16, float); }
   } else {
     if (gdt == DT_BF16) { LLC_LN_BWD(float, bf16); } else { LLC_LN_BWD(float, float); }
   }
 #undef LLC_LN_BWD
-  int e = (int)cudaGetLastError();
   if (e || !part) return e;
   const dim3 grid((D + LN_PART_THREADS - 1) / LN_PART_THREADS, chunks);
   const int rows = (M + chunks - 1) / chunks;

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by fused_block_attn.cu and
-// attn_wgmma.cu: mbarriers, TMA tile copies, wgmma matrix descriptors and
+// attn_wgmma.cu: mbarriers, TMA tile and 1-D bulk copies, wgmma matrix
+// descriptors and
 // products (operands in shared memory, or A in registers), and the warp
 // reductions of the attention kernels (a row's max and sum over the 4 lanes
 // of an MMA quad, a 16-row group's column sums).
@@ -65,6 +66,26 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// One 1-D bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, counted by ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One 1-D bulk copy from shared to global memory, in the thread's bulk
+// group (commit and wait with cp.async.bulk.commit_group / wait_group).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)),
+               "r"(bytes) : "memory");
 }
 
 // One 2-D TMA tile store from shared memory (c0 the inner coordinate);

@@ -299,11 +299,13 @@ def _weight_grad_splits(m: int, n: int, k: int, sms: int) -> int:
     """Split-K factor for a weight grad, an (m, n) fp32 contraction over
     all k = B*T rows on the wgmma tiles: the one that finishes soonest, its
     tiles' rounds over the card's SMs (the persistent GEMM) against the
-    fp32 partials the split writes and a second launch sums. The tile is
-    the launcher's (``launch_gemm``: 128 x 256 only for N >= 2048 where
-    those tiles fill the SMs). At 16 batch rows this takes dW_qkv unsplit
-    on 108 tiles and dW_out in 3 splits of 36 where the fixed 264-block
-    rule took 3 and 8."""
+    fp32 partials the split writes and a second launch sums. The tiles it
+    prices are the cooperative schedule's (128 x 256 for N >= 2048 where
+    those fill the SMs), which the ping-pong GEMM replaced; the model
+    stays as it is because the split count sets the order of the weight
+    grads' sums, which the chains keep. At 16 batch rows this takes dW_qkv
+    unsplit on 108 tiles and dW_out in 3 splits of 36 where the fixed
+    264-block rule took 3 and 8."""
     best, best_cost = 1, None
     for want in range(1, max(1, k // 256) + 1):
         kps = -(-(-(-k // want)) // 64) * 64
@@ -805,7 +807,8 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
         dwqkv = _gemm(torch.empty(d, 3 * d, **f32), h16, (1, d), dqkv16,
                       (3 * d, 1), d, 3 * d, m, splits=-2)
 
-    dx = _ln_backward(pp, dh, g2, ln_part)
+    dx = ln_backward(pp.x.view(pp.m, pp.d), pp.gamma, dh, g2,
+                     ln_part).view(pp.x.shape)
     if weight_grads:
         bias_segs, (dbqkv, dls, dlb, dbout) = _bias_segs(
             pp, pp.t, sums, attn_part, ln_part)
@@ -819,15 +822,38 @@ def _cuda_backward(x, g, ln_scale, ln_bias, w_qkv, b_qkv, w_out, n_heads,
     return (dx, *grads), dlora
 
 
-def _ln_backward(pp: _Prepared, dh, g2, ln_part):
-    """dx = g + LN'(x)^T dh on the card (one launch); with ``ln_part`` (the
-    weight grads) also the LN partials of dls, dlb and dbout (a second
-    launch, ``ln_partials_kernel``)."""
-    dx = torch.empty_like(pp.x)
-    _kernels.call("llc_ln_bwd", _DT[pp.x.dtype], _DT[pp.gamma.dtype],
-                  pp.x.data_ptr(), pp.gamma.data_ptr(), dh.data_ptr(),
-                  g2.data_ptr(), dx.data_ptr(), _ptr(ln_part), pp.m, pp.d,
-                  EPS, pp.stream)
+def ln_backward_reference(x, gamma, dh, g, eps=EPS):
+    """The plain version of the chains' LN backward (``llc_ln_bwd``): dx = g
+    + LN'(x)^T dh over the rows of ``x`` (m, d), in fp32 from x and g in
+    their dtype and dh in fp32, rounded once to x's dtype; and each row's
+    (mean, rstd), which the kernel writes for the weight grads."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    xc = x32 - mean
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dxh = dh.float() * gamma.float()
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xhat).mean(-1, keepdim=True)
+    dx = g.float() + rstd * (dxh - m1 - xhat * m2)
+    return dx.to(x.dtype), torch.cat([mean, rstd], -1)
+
+
+def ln_backward(x, gamma, dh, g, part=None):
+    """dx = g + LN'(x)^T dh over the rows of ``x`` (m, d) in x's dtype: one
+    launch of the LN backward on a CUDA tensor (``llc_ln_bwd``; ``gamma``
+    fp32 or bf16, ``dh`` fp32, ``g`` in x's dtype, all contiguous), the
+    plain version (``ln_backward_reference``) on the CPU. ``part``: null, or
+    the weight grads' LN workspace (``_bias_workspace``), into which a second
+    launch writes the LN partials of dls, dlb and dbout."""
+    if x.device.type == "cpu":
+        return ln_backward_reference(x, gamma, dh, g)[0]
+    dx = torch.empty_like(x)
+    m, d = x.shape
+    _kernels.call("llc_ln_bwd", _DT[x.dtype], _DT[gamma.dtype],
+                  x.data_ptr(), gamma.data_ptr(), dh.data_ptr(),
+                  g.data_ptr(), dx.data_ptr(), _ptr(part), m, d, EPS,
+                  _stream(x))
     return dx
 
 
@@ -1281,7 +1307,8 @@ def _cuda_prefix_backward(x, g, pk, pv, ln_scale, ln_bias, w_qkv, b_qkv,
             _gemm(blk, src, (1, d), dkvp16[:, i * d:(i + 1) * d], (2 * d, 1),
                   d, d, bp, resid=blk)
 
-    dx = _ln_backward(pp, dh, g2, ln_part)
+    dx = ln_backward(pp.x.view(pp.m, pp.d), pp.gamma, dh, g2,
+                     ln_part).view(pp.x.shape)
     if weight_grads:
         # the key groups' partials hold the prefix keys' dk and dv too
         dbqkv, dls, dlb, dbout = _bias_sums(pp, pp.p + pp.t, sums, attn_part,
